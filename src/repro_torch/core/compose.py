@@ -1,0 +1,35 @@
+"""§3.3 ModelCompose + evaluation of M_COM(t) (classification only; the
+LM next-token branch of ``repro.core.compose`` waits for the LM port)."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core.split import SplitModel
+
+Params = Dict[str, torch.Tensor]
+
+
+def compose(model: SplitModel, fedavg_params: Params,
+            upper_trained: Params) -> Params:
+    """M_COM(t) = [ W_G^l(t-1) ; W_S^u(t) ]."""
+    lower, _ = model.split(fedavg_params)
+    return model.merge(lower, upper_trained)
+
+
+def evaluate(model: SplitModel, params: Params, x: torch.Tensor,
+             y: torch.Tensor, batch_size: int = 200) -> float:
+    """Test accuracy over ``n // bs`` full batches of ``bs = min(200, n)``
+    (the reference drops the ragged tail the same way). BatchNorm uses the
+    batch's statistics, so the batch size is part of the result."""
+    n = x.shape[0]
+    bs = min(batch_size, n)
+    steps = n // bs
+    correct = torch.zeros((), dtype=torch.float32, device=x.device)
+    with torch.no_grad():
+        for s in range(steps):
+            bx, by = x[s * bs:(s + 1) * bs], y[s * bs:(s + 1) * bs]
+            logits = model.apply(params, bx)
+            correct += (torch.argmax(logits, -1) == by).sum()
+    return float(correct / (steps * bs))
