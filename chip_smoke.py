@@ -3,27 +3,46 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero before the result line:
-  1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` (one nvcc
-     per source, in parallel) into ``build/repro_torch/``;
+Phases, in the order they run; any failure exits non-zero before the
+result line:
+  1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` (all five
+     sources, one nvcc per source, in parallel) into ``build/repro_torch/``;
   2. hold each kernel against its plain PyTorch version on the card, at
      the main path's shapes (Lloyd also with rows of only 2 of the 10
      classes, as a client holds them, so 80 of 100 slots are masked) and
      at ragged ones (quantize byte-exact; Lloyd
      assign equal except at near-ties, sums/mindist/distances within
      2e-3), and check that a Lloyd sweep gives the same bits twice;
+ 2b. hold both attention kernels against their plain versions on the card
+     (f32 within 2e-3, bf16 within 2e-2): llama3.2-1b's heads (H=32, KV=8,
+     D=64) causal at S=1024 in bf16 and f32, ragged non-causal S=1000, a
+     window of 128, MQA, gemma3's D=256 with window 1024; decode at
+     S=32768 with 40 valid slots, at ragged S=300 and with G=1;
   3. one round of a small WRN-10-1 on the card and on the CPU from the same
      seed: the ledger and the metadata count must be equal and the new
      weights agree to 2e-3;
+ 3b. a reduced llama3.2-1b in f32 on the card and on the CPU from the same
+     parameters: one prefill of S=64 and 8 teacher-forced decode steps,
+     logits within 2e-3;
   4. drive the main path: ``FLSimulation`` for 2 rounds at the full width
      of WRN-40-1 (32x32x3 inputs, split after group 1 -> 16x32x32 maps,
      D = 16384), 4 clients x 2,500 samples of 2 classes, P = 200, 10
      clusters per class, 25 Lloyd iterations, the int8 codec. Launch
      counters are zeroed just before and read just after; every kernel
      must have launched;
+  6. serve llama3.2-1b at full width (16 layers, d_model 2048, 32 heads /
+     8 KV, d_ff 8192, vocab 128,256; random weights from seed 0) in bf16:
+     ``repro_torch.launch.serve`` decodes batch 32 against a 32,768-slot
+     cache (prompt 32 teacher-forced, 16 new tokens), then one
+     ``make_prefill_step`` call at S=32,768, batch 1. Launch counters are
+     zeroed before and read after each: flash_decode must launch
+     16 x (32 - 1 + 16) = 752 times, flash_attention 16; logits finite;
+     then one prefill call and one decode step at those shapes under
+     torch.profiler (device busy share, top kernels by device time);
   5. time each kernel (CUDA events) beside its plain version, a library
-     call where one computes the same function, and its bound; time the
-     phases of one client's round.
+     call where one computes the same function, and its bound (the
+     attention kernels at phase 6's shapes); time the phases of one
+     client's round.
 It prints the kernels line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX or ``repro``.
 """
@@ -40,7 +59,27 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12           # f32 outside the tensor cores (SXM)
+H100_BF16_FLOPS = 989e12         # bf16 tensor cores, dense (SXM)
 TOL = 2e-3
+ATT_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # tests/test_kernels.py:156
+
+# phase 2b: (b, s, h, kv, d, causal, window, dtype)
+FLASH_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
+               (1, 1024, 32, 8, 64, True, 0, "float32"),
+               (2, 1000, 8, 2, 64, False, 0, "float32"),
+               (1, 1024, 32, 8, 64, True, 128, "bfloat16"),
+               (2, 512, 8, 1, 64, True, 0, "bfloat16"),
+               (1, 2048, 8, 4, 256, True, 1024, "bfloat16")]
+# (b, s, h, kv, d, valid slots, dtype)
+DECODE_CASES = [(2, 32768, 32, 8, 64, 40, "bfloat16"),
+                (3, 300, 32, 8, 64, 300, "float32"),
+                (2, 1000, 8, 8, 128, 513, "bfloat16"),
+                (4, 4096, 32, 8, 64, 4000, "float32")]
+# phase 6: INPUT_SHAPES' decode_32k (batch cut 128 -> 32: 128 x 32768 x
+# 16 layers of bf16 K/V would be 137 GB) and prefill_32k (batch cut
+# 32 -> 1)
+SERVE_BATCH, SERVE_CACHE, SERVE_PROMPT, SERVE_TOKENS = 32, 32768, 32, 16
+PREFILL_S = 32768
 
 
 def fail(msg: str) -> None:
@@ -53,8 +92,10 @@ def check(ok: bool, msg: str) -> None:
         fail(msg)
 
 
-def bound(nbytes: float, flops: float):
-    t_mem, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOPS):
+    """(least ms, "bytes" or "operations") for this work on the card, at
+    the peak rate of the operations' type."""
+    t_mem, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return (max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops
             else "operations")
 
@@ -117,7 +158,8 @@ def main() -> None:
         return lm.to(torch.float32).to(dev)
 
     errs = {"kmeans_pairwise_dist": 0.0, "kmeans_lloyd_step": 0.0,
-            "quantize_affine": 0.0}
+            "quantize_affine": 0.0, "flash_attention": 0.0,
+            "flash_decode": 0.0}
 
     def rel_err(got, want):
         return float(((got - want).abs() / (1.0 + want.abs())).max())
@@ -189,6 +231,39 @@ def main() -> None:
               f"quantize {case}: (xmin, scale) not exact")
     print("kernel checks: passed")
 
+    # ---- 2b. attention kernels vs plain versions on the card -----------
+    def att_check(k_name, got, want, dtype, what):
+        tol = ATT_TOL[dtype]
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        check(bool((diff <= tol + tol * want.float().abs()).all()),
+              f"{k_name} {what}: max abs err {err} beyond {tol}")
+        errs[k_name] = max(errs[k_name], err)
+        return err
+
+    att = {}
+    for b, s, h, kv, d, causal, window, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q = randn(b, s, h, d).to(dtype)
+        k, v = randn(b, s, kv, d).to(dtype), randn(b, s, kv, d).to(dtype)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        what = f"b{b} s{s} h{h} kv{kv} d{d} causal={causal} w{window} {dt}"
+        att[what] = att_check("flash_attention", got, ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window), dt, what)
+    for b, s, h, kv, d, fill, dt in DECODE_CASES:
+        dtype = getattr(torch, dt)
+        q = randn(b, 1, h, d).to(dtype)
+        kc, vc = randn(b, s, kv, d).to(dtype), randn(b, s, kv, d).to(dtype)
+        valid = (torch.arange(s, device=dev) < fill).expand(b, s).contiguous()
+        got = ops.flash_decode(q, kc, vc, valid)
+        torch.cuda.synchronize()
+        what = f"decode b{b} s{s} h{h} kv{kv} d{d} valid {fill} {dt}"
+        att[what] = att_check("flash_decode", got, ref.flash_decode_ref(
+            q, kc, vc, valid), dt, what)
+    del q, k, v, kc, vc, valid, got
+    print(json.dumps({"attention_checks_max_abs_err": att}))
+
     # ---- 3. one small round on the card and on the CPU -----------------
     small = get_wrn_config().reduced()
     sm = make_split_wrn(small)
@@ -217,6 +292,40 @@ def main() -> None:
     print(f"small round card vs cpu: ledger equal "
           f"({lg['total_up']} B up), |D_M|={rg.metadata_count}")
 
+    # ---- 3b. a reduced LM on the card and on the CPU -------------------
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import LM, cast_params, tree_map
+    lcfg = get_config("llama3.2-1b").reduced()
+    lm_small = LM(lcfg)
+    p_cpu = lm_small.init(torch.Generator().manual_seed(7))
+    p_card = tree_map(lambda t: t.to(dev), p_cpu)
+    toks = torch.randint(lcfg.vocab_size, (2, 64), generator=g,
+                         dtype=torch.int32)
+    prefill32, _ = make_prefill_step(lcfg, dtype=torch.float32)
+    before = ops.launch_counts()
+    lm_errs = [rel_err(prefill32(p_card, {"tokens": toks.to(dev)}).cpu(),
+                       prefill32(p_cpu, {"tokens": toks}))]
+    caches = {"cpu": lm_small.init_cache(2, 16, dtype=torch.float32),
+              "card": lm_small.init_cache(2, 16, dtype=torch.float32,
+                                          device=dev)}
+    with torch.no_grad():
+        for i in range(8):
+            out = {}
+            for where, p in (("cpu", p_cpu), ("card", p_card)):
+                tk = toks[:, i:i + 1] if where == "cpu" else \
+                    toks[:, i:i + 1].to(dev)
+                out[where], caches[where], _ = lm_small.apply(
+                    p, tk, mode="decode", cache=caches[where])
+            lm_errs.append(rel_err(out["card"].cpu(), out["cpu"]))
+    after = ops.launch_counts()
+    check(max(lm_errs) <= TOL, f"reduced LM card vs cpu: rel errs {lm_errs}")
+    check(after["flash_attention"] - before["flash_attention"] == 2
+          and after["flash_decode"] - before["flash_decode"] == 16,
+          f"reduced LM: attention launches {before} -> {after}")
+    print(f"reduced LM card vs cpu: prefill + 8 decode steps, max rel err "
+          f"{max(lm_errs)}")
+
     # ---- 4. the main path at full WRN-40-1 width -----------------------
     wcfg = get_wrn_config()
     model = make_split_wrn(wcfg)
@@ -232,8 +341,10 @@ def main() -> None:
     res = sim.run(rounds=2, verbose=True)
     launches = ops.launch_counts()
     print(f"launches: {json.dumps(launches)}")
-    for k_name, cnt in launches.items():
-        check(cnt > 0, f"{k_name} was never launched on the main path")
+    for k_name in ("kmeans_pairwise_dist", "kmeans_lloyd_step",
+                   "quantize_affine"):
+        check(launches[k_name] > 0,
+              f"{k_name} was never launched on the main path")
     for key, t in sim.server.global_params.items():
         check(bool(torch.isfinite(t).all()), f"W_G[{key}] not finite")
     check(all(0 < c <= 4 * 10 * 10 for c in res.metadata_counts),
@@ -246,8 +357,107 @@ def main() -> None:
         "ledger": {"up": res.comm["up"], "down": res.comm["down"]},
         "m_com_acc": res.test_acc, "fedavg_acc": res.fedavg_acc}))
 
+    # ---- 6. serve llama3.2-1b at full width ----------------------------
+    import numpy as np
+    from repro_torch.launch import serve
+    full = get_config("llama3.2-1b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    served = serve.main(["--arch", "llama3.2-1b", "--batch",
+                         str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
+                         "--cache-len", str(SERVE_CACHE), "--tokens",
+                         str(SERVE_TOKENS)])
+    serve_launches = ops.launch_counts()
+    serve_mem = torch.cuda.max_memory_allocated()
+    want_decode = full.num_layers * (SERVE_PROMPT - 1 + SERVE_TOKENS)
+    check(serve_launches["flash_decode"] == want_decode
+          and serve_launches["flash_attention"] == 0,
+          f"serve launches {serve_launches}, want {want_decode} decodes")
+    check(served.tokens.shape == (SERVE_BATCH, SERVE_TOKENS)
+          and int(served.tokens.min()) >= 0
+          and int(served.tokens.max()) < full.padded_vocab,
+          f"served tokens {served.tokens.shape}")
+
+    prefill, lm_full = make_prefill_step(full)           # bf16
+    params_full = lm_full.init(torch.Generator(device=dev).manual_seed(0))
+    ptoks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, full.vocab_size, (1, PREFILL_S), np.int32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    plogits = prefill(params_full, {"tokens": ptoks})
+    torch.cuda.synchronize()
+    prefill_s = monotonic() - t0
+    prefill_launches = ops.launch_counts()
+    prefill_mem = torch.cuda.max_memory_allocated()
+    check(prefill_launches["flash_attention"] == full.num_layers
+          and prefill_launches["flash_decode"] == 0,
+          f"prefill launches {prefill_launches}")
+    check(tuple(plogits.shape) == (1, 1, full.padded_vocab)
+          and bool(torch.isfinite(plogits).all()),
+          "prefill logits not finite or of the wrong shape")
+    # where a prefill call's device time goes (profiled again, after the
+    # counts are read)
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_profile(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall = (monotonic() - t) * 1e3
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in evs) / 1e3
+        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+        return {"wall_ms": wall, "device_busy_ms": busy,
+                "device_busy_share": busy / wall,
+                "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                                  for e in top}}
+
+    prefill_profile = device_profile(
+        lambda: prefill(params_full, {"tokens": ptoks}))
+    # the decode step's logits at the serve shape, and where one decode
+    # step's time goes (the counts above are read)
+    pbf = cast_params(params_full, torch.bfloat16)
+    del params_full
+    dcache = lm_full.init_cache(SERVE_BATCH, SERVE_CACHE, device=dev)
+    dtoks = ptoks[0, :3 * SERVE_BATCH].reshape(SERVE_BATCH, 3)
+    for i in range(2):
+        dlogits, dcache, _ = lm_full.apply(pbf, dtoks[:, i:i + 1],
+                                           mode="decode", cache=dcache,
+                                           dtype=torch.bfloat16)
+        check(bool(torch.isfinite(dlogits).all()),
+              f"decode logits not finite at step {i}")
+    decode_step, _ = make_decode_step(full)
+    decode_profile = device_profile(
+        lambda: decode_step(pbf, dcache, dtoks[:, 2:3]))
+    del pbf, dcache, dlogits, plogits
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "serve": {"model": full.name, "batch": SERVE_BATCH,
+                  "cache_len": SERVE_CACHE, "prompt_len": SERVE_PROMPT,
+                  "new_tokens": SERVE_TOKENS,
+                  "prompt_fed_s": served.prompt_s,
+                  "decode_s": served.decode_s,
+                  "decode_ms_per_step": served.decode_s / SERVE_TOKENS * 1e3,
+                  "tok_per_s": served.tok_per_s,
+                  "launches": serve_launches,
+                  "max_memory_allocated": serve_mem},
+        "prefill": {"batch": 1, "seq_len": PREFILL_S, "prefill_s": prefill_s,
+                    "launches": prefill_launches,
+                    "max_memory_allocated": prefill_mem},
+        "profiled_prefill_call": prefill_profile,
+        "profiled_decode_step": decode_profile}))
+
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
+        """Mean ms of one call over ``iters`` back-to-back calls."""
         for _ in range(warmup):
             fn()
         start = torch.cuda.Event(enable_timing=True)
@@ -302,6 +512,77 @@ def main() -> None:
         if k_name == "quantize_affine":
             row["byte_exact"] = True
         rows.append(row)
+
+    # the attention kernels at phase 6's shapes (bf16): one prefill layer
+    # (B=1, S=32768, H=32, KV=8, D=64, causal) and one decode layer of the
+    # serve run's last step (B=32, 32768 slots, 47 of them valid)
+    gd = torch.Generator(device=dev).manual_seed(2)
+
+    def drandn(*shape):
+        return torch.randn(shape, generator=gd, device=dev).to(torch.bfloat16)
+
+    h_, kv_, d_ = full.num_heads, full.num_kv_heads, full.head_dim
+    qa, ka, va = (drandn(1, PREFILL_S, h_, d_), drandn(1, PREFILL_S, kv_, d_),
+                  drandn(1, PREFILL_S, kv_, d_))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    from repro_torch.models import layers as L
+    full_err = att_check(
+        "flash_attention", ops.flash_attention(qa, ka, va),
+        L._sdpa_chunked_raw(qa, ka, va, causal=True, window=0), "bfloat16",
+        "at phase 6's prefill shape")
+    a_bytes = 2 * (2 * qa.numel() + ka.numel() + va.numel())
+    a_flops = 2 * PREFILL_S ** 2 * h_ * d_
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:89",
+        "launches": prefill_launches["flash_attention"],
+        "max_abs_err": errs["flash_attention"],
+        "ms": cuda_ms(lambda: ops.flash_attention(qa, ka, va), 3, 1),
+        "plain_ms": cuda_ms(lambda: L._sdpa_chunked_raw(
+            qa, ka, va, causal=True, window=0), 2, 1),
+        "plain": "layers._sdpa_chunked_raw (flash_attention_ref's S x S "
+                 "scores would take 137 GB at S=32768)",
+        "max_abs_err_vs_plain_at_this_shape": full_err,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(a_bytes, a_flops, H100_BF16_FLOPS))),
+        "library_ms": cuda_ms(lambda: sdpa(
+            qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
+            is_causal=True, enable_gqa=True), 5, 1),
+        "shape": [1, PREFILL_S, h_, kv_, d_]})
+    del qa, ka, va
+    torch.cuda.empty_cache()
+    n_valid = SERVE_PROMPT - 1 + SERVE_TOKENS
+    qd = drandn(SERVE_BATCH, 1, h_, d_)
+    kcd = drandn(SERVE_BATCH, SERVE_CACHE, kv_, d_)
+    vcd = drandn(SERVE_BATCH, SERVE_CACHE, kv_, d_)
+    vmask = (torch.arange(SERVE_CACHE, device=dev) < n_valid).expand(
+        SERVE_BATCH, SERVE_CACHE).contiguous()
+    dec_err = att_check(
+        "flash_decode", ops.flash_decode(qd, kcd, vcd, vmask),
+        ref.flash_decode_ref(qd, kcd, vcd, vmask), "bfloat16",
+        "at phase 6's decode shape")
+    d_bytes = 2 * (2 * qd.numel() + kcd.numel() + vcd.numel()) \
+        + vmask.numel()
+    d_flops = 4 * SERVE_BATCH * h_ * SERVE_CACHE * d_
+    rows.append({
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:59",
+        "launches": serve_launches["flash_decode"],
+        "max_abs_err": errs["flash_decode"],
+        "ms": cuda_ms(lambda: ops.flash_decode(qd, kcd, vcd, vmask), 20, 2),
+        "plain_ms": cuda_ms(lambda: ref.flash_decode_ref(qd, kcd, vcd, vmask),
+                            3, 1),
+        "max_abs_err_vs_plain_at_this_shape": dec_err,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(d_bytes, d_flops, H100_BF16_FLOPS))),
+        "library_ms": cuda_ms(lambda: sdpa(
+            qd.transpose(1, 2), kcd.transpose(1, 2), vcd.transpose(1, 2),
+            attn_mask=vmask[:, None, None, :], enable_gqa=True), 3, 1),
+        "shape": [SERVE_BATCH, SERVE_CACHE, h_, kv_, d_]})
+    del qd, kcd, vcd, vmask
+    torch.cuda.empty_cache()
     ops.reset_launch_counts()          # timing launches are not the path's
 
     # where one client's round goes (full width, the last global weights)

@@ -1,6 +1,50 @@
-"""Configs of the port: the WRN of the paper and the FL knobs."""
-from repro_torch.configs.base import FLConfig
+"""Configs of the port: the paper's WRN, the FL knobs and the LM
+architectures whose path is ported.
+
+``get_config`` knows the dense GQA decoders that the LM serving path runs
+(``llama3.2-1b``, ``qwen2-0.5b``, ``gemma3-4b``; copies of ``repro``'s).
+Every other architecture id of ``repro.configs.ARCHS`` raises
+``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item that ports
+its layers; an id ``repro`` does not know either raises ``KeyError``.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (INPUT_SHAPES, FLConfig, ModelConfig,
+                                      ShapeConfig)
 from repro_torch.configs.wrn_cifar import CONFIG as WRN_CONFIG, WRNConfig
+
+# arch-id -> module name (the ported ones)
+ARCHS = {
+    "gemma3-4b":   "gemma3_4b",
+    "llama3.2-1b": "llama3_2_1b",
+    "qwen2-0.5b":  "qwen2_0_5b",
+}
+
+# the rest of repro's ARCHS -> what they wait for (ROADMAP.md Queue 1)
+NOT_PORTED = {
+    "deepseek-v2-236b":     "Queue 1 item 13c (MLA attention, MoE FFN)",
+    "qwen3-moe-30b-a3b":    "Queue 1 item 13d (MoE FFN)",
+    "jamba-1.5-large-398b": "Queue 1 item 13e (Mamba mixer, MoE FFN)",
+    "rwkv6-3b":             "Queue 1 item 13f (RWKV time and channel mix)",
+    "whisper-medium":       "Queue 1 item 13g (encoder and cross-attention)",
+    "internvl2-26b":        "Queue 1 item 13g (vision-prefix embeddings)",
+    "phi3-medium-14b":      "Queue 1 item 13h (its config and untied head)",
+}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    """The ``ModelConfig`` of a ported architecture id."""
+    if arch_id in NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch_id!r} is not ported to repro_torch yet: ROADMAP.md "
+            f"{NOT_PORTED[arch_id]}")
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; choose from "
+                       f"{sorted(ARCHS)}")
+    return importlib.import_module(
+        f"repro_torch.configs.{ARCHS[arch_id]}").CONFIG
 
 
 def get_wrn_config() -> WRNConfig:
@@ -8,4 +52,6 @@ def get_wrn_config() -> WRNConfig:
     return WRN_CONFIG
 
 
-__all__ = ["FLConfig", "WRNConfig", "WRN_CONFIG", "get_wrn_config"]
+__all__ = ["ARCHS", "FLConfig", "INPUT_SHAPES", "ModelConfig",
+           "ShapeConfig", "WRNConfig", "WRN_CONFIG", "get_config",
+           "get_wrn_config"]

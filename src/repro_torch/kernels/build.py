@@ -28,10 +28,13 @@ COMMON_FLAGS = [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-lineinfo"]
 # per-source flags: the quantizer must not contract a multiply into an FMA
 # (its result is held byte-exact against the plain version)
-EXTRA_FLAGS: Dict[str, List[str]] = {"kmeans": [], "quantize": ["-fmad=false"]}
+EXTRA_FLAGS: Dict[str, List[str]] = {"kmeans": [], "quantize": ["-fmad=false"],
+                                     "flash_attention": [],
+                                     "decode_attention": []}
 SOURCES = tuple(EXTRA_FLAGS)
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # the C entry points of each source: name -> (argtypes, restype), bound once
 # when the library is loaded, so a launch does no ctypes set-up of its own
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -43,6 +46,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "quantize": {
         "repro_quantize_affine": ([_P] * 5 + [_LL, _LL, _P], _I),
         "repro_quantize_max_parts": ([], _I),
+        "repro_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_attention": {
+        "repro_flash_attention": ([_P] * 4 + [_I] * 8 + [_F, _P], _I),
+        "repro_error_string": ([_I], ctypes.c_char_p),
+    },
+    "decode_attention": {
+        "repro_flash_decode": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
+        "repro_flash_decode_max_gd": ([], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
 }

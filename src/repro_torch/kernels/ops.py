@@ -1,5 +1,6 @@
-"""Public wrappers of the port's kernels: the dispatch points the selection
-and transport code call (the counterparts of ``repro.kernels.ops``).
+"""Public wrappers of the port's kernels: the dispatch points the selection,
+transport and attention code call (the counterparts of
+``repro.kernels.ops``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. Then the device picks the engine: a tensor on
@@ -115,7 +116,99 @@ def quantize_affine(x: torch.Tensor, rowmask: torch.Tensor):
     return q, params[0], params[1]
 
 
-KERNELS = (kmeans_pairwise_dist, kmeans_lloyd_step, quantize_affine)
+ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 256
+
+
+def _check_attention(t: torch.Tensor, name: str, dtype: torch.dtype,
+                     ndim: int, device: torch.device) -> None:
+    if isinstance(t, torch.Tensor) and t.dtype not in ATTENTION_DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    _check(t, name, dtype, ndim, device)
+
+
+def _no_grad(what: str, *ts: torch.Tensor) -> None:
+    """The kernels are forward only: the backward comes with the training
+    slice, so a tensor that needs a gradient is refused, not launched."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward yet; "
+                           f"call it on tensors that do not require grad")
+
+
+def _heads(h: int, kv: int, d: int, what: str) -> None:
+    if kv == 0 or h % kv:
+        raise ValueError(f"{what}: {h} query heads are not a multiple of "
+                         f"{kv} kv heads")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d} not in 1..{MAX_HEAD_DIM}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """GQA attention of q (B,S,H,D) over k, v (B,S,KV,D), all f32 or all
+    bf16 -> (B,S,H,D) in that dtype. ``causal`` masks qi < ki; ``window``
+    > 0 masks qi - ki >= window. No padding and no size threshold: the
+    kernel masks keys at the true S."""
+    _check_attention(q, "q", q.dtype, 4, q.device)
+    _check(k, "k", q.dtype, 4, q.device)
+    _check(v, "v", q.dtype, 4, q.device)
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    if tuple(k.shape) != (b, s, kv, d) or tuple(v.shape) != (b, s, kv, d):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"be {(b, s, kv, d)} for q {tuple(q.shape)}")
+    _heads(h, kv, d, "flash_attention")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if not _on_card(q, "flash_attention"):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _no_grad("flash_attention", q, k, v)
+    if b * kv > 65535:
+        raise ValueError(f"flash_attention: B*KV = {b * kv} > 65535")
+    from repro_torch.kernels.flash_attention import launch_flash_attention
+    out = torch.empty_like(q)
+    launch_flash_attention(q, k, v, out, causal, int(window))
+    flash_attention.launches += 1
+    return out
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """One query token q (B,1,H,D) against ring-buffer caches (B,S,KV,D)
+    under the (B,S) bool ``valid`` mask -> (B,1,H,D) in q's dtype. q and the
+    caches are each f32 or bf16; the caches are read as q's dtype."""
+    _check_attention(q, "q", q.dtype, 4, q.device)
+    _check_attention(k_cache, "k_cache", k_cache.dtype, 4, q.device)
+    _check(v_cache, "v_cache", k_cache.dtype, 4, q.device)
+    _check(valid, "valid", torch.bool, 2, q.device)
+    b, one, h, d = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    if one != 1:
+        raise ValueError(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
+    if (tuple(k_cache.shape) != (b, s, kv, d)
+            or tuple(v_cache.shape) != (b, s, kv, d)):
+        raise ValueError(f"caches {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)} must be {(b, s, kv, d)}")
+    if tuple(valid.shape) != (b, s):
+        raise ValueError(f"valid must be {(b, s)}, got {tuple(valid.shape)}")
+    _heads(h, kv, d, "flash_decode")
+    if not _on_card(q, "flash_decode"):
+        return ref.flash_decode_ref(q, k_cache, v_cache, valid)
+    _no_grad("flash_decode", q, k_cache, v_cache)
+    from repro_torch.kernels.decode_attention import (launch_flash_decode,
+                                                      max_group_width)
+    dmax = next(m for m in (32, 64, 128, MAX_HEAD_DIM) if d <= m)
+    if (h // kv) * dmax > max_group_width():
+        raise ValueError(f"flash_decode: {h // kv} heads per kv head x head "
+                         f"dim {d} exceed the kernel's {max_group_width()}")
+    out = torch.empty_like(q)
+    launch_flash_decode(q, k_cache, v_cache, valid, out)
+    flash_decode.launches += 1
+    return out
+
+
+KERNELS = (kmeans_pairwise_dist, kmeans_lloyd_step, quantize_affine,
+           flash_attention, flash_decode)
 for _fn in KERNELS:
     _fn.launches = 0
 

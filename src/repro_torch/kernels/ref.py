@@ -7,9 +7,12 @@ against them on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 BIG = 1e30
+NEG = -1e30          # the attention mask's logit (repro's NEG)
 
 
 def kmeans_pairwise_dist_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -79,3 +82,51 @@ def dequantize_affine_ref(q: torch.Tensor, xmin, scale) -> torch.Tensor:
     """Inverse of ``quantize_affine_ref``: x_hat = (q + 128) * scale + xmin
     in f32."""
     return (q.to(torch.float32) + 128.0) * scale + xmin
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """(B,S,H,D) x (B,S,KV,D)^2 -> (B,S,H,D); GQA via head repeat (query
+    head h reads kv head h // (H/KV)). Scores in f32 scaled by 1/sqrt(D),
+    masked to NEG where ``qi < ki`` (causal) or ``qi - ki >= window``
+    (window > 0); softmax in f32, p cast to the input dtype before P.V."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
+    s = s / math.sqrt(d)
+    qi = torch.arange(sq, device=q.device)[:, None]
+    ki = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window > 0:
+        mask &= (qi - ki) < window
+    s = torch.where(mask[None, None], s, NEG)
+    p = torch.softmax(s, -1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v)
+
+
+def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid: torch.Tensor
+                     ) -> torch.Tensor:
+    """q:(B,1,H,D) caches:(B,S,KV,D) valid:(B,S) bool -> (B,1,H,D). The
+    caches are read as q's dtype (the reference model's
+    ``cache.astype(q.dtype)``). Slots where ``valid`` is false get the NEG
+    logit (all false: the softmax is uniform over the S slots, as in
+    repro)."""
+    b, _, h, d = q.shape
+    kv = k_cache.shape[2]
+    k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
+    rep = h // kv
+    if rep > 1:
+        k_cache = torch.repeat_interleave(k_cache, rep, dim=2)
+        v_cache = torch.repeat_interleave(v_cache, rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k_cache).to(torch.float32)
+    s = s / math.sqrt(d)
+    s = torch.where(valid[:, None, None, :], s, NEG)
+    p = torch.softmax(s, -1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v_cache)

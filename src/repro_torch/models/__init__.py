@@ -1,1 +1,3 @@
-"""Models of the port: the paper's WRN (``wrn.py``)."""
+"""Models of the port: the paper's WRN (``wrn.py``) and the dense GQA
+decoders of the LM serving path (``layers.py``, ``transformer.py``,
+``registry.py``)."""

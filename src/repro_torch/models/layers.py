@@ -1,0 +1,310 @@
+"""Layers of the dense GQA decoders: the port of ``repro.models.layers``
+for the LM serving path (norms, RoPE, the attention cores, the GQA
+attention block and the dense FFN).
+
+Conventions, as in the reference:
+  * params are plain dicts of tensors; a scan stage stacks each leaf along
+    a leading repeat axis (``models/transformer.py``);
+  * ``attn_apply(params, x, *, cfg, mode, cache, pos, window)`` returns
+    ``(y, cache)``; mode ``full`` covers prefill (causal), mode ``decode``
+    consumes one new token against the cache;
+  * attention caches are ring buffers of ``min(window or S, S)`` slots
+    holding keys after RoPE, so ring order does not matter to the softmax.
+
+The attention cores follow the device of their inputs: on a CUDA tensor
+``attn_apply`` runs the hand-written kernels (``kernels.ops.flash_attention``
+for prefill, ``flash_decode`` for decode); on a CPU tensor it runs the
+plain versions here, on the reference's branch (``sdpa_full`` up to 2048
+positions, ``sdpa_chunked`` above). Forward only: the training slice
+brings ``sdpa_chunked``'s recompute backward.
+
+MLA, MoE, Mamba, RWKV and cross-attention are not ported yet
+(``ROADMAP.md`` Queue 1).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+NEG = -1e30
+
+
+# --------------------------------------------------------------------------
+# init helpers
+# --------------------------------------------------------------------------
+class ParamInit:
+    """Draws parameters from a ``torch.Generator`` on its device.
+
+    ``lead`` is a leading repeat axis (a scan stage's stacked layers): every
+    leaf gets shape ``lead + shape``. On the ``meta`` device (``gen`` None)
+    only shapes are made, which is how ``registry.count_params`` counts."""
+
+    def __init__(self, gen: Optional[torch.Generator],
+                 device: Optional[torch.device] = None,
+                 lead: Sequence[int] = ()):
+        self.gen = gen
+        self.device = torch.device(device) if device is not None \
+            else gen.device
+        self.lead = tuple(lead)
+
+    def stacked(self, repeats: int) -> "ParamInit":
+        return ParamInit(self.gen, self.device, (repeats,))
+
+    def normal(self, shape, scale: float) -> torch.Tensor:
+        shape = self.lead + tuple(shape)
+        if self.device.type == "meta":
+            return torch.empty(shape, device="meta")
+        x = torch.randn(shape, generator=self.gen, device=self.gen.device)
+        return x.mul_(scale).to(self.device)
+
+    def full(self, shape, value: float) -> torch.Tensor:
+        return torch.full(self.lead + tuple(shape), value, device=self.device)
+
+
+def dense_init(init: ParamInit, shape, scale: Optional[float] = None
+               ) -> torch.Tensor:
+    """Normal weights scaled by ``scale`` (default 1/sqrt(fan_in))."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return init.normal(shape, scale)
+
+
+# --------------------------------------------------------------------------
+# norms & activations
+# --------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """The variance in f32, then ``(x * rsqrt).astype(x.dtype) * w``, the
+    reference's order of casts."""
+    var = torch.mean(torch.square(x.to(torch.float32)), -1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def act_fn(name: str):
+    """silu, or gelu in its tanh form (``jax.nn.gelu``'s default)."""
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """Interleaved RoPE: rotates the pairs (x[..., 2i], x[..., 2i+1]) and
+    restacks them. x: (B, S, H, D); positions: (B, S) or (S,)."""
+    if theta <= 0:
+        return x
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, D/2)
+    if ang.ndim == 2:
+        ang = ang[None]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.stack([y1, y2], -1).reshape(x.shape).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# scaled-dot-product cores: the plain versions (the kernels mirror these)
+# --------------------------------------------------------------------------
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def sdpa_full(q, k, v, *, causal: bool, window: int):
+    """Direct attention (small seq). q:(B,Sq,H,D) k,v:(B,Sk,KV,D)."""
+    h, kv = q.shape[2], k.shape[2]
+    k, v = _repeat_kv(k, h // kv), _repeat_kv(v, h // kv)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    qi = torch.arange(q.shape[1], device=q.device)[:, None]
+    ki = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window > 0:
+        mask &= qi - ki < window
+    s = torch.where(mask[None, None], s, NEG)
+    p = torch.softmax(s, -1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def sdpa_chunked(q, k, v, *, causal: bool, window: int, chunk: int = 1024):
+    """Online-softmax attention over KV chunks (forward only; the reference
+    wraps the same forward in a recompute custom VJP)."""
+    return _sdpa_chunked_raw(q, k, v, causal=causal, window=window,
+                             chunk=chunk)
+
+
+def _sdpa_chunked_raw(q, k, v, *, causal: bool, window: int,
+                      chunk: int = 1024):
+    """Online-softmax attention, looping over KV chunks: O(S*chunk) live
+    memory. The plain counterpart of ``kernels/csrc/flash_attention.cu``."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    n_rep = h // kv
+    scale = 1.0 / math.sqrt(d)
+    nchunks = (sk + chunk - 1) // chunk
+    pad = nchunks * chunk - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qi = torch.arange(sq, device=q.device)[:, None]
+    acc = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    for ci in range(nchunks):
+        kcur = _repeat_kv(k[:, ci * chunk:(ci + 1) * chunk], n_rep)
+        vcur = _repeat_kv(v[:, ci * chunk:(ci + 1) * chunk], n_rep)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kcur).to(torch.float32) * scale
+        ki = ci * chunk + torch.arange(chunk, device=q.device)[None, :]
+        mask = ki < sk
+        if causal:
+            mask = mask & (qi >= ki)
+        if window > 0:
+            mask = mask & (qi - ki < window)
+        s = torch.where(mask[None, None], s, NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        # p in the input dtype before P.V, as the reference and the kernel
+        p16 = p.to(q.dtype)
+        acc = acc * corr.transpose(1, 2)[..., None] + torch.einsum(
+            "bhqk,bkhd->bqhd", p16, vcur).to(torch.float32)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+def sdpa_decode(q, k_cache, v_cache, valid):
+    """Single-token attention over a (ring-buffer) cache.
+    q:(B,1,H,D) k,v:(B,S,KV,D) valid:(B,S) bool slot-filled mask; the
+    caches are read as q's dtype. A CUDA tensor runs the flash-decode
+    kernel (which converts the cache in registers); a CPU tensor runs the
+    plain version below."""
+    if q.is_cuda:
+        return ops.flash_decode(q, k_cache, v_cache, valid)
+    h, kv = q.shape[2], k_cache.shape[2]
+    k = _repeat_kv(k_cache.to(q.dtype), h // kv)
+    v = _repeat_kv(v_cache.to(q.dtype), h // kv)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    s = torch.where(valid[:, None, None, :], s, NEG)
+    p = torch.softmax(s, -1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+# --------------------------------------------------------------------------
+# GQA attention block
+# --------------------------------------------------------------------------
+def attn_init(init: ParamInit, cfg: ModelConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "norm": init.full((d,), 1.0),
+        "wq": dense_init(init, (d, h * hd)),
+        "wk": dense_init(init, (d, kv * hd)),
+        "wv": dense_init(init, (d, kv * hd)),
+        "wo": dense_init(init, (h * hd, d), scale=1.0 / math.sqrt(h * hd)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = init.full((h * hd,), 0.0)
+        p["bk"] = init.full((kv * hd,), 0.0)
+        p["bv"] = init.full((kv * hd,), 0.0)
+    return p
+
+
+def attn_cache_init(cfg: ModelConfig, batch: int, seq_len: int, window: int,
+                    dtype=torch.bfloat16, device=None,
+                    lead: Sequence[int] = ()) -> dict:
+    size = min(window, seq_len) if window > 0 else seq_len
+    shape = tuple(lead) + (batch, size, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
+               window: int = 0, causal: bool = True, chunked: bool = True,
+               enc_out=None):
+    """GQA attention. In decode mode, (cache, pos) hold/advance the KV ring.
+
+    The new key and value are written IN PLACE at slot ``pos % size`` of
+    each row of the caller's cache (the reference rebuilds the whole cache
+    each step with a one-hot select; the cache that results is the same,
+    without a second copy of it), and the returned cache holds the same
+    tensors."""
+    if enc_out is not None:
+        raise NotImplementedError("cross-attention is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 13g)")
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    b, s, _ = xn.shape
+    q, k, v = xn @ p["wq"], xn @ p["wk"], xn @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+
+    if mode == "decode":
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+        k_cache, v_cache = cache["k"], cache["v"]
+        size = k_cache.shape[1]
+        slot = (pos % size).long()
+        rows = torch.arange(b, device=x.device)
+        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+        valid = (torch.arange(size, device=x.device)[None, :]
+                 <= torch.clamp(pos, max=size - 1)[:, None])
+        o = sdpa_decode(q, k_cache, v_cache, valid)
+        cache = {"k": k_cache, "v": v_cache}
+    else:
+        positions = torch.arange(s, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        if q.is_cuda:                  # the hand-written kernel, at any s
+            o = ops.flash_attention(q, k, v, causal=causal, window=window)
+        elif chunked and s > 2048:
+            o = sdpa_chunked(q, k, v, causal=causal, window=window)
+        else:
+            o = sdpa_full(q, k, v, causal=causal, window=window)
+
+    y = o.reshape(b, s, h * hd) @ p["wo"]
+    return y, cache
+
+
+# --------------------------------------------------------------------------
+# FFN (dense)
+# --------------------------------------------------------------------------
+def ffn_init(init: ParamInit, cfg: ModelConfig, d_ff: Optional[int] = None
+             ) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {"norm": init.full((d,), 1.0),
+            "w_gate": dense_init(init, (d, f)),
+            "w_up": dense_init(init, (d, f)),
+            "w_down": dense_init(init, (f, d), scale=1.0 / math.sqrt(f))}
+
+
+def ffn_apply(p, x, *, cfg: ModelConfig):
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    return (act_fn(cfg.act)(xn @ p["w_gate"]) * (xn @ p["w_up"])) @ p["w_down"]

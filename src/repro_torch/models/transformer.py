@@ -1,0 +1,366 @@
+"""Config-driven LM assembly: the port of ``repro.models.transformer`` for
+dense GQA decoders (mixer ``attn``, FFN ``dense``).
+
+A model is a list of STAGES, the reference's own (``layer_specs`` and
+``decompose`` are copies), so that ``stage_range`` means the same in both
+packages. Each stage is either
+  * scan:   a repeating unit of block specs whose parameters are stacked
+            over the repeats, one dict per unit position (the port loops
+            over the repeats in Python and indexes the stacked leaves), or
+  * unroll: explicit layers, one dict each.
+
+``params_from_jax`` / ``params_to_jax`` map ``repro``'s LM parameter tree
+(numpy arrays) to the port's and back; the two trees have the same
+structure. MLA, MoE, Mamba, RWKV, encoders, cross-attention, vision
+prefixes and ``make_split_lm`` are not ported yet (``ROADMAP.md`` Queue 1).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+PyTree = Any
+
+
+# --------------------------------------------------------------------------
+# block specs & stage decomposition (copies of the reference's)
+# --------------------------------------------------------------------------
+@dataclass(frozen=True)
+class BlockSpec:
+    mixer: str                  # attn | mla | mamba | rwkv | attn_cross
+    ffn: str                    # dense | moe | rwkv_ffn
+    window: int = 0             # static sliding window (0 = full)
+    causal: bool = True
+
+
+@dataclass(frozen=True)
+class Stage:
+    kind: str                   # scan | unroll
+    unit: Tuple[BlockSpec, ...]
+    repeats: int
+
+
+def layer_specs(cfg: ModelConfig, force_swa: bool = False,
+                decoder: bool = True) -> List[BlockSpec]:
+    """Per-layer block specs for the decoder stack (or encoder if decoder=False)."""
+    if not decoder:  # whisper encoder: bidirectional attention + dense FFN
+        return [BlockSpec("attn", "dense", 0, causal=False)] * cfg.encoder_layers
+    kinds = cfg.layer_kinds()
+    windows = cfg.window_sizes(0, force_swa)
+    specs, ai = [], 0
+    for i, kind in enumerate(kinds):
+        if kind == "rwkv":
+            mixer, w = "rwkv", 0
+        elif kind == "mamba":
+            mixer, w = "mamba", 0
+        else:
+            mixer = "mla" if cfg.attention_kind == "mla" else "attn"
+            if cfg.is_encoder_decoder:
+                mixer = "attn_cross"
+            w = windows[ai]
+            ai += 1
+        if kind == "rwkv":
+            ffn = "rwkv_ffn"
+        elif cfg.is_moe and i >= cfg.first_dense_layers \
+                and (i % cfg.moe_layer_period == cfg.moe_layer_period - 1
+                     or cfg.moe_layer_period == 1):
+            ffn = "moe"
+        else:
+            ffn = "dense"
+        specs.append(BlockSpec(mixer, ffn, w))
+    return specs
+
+
+def decompose(specs: List[BlockSpec], boundary: Optional[int] = None
+              ) -> List[Stage]:
+    """Group per-layer specs into scan/unroll stages. ``boundary`` forces a
+    stage break at layer index j (the paper's split point)."""
+    if boundary is not None and 0 < boundary < len(specs):
+        return decompose(specs[:boundary]) + decompose(specs[boundary:])
+    n = len(specs)
+    if n == 0:
+        return []
+    best = None  # (scanned_layers, prefix, period, repeats)
+    for prefix in range(0, min(3, n)):
+        for p in range(1, min(9, n - prefix + 1)):
+            reps = (n - prefix) // p
+            if reps < 2:
+                continue
+            body = specs[prefix:prefix + reps * p]
+            if all(body[i] == body[i % p] for i in range(len(body))):
+                score = reps * p
+                if best is None or score > best[0] or (
+                        score == best[0] and p < best[2]):
+                    best = (score, prefix, p, reps)
+    if best is None:
+        return [Stage("unroll", tuple(specs), 1)]
+    _, prefix, p, reps = best
+    stages = []
+    if prefix:
+        stages.append(Stage("unroll", tuple(specs[:prefix]), 1))
+    stages.append(Stage("scan", tuple(specs[prefix:prefix + p]), reps))
+    rest = specs[prefix + reps * p:]
+    if rest:
+        stages.append(Stage("unroll", tuple(rest), 1))
+    return stages
+
+
+def stage_layers(st: Stage) -> int:
+    return len(st.unit) * st.repeats
+
+
+# --------------------------------------------------------------------------
+# trees
+# --------------------------------------------------------------------------
+def tree_map(fn: Callable, tree: PyTree) -> PyTree:
+    """``fn`` on every leaf of nested dicts / lists / tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def cast_params(params: PyTree, dtype: torch.dtype) -> PyTree:
+    """Every f32 leaf cast to ``dtype`` (others, and leaves already in
+    ``dtype``, are returned as they are, without a copy)."""
+    return tree_map(lambda x: x.to(dtype) if isinstance(x, torch.Tensor)
+                    and x.dtype == torch.float32 else x, params)
+
+
+# --------------------------------------------------------------------------
+# per-block init/apply/cache dispatch: mixer attn + ffn dense
+# --------------------------------------------------------------------------
+def _check_spec(spec: BlockSpec) -> None:
+    if spec.mixer != "attn" or spec.ffn != "dense":
+        raise NotImplementedError(
+            f"block {spec} is not ported to repro_torch yet: only mixer "
+            f"'attn' with ffn 'dense' (ROADMAP.md Queue 1 items 13c-13g)")
+
+
+def _block_init(init: L.ParamInit, cfg: ModelConfig, spec: BlockSpec
+                ) -> PyTree:
+    return {"mixer": L.attn_init(init, cfg), "ffn": L.ffn_init(init, cfg)}
+
+
+def _block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, seq_len: int,
+                 dtype, device, lead=()) -> PyTree:
+    return {"mixer": L.attn_cache_init(cfg, batch, seq_len, spec.window,
+                                       dtype, device, lead)}
+
+
+def _block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, mode: str,
+                 cache, pos):
+    y, mc = L.attn_apply(params["mixer"], x, cfg=cfg, mode=mode,
+                         cache=(cache or {}).get("mixer"), pos=pos,
+                         window=spec.window, causal=spec.causal)
+    x = x + y
+    x = x + L.ffn_apply(params["ffn"], x, cfg=cfg)
+    return x, ({"mixer": mc} if mc is not None else {})
+
+
+def _layer(tree: PyTree, r: int) -> PyTree:
+    """Layer ``r`` of a scan stage's stacked tree (views, no copies)."""
+    return tree_map(lambda t: t[r], tree)
+
+
+# --------------------------------------------------------------------------
+# full model
+# --------------------------------------------------------------------------
+class LM:
+    """Bundles init/apply/cache for one ModelConfig (dense GQA decoders)."""
+
+    def __init__(self, cfg: ModelConfig, force_swa: bool = False):
+        if cfg.is_encoder_decoder or cfg.frontend is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: encoders and frontends are not ported to "
+                f"repro_torch yet (ROADMAP.md Queue 1 item 13g)")
+        self.cfg = cfg
+        self.force_swa = force_swa
+        self.specs = layer_specs(cfg, force_swa)
+        for spec in self.specs:
+            _check_spec(spec)
+        self.stages = decompose(self.specs)
+
+    # ---------------- init ----------------
+    def _stage_init(self, init: L.ParamInit, stage: Stage) -> PyTree:
+        if stage.kind == "unroll":
+            return [_block_init(init, self.cfg, s) for s in stage.unit]
+        # scan: params stacked over repeats per unit position
+        stacked = init.stacked(stage.repeats)
+        return [_block_init(stacked, self.cfg, s) for s in stage.unit]
+
+    def init(self, gen: Optional[torch.Generator], device=None) -> PyTree:
+        """f32 parameters drawn from ``gen`` (on ``gen``'s device, moved to
+        ``device`` if given). ``device="meta"`` with ``gen=None`` gives the
+        shapes alone. The draws differ from ``repro``'s (another generator);
+        tests carry ``repro``'s parameters across with ``params_from_jax``."""
+        cfg = self.cfg
+        init = L.ParamInit(gen, device)
+        v, d = cfg.padded_vocab, cfg.d_model
+        params: dict = {
+            "embed": init.normal((v, d), 1.0 / math.sqrt(d)),
+            "final_norm": init.full((d,), 1.0),
+            "stages": [self._stage_init(init, st) for st in self.stages],
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(init, (d, v))
+        return params
+
+    # ---------------- cache ----------------
+    def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16,
+                   device=None) -> PyTree:
+        def stage_cache(st: Stage):
+            if st.kind == "unroll":
+                return [_block_cache(self.cfg, s, batch, seq_len, dtype,
+                                     device) for s in st.unit]
+            return [_block_cache(self.cfg, s, batch, seq_len, dtype, device,
+                                 (st.repeats,)) for s in st.unit]
+        return {"stages": [stage_cache(st) for st in self.stages],
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
+
+    # ---------------- apply ----------------
+    def _run_stages(self, stages, stage_params, x, mode, cache_stages, pos):
+        new_caches = []
+        for si, (st, sp) in enumerate(zip(stages, stage_params)):
+            scache = cache_stages[si] if cache_stages is not None else None
+            if st.kind == "unroll":
+                ncs = []
+                for li, spec in enumerate(st.unit):
+                    c = scache[li] if scache is not None else None
+                    x, nc = _block_apply(sp[li], x, spec, self.cfg, mode, c,
+                                         pos)
+                    ncs.append(nc)
+                new_caches.append(ncs)
+            else:
+                for r in range(st.repeats):
+                    for ui, spec in enumerate(st.unit):
+                        c = _layer(scache[ui], r) if scache is not None \
+                            else None
+                        x, _ = _block_apply(_layer(sp[ui], r), x, spec,
+                                            self.cfg, mode, c, pos)
+                # the stacked caches were written in place, layer by layer
+                new_caches.append(scache)
+        return x, new_caches
+
+    def embed_tokens(self, params, tokens):
+        return params["embed"][tokens] * math.sqrt(self.cfg.d_model)
+
+    def apply(self, params, tokens, *, mode: str = "full", cache=None,
+              return_hidden: bool = False,
+              stage_range: Optional[Tuple[int, int]] = None,
+              hidden_in=None, dtype=torch.float32):
+        """Forward. mode: full (prefill) | decode (1 token + cache).
+        stage_range selects a sub-interval of stages; hidden_in feeds
+        activations at a stage boundary. Returns (logits or hidden, cache,
+        aux); in decode mode the caller's cache is updated in place.
+
+        Mixed precision: every f32 leaf is cast to ``dtype`` first, as the
+        reference does on each call. A tree already cast with
+        ``cast_params(params, dtype)`` passes through without a copy, and
+        gives the same numbers: cast once per serving run, not per step."""
+        cfg = self.cfg
+        if mode not in ("full", "decode"):
+            raise ValueError(f"mode must be 'full' or 'decode', got {mode!r}")
+        if dtype != torch.float32:
+            params = cast_params(params, dtype)
+        n_stages = len(self.stages)
+        lo, hi = stage_range if stage_range is not None else (0, n_stages)
+
+        if hidden_in is not None:
+            h = hidden_in
+            pos = cache["pos"] if cache is not None else None
+        elif mode == "decode":
+            pos = cache["pos"]
+            h = self.embed_tokens(params, tokens).to(dtype)
+        else:
+            pos = None
+            h = self.embed_tokens(params, tokens).to(dtype)
+
+        cache_stages = cache["stages"][lo:hi] if cache is not None else None
+        h, new_stage_caches = self._run_stages(
+            self.stages[lo:hi], params["stages"][lo:hi], h, mode,
+            cache_stages, pos)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+        new_cache = None
+        if cache is not None:
+            new_cache = dict(cache)
+            new_cache["stages"] = (cache["stages"][:lo] + new_stage_caches
+                                   + cache["stages"][hi:])
+            if hi == n_stages:
+                new_cache["pos"] = cache["pos"] + 1
+        if hi < n_stages or return_hidden:
+            return h, new_cache, aux
+
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if cfg.tie_embeddings:
+            logits = h @ params["embed"].T.to(h.dtype)
+        else:
+            logits = h @ params["lm_head"].to(h.dtype)
+        return logits, new_cache, aux
+
+    # ---------------- losses ----------------
+    def loss(self, params, batch, dtype=torch.float32):
+        """Next-token CE (forward only). batch = tokens, (tokens, labels
+        unused) or a dict with "tokens"."""
+        if isinstance(batch, dict):
+            tokens = batch["tokens"]
+        elif isinstance(batch, (tuple, list)):
+            tokens = batch[0]
+        else:
+            tokens = batch
+        logits, _, aux = self.apply(params, tokens, mode="full", dtype=dtype)
+        lp = torch.log_softmax(logits[:, :-1].to(torch.float32), -1)
+        tgt = tokens[:, 1:].long()
+        nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
+        return nll.mean() + aux
+
+
+# --------------------------------------------------------------------------
+# the reference's parameter tree
+# --------------------------------------------------------------------------
+def params_from_jax(tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
+    """``repro``'s LM parameters (``jax.tree.map(np.asarray, params)``) ->
+    the port's tree of torch tensors, the same structure: scan stages as a
+    list (per unit position) of dicts stacked over the repeats, unroll
+    stages as a list of dicts. Shapes are checked against the port's own
+    ``LM(cfg)``; any difference raises ``ValueError``."""
+    want = LM(cfg).init(None, device="meta")
+    got = tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+    if device is not None:
+        got = tree_map(lambda t: t.to(device), got)
+    _same_shapes(got, want)
+    return got
+
+
+def params_to_jax(params: PyTree, cfg: ModelConfig) -> PyTree:
+    """The port's f32 parameters -> ``repro``'s tree of numpy arrays (the
+    inverse of ``params_from_jax``, bit for bit)."""
+    _same_shapes(params, LM(cfg).init(None, device="meta"))
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+def _same_shapes(got: PyTree, want: PyTree, path: str = "") -> None:
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise ValueError(f"params{path}: expected the keys "
+                             f"{sorted(want)}")
+        for k in want:
+            _same_shapes(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, list):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            raise ValueError(f"params{path}: expected a list of {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_shapes(g, w, f"{path}/{i}")
+    elif tuple(got.shape) != tuple(want.shape):
+        raise ValueError(f"params{path}: shape {tuple(got.shape)} != "
+                         f"{tuple(want.shape)}")

@@ -8,7 +8,8 @@ machine with a GPU:
 
 Levels as in chip_smoke.py: quantize byte-exact; Lloyd bit-identical from
 run to run, ``assign`` equal except at near-ties, sums/mindist/distances
-within 2e-3.
+within 2e-3; the attention kernels within 2e-3 (f32) and 2e-2 (bf16) of
+their plain versions on the same inputs (``tests/test_kernels.py:156``).
 """
 import numpy as np
 import pytest
@@ -91,3 +92,79 @@ def test_quantize_kernel_byte_exact(card, n, d, case):
     cq, cxmin, cscale = ref.quantize_affine_ref(x, m)
     assert q.cpu().numpy().tobytes() == cq.numpy().tobytes()
     assert float(xmin) == float(cxmin) and float(scale) == float(cscale)
+
+
+ATT_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+
+
+def _att_close(got, want, dtype):
+    tol = ATT_TOL[dtype]
+    got, want = got.float(), want.float()
+    assert bool(((got - want).abs() <= tol + tol * want.abs()).all()), \
+        float((got - want).abs().max())
+
+
+def _rand(g, shape, dtype, card):
+    return torch.randn(shape, generator=g).to(dtype).to(card)
+
+
+# chip_smoke.py phase 2b: llama3.2-1b's heads (causal, S=1024, both
+# dtypes), a ragged non-causal S, a window, MQA, gemma3's D=256 layer shape
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window,dtype", [
+    (1, 1024, 32, 8, 64, True, 0, torch.bfloat16),
+    (1, 1024, 32, 8, 64, True, 0, torch.float32),
+    (2, 1000, 8, 2, 64, False, 0, torch.float32),
+    (1, 777, 8, 2, 64, True, 128, torch.bfloat16),
+    (2, 512, 8, 1, 64, True, 0, torch.bfloat16),
+    (1, 2048, 8, 4, 256, True, 1024, torch.bfloat16),
+    (1, 300, 6, 2, 96, False, 64, torch.float32)])
+def test_flash_attention_kernel(card, b, s, h, kv, d, causal, window, dtype):
+    g = torch.Generator().manual_seed(s + h + d)
+    q = _rand(g, (b, s, h, d), dtype, card)
+    k = _rand(g, (b, s, kv, d), dtype, card)
+    v = _rand(g, (b, s, kv, d), dtype, card)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _att_close(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window), dtype)
+
+
+# chip_smoke.py phase 2b: a 32k cache with 40 valid slots, a ragged S, G=1,
+# MQA at D=256 with a bf16 cache under f32 q, scattered valid slots in an
+# f32 cache under bf16 q
+@pytest.mark.parametrize("b,s,h,kv,d,fill,dtype,cache_dtype", [
+    (2, 32768, 32, 8, 64, 40, torch.bfloat16, torch.bfloat16),
+    (3, 300, 32, 8, 64, 300, torch.float32, torch.float32),
+    (2, 1000, 8, 8, 128, 513, torch.bfloat16, torch.bfloat16),
+    (2, 256, 4, 1, 256, 100, torch.float32, torch.bfloat16),
+    (2, 130, 8, 2, 64, None, torch.bfloat16, torch.float32)])
+def test_flash_decode_kernel(card, b, s, h, kv, d, fill, dtype, cache_dtype):
+    g = torch.Generator().manual_seed(s + h + d)
+    q = _rand(g, (b, 1, h, d), dtype, card)
+    kc = _rand(g, (b, s, kv, d), cache_dtype, card)
+    vc = _rand(g, (b, s, kv, d), cache_dtype, card)
+    if fill is None:                   # a scattered ring: half the slots
+        valid = torch.rand((b, s), generator=g) < 0.5
+    else:
+        valid = (torch.arange(s) < fill).expand(b, s).contiguous()
+    valid = valid.to(card)
+    before = ops.flash_decode.launches
+    got = ops.flash_decode(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 1
+    _att_close(got, ref.flash_decode_ref(q, kc, vc, valid), dtype)
+
+
+def test_attention_kernels_refuse_tensors_that_need_grad(card):
+    q = torch.randn(1, 64, 4, 32, device=card, requires_grad=True)
+    k = torch.randn(1, 64, 2, 32, device=card)
+    before = ops.flash_attention.launches, ops.flash_decode.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_decode(q[:, :1], k, k,
+                         torch.ones(1, 64, dtype=torch.bool, device=card))
+    assert (ops.flash_attention.launches, ops.flash_decode.launches) == before

@@ -39,7 +39,7 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = (out.stdout.splitlines() + ["", ""])[:2]
-    assert int(count) >= 25, out.stdout
+    assert int(count) >= 47, out.stdout
     assert bad == "", f"repro_torch pulled in: {bad}"
 
 
@@ -59,6 +59,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     from repro_torch.launch import quickstart
     with pytest.raises(RuntimeError):
         quickstart.main([])
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--smoke", "--tokens", "1"])
 
 
 @pytest.mark.parametrize("knob,value", [

@@ -1,0 +1,238 @@
+"""Parity of the port's LM serving path with the reference's, on the CPU.
+
+For each of ``llama3.2-1b``, ``qwen2-0.5b`` and ``gemma3-4b`` ``.reduced()``
+in f32, the parameters come from ``repro``'s ``LM.init`` (norm weights and
+qkv biases perturbed, so they are not all ones and zeros) and are carried
+across by ``params_from_jax``; the same numpy tokens go through both
+packages. Levels: logits within 2e-3 (f32) for ``prefill_step`` at S=32
+(llama3.2-1b also at S=2050, the chunked branch) and for each of 8
+teacher-forced decode steps on a ring cache that wraps; the stage lists,
+``count_params`` and the configs equal; ``params_to_jax(params_from_jax(t))
+== t`` bit for bit; the serve entry point runs with ``--device cpu``.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JARCHS
+from repro.configs import INPUT_SHAPES as JSHAPES
+from repro.configs import get_config as jget_config
+from repro.launch.steps import make_decode_step as jmake_decode
+from repro.launch.steps import make_prefill_step as jmake_prefill
+from repro.models import layers as jL
+from repro.models.registry import count_params as jcount
+from repro.models.transformer import LM as JLM
+from repro_torch.configs import INPUT_SHAPES, get_config
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import layers as L
+from repro_torch.models.registry import count_params
+from repro_torch.models.transformer import LM, params_from_jax, params_to_jax
+
+ARCHS = ["llama3.2-1b", "qwen2-0.5b", "gemma3-4b"]
+TOL = 2e-3
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
+
+
+def _perturb(params, seed):
+    """Norm weights 1 + 0.1 N(0,1), qkv biases 0.1 N(0,1), from numpy."""
+    r = np.random.default_rng(seed)
+
+    def f(path, x):
+        name = str(getattr(path[-1], "key", ""))
+        if "norm" in name:
+            return x + 0.1 * r.normal(size=x.shape).astype(np.float32)
+        if name in ("bq", "bk", "bv"):
+            return 0.1 * r.normal(size=x.shape).astype(np.float32)
+        return x
+    return jax.tree_util.tree_map_with_path(f, jax.tree.map(np.asarray,
+                                                            params))
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    name = request.param
+    jcfg, cfg = jget_config(name).reduced(), get_config(name).reduced()
+    tree = _perturb(JLM(jcfg).init(jax.random.PRNGKey(1)), seed=2)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    return name, jcfg, cfg, tree, jparams, params_from_jax(tree, cfg)
+
+
+def _tokens(vocab, shape, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(
+        np.int32)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+def test_prefill_logits_match(arch):
+    _, jcfg, cfg, _, jparams, params = arch
+    toks = _tokens(cfg.vocab_size, (2, 32))
+    jstep, _ = jmake_prefill(jcfg, dtype=jnp.float32)
+    step, _ = make_prefill_step(cfg, dtype=torch.float32)
+    want = jax.jit(jstep)(jparams, {"tokens": jnp.asarray(toks)})
+    got = step(params, {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (2, 1, cfg.padded_vocab)
+    _close(got, want)
+
+
+def test_prefill_logits_match_on_the_chunked_branch():
+    """S = 2050 > 2048: both packages take their chunked attention, which
+    pads the keys of the last chunk and masks them."""
+    jcfg, cfg = (jget_config("llama3.2-1b").reduced(),
+                 get_config("llama3.2-1b").reduced())
+    tree = _perturb(JLM(jcfg).init(jax.random.PRNGKey(4)), seed=5)
+    toks = _tokens(cfg.vocab_size, (1, 2050), seed=6)
+    jstep, _ = jmake_prefill(jcfg, dtype=jnp.float32)
+    step, _ = make_prefill_step(cfg, dtype=torch.float32)
+    want = jax.jit(jstep)(jax.tree.map(jnp.asarray, tree),
+                          {"tokens": jnp.asarray(toks)})
+    got = step(params_from_jax(tree, cfg), {"tokens": torch.from_numpy(toks)})
+    _close(got, want)
+
+
+def test_decode_teacher_forced_logits_match(arch):
+    """8 steps with the same tokens in both packages; the cache holds 6
+    slots, so the ring wraps on the last two (gemma3's window is 8, so its
+    layers hold 6 too)."""
+    _, jcfg, cfg, _, jparams, params = arch
+    jlm, lm = JLM(jcfg), LM(cfg)
+    jcache = jlm.init_cache(3, 6, dtype=jnp.float32)
+    cache = lm.init_cache(3, 6, dtype=torch.float32)
+    jstep = jax.jit(lambda p, t, c: jlm.apply(p, t, mode="decode", cache=c))
+    toks = _tokens(cfg.vocab_size, (3, 8), seed=7)
+    for i in range(8):
+        want, jcache, _ = jstep(jparams, jnp.asarray(toks[:, i:i + 1]),
+                                jcache)
+        got, cache, _ = lm.apply(params, torch.from_numpy(toks[:, i:i + 1]),
+                                 mode="decode", cache=cache)
+        _close(got, want)
+    np.testing.assert_array_equal(cache["pos"].numpy(),
+                                  np.asarray(jcache["pos"]))
+
+
+def test_greedy_decode_steps_give_the_same_tokens(arch):
+    """``make_decode_step`` (argmax of the last logits) in f32 feeds its own
+    tokens back for 6 steps; both packages pick the same ids."""
+    _, jcfg, cfg, _, jparams, params = arch
+    jstep, jlm = jmake_decode(jcfg, dtype=jnp.float32)
+    step, lm = make_decode_step(cfg, dtype=torch.float32)
+    jcache = jlm.init_cache(2, 16, dtype=jnp.float32)
+    cache = lm.init_cache(2, 16, dtype=torch.float32)
+    jtok = jnp.asarray(_tokens(cfg.vocab_size, (2, 1), seed=8))
+    tok = torch.from_numpy(np.array(jtok))
+    jstep = jax.jit(jstep)
+    for _ in range(6):
+        jtok, jcache = jstep(jparams, jcache, jtok)
+        tok, cache = step(params, cache, tok)
+        assert tok.dtype == torch.int32
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+
+
+@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_stage_list_and_count_params_match(name, reduced):
+    jcfg, cfg = jget_config(name), get_config(name)
+    if reduced:
+        jcfg, cfg = jcfg.reduced(), cfg.reduced()
+    assert ([dataclasses.astuple(s) for s in LM(cfg).stages]
+            == [dataclasses.astuple(s) for s in JLM(jcfg).stages])
+    assert count_params(cfg) == jcount(jcfg)
+    assert count_params(cfg, include_embed=False) == jcount(
+        jcfg, include_embed=False)
+    assert cfg.num_params() == jcfg.num_params()
+
+
+def test_full_width_llama_is_the_served_model():
+    """llama3.2-1b at full width: 16 layers in one scan stage, 1.236 B
+    parameters (tied embeddings over the padded 128,256-id vocab)."""
+    cfg = get_config("llama3.2-1b")
+    stages = LM(cfg).stages
+    assert [(s.kind, s.repeats) for s in stages] == [("scan", 16)]
+    assert count_params(cfg) == 1_235_814_400
+    assert (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.padded_vocab) == (2048, 32, 8, 64, 8192, 128_256)
+
+
+def test_params_round_trip_bit_for_bit(arch):
+    _, _, cfg, tree, _, params = arch
+    back = params_to_jax(params, cfg)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def test_params_from_jax_refuses_another_shape(arch):
+    _, _, cfg, tree, _, _ = arch
+    bad = jax.tree.map(lambda x: x, tree)
+    bad["final_norm"] = np.zeros(cfg.d_model + 1, np.float32)
+    with pytest.raises(ValueError):
+        params_from_jax(bad, cfg)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_configs_equal_the_reference(name):
+    jcfg, cfg = jget_config(name), get_config(name)
+    for a, b in [(cfg, jcfg), (cfg.reduced(), jcfg.reduced())]:
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert a.padded_vocab == b.padded_vocab
+        assert a.split_layer == b.split_layer
+        assert a.layer_kinds() == b.layer_kinds()
+        assert a.window_sizes(0) == b.window_sizes(0)
+        assert a.window_sizes(0, True) == b.window_sizes(0, True)
+    assert {k: dataclasses.astuple(v) for k, v in INPUT_SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in JSHAPES.items()}
+
+
+def test_other_architectures_are_refused_until_ported():
+    for name in sorted(set(JARCHS) - set(ARCHS)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+            get_config(name)
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rms_norm_and_rope_match(dtype):
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    tol = TOL if dtype == "f32" else 2e-2
+    r = np.random.default_rng(9)
+    x = jnp.asarray(r.normal(size=(2, 7, 4, 32)).astype(np.float32)).astype(
+        jdt)
+    w = jnp.asarray(1 + 0.1 * r.normal(size=(32,)).astype(np.float32)
+                    ).astype(jdt)
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdt)
+    wt = torch.from_numpy(np.array(w.astype(jnp.float32))).to(tdt)
+    pos = np.array([[3], [40000]], np.int32)
+    for got, want in [
+            (L.rms_norm(xt, wt), jL.rms_norm(x, w)),
+            (L.apply_rope(xt, torch.arange(7), 500_000.0),
+             jL.apply_rope(x, jnp.arange(7), 500_000.0)),
+            (L.apply_rope(xt[:, :1], torch.from_numpy(pos), 10_000.0),
+             jL.apply_rope(x[:, :1], jnp.asarray(pos), 10_000.0))]:
+        assert got.dtype == tdt
+        np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   rtol=tol, atol=tol)
+
+
+def test_serve_runs_on_the_cpu():
+    env = {**os.environ, "PYTHONPATH": SRC}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--device", "cpu", "--tokens", "4"], env=env, capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "generated 4 tokens x batch 4" in out.stdout
+    assert out.stdout.strip().endswith("serve: done")
