@@ -16,8 +16,15 @@ result line:
  2b. hold both attention kernels against their plain versions on the card
      (f32 within 2e-3, bf16 within 2e-2): llama3.2-1b's heads (H=32, KV=8,
      D=64) causal at S=1024 in bf16 and f32, ragged non-causal S=1000, a
-     window of 128, MQA, gemma3's D=256 with window 1024; decode at
-     S=32768 with 40 valid slots, at ragged S=300 and with G=1;
+     window of 128, MQA, gemma3's D=256 with window 1024; the tensor-core
+     route's edges (S below one key tile, qwen2-0.5b's G=7 at an S that is
+     no multiple of the tile, D=128 and D=256 with a window, D=96 and D=32
+     that fill part of a 64-column panel, bf16 D=72 on the CUDA cores),
+     each case counted on the route its dtype and D pick; decode at
+     S=32768 with 40 valid slots, at ragged S=300, with G=1, with G=7, at
+     D=36 (element-wise loads), with each (q, cache) dtype pair, and with
+     1, 2 and many splits of S (the split count checked against the
+     plan), one many-split case run twice and compared bit for bit;
   3. one round of a small WRN-10-1 on the card and on the CPU from the same
      seed: the ledger and the metadata count must be equal and the new
      weights agree to 2e-3;
@@ -41,8 +48,9 @@ result line:
      torch.profiler (device busy share, top kernels by device time);
   5. time each kernel (CUDA events) beside its plain version, a library
      call where one computes the same function, and its bound (the
-     attention kernels at phase 6's shapes); time the phases of one
-     client's round.
+     attention kernels at phase 6's shapes, with their route, the decode
+     split count and the registers and spills per thread that ptxas
+     reported); time the phases of one client's round.
 It prints the kernels line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX or ``repro``.
 """
@@ -51,6 +59,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -69,12 +78,29 @@ FLASH_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
                (2, 1000, 8, 2, 64, False, 0, "float32"),
                (1, 1024, 32, 8, 64, True, 128, "bfloat16"),
                (2, 512, 8, 1, 64, True, 0, "bfloat16"),
-               (1, 2048, 8, 4, 256, True, 1024, "bfloat16")]
-# (b, s, h, kv, d, valid slots, dtype)
-DECODE_CASES = [(2, 32768, 32, 8, 64, 40, "bfloat16"),
-                (3, 300, 32, 8, 64, 300, "float32"),
-                (2, 1000, 8, 8, 128, 513, "bfloat16"),
-                (4, 4096, 32, 8, 64, 4000, "float32")]
+               (1, 2048, 8, 4, 256, True, 1024, "bfloat16"),
+               (1, 50, 32, 8, 64, True, 0, "bfloat16"),
+               (1, 1000, 14, 2, 64, True, 0, "bfloat16"),
+               (1, 1000, 14, 2, 64, True, 0, "float32"),
+               (1, 1500, 8, 2, 128, True, 256, "bfloat16"),
+               (1, 700, 4, 2, 256, False, 300, "bfloat16"),
+               (2, 300, 4, 2, 96, False, 0, "bfloat16"),
+               (1, 200, 4, 4, 32, True, 0, "bfloat16"),
+               (1, 300, 4, 2, 72, True, 0, "bfloat16")]
+# (b, s, h, kv, d, valid slots, q dtype, cache dtype, splits): splits 1 and
+# 2 are fixed by the shapes; 0 means many (more than 8)
+DECODE_CASES = [(2, 32768, 32, 8, 64, 40, "bfloat16", "bfloat16", None),
+                (3, 300, 32, 8, 64, 300, "float32", "float32", None),
+                (2, 1000, 8, 8, 128, 513, "bfloat16", "bfloat16", None),
+                (4, 4096, 32, 8, 64, 4000, "float32", "float32", None),
+                (2, 256, 4, 1, 256, 100, "float32", "bfloat16", None),
+                (2, 130, 8, 2, 64, 77, "bfloat16", "float32", None),
+                (32, 64, 32, 8, 64, 47, "bfloat16", "bfloat16", 1),
+                (4, 128, 32, 8, 64, 100, "bfloat16", "bfloat16", 2),
+                (1, 32768, 32, 8, 64, 30000, "bfloat16", "bfloat16", 0),
+                (2, 5000, 14, 2, 64, 4321, "bfloat16", "bfloat16", None),
+                (3, 17, 14, 2, 64, 9, "float32", "bfloat16", None),
+                (2, 300, 8, 2, 36, 200, "bfloat16", "bfloat16", None)]
 # phase 6: INPUT_SHAPES' decode_32k (batch cut 128 -> 32: 128 x 32768 x
 # 16 layers of bf16 K/V would be 137 GB) and prefill_32k (batch cut
 # 32 -> 1)
@@ -241,24 +267,52 @@ def main() -> None:
         errs[k_name] = max(errs[k_name], err)
         return err
 
+    from repro_torch.kernels.decode_attention import (MAX_G, plan_for,
+                                                      tile_slots)
+    from repro_torch.kernels.flash_attention import prefill_route
+    dlib = build.library("decode_attention")
+    check(all(dlib.repro_flash_decode_tile(d) == tile_slots(d)
+              for d in (32, 64, 100, 128, 200, 256))
+          and dlib.repro_flash_decode_max_g() == MAX_G,
+          "decode tile / group limits differ between the kernel and the "
+          "host plan")
     att = {}
     for b, s, h, kv, d, causal, window, dt in FLASH_CASES:
         dtype = getattr(torch, dt)
         q = randn(b, s, h, d).to(dtype)
         k, v = randn(b, s, kv, d).to(dtype), randn(b, s, kv, d).to(dtype)
+        route = prefill_route(dtype, d)
+        before = dict(ops.flash_attention.launches_by_route)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        what = f"b{b} s{s} h{h} kv{kv} d{d} causal={causal} w{window} {dt}"
+        check(ops.flash_attention.launches_by_route[route]
+              == before[route] + 1, f"flash_attention did not launch its "
+                                    f"{route} route")
+        what = (f"b{b} s{s} h{h} kv{kv} d{d} causal={causal} w{window} {dt} "
+                f"{route}")
         att[what] = att_check("flash_attention", got, ref.flash_attention_ref(
             q, k, v, causal=causal, window=window), dt, what)
-    for b, s, h, kv, d, fill, dt in DECODE_CASES:
-        dtype = getattr(torch, dt)
+    for b, s, h, kv, d, fill, dt, ct, want_splits in DECODE_CASES:
+        dtype, ctype = getattr(torch, dt), getattr(torch, ct)
         q = randn(b, 1, h, d).to(dtype)
-        kc, vc = randn(b, s, kv, d).to(dtype), randn(b, s, kv, d).to(dtype)
+        kc, vc = randn(b, s, kv, d).to(ctype), randn(b, s, kv, d).to(ctype)
         valid = (torch.arange(s, device=dev) < fill).expand(b, s).contiguous()
         got = ops.flash_decode(q, kc, vc, valid)
         torch.cuda.synchronize()
-        what = f"decode b{b} s{s} h{h} kv{kv} d{d} valid {fill} {dt}"
+        splits = ops.flash_decode.last_splits
+        check(splits == plan_for(q, kc)[0], f"decode ran {splits} splits, "
+                                            f"the plan says {plan_for(q, kc)}")
+        if want_splits is not None:
+            check(splits == want_splits if want_splits else splits > 8,
+                  f"decode b{b} s{s}: {splits} splits, want "
+                  f"{want_splits or 'more than 8'}")
+        if want_splits == 0:             # the same bits on a second run
+            again = ops.flash_decode(q, kc, vc, valid)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), "decode: two runs on the same "
+                                           "inputs differ (combine order)")
+        what = (f"decode b{b} s{s} h{h} kv{kv} d{d} valid {fill} {dt}/{ct} "
+                f"splits {splits}")
         att[what] = att_check("flash_decode", got, ref.flash_decode_ref(
             q, kc, vc, valid), dt, what)
     del q, k, v, kc, vc, valid, got
@@ -392,10 +446,12 @@ def main() -> None:
     torch.cuda.synchronize()
     prefill_s = monotonic() - t0
     prefill_launches = ops.launch_counts()
+    prefill_routes = dict(ops.flash_attention.launches_by_route)
     prefill_mem = torch.cuda.max_memory_allocated()
     check(prefill_launches["flash_attention"] == full.num_layers
+          and prefill_routes["tensor_core"] == full.num_layers
           and prefill_launches["flash_decode"] == 0,
-          f"prefill launches {prefill_launches}")
+          f"prefill launches {prefill_launches}, by route {prefill_routes}")
     check(tuple(plogits.shape) == (1, 1, full.padded_vocab)
           and bool(torch.isfinite(plogits).all()),
           "prefill logits not finite or of the wrong shape")
@@ -414,8 +470,12 @@ def main() -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in evs) / 1e3
         top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+        # each attention kernel's share of the device time
+        shares = {e.key[:80]: e.self_device_time_total / 1e3 / busy
+                  for e in evs if "flash_" in e.key}
         return {"wall_ms": wall, "device_busy_ms": busy,
                 "device_busy_share": busy / wall,
+                "attention_share_of_device_time": shares,
                 "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
                                   for e in top}}
 
@@ -451,6 +511,7 @@ def main() -> None:
                   "max_memory_allocated": serve_mem},
         "prefill": {"batch": 1, "seq_len": PREFILL_S, "prefill_s": prefill_s,
                     "launches": prefill_launches,
+                    "flash_attention_launches_by_route": prefill_routes,
                     "max_memory_allocated": prefill_mem},
         "profiled_prefill_call": prefill_profile,
         "profiled_decode_step": decode_profile}))
@@ -513,6 +574,14 @@ def main() -> None:
             row["byte_exact"] = True
         rows.append(row)
 
+    # registers and spills per thread of the instantiations timed below,
+    # from the -Xptxas -v report of phase 1's build
+    def ptxas(source, pattern):
+        found = [u for fn, u in build.ptxas_usage(
+            build.ptxas_logs.get(source, "")).items()
+            if re.search(pattern, fn)]
+        return found[0] if len(found) == 1 else None
+
     # the attention kernels at phase 6's shapes (bf16): one prefill layer
     # (B=1, S=32768, H=32, KV=8, D=64, causal) and one decode layer of the
     # serve run's last step (B=32, 32768 slots, 47 of them valid)
@@ -538,7 +607,10 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:89",
         "launches": prefill_launches["flash_attention"],
         "max_abs_err": errs["flash_attention"],
-        "ms": cuda_ms(lambda: ops.flash_attention(qa, ka, va), 3, 1),
+        "ms": cuda_ms(lambda: ops.flash_attention(qa, ka, va), 5, 1),
+        "kernel_route": prefill_route(qa.dtype, d_),
+        "ptxas": ptxas("flash_attention",
+                       r"flash_fwd_wgmma_kernelILi64ELi128ELi3E"),
         "plain_ms": cuda_ms(lambda: L._sdpa_chunked_raw(
             qa, ka, va, causal=True, window=0), 2, 1),
         "plain": "layers._sdpa_chunked_raw (flash_attention_ref's S x S "
@@ -572,6 +644,10 @@ def main() -> None:
         "launches": serve_launches["flash_decode"],
         "max_abs_err": errs["flash_decode"],
         "ms": cuda_ms(lambda: ops.flash_decode(qd, kcd, vcd, vmask), 20, 2),
+        "kernel_route": "cuda_core, split S",
+        "splits": ops.flash_decode.last_splits,
+        "ptxas": ptxas("decode_attention",
+                       r"flash_decode_kernelI13__nv_bfloat16S\d_Li64ELi4E"),
         "plain_ms": cuda_ms(lambda: ref.flash_decode_ref(qd, kcd, vcd, vmask),
                             3, 1),
         "max_abs_err_vs_plain_at_this_shape": dec_err,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -50,16 +51,20 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "flash_attention": {
         "repro_flash_attention": ([_P] * 4 + [_I] * 8 + [_F, _P], _I),
+        "repro_flash_attention_tc": ([_P] * 4 + [_I] * 7 + [_F, _P], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "decode_attention": {
-        "repro_flash_decode": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
-        "repro_flash_decode_max_gd": ([], _I),
+        "repro_flash_decode": ([_P] * 7 + [_I] * 9 + [_F, _P], _I),
+        "repro_flash_decode_tile": ([_I], _I),
+        "repro_flash_decode_max_g": ([], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# source name -> the ``-Xptxas -v`` report of its build in this process
+ptxas_logs: Dict[str, str] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -117,6 +122,7 @@ def load_all(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
             failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n{log}")
             continue
         os.replace(tmp, out)          # atomic: a concurrent build is harmless
+        ptxas_logs[name] = log
         if verbose:
             print(f"built {out}\n{log}", end="")
     if failed:
@@ -129,6 +135,37 @@ def load_all(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
                 fn.argtypes, fn.restype = argtypes, restype
             _loaded[name] = lib
     return dict(_loaded)
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel entry of an ``-Xptxas -v`` report: registers per thread,
+    stack frame and spill stores / loads in bytes, keyed by the (mangled)
+    name."""
+    usage: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)|"
+                      r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1) or m.group(2)
+            usage.setdefault(fn, dict.fromkeys(
+                ("registers", "stack_frame", "spill_stores", "spill_loads"),
+                0))
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            usage[fn]["stack_frame"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[fn]["spill_stores"] = int(m.group(1))
+            usage[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[fn]["registers"] = int(m.group(1))
+    return usage
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -12,20 +12,25 @@
 // ridge. At the serve shape (B=32, S=32768, KV=8, D=64, bf16) that is
 // 2.15 GB: 0.64 ms at 3.35 TB/s.
 //
-// What the design does about it, and what it leaves for later. One block
-// per (b, kv head): at the serve shape B*KV = 256 blocks, about two per SM
-// on the 132 SMs, so no split of S (and no combine pass) is needed there.
-// The block streams the cache in tiles of T positions: K and V are read in
-// their own dtype with 16-byte loads where the row allows it, converted to
-// f32 in registers on the way into shared memory (no f32 copy of a bf16
-// cache is made in device memory), and read once. The G query heads ride
-// as rows: each score (g, t) is a D-long f32 dot product from shared
-// memory, one warp per head runs the online softmax of the tile, and each
-// thread keeps its (head, column) outputs of P.V in registers. Every slot
-// is read, valid or not: the mask is applied per slot, so the work does not
-// depend on the data. Overlapping a tile's loads with the previous tile's
-// arithmetic (cp.async / TMA double buffering), and a split of S for a
-// small B*KV (long_500k has B = 1), are later work.
+// What the design does about it. S is split across blocks: a grid of
+// (splits, B*KV), the split count planned on the host from the shapes and
+// the SM count (repro_torch/kernels/decode_attention.py plan_splits), so
+// that even B*KV = 8 fills the card. Each warp of a block streams its own
+// slots, WS at a time, with cp.async.cg 16-byte copies of the cache in its
+// own dtype into a private ring of NST stages in shared memory; while it
+// works on one tile the next NST-1 are in flight, and no block-wide barrier
+// runs inside the loop. A lane owns 8 of the D columns of one slot (LPS =
+// DMAX/8 lanes per slot, 32/LPS slots per pass): it converts the cache to
+// q's dtype and then to f32 on use, in registers; the score of (head,
+// slot) is a dot product over its 8 columns finished by shuffles inside
+// the slot's lane group, and the online softmax (running max, sum and the
+// 8 output columns of every head) is kept per lane group in registers. At
+// the end the lane groups and then the warps merge their (m, l, acc) in a
+// fixed order; with one split the block writes the output, otherwise it
+// writes (m, l, acc) to scratch and a second launch merges the splits of
+// each (b, kv head) in split order. No float atomics anywhere: the same
+// inputs give the same bits on every run. Every slot is read, valid or
+// not, so the work (and the bound) does not depend on the data.
 //
 // Precision follows the plain version: a slot whose valid flag is false
 // gets the logit -1e30 (all false: uniform weights over the S slots, as in
@@ -40,10 +45,11 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_GD = 8192;         // G * DMAX the registers hold
-constexpr int NI = MAX_GD / THREADS; // outputs per thread, at most
+constexpr int NW = 4;                // warps per block
+constexpr int THREADS = NW * 32;
+constexpr int NPASS = 4;             // passes of 32/LPS slots per warp tile
+constexpr int DL = 8;                // columns per lane
+constexpr int MAX_G = 8;             // query heads per kv head
 constexpr float NEG = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
@@ -64,220 +70,405 @@ __device__ __forceinline__ float as_q(TC x) {
   return to_f<TQ>(from_f<TQ>(to_f<TC>(x)));
 }
 
-template <int DMAX> struct Tile { static constexpr int T = DMAX <= 64 ? 128 : 64; };
+// DMAX: D rounded up to 64, 128 or 256
+template <typename TC, int DMAX> struct Shape {
+  static constexpr int LPS = DMAX / DL;            // lanes per slot
+  static constexpr int SPP = 32 / LPS;             // slots per pass
+  static constexpr int WS = NPASS * SPP;           // slots per warp tile
+  static constexpr int T = NW * WS;                // slots per block tile
+  static constexpr int NST = sizeof(TC) == 2 ? 3 : 2;   // ring stages
+  static constexpr int CHUNK = 16 / sizeof(TC);    // elements per 16 bytes
+  // one stage of one warp: K then V, WS rows of DMAX elements
+  static constexpr int STAGE = 2 * WS * DMAX;
+  static constexpr size_t SMEM = sizeof(TC) * (size_t)NW * NST * STAGE;
+};
 
-template <int DMAX>
-size_t smem_bytes(int G) {
-  constexpr int T = Tile<DMAX>::T;
-  // k: T x (DMAX+1), v: T x DMAX, q: G x DMAX, p: G x (T+1), m/l/corr: 3G
-  return sizeof(float) * ((size_t)T * (DMAX + 1) + (size_t)T * DMAX +
-                          (size_t)G * DMAX + (size_t)G * (T + 1) + 3 * G);
-}
-
-// one cache row (D elements at src) -> f32 in dst, as q's dtype
-template <typename TQ, typename TC>
-__device__ __forceinline__ void load_row_part(const TC* __restrict__ src,
-                                              float* dst, int part, int D,
-                                              bool vec) {
-  constexpr int VEC = 16 / sizeof(TC);
-  if (vec) {                          // 16-byte loads: D % VEC == 0
-    const uint4 raw = reinterpret_cast<const uint4*>(src)[part];
-    const TC* e = reinterpret_cast<const TC*>(&raw);
-#pragma unroll
-    for (int u = 0; u < VEC; ++u) dst[part * VEC + u] = as_q<TQ, TC>(e[u]);
-  } else {
-    dst[part] = as_q<TQ, TC>(src[part]);
-  }
+// the column of element e (0..7) of lane part p: a bf16 lane reads one
+// 16-byte chunk (8 columns); an f32 lane reads chunks p and p + LPS, so
+// that the 8 lanes of a quarter warp read 8 neighbouring chunks
+template <typename TC, int DMAX>
+__device__ __forceinline__ int col_of(int p, int e) {
+  constexpr int LPS = DMAX / DL;
+  if (sizeof(TC) == 2) return DL * p + e;
+  return e < 4 ? 4 * p + e : 4 * (p + LPS) + e - 4;
 }
 
 template <typename TQ, typename TC, int DMAX>
+__device__ __forceinline__ void load_cols(const TC* row, int p,
+                                          float (&x)[DL]) {
+  constexpr int LPS = DMAX / DL;
+  if constexpr (sizeof(TC) == 2) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(row + DL * p);
+    const TC* e = reinterpret_cast<const TC*>(&raw);
+#pragma unroll
+    for (int u = 0; u < DL; ++u) x[u] = as_q<TQ, TC>(e[u]);
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(row + 4 * p);
+    const float4 b = *reinterpret_cast<const float4*>(row + 4 * (p + LPS));
+    x[0] = as_q<TQ, TC>(a.x); x[1] = as_q<TQ, TC>(a.y);
+    x[2] = as_q<TQ, TC>(a.z); x[3] = as_q<TQ, TC>(a.w);
+    x[4] = as_q<TQ, TC>(b.x); x[5] = as_q<TQ, TC>(b.y);
+    x[6] = as_q<TQ, TC>(b.z); x[7] = as_q<TQ, TC>(b.w);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; bytes < 16 zero-fills the rest
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// one warp tile (slots s0 .. s0+WS-1, the first n_in of them in range)
+// into a stage: every element of the stage is written, with zeros for the
+// slots out of range and the columns past D
+template <typename TC, int DMAX>
+__device__ __forceinline__ void load_tile(TC* stage, const TC* kbase,
+                                          const TC* vbase, long long s0,
+                                          int n_in, int D,
+                                          long long row_stride, bool vec,
+                                          int lane) {
+  using Sh = Shape<TC, DMAX>;
+  TC* sk = stage;
+  TC* sv = stage + Sh::WS * DMAX;
+  if (vec) {                           // D * sizeof(TC) % 16 == 0
+    constexpr int CPR = DMAX / Sh::CHUNK;          // chunks per row
+    const int have = D / Sh::CHUNK;                // chunks with data
+    for (int i = lane; i < Sh::WS * CPR; i += 32) {
+      const int t = i / CPR, c = i % CPR;
+      const bool in = t < n_in && c < have;
+      const long long off = in ? (s0 + t) * row_stride + c * Sh::CHUNK : 0;
+      cp_async16(sk + t * DMAX + c * Sh::CHUNK, kbase + off, in ? 16 : 0);
+      cp_async16(sv + t * DMAX + c * Sh::CHUNK, vbase + off, in ? 16 : 0);
+    }
+  } else {                             // a ragged D: element by element
+    for (int i = lane; i < Sh::WS * DMAX; i += 32) {
+      const int t = i / DMAX, d = i % DMAX;
+      TC xk = from_f<TC>(0.f), xv = from_f<TC>(0.f);
+      if (t < n_in && d < D) {
+        xk = kbase[(s0 + t) * row_stride + d];
+        xv = vbase[(s0 + t) * row_stride + d];
+      }
+      sk[t * DMAX + d] = xk;
+      sv[t * DMAX + d] = xv;
+    }
+  }
+}
+
+// grid (splits, B*KV). Split z covers slots [z*per, min(S, (z+1)*per)).
+// With one split the block writes out; otherwise (m, l) per head to
+// part_ml (B*KV, splits, G, 2) and acc to part_acc (B*KV, splits, G, D).
+template <typename TQ, typename TC, int DMAX, int GMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
                     const TC* __restrict__ vc,
                     const uint8_t* __restrict__ valid, TQ* __restrict__ out,
-                    int S, int H, int KV, int D, float scale, int vec) {
-  constexpr int T = Tile<DMAX>::T;
-  constexpr int KS = DMAX + 1;
-  constexpr int VEC = 16 / sizeof(TC);
+                    float* __restrict__ part_ml, float* __restrict__ part_acc,
+                    int S, int H, int KV, int D, int per, float scale,
+                    int vec) {
+  using Sh = Shape<TC, DMAX>;
+  constexpr int LPS = Sh::LPS, SPP = Sh::SPP, WS = Sh::WS, NST = Sh::NST;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  TC* ring = reinterpret_cast<TC*>(smem_raw);
+
   const int G = H / KV;
-  const int PS = T + 1;
-  extern __shared__ float smem[];
-  float* sk = smem;
-  float* sv = sk + T * KS;
-  float* sq = sv + T * DMAX;
-  float* sp = sq + G * DMAX;
-  float* sm = sp + G * PS;            // running max per head
-  float* sl = sm + G;                 // running sum per head
-  float* sc = sl + G;                 // this tile's rescale per head
-
-  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int bkv = blockIdx.y, b = bkv / KV, kvh = bkv % KV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / LPS, part = lane % LPS;
+  const long long sb = (long long)split * per;
+  const long long se = sb + per < S ? sb + per : S;
+  const int ntiles = (int)((se - sb + Sh::T - 1) / Sh::T);
   const uint8_t* vrow = valid + (long long)b * S;
-
-  for (int i = threadIdx.x; i < G * DMAX; i += THREADS) {
-    const int g = i / DMAX, d = i % DMAX;
-    sq[i] = d < D ? to_f<TQ>(q[((long long)b * H + kvh * G + g) * D + d])
-                  : 0.f;
-  }
-  for (int g = threadIdx.x; g < G; g += THREADS) {
-    sm[g] = NEG;
-    sl[g] = 0.f;
-  }
-  // zero the padding columns of the tiles once (they are never loaded)
-  for (int i = threadIdx.x; i < T * DMAX; i += THREADS) {
-    const int t = i / DMAX, d = i % DMAX;
-    if (d >= D) {
-      sk[t * KS + d] = 0.f;
-      sv[t * DMAX + d] = 0.f;
-    }
-  }
-
-  float acc[NI];
-#pragma unroll
-  for (int n = 0; n < NI; ++n) acc[n] = 0.f;
-
-  const int parts = vec ? D / VEC : D;          // loads per cache row
   const long long row_stride = (long long)KV * D;
   const TC* kbase = kc + ((long long)b * S * KV + kvh) * D;
   const TC* vbase = vc + ((long long)b * S * KV + kvh) * D;
+  TC* wring = ring + (size_t)warp * NST * Sh::STAGE;
 
-  for (long long t0 = 0; t0 < S; t0 += T) {
-    __syncthreads();                   // the previous tile is consumed
-    for (int i = threadIdx.x; i < T * parts; i += THREADS) {
-      const int t = i / parts, part = i % parts;
-      const long long pos = t0 + t;
-      if (pos < S) {
-        load_row_part<TQ, TC>(kbase + pos * row_stride, sk + t * KS, part, D,
-                              vec);
-        load_row_part<TQ, TC>(vbase + pos * row_stride, sv + t * DMAX, part,
-                              D, vec);
-      } else {
-        const int w = vec ? VEC : 1;
-        for (int u = 0; u < w; ++u) {
-          sk[t * KS + part * w + u] = 0.f;
-          sv[t * DMAX + part * w + u] = 0.f;
-        }
+  // this lane's 8 columns of q, for every head
+  float qv[GMAX][DL];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+    for (int e = 0; e < DL; ++e) {
+      const int d = col_of<TC, DMAX>(part, e);
+      qv[g][e] = g < G && d < D
+          ? to_f<TQ>(q[((long long)b * H + kvh * G + g) * D + d]) : 0.f;
+    }
+  float m[GMAX], l[GMAX], acc[GMAX][DL];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    m[g] = NEG;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DL; ++e) acc[g][e] = 0.f;
+  }
+
+  // warp tile t of this warp: slots sb + t*T + warp*WS ...
+  auto issue = [&](int t) {
+    if (t < ntiles) {
+      const long long s0 = sb + (long long)t * Sh::T + warp * WS;
+      const long long left = se - s0;
+      const int n_in = left <= 0 ? 0 : (left < WS ? (int)left : WS);
+      load_tile<TC, DMAX>(wring + (t % NST) * Sh::STAGE, kbase, vbase, s0,
+                          n_in, D, row_stride, vec, lane);
+    }
+    cp_async_commit();                 // an empty group keeps the count
+  };
+#pragma unroll
+  for (int t = 0; t < NST - 1; ++t) issue(t);
+
+  for (int t = 0; t < ntiles; ++t) {
+    issue(t + NST - 1);
+    cp_async_wait<NST - 1>();          // tile t has landed (this lane's)
+    __syncwarp();                      // ... and every lane's
+    const TC* sk = wring + (t % NST) * Sh::STAGE;
+    const TC* sv = sk + WS * DMAX;
+    const long long s0 = sb + (long long)t * Sh::T + warp * WS;
+
+    // scores of this lane group's NPASS slots, every head
+    float sc[NPASS][GMAX];
+    bool in[NPASS];
+#pragma unroll
+    for (int i = 0; i < NPASS; ++i) {
+      const int r = i * SPP + grp;
+      const long long pos = s0 + r;
+      in[i] = pos < se;
+      const bool ok = in[i] && vrow[pos] != 0;
+      float kx[DL];
+      load_cols<TQ, TC, DMAX>(sk + r * DMAX, part, kx);
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < DL; ++e) a = fmaf(qv[g][e], kx[e], a);
+#pragma unroll
+        for (int o = LPS / 2; o > 0; o >>= 1)
+          a += __shfl_xor_sync(0xffffffffu, a, o);
+        sc[i][g] = ok ? a * scale : NEG;
       }
     }
-    __syncthreads();
-
-    // scores (g, t): f32 dot products, masked by the valid flags
-    for (int i = threadIdx.x; i < G * T; i += THREADS) {
-      const int g = i / T, t = i % T;
-      const long long pos = t0 + t;
-      float s = 0.f;
-      const float* kr = sk + t * KS;
-      const float* qr = sq + g * DMAX;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      sp[g * PS + t] = (pos < S && vrow[pos]) ? s * scale : NEG;
-    }
-    __syncthreads();
-
-    // online softmax of the tile, one warp per head
-    for (int g = warp; g < G; g += WARPS) {
-      float mx = NEG;
-      for (int t = lane; t < T; t += 32) mx = fmaxf(mx, sp[g * PS + t]);
+    // online softmax, per head, over the in-range slots
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = sm[g];
-      const float m_new = fmaxf(m_old, mx);
-      float psum = 0.f;
-      for (int t = lane; t < T; t += 32) {
-        const float p = t0 + t < S ? expf(sp[g * PS + t] - m_new) : 0.f;
-        psum += p;
-        sp[g * PS + t] = to_f<TQ>(from_f<TQ>(p));
-      }
+    for (int g = 0; g < GMAX; ++g) {
+      float mx = m[g];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        sc[g] = corr;
-        sl[g] = sl[g] * corr + psum;
-        sm[g] = m_new;
+      for (int i = 0; i < NPASS; ++i)
+        if (in[i]) mx = fmaxf(mx, sc[i][g]);
+      const float corr = expf(m[g] - mx);
+      m[g] = mx;
+      l[g] *= corr;
+#pragma unroll
+      for (int e = 0; e < DL; ++e) acc[g][e] *= corr;
+#pragma unroll
+      for (int i = 0; i < NPASS; ++i) {
+        const float p = in[i] ? expf(sc[i][g] - mx) : 0.f;
+        l[g] += p;
+        sc[i][g] = to_f<TQ>(from_f<TQ>(p));   // p in q's dtype for P.V
       }
     }
-    __syncthreads();
-
-    // acc(g, d) = acc * corr_g + sum_t p(g, t) v(t, d)
+    // acc += p . v
 #pragma unroll
-    for (int n = 0; n < NI; ++n) {
-      const int i = threadIdx.x + n * THREADS;
-      if (i < G * DMAX) {
-        const int g = i / DMAX, d = i % DMAX;
-        const float* pr = sp + g * PS;
-        float a = acc[n] * sc[g];
-#pragma unroll 8
-        for (int t = 0; t < T; ++t) a = fmaf(pr[t], sv[t * DMAX + d], a);
-        acc[n] = a;
+    for (int i = 0; i < NPASS; ++i) {
+      float vx[DL];
+      load_cols<TQ, TC, DMAX>(sv + (i * SPP + grp) * DMAX, part, vx);
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+        for (int e = 0; e < DL; ++e)
+          acc[g][e] = fmaf(sc[i][g], vx[e], acc[g][e]);
+    }
+    __syncwarp();                      // stage t % NST is free again
+  }
+  cp_async_wait<0>();
+
+  // merge the lane groups of the warp (the same columns, other slots)
+#pragma unroll
+  for (int o = LPS; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      const float om = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float ol = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float mm = fmaxf(m[g], om);
+      const float ca = expf(m[g] - mm), cb = expf(om - mm);
+      l[g] = l[g] * ca + ol * cb;
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        const float oa = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+        acc[g][e] = acc[g][e] * ca + oa * cb;
       }
+      m[g] = mm;
     }
   }
 
+  // merge the warps, in warp order, through shared memory (the ring is
+  // free: every copy has landed and every warp is past its loop)
+  __syncthreads();
+  float* wm = reinterpret_cast<float*>(smem_raw);  // [NW][GMAX]
+  float* wl = wm + NW * GMAX;                      // [NW][GMAX]
+  float* wacc = wl + NW * GMAX;                    // [NW][GMAX][DMAX]
+  if (grp == 0) {                      // lane group 0 holds the warp's merge
 #pragma unroll
-  for (int n = 0; n < NI; ++n) {
-    const int i = threadIdx.x + n * THREADS;
-    const int g = i / DMAX, d = i % DMAX;
-    if (i < G * DMAX && d < D)
+    for (int g = 0; g < GMAX; ++g) {
+      if (part == 0) {
+        wm[warp * GMAX + g] = m[g];
+        wl[warp * GMAX + g] = l[g];
+      }
+#pragma unroll
+      for (int e = 0; e < DL; ++e)
+        wacc[(warp * GMAX + g) * DMAX + col_of<TC, DMAX>(part, e)] =
+            acc[g][e];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * D; i += THREADS) {
+    const int g = i / D, d = i % D;
+    float mm = NEG;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, wm[w * GMAX + g]);
+    float ls = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float c = expf(wm[w * GMAX + g] - mm);
+      ls += wl[w * GMAX + g] * c;
+      a += wacc[(w * GMAX + g) * DMAX + d] * c;
+    }
+    if (splits == 1) {
       out[((long long)b * H + kvh * G + g) * D + d] =
-          from_f<TQ>(acc[n] / fmaxf(sl[g], 1e-30f));
+          from_f<TQ>(a / fmaxf(ls, 1e-30f));
+    } else {
+      const long long slot = (long long)bkv * splits + split;
+      part_acc[(slot * G + g) * D + d] = a;
+      if (d == 0) {
+        part_ml[(slot * G + g) * 2] = mm;
+        part_ml[(slot * G + g) * 2 + 1] = ls;
+      }
+    }
   }
 }
 
-template <typename TQ, typename TC, int DMAX>
-int launch(const void* q, const void* kc, const void* vc,
-           const uint8_t* valid, void* out, int B, int S, int H, int KV,
-           int D, float scale, cudaStream_t stream) {
+// grid (B*KV): merge the splits of each (b, kv head), in split order
+template <typename TQ>
+__global__ void __launch_bounds__(256)
+flash_decode_combine_kernel(const float* __restrict__ part_ml,
+                            const float* __restrict__ part_acc,
+                            TQ* __restrict__ out, int splits, int H, int KV,
+                            int D) {
   const int G = H / KV;
-  if (G * DMAX > MAX_GD) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<DMAX>(G);
+  const int bkv = blockIdx.x, b = bkv / KV, kvh = bkv % KV;
+  const long long first = (long long)bkv * splits;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D, d = i % D;
+    float mm = NEG;
+    for (int z = 0; z < splits; ++z)
+      mm = fmaxf(mm, part_ml[((first + z) * G + g) * 2]);
+    float ls = 0.f, a = 0.f;
+    for (int z = 0; z < splits; ++z) {
+      const float c = expf(part_ml[((first + z) * G + g) * 2] - mm);
+      ls += part_ml[((first + z) * G + g) * 2 + 1] * c;
+      a += part_acc[((first + z) * G + g) * D + d] * c;
+    }
+    out[((long long)b * H + kvh * G + g) * D + d] =
+        from_f<TQ>(a / fmaxf(ls, 1e-30f));
+  }
+}
+
+template <typename TQ, typename TC, int DMAX, int GMAX>
+int launch(const void* q, const void* kc, const void* vc,
+           const uint8_t* valid, void* out, float* part_ml, float* part_acc,
+           int B, int S, int H, int KV, int D, int splits, int per,
+           float scale, cudaStream_t stream) {
+  using Sh = Shape<TC, DMAX>;
+  // the warps' merge reuses the ring
+  static_assert(sizeof(float) * NW * GMAX * (DMAX + 2) <= Sh::SMEM,
+                "the ring must hold the warps' merge");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<TQ, TC, DMAX>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_decode_kernel<TQ, TC, DMAX, GMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);
   if (err != cudaSuccess) return (int)err;
-  constexpr int VEC = 16 / sizeof(TC);
-  const int vec = (D % VEC == 0) &&
-                  ((uintptr_t)kc % 16 == 0) && ((uintptr_t)vc % 16 == 0);
-  flash_decode_kernel<TQ, TC, DMAX><<<B * KV, THREADS, smem, stream>>>(
-      (const TQ*)q, (const TC*)kc, (const TC*)vc, valid, (TQ*)out, S, H, KV,
-      D, scale, vec);
+  const int vec = (D * (int)sizeof(TC)) % 16 == 0 &&
+                  (uintptr_t)kc % 16 == 0 && (uintptr_t)vc % 16 == 0;
+  dim3 grid((unsigned)splits, (unsigned)(B * KV));
+  flash_decode_kernel<TQ, TC, DMAX, GMAX><<<grid, THREADS, Sh::SMEM,
+                                            stream>>>(
+      (const TQ*)q, (const TC*)kc, (const TC*)vc, valid, (TQ*)out, part_ml,
+      part_acc, S, H, KV, D, per, scale, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  flash_decode_combine_kernel<TQ><<<B * KV, 256, 0, stream>>>(
+      part_ml, part_acc, (TQ*)out, splits, H, KV, D);
   return (int)cudaGetLastError();
+}
+
+template <typename TQ, typename TC, int DMAX>
+int by_group(const void* q, const void* kc, const void* vc,
+             const uint8_t* valid, void* out, float* ml, float* acc, int B,
+             int S, int H, int KV, int D, int splits, int per, float scale,
+             cudaStream_t st) {
+  const int G = H / KV;
+  if (G <= 2) return launch<TQ, TC, DMAX, 2>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
+  if (G <= 4) return launch<TQ, TC, DMAX, 4>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
+  return launch<TQ, TC, DMAX, 8>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
 }
 
 template <typename TQ, typename TC>
 int dispatch(const void* q, const void* kc, const void* vc,
-             const uint8_t* valid, void* out, int B, int S, int H, int KV,
-             int D, float scale, cudaStream_t st) {
-  if (D <= 32) return launch<TQ, TC, 32>(q, kc, vc, valid, out, B, S, H, KV, D, scale, st);
-  if (D <= 64) return launch<TQ, TC, 64>(q, kc, vc, valid, out, B, S, H, KV, D, scale, st);
-  if (D <= 128) return launch<TQ, TC, 128>(q, kc, vc, valid, out, B, S, H, KV, D, scale, st);
-  return launch<TQ, TC, 256>(q, kc, vc, valid, out, B, S, H, KV, D, scale, st);
+             const uint8_t* valid, void* out, float* ml, float* acc, int B,
+             int S, int H, int KV, int D, int splits, int per, float scale,
+             cudaStream_t st) {
+  if (D <= 64) return by_group<TQ, TC, 64>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
+  if (D <= 128) return by_group<TQ, TC, 128>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
+  return by_group<TQ, TC, 256>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
 }
 
 }  // namespace
 
 // q_dtype / cache_dtype: 0 = f32, 1 = bf16 (out has q's). valid is (B,S)
-// bool, one byte a slot. The caller checks shapes (D <= 256, H % KV == 0,
-// (H/KV) * D within repro_flash_decode_max_gd()) and contiguity.
+// bool, one byte a slot. splits and per (slots per split) come from the
+// host plan (decode_attention.py plan_splits): per is a multiple of the
+// block tile and (splits - 1) * per < S. part_ml / part_acc are scratch of
+// B*KV*splits*G*2 and B*KV*splits*G*D floats (unused with one split). The
+// caller checks shapes (D <= 256, H % KV == 0, H / KV <= 8) and
+// contiguity.
 extern "C" int repro_flash_decode(const void* q, const void* kc,
                                   const void* vc, const void* valid,
-                                  void* out, int q_dtype, int cache_dtype,
-                                  int B, int S, int H, int KV, int D,
+                                  void* out, void* part_ml, void* part_acc,
+                                  int q_dtype, int cache_dtype, int B, int S,
+                                  int H, int KV, int D, int splits, int per,
                                   float scale, cudaStream_t stream) {
-  if (B == 0) return 0;
+  if (B == 0 || S == 0) return 0;
+  if (H / KV > MAX_G || splits < 1) return (int)cudaErrorInvalidValue;
   const uint8_t* vm = (const uint8_t*)valid;
+  float* ml = (float*)part_ml;
+  float* acc = (float*)part_acc;
   if (q_dtype == 0 && cache_dtype == 0)
-    return dispatch<float, float>(q, kc, vc, vm, out, B, S, H, KV, D, scale, stream);
+    return dispatch<float, float>(q, kc, vc, vm, out, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
   if (q_dtype == 0)
-    return dispatch<float, __nv_bfloat16>(q, kc, vc, vm, out, B, S, H, KV, D, scale, stream);
+    return dispatch<float, __nv_bfloat16>(q, kc, vc, vm, out, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
   if (cache_dtype == 0)
-    return dispatch<__nv_bfloat16, float>(q, kc, vc, vm, out, B, S, H, KV, D, scale, stream);
-  return dispatch<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, vm, out, B, S, H, KV, D, scale, stream);
+    return dispatch<__nv_bfloat16, float>(q, kc, vc, vm, out, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
+  return dispatch<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, vm, out, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
 }
 
-extern "C" int repro_flash_decode_max_gd() { return MAX_GD; }
+// the block tile (slots) for head dim D: the split plan's unit
+extern "C" int repro_flash_decode_tile(int D) {
+  if (D <= 64) return Shape<__nv_bfloat16, 64>::T;
+  if (D <= 128) return Shape<__nv_bfloat16, 128>::T;
+  return Shape<__nv_bfloat16, 256>::T;
+}
+
+extern "C" int repro_flash_decode_max_g() { return MAX_G; }
 
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -21,6 +21,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import ROUTES
 
 
 def _on_card(t: torch.Tensor, what: str) -> bool:
@@ -165,10 +166,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _no_grad("flash_attention", q, k, v)
     if b * kv > 65535:
         raise ValueError(f"flash_attention: B*KV = {b * kv} > 65535")
-    from repro_torch.kernels.flash_attention import launch_flash_attention
+    from repro_torch.kernels.flash_attention import (launch_flash_attention,
+                                                     route_for)
     out = torch.empty_like(q)
-    launch_flash_attention(q, k, v, out, causal, int(window))
+    route = route_for(q, k, v)
+    launch_flash_attention(q, k, v, out, causal, int(window), route)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
@@ -195,28 +199,32 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if not _on_card(q, "flash_decode"):
         return ref.flash_decode_ref(q, k_cache, v_cache, valid)
     _no_grad("flash_decode", q, k_cache, v_cache)
-    from repro_torch.kernels.decode_attention import (launch_flash_decode,
-                                                      max_group_width)
-    dmax = next(m for m in (32, 64, 128, MAX_HEAD_DIM) if d <= m)
-    if (h // kv) * dmax > max_group_width():
-        raise ValueError(f"flash_decode: {h // kv} heads per kv head x head "
-                         f"dim {d} exceed the kernel's {max_group_width()}")
+    from repro_torch.kernels.decode_attention import (MAX_G,
+                                                      launch_flash_decode)
+    if h // kv > MAX_G:
+        raise ValueError(f"flash_decode: {h // kv} query heads per kv head "
+                         f"exceed the kernel's {MAX_G}")
     out = torch.empty_like(q)
-    launch_flash_decode(q, k_cache, v_cache, valid, out)
+    flash_decode.last_splits = launch_flash_decode(q, k_cache, v_cache,
+                                                   valid, out)
     flash_decode.launches += 1
     return out
 
 
 KERNELS = (kmeans_pairwise_dist, kmeans_lloyd_step, quantize_affine,
            flash_attention, flash_decode)
-for _fn in KERNELS:
-    _fn.launches = 0
+flash_decode.last_splits = 0           # the split count of the last launch
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's ``launches``."""
+    """Zero every wrapper's ``launches`` (and the prefill's by route)."""
     for fn in KERNELS:
         fn.launches = 0
+    # the prefill kernel's launches by route; ``launches`` is their total
+    flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> Dict[str, int]:

@@ -109,7 +109,11 @@ def _rand(g, shape, dtype, card):
 
 
 # chip_smoke.py phase 2b: llama3.2-1b's heads (causal, S=1024, both
-# dtypes), a ragged non-causal S, a window, MQA, gemma3's D=256 layer shape
+# dtypes), a ragged non-causal S, a window, MQA, gemma3's D=256 layer
+# shape; then the tensor-core route's edges: S below one key tile, G = 7
+# (qwen2-0.5b's 14 heads over 2) at an S that is no multiple of BK, D=128
+# and D=256 with a window, and head dims that fill part of a 64-column
+# panel (96) or less than one (32); bf16 at D=72 takes the CUDA-core route
 @pytest.mark.parametrize("b,s,h,kv,d,causal,window,dtype", [
     (1, 1024, 32, 8, 64, True, 0, torch.bfloat16),
     (1, 1024, 32, 8, 64, True, 0, torch.float32),
@@ -117,31 +121,34 @@ def _rand(g, shape, dtype, card):
     (1, 777, 8, 2, 64, True, 128, torch.bfloat16),
     (2, 512, 8, 1, 64, True, 0, torch.bfloat16),
     (1, 2048, 8, 4, 256, True, 1024, torch.bfloat16),
-    (1, 300, 6, 2, 96, False, 64, torch.float32)])
+    (1, 300, 6, 2, 96, False, 64, torch.float32),
+    (1, 50, 32, 8, 64, True, 0, torch.bfloat16),
+    (1, 1000, 14, 2, 64, True, 0, torch.bfloat16),
+    (1, 1000, 14, 2, 64, True, 0, torch.float32),
+    (1, 1500, 8, 2, 128, True, 256, torch.bfloat16),
+    (1, 700, 4, 2, 256, False, 300, torch.bfloat16),
+    (2, 300, 4, 2, 96, False, 0, torch.bfloat16),
+    (1, 200, 4, 4, 32, True, 0, torch.bfloat16),
+    (1, 300, 4, 2, 72, True, 0, torch.bfloat16)])
 def test_flash_attention_kernel(card, b, s, h, kv, d, causal, window, dtype):
+    from repro_torch.kernels.flash_attention import prefill_route
     g = torch.Generator().manual_seed(s + h + d)
     q = _rand(g, (b, s, h, d), dtype, card)
     k = _rand(g, (b, s, kv, d), dtype, card)
     v = _rand(g, (b, s, kv, d), dtype, card)
     before = ops.flash_attention.launches
+    route = prefill_route(dtype, d)
+    by_route = ops.flash_attention.launches_by_route[route]
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
+    assert ops.flash_attention.launches_by_route[route] == by_route + 1
     assert got.dtype == dtype and got.shape == q.shape
     _att_close(got, ref.flash_attention_ref(q, k, v, causal=causal,
                                             window=window), dtype)
 
 
-# chip_smoke.py phase 2b: a 32k cache with 40 valid slots, a ragged S, G=1,
-# MQA at D=256 with a bf16 cache under f32 q, scattered valid slots in an
-# f32 cache under bf16 q
-@pytest.mark.parametrize("b,s,h,kv,d,fill,dtype,cache_dtype", [
-    (2, 32768, 32, 8, 64, 40, torch.bfloat16, torch.bfloat16),
-    (3, 300, 32, 8, 64, 300, torch.float32, torch.float32),
-    (2, 1000, 8, 8, 128, 513, torch.bfloat16, torch.bfloat16),
-    (2, 256, 4, 1, 256, 100, torch.float32, torch.bfloat16),
-    (2, 130, 8, 2, 64, None, torch.bfloat16, torch.float32)])
-def test_flash_decode_kernel(card, b, s, h, kv, d, fill, dtype, cache_dtype):
+def _decode_inputs(card, b, s, h, kv, d, fill, dtype, cache_dtype):
     g = torch.Generator().manual_seed(s + h + d)
     q = _rand(g, (b, 1, h, d), dtype, card)
     kc = _rand(g, (b, s, kv, d), cache_dtype, card)
@@ -150,12 +157,53 @@ def test_flash_decode_kernel(card, b, s, h, kv, d, fill, dtype, cache_dtype):
         valid = torch.rand((b, s), generator=g) < 0.5
     else:
         valid = (torch.arange(s) < fill).expand(b, s).contiguous()
-    valid = valid.to(card)
+    return q, kc, vc, valid.to(card)
+
+
+# chip_smoke.py phase 2b: a 32k cache with 40 valid slots, a ragged S, G=1,
+# MQA at D=256 with a bf16 cache under f32 q, scattered valid slots in an
+# f32 cache under bf16 q; then the split design's edges: one split (one
+# block tile), two splits, many splits (B=1 at S=32768, both caches), G=7
+# (qwen2-0.5b) at a ragged S, S below one tile, a head dim whose rows are
+# no whole number of 16-byte chunks (element-wise loads)
+@pytest.mark.parametrize("b,s,h,kv,d,fill,dtype,cache_dtype", [
+    (2, 32768, 32, 8, 64, 40, torch.bfloat16, torch.bfloat16),
+    (3, 300, 32, 8, 64, 300, torch.float32, torch.float32),
+    (2, 1000, 8, 8, 128, 513, torch.bfloat16, torch.bfloat16),
+    (2, 256, 4, 1, 256, 100, torch.float32, torch.bfloat16),
+    (2, 130, 8, 2, 64, None, torch.bfloat16, torch.float32),
+    (32, 64, 32, 8, 64, 47, torch.bfloat16, torch.bfloat16),
+    (4, 128, 32, 8, 64, 100, torch.bfloat16, torch.bfloat16),
+    (1, 32768, 32, 8, 64, 30000, torch.bfloat16, torch.bfloat16),
+    (1, 32768, 32, 8, 64, None, torch.float32, torch.float32),
+    (2, 5000, 14, 2, 64, 4321, torch.bfloat16, torch.bfloat16),
+    (3, 17, 14, 2, 64, 9, torch.float32, torch.bfloat16),
+    (2, 300, 8, 2, 36, 200, torch.bfloat16, torch.bfloat16)])
+def test_flash_decode_kernel(card, b, s, h, kv, d, fill, dtype, cache_dtype):
+    from repro_torch.kernels.decode_attention import plan_for
+    q, kc, vc, valid = _decode_inputs(card, b, s, h, kv, d, fill, dtype,
+                                      cache_dtype)
     before = ops.flash_decode.launches
     got = ops.flash_decode(q, kc, vc, valid)
     torch.cuda.synchronize()
     assert ops.flash_decode.launches == before + 1
+    assert ops.flash_decode.last_splits == plan_for(q, kc)[0]
     _att_close(got, ref.flash_decode_ref(q, kc, vc, valid), dtype)
+
+
+@pytest.mark.parametrize("b,s,splits", [(32, 64, 1), (4, 128, 2),
+                                        (1, 32768, None)])
+def test_flash_decode_split_counts_and_bits_repeat(card, b, s, splits):
+    """One, two and many splits; the same inputs give the same bits twice
+    (the splits are merged in order, without atomics)."""
+    q, kc, vc, valid = _decode_inputs(card, b, s, 32, 8, 64, s - 3,
+                                      torch.bfloat16, torch.bfloat16)
+    got = ops.flash_decode(q, kc, vc, valid)
+    ran = ops.flash_decode.last_splits
+    again = ops.flash_decode(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    assert ran == splits if splits else ran > 8
+    assert torch.equal(got, again)
 
 
 def test_attention_kernels_refuse_tensors_that_need_grad(card):
