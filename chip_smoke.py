@@ -9,10 +9,15 @@ result line:
      sources, one nvcc per source, in parallel) into ``build/repro_torch/``;
   2. hold each kernel against its plain PyTorch version on the card, at
      the main path's shapes (Lloyd also with rows of only 2 of the 10
-     classes, as a client holds them, so 80 of 100 slots are masked) and
-     at ragged ones (quantize byte-exact; Lloyd
-     assign equal except at near-ties, sums/mindist/distances within
-     2e-3), and check that a Lloyd sweep gives the same bits twice;
+     classes, as a client holds them, so 80 of 100 slots are masked), at
+     ragged ones and at the edges of the K-means row plan (N below a
+     block's rows and one past whole blocks, K x D past the resident
+     budget, D wide enough for column chunks, K = 1, every row masked,
+     D % 4 != 0 off 16-byte bases; the kernel's shared-memory layout
+     checked against the plan's) (quantize byte-exact; Lloyd assign equal
+     except at near-ties, sums/mindist/distances within 2e-3), and check
+     that a Lloyd sweep gives the same bits twice and that its sums are,
+     bit for bit, the ascending-row f32 sum of its own assignment;
  2b. hold both attention kernels against their plain versions on the card
      (f32 within 2e-3, bf16 within 2e-2): llama3.2-1b's heads (H=32, KV=8,
      D=64) causal at S=1024 in bf16 and f32, ragged non-causal S=1000, a
@@ -46,11 +51,15 @@ result line:
      16 x (32 - 1 + 16) = 752 times, flash_attention 16; logits finite;
      then one prefill call and one decode step at those shapes under
      torch.profiler (device busy share, top kernels by device time);
-  5. time each kernel (CUDA events) beside its plain version, a library
-     call where one computes the same function, and its bound (the
-     attention kernels at phase 6's shapes, with their route, the decode
-     split count and the registers and spills per thread that ptxas
-     reported); time the phases of one client's round.
+  5. time each kernel beside its plain version, a library call where one
+     computes the same function, and its bound (the attention kernels at
+     phase 6's shapes, with their route, the decode split count and the
+     registers and spills per thread that ptxas reported). ``ms`` is the
+     wrapper call's time (CUDA events around back-to-back calls, so the
+     host's work between launches counts); for the selection and
+     transport kernels ``device_ms`` is the kernels' own device time per
+     call (torch.profiler, by kernel name, each launch also alone in
+     ``device_ms_by_launch``). Then time the phases of one client's round.
 It prints the kernels line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX or ``repro``.
 """
@@ -127,6 +136,7 @@ def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOPS):
 
 
 def main() -> None:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a GPU")
@@ -145,7 +155,10 @@ def main() -> None:
     from repro_torch.fl.simulation import FLSimulation
     from repro_torch.fl.transport.channel import Channel
     from repro_torch.fl.transport.codecs import get_codec
+    from repro_torch.device import sm_count
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.kmeans import plan_for_rows, plan_rows
+    from repro_torch.obs.device_time import kernel_device_ms
     from repro_torch.obs.timing import monotonic, sync
 
     dev = resolve_device("cuda")          # also turns TF32 off
@@ -190,27 +203,114 @@ def main() -> None:
     def rel_err(got, want):
         return float(((got - want).abs() / (1.0 + want.abs())).max())
 
-    for n, d, k in [(2500, 200, 10), (2500, 200, 100), (1037, 61, 7),
-                    (130, 1, 65), (64, 200, 64)]:
-        x, c = randn(n, d), randn(k, d)
+    def unaligned(*shape):
+        # contiguous, but its data 4 bytes past a 16-byte boundary: the
+        # K-means kernels take their 4-byte copy route
+        t = randn(math.prod(shape) + 1)[1:].view(*shape)
+        check(t.data_ptr() % 16 == 4, "unaligned view is aligned")
+        return t
+
+    klib = build.library("kmeans")
+    # the main path's shapes, ragged ones, then the redesign's edges: a
+    # block of one row each below one wave (3, 5), a last block of one row
+    # (2113 = 132 x 16 + 1), K x D past the resident budget (panel loop), D
+    # wide enough for column chunks, K = 1, and D % 4 != 0 off 16-byte
+    # bases
+    for n, d, k, odd in [(2500, 200, 10, False), (2500, 200, 100, False),
+                         (1037, 61, 7, False), (130, 1, 65, False),
+                         (64, 200, 64, False), (3, 200, 10, False),
+                         (5, 200, 10, False), (2113, 200, 100, False),
+                         (1000, 256, 300, False), (100, 16384, 10, False),
+                         (500, 200, 1, False), (1037, 61, 7, True),
+                         (2500, 198, 10, True)]:
+        x, c = (unaligned(n, d), unaligned(k, d)) if odd else \
+            (randn(n, d), randn(k, d))
         got = ops.kmeans_pairwise_dist(x, c)
         want = ref.kmeans_pairwise_dist_ref(x, c)
         e = rel_err(got, want)
         check(e <= TOL, f"pairwise dist {n}x{d}x{k}: rel err {e}")
         errs["kmeans_pairwise_dist"] = max(errs["kmeans_pairwise_dist"],
                                            float((got - want).abs().max()))
+    check(plan_rows(1000, 300, 256, sm_count(0)).panels > 1
+          and plan_rows(100, 10, 16384, sm_count(0)).chunks > 1,
+          "the panel and column-chunk cases no longer take those loops")
+    # N = 0: the pairwise wrapper launches nothing, a Lloyd sweep only its
+    # sums pass, which writes zeros
+    x0, c0 = randn(0, 200), randn(100, 200)
+    check(tuple(ops.kmeans_pairwise_dist(x0, c0).shape) == (0, 100),
+          "pairwise dist at N = 0: wrong shape")
+    a0, md0, s0, cnt0 = ops.kmeans_lloyd_step(
+        x0, c0, torch.empty(0, 100, device=dev))
+    check(a0.shape[0] == md0.shape[0] == 0 and tuple(s0.shape) == (100, 200)
+          and not bool(s0.any()) and not bool(cnt0.any()),
+          "Lloyd at N = 0: sums and counts are not zero")
 
-    for n, d, classes, kk, mrows, eslots, present in [
-            (2500, 200, 10, 10, 0, 0, None), (2500, 200, 10, 10, 0, 0, (3, 7)),
-            (777, 45, 7, 10, 20, 5, None), (100, 3, 2, 33, 10, 3, None)]:
-        x = randn(n, d)
-        c = randn(classes * kk, d)
+    def ascending_sums(x, a, lm):
+        # each cluster's weighted rows added one at a time in ascending row
+        # order from 0, in f32 on the CPU, from the kernel's own assign
+        xs, an = x.cpu().numpy(), a.cpu().numpy()
+        w = (torch.amin(lm, 1) <= 0).cpu().numpy()
+        sums = np.zeros((lm.shape[1], xs.shape[1]), np.float32)
+        for r in np.nonzero(w)[0]:
+            sums[an[r]] += xs[r]
+        return sums
+
+    # N below a block's rows (3 < 16) and one past them (17 = 16 + 1): the
+    # kernels at a 16-row plan that the planner would not pick for these N
+    stream = torch.cuda.current_stream().cuda_stream
+    for n in (3, 17):
+        x, c = randn(n, 200), randn(100, 200)
+        lm = label_mask(n, 10, 10, 1, 0, (3, 7))
+        plan = plan_for_rows(n, 100, 200, 16).kernel_args
+        out = torch.empty(n, 100, device=dev)
+        check(klib.repro_kmeans_pairwise_dist(
+            x.data_ptr(), c.data_ptr(), out.data_ptr(), n, 100, 200, *plan,
+            stream) == 0, f"pairwise dist, 16-row plan, N={n}: refused")
+        e = rel_err(out, ref.kmeans_pairwise_dist_ref(x, c))
+        check(e <= TOL, f"pairwise dist, 16-row plan, N={n}: rel err {e}")
+        a, md, mem = (torch.empty(n, dtype=torch.int32, device=dev),
+                      torch.empty(n, device=dev),
+                      torch.empty(n, dtype=torch.int32, device=dev))
+        s, cnt = torch.empty(100, 200, device=dev), torch.empty(100,
+                                                                device=dev)
+        check(klib.repro_kmeans_lloyd(
+            x.data_ptr(), c.data_ptr(), lm.data_ptr(), a.data_ptr(),
+            md.data_ptr(), mem.data_ptr(), s.data_ptr(), cnt.data_ptr(), n,
+            100, 200, *plan, stream) == 0,
+            f"Lloyd, 16-row plan, N={n}: refused")
+        ra, rmd, _, _ = ref.kmeans_lloyd_ref(x, c, lm)
+        dist = ref.kmeans_pairwise_dist_ref(x, c) + lm
+        diff = torch.nonzero(a != ra)[:, 0]
+        check(not len(diff) or rel_err(dist[diff, a[diff].long()],
+                                       dist[diff, ra[diff].long()]) <= TOL,
+              f"Lloyd, 16-row plan, N={n}: assignments off, not near-ties")
+        check(rel_err(md, rmd) <= TOL, f"Lloyd, 16-row plan, N={n}: mindist")
+        check(s.cpu().numpy().tobytes() == ascending_sums(x, a, lm).tobytes(),
+              f"Lloyd, 16-row plan, N={n}: sums are not the ascending-row "
+              f"f32 sum")
+
+    for n, d, classes, kk, mrows, eslots, present, odd in [
+            (2500, 200, 10, 10, 0, 0, None, False),
+            (2500, 200, 10, 10, 0, 0, (3, 7), False),
+            (777, 45, 7, 10, 20, 5, None, False),
+            (100, 3, 2, 33, 10, 3, None, False),
+            (3, 200, 10, 10, 0, 0, (3, 7), False),
+            (5, 200, 10, 10, 0, 0, (3, 7), False),
+            (2113, 200, 10, 10, 0, 0, (3, 7), False),
+            (1000, 256, 10, 30, 0, 0, None, False),
+            (500, 200, 1, 1, 0, 0, None, False),
+            (300, 200, 10, 10, 300, 0, (3, 7), False),
+            (1037, 61, 10, 10, 7, 0, (3, 7), True)]:
+        x = unaligned(n, d) if odd else randn(n, d)
+        c = unaligned(classes * kk, d) if odd else randn(classes * kk, d)
         lm = label_mask(n, classes, kk, mrows, eslots, present)
         a, md, s, cnt = ops.kmeans_lloyd_step(x, c, lm)
         a2, md2, s2, cnt2 = ops.kmeans_lloyd_step(x, c, lm)
         check(all(torch.equal(u, v) for u, v in
                   [(a, a2), (md, md2), (s, s2), (cnt, cnt2)]),
               f"Lloyd {n}x{d}: two sweeps on the same input differ")
+        check(s.cpu().numpy().tobytes() == ascending_sums(x, a, lm).tobytes(),
+              f"Lloyd {n}x{d}: sums are not the ascending-row f32 sum")
         ra, rmd, rs, rcnt = ref.kmeans_lloyd_ref(x, c, lm)
         dist = ref.kmeans_pairwise_dist_ref(x, c) + lm
         diff = torch.nonzero(a != ra)[:, 0]
@@ -412,7 +512,6 @@ def main() -> None:
         "m_com_acc": res.test_acc, "fedavg_acc": res.fedavg_acc}))
 
     # ---- 6. serve llama3.2-1b at full width ----------------------------
-    import numpy as np
     from repro_torch.launch import serve
     full = get_config("llama3.2-1b")
     torch.cuda.empty_cache()
@@ -518,7 +617,9 @@ def main() -> None:
 
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
-        """Mean ms of one call over ``iters`` back-to-back calls."""
+        """Mean ms of one call over ``iters`` back-to-back calls (CUDA
+        events: the wrapper call's time, host work between launches
+        included)."""
         for _ in range(warmup):
             fn()
         start = torch.cuda.Event(enable_timing=True)
@@ -562,25 +663,40 @@ def main() -> None:
          lambda: ref.quantize_affine_ref(qx, qm), None,
          bound(4 * vq * 16384 + 100 + 100 * 16384 + 8, 7 * vq * 16384)),
     ]
-    for k_name, src, tpu, kern, plain, lib, (b_ms, b_by) in spec:
-        ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain)
-        lib_ms = cuda_ms(lib) if lib is not None else None
-        row = {"name": k_name, "route": "cuda", "source": src,
-               "replaces": tpu, "launches": counting[k_name],
-               "max_abs_err": errs[k_name], "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        if k_name == "quantize_affine":
-            row["byte_exact"] = True
-        rows.append(row)
-
-    # registers and spills per thread of the instantiations timed below,
-    # from the -Xptxas -v report of phase 1's build
+    # registers and spills per thread of the timed instantiations, from
+    # the -Xptxas -v report of phase 1's build
     def ptxas(source, pattern):
         found = [u for fn, u in build.ptxas_usage(
             build.ptxas_logs.get(source, "")).items()
             if re.search(pattern, fn)]
         return found[0] if len(found) == 1 else None
+
+    # the CUDA launches of each wrapper, by kernel name (a Lloyd sweep and
+    # a quantize call are two launches each)
+    launch_names = {
+        "kmeans_pairwise_dist": ("kmeans", ("pairwise_dist_kernel",)),
+        "kmeans_lloyd_step": ("kmeans", ("lloyd_assign_kernel",
+                                         "lloyd_sums_kernel")),
+        "quantize_affine": ("quantize", ("minmax_kernel",
+                                         "quantize_kernel"))}
+    for k_name, src, tpu, kern, plain, lib, (b_ms, b_by) in spec:
+        ms = cuda_ms(kern)
+        by_launch = kernel_device_ms(kern, launch_names[k_name][1])
+        plain_ms = cuda_ms(plain)
+        lib_ms = cuda_ms(lib) if lib is not None else None
+        row = {"name": k_name, "route": "cuda", "source": src,
+               "replaces": tpu, "launches": counting[k_name],
+               "max_abs_err": errs[k_name], "ms": ms,
+               "device_ms": sum(by_launch.values()),
+               "device_ms_by_launch": by_launch, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "ptxas": {nm: ptxas(launch_names[k_name][0], nm)
+                         for nm in launch_names[k_name][1]}}
+        if k_name == "quantize_affine":
+            row["byte_exact"] = True
+        else:                            # the K-means row plan it ran
+            row["plan"] = getattr(ops, k_name).last_plan._asdict()
+        rows.append(row)
 
     # the attention kernels at phase 6's shapes (bf16): one prefill layer
     # (B=1, S=32768, H=32, KV=8, D=64, causal) and one decode layer of the

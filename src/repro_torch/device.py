@@ -6,6 +6,7 @@ request they raise: nothing falls back to the CPU silently.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -29,3 +30,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the kernels'
+    launch plans size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

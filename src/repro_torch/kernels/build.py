@@ -40,8 +40,10 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # when the library is loaded, so a launch does no ctypes set-up of its own
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "kmeans": {
-        "repro_kmeans_pairwise_dist": ([_P, _P, _P, _LL, _I, _I, _P], _I),
-        "repro_kmeans_lloyd": ([_P] * 8 + [_LL, _I, _I, _P], _I),
+        # ..., n, k, d, then the row plan (kernels/kmeans.py RowPlan), stream
+        "repro_kmeans_pairwise_dist": ([_P] * 3 + [_LL] + [_I] * 8 + [_P],
+                                       _I),
+        "repro_kmeans_lloyd": ([_P] * 8 + [_LL] + [_I] * 8 + [_P], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "quantize": {

@@ -15,12 +15,12 @@ allocated; launches on PyTorch's current stream and does not synchronize.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import Tuple
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,12 +52,6 @@ def plan_splits(s: int, bkv: int, sm_count: int, d: int) -> Tuple[int, int]:
     want = -(-WAVES * RESIDENT_BLOCKS * sm_count // bkv)
     per_tiles = max(1, tiles // want)      # rounds the split count up
     return -(-tiles // per_tiles), per_tiles * t
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def plan_for(q: torch.Tensor, k_cache: torch.Tensor) -> Tuple[int, int]:

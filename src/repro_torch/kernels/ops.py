@@ -59,9 +59,11 @@ def kmeans_pairwise_dist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
                          f"share a non-zero width, with K > 0")
     if not _on_card(x, "kmeans_pairwise_dist"):
         return ref.kmeans_pairwise_dist_ref(x, c)
-    from repro_torch.kernels.kmeans import launch_pairwise_dist
     out = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    launch_pairwise_dist(x, c, out)
+    if n == 0:                          # nothing to launch
+        return out
+    from repro_torch.kernels.kmeans import launch_pairwise_dist
+    kmeans_pairwise_dist.last_plan = launch_pairwise_dist(x, c, out)
     kmeans_pairwise_dist.launches += 1
     return out
 
@@ -86,10 +88,11 @@ def kmeans_lloyd_step(x: torch.Tensor, c: torch.Tensor, lmask: torch.Tensor):
     dev = x.device
     assign = torch.empty((n,), dtype=torch.int32, device=dev)
     mindist = torch.empty((n,), dtype=torch.float32, device=dev)
-    weight = torch.empty((n,), dtype=torch.int32, device=dev)
+    member = torch.empty((n,), dtype=torch.int32, device=dev)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
-    launch_lloyd(x, c, lmask, assign, mindist, weight, sums, counts)
+    kmeans_lloyd_step.last_plan = launch_lloyd(x, c, lmask, assign, mindist,
+                                               member, sums, counts)
     kmeans_lloyd_step.launches += 1
     return assign, mindist, sums, counts
 
@@ -214,6 +217,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 KERNELS = (kmeans_pairwise_dist, kmeans_lloyd_step, quantize_affine,
            flash_attention, flash_decode)
 flash_decode.last_splits = 0           # the split count of the last launch
+# the row plan (kernels/kmeans.py RowPlan) of the last launch
+kmeans_pairwise_dist.last_plan = kmeans_lloyd_step.last_plan = None
 
 
 def reset_launch_counts() -> None:

@@ -29,35 +29,126 @@ def card():
 
 
 def _rel(got, want):
+    if got.numel() == 0:                # N = 0: nothing to differ
+        assert got.shape == want.shape
+        return 0.0
     return float(((got - want).abs() / (1.0 + want.abs())).max())
 
 
-@pytest.mark.parametrize("n,d,k", [(2500, 200, 10), (2500, 200, 100),
-                                   (1, 1, 1), (130, 65, 67), (1037, 61, 7)])
-def test_pairwise_dist_kernel(card, n, d, k):
+def _misaligned(g, rows, cols, card):
+    """A contiguous (rows, cols) f32 tensor whose data starts 4 bytes past
+    a 16-byte boundary (no bulk copies: the kernel takes 4-byte ones)."""
+    buf = torch.randn(rows * cols + 1, generator=g).to(card)
+    t = buf[1:].view(rows, cols)
+    assert t.data_ptr() % 16 == 4 and t.is_contiguous()
+    return t
+
+
+# the main path's shapes, ragged ones, then the redesign's edges (the row
+# plan, kernels/kmeans.py plan_rows, is checked for each): one row past
+# whole blocks (2113 = 132 x 16 + 1), K x D past the resident budget (the
+# panel loop), D wide enough for column chunks too, K = 1, and N = 0
+# (nothing to launch)
+@pytest.mark.parametrize("n,d,k,panels,chunks", [
+    (2500, 200, 10, 1, 1), (2500, 200, 100, 1, 1), (1, 1, 1, 1, 1),
+    (130, 65, 67, 1, 1), (1037, 61, 7, 1, 1), (3, 200, 10, 1, 1),
+    (5, 200, 10, 1, 1), (2113, 200, 100, 1, 1), (1000, 256, 300, 4, 1),
+    (100, 16384, 10, 3, 3), (500, 200, 1, 1, 1), (0, 200, 10, 1, 1)])
+def test_pairwise_dist_kernel(card, n, d, k, panels, chunks):
+    from repro_torch.kernels.kmeans import plan_for
     g = torch.Generator().manual_seed(n + d + k)
     x = torch.randn(n, d, generator=g).to(card)
     c = torch.randn(k, d, generator=g).to(card)
+    plan = plan_for(x, c)
+    assert (plan.panels, plan.chunks) == (panels, chunks)
     before = ops.kmeans_pairwise_dist.launches
     got = ops.kmeans_pairwise_dist(x, c)
-    assert ops.kmeans_pairwise_dist.launches == before + 1
+    assert ops.kmeans_pairwise_dist.launches == before + (n > 0)
     assert _rel(got, ref.kmeans_pairwise_dist_ref(x, c)) <= TOL
 
 
-@pytest.mark.parametrize("n,d,classes,kk,masked,present", [
-    (2500, 200, 10, 10, 0, range(10)),
-    (2500, 200, 10, 10, 0, (3, 7)),     # a k_classes=2 client: 80 slots empty
-    (777, 45, 7, 10, 20, range(7)), (70, 3, 2, 33, 5, range(2))])
-def test_lloyd_kernel(card, n, d, classes, kk, masked, present):
+@pytest.mark.parametrize("n,d,k", [(1037, 61, 7), (130, 63, 100),
+                                   (2500, 198, 10)])
+def test_pairwise_dist_kernel_unaligned(card, n, d, k):
+    """D % 4 != 0 and bases off 16 bytes: the 4-byte copy route."""
+    g = torch.Generator().manual_seed(n + d)
+    x, c = _misaligned(g, n, d, card), _misaligned(g, k, d, card)
+    got = ops.kmeans_pairwise_dist(x, c)
+    assert _rel(got, ref.kmeans_pairwise_dist_ref(x, c)) <= TOL
+
+
+# the kernels take any plan that passes their check: N below a block's
+# rows (3 < 16), one row past a block (17 = 16 + 1), and at N = 2,500 the
+# 157 blocks of 16 rows, 313 of 8 and 79 of 32
+@pytest.mark.parametrize("n,rows", [(3, 16), (17, 16), (2500, 16),
+                                    (2500, 8), (2500, 32)])
+def test_kmeans_kernels_at_other_row_plans(card, n, rows):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.kmeans import plan_for_rows
+    lib = build.library("kmeans")
+    x, c, lm = _lloyd_inputs(card, n, 200, 10, 10, 3, (3, 7))
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(n, 10, device=card)
+    assert lib.repro_kmeans_pairwise_dist(
+        x.data_ptr(), c[:10].data_ptr(), out.data_ptr(), n, 10, 200,
+        *plan_for_rows(n, 10, 200, rows).kernel_args, stream) == 0
+    assert _rel(out, ref.kmeans_pairwise_dist_ref(x, c[:10])) <= TOL
+    a = torch.empty(n, dtype=torch.int32, device=card)
+    md, mem = torch.empty(n, device=card), torch.empty_like(a)
+    s, cnt = torch.empty(100, 200, device=card), torch.empty(100, device=card)
+    assert lib.repro_kmeans_lloyd(
+        x.data_ptr(), c.data_ptr(), lm.data_ptr(), a.data_ptr(),
+        md.data_ptr(), mem.data_ptr(), s.data_ptr(), cnt.data_ptr(), n, 100,
+        200, *plan_for_rows(n, 100, 200, rows).kernel_args, stream) == 0
+    ra, rmd, _, _ = ref.kmeans_lloyd_ref(x, c, lm)
+    dist = ref.kmeans_pairwise_dist_ref(x, c) + lm
+    diff = torch.nonzero(a != ra)[:, 0]
+    if len(diff):
+        assert _rel(dist[diff, a[diff].long()],
+                    dist[diff, ra[diff].long()]) <= TOL
+    assert _rel(md, rmd) <= TOL
+    want_s, want_cnt = _ascending_sums(x, a, lm)
+    assert s.cpu().numpy().tobytes() == want_s.tobytes()
+    assert cnt.cpu().numpy().tobytes() == want_cnt.tobytes()
+
+
+def _lloyd_inputs(card, n, d, classes, kk, masked, present, unaligned=False):
     g = torch.Generator().manual_seed(n)
-    x = torch.randn(n, d, generator=g).to(card)
-    c = torch.randn(classes * kk, d, generator=g).to(card)
+    if unaligned:
+        x = _misaligned(g, n, d, card)
+        c = _misaligned(g, classes * kk, d, card)
+    else:
+        x = torch.randn(n, d, generator=g).to(card)
+        c = torch.randn(classes * kk, d, generator=g).to(card)
     present = torch.tensor(list(present))
     labels = present[torch.randint(len(present), (n,), generator=g)]
     slot = torch.arange(classes * kk) // kk
     lm = torch.where(labels[:, None] == slot[None], 0.0, ref.BIG).float()
     lm[torch.randperm(n, generator=g)[:masked]] = ref.BIG
-    lm = lm.to(card)
+    return x, c, lm.to(card)
+
+
+# the main path's shapes (all classes; a k_classes=2 client, 80 slots
+# empty), ragged ones, then the redesign's edges: N below one block's rows
+# and one past whole blocks, K x D past the resident budget (the panel
+# loop), K = 1, every row masked, D % 4 != 0 off 16-byte bases, and N = 0
+# (the sums pass alone: zero sums and counts)
+@pytest.mark.parametrize("n,d,classes,kk,masked,present,unaligned", [
+    (2500, 200, 10, 10, 0, range(10), False),
+    (2500, 200, 10, 10, 0, (3, 7), False),
+    (777, 45, 7, 10, 20, range(7), False),
+    (70, 3, 2, 33, 5, range(2), False),
+    (3, 200, 10, 10, 0, (3, 7), False),
+    (5, 200, 10, 10, 0, (3, 7), False),
+    (2113, 200, 10, 10, 0, (3, 7), False),
+    (1000, 256, 10, 30, 0, range(10), False),
+    (500, 200, 1, 1, 0, range(1), False),
+    (300, 200, 10, 10, 300, (3, 7), False),
+    (1037, 61, 10, 10, 7, (3, 7), True),
+    (0, 200, 10, 10, 0, (3, 7), False)])
+def test_lloyd_kernel(card, n, d, classes, kk, masked, present, unaligned):
+    x, c, lm = _lloyd_inputs(card, n, d, classes, kk, masked, present,
+                             unaligned)
     out = ops.kmeans_lloyd_step(x, c, lm)
     again = ops.kmeans_lloyd_step(x, c, lm)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
@@ -74,6 +165,37 @@ def test_lloyd_kernel(card, n, d, classes, kk, masked, present):
         * w[:, None]
     assert torch.equal(cnt, oh.sum(0))
     assert _rel(s, oh.T @ x) <= TOL
+
+
+def _ascending_sums(x, assign, lm):
+    """Each cluster's sum of its weighted rows, added one row at a time in
+    ascending row order from 0, in f32 on the CPU; and the counts."""
+    xs, a = x.cpu().numpy(), assign.cpu().numpy()
+    w = (torch.amin(lm, 1) <= 0).cpu().numpy()
+    sums = np.zeros((lm.shape[1], xs.shape[1]), np.float32)
+    counts = np.zeros(lm.shape[1], np.float32)
+    for r in np.nonzero(w)[0]:
+        sums[a[r]] += xs[r]
+        counts[a[r]] += 1
+    return sums, counts
+
+
+@pytest.mark.parametrize("n,d,classes,kk,present", [
+    (2500, 200, 10, 10, (3, 7)), (2500, 200, 10, 10, range(10)),
+    (1000, 256, 10, 30, range(10))])
+def test_lloyd_sums_are_the_ascending_row_sum_bit_for_bit(
+        card, n, d, classes, kk, present):
+    """Two sweeps give the same bits, and their sums and counts are the
+    sequential f32 sum over each cluster's rows in ascending order, taken
+    on the CPU from the kernel's own assign."""
+    x, c, lm = _lloyd_inputs(card, n, d, classes, kk, 10, present)
+    a, md, s, cnt = ops.kmeans_lloyd_step(x, c, lm)
+    a2, md2, s2, cnt2 = ops.kmeans_lloyd_step(x, c, lm)
+    assert all(torch.equal(u, v) for u, v in
+               [(a, a2), (md, md2), (s, s2), (cnt, cnt2)])
+    want_s, want_cnt = _ascending_sums(x, a, lm)
+    assert s.cpu().numpy().tobytes() == want_s.tobytes()
+    assert cnt.cpu().numpy().tobytes() == want_cnt.tobytes()
 
 
 @pytest.mark.parametrize("n,d,case", [(100, 16384, "slots"),
