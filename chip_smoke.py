@@ -14,10 +14,18 @@ result line:
      block's rows and one past whole blocks, K x D past the resident
      budget, D wide enough for column chunks, K = 1, every row masked,
      D % 4 != 0 off 16-byte bases; the kernel's shared-memory layout
-     checked against the plan's) (quantize byte-exact; Lloyd assign equal
-     except at near-ties, sums/mindist/distances within 2e-3), and check
-     that a Lloyd sweep gives the same bits twice and that its sums are,
-     bit for bit, the ascending-row f32 sum of its own assignment;
+     checked against the plan's) (Lloyd assign equal except at near-ties,
+     sums/mindist/distances within 2e-3), and check that a Lloyd sweep
+     gives the same bits twice and that its sums are, bit for bit, the
+     ascending-row f32 sum of its own assignment; quantize byte-exact,
+     codes and (xmin, scale), against the plain version on the card and
+     on the CPU, one launch a call on the planned route: the main path's
+     slots at 80 and at 20 of 100 rows valid, ragged, all masked,
+     constant, NaN / +inf / -inf in a valid row, NaN in a masked row, a
+     zero minimum of both signs, -0.0 only in a masked row, a
+     payload past the resident budget (the L2 route), D % 4 != 0 off a
+     16-byte base, N = 1, N = 1037, N = 0, D = 0, and both routes equal
+     at one shape;
  2b. hold both attention kernels against their plain versions on the card
      (f32 within 2e-3, bf16 within 2e-2): llama3.2-1b's heads (H=32, KV=8,
      D=64) causal at S=1024 in bf16 and f32, ragged non-causal S=1000, a
@@ -36,12 +44,15 @@ result line:
  3b. a reduced llama3.2-1b in f32 on the card and on the CPU from the same
      parameters: one prefill of S=64 and 8 teacher-forced decode steps,
      logits within 2e-3;
+ 3c. two fresh ``FLSimulation`` runs of two rounds of the small WRN-10-1
+     from one seed: weights, ledger, decoded selections, accuracies and
+     Lloyd sweeps bit-identical;
   4. drive the main path: ``FLSimulation`` for 2 rounds at the full width
      of WRN-40-1 (32x32x3 inputs, split after group 1 -> 16x32x32 maps,
      D = 16384), 4 clients x 2,500 samples of 2 classes, P = 200, 10
      clusters per class, 25 Lloyd iterations, the int8 codec. Launch
      counters are zeroed just before and read just after; every kernel
-     must have launched;
+     must have launched, quantize once per upload (8);
   6. serve llama3.2-1b at full width (16 layers, d_model 2048, 32 heads /
      8 KV, d_ff 8192, vocab 128,256; random weights from seed 0) in bf16:
      ``repro_torch.launch.serve`` decodes batch 32 against a 32,768-slot
@@ -59,7 +70,9 @@ result line:
      host's work between launches counts); for the selection and
      transport kernels ``device_ms`` is the kernels' own device time per
      call (torch.profiler, by kernel name, each launch also alone in
-     ``device_ms_by_launch``). Then time the phases of one client's round.
+     ``device_ms_by_launch``; quantize at the main path's 20 of 100 valid
+     rows and, in ``by_mask``, also at 80, each with its own bound). Then
+     time the phases of one client's round.
 It prints the kernels line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX or ``repro``.
 """
@@ -338,23 +351,87 @@ def main() -> None:
         errs["kmeans_lloyd_step"] = max(errs["kmeans_lloyd_step"],
                                         float((md - rmd).abs().max()))
 
-    for n, d, case in [(100, 16384, "slots"), (37, 1001, "ragged"),
-                       (64, 300, "all-masked"), (50, 77, "constant")]:
+    # quantize: the main path's slots at phase 5's mask and at its own (20
+    # of 100 valid), ragged, every row masked, constant, NaN / +inf / -inf
+    # in a valid row and NaN in a masked one, a zero minimum of both signs
+    # (-0.0 below +0.0, as repro's min) and -0.0 only in a masked row, a
+    # payload past the resident budget (the L2 route), D % 4 != 0 off a
+    # 16-byte base, N = 1, more
+    # rows than one step of the mask walk, N = 0 and D = 0; codes
+    # and (xmin, scale) equal to the plain version on the card and on the
+    # CPU, bit for bit, each call one launch on the planned route
+    from repro_torch.kernels.quantize import launch_quantize_affine
+    from repro_torch.kernels.quantize import plan_for as quant_plan
+    non_finite = {"nan": math.nan, "pos_inf": math.inf,
+                  "neg_inf": -math.inf, "masked_nan": math.nan}
+
+    def quant_payload(case, n, d):
         x = randn(n, d)
         m = torch.rand(n, generator=g) < 0.8
-        if case == "all-masked":
+        if case == "all_masked":
             m[:] = False
-        if case == "constant":
+        elif case == "constant":
             x = torch.full((n, d), 0.37, device=dev)
-        m = m.to(dev)
+        elif case == "main_path":
+            m[:] = False
+            m[torch.randperm(n, generator=g)[:20]] = True
+        elif case in ("signed_zero", "masked_neg_zero"):
+            x = x.abs()
+            m[:] = True
+            m[1] = False
+            x[0, 0] = x[n - 1, d - 1] = 0.0
+            x[1 if case == "masked_neg_zero" else 2, 3] = -0.0
+        elif case in non_finite:
+            m[:] = True
+            m[1] = False
+            x[1 if case == "masked_nan" else 2, 3] = non_finite[case]
+        elif case == "odd":
+            x = unaligned(n, d)
+        return x, m.to(dev)
+
+    def quant_bytes(q, xmin, scale):
+        return (q.cpu().numpy().tobytes(),
+                torch.stack([xmin, scale]).cpu().numpy().tobytes())
+
+    for n, d, case, resident in [
+            (100, 16384, "slots", True), (100, 16384, "main_path", True),
+            (37, 1001, "ragged", True), (64, 300, "all_masked", True),
+            (50, 77, "constant", True), (100, 16384, "nan", True),
+            (100, 16384, "pos_inf", True), (37, 1001, "neg_inf", True),
+            (100, 16384, "masked_nan", True),
+            (100, 16384, "signed_zero", True), (37, 1001, "signed_zero", True),
+            (100, 16384, "masked_neg_zero", True),
+            (2000, 16384, "slots", False),
+            (37, 1001, "odd", True), (1, 1, "slots", True),
+            (1, 16384, "slots", True), (1037, 61, "ragged", True),
+            (0, 16384, "slots", True), (5, 0, "slots", True)]:
+        x, m = quant_payload(case, n, d)
+        before = ops.quantize_affine.launches
         q, xmin, scale = ops.quantize_affine(x, m)
-        rq, rxmin, rscale = ref.quantize_affine_ref(x, m)
-        cq, cxmin, cscale = ref.quantize_affine_ref(x.cpu(), m.cpu())
-        check(torch.equal(q, rq) and torch.equal(q.cpu(), cq),
-              f"quantize {case} {n}x{d}: int8 codes not byte-exact")
-        check(float(xmin) == float(rxmin) == float(cxmin)
-              and float(scale) == float(rscale) == float(cscale),
-              f"quantize {case}: (xmin, scale) not exact")
+        got = quant_bytes(q, xmin, scale)
+        check(ops.quantize_affine.launches == before + 1
+              and ops.quantize_affine.last_plan.resident == resident,
+              f"quantize {case} {n}x{d}: not one launch on the "
+              f"{'resident' if resident else 'L2'} route")
+        if case in ("signed_zero", "masked_neg_zero"):
+            check(bool(torch.signbit(xmin)) == (case == "signed_zero"),
+                  f"quantize {case} {n}x{d}: the minimum's zero sign")
+        check(got == quant_bytes(*ref.quantize_affine_ref(x, m)),
+              f"quantize {case} {n}x{d}: not byte-exact against the plain "
+              f"version on the card")
+        check(got == quant_bytes(*ref.quantize_affine_ref(x.cpu(),
+                                                          m.cpu())),
+              f"quantize {case} {n}x{d}: not byte-exact against the plain "
+              f"version on the CPU")
+        if n == 100 and case in ("slots", "main_path") or case == "odd":
+            # the other route at the same shape gives the same bytes
+            plan = quant_plan(x)._replace(smem_bytes=0, resident=False)
+            q2 = torch.empty(x.shape, dtype=torch.int8, device=dev)
+            scratch = torch.empty(2 + 2 * plan.grid, device=dev)
+            launch_quantize_affine(x, m, q2, scratch, plan)
+            check(quant_bytes(q2, scratch[0], scratch[1]) == got,
+                  f"quantize {case} {n}x{d}: the two routes differ")
+    del x, m
     print("kernel checks: passed")
 
     # ---- 2b. attention kernels vs plain versions on the card -----------
@@ -480,6 +557,32 @@ def main() -> None:
     print(f"reduced LM card vs cpu: prefill + 8 decode steps, max rel err "
           f"{max(lm_errs)}")
 
+    # ---- 3c. two runs of two small rounds, bit for bit -----------------
+    # fresh FLSimulations from one seed in this process (cuDNN pinned to
+    # deterministic algorithms by resolve_device): weights, ledger, the
+    # decoded selections, accuracies and Lloyd sweeps must be equal
+    runs = []
+    for _ in range(2):
+        dsim = FLSimulation(sm, scl, sds, scfg, seed=0, device=dev)
+        picked, upload = [], dsim.channel.upload_knowledge
+
+        def record(*args, _upload=upload, _picked=picked):
+            got = _upload(*args)
+            _picked.append([t.numpy().tobytes() for t in got])
+            return got
+
+        dsim.channel.upload_knowledge = record
+        dres = dsim.run(rounds=2)
+        runs.append(({k: v.cpu().numpy().tobytes()
+                      for k, v in dsim.server.global_params.items()},
+                     dres.comm, picked, dres.test_acc, dres.fedavg_acc,
+                     dres.metadata_counts, dres.lloyd_iters))
+    for what, a, b in zip(("weights", "ledger", "selections", "M_COM",
+                           "FedAvg", "|D_M|", "Lloyd sweeps"), *runs):
+        check(a == b, f"two runs of two small rounds: {what} differ")
+    print(f"two runs of two small rounds: bit-identical "
+          f"(Lloyd sweeps {runs[0][6]}, |D_M| {runs[0][5]})")
+
     # ---- 4. the main path at full WRN-40-1 width -----------------------
     wcfg = get_wrn_config()
     model = make_split_wrn(wcfg)
@@ -499,6 +602,9 @@ def main() -> None:
                    "quantize_affine"):
         check(launches[k_name] > 0,
               f"{k_name} was never launched on the main path")
+    # one int8 upload a client a round, one launch each
+    check(launches["quantize_affine"] == 4 * 2,
+          f"quantize launched {launches['quantize_affine']} times, not 8")
     for key, t in sim.server.global_params.items():
         check(bool(torch.isfinite(t).all()), f"W_G[{key}] not finite")
     check(all(0 < c <= 4 * 10 * 10 for c in res.metadata_counts),
@@ -636,11 +742,23 @@ def main() -> None:
     x = randn(n, p_)
     c_init, c_all = randn(kk, p_), randn(ck, p_)
     lm = label_mask(n, 10, kk)
+    # quantize at the main path's mask (2 of 10 classes: 20 of 100 slots
+    # valid) and at phase 5's earlier one (80 of 100)
     qx = randn(100, 16384)
-    qm = (torch.rand(100, generator=g) < 0.8).to(dev)
+    qmasks = {}
+    for valid_rows in (20, 80):
+        qm = torch.zeros(100, dtype=torch.bool)
+        qm[torch.randperm(100, generator=g)[:valid_rows]] = True
+        qmasks[valid_rows] = qm.to(dev)
+    qm = qmasks[20]
     counting = dict(launches)
     w_rows = int((torch.amin(lm, 1) <= 0).sum())
-    vq = int(qm.sum())
+
+    def quant_bound(valid_rows):
+        # the valid rows in, the mask in, every code and the params out
+        return bound(4 * valid_rows * 16384 + 100 + 100 * 16384 + 8,
+                     7 * valid_rows * 16384)
+
     rows = []
     spec = [
         ("kmeans_pairwise_dist", "src/repro_torch/kernels/csrc/kmeans.cu",
@@ -660,8 +778,7 @@ def main() -> None:
         ("quantize_affine", "src/repro_torch/kernels/csrc/quantize.cu",
          "src/repro/kernels/quantize.py:81",
          lambda: ops.quantize_affine(qx, qm),
-         lambda: ref.quantize_affine_ref(qx, qm), None,
-         bound(4 * vq * 16384 + 100 + 100 * 16384 + 8, 7 * vq * 16384)),
+         lambda: ref.quantize_affine_ref(qx, qm), None, quant_bound(20)),
     ]
     # registers and spills per thread of the timed instantiations, from
     # the -Xptxas -v report of phase 1's build
@@ -671,14 +788,17 @@ def main() -> None:
             if re.search(pattern, fn)]
         return found[0] if len(found) == 1 else None
 
-    # the CUDA launches of each wrapper, by kernel name (a Lloyd sweep and
-    # a quantize call are two launches each)
+    # the CUDA launches of each wrapper, by kernel name (a Lloyd sweep is
+    # two launches)
     launch_names = {
         "kmeans_pairwise_dist": ("kmeans", ("pairwise_dist_kernel",)),
         "kmeans_lloyd_step": ("kmeans", ("lloyd_assign_kernel",
                                          "lloyd_sums_kernel")),
-        "quantize_affine": ("quantize", ("minmax_kernel",
-                                         "quantize_kernel"))}
+        "quantize_affine": ("quantize", ("quantize_affine_kernel",))}
+    # the quantize kernel's two instantiations, one a route
+    ptxas_patterns = {"quantize_affine": {
+        "resident": r"quantize_affine_kernelILb1E",
+        "l2": r"quantize_affine_kernelILb0E"}}
     for k_name, src, tpu, kern, plain, lib, (b_ms, b_by) in spec:
         ms = cuda_ms(kern)
         by_launch = kernel_device_ms(kern, launch_names[k_name][1])
@@ -690,10 +810,24 @@ def main() -> None:
                "device_ms": sum(by_launch.values()),
                "device_ms_by_launch": by_launch, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-               "ptxas": {nm: ptxas(launch_names[k_name][0], nm)
-                         for nm in launch_names[k_name][1]}}
+               "ptxas": {nm: ptxas(launch_names[k_name][0], pattern)
+                         for nm, pattern in ptxas_patterns.get(
+                             k_name, {nm: nm for nm in
+                                      launch_names[k_name][1]}).items()}}
         if k_name == "quantize_affine":
             row["byte_exact"] = True
+            row["plan"] = ops.quantize_affine.last_plan._asdict()
+            row["by_mask"] = {}
+            for valid_rows, qmv in qmasks.items():
+                def qcall(qmv=qmv):
+                    return ops.quantize_affine(qx, qmv)
+                q_ms = kernel_device_ms(qcall, ("quantize_affine_kernel",))
+                qb_ms, qb_by = quant_bound(valid_rows)
+                row["by_mask"][f"{valid_rows}_of_100_valid"] = {
+                    "device_ms": q_ms["quantize_affine_kernel"],
+                    "ms": cuda_ms(qcall), "bound_ms": qb_ms,
+                    "bound_by": qb_by, "plain_ms": cuda_ms(
+                        lambda qmv=qmv: ref.quantize_affine_ref(qx, qmv))}
         else:                            # the K-means row plan it ran
             row["plan"] = getattr(ops, k_name).last_plan._asdict()
         rows.append(row)

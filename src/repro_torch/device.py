@@ -17,7 +17,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     """``None`` -> ``cuda`` (raises without CUDA); otherwise the device
     asked for. On a CUDA device this also turns TF32 off for cuDNN
     convolutions and float32 matmuls (and keeps matmul precision at
-    "highest"), so the port computes in full f32 like the reference."""
+    "highest"), so the port computes in full f32 like the reference, and
+    pins cuDNN to deterministic algorithms without autotuning, so a run
+    gives the same bits every time, as the reference's contracts ask."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -27,6 +29,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -117,13 +117,18 @@ class Int8Codec(TensorCodec):
     def encode(self, x, valid):
         """Quantize the (N, D) tensor on its own device (the CUDA kernel on
         the card) -> valid rows as int8 levels + 8 param bytes ``<ff``
-        (xmin, scale)."""
+        (xmin, scale), the f32 bits as the kernel wrote them. The valid
+        rows are taken by index (known here, on the host), and codes and
+        params come to the host in one copy."""
         x2 = x.detach().to(torch.float32).contiguous()
-        m = torch.as_tensor(np.ascontiguousarray(valid, bool),
-                            device=x2.device)
+        rows = torch.as_tensor(np.flatnonzero(valid), device=x2.device)
+        m = torch.zeros(x2.shape[0], dtype=torch.bool,
+                        device=x2.device).index_fill_(0, rows, True)
         q, xmin, scale = ops.quantize_affine(x2, m)
-        params = struct.pack("<ff", float(xmin), float(scale))
-        return q[m].cpu().numpy().tobytes(), params
+        params = torch.stack([xmin, scale]).view(torch.int8)
+        host = torch.cat([q.index_select(0, rows).reshape(-1),
+                          params]).cpu().numpy()
+        return host[:-8].tobytes(), host[-8:].tobytes()
 
     def decode(self, payload, nvalid, d, params):
         """int8 levels + ``<ff`` params -> (nvalid, d) f32,

@@ -47,8 +47,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "quantize": {
-        "repro_quantize_affine": ([_P] * 5 + [_LL, _LL, _P], _I),
-        "repro_quantize_max_parts": ([], _I),
+        # x, mask, q, scratch, n, d, then the plan (kernels/quantize.py
+        # QuantizePlan: grid, smem bytes, resident), stream
+        "repro_quantize_affine": ([_P] * 4 + [_I] * 5 + [_P], _I),
+        "repro_quantize_blocks_per_sm": ([_I, _I], _I),
+        "repro_quantize_max_smem": ([], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {

@@ -17,7 +17,7 @@
 // floor: every SM busy from the start, no serial stage on the critical
 // path. No tensor cores: f32 must track the plain version to 2e-3, which
 // TF32 does not, and 3xTF32 would buy nothing under a flop bound that is
-// already below one launch. Measured by tools/kmeans_device_time.py on an
+// already below one launch. Measured by tools/kernel_device_time.py on an
 // H100 80GB HBM3 at 700 W, at those shapes with two classes present: the
 // pairwise kernel 5.2 us of device time, a Lloyd sweep 10.6 us (assign)
 // + 10.2 us (sums), against 14.9 and 46.2 + 211.4 us for the first

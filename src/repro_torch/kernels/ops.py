@@ -108,16 +108,16 @@ def quantize_affine(x: torch.Tensor, rowmask: torch.Tensor):
         raise ValueError(f"rowmask has {rowmask.shape[0]} rows, x has {n}")
     if not _on_card(x, "quantize_affine"):
         return ref.quantize_affine_ref(x, rowmask)
-    from repro_torch.kernels.quantize import (launch_quantize_affine,
-                                              max_partials)
-    dev = x.device
-    q = torch.empty((n, d), dtype=torch.int8, device=dev)
-    params = torch.empty((2,), dtype=torch.float32, device=dev)
-    partials = torch.empty((2 * max_partials(),), dtype=torch.float32,
-                           device=dev)
-    launch_quantize_affine(x, rowmask, q, params, partials)
+    from repro_torch.kernels.quantize import launch_quantize_affine, plan_for
+    plan = plan_for(x)
+    q = torch.empty((n, d), dtype=torch.int8, device=x.device)
+    # (xmin, scale), then each block's (min, max) partial
+    scratch = torch.empty((2 + 2 * plan.grid,), dtype=torch.float32,
+                          device=x.device)
+    launch_quantize_affine(x, rowmask, q, scratch, plan)
+    quantize_affine.last_plan = plan
     quantize_affine.launches += 1
-    return q, params[0], params[1]
+    return q, scratch[0], scratch[1]
 
 
 ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
@@ -217,8 +217,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 KERNELS = (kmeans_pairwise_dist, kmeans_lloyd_step, quantize_affine,
            flash_attention, flash_decode)
 flash_decode.last_splits = 0           # the split count of the last launch
-# the row plan (kernels/kmeans.py RowPlan) of the last launch
+# the plan (kernels/kmeans.py RowPlan, kernels/quantize.py QuantizePlan)
+# of the last launch
 kmeans_pairwise_dist.last_plan = kmeans_lloyd_step.last_plan = None
+quantize_affine.last_plan = None
 
 
 def reset_launch_counts() -> None:

@@ -66,10 +66,16 @@ def quantize_affine_ref(x: torch.Tensor, rowmask: torch.Tensor):
     ``x_hat = (q + 128) * scale + xmin``. Every step is elementwise f32 or
     an exact min/max, and ``torch.round`` rounds half to even, so the
     result is byte-exact against ``repro.kernels.ref.quantize_affine_ref``.
+    A zero minimum is -0.0 where a valid -0.0 is present, as XLA's min
+    orders -0.0 below +0.0; ``torch.amin`` returns either zero of a tie.
     """
     valid = rowmask.to(torch.bool)[:, None]
     big = torch.tensor(BIG, dtype=torch.float32, device=x.device)
     xmin_raw = torch.amin(torch.where(valid, x, big)) if x.numel() else big
+    neg_zero = (valid & (x == 0) & torch.signbit(x)).any()
+    xmin_raw = torch.where(xmin_raw == 0,
+                           torch.where(neg_zero, -0.0, 0.0).to(xmin_raw),
+                           xmin_raw)
     xmax_raw = torch.amax(torch.where(valid, x, -big)) if x.numel() else -big
     xmin, scale = affine_params_from_minmax(xmin_raw, xmax_raw)
     inv = torch.reciprocal(scale)

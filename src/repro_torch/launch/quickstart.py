@@ -2,11 +2,13 @@
 selection, end to end — the twin of ``examples/quickstart.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.quickstart [--device cpu]
+      [--codec {raw_f32,f16,int8}]
 
 Runs on the CUDA device unless ``--device cpu`` is given (and fails if
 there is none). Same data, model size and FL knobs as the reference's
 quickstart: a WRN-10-1 at 16x16, 4 non-IID clients of 250 samples from 2
-classes each, 3 rounds, the int8 codec.
+classes each, 3 rounds, the raw_f32 codec (the FLConfig default);
+``--codec`` picks another wire codec.
 """
 from __future__ import annotations
 
@@ -18,11 +20,20 @@ from repro_torch.data import SyntheticImageDataset, partition_k_shards
 from repro_torch.fl.simulation import FLSimulation
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The quickstart's command line."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--codec", default="raw_f32",
+                    choices=("raw_f32", "f16", "int8"),
+                    help="wire codec of the knowledge upload")
+    return ap.parse_args(argv)
+
+
+def make_simulation(args: argparse.Namespace) -> FLSimulation:
+    """The reference quickstart's model, clients and FL knobs, on
+    ``args.device`` with ``args.codec`` on the wire."""
     cfg = get_wrn_config().reduced()
     model = make_split_wrn(cfg)
     print(f"model: {cfg.name}, split after group {cfg.split_group}")
@@ -38,9 +49,13 @@ def main(argv=None):
                      local_batch_size=50, local_lr=0.05,
                      pca_components=24, clusters_per_class=4,
                      meta_epochs=40, meta_batch_size=8, meta_lr=0.05,
-                     transport_codec="int8")
-    sim = FLSimulation(model, clients, test, flcfg, seed=0,
-                       device=args.device)
+                     transport_codec=args.codec)
+    return FLSimulation(model, clients, test, flcfg, seed=0,
+                        device=args.device)
+
+
+def main(argv=None):
+    sim = make_simulation(parse_args(argv))
     print(f"device: {sim.device}")
     res = sim.run(rounds=3, eval_every=1, verbose=True)
     frac = res.metadata_counts[-1] / res.comm["total_samples"]

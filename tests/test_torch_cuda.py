@@ -6,7 +6,9 @@ machine with a GPU:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Levels as in chip_smoke.py: quantize byte-exact; Lloyd bit-identical from
+Levels as in chip_smoke.py: quantize byte-exact (non-finite payloads
+included) against the plain version on the card and on the CPU; two FL
+runs of two rounds bit-identical; Lloyd bit-identical from
 run to run, ``assign`` equal except at near-ties, sums/mindist/distances
 within 2e-3; the attention kernels within 2e-3 (f32) and 2e-2 (bf16) of
 their plain versions on the same inputs (``tests/test_kernels.py:156``).
@@ -198,22 +200,145 @@ def test_lloyd_sums_are_the_ascending_row_sum_bit_for_bit(
     assert cnt.cpu().numpy().tobytes() == want_cnt.tobytes()
 
 
-@pytest.mark.parametrize("n,d,case", [(100, 16384, "slots"),
-                                      (37, 1001, "ragged"),
-                                      (64, 300, "all_masked"),
-                                      (50, 77, "constant")])
-def test_quantize_kernel_byte_exact(card, n, d, case):
-    r = np.random.default_rng(n)
+NON_FINITE = {"nan": np.nan, "pos_inf": np.inf, "neg_inf": -np.inf,
+              "masked_nan": np.nan}
+
+
+def _quant_payload(case, n, d, card):
+    """(x, mask) on the card for one quantize case: 80% of the rows valid
+    unless the case says otherwise; ``odd`` lies 4 bytes off 16."""
+    r = np.random.default_rng(n + d)
     x = torch.from_numpy(r.normal(size=(n, d)).astype(np.float32))
     m = torch.from_numpy(r.random(n) < 0.8)
     if case == "all_masked":
         m[:] = False
-    if case == "constant":
+    elif case == "constant":
         x[:] = 0.37
-    q, xmin, scale = ops.quantize_affine(x.to(card), m.to(card))
-    cq, cxmin, cscale = ref.quantize_affine_ref(x, m)
-    assert q.cpu().numpy().tobytes() == cq.numpy().tobytes()
-    assert float(xmin) == float(cxmin) and float(scale) == float(cscale)
+    elif case == "main_path":            # 2 of 10 classes: 20 of 100 slots
+        m[:] = False
+        m[torch.from_numpy(r.permutation(n)[:20])] = True
+    elif case in ("signed_zero", "masked_neg_zero"):
+        # the minimum is a zero: +0.0 in rows 0 and n-1 and -0.0 in row 2
+        # (a zero of each sign, in different blocks), or -0.0 only in the
+        # masked row 1
+        x = x.abs()
+        m[:] = True
+        m[1] = False
+        x[0, 0] = x[n - 1, d - 1] = 0.0
+        x[1 if case == "masked_neg_zero" else 2, 3] = -0.0
+    elif case in NON_FINITE:
+        m[:] = True
+        m[1] = False
+        x[1 if case == "masked_nan" else 2, 3] = float(NON_FINITE[case])
+    x = x.to(card)
+    if case == "odd":
+        buf = torch.empty(n * d + 1, device=card)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(n, d)
+        assert x.data_ptr() % 16 == 4
+    return x, m.to(card)
+
+
+# the main path's slots at phase 5's mask and at its own (20 of 100),
+# ragged, every row masked, constant, NaN / +inf / -inf in a valid row and
+# NaN in a masked one, a zero minimum of both signs and -0.0 only in a
+# masked row, a payload past the resident budget (the L2 route),
+# D % 4 != 0 off a 16-byte base, N = 1, more rows than one step of the
+# kernel's mask walk (256), and the empty payloads N = 0 and D = 0
+@pytest.mark.parametrize("n,d,case,resident", [
+    (100, 16384, "slots", True), (100, 16384, "main_path", True),
+    (37, 1001, "ragged", True), (64, 300, "all_masked", True),
+    (50, 77, "constant", True), (100, 16384, "nan", True),
+    (100, 16384, "pos_inf", True), (37, 1001, "neg_inf", True),
+    (100, 16384, "masked_nan", True), (100, 16384, "signed_zero", True),
+    (37, 1001, "signed_zero", True), (100, 16384, "masked_neg_zero", True),
+    (2000, 16384, "slots", False),
+    (37, 1001, "odd", True), (1, 1, "slots", True),
+    (1, 16384, "slots", True), (1037, 61, "ragged", True),
+    (0, 16384, "slots", True), (5, 0, "slots", True)])
+def test_quantize_kernel_byte_exact(card, n, d, case, resident):
+    """Codes and (xmin, scale) equal, bit for bit, to the plain version on
+    the card and on the CPU; one launch a call, on the planned route."""
+    x, m = _quant_payload(case, n, d, card)
+    before = ops.quantize_affine.launches
+    q, xmin, scale = ops.quantize_affine(x, m)
+    assert ops.quantize_affine.launches == before + 1
+    assert ops.quantize_affine.last_plan.resident == resident
+    if case in ("signed_zero", "masked_neg_zero"):
+        assert bool(torch.signbit(xmin)) == (case == "signed_zero")
+    want = [ref.quantize_affine_ref(x, m),
+            ref.quantize_affine_ref(x.cpu(), m.cpu())]
+    for wq, wxmin, wscale in want:
+        assert q.cpu().numpy().tobytes() == wq.cpu().numpy().tobytes()
+        assert xmin.cpu().numpy().tobytes() == wxmin.cpu().numpy().tobytes()
+        assert (scale.cpu().numpy().tobytes()
+                == wscale.cpu().numpy().tobytes())
+
+
+@pytest.mark.parametrize("case", ["slots", "main_path", "odd"])
+def test_quantize_kernel_routes_agree(card, case):
+    """The resident and the L2 route give the same bytes at one shape."""
+    from repro_torch.kernels.quantize import launch_quantize_affine, plan_for
+    x, m = _quant_payload(case, 100, 16384 if case != "odd" else 1001, card)
+    out = []
+    resident = plan_for(x)
+    assert resident.resident
+    for plan in (resident, resident._replace(smem_bytes=0, resident=False)):
+        q = torch.empty(x.shape, dtype=torch.int8, device=card)
+        scratch = torch.empty(2 + 2 * plan.grid, device=card)
+        launch_quantize_affine(x, m, q, scratch, plan)
+        out.append((q.cpu().numpy().tobytes(),
+                    scratch[:2].cpu().numpy().tobytes()))
+    wq, wxmin, wscale = ref.quantize_affine_ref(x.cpu(), m.cpu())
+    assert out[0] == out[1] == (wq.numpy().tobytes(), torch.stack(
+        [wxmin, wscale]).numpy().tobytes())
+
+
+def _fl_run_twice(card):
+    """Two fresh FLSimulations of two rounds of the small WRN-10-1 from one
+    seed, in one process: (global weights, ledger, selections, accuracies,
+    metadata counts, Lloyd sweeps) of each."""
+    from repro_torch.configs import FLConfig, get_wrn_config
+    from repro_torch.core.split import make_split_wrn
+    from repro_torch.data import SyntheticImageDataset, partition_k_shards
+    from repro_torch.fl.simulation import FLSimulation
+    cfg = get_wrn_config().reduced()
+    ds = SyntheticImageDataset(400, image_size=cfg.image_size,
+                               modes_per_class=3, seed=3)
+    test = SyntheticImageDataset(100, image_size=cfg.image_size, seed=4)
+    clients = partition_k_shards(ds, num_clients=2, k_classes=2,
+                                 samples_per_client=100, seed=3)
+    fl = FLConfig(num_clients=2, clients_per_round=2, local_batch_size=25,
+                  pca_components=16, clusters_per_class=4, kmeans_iters=10,
+                  meta_epochs=2, meta_batch_size=8, transport_codec="int8")
+    runs = []
+    for _ in range(2):
+        sim = FLSimulation(make_split_wrn(cfg), clients, test, fl, seed=0,
+                           device=card)
+        picked, upload = [], sim.channel.upload_knowledge
+
+        def record(*args, _upload=upload, _picked=picked):
+            got = _upload(*args)
+            _picked.append([t.numpy().tobytes() for t in got])
+            return got
+
+        sim.channel.upload_knowledge = record
+        res = sim.run(rounds=2)
+        runs.append(({k: v.cpu().numpy().tobytes()
+                      for k, v in sim.server.global_params.items()},
+                     res.comm, picked, res.test_acc, res.fedavg_acc,
+                     res.metadata_counts, res.lloyd_iters))
+    return runs
+
+
+def test_fl_rounds_are_bit_reproducible_on_the_card(card):
+    """Weights, ledger bytes, the decoded selections, accuracies and Lloyd
+    sweeps of two runs of two rounds are equal, bit for bit."""
+    first, second = _fl_run_twice(card)
+    for name, a, b in zip(("weights", "ledger", "selections", "M_COM",
+                           "FedAvg", "|D_M|", "Lloyd sweeps"),
+                          first, second):
+        assert a == b, f"{name} differ between two runs"
 
 
 ATT_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}

@@ -9,7 +9,7 @@ PyTorch versions. Levels:
   * Lloyd: ``assign`` exact on tie-free draws, ``sums``/``mindist``
     rtol 1e-5 / atol 1e-4 (as tests/test_kernels.py), counts exact;
   * quantize: byte-exact, (xmin, scale) exact, incl. the all-masked and
-    constant cases.
+    constant cases and NaN / +inf / -inf payloads.
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -124,13 +124,34 @@ def _quant_case(case, n, d, seed):
     elif case == "one_row":
         m[:] = False
         m[n // 2] = True
+    elif case in ("signed_zero", "masked_neg_zero"):
+        # the valid rows' minimum is a zero: with both signs among the
+        # valid rows (-0.0 after +0.0 in row order), or -0.0 only in a
+        # masked row, where it must not reach the statistics
+        x = np.abs(x)
+        m[:] = True
+        m[1] = False
+        x[0, 0] = x[n - 1, d - 1] = 0.0
+        x[1 if case == "masked_neg_zero" else 2, 3] = -0.0
+    elif case in NON_FINITE:
+        # one non-finite value in a valid row (or, for masked_nan, in a
+        # masked row, where it must not reach the statistics)
+        m[:] = True
+        m[1] = False
+        x[1 if case == "masked_nan" else 2, 3] = NON_FINITE[case]
     return x, m
+
+
+NON_FINITE = {"nan": np.nan, "pos_inf": np.inf, "neg_inf": -np.inf,
+              "masked_nan": np.nan}
 
 
 @pytest.mark.parametrize("case,n,d", [
     ("random", 100, 1024), ("random", 37, 61), ("all_masked", 20, 9),
     ("constant", 16, 33), ("half_levels", 8, 130), ("one_row", 11, 50),
-    ("random", 1, 1)])
+    ("random", 1, 1), ("nan", 6, 10), ("pos_inf", 6, 10),
+    ("neg_inf", 37, 61), ("masked_nan", 6, 10), ("signed_zero", 6, 10),
+    ("signed_zero", 37, 61), ("masked_neg_zero", 6, 10)])
 def test_quantize_byte_exact(case, n, d):
     x, m = _quant_case(case, n, d, n * d)
     q, xmin, scale = ops.quantize_affine(torch.from_numpy(x),
@@ -148,15 +169,29 @@ def test_quantize_byte_exact(case, n, d):
         assert float(scale) == 1.0
         xhat = ref.dequantize_affine_ref(q, xmin, scale).numpy()
         assert (xhat[m] == np.float32(-0.731)).all()
+    if case == "nan":           # NaN min/max: the empty selection's params
+        assert float(xmin) == 0.0 and float(scale) == 1.0
+        assert q[2, 3] == 0     # a code computed from NaN is 0
+    if case in ("signed_zero", "masked_neg_zero"):
+        assert bool(torch.signbit(xmin)) == (case == "signed_zero")
+    if case == "masked_nan":    # the masked row's NaN reaches nothing
+        fin, fm = x.copy(), m.copy()
+        fin[1, 3] = 0.0
+        fq, fxmin, fscale = ops.quantize_affine(torch.from_numpy(fin),
+                                                torch.from_numpy(fm))
+        assert float(xmin) == float(fxmin) and float(scale) == float(fscale)
+        assert q.numpy().tobytes() == fq.numpy().tobytes()
 
 
-def test_quantize_matches_pallas_interpret_kernel():
-    x, m = _quant_case("random", 70, 300, 11)
+@pytest.mark.parametrize("case", ["random", "nan", "signed_zero"])
+def test_quantize_matches_pallas_interpret_kernel(case):
+    x, m = _quant_case(case, 70, 300, 11)
     q, xmin, scale = ops.quantize_affine(torch.from_numpy(x),
                                          torch.from_numpy(m))
     wq, wxmin, wscale = jops.quantize_affine(jnp.asarray(x), jnp.asarray(m))
     assert q.numpy().tobytes() == np.asarray(wq).tobytes()
-    assert float(xmin) == float(wxmin) and float(scale) == float(wscale)
+    assert np.float32(xmin).tobytes() == np.float32(wxmin).tobytes()
+    assert np.float32(scale).tobytes() == np.float32(wscale).tobytes()
 
 
 def test_dequantize_matches_reference():
