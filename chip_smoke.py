@@ -25,7 +25,11 @@ result line:
      zero minimum of both signs, -0.0 only in a masked row, a
      payload past the resident budget (the L2 route), D % 4 != 0 off a
      16-byte base, N = 1, N = 1037, N = 0, D = 0, and both routes equal
-     at one shape;
+     at one shape; the cohort entry (``quantize_affine_batched``), one
+     launch a call, byte-exact per client against the plain version on
+     the card and on the CPU: the main path's cohort (4 x 100 x 16384, 20
+     of 100 rows valid each), mixed masks (a client all masked, one with
+     NaN), B = 1, and more clients than SMs at a small D (the L2 route);
  2b. hold both attention kernels against their plain versions on the card
      (f32 within 2e-3, bf16 within 2e-2): llama3.2-1b's heads (H=32, KV=8,
      D=64) causal at S=1024 in bf16 and f32, ragged non-causal S=1000, a
@@ -47,12 +51,21 @@ result line:
  3c. two fresh ``FLSimulation`` runs of two rounds of the small WRN-10-1
      from one seed: weights, ledger, decoded selections, accuracies and
      Lloyd sweeps bit-identical;
+ 3d. the cohort engine against the client-by-client loop on the card: two
+     rounds of the small WRN-10-1 (4 clients), then both again under a
+     ``FaultPlan`` with crashes, bit flips, truncations and duplicates
+     (checksums on): weights, ledger, decoded selections, accuracies and
+     fault log bit-identical;
   4. drive the main path: ``FLSimulation`` for 2 rounds at the full width
      of WRN-40-1 (32x32x3 inputs, split after group 1 -> 16x32x32 maps,
      D = 16384), 4 clients x 2,500 samples of 2 classes, P = 200, 10
      clusters per class, 25 Lloyd iterations, the int8 codec. Launch
      counters are zeroed just before and read just after; every kernel
      must have launched, quantize once per upload (8);
+ 4b. the same run with ``distributed_selection=True`` (the cohort engine):
+     weights, ledger, metadata counts, Lloyd sweeps and accuracies
+     bit-identical to phase 4's; the cohort quantize launched once a round
+     (2) and the per-client quantize never;
   6. serve llama3.2-1b at full width (16 layers, d_model 2048, 32 heads /
      8 KV, d_ff 8192, vocab 128,256; random weights from seed 0) in bf16:
      ``repro_torch.launch.serve`` decodes batch 32 against a 32,768-slot
@@ -71,8 +84,11 @@ result line:
      transport kernels ``device_ms`` is the kernels' own device time per
      call (torch.profiler, by kernel name, each launch also alone in
      ``device_ms_by_launch``; quantize at the main path's 20 of 100 valid
-     rows and, in ``by_mask``, also at 80, each with its own bound). Then
-     time the phases of one client's round.
+     rows and, in ``by_mask``, also at 80, each with its own bound; the
+     cohort quantize at the main path's cohort). Then time the phases of
+     one client's round (LocalUpdate eager and captured, with the device
+     busy share of a captured one) and the client side of a full-width
+     round on the cohort engine and on the client-by-client loop.
 It prints the kernels line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX or ``repro``.
 """
@@ -157,7 +173,9 @@ def main() -> None:
     from repro_torch.configs import FLConfig, get_wrn_config
     from repro_torch.core import selection as sel_mod
     from repro_torch.core.rounds import (GeneratorDraws, client_round,
-                                         local_batches, run_round)
+                                         local_batches, local_order,
+                                         run_cohort, run_round)
+    from repro_torch.core import distributed as dist
     from repro_torch.core import fedavg as fa
     from repro_torch.core import meta_training as mt
     from repro_torch.core.compose import evaluate
@@ -210,8 +228,8 @@ def main() -> None:
         return lm.to(torch.float32).to(dev)
 
     errs = {"kmeans_pairwise_dist": 0.0, "kmeans_lloyd_step": 0.0,
-            "quantize_affine": 0.0, "flash_attention": 0.0,
-            "flash_decode": 0.0}
+            "quantize_affine": 0.0, "quantize_affine_batched": 0.0,
+            "flash_attention": 0.0, "flash_decode": 0.0}
 
     def rel_err(got, want):
         return float(((got - want).abs() / (1.0 + want.abs())).max())
@@ -431,6 +449,35 @@ def main() -> None:
             launch_quantize_affine(x, m, q2, scratch, plan)
             check(quant_bytes(q2, scratch[0], scratch[1]) == got,
                   f"quantize {case} {n}x{d}: the two routes differ")
+    # the cohort entry: each client's codes and (xmin, scale) against the
+    # plain version on the card and on the CPU, one launch a call
+    def cohort_payload(case, b, n, d):
+        xs, ms = [], []
+        for i in range(b):
+            c = case if case != "mixed" else {1: "all_masked",
+                                              2: "nan"}.get(i, "ragged")
+            x, m = quant_payload(c, n, d)
+            xs.append(x * (i + 1))
+            ms.append(m)
+        return torch.stack(xs), torch.stack(ms)
+
+    for b, n, d, case, resident in [
+            (4, 100, 16384, "main_path", True), (4, 100, 16384, "mixed", True),
+            (1, 100, 16384, "slots", True), (4, 37, 1001, "signed_zero", True),
+            (sm_count(0) + 68, 37, 61, "ragged", False)]:
+        x, m = cohort_payload(case, b, n, d)
+        before = ops.quantize_affine_batched.launches
+        got = quant_bytes(*ops.quantize_affine_batched(x, m))
+        check(ops.quantize_affine_batched.launches == before + 1
+              and ops.quantize_affine_batched.last_plan.resident == resident,
+              f"cohort quantize {case} {b}x{n}x{d}: not one launch on the "
+              f"{'resident' if resident else 'L2'} route")
+        for where, (wx, wm) in (("card", (x, m)), ("CPU", (x.cpu(),
+                                                          m.cpu()))):
+            check(got == quant_bytes(*ref.quantize_affine_batched_ref(wx,
+                                                                      wm)),
+                  f"cohort quantize {case} {b}x{n}x{d}: not byte-exact "
+                  f"against the plain version on the {where}")
     del x, m
     print("kernel checks: passed")
 
@@ -583,6 +630,75 @@ def main() -> None:
     print(f"two runs of two small rounds: bit-identical "
           f"(Lloyd sweeps {runs[0][6]}, |D_M| {runs[0][5]})")
 
+    # ---- 3d. the cohort engine against the client loop, on the card -----
+    # two rounds of the small WRN-10-1, then both again under a fault plan
+    # (checksums on): the same bits, the same fault log
+    import dataclasses
+    from repro_torch.fl.faults import FaultPlan
+    scl4 = partition_k_shards(sds, num_clients=4, k_classes=2,
+                              samples_per_client=100, seed=3)
+    fplan = FaultPlan(drop_rate=0.2, late_crash_rate=0.1, bitflip_rate=0.3,
+                      truncate_rate=0.2, duplicate_rate=0.2)
+    for fault_plan in (None, fplan):
+        runs = []
+        for distributed in (False, True):
+            cfg3 = dataclasses.replace(
+                scfg, num_clients=4, clients_per_round=4,
+                distributed_selection=distributed,
+                transport_checksum=fault_plan is not None)
+            dsim = FLSimulation(sm, scl4, sds, cfg3, seed=0, device=dev,
+                                fault_plan=fault_plan, fault_seed=3)
+            picked, upload = {}, dsim.channel.upload_knowledge
+
+            def record(cid, *args, _upload=upload, _picked=picked, **kw):
+                got = _upload(cid, *args, **kw)
+                _picked[cid] = (None if got is None else
+                                [t.numpy().tobytes() for t in got])
+                return got
+
+            dsim.channel.upload_knowledge = record
+            ops.reset_launch_counts()
+            log = []
+            begin = dsim.channel.begin_round
+
+            def begin_round(t, _begin=begin, _ch=dsim.channel, _log=log):
+                _log.extend(getattr(_ch, "log", []))
+                _begin(t)
+
+            dsim.channel.begin_round = begin_round
+            dres = dsim.run(rounds=2)
+            log = sorted((e.round_idx, e.client_id, e.frame, e.kind,
+                          e.attempt, e.detail)
+                         for e in log + getattr(dsim.channel, "log", []))
+            counts = ops.launch_counts()
+            # one quantize a knowledge upload on the client loop (a client
+            # that crashed before uploading quantizes nothing), one a round
+            # on the cohort engine
+            uploads = 8 - sum(e[3] == "crash_before_upload" for e in log)
+            check(counts["quantize_affine_batched"] == (2 if distributed
+                                                        else 0)
+                  and counts["quantize_affine"] == (0 if distributed
+                                                    else uploads),
+                  f"3d: quantize launches {counts}, {uploads} uploads")
+            runs.append(({k: v.cpu().numpy().tobytes()
+                          for k, v in dsim.server.global_params.items()},
+                         dres.comm, picked, dres.test_acc, dres.fedavg_acc,
+                         dres.metadata_counts, dres.lloyd_iters, dres.drops,
+                         dres.retransmits, log))
+        for what, a, b in zip(("weights", "ledger", "selections", "M_COM",
+                               "FedAvg", "|D_M|", "Lloyd sweeps", "drops",
+                               "retransmits", "fault log"), *runs):
+            check(a == b, f"3d: {what} differ between the cohort engine and "
+                          f"the client loop "
+                          f"({'faulty' if fault_plan else 'perfect'} wire)")
+        if fault_plan is not None:
+            check(sum(runs[0][7]) + sum(runs[0][8]) > 0,
+                  "3d: the fault plan injected nothing")
+        print(f"3d: cohort engine = client loop on the "
+              f"{'faulty' if fault_plan else 'perfect'} wire, bit for bit "
+              f"(drops {runs[0][7]}, retransmits {runs[0][8]}, "
+              f"{len(runs[0][9])} fault events)")
+
     # ---- 4. the main path at full WRN-40-1 width -----------------------
     wcfg = get_wrn_config()
     model = make_split_wrn(wcfg)
@@ -603,8 +719,10 @@ def main() -> None:
         check(launches[k_name] > 0,
               f"{k_name} was never launched on the main path")
     # one int8 upload a client a round, one launch each
-    check(launches["quantize_affine"] == 4 * 2,
-          f"quantize launched {launches['quantize_affine']} times, not 8")
+    check(launches["quantize_affine"] == 4 * 2
+          and launches["quantize_affine_batched"] == 0,
+          f"quantize launched {launches['quantize_affine']} times, not 8 "
+          f"(cohort {launches['quantize_affine_batched']})")
     for key, t in sim.server.global_params.items():
         check(bool(torch.isfinite(t).all()), f"W_G[{key}] not finite")
     check(all(0 < c <= 4 * 10 * 10 for c in res.metadata_counts),
@@ -616,6 +734,52 @@ def main() -> None:
         "lloyd_iters": res.lloyd_iters,
         "ledger": {"up": res.comm["up"], "down": res.comm["down"]},
         "m_com_acc": res.test_acc, "fedavg_acc": res.fedavg_acc}))
+
+    # ---- 4b. the main path again, on the cohort engine -----------------
+    ccfg = dataclasses.replace(cfg, distributed_selection=True)
+    csim = FLSimulation(model, clients, test, ccfg, seed=0)
+    ops.reset_launch_counts()
+    cres = csim.run(rounds=2, verbose=True)
+    cohort_launches = ops.launch_counts()
+    print(f"cohort launches: {json.dumps(cohort_launches)}")
+    for k_name in ("kmeans_pairwise_dist", "kmeans_lloyd_step",
+                   "quantize_affine_batched"):
+        check(cohort_launches[k_name] > 0,
+              f"{k_name} was never launched on the cohort engine's path")
+    check(cohort_launches["quantize_affine_batched"] == 2
+          and cohort_launches["quantize_affine"] == 0,
+          f"4b: quantize launches {cohort_launches}, want the cohort "
+          f"kernel twice and the per-client one never")
+    check(cohort_launches["kmeans_lloyd_step"]
+          == launches["kmeans_lloyd_step"]
+          and cohort_launches["kmeans_pairwise_dist"]
+          == launches["kmeans_pairwise_dist"],
+          f"4b: K-means launches {cohort_launches} differ from phase 4's "
+          f"{launches}")
+    for what, a, b in [
+            ("weights", {k: v.cpu().numpy().tobytes()
+                         for k, v in sim.server.global_params.items()},
+             {k: v.cpu().numpy().tobytes()
+              for k, v in csim.server.global_params.items()}),
+            ("ledger", res.comm, cres.comm),
+            ("metadata counts", res.metadata_counts, cres.metadata_counts),
+            ("Lloyd sweeps", res.lloyd_iters, cres.lloyd_iters),
+            ("M_COM", res.test_acc, cres.test_acc),
+            ("FedAvg", res.fedavg_acc, cres.fedavg_acc),
+            ("client loss", res.client_loss, cres.client_loss)]:
+        check(a == b, f"4b: {what} differ from phase 4's")
+    print(json.dumps({"cohort_engine": {
+        "round_wall_s": cres.round_wall_s,
+        "client_loop_round_wall_s": res.round_wall_s,
+        "bit_identical_to_phase_4": True,
+        "launches": cohort_launches}}))
+    # each run freed its captured LocalUpdate graphs when it returned: what
+    # stays on the card for serving is phase 5's data, not the FL runs'
+    del csim
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(json.dumps({"memory_allocated_before_serving":
+                      torch.cuda.memory_allocated()}))
 
     # ---- 6. serve llama3.2-1b at full width ----------------------------
     from repro_torch.launch import serve
@@ -751,7 +915,17 @@ def main() -> None:
         qm[torch.randperm(100, generator=g)[:valid_rows]] = True
         qmasks[valid_rows] = qm.to(dev)
     qm = qmasks[20]
-    counting = dict(launches)
+    # the cohort quantize at the main path's cohort: 4 clients x 100 slots,
+    # 20 valid each
+    qcx = torch.stack([randn(100, 16384) for _ in range(4)])
+    qcm = torch.zeros(4, 100, dtype=torch.bool)
+    for i in range(4):
+        qcm[i, torch.randperm(100, generator=g)[:20]] = True
+    qcm = qcm.to(dev)
+    # launches on the main path: phase 4's, and phase 4b's for the cohort
+    # kernel
+    counting = {**launches, "quantize_affine_batched":
+                cohort_launches["quantize_affine_batched"]}
     w_rows = int((torch.amin(lm, 1) <= 0).sum())
 
     def quant_bound(valid_rows):
@@ -779,6 +953,12 @@ def main() -> None:
          "src/repro/kernels/quantize.py:81",
          lambda: ops.quantize_affine(qx, qm),
          lambda: ref.quantize_affine_ref(qx, qm), None, quant_bound(20)),
+        ("quantize_affine_batched", "src/repro_torch/kernels/csrc/quantize.cu",
+         "src/repro/kernels/quantize.py:81",
+         lambda: ops.quantize_affine_batched(qcx, qcm),
+         lambda: ref.quantize_affine_batched_ref(qcx, qcm), None,
+         bound(4 * (4 * 20 * 16384) + 4 * 100 + 4 * 100 * 16384 + 4 * 8,
+               7 * 4 * 20 * 16384)),
     ]
     # registers and spills per thread of the timed instantiations, from
     # the -Xptxas -v report of phase 1's build
@@ -794,11 +974,16 @@ def main() -> None:
         "kmeans_pairwise_dist": ("kmeans", ("pairwise_dist_kernel",)),
         "kmeans_lloyd_step": ("kmeans", ("lloyd_assign_kernel",
                                          "lloyd_sums_kernel")),
-        "quantize_affine": ("quantize", ("quantize_affine_kernel",))}
-    # the quantize kernel's two instantiations, one a route
+        "quantize_affine": ("quantize", ("quantize_affine_kernel",)),
+        "quantize_affine_batched": ("quantize",
+                                    ("quantize_affine_cohort_kernel",))}
+    # the quantize kernels' two instantiations, one a route
     ptxas_patterns = {"quantize_affine": {
         "resident": r"quantize_affine_kernelILb1E",
-        "l2": r"quantize_affine_kernelILb0E"}}
+        "l2": r"quantize_affine_kernelILb0E"},
+        "quantize_affine_batched": {
+        "resident": r"quantize_affine_cohort_kernelILb1E",
+        "l2": r"quantize_affine_cohort_kernelILb0E"}}
     for k_name, src, tpu, kern, plain, lib, (b_ms, b_by) in spec:
         ms = cuda_ms(kern)
         by_launch = kernel_device_ms(kern, launch_names[k_name][1])
@@ -828,8 +1013,11 @@ def main() -> None:
                     "ms": cuda_ms(qcall), "bound_ms": qb_ms,
                     "bound_by": qb_by, "plain_ms": cuda_ms(
                         lambda qmv=qmv: ref.quantize_affine_ref(qx, qmv))}
-        else:                            # the K-means row plan it ran
+        else:             # the K-means row plan, or the cohort plan, it ran
             row["plan"] = getattr(ops, k_name).last_plan._asdict()
+        if k_name == "quantize_affine_batched":
+            row["byte_exact"] = True
+            row["shape"] = list(qcx.shape)
         rows.append(row)
 
     # the attention kernels at phase 6's shapes (bf16): one prefill layer
@@ -954,12 +1142,28 @@ def main() -> None:
     codec = get_codec(cfg.transport_codec)
     phases["upload_int8_ms"], _ = timed(lambda: channel.upload_knowledge(
         0, acts[sel.indices], ys[sel.indices], sel.valid, codec))
+    # phase 5's captured SGD steps (captured in each timing's warm-up call)
+    steps = fa.CapturedSteps()
     bx, by = local_batches(xs, ys, draws.local_perms, cfg)
     phases["local_update_ms"], _ = timed(
         lambda: fa.local_update(params, cfg.local_lr, bx, by, model.loss),
         iters=1)
+    # the captured SGD step (a CUDA graph replayed once a step), which the
+    # rounds run on the card
+    order = local_order(xs.shape[0], draws.local_perms, cfg).to(dev)
+    phases["local_update_captured_ms"], _ = timed(
+        lambda: fa.client_update(params, cfg.local_lr, xs, ys, order,
+                                 model.loss, steps))
+    # the client side of a full-width round of 4 clients, on the client
+    # loop and on the cohort engine, from the same draws
+    for key, c in (("client_loop_4_clients_ms", cfg),
+                   ("cohort_engine_4_clients_ms", ccfg)):
+        phases[key], _ = timed(lambda c=c: run_cohort(
+            model, params, clients, c,
+            GeneratorDraws(torch.Generator().manual_seed(13)),
+            Channel(CommLedger()), 10, steps=steps), iters=1)
     phases["client_round_ms"], _ = timed(lambda: client_round(
-        model, params, cl, cfg, draws, channel, 10), iters=1)
+        model, params, cl, cfg, draws, channel, 10, steps=steps), iters=1)
     # the server's side: meta-training on 80 maps (this client's selected
     # maps, repeated to the 4-client round's |D_M|) and one evaluation
     picked = sel.indices[sel.valid]
@@ -979,22 +1183,35 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = monotonic()
-        client_round(model, params, cl, cfg, draws, channel, 10)
+        client_round(model, params, cl, cfg, draws, channel, 10, steps=steps)
         torch.cuda.synchronize()
         wall_ms = (monotonic() - t) * 1e3
+    # and of one captured LocalUpdate
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as lprof:
+        t = monotonic()
+        fa.client_update(params, cfg.local_lr, xs, ys, order, model.loss,
+                         steps)
+        torch.cuda.synchronize()
+        lu_wall_ms = (monotonic() - t) * 1e3
+    steps.release()
     ops.reset_launch_counts()
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]
+
+    def busy(prof, wall):
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        b_ms = sum(e.self_device_time_total for e in evs) / 1e3
+        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:10]
+        return {"wall_ms": wall, "device_busy_ms": b_ms,
+                "device_busy_share": b_ms / wall,
+                "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                                  for e in top}}
+
     print(json.dumps({"phases_ms": phases, "lloyd_sweeps": sel.lloyd_iters,
                       "client_rows": int(xs.shape[0]),
-                      "profiled_client_round": {
-                          "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                          "device_busy_share": busy_ms / wall_ms,
-                          "top_device_ms": {e.key[:80]:
-                                            e.self_device_time_total / 1e3
-                                            for e in top}}}))
+                      "profiled_client_round": busy(prof, wall_ms),
+                      "profiled_captured_local_update": busy(lprof,
+                                                             lu_wall_ms)}))
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -11,16 +11,20 @@ field names and defaults, so the two configs read alike. Two differences:
 
 * ``use_pallas_selection`` and ``batched_selection`` are gone. In the port
   the device picks the engine (the hand-written CUDA kernels for tensors on
-  ``cuda``, their plain PyTorch versions for tensors on the CPU), and the
-  cohort runs client by client. ``select_per_cluster``,
+  ``cuda``, their plain PyTorch versions for tensors on the CPU), and
+  selection runs client by client in every engine. ``select_per_cluster``,
   ``reset_upper_each_round`` and ``split_fraction`` are gone too: nothing
   reads them (the split point is ``WRNConfig.split_group``; the round
   takes one representative per cluster and meta-trains from W_G^u(0)).
   Passing any of these names is a ``TypeError``.
-* ``distributed_selection``, ``selection_chunk_size``, ``pca_solver`` and
-  ``observability`` are kept, but their engines are not ported yet: any
-  value other than the default raises ``NotImplementedError``, so no knob
-  is silently ignored.
+* ``distributed_selection`` routes the cohort through the cohort engine
+  (``core/distributed.py``, one device). ``selection_chunk_size`` is
+  accepted, as in the reference, and changes nothing: it bounds how many
+  clients' activation maps the reference's batched forward holds at once,
+  and every engine of the port already selects one client at a time.
+* ``pca_solver`` and ``observability`` are kept, but their engines are
+  not ported yet: any value other than the default raises
+  ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -232,18 +236,17 @@ class FLConfig:
     meta_lr: float = 0.1
     meta_l2: float = 0.0               # Table 7: 0 / 5e-4 / 1e-3
     use_selection: bool = True         # False = Table 2 baseline (all maps)
+    distributed_selection: bool = False  # the cohort engine
+    selection_chunk_size: int = 0      # accepted; the port selects per client
     # --- engines not ported yet: only the defaults are accepted ---
     pca_solver: str = "exact"          # "randomized" waits for its port
-    distributed_selection: bool = False
-    selection_chunk_size: int = 0
     observability: bool = False
     # --- transport (repro_torch.fl.transport; exact frame bytes) ---
     transport_codec: str = "raw_f32"   # raw_f32 | f16 | int8
     transport_checksum: bool = False   # CRC32 trailer on every frame
 
     def __post_init__(self):
-        not_ported = {"pca_solver": "exact", "distributed_selection": False,
-                      "selection_chunk_size": 0, "observability": False}
+        not_ported = {"pca_solver": "exact", "observability": False}
         for name, default in not_ported.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(

@@ -1,8 +1,11 @@
 """Algorithm 1 (paper): one global round of Split Training with Metadata
-Selection, client by client. The counterpart of the sequential path of
-``repro.core.rounds`` (``client_round``, ``server_round``, ``run_cohort``
-and ``run_round`` with ``batched_selection=False``); the stacked, chunked
-and sharded engines of ``repro.core.distributed`` are not ported yet.
+Selection, at simulator granularity. The counterpart of
+``repro.core.rounds``. ``run_cohort`` runs the client side on the cohort
+engine (``repro_torch.core.distributed``: every client's selection, then
+one batched knowledge upload, then every client's LocalUpdate) when
+``cfg.distributed_selection`` is set, else client by client; both give
+the same bits on the same draws. Both select one client at a time, so
+``cfg.selection_chunk_size`` has nothing to choose (see ``configs/base``).
 
     for each client k:
         M_Ck loads W_G(t-1)
@@ -109,67 +112,108 @@ def _device(params: Params) -> torch.device:
     return next(iter(params.values())).device
 
 
+def local_order(n: int, perms: torch.Tensor, cfg: FLConfig) -> torch.Tensor:
+    """LocalUpdate's batches as rows of sample indices, (steps, bs): epoch
+    ``e`` takes ``perms[e]``, cut to whole batches."""
+    bs = min(cfg.local_batch_size, n)
+    steps_per_epoch = max(n // bs, 1)
+    return perms[:, :steps_per_epoch * bs].reshape(-1, bs)
+
+
 def local_batches(x: torch.Tensor, y: torch.Tensor, perms: torch.Tensor,
                   cfg: FLConfig):
     """Shuffle + batch one client's data for LocalUpdate: (steps, bs, ...)
     with ``perms[e]`` as the order of epoch ``e``."""
-    n = x.shape[0]
-    bs = min(cfg.local_batch_size, n)
-    steps_per_epoch = max(n // bs, 1)
-    perm = perms[:, :steps_per_epoch * bs].reshape(-1).to(x.device)
-    bx = x[perm].reshape((-1, bs) + tuple(x.shape[1:]))
-    by = y[perm].reshape(-1, bs)
+    order = local_order(x.shape[0], perms, cfg).to(x.device)
+    perm = order.reshape(-1)
+    bx = x[perm].reshape(tuple(order.shape) + tuple(x.shape[1:]))
+    by = y[perm].reshape(order.shape)
     return bx, by
+
+
+def client_arrays(client: ClientData, device: torch.device):
+    """One client's data on ``device`` -> (x, y)."""
+    return (torch.as_tensor(client.data.x, device=device),
+            torch.as_tensor(client.data.y, device=device))
+
+
+def extract_select(model: SplitModel, params: Params, x: torch.Tensor,
+                   y: torch.Tensor, draws: ClientDraws, cfg: FLConfig,
+                   num_classes: int):
+    """Extract&Selection (§3.1) of one client: its lower forward, then the
+    selection over its own maps (BatchNorm normalizes with the batch's own
+    statistics, so a forward never mixes two clients). Returns
+    ((maps, labels, valid) to upload, Lloyd sweeps); the Table 2 baseline
+    (``use_selection=False``) uploads every map, with no sweeps (None)."""
+    with torch.no_grad():
+        acts = model.apply_lower(params, x)                      # A_k^[j]
+    if not cfg.use_selection:
+        return (acts, y, torch.ones(x.shape[0], dtype=torch.bool,
+                                    device=x.device)), None
+    sel = select_metadata(acts, y, draws.first_centres,
+                          num_classes=num_classes,
+                          clusters_per_class=cfg.clusters_per_class,
+                          pca_components=cfg.pca_components,
+                          kmeans_iters=cfg.kmeans_iters)
+    return (acts[sel.indices], y[sel.indices], sel.valid), sel.lloyd_iters
+
+
+def update_client(model: SplitModel, params: Params, x: torch.Tensor,
+                  y: torch.Tensor, draws: ClientDraws, cfg: FLConfig,
+                  channel: Channel, client_id: int,
+                  steps: Optional[fa.CapturedSteps] = None):
+    """LocalUpdate (§3.2) of one client from W_G(t-1) in its batch order,
+    then its update frame through ``channel`` -> (params, mean loss). On
+    the card the SGD step is the one ``steps`` holds (see
+    ``fedavg.client_update``)."""
+    order = local_order(x.shape[0], draws.local_perms, cfg).to(x.device)
+    new_params, losses = fa.client_update(params, cfg.local_lr, x, y, order,
+                                          model.loss, steps)
+    channel.upload_update(client_id, new_params)
+    return new_params, float(losses.mean())
 
 
 def client_round(model: SplitModel, params: Params, client: ClientData,
                  cfg: FLConfig, draws: ClientDraws, channel: Channel,
-                 num_classes: int, client_id: int = 0):
+                 num_classes: int, client_id: int = 0,
+                 steps: Optional[fa.CapturedSteps] = None):
     """Client k's work: Extract&Selection + LocalUpdate. Both uploads go
     through ``channel``, which charges their exact frame bytes; the
     metadata returned is what the server DECODES (valid rows only,
-    dequantized under a lossy codec). Returns
+    dequantized under a lossy codec), or None where a faulty channel lost
+    the frame. ``client_id`` is the client's global index, on which a
+    faulty channel keys its draws. Returns
     (new_params, metadata, mean local loss, Lloyd sweeps or None)."""
-    dev = _device(params)
-    x = torch.as_tensor(client.data.x, device=dev)
-    y = torch.as_tensor(client.data.y, device=dev)
-    codec = get_codec(cfg.transport_codec)
-    sweeps = None
-    with torch.no_grad():
-        acts = model.apply_lower(params, x)                  # A_k^[j]
-    if cfg.use_selection:
-        sel = select_metadata(acts, y, draws.first_centres,
-                              num_classes=num_classes,
-                              clusters_per_class=cfg.clusters_per_class,
-                              pca_components=cfg.pca_components,
-                              kmeans_iters=cfg.kmeans_iters)
-        triple = (acts[sel.indices], y[sel.indices], sel.valid)
-        sweeps = sel.lloyd_iters
-    else:
-        # Table 2 baseline: ALL activation maps are uploaded
-        triple = (acts, y, torch.ones(x.shape[0], dtype=torch.bool,
-                                      device=dev))
-    del acts
-    metadata = channel.upload_knowledge(client_id, *triple, codec)
-
-    bx, by = local_batches(x, y, draws.local_perms, cfg)
-    new_params, losses = fa.local_update(params, cfg.local_lr, bx, by,
-                                         model.loss)
-    channel.upload_update(client_id, new_params)
-    return new_params, metadata, float(losses.mean()), sweeps
+    x, y = client_arrays(client, _device(params))
+    triple, sweeps = extract_select(model, params, x, y, draws, cfg,
+                                    num_classes)
+    metadata = channel.upload_knowledge(client_id, *triple,
+                                        get_codec(cfg.transport_codec))
+    del triple
+    new_params, loss = update_client(model, params, x, y, draws, cfg,
+                                     channel, client_id, steps)
+    return new_params, metadata, loss, sweeps
 
 
 def server_round(model: SplitModel, prev_global: Params, upper_init: Params,
-                 client_params: List[Params], metadatas: List[tuple],
-                 cfg: FLConfig, draws: Draws) -> RoundResult:
+                 client_params: List[Params], metadatas: List[Optional[tuple]],
+                 cfg: FLConfig, draws: Draws,
+                 fedavg_weights: Optional[List[float]] = None) -> RoundResult:
     """Server's work: aggregate the DECODED metadata (valid rows only, so a
-    client may contribute none), MetaTraining from W_G^u(0), ModelCompose,
-    Eq. 2 over the cohort's updates."""
+    client may contribute none; a None entry is a frame that never
+    survived the wire), MetaTraining from W_G^u(0), ModelCompose, Eq. 2
+    over the cohort's updates. ``fedavg_weights`` weigh Eq. 2 (a 0 leaves
+    a client out: a straggler, or an update that never arrived); a round
+    where no update counts keeps W_G(t-1)."""
     dev = _device(prev_global)
-    acts = torch.cat([m[0] for m in metadatas], 0).to(dev)
-    ys = torch.cat([m[1] for m in metadatas], 0).to(dev)
-    valid = torch.cat([m[2] for m in metadatas], 0).to(dev)
-    if acts.shape[0] == 0:                   # nothing selected anywhere
+    arrived = [m for m in metadatas if m is not None]
+    nmeta, acts = 0, None
+    if arrived:
+        acts = torch.cat([m[0] for m in arrived], 0).to(dev)
+        ys = torch.cat([m[1] for m in arrived], 0).to(dev)
+        valid = torch.cat([m[2] for m in arrived], 0).to(dev)
+        nmeta = int(valid.sum())
+    if acts is None or acts.shape[0] == 0:     # nothing selected anywhere
         upper, meta_losses = upper_init, torch.zeros(0)
     else:
         perms = draws.meta_perms(acts.shape[0], cfg.meta_epochs)
@@ -177,25 +221,44 @@ def server_round(model: SplitModel, prev_global: Params, upper_init: Params,
             upper_init, model.upper_loss, acts, ys, perms,
             batch_size=cfg.meta_batch_size, lr=cfg.meta_lr, l2=cfg.meta_l2,
             valid=valid)
-    return RoundResult(global_params=fa.weight_average(client_params),
+    if not client_params or (fedavg_weights is not None
+                             and not any(fedavg_weights)):
+        new_global = prev_global
+    else:
+        new_global = fa.weight_average(client_params, weights=fedavg_weights)
+    return RoundResult(global_params=new_global,
                        composed_params=compose(model, prev_global, upper),
-                       upper_trained=upper, metadata_count=int(valid.sum()),
+                       upper_trained=upper, metadata_count=nmeta,
                        total_samples=0, meta_losses=meta_losses)
 
 
 def run_cohort(model: SplitModel, params: Params, clients: List[ClientData],
                cfg: FLConfig, draws: Draws, channel: Channel,
-               num_classes: int, client_ids: Optional[List[int]] = None):
-    """The client side of one round, client by client. Returns per-client
-    lists (params, metadata, loss, Lloyd sweeps)."""
+               num_classes: int, client_ids: Optional[List[int]] = None,
+               steps: Optional[fa.CapturedSteps] = None):
+    """The client side of one round for a whole cohort, with the engine
+    dispatch in one place (``run_round`` and ``FLSimulation`` share it):
+    the cohort engine when ``cfg.distributed_selection`` is set (and the
+    round selects), else the client-by-client loop. Every client's draws
+    are taken first, in cohort order, whatever the engine. ``client_ids``
+    are the members' global indices (default: cohort position), on which
+    a faulty channel keys its fates; ``steps`` holds the captured SGD
+    steps on the card. Returns per-client lists (params, metadata or None,
+    loss, Lloyd sweeps)."""
+    from repro_torch.core import distributed as D
     if client_ids is None:
         client_ids = list(range(len(clients)))
+    cds = [draws.client(pos, c, num_classes, cfg.local_epochs)
+           for pos, c in enumerate(clients)]
+    if cfg.distributed_selection and cfg.use_selection:
+        return D.cohort_round(model, params, clients, cfg, cds, channel,
+                              num_classes, client_ids=client_ids,
+                              steps=steps)
     out = ([], [], [], [])
-    for pos, (c, cid) in enumerate(zip(clients, client_ids)):
-        cd = draws.client(pos, c, num_classes, cfg.local_epochs)
-        for acc, v in zip(out, client_round(model, params, c, cfg, cd,
-                                            channel, num_classes,
-                                            client_id=int(cid))):
+    for c, cid, cd in zip(clients, client_ids, cds):
+        for acc, v in zip(out, client_round(
+                model, params, c, cfg, cd, channel, num_classes,
+                client_id=int(cid), steps=steps)):
             acc.append(v)
     return out
 
@@ -205,11 +268,17 @@ def run_round(model: SplitModel, global_params: Params, upper_init: Params,
               ledger: Optional[CommLedger] = None,
               num_classes: int = 10) -> RoundResult:
     """One round over ``clients`` (no broadcast charge, as the reference's
-    ``run_round``); the ledger gets every upload's exact bytes."""
+    ``run_round``); the ledger gets every upload's exact bytes. The round
+    owns its captured SGD steps and frees them at its end."""
     ledger = ledger if ledger is not None else CommLedger()
     channel = Channel(ledger, checksum=cfg.transport_checksum)
-    cparams, metas, losses, _ = run_cohort(
-        model, global_params, clients, cfg, draws, channel, num_classes)
+    steps = fa.CapturedSteps()
+    try:
+        cparams, metas, losses, _ = run_cohort(
+            model, global_params, clients, cfg, draws, channel, num_classes,
+            steps=steps)
+    finally:
+        steps.release()
     res = server_round(model, global_params, upper_init, cparams, metas, cfg,
                        draws)
     res.client_losses = losses

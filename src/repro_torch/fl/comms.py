@@ -31,8 +31,7 @@ from __future__ import annotations
 from collections import defaultdict
 from dataclasses import dataclass, field
 
-# fault-runtime charging categories (the reference's FaultyChannel; the
-# port has no fault runtime yet, but the ledger keeps the same categories)
+# fault-runtime charging categories (repro_torch.fl.faults.FaultyChannel)
 RETRANSMIT = "retransmit"
 DUPLICATE = "duplicate"
 

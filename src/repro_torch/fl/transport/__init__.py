@@ -3,13 +3,16 @@
 
   ``messages``  WeightBroadcast / SelectedKnowledge / UpperUpdate frames
   ``codecs``    raw_f32 / f16 / int8 (int8 quantizes with the CUDA kernel
-                on the card, its plain version on the CPU)
-  ``channel``   the perfect wire that charges every frame's exact bytes
+                on the card, its plain version on the CPU); ``Quantized``
+                carries a payload through the cohort's batched quantize
+  ``channel``   the perfect wire that charges every frame's exact bytes,
+                with the cohort's batched knowledge upload
   ``errors``    the typed ``FrameError`` family of the decode side
 """
-from repro_torch.fl.transport.channel import Channel
-from repro_torch.fl.transport.codecs import (Int8Codec, TensorCodec,
-                                             codec_by_code, get_codec)
+from repro_torch.fl.transport.channel import Channel, prequantize_cohort
+from repro_torch.fl.transport.codecs import (Int8Codec, Quantized,
+                                             TensorCodec, codec_by_code,
+                                             get_codec)
 from repro_torch.fl.transport.errors import (BadMagic, BadVersion,
                                              ChecksumMismatch, FrameError,
                                              LengthMismatch, TruncatedFrame,
@@ -24,8 +27,8 @@ from repro_torch.fl.transport.messages import (CRC_BYTES, HEADER_BYTES,
 __all__ = [
     "BadMagic", "BadVersion", "CRC_BYTES", "Channel", "ChecksumMismatch",
     "FrameError", "HEADER_BYTES", "Int8Codec", "LengthMismatch",
-    "SelectedKnowledge", "TensorCodec", "TruncatedFrame", "UnknownCodec",
-    "UnknownDtype", "UpperUpdate", "WeightBroadcast", "WrongMessageType",
-    "codec_by_code", "get_codec", "pytree_frame_nbytes",
-    "tree_leaves", "unflatten_like",
+    "Quantized", "SelectedKnowledge", "TensorCodec", "TruncatedFrame",
+    "UnknownCodec", "UnknownDtype", "UpperUpdate", "WeightBroadcast",
+    "WrongMessageType", "codec_by_code", "get_codec", "prequantize_cohort",
+    "pytree_frame_nbytes", "tree_leaves", "unflatten_like",
 ]

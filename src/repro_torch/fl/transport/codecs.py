@@ -14,12 +14,16 @@ owns the lossless framing around it. Three codecs:
 
 ``encode`` consumes the FULL fixed-slot tensor plus the valid mask and
 returns the wire bytes of the valid rows plus the codec's parameter bytes.
-``decode`` reconstructs those rows as an f32 numpy array.
+``decode`` reconstructs those rows as an f32 numpy array. A ``Quantized``
+payload from the cohort's one batched quantize
+(``channel.prequantize_cohort``) skips the int8 codec's own quantize:
+the same bytes either way.
 """
 from __future__ import annotations
 
 import struct
-from typing import Dict, Tuple, Type
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple, Type
 
 import numpy as np
 import torch
@@ -46,6 +50,18 @@ def _host_rows(x: torch.Tensor, valid: np.ndarray) -> np.ndarray:
     return rows.detach().cpu().numpy()
 
 
+@dataclass(frozen=True)
+class Quantized:
+    """A payload already through the int8 quantize (the cohort's batched
+    kernel): the levels of its VALID rows, in slot order, as they go on
+    the wire, and the affine params. (The reference's ``Quantized`` keeps
+    every slot's levels; the port copies only the rows a frame carries
+    off the card.)"""
+    q: np.ndarray          # (nvalid, D) int8
+    xmin: float
+    scale: float
+
+
 class TensorCodec:
     """encode: (x (N, D) f32 tensor, valid (N,) bool numpy) -> (payload
     bytes for the VALID rows, params bytes). decode: inverse ->
@@ -53,10 +69,11 @@ class TensorCodec:
     name: str = ""
     code: int = -1
 
-    def encode(self, x: torch.Tensor,
-               valid: np.ndarray) -> Tuple[bytes, bytes]:
+    def encode(self, x: torch.Tensor, valid: np.ndarray,
+               pre: Optional[Quantized] = None) -> Tuple[bytes, bytes]:
         """(full slot tensor, valid mask) -> (valid-row payload bytes,
-        codec param bytes)."""
+        codec param bytes). ``pre`` hands in an already-quantized payload
+        (the cohort path); codecs without a quantize stage ignore it."""
         raise NotImplementedError
 
     def decode(self, payload: bytes, nvalid: int, d: int,
@@ -72,7 +89,7 @@ class RawF32Codec(TensorCodec):
     little-endian f32, no codec params."""
     name, code = "raw_f32", 0
 
-    def encode(self, x, valid):
+    def encode(self, x, valid, pre=None):
         """Valid rows -> contiguous f32 bytes; params are empty."""
         return np.ascontiguousarray(
             _host_rows(x, valid).astype(np.float32)).tobytes(), b""
@@ -92,7 +109,7 @@ class F16Codec(TensorCodec):
     encode (numpy's cast, as in the reference), exact widening on decode."""
     name, code = "f16", 1
 
-    def encode(self, x, valid):
+    def encode(self, x, valid, pre=None):
         """Valid rows cast to f16 -> contiguous bytes; params are empty."""
         return np.ascontiguousarray(
             _host_rows(x, valid).astype(np.float16)).tobytes(), b""
@@ -114,12 +131,20 @@ class Int8Codec(TensorCodec):
     contract; the CUDA kernel reproduces it byte for byte)."""
     name, code = "int8", 2
 
-    def encode(self, x, valid):
+    def encode(self, x, valid, pre=None):
         """Quantize the (N, D) tensor on its own device (the CUDA kernel on
         the card) -> valid rows as int8 levels + 8 param bytes ``<ff``
         (xmin, scale), the f32 bits as the kernel wrote them. The valid
         rows are taken by index (known here, on the host), and codes and
-        params come to the host in one copy."""
+        params come to the host in one copy. ``pre`` (a ``Quantized`` from
+        the cohort's batched kernel) skips the quantize: the same bytes."""
+        if pre is not None:
+            if pre.q.shape[0] != int(np.count_nonzero(valid)):
+                raise ValueError(f"pre-quantized payload has "
+                                 f"{pre.q.shape[0]} rows, the mask "
+                                 f"{int(np.count_nonzero(valid))} valid")
+            return (np.ascontiguousarray(pre.q).tobytes(),
+                    struct.pack("<ff", pre.xmin, pre.scale))
         x2 = x.detach().to(torch.float32).contiguous()
         rows = torch.as_tensor(np.flatnonzero(valid), device=x2.device)
         m = torch.zeros(x2.shape[0], dtype=torch.bool,

@@ -39,13 +39,13 @@ from __future__ import annotations
 import struct
 import zlib
 from dataclasses import dataclass, field
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.fl.transport.codecs import (TensorCodec, codec_by_code,
-                                             get_codec)
+from repro_torch.fl.transport.codecs import (Quantized, TensorCodec,
+                                             codec_by_code, get_codec)
 from repro_torch.fl.transport.errors import (BadMagic, BadVersion,
                                              ChecksumMismatch, LengthMismatch,
                                              TruncatedFrame, UnknownDtype,
@@ -299,11 +299,14 @@ class UpperUpdate:
 class SelectedKnowledge:
     """client -> server: the §3.1 selection output. ``acts`` is the fixed
     ``num_classes*clusters_per_class``-slot tensor (any device), ``valid``
-    marks the non-empty slots; only valid rows are encoded."""
+    marks the non-empty slots; only valid rows are encoded. ``pre`` is a
+    pre-quantized payload from the cohort's batched quantize (the codec's
+    own quantize is then skipped: the same bytes either way)."""
     acts: torch.Tensor                         # (CK, *map_shape)
     labels: Any                                # (CK,) int
     valid: Any                                 # (CK,) bool
     codec: TensorCodec = field(default_factory=lambda: get_codec("raw_f32"))
+    pre: Optional[Quantized] = None            # the cohort's batched quantize
 
     MSG_TYPE = MSG_SELECTED_KNOWLEDGE
 
@@ -322,7 +325,7 @@ class SelectedKnowledge:
         shape = tuple(self.acts.shape)
         ck, map_shape = shape[0], shape[1:]
         flat = self.acts.reshape(ck, -1)
-        payload_rows, params = self.codec.encode(flat, valid)
+        payload_rows, params = self.codec.encode(flat, valid, pre=self.pre)
         head = struct.pack("<IIB", ck, int(valid.sum()), len(map_shape))
         head += struct.pack(f"<{len(map_shape)}I", *map_shape)
         head += struct.pack("<B", _dtype_code(labels.dtype))

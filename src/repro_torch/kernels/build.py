@@ -50,8 +50,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # x, mask, q, scratch, n, d, then the plan (kernels/quantize.py
         # QuantizePlan: grid, smem bytes, resident), stream
         "repro_quantize_affine": ([_P] * 4 + [_I] * 5 + [_P], _I),
-        "repro_quantize_blocks_per_sm": ([_I, _I], _I),
-        "repro_quantize_max_smem": ([], _I),
+        # ..., clients, n, d, then the cohort plan (kernels/quantize.py
+        # CohortPlan: per_client, grid, smem bytes, resident), stream
+        "repro_quantize_affine_cohort": ([_P] * 4 + [_I] * 7 + [_P], _I),
+        # (resident, smem bytes, cohort kernel?) / (cohort kernel?)
+        "repro_quantize_blocks_per_sm": ([_I, _I, _I], _I),
+        "repro_quantize_max_smem": ([_I], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {

@@ -416,7 +416,177 @@ quantize_affine_kernel(const float* __restrict__ x,
        [](int, int, int) {});
 }
 
-const void* kernel_for(int resident) {
+// The cohort entry: B clients' payloads stacked as (B, N, D), each
+// quantized over its own valid rows, in one cooperative launch (the TPU
+// kernel gets this axis from vmap, as its outermost grid dimension).
+// Replaces the same Pallas kernel under the vmap of
+// src/repro/fl/transport/channel.py prequantize_cohort. The wave is split
+// among the clients: client c owns the ``per_client`` virtual blocks
+// c * per_client + j, each taking the spans block j of the single kernel
+// would take in a grid of per_client blocks. Physical block b takes the
+// virtual blocks b, b + grid, ...: one each while B fits in the wave
+// (kernels/quantize.py plan_quantize_cohort), where the span may stay in
+// shared memory across the barrier; several, on the L2 route only, when B
+// exceeds it. Steps as in the single kernel, a client at a time: 1. the
+// fill, the loads and a (min, max) partial per virtual block; 2. one grid
+// barrier; 3. every virtual block of a client reduces that client's
+// partials in the same order (the same bits in each); 4. the codes.
+// Bound, as the single kernel: bytes.
+
+// the row mask of one client as the walk takes it: the first THREADS rows
+// (this thread's row in ``ok0``) and the count of valid rows
+struct Rows {
+  int v = -1, c = 0, j = 0, nvalid = 0;
+  bool ok0 = false;
+};
+
+__device__ void rows_of(int v, int per_client, const uint8_t* mask, int n,
+                        Rows& r) {
+  if (r.v == v) return;
+  r.v = v;
+  r.c = v / per_client;
+  r.j = v - r.c * per_client;
+  const uint8_t* m = mask + (size_t)r.c * n;
+  r.ok0 = (int)threadIdx.x < n && m[threadIdx.x] != 0;
+  r.nvalid = __syncthreads_count(r.ok0);
+  for (int base = THREADS; base < n; base += THREADS) {
+    const int i = base + threadIdx.x;
+    r.nvalid += __syncthreads_count(i < n && m[i] != 0);
+  }
+}
+
+// this virtual block's spans [v0, v1) of the valid and [m0, m1) of the
+// masked elements of its client, in whole 16-element stores
+__device__ __forceinline__ void spans_of(const Rows& r, int n, int d,
+                                         int per_client, int& v0, int& v1,
+                                         int& m0, int& m1) {
+  const int nv = r.nvalid * d, nm = (n - r.nvalid) * d;
+  const int vspan = ((nv + per_client - 1) / per_client + 15) & ~15;
+  const int mspan = ((nm + per_client - 1) / per_client + 15) & ~15;
+  v0 = min(r.j * vspan, nv);
+  v1 = min(v0 + vspan, nv);
+  m0 = min(r.j * mspan, nm);
+  m1 = min(m0 + mspan, nm);
+}
+
+// params: 2 f32 (xmin, scale) a client; partials: (min, max) per virtual
+// block, 8-byte aligned. 32-bit indices within the cohort: the plan
+// refuses a cohort of 2^31 elements or more.
+template <bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, 1)
+quantize_affine_cohort_kernel(const float* __restrict__ x,
+                              const uint8_t* __restrict__ mask,
+                              int8_t* __restrict__ q,
+                              float* __restrict__ params,
+                              float* __restrict__ partials, int clients,
+                              int n, int d, int per_client) {
+  extern __shared__ float4 stage4[];
+  float* stage = reinterpret_cast<float*>(stage4);
+  __shared__ Scratch sh;
+  const int vblocks = clients * per_client, lane = threadIdx.x & 31;
+  const size_t payload = (size_t)n * d;
+  Rows r;
+  int v0, v1, m0, m1;
+
+  // 1. per virtual block: the masked rows' fill, the valid span's loads
+  // and its (min, max) partial
+  for (int v = blockIdx.x; v < vblocks; v += gridDim.x) {
+    rows_of(v, per_client, mask, n, r);
+    spans_of(r, n, d, per_client, v0, v1, m0, m1);
+    const float* xc = x + r.c * payload;
+    int8_t* qc = q + r.c * payload;
+    float mn = __int_as_float(0x7f800000), mx = -mn;   // +inf, -inf
+    walk(mask + (size_t)r.c * n, r.ok0, n, d, v0, v1, m0, m1, sh,
+         [&](int row, int c0, int c1, int off) {
+           load_piece<RESIDENT>(xc + (size_t)row * d + c0, c1 - c0,
+                                stage + off, mn, mx);
+         },
+         [&](int row, int c0, int c1) {
+           fill_piece(qc + (size_t)row * d + c0, c1 - c0);
+         });
+    warp_minmax(mn, mx);
+    if (lane == 0) {
+      sh.red[0][threadIdx.x >> 5] = mn;
+      sh.red[1][threadIdx.x >> 5] = mx;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int i = 1; i < WARPS; ++i) {
+        mn = nan_min(mn, sh.red[0][i]);
+        mx = nan_max(mx, sh.red[1][i]);
+      }
+      partials[2 * v] = mn;
+      partials[2 * v + 1] = mx;
+    }
+    __syncthreads();
+  }
+
+  // 2. every virtual block's partial is written
+  cg::this_grid().sync();
+
+  for (int v = blockIdx.x; v < vblocks; v += gridDim.x) {
+    rows_of(v, per_client, mask, n, r);
+    spans_of(r, n, d, per_client, v0, v1, m0, m1);
+    // 3. one warp reduces the client's partials, in the same order in
+    // every virtual block of the client
+    if (threadIdx.x < 32) {
+      float mn = __int_as_float(0x7f800000), mx = -mn;
+      const float2* pairs =
+          reinterpret_cast<const float2*>(partials) + r.c * per_client;
+      for (int p0 = 0; p0 < per_client; p0 += 32 * PARTS) {
+        float2 pv[PARTS];
+#pragma unroll
+        for (int u = 0; u < PARTS; ++u) {
+          const int p = p0 + u * 32 + lane;
+          pv[u] = p < per_client ? __ldcg(pairs + p) : make_float2(mn, mx);
+        }
+#pragma unroll
+        for (int u = 0; u < PARTS; ++u) {
+          mn = nan_min(mn, pv[u].x);
+          mx = nan_max(mx, pv[u].y);
+        }
+      }
+      warp_minmax(mn, mx);
+      if (lane == 0) {
+        sh.red[0][0] = mn;
+        sh.red[1][0] = mx;
+      }
+    }
+    __syncthreads();
+    float mn = sh.red[0][0], mx = sh.red[1][0];
+    if (r.nvalid < n) {              // the sentinels, as the single kernel
+      mn = nan_min(mn, BIG);
+      mx = nan_max(mx, -BIG);
+    }
+    // ref.affine_params_from_minmax, op for op
+    const bool has = mx >= mn;
+    const float xmin = has ? mn : 0.f;
+    const float rng = has ? __fsub_rn(mx, xmin) : 0.f;
+    const float scale =
+        rng > 0.f ? __fmul_rn(rng, (float)(1.0 / 255.0)) : 1.f;
+    const float inv = __fdiv_rn(1.f, scale);
+    if (r.j == 0 && threadIdx.x == 0) {
+      params[2 * r.c] = xmin;
+      params[2 * r.c + 1] = scale;
+    }
+    // 4. the codes of this virtual block's valid span
+    const float* xc = x + r.c * payload;
+    int8_t* qc = q + r.c * payload;
+    walk(mask + (size_t)r.c * n, r.ok0, n, d, v0, v1, 0, 0, sh,
+         [&](int row, int c0, int c1, int off) {
+           quantize_piece<RESIDENT>(xc + (size_t)row * d + c0, stage + off,
+                                    qc + (size_t)row * d + c0, c1 - c0,
+                                    xmin, inv);
+         },
+         [](int, int, int) {});
+    __syncthreads();
+  }
+}
+
+const void* kernel_for(int resident, int cohort) {
+  if (cohort)
+    return resident ? (const void*)quantize_affine_cohort_kernel<true>
+                    : (const void*)quantize_affine_cohort_kernel<false>;
   return resident ? (const void*)quantize_affine_kernel<true>
                   : (const void*)quantize_affine_kernel<false>;
 }
@@ -436,7 +606,7 @@ extern "C" int repro_quantize_affine(const float* x, const uint8_t* mask,
                                      int8_t* q, float* scratch, int n, int d,
                                      int grid, int smem, int resident,
                                      cudaStream_t stream) {
-  const void* fn = kernel_for(resident);
+  const void* fn = kernel_for(resident, 0);
   cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return (int)err;
   float* params = scratch;
@@ -449,10 +619,35 @@ extern "C" int repro_quantize_affine(const float* x, const uint8_t* mask,
   return (int)(err != cudaSuccess ? err : last);
 }
 
-// blocks of THREADS that fit on one SM at ``smem`` dynamic bytes (< 0: a
-// CUDA error, negated)
-extern "C" int repro_quantize_blocks_per_sm(int resident, int smem) {
-  const void* fn = kernel_for(resident);
+// The cohort entry. scratch (device f32): (xmin, scale) of each of the
+// ``clients``, then 2 per virtual block (clients x per_client). The plan
+// (per_client, grid, smem, resident) comes from kernels/quantize.py
+// plan_quantize_cohort.
+extern "C" int repro_quantize_affine_cohort(const float* x,
+                                            const uint8_t* mask, int8_t* q,
+                                            float* scratch, int clients,
+                                            int n, int d, int per_client,
+                                            int grid, int smem, int resident,
+                                            cudaStream_t stream) {
+  const void* fn = kernel_for(resident, 1);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return (int)err;
+  float* params = scratch;
+  float* partials = scratch + 2 * clients;
+  void* args[] = {(void*)&x,       (void*)&mask,     (void*)&q,
+                  (void*)&params,  (void*)&partials, (void*)&clients,
+                  (void*)&n,       (void*)&d,        (void*)&per_client};
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(THREADS), args,
+                                    (size_t)smem, stream);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// blocks of THREADS of the single (cohort = 0) or the cohort kernel that
+// fit on one SM at ``smem`` dynamic bytes (< 0: a CUDA error, negated)
+extern "C" int repro_quantize_blocks_per_sm(int resident, int smem,
+                                            int cohort) {
+  const void* fn = kernel_for(resident, cohort);
   cudaError_t err = allow_smem(fn, smem);
   int blocks = 0;
   if (err == cudaSuccess)
@@ -463,10 +658,10 @@ extern "C" int repro_quantize_blocks_per_sm(int resident, int smem) {
 
 // the dynamic shared memory one block of the resident route may take on
 // the current device: the opt-in maximum less the static shared memory
-extern "C" int repro_quantize_max_smem() {
+extern "C" int repro_quantize_max_smem(int cohort) {
   cudaFuncAttributes attr;
   int dev = 0, optin = 0;
-  if (cudaFuncGetAttributes(&attr, kernel_for(1)) != cudaSuccess
+  if (cudaFuncGetAttributes(&attr, kernel_for(1, cohort)) != cudaSuccess
       || cudaGetDevice(&dev) != cudaSuccess
       || cudaDeviceGetAttribute(&optin,
                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,

@@ -120,6 +120,37 @@ def quantize_affine(x: torch.Tensor, rowmask: torch.Tensor):
     return q, scratch[0], scratch[1]
 
 
+def quantize_affine_batched(x: torch.Tensor, rowmask: torch.Tensor):
+    """``quantize_affine`` of each client of a stacked cohort in one
+    launch: (B, N, D) f32 ``x`` and (B, N) bool ``rowmask`` -> (q (B, N, D)
+    int8, xmin (B,), scale (B,)), each client's statistics over its own
+    valid rows. Byte-exact against ``ref.quantize_affine_batched_ref`` and
+    against B calls of ``quantize_affine``."""
+    _check(x, "x", torch.float32, 3, x.device)
+    _check(rowmask, "rowmask", torch.bool, 2, x.device)
+    b, n, d = x.shape
+    if tuple(rowmask.shape) != (b, n):
+        raise ValueError(f"rowmask must be {(b, n)}, got "
+                         f"{tuple(rowmask.shape)}")
+    if not _on_card(x, "quantize_affine_batched"):
+        return ref.quantize_affine_batched_ref(x, rowmask)
+    q = torch.empty((b, n, d), dtype=torch.int8, device=x.device)
+    if b == 0:                          # nothing to launch
+        empty = torch.empty(0, device=x.device)
+        return q, empty, empty
+    from repro_torch.kernels.quantize import (launch_quantize_affine_cohort,
+                                              plan_for_cohort)
+    plan = plan_for_cohort(x)
+    # each client's (xmin, scale), then each virtual block's partial
+    scratch = torch.empty((2 * b + 2 * b * plan.per_client,),
+                          dtype=torch.float32, device=x.device)
+    launch_quantize_affine_cohort(x, rowmask, q, scratch, plan)
+    quantize_affine_batched.last_plan = plan
+    quantize_affine_batched.launches += 1
+    params = scratch[:2 * b].view(b, 2)
+    return q, params[:, 0], params[:, 1]
+
+
 ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 
@@ -215,12 +246,12 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 KERNELS = (kmeans_pairwise_dist, kmeans_lloyd_step, quantize_affine,
-           flash_attention, flash_decode)
+           quantize_affine_batched, flash_attention, flash_decode)
 flash_decode.last_splits = 0           # the split count of the last launch
-# the plan (kernels/kmeans.py RowPlan, kernels/quantize.py QuantizePlan)
-# of the last launch
+# the plan (kernels/kmeans.py RowPlan, kernels/quantize.py QuantizePlan
+# and CohortPlan) of the last launch
 kmeans_pairwise_dist.last_plan = kmeans_lloyd_step.last_plan = None
-quantize_affine.last_plan = None
+quantize_affine.last_plan = quantize_affine_batched.last_plan = None
 
 
 def reset_launch_counts() -> None:

@@ -14,6 +14,11 @@ span of the valid rows stays in shared memory between the two steps
 row valid; the kernel splits the rows that are valid among the same
 blocks.
 
+The cohort entry (``quantize_affine_cohort_kernel``) quantizes a stacked
+(B, N, D) cohort, each client over its own valid rows, in one cooperative
+launch: the axis the TPU kernel gets from ``vmap``. Its plan
+(``plan_quantize_cohort``) splits the same wave among the clients.
+
 Takes CUDA tensors that ``kernels/ops.py`` has already checked and
 allocated; launches on PyTorch's current stream and does not synchronize.
 """
@@ -67,21 +72,70 @@ def plan_quantize(n: int, d: int, sms: int, max_smem: int,
     return QuantizePlan(sms, span, 0, False)
 
 
-@functools.lru_cache(maxsize=None)
-def _plan_cached(n: int, d: int, index: int) -> QuantizePlan:
+class CohortPlan(NamedTuple):
+    """One launch of ``quantize_affine_cohort_kernel``."""
+    per_client: int   # virtual blocks a client
+    grid: int         # blocks, all co-resident, one a SM at most
+    span: int         # elements a virtual block takes when all are valid
+    smem_bytes: int   # dynamic shared memory a block stages its span in
+    resident: bool    # span kept in shared memory; else re-read from L2
+
+
+def plan_quantize_cohort(b: int, n: int, d: int, sms: int, max_smem: int,
+                         blocks_per_sm: Callable[[bool, int], int]
+                         ) -> CohortPlan:
+    """The plan for a (b, n, d) cohort (b >= 1), with the arguments of
+    ``plan_quantize`` (``blocks_per_sm`` queries the cohort kernel). The
+    wave of ``sms`` blocks is split evenly among the clients,
+    ``sms // b`` virtual blocks each, and at least one; past the wave
+    (b > sms) a block takes several virtual blocks, one client after
+    another, on the L2 route. Resident where each block takes one virtual
+    block and its span fits in shared memory."""
+    per_client = max(1, sms // b)
+    vblocks = b * per_client
+    grid = min(vblocks, sms)
+    span = _round_up(-(-(n * d) // per_client), ALIGN)
+    if b * n * d + ALIGN * vblocks > MAX_INDEX:
+        raise ValueError(f"quantize: a {b} x {n} x {d} cohort has 2^31 "
+                         f"elements or more; the kernel indexes in 32 bits")
+    smem = 4 * span
+    if (vblocks == grid and smem <= max_smem
+            and blocks_per_sm(True, smem) >= 1):
+        return CohortPlan(per_client, grid, span, smem, True)
+    if blocks_per_sm(False, 0) < 1:
+        raise RuntimeError("quantize: the cohort kernel fits no block on "
+                           "an SM")
+    return CohortPlan(per_client, grid, span, 0, False)
+
+
+def _query(index: int, cohort: bool):
+    """(max dynamic shared memory, occupancy query) of the single or the
+    cohort kernel on device ``index``."""
     lib = build.library("quantize")
 
     def occupancy(res: bool, smem: int) -> int:
-        blocks = lib.repro_quantize_blocks_per_sm(int(res), smem)
+        blocks = lib.repro_quantize_blocks_per_sm(int(res), smem, int(cohort))
         if blocks < 0:
             build.check_launch(lib, -blocks, "quantize occupancy query")
         return blocks
 
+    max_smem = lib.repro_quantize_max_smem(int(cohort))
+    if max_smem < 0:
+        raise RuntimeError("quantize: the shared-memory query failed")
+    return max_smem, occupancy
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_cached(n: int, d: int, index: int) -> QuantizePlan:
     with torch.cuda.device(index):
-        max_smem = lib.repro_quantize_max_smem()
-        if max_smem < 0:
-            raise RuntimeError("quantize: the shared-memory query failed")
-        return plan_quantize(n, d, sm_count(index), max_smem, occupancy)
+        return plan_quantize(n, d, sm_count(index), *_query(index, False))
+
+
+@functools.lru_cache(maxsize=None)
+def _cohort_plan_cached(b: int, n: int, d: int, index: int) -> CohortPlan:
+    with torch.cuda.device(index):
+        return plan_quantize_cohort(b, n, d, sm_count(index),
+                                    *_query(index, True))
 
 
 def plan_for(x: torch.Tensor) -> QuantizePlan:
@@ -89,6 +143,12 @@ def plan_for(x: torch.Tensor) -> QuantizePlan:
     device)."""
     n, d = x.shape
     return _plan_cached(n, d, x.device.index or 0)
+
+
+def plan_for_cohort(x: torch.Tensor) -> CohortPlan:
+    """The plan of a cohort launch on the (B, N, D) CUDA tensor ``x``."""
+    b, n, d = x.shape
+    return _cohort_plan_cached(b, n, d, x.device.index or 0)
 
 
 def launch_quantize_affine(x: torch.Tensor, rowmask: torch.Tensor,
@@ -105,3 +165,20 @@ def launch_quantize_affine(x: torch.Tensor, rowmask: torch.Tensor,
             int(plan.resident),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(lib, err, "quantize_affine")
+
+
+def launch_quantize_affine_cohort(x: torch.Tensor, rowmask: torch.Tensor,
+                                  q: torch.Tensor, scratch: torch.Tensor,
+                                  plan: CohortPlan) -> None:
+    """x (B, N, D) f32, q (B, N, D) int8, 16-byte aligned; ``rowmask``
+    (B, N) bool; ``scratch`` f32 of 2 * B + 2 * B * plan.per_client: each
+    client's (xmin, scale), then the virtual blocks' partials."""
+    lib = build.library("quantize")
+    b, n, d = x.shape
+    with torch.cuda.device(x.device):
+        err = lib.repro_quantize_affine_cohort(
+            x.data_ptr(), rowmask.data_ptr(), q.data_ptr(),
+            scratch.data_ptr(), b, n, d, plan.per_client, plan.grid,
+            plan.smem_bytes, int(plan.resident),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_launch(lib, err, "quantize_affine_cohort")

@@ -84,6 +84,20 @@ def quantize_affine_ref(x: torch.Tensor, rowmask: torch.Tensor):
     return q, xmin, scale
 
 
+def quantize_affine_batched_ref(x: torch.Tensor, rowmask: torch.Tensor):
+    """``quantize_affine_ref`` of each client of a stacked cohort (the
+    reference's ``vmap`` of it): x (B, N, D) f32, rowmask (B, N) bool ->
+    (q (B, N, D) int8, xmin (B,), scale (B,)), each client's statistics
+    over its own valid rows."""
+    outs = [quantize_affine_ref(xb, mb) for xb, mb in zip(x, rowmask)]
+    if not outs:
+        return (torch.empty(x.shape, dtype=torch.int8, device=x.device),
+                torch.empty(0, device=x.device),
+                torch.empty(0, device=x.device))
+    q, xmin, scale = zip(*outs)
+    return torch.stack(q), torch.stack(xmin), torch.stack(scale)
+
+
 def dequantize_affine_ref(q: torch.Tensor, xmin, scale) -> torch.Tensor:
     """Inverse of ``quantize_affine_ref``: x_hat = (q + 128) * scale + xmin
     in f32."""

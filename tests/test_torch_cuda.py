@@ -463,3 +463,158 @@ def test_attention_kernels_refuse_tensors_that_need_grad(card):
         ops.flash_decode(q[:, :1], k, k,
                          torch.ones(1, 64, dtype=torch.bool, device=card))
     assert (ops.flash_attention.launches, ops.flash_decode.launches) == before
+
+
+def _cohort_payload(case, b, n, d, card):
+    """(x (B, N, D), mask (B, N)) on the card: client i is
+    ``_quant_payload``'s ``case`` payload times i + 1 (so the clients'
+    statistics differ); in ``mixed`` client 1 has every row masked and
+    client 2 a NaN in a valid row; ``odd`` lies 4 bytes off 16."""
+    xs, ms = [], []
+    for i in range(b):
+        c = case if case != "mixed" else {1: "all_masked",
+                                          2: "nan"}.get(i, "ragged")
+        x, m = _quant_payload("ragged" if c == "odd" else c, n, d, card)
+        xs.append(x * (i + 1))
+        ms.append(m)
+    x = torch.stack(xs)
+    if case == "odd":
+        buf = torch.empty(x.numel() + 1, device=card)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(b, n, d)
+        assert x.data_ptr() % 16 == 4
+    return x, torch.stack(ms)
+
+
+# the main path's cohort (4 x 100 x 16384, 20 of 100 rows valid each),
+# mixed masks (a client all masked, one with NaN), a zero minimum of both
+# signs, one client, a client per SM, more clients than SMs at a small D
+# (the L2 route), D % 4 != 0 off a 16-byte base, and empty payloads
+@pytest.mark.parametrize("b,n,d,case,resident", [
+    (4, 100, 16384, "main_path", True), (4, 100, 16384, "mixed", True),
+    (3, 37, 1001, "signed_zero", True), (1, 100, 16384, "slots", True),
+    (132, 20, 300, "ragged", True), (200, 37, 61, "ragged", False),
+    (3, 37, 1001, "odd", True), (2, 0, 64, "slots", True),
+    (3, 5, 0, "slots", True)])
+def test_quantize_cohort_kernel_byte_exact(card, b, n, d, case, resident):
+    """Each client's codes and (xmin, scale) equal, bit for bit, the plain
+    version's on the card and on the CPU (and one ``quantize_affine`` call
+    per client); one launch a call, on the planned route."""
+    x, m = _cohort_payload(case, b, n, d, card)
+    before = ops.quantize_affine_batched.launches
+    q, xmin, scale = ops.quantize_affine_batched(x, m)
+    assert ops.quantize_affine_batched.launches == before + 1
+    assert ops.quantize_affine_batched.last_plan.resident == resident
+    got = (q.cpu().numpy().tobytes(), xmin.cpu().numpy().tobytes(),
+           scale.cpu().numpy().tobytes())
+    for wq, wxmin, wscale in [ref.quantize_affine_batched_ref(x, m),
+                              ref.quantize_affine_batched_ref(x.cpu(),
+                                                              m.cpu())]:
+        assert got == (wq.cpu().numpy().tobytes(),
+                       wxmin.cpu().numpy().tobytes(),
+                       wscale.cpu().numpy().tobytes())
+    if b <= 4:
+        for i in range(b):
+            one = ops.quantize_affine(x[i].contiguous(), m[i])
+            assert [t.cpu().numpy().tobytes() for t in one] == [
+                t.cpu().numpy().tobytes() for t in (q[i], xmin[i], scale[i])]
+
+
+def _small_fl(card, **knobs):
+    from repro_torch.configs import FLConfig, get_wrn_config
+    from repro_torch.core.split import make_split_wrn
+    from repro_torch.data import SyntheticImageDataset, partition_k_shards
+    cfg = get_wrn_config().reduced()
+    ds = SyntheticImageDataset(400, image_size=cfg.image_size,
+                               modes_per_class=3, seed=3)
+    test = SyntheticImageDataset(100, image_size=cfg.image_size, seed=4)
+    clients = partition_k_shards(ds, num_clients=3, k_classes=2,
+                                 samples_per_client=100, seed=3)
+    fl = FLConfig(num_clients=3, clients_per_round=3, local_batch_size=25,
+                  pca_components=16, clusters_per_class=4, kmeans_iters=10,
+                  meta_epochs=2, meta_batch_size=8, transport_codec="int8",
+                  **knobs)
+    return make_split_wrn(cfg), clients, test, fl
+
+
+def test_cohort_engine_bit_identical_on_the_card(card):
+    """Two rounds of the small WRN-10-1 on the card, with and without a
+    fault plan: the cohort engine gives the sequential loop's weights,
+    ledger, decoded selections, accuracies and fault log, bit for bit, and
+    uploads through one batched quantize launch a round."""
+    from repro_torch.fl.faults import FaultPlan
+    from repro_torch.fl.simulation import FLSimulation
+    plan = FaultPlan(drop_rate=0.2, late_crash_rate=0.1, bitflip_rate=0.3,
+                     truncate_rate=0.2, duplicate_rate=0.2)
+    for fault_plan in (None, plan):
+        runs = []
+        for distributed in (False, True):
+            model, clients, test, fl = _small_fl(
+                card, distributed_selection=distributed,
+                transport_checksum=fault_plan is not None)
+            sim = FLSimulation(model, clients, test, fl, seed=0, device=card,
+                               fault_plan=fault_plan, fault_seed=3)
+            picked, upload = {}, sim.channel.upload_knowledge
+
+            def record(cid, *args, _upload=upload, _picked=picked, **kw):
+                got = _upload(cid, *args, **kw)
+                _picked[cid] = (None if got is None else
+                                [t.numpy().tobytes() for t in got])
+                return got
+
+            sim.channel.upload_knowledge = record
+            log, begin = [], sim.channel.begin_round
+
+            def begin_round(t, _begin=begin, _ch=sim.channel, _log=log):
+                _log.extend(getattr(_ch, "log", []))
+                _begin(t)
+
+            sim.channel.begin_round = begin_round
+            ops.reset_launch_counts()
+            res = sim.run(rounds=2)
+            counts = ops.launch_counts()
+            log = sorted((e.round_idx, e.client_id, e.frame, e.kind,
+                          e.attempt) for e in log + getattr(sim.channel,
+                                                            "log", []))
+            runs.append(({k: v.cpu().numpy().tobytes()
+                          for k, v in sim.server.global_params.items()},
+                         res.comm, picked, res.test_acc, res.fedavg_acc,
+                         res.lloyd_iters, res.drops, log))
+            # one quantize a knowledge upload on the client loop (none for
+            # a client that crashed before uploading), one a round on the
+            # cohort engine
+            uploads = 6 - sum(e[3] == "crash_before_upload" for e in log)
+            assert counts["quantize_affine_batched"] == (2 if distributed
+                                                         else 0)
+            assert counts["quantize_affine"] == (0 if distributed
+                                                 else uploads)
+        for what, a, b in zip(("weights", "ledger", "selections", "M_COM",
+                               "FedAvg", "Lloyd sweeps", "drops", "faults"),
+                              *runs):
+            assert a == b, f"{what} differ between the engines"
+
+
+def test_captured_local_update_matches_the_eager_cpu_step(card):
+    """The captured SGD step on the card against the eager loop on the
+    CPU, from the same params and batches: within 2e-3."""
+    from repro_torch.core import fedavg as fa
+    from repro_torch.core.rounds import local_order
+    model, clients, _, fl = _small_fl(card)
+    gen = torch.Generator().manual_seed(1)
+    params = model.init(gen, torch.device("cpu"))
+    x = torch.from_numpy(clients[0].data.x)
+    y = torch.from_numpy(clients[0].data.y)
+    perms = torch.randperm(x.shape[0], generator=gen)[None]
+    order = local_order(x.shape[0], perms, fl)
+    want, wloss = fa.client_update(params, fl.local_lr, x, y, order,
+                                   model.loss)
+    got, loss = fa.client_update({k: v.to(card) for k, v in params.items()},
+                                 fl.local_lr, x.to(card), y.to(card),
+                                 order.to(card), model.loss)
+    again, loss2 = fa.client_update(
+        {k: v.to(card) for k, v in params.items()}, fl.local_lr, x.to(card),
+        y.to(card), order.to(card), model.loss)
+    for k in want:
+        assert _rel(got[k].cpu(), want[k]) <= TOL, k
+        assert torch.equal(got[k], again[k]), k
+    assert _rel(loss.cpu(), wloss) <= TOL and torch.equal(loss, loss2)

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
 neither JAX nor any module of ``repro``; its entry points run on CUDA
 unless asked for the CPU and raise otherwise; the knobs it has not ported
-are refused, not ignored."""
+are refused, not ignored, and the cohort knobs it has are routed."""
 import os
 import subprocess
 import sys
@@ -74,12 +74,46 @@ def test_dropped_knobs_are_type_errors(knob, value):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("distributed_selection", True), ("selection_chunk_size", 8),
     ("pca_solver", "randomized"), ("observability", True)])
 def test_unported_engines_are_refused(knob, value):
     with pytest.raises(NotImplementedError):
         FLConfig(**{knob: value})
     FLConfig(**{knob: getattr(FLConfig(), knob)})        # the default is fine
+
+
+@pytest.mark.parametrize("knob,value,engine", [
+    ("distributed_selection", True, "distributed.cohort_round"),
+    ("selection_chunk_size", 8, "rounds.client_round")])
+def test_cohort_engines_are_accepted_and_routed(monkeypatch, knob, value,
+                                                engine):
+    """The two ported knobs are accepted: ``run_cohort`` routes the cohort
+    to the cohort engine, and a chunk size leaves it on the client loop
+    (the port selects one client at a time in every engine)."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core import rounds
+    from repro_torch.fl.comms import CommLedger
+    from repro_torch.fl.transport import Channel
+
+    class Routed(Exception):
+        pass
+
+    def stop(*args, **kwargs):
+        raise Routed
+
+    module, name = engine.split(".")
+    monkeypatch.setattr({"distributed": D, "rounds": rounds}[module], name,
+                        stop)
+    cfg = get_wrn_config().reduced()
+    ds = SyntheticImageDataset(40, image_size=cfg.image_size)
+    clients = partition_k_shards(ds, num_clients=2, samples_per_client=20)
+    model = make_split_wrn(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, torch.device("cpu"))
+    fl = FLConfig(num_clients=2, **{knob: value})
+    with pytest.raises(Routed):
+        rounds.run_cohort(model, params, clients, fl,
+                          rounds.GeneratorDraws(gen), Channel(CommLedger()),
+                          ds.num_classes)
 
 
 def test_unknown_codec_is_refused():

@@ -37,6 +37,20 @@ from repro_torch.fl.comms import CommLedger
 from repro_torch.fl.simulation import FLSimulation
 from repro_torch.models import wrn
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch ops on one CPU thread. The suite runs test
+    files in parallel processes; there torch's default of a thread per
+    core oversubscribes the cores, and each of a small WRN's many tiny
+    parallel ops waits for all its threads to be scheduled. Restored when
+    the module ends. Modules that import it get it too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 2e-3
 KNOBS = dict(num_clients=2, clients_per_round=2, local_epochs=1,
              local_batch_size=25, local_lr=0.05, pca_components=16,
