@@ -66,6 +66,19 @@ result line:
      weights, ledger, metadata counts, Lloyd sweeps and accuracies
      bit-identical to phase 4's; the cohort quantize launched once a round
      (2) and the per-client quantize never;
+  7. the async service (``repro_torch.fl.service.FLService``) at phase 4's
+     full width: 7a, ``DegenerateTraffic`` with a buffer of 4 for 2 ticks,
+     bit-identical to phase 4's ``FLSimulation`` (weights, ledger,
+     accuracies, |D_M|, K-means and quantize launches; staleness 0); 7b,
+     Poisson arrivals (rate 2, uploads delayed up to 2 ticks), a buffer
+     of 2, 4 ticks and a drain, traced: the arrivals and deferred uploads
+     are the host ``PoissonTraffic`` schedule, staleness accrues and a
+     flush is weighted; 7c, 7a again with ``observability=True``: the
+     same bits, no unattributed byte, attributed bytes equal to the
+     ledger's, one ``kernel.*`` span a launch, the trace written under
+     ``build/`` and loaded back (span paths, tracing overhead); 7d,
+     ``python -m repro_torch.launch.serve_fl --ticks 2 --sync-check`` in
+     its own process must exit 0;
   6. serve llama3.2-1b at full width (16 layers, d_model 2048, 32 heads /
      8 KV, d_ff 8192, vocab 128,256; random weights from seed 0) in bf16:
      ``repro_torch.launch.serve`` decodes batch 32 against a 32,768-slot
@@ -773,6 +786,10 @@ def main() -> None:
         "client_loop_round_wall_s": res.round_wall_s,
         "bit_identical_to_phase_4": True,
         "launches": cohort_launches}}))
+    # ---- 7. the async service at full width ----------------------------
+    # (its own function: the services and their weights are freed on return)
+    print(json.dumps({"service": run_service_phase(
+        model, clients, test, cfg, sim, res, launches)}))
     # each run freed its captured LocalUpdate graphs when it returned: what
     # stays on the card for serving is phase 5's data, not the FL runs'
     del csim
@@ -1222,6 +1239,179 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def run_service_phase(model, clients, test, cfg, sim, res, launches):
+    """Phase 7: ``FLService`` at phase 4's full width, against phase 4's
+    ``FLSimulation`` run (``sim``, ``res``, its launch counts
+    ``launches``); returns the phase's numbers."""
+    import dataclasses
+    from collections import Counter
+
+    import torch
+    from repro_torch.fl.service import (DegenerateTraffic, FLService,
+                                        PoissonTraffic)
+    from repro_torch.kernels import ops
+    from repro_torch.obs import load_trace, span_paths
+    from repro_torch.obs.timing import monotonic
+
+    def weights(params):
+        return {k: v.cpu().numpy().tobytes() for k, v in params.items()}
+
+    sim_w = weights(sim.server.global_params)
+    sim_comm = {k: v for k, v in res.comm.items() if k != "total_samples"}
+    selection = ("kmeans_pairwise_dist", "kmeans_lloyd_step",
+                 "quantize_affine", "quantize_affine_batched")
+
+    def degenerate(observability):
+        ops.reset_launch_counts()
+        svc = FLService(model, clients, test,
+                        dataclasses.replace(cfg, observability=observability),
+                        seed=0, traffic=DegenerateTraffic(), buffer_size=4)
+        t0 = monotonic()
+        out = svc.run(ticks=2)
+        wall = monotonic() - t0
+        counts = ops.launch_counts()
+        tag = "7c" if observability else "7a"
+        for what, a, b in [
+                ("weights", weights(svc.server.global_params), sim_w),
+                ("ledger", out.comm, sim_comm),
+                ("M_COM", out.test_acc, res.test_acc),
+                ("FedAvg", out.fedavg_acc, res.fedavg_acc),
+                ("|D_M|", out.metadata_counts, res.metadata_counts),
+                ("K-means and quantize launches",
+                 {k: counts[k] for k in selection},
+                 {k: launches[k] for k in selection})]:
+            check(a == b, f"{tag}: {what} differ from phase 4's FLSimulation")
+        check(out.mean_staleness == 0.0 and out.flushes == 2,
+              f"{tag}: staleness {out.flush_staleness}, {out.flushes} "
+              f"flushes")
+        return svc, out, wall, counts
+
+    # 7a: the degenerate service is phase 4's simulator, bit for bit
+    svc, ares, a_wall, _ = degenerate(False)
+    del svc
+    out = {"7a_degenerate": {
+        "bit_identical_to_phase_4": True, "wall_s": a_wall,
+        "tick_wall_s": ares.tick_wall_s,
+        "phase_4_round_wall_s": res.round_wall_s,
+        "ticks_per_s": ares.ticks / a_wall,
+        "bytes_per_s": (ares.comm["total_up"] + ares.comm["total_down"])
+        / a_wall}}
+
+    # 7b: asynchronous — Poisson arrivals, uploads delayed up to 2 ticks,
+    # a buffer of 2 (traced, to read the flushes' weighting)
+    traffic = PoissonTraffic(rate=2.0, seed=0, delay_ticks=2)
+    ops.reset_launch_counts()
+    svc = FLService(model, clients, test,
+                    dataclasses.replace(cfg, observability=True), seed=0,
+                    traffic=traffic, buffer_size=2, staleness_alpha=0.5)
+    t0 = monotonic()
+    bres = svc.run(ticks=4, drain=True)
+    b_wall = monotonic() - t0
+
+    class _Everyone:
+        def eligible_clients(self, n):
+            return list(range(n))
+
+    want = [traffic.arrivals(t, _Everyone(), len(clients), None)
+            for t in range(4)]
+    spans = {sp.span_id: sp for sp in svc.tracer.spans}
+
+    def tick_of(sp):
+        while sp.name != "service.tick":
+            sp = spans[sp.parent_id]
+        return sp.attrs["tick"]
+
+    got = [[] for _ in range(4)]
+    for sp in svc.tracer.spans:
+        if sp.name == "client":
+            got[tick_of(sp)].append(sp.attrs["client"])
+    deferred = [(e["attrs"]["client"], e["attrs"]["due"])
+                for e in svc.tracer.events
+                if e["name"] == "service.upload_deferred"]
+    check(bres.arrivals_per_tick == [len(w) for w in want]
+          and got == [[a.client_id for a in w] for w in want]
+          and deferred == [(a.client_id, t + a.delay)
+                           for t, w in enumerate(want) for a in w
+                           if a.delay > 0],
+          f"7b: arrivals {got}, deferred {deferred} are not the host "
+          f"PoissonTraffic schedule {want}")
+    weighted = [sp.attrs["weighted"] for sp in svc.tracer.spans
+                if sp.name == "service.buffer_flush"]
+    check(bres.mean_staleness > 0 and 1 in weighted,
+          f"7b: staleness {bres.flush_staleness}, weighted {weighted}")
+    for key, t in svc.server.global_params.items():
+        check(bool(torch.isfinite(t).all()), f"7b: W_G[{key}] not finite")
+    b_counts = ops.launch_counts()
+    check(all(b_counts[k] > 0 for k in selection[:3]),
+          f"7b: launches {b_counts}")
+    out["7b_async"] = {
+        "traced": True, "wall_s": b_wall, "ticks_per_s": bres.ticks / b_wall,
+        "bytes_per_s": (bres.comm["total_up"] + bres.comm["total_down"])
+        / b_wall,
+        "tick_wall_s": bres.tick_wall_s,
+        "arrivals_per_tick": bres.arrivals_per_tick,
+        "arrivals": [[list(a) for a in w] for w in want],
+        "flushes": bres.flushes, "flush_sizes": bres.flush_sizes,
+        "flush_staleness": bres.flush_staleness, "weighted": weighted,
+        "mean_staleness": bres.mean_staleness,
+        "m_com_acc": bres.test_acc, "fedavg_acc": bres.fedavg_acc,
+        "launches": b_counts}
+    del svc
+
+    # 7c: 7a traced — the same bits, every byte attributed, one kernel.*
+    # span a launch
+    svc, cres, c_wall, c_counts = degenerate(True)
+    tr = svc.tracer
+    led = svc.server.ledger
+    check(not any(tr.unattributed.values()),
+          f"7c: unattributed bytes {dict(tr.unattributed)}")
+    ledger_bytes = {**{f"up/{k}": v for k, v in led.up.items()},
+                    **{f"down/{k}": v for k, v in led.down.items()}}
+    check(tr.attributed_bytes() == ledger_bytes,
+          f"7c: attributed {tr.attributed_bytes()} != ledger "
+          f"{ledger_bytes}")
+    kernel_spans = Counter(sp.name for sp in tr.spans
+                           if sp.name.startswith("kernel."))
+    check(dict(kernel_spans) == {f"kernel.{k}": v
+                                 for k, v in c_counts.items() if v},
+          f"7c: kernel spans {dict(kernel_spans)} != launches {c_counts}")
+    path = os.path.join(ROOT, "build", "phase7c_trace.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tr.write_jsonl(path)
+    loaded = load_trace(path)
+    check(len(loaded["spans"]) == len(tr.spans)
+          and loaded["metrics"]["unattributed"] == {},
+          "7c: the trace does not load back whole")
+    kernel_ms = {}
+    for name in kernel_spans:
+        ds = [sp.duration * 1e3 for sp in tr.spans if sp.name == name]
+        kernel_ms[name] = {"spans": len(ds), "mean_ms": sum(ds) / len(ds),
+                           "min_ms": min(ds)}
+    out["7c_traced"] = {
+        "bit_identical_to_7a": True, "wall_s": c_wall,
+        "tick_wall_s": cres.tick_wall_s,
+        "tracing_overhead": c_wall / a_wall,
+        "trace": os.path.relpath(path, ROOT), "spans": len(tr.spans),
+        "events": len(tr.events), "span_paths": span_paths(loaded),
+        "kernel_span_ms": kernel_ms}
+    del svc, tr, led
+
+    # 7d: the launcher's sync check, on the card, in its own process
+    t0 = monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_fl", "--ticks", "2",
+         "--sync-check"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ,
+                          "PYTHONPATH": os.path.join(ROOT, "src")})
+    check(proc.returncode == 0 and "weights=OK ledger=OK" in proc.stdout,
+          f"7d: serve_fl --sync-check exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    out["7d_serve_fl"] = {"exit": proc.returncode,
+                          "wall_s": monotonic() - t0,
+                          "stdout": proc.stdout.strip().splitlines()}
+    return out
 
 
 if __name__ == "__main__":

@@ -22,9 +22,10 @@ field names and defaults, so the two configs read alike. Two differences:
   accepted, as in the reference, and changes nothing: it bounds how many
   clients' activation maps the reference's batched forward holds at once,
   and every engine of the port already selects one client at a time.
-* ``pca_solver`` and ``observability`` are kept, but their engines are
-  not ported yet: any value other than the default raises
-  ``NotImplementedError``.
+* ``pca_solver`` is kept, but its randomized engine is not ported yet:
+  any value other than the default raises ``NotImplementedError``.
+  ``observability`` is ported (``repro_torch.obs``: the tracer, metrics
+  and the ledger bridge).
 """
 from __future__ import annotations
 
@@ -238,20 +239,19 @@ class FLConfig:
     use_selection: bool = True         # False = Table 2 baseline (all maps)
     distributed_selection: bool = False  # the cohort engine
     selection_chunk_size: int = 0      # accepted; the port selects per client
-    # --- engines not ported yet: only the defaults are accepted ---
+    # --- an engine not ported yet: only the default is accepted ---
     pca_solver: str = "exact"          # "randomized" waits for its port
-    observability: bool = False
+    # --- observability (repro_torch.obs; span trace + metrics) ---
+    observability: bool = False        # off: every obs hook is a NullTracer
     # --- transport (repro_torch.fl.transport; exact frame bytes) ---
     transport_codec: str = "raw_f32"   # raw_f32 | f16 | int8
     transport_checksum: bool = False   # CRC32 trailer on every frame
 
     def __post_init__(self):
-        not_ported = {"pca_solver": "exact", "observability": False}
-        for name, default in not_ported.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"FLConfig.{name}={getattr(self, name)!r}: only "
-                    f"{default!r} is ported to repro_torch so far")
+        if self.pca_solver != "exact":
+            raise NotImplementedError(
+                f"FLConfig.pca_solver={self.pca_solver!r}: only 'exact' is "
+                f"ported to repro_torch so far")
         if self.transport_codec not in TRANSPORT_CODECS:
             raise ValueError(f"unknown transport codec "
                              f"{self.transport_codec!r} (have "

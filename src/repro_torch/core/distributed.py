@@ -4,16 +4,18 @@ one device — the port's counterpart of ``repro.core.distributed``.
 ``cohort_round`` runs every client's Extract&Selection, then ONE batched
 upload of the cohort's selected knowledge (one int8 quantize launch for
 the cohort, ``Channel.upload_knowledge_batched``), then every client's
-LocalUpdate and update frame. Each client's forward, selection and update
-run client by client, on the same ops, draws and captured SGD step as the
-client-by-client loop of ``core/rounds.py``: the port's BatchNorm
-normalizes with the batch's own statistics, so one forward over a
-flattened (B·N) stack would mix the clients' statistics (the reference's
-``vmap`` keeps them apart), and ``torch.func.vmap`` over the client axis
-would re-batch the convolution gradients into other reduction orders. So
-the engine's results are bit-identical to the loop's, on the CPU and on
-the card. Only the selected maps are stacked, so a ragged cohort (clients
-of different sizes) runs here too.
+LocalUpdate, then every client's update frame — under the reference's
+``select`` / ``transport`` / ``local_update`` / ``transport`` spans. Each
+client's forward, selection and update run client by client, on the same
+ops, draws and captured SGD step as the client-by-client loop of
+``core/rounds.py``: the port's BatchNorm normalizes with the batch's own
+statistics, so one forward over a flattened (B·N) stack would mix the
+clients' statistics (the reference's ``vmap`` keeps them apart), and
+``torch.func.vmap`` over the client axis would re-batch the convolution
+gradients into other reduction orders. So the engine's results are
+bit-identical to the loop's, on the CPU and on the card. Only the selected
+maps are stacked, so a ragged cohort (clients of different sizes) runs
+here too.
 
 Not ported: ``selection_mesh``, ``data_axis_size``, ``_pad_clients``,
 ``_select_stack_sharded`` and ``select_metadata_sharded``, which matter
@@ -28,6 +30,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import fedavg as fa
 from repro_torch.core import rounds as R
@@ -59,18 +62,35 @@ def cohort_round(model: SplitModel, params: R.Params,
     if client_ids is None:
         client_ids = list(range(len(clients)))
     dev = next(iter(params.values())).device
+    b = len(clients)
     data = [R.client_arrays(c, dev) for c in clients]
-    picked = [R.extract_select(model, params, x, y, d, cfg, num_classes)
-              for (x, y), d in zip(data, draws)]
-    sel_acts, sel_ys, valid = (torch.stack(t)
-                               for t in zip(*(p[0] for p in picked)))
-    metadatas = channel.upload_knowledge_batched(
-        client_ids, sel_acts, sel_ys, valid, get_codec(cfg.transport_codec))
+    with obs.span("select", clients=b) as ssp:
+        picked = [R.extract_select(model, params, x, y, d, cfg, num_classes)
+                  for (x, y), d in zip(data, draws)]
+        sel_acts, sel_ys, valid = (torch.stack(t)
+                                   for t in zip(*(p[0] for p in picked)))
+        ssp.sync(valid)
+        if ssp.enabled:
+            vnp = valid.cpu().numpy()
+            ssp.set(selected=int(vnp.sum()),
+                    lloyd_iters=[p[1] for p in picked])
+            for i, cid in enumerate(client_ids):
+                R.emit_selection_sketch(vnp[i], num_classes,
+                                        cfg.clusters_per_class, int(cid),
+                                        data[i][0].shape[0])
+    with obs.span("transport", clients=b) as tsp:
+        metadatas = tsp.sync(channel.upload_knowledge_batched(
+            client_ids, sel_acts, sel_ys, valid,
+            get_codec(cfg.transport_codec)))
     del sel_acts, sel_ys, valid
     cparams, losses = [], []
-    for cid, (x, y), d in zip(client_ids, data, draws):
-        p, loss = R.update_client(model, params, x, y, d, cfg, channel,
-                                  int(cid), steps)
-        cparams.append(p)
-        losses.append(loss)
+    with obs.span("local_update", clients=b) as lsp:
+        for (x, y), d in zip(data, draws):
+            p, loss = R.update_client(model, params, x, y, d, cfg, steps)
+            cparams.append(p)
+            losses.append(loss)
+        lsp.sync(cparams)
+    with obs.span("transport", clients=b):
+        for cid, p in zip(client_ids, cparams):
+            channel.upload_update(int(cid), p)
     return cparams, metadatas, losses, [p[1] for p in picked]

@@ -22,6 +22,11 @@ needs — each class's first K-means centre, the LocalUpdate and the
 meta-training permutations, the cohort — and the core functions take them
 as tensors. ``GeneratorDraws`` draws them from a ``torch.Generator``; the
 parity tests pass an object that reproduces the reference's JAX draws.
+
+The round reports through ``repro_torch.obs`` (no-ops unless a tracer is
+active): ``client`` / ``select`` / ``local_update`` spans per client, a
+``meta_train`` span on the server, and a ``selection_sketch`` event per
+client, at the reference's sites.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Dict, List, Optional, Protocol
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import fedavg as fa
 from repro_torch.core import meta_training as mt
@@ -61,6 +67,16 @@ class Draws(Protocol):
     def meta_perms(self, m: int, epochs: int) -> torch.Tensor: ...
 
     def cohort(self, num_available: int, m: int) -> np.ndarray: ...
+
+    def locate(self, tick: int, arrivals: Optional[int] = None,
+               flush: int = 0) -> None:
+        """Where the async service (``fl/service/loop.py``) stands, told
+        before the draws it takes there: the start of ``tick``
+        (``arrivals`` None), then the tick's ``arrivals`` once drawn
+        (each arrival's ``client`` draws follow, in arrival order), then
+        before each flush its index ``flush`` within the tick (its
+        ``meta_perms`` follow). Draws taken in call order ignore it; draws
+        that follow the reference's per-tick key chain need it."""
 
 
 class GeneratorDraws:
@@ -95,6 +111,9 @@ class GeneratorDraws:
     def cohort(self, num_available, m):
         """``m`` distinct client ids out of ``num_available``."""
         return self._randperm(num_available)[:m].numpy()
+
+    def locate(self, tick, arrivals=None, flush=0):
+        """Ignored: one generator, drawn in call order."""
 
 
 @dataclass
@@ -158,18 +177,36 @@ def extract_select(model: SplitModel, params: Params, x: torch.Tensor,
     return (acts[sel.indices], y[sel.indices], sel.valid), sel.lloyd_iters
 
 
+def emit_selection_sketch(valid, num_classes: int, clusters_per_class: int,
+                          client_id: int, n_k: int) -> None:
+    """Persist one client's selection sketch into the trace: the class x
+    cluster occupancy bitmap (which §3.1 slots produced a representative)
+    plus the selected fraction |D_Mk|/|D_k|. Emitted BEFORE the transport
+    encode — the wire compacts the bitmap to the valid rows, so this is
+    the only place the (CK,) slot structure still exists. The event nests
+    under the open ``select`` span, so the round is its ancestry."""
+    if isinstance(valid, torch.Tensor):
+        valid = valid.cpu().numpy()
+    v = np.asarray(valid).astype(bool).reshape(-1)
+    if v.size != num_classes * clusters_per_class:
+        return   # Table-2 baseline ships a per-sample mask, not slots
+    obs.event("selection_sketch", client=int(client_id),
+              occupancy=v.reshape(num_classes,
+                                  clusters_per_class).astype(int).tolist(),
+              selected=int(v.sum()),
+              selected_fraction=float(v.sum() / max(n_k, 1)))
+
+
 def update_client(model: SplitModel, params: Params, x: torch.Tensor,
                   y: torch.Tensor, draws: ClientDraws, cfg: FLConfig,
-                  channel: Channel, client_id: int,
                   steps: Optional[fa.CapturedSteps] = None):
-    """LocalUpdate (§3.2) of one client from W_G(t-1) in its batch order,
-    then its update frame through ``channel`` -> (params, mean loss). On
-    the card the SGD step is the one ``steps`` holds (see
-    ``fedavg.client_update``)."""
+    """LocalUpdate (§3.2) of one client from W_G(t-1) in its batch order
+    -> (params, mean loss). On the card the SGD step is the one ``steps``
+    holds (see ``fedavg.client_update``); the caller sends the update
+    frame."""
     order = local_order(x.shape[0], draws.local_perms, cfg).to(x.device)
     new_params, losses = fa.client_update(params, cfg.local_lr, x, y, order,
                                           model.loss, steps)
-    channel.upload_update(client_id, new_params)
     return new_params, float(losses.mean())
 
 
@@ -185,13 +222,33 @@ def client_round(model: SplitModel, params: Params, client: ClientData,
     faulty channel keys its draws. Returns
     (new_params, metadata, mean local loss, Lloyd sweeps or None)."""
     x, y = client_arrays(client, _device(params))
-    triple, sweeps = extract_select(model, params, x, y, draws, cfg,
-                                    num_classes)
-    metadata = channel.upload_knowledge(client_id, *triple,
-                                        get_codec(cfg.transport_codec))
-    del triple
-    new_params, loss = update_client(model, params, x, y, draws, cfg,
-                                     channel, client_id, steps)
+    with obs.span("client", client=int(client_id)) as csp:
+        with obs.span("select") as ssp:
+            triple, sweeps = extract_select(model, params, x, y, draws, cfg,
+                                            num_classes)
+            if ssp.enabled and cfg.use_selection:
+                emit_selection_sketch(triple[2], num_classes,
+                                      cfg.clusters_per_class, client_id,
+                                      x.shape[0])
+            metadata = ssp.sync(channel.upload_knowledge(
+                client_id, *triple, get_codec(cfg.transport_codec)))
+            del triple
+            if ssp.enabled and metadata is not None:
+                n_sel = int(metadata[2].sum())
+                ssp.set(selected=n_sel,
+                        selected_fraction=n_sel / max(x.shape[0], 1))
+                if sweeps is not None:
+                    ssp.set(lloyd_iters=int(sweeps))
+        with obs.span("local_update") as lsp:
+            new_params, loss = update_client(model, params, x, y, draws,
+                                             cfg, steps)
+            lsp.sync(new_params)
+            if lsp.enabled:
+                lsp.set(steps=int(local_order(
+                    x.shape[0], draws.local_perms, cfg).shape[0]))
+        channel.upload_update(client_id, new_params)
+        if csp.enabled:
+            csp.set(samples=int(x.shape[0]))
     return new_params, metadata, loss, sweeps
 
 
@@ -217,10 +274,12 @@ def server_round(model: SplitModel, prev_global: Params, upper_init: Params,
         upper, meta_losses = upper_init, torch.zeros(0)
     else:
         perms = draws.meta_perms(acts.shape[0], cfg.meta_epochs)
-        upper, meta_losses = mt.meta_train(
-            upper_init, model.upper_loss, acts, ys, perms,
-            batch_size=cfg.meta_batch_size, lr=cfg.meta_lr, l2=cfg.meta_l2,
-            valid=valid)
+        with obs.span("meta_train", rows=int(acts.shape[0])) as msp:
+            upper, meta_losses = mt.meta_train(
+                upper_init, model.upper_loss, acts, ys, perms,
+                batch_size=cfg.meta_batch_size, lr=cfg.meta_lr,
+                l2=cfg.meta_l2, valid=valid)
+            msp.sync(upper)
     if not client_params or (fedavg_weights is not None
                              and not any(fedavg_weights)):
         new_global = prev_global

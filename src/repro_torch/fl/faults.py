@@ -21,8 +21,10 @@ plan gives the SAME faults on the client-by-client loop and on the cohort
 engine, and the same ones as the reference's ``FaultyChannel`` for frames
 of the same lengths. With every rate at zero the channel never perturbs,
 never retries, and charges byte-identical ledger entries to the perfect
-``Channel``. (The reference mirrors each log line into its tracer; that
-waits for the port's observability.)
+``Channel``. Each log line is mirrored into the active tracer as a
+``fault.<kind>`` event and counter, beside the ``fault.retransmits`` and
+``fault.injected_corruptions`` counters (no-ops when observability is
+off).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.fl.comms import DUPLICATE, RETRANSMIT, CommLedger
 from repro_torch.fl.transport.channel import Channel
 from repro_torch.fl.transport.errors import FrameError
@@ -172,6 +175,12 @@ class FaultyChannel(Channel):
              detail: str = "") -> None:
         self.log.append(FaultEvent(self.round_idx, int(client_id), frame,
                                    kind, attempt, detail))
+        # mirror into the trace: every fault-log line becomes a point event
+        # and a counter
+        obs.event("fault." + kind, round=self.round_idx,
+                  client=int(client_id), frame=frame, attempt=attempt,
+                  detail=detail)
+        obs.inc("fault." + kind)
 
     def _perturb(self, wire: bytes,
                  rng: np.random.Generator) -> Tuple[bytes, Optional[str]]:
@@ -199,11 +208,13 @@ class FaultyChannel(Channel):
                 self._stats["retransmits"] += 1
                 self._stats["backoff_s"] += (self.plan.backoff_base
                                              * 2.0 ** (attempt - 1))
+                obs.inc("fault.retransmits")
             self.ledger.upload(cat, len(wire))
             delivered, event = self._perturb(wire, rng)
             if event is not None:
                 self._stats["injected_corruptions"] += 1
                 self.total_injected_corruptions += 1
+                obs.inc("fault.injected_corruptions")
             if rng.random() < self.plan.duplicate_rate:
                 # the network clones the delivery; the receiver dedups but
                 # the clone's bytes were real traffic

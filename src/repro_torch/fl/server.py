@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.rounds import Draws, RoundResult, server_round
 from repro_torch.core.split import SplitModel
@@ -115,8 +116,8 @@ class FLServer:
         ``stragglers`` and ``arrived`` zero-weight the marked clients in
         Eq. 2 (a straggler's metadata still counts); both None keeps the
         exact unweighted mean. ``fedavg_weights`` overrides the masks with
-        explicit per-client weights. A round where no update counts keeps
-        W_G(t-1)."""
+        explicit per-client weights (the async service's staleness
+        discount). A round where no update counts keeps W_G(t-1)."""
         if fedavg_weights is not None:
             weights = [float(w) for w in fedavg_weights]
         elif stragglers is None and (arrived is None
@@ -129,9 +130,15 @@ class FLServer:
             if arrived is not None:
                 ok &= np.asarray(arrived, bool)
             weights = [1.0 if o else 0.0 for o in ok]
-        res = server_round(self.model, self.global_params, self.upper_init,
-                           client_params, metadatas, self.cfg, draws,
-                           fedavg_weights=weights)
+        with obs.span("aggregate", clients=len(client_params)) as asp:
+            res = server_round(self.model, self.global_params,
+                               self.upper_init, client_params, metadatas,
+                               self.cfg, draws, fedavg_weights=weights)
+            asp.sync(res.global_params)
+            if asp.enabled:
+                asp.set(zero_weighted=(0 if weights is None
+                                       else weights.count(0.0)),
+                        metadata_count=res.metadata_count)
         self.global_params = res.global_params
         self.round_idx += 1
         return res

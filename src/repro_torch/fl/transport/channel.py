@@ -25,6 +25,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.fl.comms import CommLedger
 from repro_torch.fl.transport.codecs import Int8Codec, Quantized, TensorCodec
 from repro_torch.fl.transport.messages import (SelectedKnowledge,
@@ -108,10 +109,12 @@ class Channel:
         (valid rows only, as CPU tensors); None when the frame never
         arrived (faulty channels only). ``pre`` is the client's payload
         from the cohort's batched quantize."""
-        wire = SelectedKnowledge(acts, labels, valid, codec,
-                                 pre=pre).encode(checksum=self.checksum)
+        with obs.span("encode", frame="knowledge", client=int(client_id)):
+            wire = SelectedKnowledge(acts, labels, valid, codec,
+                                     pre=pre).encode(checksum=self.checksum)
         self.ledger.upload("metadata", len(wire))
-        return SelectedKnowledge.decode(wire)
+        with obs.span("decode", frame="knowledge", client=int(client_id)):
+            return SelectedKnowledge.decode(wire)
 
     def upload_knowledge_batched(self, client_ids: Sequence[int],
                                  sel_acts: torch.Tensor, sel_ys, valid,

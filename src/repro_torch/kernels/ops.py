@@ -13,6 +13,11 @@ Every wrapper carries a plain integer ``launches`` that it raises by one
 each time it launches its kernel (one Lloyd sweep counts once, although it
 is two CUDA launches). ``reset_launch_counts`` / ``launch_counts`` read and
 zero them all, so a run can show that it went through the kernels.
+
+Each launch runs inside an ``obs.timed_block("kernel.<wrapper name>")``
+that syncs the kernel's output when a tracer is active (a no-op
+otherwise), so a trace holds one ``kernel.*`` span a launch. The plain
+versions on the CPU open none.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import ROUTES
 
@@ -63,7 +69,10 @@ def kmeans_pairwise_dist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     if n == 0:                          # nothing to launch
         return out
     from repro_torch.kernels.kmeans import launch_pairwise_dist
-    kmeans_pairwise_dist.last_plan = launch_pairwise_dist(x, c, out)
+    with obs.timed_block("kernel.kmeans_pairwise_dist", n=n, d=d,
+                         k=k) as sp:
+        kmeans_pairwise_dist.last_plan = launch_pairwise_dist(x, c, out)
+        sp.sync(out)
     kmeans_pairwise_dist.launches += 1
     return out
 
@@ -91,8 +100,10 @@ def kmeans_lloyd_step(x: torch.Tensor, c: torch.Tensor, lmask: torch.Tensor):
     member = torch.empty((n,), dtype=torch.int32, device=dev)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
-    kmeans_lloyd_step.last_plan = launch_lloyd(x, c, lmask, assign, mindist,
-                                               member, sums, counts)
+    with obs.timed_block("kernel.kmeans_lloyd_step", n=n, d=d, k=k) as sp:
+        kmeans_lloyd_step.last_plan = launch_lloyd(
+            x, c, lmask, assign, mindist, member, sums, counts)
+        sp.sync(counts)
     kmeans_lloyd_step.launches += 1
     return assign, mindist, sums, counts
 
@@ -114,7 +125,9 @@ def quantize_affine(x: torch.Tensor, rowmask: torch.Tensor):
     # (xmin, scale), then each block's (min, max) partial
     scratch = torch.empty((2 + 2 * plan.grid,), dtype=torch.float32,
                           device=x.device)
-    launch_quantize_affine(x, rowmask, q, scratch, plan)
+    with obs.timed_block("kernel.quantize_affine", n=n, d=d) as sp:
+        launch_quantize_affine(x, rowmask, q, scratch, plan)
+        sp.sync(scratch)
     quantize_affine.last_plan = plan
     quantize_affine.launches += 1
     return q, scratch[0], scratch[1]
@@ -144,7 +157,10 @@ def quantize_affine_batched(x: torch.Tensor, rowmask: torch.Tensor):
     # each client's (xmin, scale), then each virtual block's partial
     scratch = torch.empty((2 * b + 2 * b * plan.per_client,),
                           dtype=torch.float32, device=x.device)
-    launch_quantize_affine_cohort(x, rowmask, q, scratch, plan)
+    with obs.timed_block("kernel.quantize_affine_batched", b=b, n=n,
+                         d=d) as sp:
+        launch_quantize_affine_cohort(x, rowmask, q, scratch, plan)
+        sp.sync(scratch)
     quantize_affine_batched.last_plan = plan
     quantize_affine_batched.launches += 1
     params = scratch[:2 * b].view(b, 2)
@@ -204,7 +220,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                                      route_for)
     out = torch.empty_like(q)
     route = route_for(q, k, v)
-    launch_flash_attention(q, k, v, out, causal, int(window), route)
+    with obs.timed_block("kernel.flash_attention", b=b, s=s, h=h,
+                         d=d) as sp:
+        launch_flash_attention(q, k, v, out, causal, int(window), route)
+        sp.sync(out)
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
     return out
@@ -239,8 +258,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"flash_decode: {h // kv} query heads per kv head "
                          f"exceed the kernel's {MAX_G}")
     out = torch.empty_like(q)
-    flash_decode.last_splits = launch_flash_decode(q, k_cache, v_cache,
-                                                   valid, out)
+    with obs.timed_block("kernel.flash_decode", b=b, s=s, h=h, d=d) as sp:
+        flash_decode.last_splits = launch_flash_decode(q, k_cache, v_cache,
+                                                       valid, out)
+        sp.sync(out)
     flash_decode.launches += 1
     return out
 

@@ -10,7 +10,7 @@ the port times through this module.
 from __future__ import annotations
 
 import time as _time
-from typing import Any, Callable
+from typing import Any, Callable, Set
 
 import torch
 
@@ -29,13 +29,19 @@ def _tensors(x: Any):
             yield from _tensors(v)
 
 
+def cuda_devices(x: Any) -> Set[torch.device]:
+    """The CUDA devices of the tensors in ``x`` (a tensor or a
+    dict/list/tuple holding tensors); empty when none is on a card."""
+    return {t.device for t in _tensors(x) if t.is_cuda}
+
+
 def sync(x: Any) -> Any:
     """Block until the device work behind ``x`` is done and return ``x``.
 
     ``x`` may be a tensor or a dict/list/tuple holding tensors. If any of
     them lies on a CUDA device, that device is synchronized; CPU tensors
     (and anything else) are already complete."""
-    for dev in {t.device for t in _tensors(x) if t.is_cuda}:
+    for dev in cuda_devices(x):
         torch.cuda.synchronize(dev)
     return x
 

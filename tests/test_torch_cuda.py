@@ -618,3 +618,85 @@ def test_captured_local_update_matches_the_eager_cpu_step(card):
         assert _rel(got[k].cpu(), want[k]) <= TOL, k
         assert torch.equal(got[k], again[k]), k
     assert _rel(loss.cpu(), wloss) <= TOL and torch.equal(loss, loss2)
+
+
+def test_traced_captured_local_update_syncs_outside_the_capture(card):
+    """A LocalUpdate captured and replayed under an active tracer: the
+    ``local_update`` span syncs after the replays, never inside the
+    capture, and the bits equal an untraced LocalUpdate's. A span opened
+    inside a capture skips its sync (a synchronize there would break the
+    capture) and is marked ``captured``."""
+    from repro_torch import obs
+    from repro_torch.core import fedavg as fa
+    from repro_torch.core import rounds
+    model, clients, _, fl = _small_fl(card)
+    gen = torch.Generator().manual_seed(1)
+    params = model.init(gen, card)
+    x, y = rounds.client_arrays(clients[0], card)
+    draws = rounds.GeneratorDraws(gen).client(0, clients[0], 10, 1)
+    tr = obs.Tracer()
+    steps = fa.CapturedSteps()
+    try:
+        with obs.use_tracer(tr):
+            with obs.span("local_update") as lsp:
+                traced, tloss = rounds.update_client(model, params, x, y,
+                                                     draws, fl, steps)
+                lsp.sync(traced)
+        assert len(steps) == 1
+        untraced, loss = rounds.update_client(model, params, x, y, draws,
+                                              fl, steps)
+    finally:
+        steps.release()
+    assert "captured" not in lsp.attrs and lsp.duration > 0
+    assert tloss == loss
+    for k in traced:
+        assert torch.equal(traced[k], untraced[k]), k
+    graph, buf = torch.cuda.CUDAGraph(), torch.zeros(4, device=card)
+    with obs.use_tracer(tr):
+        with torch.cuda.graph(graph):
+            with obs.span("inside") as sp:
+                buf.add_(1)
+                sp.sync(buf)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert sp.attrs == {"captured": True}
+    assert torch.equal(buf, torch.ones(4, device=card))
+    graph.reset()
+
+
+@pytest.mark.parametrize("distributed", [False, True],
+                         ids=["client_loop", "cohort_engine"])
+def test_degenerate_service_is_the_simulator_on_the_card(card, distributed):
+    """The degenerate async service (``DegenerateTraffic``, buffer ==
+    cohort) against ``FLSimulation`` on the card, two ticks against two
+    rounds: weights, ledger, accuracies and K-means launches bit for bit;
+    on the cohort engine the service quantizes a cohort of one a
+    client."""
+    from repro_torch.fl.service import DegenerateTraffic, FLService
+    from repro_torch.fl.simulation import FLSimulation
+    model, clients, test, fl = _small_fl(card,
+                                         distributed_selection=distributed)
+    ops.reset_launch_counts()
+    sim = FLSimulation(model, clients, test, fl, seed=0, device=card)
+    sres = sim.run(rounds=2)
+    sim_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    svc = FLService(model, clients, test, fl, seed=0, device=card,
+                    traffic=DegenerateTraffic(), buffer_size=3)
+    vres = svc.run(ticks=2)
+    counts = ops.launch_counts()
+    assert {k: v.cpu().numpy().tobytes()
+            for k, v in svc.server.global_params.items()} == \
+        {k: v.cpu().numpy().tobytes()
+         for k, v in sim.server.global_params.items()}
+    assert vres.comm == {k: v for k, v in sres.comm.items()
+                         if k != "total_samples"}
+    assert (vres.test_acc, vres.fedavg_acc) == (sres.test_acc,
+                                                sres.fedavg_acc)
+    assert vres.mean_staleness == 0.0
+    for name in ("kmeans_pairwise_dist", "kmeans_lloyd_step"):
+        assert counts[name] == sim_counts[name] > 0, name
+    assert counts["quantize_affine"] == sim_counts["quantize_affine"] == \
+        (0 if distributed else 6)
+    assert counts["quantize_affine_batched"] == (6 if distributed else 0)
+    assert sim_counts["quantize_affine_batched"] == (2 if distributed else 0)
