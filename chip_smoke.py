@@ -79,6 +79,26 @@ result line:
      ``build/`` and loaded back (span paths, tracing overhead); 7d,
      ``python -m repro_torch.launch.serve_fl --ticks 2 --sync-check`` in
      its own process must exit 0;
+  8. the rest of selection, the checkpoint and the paper driver at phase
+     4's full width: 8a, phase 4's run with ``pca_solver="randomized"``
+     (every K-means kernel launched, quantize 8 times, W_G finite,
+     metadata counts in range; the round walls; one client's PCA ms,
+     randomized against exact, by CUDA events), then one client's
+     randomized selection on the card against the CPU with the same test
+     matrix and first centres (valid equal, >= 99% of the indices equal,
+     each mismatch a near-tie) and its agreement with the exact one,
+     printed; 8b, on phase 4's client maps, the all-rows path
+     (``per_class=False``, K = 100) on the card against the CPU at the
+     same level, ``select_metadata_batched`` over the 4 stacked clients
+     against 4 single calls bit for bit, and the seed oracle
+     (``select_metadata_reference``) against ``select_metadata``, >= 99%
+     of the indices equal, with the K-means launches of each; 8c, phase
+     4's W_G through ``CheckpointManager`` under ``build/`` (the
+     reference's tree) and back onto the card bit for bit, a bf16 / int
+     tree too, and ``python -m repro_torch.launch.paper_repro --full-wrn
+     --rounds 2 --clients 4 --samples-per-client 2500`` in its own
+     process: exit 0, the reference driver's JSON keys, and a checkpoint
+     that restores into WRN-40-1's tree.
   6. serve llama3.2-1b at full width (16 layers, d_model 2048, 32 heads /
      8 KV, d_ff 8192, vocab 128,256; random weights from seed 0) in bf16:
      ``repro_torch.launch.serve`` decodes batch 32 against a 32,768-slot
@@ -111,6 +131,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -790,6 +811,10 @@ def main() -> None:
     # (its own function: the services and their weights are freed on return)
     print(json.dumps({"service": run_service_phase(
         model, clients, test, cfg, sim, res, launches)}))
+    # ---- 8. the rest of selection, the checkpoint and paper_repro ------
+    # (its own function: its maps and runs are freed on return)
+    print(json.dumps({"selection_and_checkpoint": run_selection_phase(
+        model, clients, test, cfg, sim, res)}))
     # each run freed its captured LocalUpdate graphs when it returned: what
     # stays on the card for serving is phase 5's data, not the FL runs'
     del csim
@@ -1411,6 +1436,255 @@ def run_service_phase(model, clients, test, cfg, sim, res, launches):
     out["7d_serve_fl"] = {"exit": proc.returncode,
                           "wall_s": monotonic() - t0,
                           "stdout": proc.stdout.strip().splitlines()}
+    return out
+
+
+# examples/paper_repro.py's JSON keys, which the port's twin must write
+PAPER_REPRO_KEYS = {"config", "test_acc", "fedavg_acc", "metadata_counts",
+                    "selected_fraction", "comm", "wall_time_s"}
+
+
+def run_selection_phase(model, clients, test, cfg, sim, res):
+    """Phase 8 at phase 4's full width: 8a the randomized PCA through
+    ``FLSimulation`` and one client's selection on the card against the
+    CPU; 8b the all-rows path, the batched entry and the seed oracle on
+    phase 4's client maps; 8c the checkpoint and ``paper_repro``. Returns
+    the phase's numbers (``sim`` and ``res`` are phase 4's run)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core import selection as sel
+    from repro_torch.core.rounds import GeneratorDraws
+    from repro_torch.fl.simulation import FLSimulation
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.wrn import params_from_jax, params_to_jax
+    from repro_torch.obs.timing import monotonic
+
+    dev = torch.device("cuda")
+    kmeans_kernels = ("kmeans_pairwise_dist", "kmeans_lloyd_step")
+    out = {}
+    t_phase = monotonic()
+
+    def slot_centres(feats, labels, first, kk, iters):
+        # the CPU run's slot centres (its per-class K-means, or its
+        # all-rows one for no labels)
+        if labels is None:
+            return sel.kmeans(feats, kk, int(first), iters).centroids
+        c0 = torch.cat([sel.kmeans_init(feats, kk, int(first[c]),
+                                        labels == c)
+                        for c in range(len(first))])
+        slot = torch.arange(len(first) * kk) // kk
+        lm = torch.where(labels[:, None] == slot[None], 0.0,
+                         ref.BIG).float()
+        return sel.lloyd_iterate(feats, c0, lm, iters)[0]
+
+    def card_vs_cpu(tag, got, want, labels, first, kk, iters=25):
+        # valid equal, >= 99% of the indices equal, each mismatch a
+        # near-tie against the CPU run's slot centre
+        check(torch.equal(got.valid.cpu(), want.valid),
+              f"{tag}: valid differs between the card and the CPU")
+        idx, widx = got.indices.cpu(), want.indices
+        agree = float((idx == widx).float().mean())
+        bad = torch.nonzero(idx != widx)[:, 0]
+        rel = 0.0
+        if len(bad):
+            f = want.features
+            c = slot_centres(f, labels, first, kk, iters)
+            da = ((f[idx[bad]] - c[bad]) ** 2).sum(1)
+            db = ((f[widx[bad]] - c[bad]) ** 2).sum(1)
+            rel = float(((da - db).abs() / (1 + da)).max())
+        check(agree >= 0.99 and rel <= 1e-3,
+              f"{tag}: card vs CPU index agreement {agree}, worst "
+              f"mismatch {rel} relative")
+        return {"index_agreement": agree, "mismatches": int(len(bad)),
+                "worst_mismatch_rel": rel}
+
+    def event_ms(fn, iters=3):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    # 8a: phase 4's configuration with the randomized PCA
+    rcfg = dataclasses.replace(cfg, pca_solver="randomized")
+    rsim = FLSimulation(model, clients, test, rcfg, seed=0)
+    ops.reset_launch_counts()
+    rres = rsim.run(rounds=2, verbose=True)
+    counts = ops.launch_counts()
+    check(all(counts[k] > 0 for k in kmeans_kernels)
+          and counts["quantize_affine"] == 8,
+          f"8a: launches {counts}, want both K-means kernels and 8 "
+          f"quantize launches")
+    for key, t in rsim.server.global_params.items():
+        check(bool(torch.isfinite(t).all()), f"8a: W_G[{key}] not finite")
+    check(all(0 < c <= 4 * 10 * 10 for c in rres.metadata_counts),
+          f"8a: metadata counts {rres.metadata_counts}")
+    params = sim.server.global_params
+    with torch.no_grad():
+        maps = [model.apply_lower(params, torch.as_tensor(c.data.x,
+                                                          device=dev))
+                for c in clients]
+    ys = [torch.as_tensor(c.data.y, device=dev) for c in clients]
+    acts, y = maps[0], ys[0]
+    n = acts.shape[0]
+    # both devices take the default test matrix: one CPU draw, so one Ω
+    pca_ms = {solver: event_ms(lambda s=solver: sel.fit_features(
+        acts, cfg.pca_components, s)) for solver in ("exact", "randomized")}
+    first = GeneratorDraws(torch.Generator().manual_seed(11)).client(
+        0, clients[0], 10, 1).first_centres
+    knobs = dict(num_classes=10, clusters_per_class=10,
+                 pca_components=cfg.pca_components, kmeans_iters=25)
+    ops.reset_launch_counts()
+    rand_card = sel.select_metadata(acts, y, first, pca_solver="randomized",
+                                    **knobs)
+    rand_counts = ops.launch_counts()
+    check(all(rand_counts[k] > 0 for k in kmeans_kernels),
+          f"8a: one client's randomized selection launched {rand_counts}")
+    rand_cpu = sel.select_metadata(acts.cpu(), y.cpu(), first,
+                                   pca_solver="randomized", **knobs)
+    exact_card = sel.select_metadata(acts, y, first, **knobs)
+    out["8a_randomized"] = {
+        "round_wall_s": rres.round_wall_s,
+        "exact_round_wall_s_phase_4": res.round_wall_s,
+        "metadata_counts": rres.metadata_counts,
+        "lloyd_iters": rres.lloyd_iters,
+        "m_com_acc": rres.test_acc, "fedavg_acc": rres.fedavg_acc,
+        "launches": counts,
+        "one_client_pca_ms": pca_ms,
+        "client_selection_launches": rand_counts,
+        "card_vs_cpu": card_vs_cpu("8a", rand_card, rand_cpu, y.cpu(), first,
+                                   10),
+        "randomized_vs_exact_on_card_index_agreement": float(
+            (rand_card.indices == exact_card.indices).float().mean()),
+        "randomized_vs_exact_valid_equal": bool(torch.equal(
+            rand_card.valid, exact_card.valid))}
+    del rsim, rres, rand_card, rand_cpu
+
+    # 8b: no labels, the batched entry and the seed oracle
+    row = int(torch.randint(n, (1,), generator=torch.Generator()
+                            .manual_seed(12)))
+    ops.reset_launch_counts()
+    rows_card = sel.select_metadata(acts, None, row, per_class=False,
+                                    **{**knobs, "clusters_per_class": 100})
+    rows_counts = ops.launch_counts()
+    check(all(rows_counts[k] > 0 for k in kmeans_kernels),
+          f"8b: the all-rows path launched {rows_counts}")
+    rows_cpu = sel.select_metadata(acts.cpu(), None, row, per_class=False,
+                                   **{**knobs, "clusters_per_class": 100})
+    firsts = torch.stack([GeneratorDraws(torch.Generator().manual_seed(
+        20 + i)).client(i, c, 10, 1).first_centres
+        for i, c in enumerate(clients)])
+    ops.reset_launch_counts()
+    batched = sel.select_metadata_batched(torch.stack(maps),
+                                          torch.stack(ys), firsts, **knobs)
+    batched_counts = ops.launch_counts()
+    check(all(batched_counts[k] > 0 for k in kmeans_kernels),
+          f"8b: the batched entry launched {batched_counts}")
+    for i in range(len(clients)):
+        one = sel.select_metadata(maps[i], ys[i], firsts[i], **knobs)
+        check(torch.equal(batched.indices[i], one.indices)
+              and torch.equal(batched.valid[i], one.valid)
+              and torch.equal(batched.features[i], one.features)
+              and batched.lloyd_iters[i] == one.lloyd_iters,
+              f"8b: the batched entry differs from client {i}'s own call")
+    ops.reset_launch_counts()
+    seed_sel = sel.select_metadata_reference(acts, y, first, **knobs)
+    seed_counts = ops.launch_counts()
+    # the seed path's sweeps are one-hot products: distances only
+    check(seed_counts["kmeans_pairwise_dist"] > 0
+          and seed_counts["kmeans_lloyd_step"] == 0,
+          f"8b: the seed oracle launched {seed_counts}")
+    fused = sel.select_metadata(acts, y, first, **knobs)
+    seed_agree = float((seed_sel.indices == fused.indices).float().mean())
+    check(seed_agree >= 0.99 and torch.equal(seed_sel.valid, fused.valid),
+          f"8b: seed oracle vs select_metadata index agreement "
+          f"{seed_agree}")
+    out["8b_paths"] = {
+        "all_rows_k100": {
+            "card_vs_cpu": card_vs_cpu("8b all rows", rows_card, rows_cpu,
+                                       None, row, 100),
+            "index_exact": bool(torch.equal(rows_card.indices.cpu(),
+                                            rows_cpu.indices)),
+            "valid_clusters": int(rows_card.valid.sum()),
+            "lloyd_iters": rows_card.lloyd_iters,
+            "launches": rows_counts},
+        "batched_4_clients": {"bit_identical_to_single_calls": True,
+                              "lloyd_iters": batched.lloyd_iters,
+                              "launches": batched_counts},
+        "seed_oracle": {"index_agreement_with_select_metadata": seed_agree,
+                        "launches": seed_counts}}
+    del maps, ys, batched, rows_card, rows_cpu, seed_sel, fused, exact_card
+
+    # 8c: the checkpoint and the paper driver
+    # each run starts from empty directories (a step left by an earlier
+    # run would be the latest, or prune this run's)
+    ck_dir = os.path.join(ROOT, "build", "phase8c_ckpt")
+    paper_ck = os.path.join(ROOT, "build", "phase8c_paper_ckpt")
+    for path in (ck_dir, paper_ck):
+        shutil.rmtree(path, ignore_errors=True)
+    mgr = ckpt.CheckpointManager(ck_dir, max_to_keep=1)
+    mgr.save(2, params_to_jax(params), {"cfg": str(cfg)})
+    tree, meta = mgr.restore(params_to_jax(params))
+    back = params_from_jax(tree, device=dev)
+    check(meta["step"] == 2 and sorted(back) == sorted(params)
+          and all(torch.equal(back[k], v) and back[k].dtype == v.dtype
+                  and back[k].device == v.device
+                  for k, v in params.items()),
+          "8c: W_G did not come back from its checkpoint bit for bit")
+    g = torch.Generator().manual_seed(8)
+    small = {"bf16": torch.randn(4, 64, generator=g).to(torch.bfloat16)
+             .to(dev), "ids": [torch.arange(7, device=dev),
+                               torch.tensor([3, -1], dtype=torch.int32,
+                                            device=dev)]}
+    ckpt.save_checkpoint(ck_dir, 3, small)
+    got, _ = ckpt.restore_checkpoint(ck_dir, step=3, target={
+        "bf16": torch.zeros_like(small["bf16"]),
+        "ids": [torch.zeros_like(t) for t in small["ids"]]})
+    check(all(torch.equal(a, b) and a.dtype == b.dtype
+              and a.device == b.device
+              for a, b in zip([got["bf16"]] + got["ids"],
+                              [small["bf16"]] + small["ids"])),
+          "8c: the bf16 / int tree did not come back bit for bit")
+    paper_out = os.path.join(ROOT, "build", "phase8c_paper_repro.json")
+    t0 = monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.paper_repro",
+         "--full-wrn", "--rounds", "2", "--clients", "4",
+         "--samples-per-client", "2500", "--ckpt-dir", paper_ck, "--out",
+         paper_out], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    paper_s = monotonic() - t0
+    check(proc.returncode == 0,
+          f"8c: paper_repro exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    with open(paper_out) as f:
+        written = json.load(f)
+    check(set(written) == PAPER_REPRO_KEYS,
+          f"8c: paper_repro wrote keys {sorted(written)}")
+    wrn40 = params_to_jax(model.init(torch.Generator().manual_seed(0), dev))
+    tree, meta = ckpt.restore_checkpoint(paper_ck, wrn40)
+    restored = params_from_jax(tree, device=dev)
+    check(meta["step"] == 2 and sorted(restored) == sorted(params)
+          and all(torch.isfinite(v).all() for v in restored.values()),
+          "8c: paper_repro's checkpoint does not restore as WRN-40-1")
+    out["8c_checkpoint"] = {
+        "w_g_bit_identical": True, "bf16_int_tree_bit_identical": True,
+        "w_g_checkpoint_bytes": os.path.getsize(os.path.join(
+            ck_dir, "ckpt_00000002.npz")),
+        "paper_repro": {"exit": proc.returncode, "wall_s": paper_s,
+                        "test_acc": written["test_acc"],
+                        "fedavg_acc": written["fedavg_acc"],
+                        "metadata_counts": written["metadata_counts"],
+                        "selected_fraction": written["selected_fraction"],
+                        "stdout": proc.stdout.strip().splitlines()[-3:]}}
+    out["wall_s"] = monotonic() - t_phase
     return out
 
 

@@ -22,10 +22,10 @@ field names and defaults, so the two configs read alike. Two differences:
   accepted, as in the reference, and changes nothing: it bounds how many
   clients' activation maps the reference's batched forward holds at once,
   and every engine of the port already selects one client at a time.
-* ``pca_solver`` is kept, but its randomized engine is not ported yet:
-  any value other than the default raises ``NotImplementedError``.
-  ``observability`` is ported (``repro_torch.obs``: the tracer, metrics
-  and the ledger bridge).
+* ``pca_solver`` is "exact" (the Gram matrix's eigh, the default) or
+  "randomized" (the range finder, ``core/selection.py``); any other value
+  raises ``ValueError``. ``observability`` is ported (``repro_torch.obs``:
+  the tracer, metrics and the ledger bridge).
 """
 from __future__ import annotations
 
@@ -217,6 +217,7 @@ INPUT_SHAPES = {
 
 
 TRANSPORT_CODECS = ("raw_f32", "f16", "int8")
+PCA_SOLVERS = ("exact", "randomized")
 
 
 @dataclass(frozen=True)
@@ -239,8 +240,8 @@ class FLConfig:
     use_selection: bool = True         # False = Table 2 baseline (all maps)
     distributed_selection: bool = False  # the cohort engine
     selection_chunk_size: int = 0      # accepted; the port selects per client
-    # --- an engine not ported yet: only the default is accepted ---
-    pca_solver: str = "exact"          # "randomized" waits for its port
+    # --- PCA engine of the selection: "exact" | "randomized" ---
+    pca_solver: str = "exact"
     # --- observability (repro_torch.obs; span trace + metrics) ---
     observability: bool = False        # off: every obs hook is a NullTracer
     # --- transport (repro_torch.fl.transport; exact frame bytes) ---
@@ -248,10 +249,9 @@ class FLConfig:
     transport_checksum: bool = False   # CRC32 trailer on every frame
 
     def __post_init__(self):
-        if self.pca_solver != "exact":
-            raise NotImplementedError(
-                f"FLConfig.pca_solver={self.pca_solver!r}: only 'exact' is "
-                f"ported to repro_torch so far")
+        if self.pca_solver not in PCA_SOLVERS:
+            raise ValueError(f"unknown PCA solver {self.pca_solver!r} "
+                             f"(have {list(PCA_SOLVERS)})")
         if self.transport_codec not in TRANSPORT_CODECS:
             raise ValueError(f"unknown transport codec "
                              f"{self.transport_codec!r} (have "

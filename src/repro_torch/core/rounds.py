@@ -18,10 +18,11 @@ the same bits on the same draws. Both select one client at a time, so
         W_G(t)   <- WeightAverage(W_Ck(t))                      # Eq. 2
 
 Randomness is explicit. A ``Draws`` object supplies every draw the round
-needs — each class's first K-means centre, the LocalUpdate and the
-meta-training permutations, the cohort — and the core functions take them
-as tensors. ``GeneratorDraws`` draws them from a ``torch.Generator``; the
-parity tests pass an object that reproduces the reference's JAX draws.
+needs — each class's first K-means centre, the randomized PCA's test
+matrix, the LocalUpdate and the meta-training permutations, the cohort —
+and the core functions take them as tensors. ``GeneratorDraws`` draws
+them from a ``torch.Generator``; the parity tests pass an object that
+reproduces the reference's JAX draws.
 
 The round reports through ``repro_torch.obs`` (no-ops unless a tracer is
 active): ``client`` / ``select`` / ``local_update`` spans per client, a
@@ -31,7 +32,7 @@ client, at the reference's sites.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Protocol
+from typing import Callable, Dict, List, Optional, Protocol
 
 import numpy as np
 import torch
@@ -41,7 +42,7 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core import fedavg as fa
 from repro_torch.core import meta_training as mt
 from repro_torch.core.compose import compose
-from repro_torch.core.selection import select_metadata
+from repro_torch.core.selection import default_test_matrix, select_metadata
 from repro_torch.core.split import SplitModel
 from repro_torch.data.partition import ClientData
 from repro_torch.fl.comms import CommLedger
@@ -56,6 +57,8 @@ class ClientDraws:
     """One client's random draws for one round."""
     first_centres: torch.Tensor    # (num_classes,) int64 row indices
     local_perms: torch.Tensor      # (local_epochs, n) int64 shuffle orders
+    # (d, l, device) -> the randomized PCA's (d, l) f32 test matrix
+    pca_test_matrix: Callable[..., torch.Tensor] = default_test_matrix
 
 
 class Draws(Protocol):
@@ -67,6 +70,12 @@ class Draws(Protocol):
     def meta_perms(self, m: int, epochs: int) -> torch.Tensor: ...
 
     def cohort(self, num_available: int, m: int) -> np.ndarray: ...
+
+    def pca_test_matrix(self, d: int, l: int,
+                        device="cpu") -> torch.Tensor:
+        """The randomized PCA's (d, l) f32 test matrix on ``device``: one
+        fixed matrix for every client and round, as the reference's. A
+        ``client`` draw carries this method as its ``pca_test_matrix``."""
 
     def locate(self, tick: int, arrivals: Optional[int] = None,
                flush: int = 0) -> None:
@@ -83,7 +92,8 @@ class GeneratorDraws:
     """``Draws`` from one CPU ``torch.Generator``: the first centre of a
     class is a uniform row of that class (row 0 for a class the client
     lacks — its slots come back empty either way), permutations are
-    ``randperm`` and the cohort is a ``randperm`` prefix."""
+    ``randperm``, the cohort is a ``randperm`` prefix, and the PCA's test
+    matrix is the port's fixed draw (``default_test_matrix``)."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -102,7 +112,7 @@ class GeneratorDraws:
                 first[c] = rows[pick[0]]
         n = len(client.data)
         perms = torch.stack([self._randperm(n) for _ in range(epochs)])
-        return ClientDraws(first, perms)
+        return ClientDraws(first, perms, self.pca_test_matrix)
 
     def meta_perms(self, m, epochs):
         """(epochs, m) shuffle orders for MetaTraining."""
@@ -111,6 +121,10 @@ class GeneratorDraws:
     def cohort(self, num_available, m):
         """``m`` distinct client ids out of ``num_available``."""
         return self._randperm(num_available)[:m].numpy()
+
+    def pca_test_matrix(self, d, l, device="cpu"):
+        """The port's fixed test matrix (not drawn from the generator)."""
+        return default_test_matrix(d, l, device)
 
     def locate(self, tick, arrivals=None, flush=0):
         """Ignored: one generator, drawn in call order."""
@@ -173,7 +187,9 @@ def extract_select(model: SplitModel, params: Params, x: torch.Tensor,
                           num_classes=num_classes,
                           clusters_per_class=cfg.clusters_per_class,
                           pca_components=cfg.pca_components,
-                          kmeans_iters=cfg.kmeans_iters)
+                          kmeans_iters=cfg.kmeans_iters,
+                          pca_solver=cfg.pca_solver,
+                          omega=draws.pca_test_matrix)
     return (acts[sel.indices], y[sel.indices], sel.valid), sel.lloyd_iters
 
 

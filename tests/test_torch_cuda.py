@@ -700,3 +700,122 @@ def test_degenerate_service_is_the_simulator_on_the_card(card, distributed):
         (0 if distributed else 6)
     assert counts["quantize_affine_batched"] == (6 if distributed else 0)
     assert sim_counts["quantize_affine_batched"] == (2 if distributed else 0)
+
+
+def _maps(seed, n=600, classes=6):
+    from repro_torch.data.datasets import SyntheticActivationMaps
+    ds = SyntheticActivationMaps(num_samples=n, map_shape=(8, 8, 4),
+                                 num_classes=classes, rank=24, noise=0.01,
+                                 seed=seed, structure_seed=seed)
+    y = torch.from_numpy(ds.y.astype(np.int64))
+    first = torch.stack([torch.nonzero(y == c)[0, 0]
+                         for c in range(classes)])
+    return torch.from_numpy(ds.x.astype(np.float32)), y, first
+
+
+def _slot_centres(feats, labels, first, kk, iters):
+    """The CPU run's slot centres: its fused per-class K-means, or its
+    all-rows one when ``labels`` is None."""
+    from repro_torch.core import selection as sel
+    if labels is None:
+        return sel.kmeans(feats, kk, int(first), iters).centroids
+    classes = len(first)
+    c0 = torch.cat([sel.kmeans_init(feats, kk, int(first[c]), labels == c)
+                    for c in range(classes)])
+    slot = torch.arange(classes * kk) // kk
+    lm = torch.where(labels[:, None] == slot[None], 0.0, ref.BIG).float()
+    return sel.lloyd_iterate(feats, c0, lm, iters)[0]
+
+
+@pytest.mark.parametrize("path", ["randomized", "all_rows", "seed_oracle"])
+def test_selection_paths_on_the_card_match_the_cpu(card, path):
+    """The randomized PCA (one test matrix on both devices), the all-rows
+    path with no labels, and the seed oracle on the card against the same
+    call on the CPU: ``valid`` equal, >= 99% of the indices equal, each
+    mismatch a near-tie (squared distances to the CPU run's slot centre
+    within 1e-3 relative); both K-means kernels launched."""
+    from repro_torch.core import selection as sel
+    x, y, first = _maps(7)
+    kk, iters = 5, 25
+    labels = None if path == "all_rows" else y
+    kw = dict(num_classes=6, clusters_per_class=kk, pca_components=32,
+              kmeans_iters=iters)
+    if path == "all_rows":
+        first = first[0]
+        kw.update(clusters_per_class=20, per_class=False)
+        kk = 20
+    fn = (sel.select_metadata_reference if path == "seed_oracle"
+          else sel.select_metadata)
+    if path == "randomized":
+        kw["pca_solver"] = "randomized"
+    want = fn(x, labels, first, **kw)
+    ops.reset_launch_counts()
+    got = fn(x.to(card), None if labels is None else labels.to(card), first,
+             **kw)
+    counts = ops.launch_counts()
+    assert counts["kmeans_pairwise_dist"] > 0
+    # the seed oracle's sweeps are plain one-hot products
+    assert (counts["kmeans_lloyd_step"] > 0) == (path != "seed_oracle")
+    assert torch.equal(got.valid.cpu(), want.valid)
+    idx, widx = got.indices.cpu(), want.indices
+    assert float((idx == widx).float().mean()) >= 0.99
+    bad = torch.nonzero(idx != widx)[:, 0]
+    if len(bad):
+        f = want.features
+        c = _slot_centres(f, labels, first, kk, iters)
+        da = ((f[idx[bad]] - c[bad]) ** 2).sum(1)
+        db = ((f[widx[bad]] - c[bad]) ** 2).sum(1)
+        assert bool(((da - db).abs() <= 1e-3 * (1 + da)).all()), (da, db)
+
+
+@pytest.mark.parametrize("solver", ["exact", "randomized"])
+def test_batched_selection_is_the_loop_on_the_card(card, solver):
+    """``select_metadata_batched`` over 3 stacked clients on the card gives
+    each client's ``select_metadata`` bits."""
+    from repro_torch.core import selection as sel
+    cohort = [_maps(20 + i, n=400) for i in range(3)]
+    acts = torch.stack([m[0] for m in cohort]).to(card)
+    labels = torch.stack([m[1] for m in cohort]).to(card)
+    first = torch.stack([m[2] for m in cohort])
+    kw = dict(num_classes=6, clusters_per_class=5, pca_components=24,
+              kmeans_iters=25, pca_solver=solver)
+    got = sel.select_metadata_batched(acts, labels, first, **kw)
+    for i in range(3):
+        one = sel.select_metadata(acts[i], labels[i], first[i], **kw)
+        assert torch.equal(got.indices[i], one.indices)
+        assert torch.equal(got.valid[i], one.valid)
+        assert torch.equal(got.features[i], one.features)
+        assert got.lloyd_iters[i] == one.lloyd_iters
+
+
+def test_checkpoint_round_trip_of_card_tensors(card, tmp_path):
+    """Card tensors of f32, bf16, int64 and bool saved and restored onto
+    the card: bit-equal, dtypes and devices kept."""
+    from repro_torch import checkpoint as ckpt
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(64, 32, generator=g).to(card),
+            "layers": [torch.randn(8, generator=g).to(torch.bfloat16)
+                       .to(card),
+                       torch.arange(10, device=card),
+                       torch.tensor([True, False], device=card)]}
+    ckpt.CheckpointManager(str(tmp_path)).save(1, tree)
+    target = {"w": torch.zeros_like(tree["w"]),
+              "layers": [torch.zeros_like(t) for t in tree["layers"]]}
+    got, meta = ckpt.restore_checkpoint(str(tmp_path), target)
+    assert meta["step"] == 1
+    for a, b in zip([got["w"]] + got["layers"],
+                    [tree["w"]] + tree["layers"]):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_default_test_matrix_is_one_copy_a_card(card):
+    """The randomized PCA's default test matrix on the card holds the CPU
+    draw's values, and "cuda" and the current card's index share one
+    cached copy."""
+    from repro_torch.core import selection as sel
+    om = sel.default_test_matrix(64, 20, card)
+    here = torch.device("cuda", torch.cuda.current_device())
+    assert sel.default_test_matrix(64, 20, here) is om
+    assert sel.default_test_matrix(64, 20, "cuda") is om
+    assert torch.equal(om.cpu(), sel.default_test_matrix(64, 20))

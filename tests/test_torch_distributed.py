@@ -6,8 +6,9 @@ Levels:
     ledger summary, every decoded knowledge frame, client params, losses,
     Lloyd sweeps, and the round's W_G(t) / M_COM(t) — under the int8 and
     raw f32 codecs, with ``selection_chunk_size`` 0, 1 and 3 (accepted
-    and a no-op: every engine selects one client at a time), on a ragged
-    cohort too, and with the Table 2 baseline left on the loop;
+    and a no-op: every engine selects one client at a time), with the
+    randomized PCA, on a ragged cohort too, and with the Table 2 baseline
+    left on the loop;
   * against the reference's sequential ``run_round``
     (``batched_selection=False``) with its own draws (``JaxDraws``): the
     levels of tests/test_torch_round.py — ledger bytes and |D_M| equal,
@@ -133,6 +134,21 @@ def test_cohort_engine_bit_identical_to_the_client_loop(setting, sequential,
     got = _round(model, clients, transport_codec=codec, **knobs)
     assert bool(called) == knobs.get("distributed_selection", False)
     _same_round(got, sequential[codec])
+
+
+def test_engines_bit_identical_with_the_randomized_solver(setting,
+                                                          monkeypatch):
+    """``pca_solver="randomized"``: the cohort engine, with every client's
+    selection on the one fixed test matrix, gives the client loop's
+    bits."""
+    model, clients = setting
+    called = _spy(monkeypatch)
+    got = _round(model, clients, pca_solver="randomized",
+                 distributed_selection=True)
+    assert called
+    want = _round(model, clients, pca_solver="randomized")
+    _same_round(got, want)
+    assert got[1]["up"]["metadata"] > 0
 
 
 def test_ragged_cohort_runs_on_the_engine(setting, monkeypatch):

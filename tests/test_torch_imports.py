@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
 neither JAX nor any module of ``repro``; its entry points run on CUDA
-unless asked for the CPU and raise otherwise; the knobs it has not ported
-are refused, not ignored, and the cohort knobs it has are routed."""
+unless asked for the CPU and raise otherwise; the knobs it dropped are
+refused, not ignored, an unknown PCA solver is refused, and the cohort
+knobs it has are routed."""
 import os
 import subprocess
 import sys
@@ -39,7 +40,7 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = (out.stdout.splitlines() + ["", ""])[:2]
-    assert int(count) >= 59, out.stdout
+    assert int(count) >= 62, out.stdout
     assert bad == "", f"repro_torch pulled in: {bad}"
 
 
@@ -62,6 +63,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--smoke", "--tokens", "1"])
+    from repro_torch.launch import paper_repro
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paper_repro.main(["--rounds", "1"])
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -73,11 +77,16 @@ def test_dropped_knobs_are_type_errors(knob, value):
         FLConfig(**{knob: value})
 
 
-@pytest.mark.parametrize("knob,value", [("pca_solver", "randomized")])
-def test_unported_engines_are_refused(knob, value):
-    with pytest.raises(NotImplementedError):
-        FLConfig(**{knob: value})
-    FLConfig(**{knob: getattr(FLConfig(), knob)})        # the default is fine
+@pytest.mark.parametrize("solver,error", [("randomized", None),
+                                          ("lanczos", ValueError)])
+def test_pca_solvers_are_accepted_or_refused(solver, error):
+    """Both ported solvers are accepted; any other is a ``ValueError``."""
+    if error is None:
+        assert FLConfig(pca_solver=solver).pca_solver == solver
+    else:
+        with pytest.raises(error, match="unknown PCA solver"):
+            FLConfig(pca_solver=solver)
+    assert FLConfig().pca_solver == "exact"
 
 
 @pytest.mark.parametrize("knob,value,engine", [

@@ -79,7 +79,13 @@ class JaxDraws:
         perms = np.asarray(jrounds.epoch_permutations(
             k_loc, len(client.data), epochs))
         return rounds.ClientDraws(torch.from_numpy(first),
-                                  torch.from_numpy(perms.astype(np.int64)))
+                                  torch.from_numpy(perms.astype(np.int64)),
+                                  self.pca_test_matrix)
+
+    def pca_test_matrix(self, d, l, device="cpu"):
+        """The reference's fixed test matrix (``selection.py:92``)."""
+        return torch.from_numpy(np.array(jax.random.normal(
+            jax.random.PRNGKey(0x9CA), (d, l), jnp.float32))).to(device)
 
     def meta_perms(self, m, epochs):
         eks = jax.random.split(self.keys[-1], epochs)
