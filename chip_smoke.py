@@ -41,7 +41,15 @@ result line:
      S=32768 with 40 valid slots, at ragged S=300, with G=1, with G=7, at
      D=36 (element-wise loads), with each (q, cache) dtype pair, and with
      1, 2 and many splits of S (the split count checked against the
-     plan), one many-split case run twice and compared bit for bit;
+     plan), one many-split case run twice and compared bit for bit; the
+     prefill kernel's softmax statistics (lse, (B,H,S) f32) on the route
+     each case takes, against the plain version's, the output unchanged
+     bit for bit by asking for them, and the backward kernels (dq, dk, dv)
+     against ``ref.flash_attention_bwd_ref`` fed the same inputs and
+     statistics (``BWD_CASES``: llama3.2-1b's heads causal at S=1024 in
+     bf16 and f32, S=1000 non-causal, a window of 128, MQA, qwen2-0.5b's
+     G=7, gemma3's D=256 with window 1024, S below one tile, D=96, D=32,
+     bf16 D=72), the first case twice, bit for bit;
   3. one round of a small WRN-10-1 on the card and on the CPU from the same
      seed: the ledger and the metadata count must be equal and the new
      weights agree to 2e-3;
@@ -108,6 +116,27 @@ result line:
      16 x (32 - 1 + 16) = 752 times, flash_attention 16; logits finite;
      then one prefill call and one decode step at those shapes under
      torch.profiler (device busy share, top kernels by device time);
+  9. the federated LM training path: 9a, ``make_train_step`` at the full
+     width of llama3.2-1b (f32 master weights from seed 0, bf16 compute,
+     remat) on ``train_4k``'s 4,096-token sequences, G = 2 cohorts, 2
+     local steps of one microbatch of 4, 2 clusters and 2 meta-training
+     steps (the global batch cut 256 -> 16: ``TRAIN_*``), two rounds from
+     numpy-seeded tokens: losses finite, every leaf moved, the cohorts
+     bit-equal, ``selected`` <= G x clusters, round 1 replayed from the
+     same state bit for bit, and the launches of the forward and backward
+     attention kernels and of pairwise and Lloyd equal to the counts
+     reckoned from the shapes (remat runs each layer's forward twice under
+     grad); the round walls, tokens/s, peak memory, one profiled round
+     (device busy share, top kernels, the attention kernels' device ms a
+     launch), and the backward kernels at one layer's shape beside their
+     plain version, SDPA's backward and their bound; 9b, a reduced-width
+     f32 step on the card and on the CPU from the same parameters and
+     draws (weights and metrics within 2e-3); 9c, ``python -m
+     repro_torch.launch.train --smoke --steps 2 --ckpt-dir
+     build/phase9_ckpt`` in its own process (exit 0; its checkpoint
+     restores to the bits of the same run in this process); 9d, ``python
+     -m repro_torch.launch.federated_lm --rounds 3`` in its own process
+     (exit 0, its lines printed);
   5. time each kernel beside its plain version, a library call where one
      computes the same function, and its bound (the attention kernels at
      phase 6's shapes, with their route, the decode split count and the
@@ -159,6 +188,22 @@ FLASH_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
                (2, 300, 4, 2, 96, False, 0, "bfloat16"),
                (1, 200, 4, 4, 32, True, 0, "bfloat16"),
                (1, 300, 4, 2, 72, True, 0, "bfloat16")]
+# phase 2b, the forward's statistics and the backward: llama3.2-1b's heads
+# causal at S=1024 in both dtypes, S=1000 non-causal, a window of 128, MQA,
+# qwen2-0.5b's G=7, gemma3's D=256 with window 1024, S below one tile,
+# D=96 (f32: the CUDA-core forward), D=32, and bf16 D=72 (the CUDA-core
+# forward route in bf16)
+BWD_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
+             (1, 1024, 32, 8, 64, True, 0, "float32"),
+             (2, 1000, 8, 2, 64, False, 0, "float32"),
+             (1, 1024, 32, 8, 64, True, 128, "bfloat16"),
+             (2, 512, 8, 1, 64, True, 0, "bfloat16"),
+             (1, 1000, 14, 2, 64, True, 0, "bfloat16"),
+             (1, 2048, 8, 4, 256, True, 1024, "bfloat16"),
+             (1, 50, 32, 8, 64, True, 0, "bfloat16"),
+             (2, 300, 4, 2, 96, False, 0, "float32"),
+             (1, 200, 4, 4, 32, True, 0, "bfloat16"),
+             (1, 300, 4, 2, 72, True, 0, "bfloat16")]
 # (b, s, h, kv, d, valid slots, q dtype, cache dtype, splits): splits 1 and
 # 2 are fixed by the shapes; 0 means many (more than 8)
 DECODE_CASES = [(2, 32768, 32, 8, 64, 40, "bfloat16", "bfloat16", None),
@@ -178,6 +223,11 @@ DECODE_CASES = [(2, 32768, 32, 8, 64, 40, "bfloat16", "bfloat16", None),
 # 32 -> 1)
 SERVE_BATCH, SERVE_CACHE, SERVE_PROMPT, SERVE_TOKENS = 32, 32768, 32, 16
 PREFILL_S = 32768
+# phase 9a: train_4k's 4,096-token sequences at llama3.2-1b's full width;
+# its global batch cut 256 -> 16 (G = 2 cohorts x 2 local steps x one
+# microbatch of 4), meta-training 2 clusters a cohort for 2 steps
+TRAIN_G, TRAIN_LOCAL, TRAIN_MB, TRAIN_T = 2, 2, 4, 4096
+TRAIN_META_CLUSTERS, TRAIN_META_STEPS = 2, 2
 
 
 def fail(msg: str) -> None:
@@ -263,7 +313,8 @@ def main() -> None:
 
     errs = {"kmeans_pairwise_dist": 0.0, "kmeans_lloyd_step": 0.0,
             "quantize_affine": 0.0, "quantize_affine_batched": 0.0,
-            "flash_attention": 0.0, "flash_decode": 0.0}
+            "flash_attention": 0.0, "flash_decode": 0.0,
+            "flash_attention_stats": 0.0, "flash_attention_bwd": 0.0}
 
     def rel_err(got, want):
         return float(((got - want).abs() / (1.0 + want.abs())).max())
@@ -574,6 +625,55 @@ def main() -> None:
         att[what] = att_check("flash_decode", got, ref.flash_decode_ref(
             q, kc, vc, valid), dt, what)
     del q, k, v, kc, vc, valid, got
+    # the forward's softmax statistics on the route each case takes (the
+    # output bit for bit the same with or without them), and the backward
+    # kernels against the plain version fed the same q, k, v, out, dout
+    # and statistics (the kernel forward's); the first case twice, bit for
+    # bit
+    for i, (b, s, h, kv, d, causal, window, dt) in enumerate(BWD_CASES):
+        dtype = getattr(torch, dt)
+        q = randn(b, s, h, d).to(dtype)
+        k, v = randn(b, s, kv, d).to(dtype), randn(b, s, kv, d).to(dtype)
+        dout = randn(b, s, h, d).to(dtype)
+        route = prefill_route(dtype, d)
+        before = dict(ops.flash_attention.launches_by_route)
+        out, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                       return_stats=True)
+        plain_out = ops.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        check(ops.flash_attention.launches_by_route[route]
+              == before[route] + 2, f"stats: flash_attention did not "
+                                    f"launch its {route} route")
+        what = (f"b{b} s{s} h{h} kv{kv} d{d} causal={causal} w{window} {dt} "
+                f"{route}")
+        check(torch.equal(out, plain_out), f"stats {what}: asking for the "
+                                           f"statistics changed the output")
+        att[f"stats {what}"] = att_check(
+            "flash_attention_stats", lse, ref.flash_attention_ref(
+                q, k, v, causal=causal, window=window,
+                return_stats=True)[1], dt, f"stats {what}")
+        n_before = ops.flash_attention_bwd.launches
+        got = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                      window=window)
+        torch.cuda.synchronize()
+        check(ops.flash_attention_bwd.launches == n_before + 1,
+              f"backward {what}: not one count a call")
+        want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                           torch.ones_like(lse),
+                                           causal=causal, window=window)
+        for grad_name, x, y in zip(("dq", "dk", "dv"), got, want):
+            att[f"backward {grad_name} {what}"] = att_check(
+                "flash_attention_bwd", x, y, dt,
+                f"backward {grad_name} {what}")
+        if i == 0:
+            again = ops.flash_attention_bwd(q, k, v, out, dout, lse,
+                                            causal=causal, window=window)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"backward {what}: two runs on the same inputs differ")
+            del again
+        del q, k, v, dout, out, lse, plain_out, got, want
     print(json.dumps({"attention_checks_max_abs_err": att}))
 
     # ---- 3. one small round on the card and on the CPU -----------------
@@ -927,6 +1027,12 @@ def main() -> None:
         "profiled_prefill_call": prefill_profile,
         "profiled_decode_step": decode_profile}))
 
+    # ---- 9. the federated LM training path -----------------------------
+    # (its own function: the model, its gradients and the probes are freed
+    # on return)
+    training, bwd_row = run_training_phase(dev, rel_err)
+    print(json.dumps({"training": training}))
+
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
         """Mean ms of one call over ``iters`` back-to-back calls (CUDA
@@ -1139,6 +1245,8 @@ def main() -> None:
         "shape": [SERVE_BATCH, SERVE_CACHE, h_, kv_, d_]})
     del qd, kcd, vcd, vmask
     torch.cuda.empty_cache()
+    # the backward kernels, timed by phase 9 at one training layer's shape
+    rows.append({**bwd_row, "max_abs_err": errs["flash_attention_bwd"]})
     ops.reset_launch_counts()          # timing launches are not the path's
 
     # where one client's round goes (full width, the last global weights)
@@ -1686,6 +1794,337 @@ def run_selection_phase(model, clients, test, cfg, sim, res):
                         "stdout": proc.stdout.strip().splitlines()[-3:]}}
     out["wall_s"] = monotonic() - t_phase
     return out
+
+
+def run_training_phase(dev, rel_err):
+    """Phase 9, the federated LM training path. 9a: two rounds of
+    ``make_train_step`` at llama3.2-1b's full width (the train_4k cut in
+    ``TRAIN_*``), its checks and numbers, one profiled round, and the
+    backward kernels at one layer's shape; 9b: a reduced-width f32 step on
+    the card and on the CPU; 9c: ``launch.train --smoke`` in its own
+    process and its checkpoint; 9d: ``launch.federated_lm`` in its own
+    process. Returns (the phase's numbers, the backward kernel's row of
+    the kernels line but its max_abs_err)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import selection as sel_mod
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import (split_stages, stage_layers,
+                                                tree_map)
+    from repro_torch.obs.device_time import kernel_device_ms
+    from repro_torch.obs.timing import monotonic
+    from repro_torch.optim.optimizers import tree_leaves
+
+    out = {}
+    t_phase = monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- 9a: full width, two rounds of G cohorts ----
+    full = get_config("llama3.2-1b")
+    tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
+                       meta_clusters=TRAIN_META_CLUSTERS,
+                       meta_steps=TRAIN_META_STEPS)
+    step, lm = make_train_step(full, tcfg)
+    shape = (TRAIN_G, TRAIN_LOCAL, 1, TRAIN_MB, TRAIN_T)
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.integers(0, full.vocab_size, shape,
+                                          np.int32)).to(dev)
+            for _ in range(2)]
+    firsts = [rng.integers(0, TRAIN_MB, TRAIN_G).tolist() for _ in range(2)]
+    params0 = lm.init(torch.Generator(device=dev).manual_seed(0))
+    before = [t.cpu() for t in tree_leaves(params0)]
+    state = tree_map(lambda x: x[None].expand((TRAIN_G,) + tuple(x.shape)),
+                     params0)
+    del params0
+    # each selection's Lloyd sweeps, to reckon the Lloyd launches
+    sweeps = []
+    real_select = sel_mod.select_metadata
+
+    def recording(*args, **kwargs):
+        got = real_select(*args, **kwargs)
+        sweeps.append(got.lloyd_iters)
+        return got
+
+    sel_mod.select_metadata = recording
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        walls, metrics, states = [], [], []
+        for r in range(2):
+            t0 = monotonic()
+            state, _, m = step(state, (), {"tokens": toks[r]}, firsts[r])
+            metrics.append({k: float(v) for k, v in m.items()})  # syncs
+            walls.append(monotonic() - t0)
+            states.append(state)
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        round_sweeps = list(sweeps)
+        # round 1 again from the same state: the same bits
+        replay, _, m_replay = step(states[0], (), {"tokens": toks[1]},
+                                   firsts[1])
+        m_replay = {k: float(v) for k, v in m_replay.items()}
+    finally:
+        sel_mod.select_metadata = real_select
+    last = tree_leaves(states[1])
+    check(all(math.isfinite(v) for m in metrics for v in m.values()),
+          f"9a: metrics not finite {metrics}")
+    check(all(0 < m["selected"] <= TRAIN_G * TRAIN_META_CLUSTERS
+              for m in metrics), f"9a: selected {metrics}")
+    check(all(torch.equal(x[0], x[g]) for x in last
+              for g in range(TRAIN_G)),
+          "9a: the cohorts leave the round with different weights")
+    check(all(bool(torch.isfinite(x[0]).all()) for x in last),
+          "9a: weights not finite")
+    moved = [not torch.equal(x[0].cpu(), b) for x, b in zip(last, before)]
+    check(all(moved), f"9a: {moved.count(False)} of {len(moved)} leaves "
+                      f"did not move in two rounds")
+    check(all(torch.equal(x, y) for x, y in zip(tree_leaves(replay), last))
+          and m_replay == metrics[1],
+          "9a: round 1 replayed from the same state gave other bits")
+    del replay, before, states
+    # launches reckoned from the shapes: each local step's forward runs
+    # twice under remat (forward, recompute) and its backward once; the
+    # probe runs the lower layers without grad; each meta step runs the
+    # upper layers twice and their backward once; K-means with K clusters
+    # launches K-1 init steps and one representatives pass a cohort, and
+    # one Lloyd sweep each sweep it ran (below the cap of 8: it converged)
+    stages, b_stage = split_stages(full, full.split_layer)
+    lower = sum(stage_layers(st) for st in stages[:b_stage])
+    upper = full.num_layers - lower
+    local = TRAIN_G * TRAIN_LOCAL * 1
+    want = {"flash_attention": 2 * (local * 2 * full.num_layers
+                                    + TRAIN_G * lower
+                                    + TRAIN_META_STEPS * 2 * upper),
+            "flash_attention_bwd": 2 * (local * full.num_layers
+                                        + TRAIN_META_STEPS * upper),
+            "kmeans_pairwise_dist": 2 * TRAIN_G * TRAIN_META_CLUSTERS,
+            "kmeans_lloyd_step": sum(round_sweeps),
+            "flash_decode": 0, "quantize_affine": 0,
+            "quantize_affine_batched": 0}
+    check(len(round_sweeps) == 2 * TRAIN_G
+          and all(0 < w < 8 for w in round_sweeps),
+          f"9a: Lloyd sweeps {round_sweeps}")
+    check(launches == want, f"9a: launches {launches}, reckoned {want}")
+    tokens_round = TRAIN_G * TRAIN_LOCAL * TRAIN_MB * TRAIN_T
+    print(f"9a: two rounds at full width, walls {walls}, metrics "
+          f"{metrics}, launches {launches}")
+    # one more round under the profiler: device busy share, top kernels,
+    # the backward kernels' device ms a launch
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = monotonic()
+        _, _, m = step(state, (), {"tokens": toks[0]}, firsts[0])
+        float(m["loss"])
+        torch.cuda.synchronize()
+        prof_wall = (monotonic() - t0) * 1e3
+    del state, toks, last, m
+    ops.reset_launch_counts()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:12]
+    bwd_names = ("attn_bwd_dot_kernel", "attn_bwd_dkdv_kernel",
+                 "attn_bwd_dq_kernel")
+    in_round = {}
+    for name in bwd_names + ("flash_fwd_wgmma_kernel",):
+        hit = [e for e in evs if f"::{name}" in e.key]
+        n = sum(e.count for e in hit)
+        in_round[name] = {
+            "launches": n, "device_ms_per_launch":
+            sum(e.self_device_time_total for e in hit) / 1e3 / max(n, 1)}
+    out["9a"] = {
+        "model": full.name, "cohorts": TRAIN_G, "local_steps": TRAIN_LOCAL,
+        "microbatch": TRAIN_MB, "n_micro": 1, "seq_len": TRAIN_T,
+        "meta_clusters": TRAIN_META_CLUSTERS,
+        "meta_steps": TRAIN_META_STEPS, "dtype": tcfg.dtype,
+        "remat": tcfg.remat, "tokens_per_round": tokens_round,
+        "round_wall_s": walls,
+        "tokens_per_s": [tokens_round / w for w in walls],
+        "metrics": metrics, "launches": launches,
+        "lloyd_sweeps": round_sweeps, "max_memory_allocated": peak,
+        "cohorts_bit_equal": True, "replay_bit_identical": True,
+        "profiled_round": {
+            "wall_ms": prof_wall, "device_busy_ms": busy,
+            "device_busy_share": busy / prof_wall,
+            "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                              for e in top},
+            "attention_kernels": in_round}}
+    del prof, evs
+    torch.cuda.empty_cache()
+
+    # the backward kernels at one training layer's shape, beside their
+    # plain version, SDPA's backward and their bound
+    b_, s_, h_, kv_, d_ = TRAIN_MB, TRAIN_T, full.num_heads, \
+        full.num_kv_heads, full.head_dim
+    gd = torch.Generator(device=dev).manual_seed(5)
+
+    def drandn(*shape):
+        return torch.randn(shape, generator=gd, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, dout = (drandn(b_, s_, h_, d_), drandn(b_, s_, kv_, d_),
+                     drandn(b_, s_, kv_, d_), drandn(b_, s_, h_, d_))
+    o, lse = ops.flash_attention(q, k, v, return_stats=True)
+
+    def kern():
+        return ops.flash_attention_bwd(q, k, v, o, dout, lse)
+
+    def events_ms(fn, iters, warmup=1):
+        for _ in range(warmup):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    got = kern()
+    want_g = ref.flash_attention_bwd_ref(q, k, v, o, dout, lse,
+                                         torch.ones_like(lse))
+    shape_err = max(float((x.float() - y.float()).abs().max())
+                    for x, y in zip(got, want_g))
+    check(all(bool(((x.float() - y.float()).abs()
+                    <= 2e-2 + 2e-2 * y.float().abs()).all())
+              for x, y in zip(got, want_g)),
+          f"backward at the training shape: max abs err {shape_err}")
+    del got, want_g
+    by_launch = kernel_device_ms(kern, bwd_names, iters=5, warmup=1)
+    ms = events_ms(kern, 5)
+    plain_ms = events_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, dout, lse, torch.ones_like(lse)), 2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    so = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    sdo = dout.transpose(1, 2)
+    library_ms = events_ms(lambda: torch.autograd.grad(
+        so, (qt, kt, vt), sdo, retain_graph=True), 5)
+    del qt, kt, vt, so, sdo
+    # the least work: five products (S, dP, dV, dK, dQ) over the causal
+    # pairs; q, k, v, out, dout and lse read once, dq, dk, dv written once
+    pairs = s_ * (s_ + 1) // 2
+    flops = 5 * 2 * b_ * h_ * d_ * pairs
+    nbytes = 2 * (3 * q.numel() + 3 * k.numel() + v.numel()) \
+        + 4 * lse.numel()
+    b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+    del q, k, v, dout, o, lse
+    torch.cuda.empty_cache()
+
+    def ptxas(pattern):
+        found = [u for fn, u in build.ptxas_usage(build.ptxas_logs.get(
+            "flash_attention_bwd", "")).items() if re.search(pattern, fn)]
+        return found[0] if len(found) == 1 else None
+
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/models/layers.py:139",
+           "note": "the gradient of flash_attention_kernel "
+                   "(src/repro/kernels/flash_attention.py:89); the "
+                   "reference's backward is the jnp custom VJP "
+                   "_sdpa_flash_bwd, with no Pallas kernel",
+           "launches": launches["flash_attention_bwd"], "ms": ms,
+           "device_ms": sum(by_launch.values()),
+           "device_ms_by_launch": by_launch, "plain_ms": plain_ms,
+           "plain": "ref.flash_attention_bwd_ref (key chunks of 1024)",
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+           "library": "SDPA's backward (autograd of "
+                      "scaled_dot_product_attention, causal, GQA)",
+           "max_abs_err_vs_plain_at_this_shape": shape_err,
+           "kernel_route": "cuda_core, three launches",
+           "ptxas": {"dkdv": ptxas(
+               r"attn_bwd_dkdv_kernelI13__nv_bfloat16Li64E"),
+               "dq": ptxas(r"attn_bwd_dq_kernelI13__nv_bfloat16Li64E")},
+           "shape": [b_, s_, h_, kv_, d_]}
+
+    # ---- 9b: a reduced-width f32 step on the card and on the CPU ----
+    # (4 layers: two scan stages, so remat runs. As many clusters as probe
+    # rows: a 2-row cluster's centre is equidistant from its rows, so
+    # rounding would pick its representative (ROADMAP.md Queue 3's exact
+    # ties) and the two devices could meta-train on different rows)
+    small = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                                num_layers=4)
+    step32, lm32 = make_train_step(small, TrainConfig(
+        dtype="float32", microbatch=4, meta_clusters=4))
+    p_cpu = lm32.init(torch.Generator().manual_seed(7))
+    stoks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, small.vocab_size, (2, 2, 1, 4, 64), np.int32))
+    runs = {}
+    for where in ("cpu", "card"):
+        p = p_cpu if where == "cpu" else tree_map(lambda t: t.to(dev), p_cpu)
+        cp = tree_map(lambda x: x[None].expand((2,) + tuple(x.shape)), p)
+        ops.reset_launch_counts()
+        new, _, m = step32(cp, (), {"tokens": stoks.to(p["embed"].device)},
+                           [1, 2])
+        runs[where] = (tree_leaves(new), {k: float(v) for k, v in m.items()},
+                       ops.launch_counts())
+    (lc, mc, cc), (lg, mg, cg) = runs["cpu"], runs["card"]
+    e_w = max(rel_err(x.cpu(), y) for x, y in zip(lg, lc))
+    e_m = max(abs(mg[key] - mc[key]) / (1 + abs(mc[key])) for key in mc)
+    check(e_w <= TOL and e_m <= TOL and mg["selected"] == mc["selected"],
+          f"9b: card vs CPU: weights rel err {e_w}, metrics {mg} vs {mc}")
+    check(cg["flash_attention"] > 0 and cg["flash_attention_bwd"] > 0
+          and sum(cc.values()) == 0,
+          f"9b: launches card {cg}, CPU {cc}")
+    out["9b"] = {"weights_max_rel_err": e_w, "metrics_max_rel_err": e_m,
+                 "metrics_card": mg, "metrics_cpu": mc, "launches_card": cg}
+    print(f"9b: reduced f32 train step card vs CPU: weights rel err {e_w}, "
+          f"metrics rel err {e_m}")
+
+    # ---- 9c: launch.train in its own process, and its checkpoint ----
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    ck_dir = os.path.join(ROOT, "build", "phase9_ckpt")
+    ck_here = os.path.join(ROOT, "build", "phase9_ckpt_here")
+    for d in (ck_dir, ck_here):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+         "--steps", "2", "--ckpt-dir", ck_dir], cwd=ROOT,
+        capture_output=True, text=True, timeout=300, env=env)
+    train_s = monotonic() - t0
+    check(proc.returncode == 0 and proc.stdout.strip().endswith(
+        "train: done"), f"9c: train exited {proc.returncode}:\n"
+                        f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    # the same run in this process: its checkpoint and the other
+    # process's restore to the same bits
+    train_mod.main(["--smoke", "--steps", "2", "--ckpt-dir", ck_here])
+    smoke = get_config("llama3.2-1b").reduced()
+    target = make_train_step(smoke, TrainConfig())[1].init(
+        torch.Generator().manual_seed(0))
+    (t_a, meta_a), (t_b, _) = (restore_checkpoint(d, target)
+                               for d in (ck_dir, ck_here))
+    check(meta_a["step"] == 1 and meta_a["arch"] == "llama3.2-1b"
+          and all(torch.equal(x, y) for x, y in zip(tree_leaves(t_a),
+                                                      tree_leaves(t_b))),
+          "9c: the train process's checkpoint does not restore to this "
+          "process's bits")
+    out["9c"] = {"exit": proc.returncode, "wall_s": train_s,
+                 "restored_bit_identical": True,
+                 "stdout": proc.stdout.strip().splitlines()}
+
+    # ---- 9d: the federated_lm twin in its own process ----
+    t0 = monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.federated_lm",
+         "--rounds", "3"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env=env)
+    check(proc.returncode == 0, f"9d: federated_lm exited "
+                                f"{proc.returncode}:\n{proc.stdout[-2000:]}"
+                                f"\n{proc.stderr[-2000:]}")
+    out["9d"] = {"exit": proc.returncode, "wall_s": monotonic() - t0,
+                 "stdout": proc.stdout.strip().splitlines()}
+    out["wall_s"] = monotonic() - t_phase
+    return out, row
 
 
 if __name__ == "__main__":

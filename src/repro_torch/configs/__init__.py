@@ -1,5 +1,5 @@
-"""Configs of the port: the paper's WRN, the FL knobs and the LM
-architectures whose path is ported.
+"""Configs of the port: the paper's WRN, the FL knobs, the LM training
+step's knobs and the LM architectures whose path is ported.
 
 ``get_config`` knows the dense GQA decoders that the LM serving path runs
 (``llama3.2-1b``, ``qwen2-0.5b``, ``gemma3-4b``; copies of ``repro``'s).
@@ -12,7 +12,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (INPUT_SHAPES, FLConfig, ModelConfig,
-                                      ShapeConfig)
+                                      ShapeConfig, TrainConfig)
 from repro_torch.configs.wrn_cifar import CONFIG as WRN_CONFIG, WRNConfig
 
 # arch-id -> module name (the ported ones)
@@ -53,5 +53,5 @@ def get_wrn_config() -> WRNConfig:
 
 
 __all__ = ["ARCHS", "FLConfig", "INPUT_SHAPES", "ModelConfig",
-           "ShapeConfig", "WRNConfig", "WRN_CONFIG", "get_config",
-           "get_wrn_config"]
+           "ShapeConfig", "TrainConfig", "WRNConfig", "WRN_CONFIG",
+           "get_config", "get_wrn_config"]

@@ -256,3 +256,30 @@ class FLConfig:
             raise ValueError(f"unknown transport codec "
                              f"{self.transport_codec!r} (have "
                              f"{list(TRANSPORT_CODECS)})")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The federated LM training step's knobs (``launch/steps.py``
+    ``make_train_step``), a copy of ``repro.configs.base.TrainConfig``.
+
+    ``fed_axis`` and ``seq_shard_activations`` only place tensors on a
+    device mesh in the reference; the port trains on one device, so they
+    are accepted and change nothing (the mesh is ``ROADMAP.md`` Queue 1
+    item 15)."""
+    local_steps: int = 2               # L local SGD steps between FedAvg syncs
+    microbatch: int = 8                # tokens rows per grad-accum microstep
+    lr: float = 0.1
+    momentum: float = 0.0
+    weight_decay: float = 0.0
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    fed_axis: str = "data"             # accepted; one device has no mesh
+    remat: bool = True
+    # paper technique in the step:
+    split_fl: bool = True              # lower=FedAvg, upper=metadata-trained
+    meta_clusters: int = 8             # clusters per cohort for selection
+    meta_steps: int = 2                # server-side upper-training steps
+    pca_components: int = 64
+    seq_shard_activations: bool = False  # accepted; one device has no mesh
+    fedavg_compress: str = ""            # "" | "bf16" (delta sum dtype)

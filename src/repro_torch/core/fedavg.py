@@ -1,5 +1,8 @@
 """FedAvg (McMahan et al.) — the paper's Eq. (2) and LocalUpdate (§3.2),
-over the port's parameter dicts (the counterpart of ``repro.core.fedavg``).
+over the port's parameters (the counterpart of ``repro.core.fedavg``):
+``weight_average`` over flat dicts or trees, ``local_update_tree`` (the
+reference's ``local_update``: an ``Optimizer`` and its state over a tree,
+the LM path's) and, for the WRN's flat dicts, the engines below.
 
 LocalUpdate has two engines, picked by the device of the client's data:
 on the CPU the eager loop of SGD steps (``local_update``); on a CUDA
@@ -12,21 +15,23 @@ frees them, with their memory, when the owner releases it.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
-from repro_torch.optim.optimizers import sgd_step, value_and_grad
+from repro_torch.optim.optimizers import (Optimizer, sgd_step, tree_map,
+                                          value_and_grad)
 
 Params = Dict[str, torch.Tensor]
+PyTree = Any
 LossFn = Callable[[Params, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def weight_average(client_params: Sequence[Params],
-                   weights: Optional[Sequence[float]] = None) -> Params:
+def weight_average(client_params: Sequence[PyTree],
+                   weights: Optional[Sequence[float]] = None) -> PyTree:
     """Eq. 2: W_G(t) = (1/m) sum_k W_Ck(t), the same left-to-right sum as
-    the reference; ``weights`` (normalized here) weigh the clients, a 0
-    leaving one out."""
+    the reference, leaf by leaf of flat dicts or trees; ``weights``
+    (normalized here) weigh the clients, a 0 leaving one out."""
     m = len(client_params)
     if weights is None:
         w = [1.0 / m] * m
@@ -34,8 +39,24 @@ def weight_average(client_params: Sequence[Params],
         tot = float(sum(weights))
         w = [float(x) / tot for x in weights]
     with torch.no_grad():
-        return {k: sum(wi * p[k] for wi, p in zip(w, client_params))
-                for k in client_params[0]}
+        return tree_map(lambda *xs: sum(wi * x for wi, x in zip(w, xs)),
+                        *client_params)
+
+
+def local_update_tree(params: PyTree, opt: Optimizer, opt_state: PyTree,
+                      batches: Sequence[Any],
+                      loss_fn: Callable[[PyTree, Any], torch.Tensor]):
+    """§3.2 LocalUpdate over a tree (the reference's ``local_update``):
+    one ``opt`` step a batch of ``batches`` (a sequence, the reference's
+    scanned leading axis), eagerly on the params' device. Returns
+    (params, opt_state, losses (steps,))."""
+    losses = []
+    for batch in batches:
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        params, opt_state = opt.apply(grads, opt_state, params)
+        losses.append(loss)
+    return params, opt_state, (torch.stack(losses) if losses
+                               else torch.zeros(0))
 
 
 def local_update(params: Params, lr: float, batches_x: torch.Tensor,

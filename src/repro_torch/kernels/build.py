@@ -31,6 +31,7 @@ COMMON_FLAGS = [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # (its result is held byte-exact against the plain version)
 EXTRA_FLAGS: Dict[str, List[str]] = {"kmeans": [], "quantize": ["-fmad=false"],
                                      "flash_attention": [],
+                                     "flash_attention_bwd": [],
                                      "decode_attention": []}
 SOURCES = tuple(EXTRA_FLAGS)
 
@@ -59,8 +60,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {
-        "repro_flash_attention": ([_P] * 4 + [_I] * 8 + [_F, _P], _I),
-        "repro_flash_attention_tc": ([_P] * 4 + [_I] * 7 + [_F, _P], _I),
+        # q, k, v, out, lse (or null), dtype, b, s, h, kv, d, causal,
+        # window, scale, stream
+        "repro_flash_attention": ([_P] * 5 + [_I] * 8 + [_F, _P], _I),
+        "repro_flash_attention_tc": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
+        "repro_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_attention_bwd": {
+        # q, k, v, out, dout, lse, dd, dq, dk, dv, dtype, b, s, h, kv, d,
+        # causal, window, scale, stream
+        "repro_flash_attention_bwd": ([_P] * 10 + [_I] * 8 + [_F, _P], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "decode_attention": {

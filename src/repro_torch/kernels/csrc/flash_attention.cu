@@ -1,4 +1,5 @@
-// Blocked GQA flash attention (prefill), forward only, for sm_90a.
+// Blocked GQA flash attention (prefill), forward, for sm_90a (its backward:
+// flash_attention_bwd.cu).
 //
 // Replaces the Pallas TPU kernel flash_attention_kernel of
 // src/repro/kernels/flash_attention.py:89 (the prefill attention of every
@@ -51,6 +52,16 @@
 // the accurate expf; p is rounded to the input type before the P.V
 // product (as the plain version's p.to(dtype)); the output is
 // acc / max(l, 1e-30) written in the input type.
+//
+// Softmax statistics, for the backward (flash_attention_bwd.cu). Given a
+// non-null lse (B, H, S) f32, both routes also write each row's
+// log-sum-exp of its scaled logits, lse = m + log(max(l, 1e-30)), with m
+// the row max of s * scale (the reference's m of layers.py:129, in the
+// same units on both routes: the CUDA-core route keeps m of scores it has
+// already scaled, the tensor-core route the raw max times the positive
+// scale, which is the same float) and l the row's sum of exp(s * scale -
+// m). The backward recomputes p = exp(s * scale - lse). A null lse skips
+// the store: the serving path's work and bits are unchanged.
 #include <cuda.h>            // CUtensorMap (the encoder comes via the runtime)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -87,8 +98,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int S, int H,
-                 int KV, int D, int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int H, int KV, int D,
+                 int causal, int window, float scale) {
   constexpr int BK = Tile<DMAX>::BK;
   constexpr int NJ = BK / 16;          // score columns per thread
   constexpr int NC = DMAX / 16;        // output columns per thread
@@ -235,13 +247,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = tx + 16 * cc;
       if (d < D) o[d] = from_f<T>(acc[i][cc] * inv_l);
     }
+    // the 16 threads of the row hold the same m and l
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * S + qrow[i]] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
 template <typename T, int DMAX>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int KV, int D, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int H, int KV, int D, int causal,
+           int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -250,19 +266,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const long long nrows = (long long)S * (H / KV);
   dim3 grid((unsigned)((nrows + ROWS - 1) / ROWS), (unsigned)(B * KV));
   flash_fwd_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, S, H, KV, D, causal,
-      window, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, S, H, KV, D,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int S, int H, int KV, int D, int causal, int window, float scale,
-             cudaStream_t st) {
-  if (D <= 32) return launch<T, 32>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  if (D <= 64) return launch<T, 64>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  if (D <= 128) return launch<T, 128>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  return launch<T, 256>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int S, int H, int KV, int D, int causal,
+             int window, float scale, cudaStream_t st) {
+  if (D <= 32) return launch<T, 32>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, st);
+  if (D <= 64) return launch<T, 64>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, st);
+  if (D <= 128) return launch<T, 128>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, st);
+  return launch<T, 256>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, st);
 }
 
 
@@ -637,7 +653,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
                        const __grid_constant__ CUtensorMap tmap_v,
                        const __nv_bfloat16* __restrict__ q,
-                       __nv_bfloat16* __restrict__ out, int S, int H, int KV,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int S, int H, int KV,
                        int D, int causal, int window, float scale) {
   using Sh = TcShape<DP, BK, STAGES>;
   constexpr int NS = BK / 2;           // score registers per thread
@@ -802,6 +819,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
         *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
             o[4 * j + 2 * h] * inv_l, o[4 * j + 2 * h + 1] * inv_l);
     }
+    // the quad of the row holds the same m and, after the shuffles, l
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((long long)b * H + head) * S + qrow[h]] =
+          m[h] + logf(fmaxf(l[h], 1e-30f));
   }
 }
 
@@ -859,9 +880,9 @@ int kv_tensor_map(CUtensorMap* map, const void* base, int B, int S, int KV,
 }
 
 template <int DP, int BK, int STAGES>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int S, int H, int KV, int D, int causal, int window,
-              float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int S, int H, int KV, int D, int causal,
+              int window, float scale, cudaStream_t stream) {
   using Sh = TcShape<DP, BK, STAGES>;
   CUtensorMap mk, mv;
   int rc = kv_tensor_map(&mk, k, B, S, KV, D, BK);
@@ -875,8 +896,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((unsigned)((nrows + TC_ROWS - 1) / TC_ROWS), (unsigned)(B * KV));
   flash_fwd_wgmma_kernel<DP, BK, STAGES><<<grid, TC_THREADS, Sh::SMEM,
                                            stream>>>(
-      mk, mv, (const __nv_bfloat16*)q, (__nv_bfloat16*)out, S, H, KV, D,
-      causal, window, scale);
+      mk, mv, (const __nv_bfloat16*)q, (__nv_bfloat16*)out, lse, S, H, KV,
+      D, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -884,41 +905,42 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v and out share it). The CUDA-core route,
 // for every shape; the caller checks shapes (D <= 256, H % KV == 0,
-// B * KV <= 65535) and contiguity.
+// B * KV <= 65535) and contiguity. lse: (B, H, S) f32 statistics, or null.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int dtype,
-                                     int B, int S, int H, int KV, int D,
-                                     int causal, int window, float scale,
-                                     cudaStream_t stream) {
+                                     const void* v, void* out, void* lse,
+                                     int dtype, int B, int S, int H, int KV,
+                                     int D, int causal, int window,
+                                     float scale, cudaStream_t stream) {
   if (S == 0 || B == 0) return 0;
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, S, H, KV, D, causal, window,
-                           scale, stream);
-  return dispatch<__nv_bfloat16>(q, k, v, out, B, S, H, KV, D, causal,
-                                 window, scale, stream);
+    return dispatch<float>(q, k, v, out, (float*)lse, B, S, H, KV, D,
+                           causal, window, scale, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, out, (float*)lse, B, S, H, KV, D,
+                                 causal, window, scale, stream);
 }
 
 // The tensor-core route: bf16 only, D % 16 == 0, D <= 256, every pointer
 // 16-byte aligned (the caller checks; repro_torch/kernels/flash_attention.py
 // prefill_route picks the route).
 extern "C" int repro_flash_attention_tc(const void* q, const void* k,
-                                        const void* v, void* out, int B,
-                                        int S, int H, int KV, int D,
+                                        const void* v, void* out, void* lse,
+                                        int B, int S, int H, int KV, int D,
                                         int causal, int window, float scale,
                                         cudaStream_t stream) {
   if (S == 0 || B == 0) return 0;
   if (D % 16 != 0 || D <= 0 || D > 256) return (int)cudaErrorInvalidValue;
+  float* st = (float*)lse;
   if (D <= 64)
-    return launch_tc<64, 128, 3>(q, k, v, out, B, S, H, KV, D, causal,
+    return launch_tc<64, 128, 3>(q, k, v, out, st, B, S, H, KV, D, causal,
                                  window, scale, stream);
   if (D <= 128)
-    return launch_tc<128, 128, 2>(q, k, v, out, B, S, H, KV, D, causal,
+    return launch_tc<128, 128, 2>(q, k, v, out, st, B, S, H, KV, D, causal,
                                   window, scale, stream);
   if (D <= 192)
-    return launch_tc<192, 64, 2>(q, k, v, out, B, S, H, KV, D, causal,
+    return launch_tc<192, 64, 2>(q, k, v, out, st, B, S, H, KV, D, causal,
                                  window, scale, stream);
-  return launch_tc<256, 64, 2>(q, k, v, out, B, S, H, KV, D, causal, window,
-                               scale, stream);
+  return launch_tc<256, 64, 2>(q, k, v, out, st, B, S, H, KV, D, causal,
+                               window, scale, stream);
 }
 
 extern "C" const char* repro_error_string(int err) {

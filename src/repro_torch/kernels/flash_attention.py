@@ -1,4 +1,5 @@
-"""Launcher of the prefill attention CUDA kernel (``csrc/flash_attention.cu``).
+"""Launchers of the prefill attention CUDA kernel (``csrc/flash_attention.cu``)
+and of its backward (``csrc/flash_attention_bwd.cu``).
 
 The port's counterpart of ``repro.kernels.flash_attention.
 flash_attention_kernel``: blocked GQA attention with an online softmax in
@@ -15,12 +16,19 @@ the pointers' alignment (never by trying one and falling back):
 * ``"cuda_core"``: everything else (f32 above all: its 2e-3 limit against
   the plain version rules TF32 out). f32 FMAs from shared memory.
 
+Both routes write the softmax statistics on request: ``lse`` (B,H,S) f32,
+each row's log-sum-exp of its scaled logits (``m + log l``, the
+reference's ``(m, l)`` of ``_sdpa_chunked_raw`` folded into one number).
+The backward takes them: three launches (``Dd = rowsum(dO * O)``, dK/dV by
+key tile, dQ by row tile) on the CUDA cores, for every dtype and head dim.
+
 Takes CUDA tensors that ``kernels/ops.py`` has already checked and
 allocated; launches on PyTorch's current stream and does not synchronize.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -50,21 +58,45 @@ def route_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            out: torch.Tensor, causal: bool, window: int,
-                           route: str) -> None:
+                           route: str,
+                           lse: Optional[torch.Tensor] = None) -> None:
     """out (B,S,H,D) = attention of q over k, v on the card, by ``route``
-    (the caller's ``route_for``; its out must be 16-byte aligned too)."""
+    (the caller's ``route_for``; its out must be 16-byte aligned too), and
+    the rows' log-sum-exp into ``lse`` (B,H,S) f32 if given."""
     lib = build.library("flash_attention")
     b, s, h, d = q.shape
+    stats = lse.data_ptr() if lse is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if route == "tensor_core":
             err = lib.repro_flash_attention_tc(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                s, h, k.shape[2], d, int(causal), window,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                stats, b, s, h, k.shape[2], d, int(causal), window,
                 1.0 / math.sqrt(d), stream)
         else:
             err = lib.repro_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                DTYPES[q.dtype], b, s, h, k.shape[2], d, int(causal),
+                stats, DTYPES[q.dtype], b, s, h, k.shape[2], d, int(causal),
                 window, 1.0 / math.sqrt(d), stream)
     build.check_launch(lib, err, f"flash_attention ({route})")
+
+
+def launch_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, out: torch.Tensor,
+                               dout: torch.Tensor, lse: torch.Tensor,
+                               dd: torch.Tensor, dq: torch.Tensor,
+                               dk: torch.Tensor, dv: torch.Tensor,
+                               causal: bool, window: int) -> None:
+    """dq, dk, dv of the attention that gave ``out`` and ``lse``, for the
+    output gradient ``dout``, on the card (three launches; ``dd`` (B,H,S)
+    f32 is their scratch)."""
+    lib = build.library("flash_attention_bwd")
+    b, s, h, d = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype], b, s, h,
+            k.shape[2], d, int(causal), window, 1.0 / math.sqrt(d), stream)
+    build.check_launch(lib, err, "flash_attention_bwd")

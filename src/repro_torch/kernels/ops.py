@@ -11,7 +11,8 @@ themselves, so nothing is padded either.
 
 Every wrapper carries a plain integer ``launches`` that it raises by one
 each time it launches its kernel (one Lloyd sweep counts once, although it
-is two CUDA launches). ``reset_launch_counts`` / ``launch_counts`` read and
+is two CUDA launches, and one attention backward once, although it is
+three). ``reset_launch_counts`` / ``launch_counts`` read and
 zero them all, so a run can show that it went through the kernels.
 
 Each launch runs inside an ``obs.timed_block("kernel.<wrapper name>")``
@@ -178,11 +179,16 @@ def _check_attention(t: torch.Tensor, name: str, dtype: torch.dtype,
     _check(t, name, dtype, ndim, device)
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _no_grad(what: str, *ts: torch.Tensor) -> None:
-    """The kernels are forward only: the backward comes with the training
-    slice, so a tensor that needs a gradient is refused, not launched."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError(f"{what}: the CUDA kernel has no backward yet; "
+    """The decode kernel is forward only, as the reference's decode (which
+    training never differentiates): a tensor that needs a gradient is
+    refused, not launched."""
+    if _needs_grad(*ts):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward; "
                            f"call it on tensors that do not require grad")
 
 
@@ -195,11 +201,18 @@ def _heads(h: int, kv: int, d: int, what: str) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    return_stats: bool = False):
     """GQA attention of q (B,S,H,D) over k, v (B,S,KV,D), all f32 or all
     bf16 -> (B,S,H,D) in that dtype. ``causal`` masks qi < ki; ``window``
     > 0 masks qi - ki >= window. No padding and no size threshold: the
-    kernel masks keys at the true S."""
+    kernel masks keys at the true S.
+
+    ``return_stats``: -> (out, lse), lse (B,H,S) f32 each row's log-sum-exp
+    of its scaled logits (what ``flash_attention_bwd`` takes). On CUDA
+    tensors that need a gradient (and no stats asked for) the call goes
+    through ``models.layers.FlashAttention``, whose forward is this kernel
+    with its statistics and whose backward is ``flash_attention_bwd``."""
     _check_attention(q, "q", q.dtype, 4, q.device)
     _check(k, "k", q.dtype, 4, q.device)
     _check(v, "v", q.dtype, 4, q.device)
@@ -212,21 +225,71 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if not _on_card(q, "flash_attention"):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    _no_grad("flash_attention", q, k, v)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       return_stats=return_stats)
     if b * kv > 65535:
         raise ValueError(f"flash_attention: B*KV = {b * kv} > 65535")
+    if not return_stats and _needs_grad(q, k, v):
+        # (imported here: models.layers imports this module)
+        from repro_torch.models.layers import FlashAttention
+        return FlashAttention.apply(q, k, v, causal, int(window), 1024)
     from repro_torch.kernels.flash_attention import (launch_flash_attention,
                                                      route_for)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_stats else None)
     route = route_for(q, k, v)
     with obs.timed_block("kernel.flash_attention", b=b, s=s, h=h,
                          d=d) as sp:
-        launch_flash_attention(q, k, v, out, causal, int(window), route)
+        launch_flash_attention(q, k, v, out, causal, int(window), route, lse)
         sp.sync(out)
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
-    return out
+    return (out, lse) if return_stats else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True,
+                        window: int = 0):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the
+    output gradient ``dout``, from the forward's ``out`` and statistics
+    ``lse`` (B,H,S) f32. q, out, dout (B,S,H,D) and k, v (B,S,KV,D), all
+    f32 or all bf16; the gradients come back in that dtype. On the card
+    three CUDA launches (counted once); on the CPU the plain version
+    (``ref.flash_attention_bwd_ref`` with ``m = lse``, ``l = 1``)."""
+    _check_attention(q, "q", q.dtype, 4, q.device)
+    for t, name in ((k, "k"), (v, "v"), (out, "out"), (dout, "dout")):
+        _check(t, name, q.dtype, 4, q.device)
+    _check(lse, "lse", torch.float32, 3, q.device)
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    if (tuple(k.shape) != (b, s, kv, d) or tuple(v.shape) != (b, s, kv, d)
+            or out.shape != q.shape or dout.shape != q.shape
+            or tuple(lse.shape) != (b, h, s)):
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}, "
+                         f"lse {tuple(lse.shape)} do not fit")
+    _heads(h, kv, d, "flash_attention_bwd")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if not _on_card(q, "flash_attention_bwd"):
+        return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                           torch.ones_like(lse),
+                                           causal=causal, window=window)
+    if b * kv > 65535:
+        raise ValueError(f"flash_attention_bwd: B*KV = {b * kv} > 65535")
+    from repro_torch.kernels.flash_attention import launch_flash_attention_bwd
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dd = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with obs.timed_block("kernel.flash_attention_bwd", b=b, s=s, h=h,
+                         d=d) as sp:
+        launch_flash_attention_bwd(q, k, v, out, dout, lse, dd, dq, dk, dv,
+                                   causal, int(window))
+        sp.sync(dq)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -267,7 +330,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 KERNELS = (kmeans_pairwise_dist, kmeans_lloyd_step, quantize_affine,
-           quantize_affine_batched, flash_attention, flash_decode)
+           quantize_affine_batched, flash_attention, flash_attention_bwd,
+           flash_decode)
 flash_decode.last_splits = 0           # the split count of the last launch
 # the plan (kernels/kmeans.py RowPlan, kernels/quantize.py QuantizePlan
 # and CohortPlan) of the last launch

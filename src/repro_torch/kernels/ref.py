@@ -105,11 +105,14 @@ def dequantize_affine_ref(q: torch.Tensor, xmin, scale) -> torch.Tensor:
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        return_stats: bool = False):
     """(B,S,H,D) x (B,S,KV,D)^2 -> (B,S,H,D); GQA via head repeat (query
     head h reads kv head h // (H/KV)). Scores in f32 scaled by 1/sqrt(D),
     masked to NEG where ``qi < ki`` (causal) or ``qi - ki >= window``
-    (window > 0); softmax in f32, p cast to the input dtype before P.V."""
+    (window > 0); softmax in f32, p cast to the input dtype before P.V.
+    ``return_stats``: also each row's log-sum-exp of its masked scaled
+    logits, (B,H,S) f32, the statistics the CUDA kernel writes."""
     b, sq, h, d = q.shape
     kv = k.shape[2]
     rep = h // kv
@@ -127,7 +130,85 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= (qi - ki) < window
     s = torch.where(mask[None, None], s, NEG)
     p = torch.softmax(s, -1)
-    return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v)
+    if return_stats:                 # contiguous, as the kernel writes them
+        return out.contiguous(), torch.logsumexp(s, -1)
+    return out
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, m: torch.Tensor,
+                            l: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, chunk: int = 1024):
+    """The attention's backward from its softmax statistics: the port of
+    ``repro.models.layers._sdpa_flash_bwd``, op for op. q, out, dout
+    (B,S,H,D), k, v (B,S,KV,D); ``m``, ``l`` (B,H,S) f32, the forward's
+    row max of the scaled logits and the sum of ``exp(s - m)``. Returns
+    (dq, dk, dv) in the inputs' dtypes.
+
+    Key chunks of ``chunk`` (the last padded and masked) are recomputed:
+    ``p = exp(s - m) / l``, ``D = rowsum(dO * O)``, ``ds = p (dP - D)
+    scale``, and each chunk's GQA reps are folded onto their kv heads. The
+    rounding points are the reference's deliberate ones: ``ds`` and ``p``
+    are rounded to the input dtype before their products. Every product
+    is taken in f32 on the inputs' values and every sum stays f32 until
+    the gradients are written (the reference's bf16 einsums also round
+    their outputs, s, dP and each chunk's dK/dV, to bf16; the kernel does
+    not, and neither does this, its contract). The CUDA kernel's
+    statistics are one number a row, ``lse = m + log l``: pass ``m=lse``
+    with ``l`` all ones."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    n_rep = h // kv
+    scale = 1.0 / math.sqrt(d)
+    nchunks = (sk + chunk - 1) // chunk
+    pad = nchunks * chunk - sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    f32 = torch.float32
+    dtype = q.dtype
+    q32, do32 = q.to(f32), dout.to(f32)
+    qi = torch.arange(sq, device=q.device)[:, None]
+    # D_i = rowsum(dout * out) (the softmax-jacobian diagonal term)
+    dd = torch.einsum("bqhd,bqhd->bhq", do32, out.to(f32))
+    li = torch.clamp(l, min=1e-30)
+    dq = torch.zeros((b, sq, h, d), dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for ci in range(nchunks):
+        kr = _repeat_kv(k[:, ci * chunk:(ci + 1) * chunk], n_rep).to(f32)
+        vr = _repeat_kv(v[:, ci * chunk:(ci + 1) * chunk], n_rep).to(f32)
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, kr) * scale
+        ki = ci * chunk + torch.arange(chunk, device=q.device)[None, :]
+        mask = ki < sk
+        if causal:
+            mask = mask & (qi >= ki)
+        if window > 0:
+            mask = mask & ((qi - ki) < window)
+        s = torch.where(mask[None, None], s, NEG)
+        p = torch.exp(s - m[..., None]) / li[..., None]         # true probs
+        dp = torch.einsum("bqhd,bkhd->bhqk", do32, vr)
+        ds = p * (dp - dd[..., None]) * scale
+        # the rounding points: ds and p in the input dtype
+        ds16, p16 = ds.to(dtype).to(f32), p.to(dtype).to(f32)
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds16, kr)
+        dk_f = torch.einsum("bhqk,bqhd->bkhd", ds16, q32)      # (b,chunk,h,d)
+        dv_f = torch.einsum("bhqk,bqhd->bkhd", p16, do32)
+        # fold GQA reps back onto kv heads
+        dks.append(dk_f.reshape(b, chunk, kv, n_rep, d).sum(3))
+        dvs.append(dv_f.reshape(b, chunk, kv, n_rep, d).sum(3))
+    dk = torch.cat(dks, 1)[:, :sk]
+    dv = torch.cat(dvs, 1)[:, :sk]
+    return dq.to(dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,

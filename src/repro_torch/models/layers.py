@@ -13,10 +13,15 @@ Conventions, as in the reference:
 
 The attention cores follow the device of their inputs: on a CUDA tensor
 ``attn_apply`` runs the hand-written kernels (``kernels.ops.flash_attention``
-for prefill, ``flash_decode`` for decode); on a CPU tensor it runs the
-plain versions here, on the reference's branch (``sdpa_full`` up to 2048
-positions, ``sdpa_chunked`` above). Forward only: the training slice
-brings ``sdpa_chunked``'s recompute backward.
+for prefill and training, ``flash_decode`` for decode); on a CPU tensor it
+runs the plain versions here, on the reference's branch (``sdpa_full`` up
+to 2048 positions, ``sdpa_chunked`` above). Under autograd the full-mode
+attention is ``FlashAttention``, the reference's recompute custom VJP
+(``_sdpa_flash``): on the card the prefill kernel with its softmax
+statistics forward and the backward kernels, on the CPU
+``_sdpa_chunked_raw`` forward and its port of ``_sdpa_flash_bwd``; on the
+CPU up to 2048 positions ``sdpa_full`` is differentiated by autograd, as
+the reference does. Decode has no gradient.
 
 MLA, MoE, Mamba, RWKV and cross-attention are not ported yet
 (``ROADMAP.md`` Queue 1).
@@ -30,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 NEG = -1e30
 
@@ -149,16 +154,65 @@ def sdpa_full(q, k, v, *, causal: bool, window: int):
 
 
 def sdpa_chunked(q, k, v, *, causal: bool, window: int, chunk: int = 1024):
-    """Online-softmax attention over KV chunks (forward only; the reference
-    wraps the same forward in a recompute custom VJP)."""
+    """Online-softmax attention over KV chunks; under autograd the
+    recompute VJP of ``FlashAttention`` (the reference's ``_sdpa_flash``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, chunk)
     return _sdpa_chunked_raw(q, k, v, causal=causal, window=window,
                              chunk=chunk)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention with the reference's recompute backward
+    (``repro.models.layers._sdpa_flash``): the forward keeps its softmax
+    statistics and the output, and the backward recomputes the scores from
+    them instead of storing them. ``apply(q, k, v, causal, window, chunk)``.
+
+    On CUDA tensors the forward is the prefill kernel with its statistics
+    (``ops.flash_attention(return_stats=True)``: lse = m + log l) and the
+    backward the backward kernels (``ops.flash_attention_bwd``); on CPU
+    tensors the forward is ``_sdpa_chunked_raw`` with (m, l) and the
+    backward ``ref.flash_attention_bwd_ref`` (the port of
+    ``_sdpa_flash_bwd``) over chunks of ``chunk`` keys. Nothing in the
+    forward depends on the order it runs in, so a checkpointed layer's
+    recompute gives the same output and statistics."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk):
+        if q.is_cuda:
+            out, lse = ops.flash_attention(q, k, v, causal=causal,
+                                           window=window, return_stats=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out, m, l = _sdpa_chunked_raw(q, k, v, causal=causal,
+                                          window=window, chunk=chunk,
+                                          return_stats=True)
+            ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.causal, ctx.window, ctx.chunk = causal, window, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dout = dout.contiguous()
+        if dout.is_cuda:
+            q, k, v, out, lse = ctx.saved_tensors
+            dq, dk, dv = ops.flash_attention_bwd(
+                q, k, v, out, dout, lse, causal=ctx.causal,
+                window=ctx.window)
+        else:
+            q, k, v, out, m, l = ctx.saved_tensors
+            dq, dk, dv = ref.flash_attention_bwd_ref(
+                q, k, v, out, dout, m, l, causal=ctx.causal,
+                window=ctx.window, chunk=ctx.chunk)
+        return dq, dk, dv, None, None, None
+
+
 def _sdpa_chunked_raw(q, k, v, *, causal: bool, window: int,
-                      chunk: int = 1024):
+                      chunk: int = 1024, return_stats: bool = False):
     """Online-softmax attention, looping over KV chunks: O(S*chunk) live
-    memory. The plain counterpart of ``kernels/csrc/flash_attention.cu``."""
+    memory. The plain counterpart of ``kernels/csrc/flash_attention.cu``.
+    ``return_stats``: -> (out, m, l), the row max of the scaled logits and
+    the sum of ``exp(s - m)``, (B,H,S) f32 each, as the reference."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     n_rep = h // kv
@@ -193,6 +247,8 @@ def _sdpa_chunked_raw(q, k, v, *, causal: bool, window: int,
             "bhqk,bkhd->bqhd", p16, vcur).to(torch.float32)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    if return_stats:
+        return out.to(q.dtype), m, l
     return out.to(q.dtype)
 
 
@@ -282,7 +338,7 @@ def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
         positions = torch.arange(s, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        if q.is_cuda:                  # the hand-written kernel, at any s
+        if q.is_cuda:      # the hand-written kernel (and its backward), any s
             o = ops.flash_attention(q, k, v, causal=causal, window=window)
         elif chunked and s > 2048:
             o = sdpa_chunked(q, k, v, causal=causal, window=window)

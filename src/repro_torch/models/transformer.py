@@ -9,22 +9,31 @@ packages. Each stage is either
             over the repeats in Python and indexes the stacked leaves), or
   * unroll: explicit layers, one dict each.
 
+``LM(remat=True)`` recomputes each repeat of a scan stage in the
+backward (``torch.utils.checkpoint``, where the reference wraps the scan
+body in ``jax.checkpoint``), when autograd records a full-mode forward
+with no cache. ``make_split_lm`` is the paper's lower/upper view of an LM
+(the reference's ``SplitModel`` of closures, as a ``SplitLM``).
+
 ``params_from_jax`` / ``params_to_jax`` map ``repro``'s LM parameter tree
 (numpy arrays) to the port's and back; the two trees have the same
-structure. MLA, MoE, Mamba, RWKV, encoders, cross-attention, vision
-prefixes and ``make_split_lm`` are not ported yet (``ROADMAP.md`` Queue 1).
+structure. MLA, MoE, Mamba, RWKV, encoders, cross-attention and vision
+prefixes are not ported yet (``ROADMAP.md`` Queue 1).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.optim.optimizers import tree_map
 
 PyTree = Any
 
@@ -119,15 +128,6 @@ def stage_layers(st: Stage) -> int:
 # --------------------------------------------------------------------------
 # trees
 # --------------------------------------------------------------------------
-def tree_map(fn: Callable, tree: PyTree) -> PyTree:
-    """``fn`` on every leaf of nested dicts / lists / tuples."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def cast_params(params: PyTree, dtype: torch.dtype) -> PyTree:
     """Every f32 leaf cast to ``dtype`` (others, and leaves already in
     ``dtype``, are returned as they are, without a copy)."""
@@ -171,19 +171,36 @@ def _layer(tree: PyTree, r: int) -> PyTree:
     return tree_map(lambda t: t[r], tree)
 
 
+def _layers(tree: PyTree, repeats: int) -> List[PyTree]:
+    """Every layer of a scan stage's stacked tree, as views from one
+    ``unbind`` a leaf (whose backward stacks the layers' gradients once,
+    where indexing each layer would add a full-size zero tensor a layer)."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v, repeats) for k, v in tree.items()}
+        return [{k: per[k][r] for k in tree} for r in range(repeats)]
+    if isinstance(tree, (list, tuple)):
+        per = [_layers(v, repeats) for v in tree]
+        return [type(tree)(p[r] for p in per) for r in range(repeats)]
+    return list(tree.unbind(0))
+
+
 # --------------------------------------------------------------------------
 # full model
 # --------------------------------------------------------------------------
 class LM:
     """Bundles init/apply/cache for one ModelConfig (dense GQA decoders)."""
 
-    def __init__(self, cfg: ModelConfig, force_swa: bool = False):
+    def __init__(self, cfg: ModelConfig, force_swa: bool = False,
+                 remat: bool = False):
         if cfg.is_encoder_decoder or cfg.frontend is not None:
             raise NotImplementedError(
                 f"{cfg.name}: encoders and frontends are not ported to "
                 f"repro_torch yet (ROADMAP.md Queue 1 item 13g)")
         self.cfg = cfg
         self.force_swa = force_swa
+        # recompute each scan repeat in the backward (jax.checkpoint with
+        # no policy: everything recomputed)
+        self.remat = remat
         self.specs = layer_specs(cfg, force_swa)
         for spec in self.specs:
             _check_spec(spec)
@@ -240,16 +257,31 @@ class LM:
                                          pos)
                     ncs.append(nc)
                 new_caches.append(ncs)
+            elif scache is None:
+                unit = functools.partial(self._unit_apply, st.unit, mode,
+                                         pos)
+                remat = (self.remat and mode == "full"
+                         and torch.is_grad_enabled())
+                for lp in _layers(sp, st.repeats):
+                    x = (checkpoint(unit, x, lp, use_reentrant=False)
+                         if remat else unit(x, lp))
+                new_caches.append(None)
             else:
                 for r in range(st.repeats):
                     for ui, spec in enumerate(st.unit):
-                        c = _layer(scache[ui], r) if scache is not None \
-                            else None
                         x, _ = _block_apply(_layer(sp[ui], r), x, spec,
-                                            self.cfg, mode, c, pos)
+                                            self.cfg, mode,
+                                            _layer(scache[ui], r), pos)
                 # the stacked caches were written in place, layer by layer
                 new_caches.append(scache)
         return x, new_caches
+
+    def _unit_apply(self, unit, mode, pos, x, lp):
+        """One repeat of a scan stage (its unit's blocks) without a cache:
+        the body the reference's scan runs (and ``jax.checkpoint``s)."""
+        for ui, spec in enumerate(unit):
+            x, _ = _block_apply(lp[ui], x, spec, self.cfg, mode, None, pos)
+        return x
 
     def embed_tokens(self, params, tokens):
         return params["embed"][tokens] * math.sqrt(self.cfg.d_model)
@@ -310,9 +342,16 @@ class LM:
 
     # ---------------- losses ----------------
     def loss(self, params, batch, dtype=torch.float32):
-        """Next-token CE (forward only). batch = tokens, (tokens, labels
-        unused) or a dict with "tokens"."""
+        """Next-token CE, differentiable (the f32 log-softmax of the
+        logits, as the reference). batch = tokens, (tokens, labels unused)
+        or a dict with "tokens"; the reference's extras (prefix_embeds,
+        enc_frames) are refused (``ROADMAP.md`` Queue 1 item 13g)."""
         if isinstance(batch, dict):
+            extras = sorted(set(batch) & {"prefix_embeds", "enc_frames"})
+            if extras:
+                raise NotImplementedError(
+                    f"LM.loss: {extras} are not ported to repro_torch yet "
+                    f"(ROADMAP.md Queue 1 item 13g)")
             tokens = batch["tokens"]
         elif isinstance(batch, (tuple, list)):
             tokens = batch[0]
@@ -326,15 +365,130 @@ class LM:
 
 
 # --------------------------------------------------------------------------
+# the paper's split view over an LM
+# --------------------------------------------------------------------------
+@dataclass(frozen=True)
+class SplitLM:
+    """The paper's lower/upper view of a decoder LM, with the fields of the
+    reference's ``SplitModel`` (``make_split_lm``): ``init(gen, device)``,
+    ``apply(params, tokens) -> logits``, ``apply_lower(params, tokens) ->
+    hidden states at the split``, ``apply_upper(params, acts) -> logits``,
+    ``split(params) -> (lower, upper)``, ``merge(lower, upper) -> params``,
+    ``loss(params, batch)`` (next-token CE) and ``upper_loss(upper, acts,
+    targets) -> (N,)`` per-sample CE of the upper part."""
+    config: ModelConfig
+    split_layer: int
+    init: Callable
+    apply: Callable
+    apply_lower: Callable
+    apply_upper: Callable
+    split: Callable
+    merge: Callable
+    loss: Callable
+    upper_loss: Callable
+
+
+def split_stages(cfg: ModelConfig, j: int) -> Tuple[List[Stage], int]:
+    """The stage list with a break at layer ``j`` and the index of the
+    first upper stage (j rounded up to a stage boundary, as the
+    reference)."""
+    stages = decompose(layer_specs(cfg), boundary=j)
+    acc = 0
+    for si, st in enumerate(stages):
+        if acc >= j:
+            return stages, si
+        acc += stage_layers(st)
+    return stages, len(stages) - 1
+
+
+def make_split_lm(cfg: ModelConfig, split_layer: Optional[int] = None,
+                  dtype=torch.float32):
+    """(SplitLM, lm) for a decoder LM: lower = embed + stages[:b], upper =
+    stages[b:] + final norm + head (``embed_head``, the tied embedding, or
+    ``lm_head``). The split layer is rounded to a stage-unit boundary (the
+    paper also splits at a group boundary)."""
+    j = split_layer if split_layer is not None else cfg.split_layer
+    lm = LM(cfg)
+    lm.stages, boundary_stage = split_stages(cfg, j)
+    n_stages = len(lm.stages)
+
+    def split(params):
+        lower = {"embed": params["embed"],
+                 "stages": params["stages"][:boundary_stage]}
+        if "proj" in params:
+            lower["proj"] = params["proj"]
+        upper = {"stages": params["stages"][boundary_stage:],
+                 "final_norm": params["final_norm"]}
+        if "lm_head" in params:
+            upper["lm_head"] = params["lm_head"]
+        if cfg.tie_embeddings:
+            upper["embed_head"] = params["embed"]
+        return lower, upper
+
+    def merge(lower, upper):
+        p = {"embed": lower["embed"],
+             "stages": list(lower["stages"]) + list(upper["stages"]),
+             "final_norm": upper["final_norm"]}
+        if "lm_head" in upper:
+            p["lm_head"] = upper["lm_head"]
+        if "proj" in lower:
+            p["proj"] = lower["proj"]
+        return p
+
+    def apply_lower(params_full, tokens):
+        h, _, _ = lm.apply(params_full, tokens, mode="full",
+                           stage_range=(0, boundary_stage), dtype=dtype)
+        return h
+
+    def apply_upper_from(upper, acts):
+        # a params view the LM understands
+        p = {"stages": [None] * boundary_stage + list(upper["stages"]),
+             "final_norm": upper["final_norm"],
+             "embed": upper.get("embed_head")}
+        if "lm_head" in upper:
+            p["lm_head"] = upper["lm_head"]
+        h, _, aux = lm.apply(p, None, mode="full", hidden_in=acts,
+                             stage_range=(boundary_stage, n_stages),
+                             dtype=dtype)
+        return h, aux
+
+    def apply_upper(params_full, acts):
+        _, upper = split(params_full)
+        logits, _ = apply_upper_from(upper, acts)
+        return logits
+
+    def full_apply(params, tokens):
+        logits, _, _ = lm.apply(params, tokens, mode="full", dtype=dtype)
+        return logits
+
+    def loss(params, batch):
+        return lm.loss(params, batch, dtype=dtype)
+
+    def upper_loss(upper, acts, targets):
+        logits, aux = apply_upper_from(upper, acts)
+        lp = torch.log_softmax(logits[:, :-1].to(torch.float32), -1)
+        nll = -torch.gather(lp, -1, targets[:, 1:].long()[..., None])[..., 0]
+        return nll.mean(-1) + aux             # per-sample
+
+    return SplitLM(config=cfg, split_layer=j, init=lm.init,
+                   apply=full_apply, apply_lower=apply_lower,
+                   apply_upper=apply_upper, split=split, merge=merge,
+                   loss=loss, upper_loss=upper_loss), lm
+
+
+# --------------------------------------------------------------------------
 # the reference's parameter tree
 # --------------------------------------------------------------------------
-def params_from_jax(tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
+def params_from_jax(tree: PyTree, cfg: ModelConfig, device=None,
+                    lm: Optional[LM] = None) -> PyTree:
     """``repro``'s LM parameters (``jax.tree.map(np.asarray, params)``) ->
     the port's tree of torch tensors, the same structure: scan stages as a
     list (per unit position) of dicts stacked over the repeats, unroll
     stages as a list of dicts. Shapes are checked against the port's own
-    ``LM(cfg)``; any difference raises ``ValueError``."""
-    want = LM(cfg).init(None, device="meta")
+    ``LM(cfg)``, or ``lm``'s stages where given (a tree split at the
+    paper's layer, ``make_train_step``'s); any difference raises
+    ``ValueError``."""
+    want = (lm or LM(cfg)).init(None, device="meta")
     got = tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
     if device is not None:
         got = tree_map(lambda t: t.to(device), got)
@@ -342,10 +496,11 @@ def params_from_jax(tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
     return got
 
 
-def params_to_jax(params: PyTree, cfg: ModelConfig) -> PyTree:
+def params_to_jax(params: PyTree, cfg: ModelConfig,
+                  lm: Optional[LM] = None) -> PyTree:
     """The port's f32 parameters -> ``repro``'s tree of numpy arrays (the
-    inverse of ``params_from_jax``, bit for bit)."""
-    _same_shapes(params, LM(cfg).init(None, device="meta"))
+    inverse of ``params_from_jax``, bit for bit; ``lm`` as there)."""
+    _same_shapes(params, (lm or LM(cfg)).init(None, device="meta"))
     return tree_map(lambda t: t.detach().cpu().numpy(), params)
 
 

@@ -10,14 +10,17 @@ Levels as in chip_smoke.py: quantize byte-exact (non-finite payloads
 included) against the plain version on the card and on the CPU; two FL
 runs of two rounds bit-identical; Lloyd bit-identical from
 run to run, ``assign`` equal except at near-ties, sums/mindist/distances
-within 2e-3; the attention kernels within 2e-3 (f32) and 2e-2 (bf16) of
-their plain versions on the same inputs (``tests/test_kernels.py:156``).
+within 2e-3; the attention kernels (the forward, its statistics and the
+backward) within 2e-3 (f32) and 2e-2 (bf16) of their plain versions on
+the same inputs (``tests/test_kernels.py:156``); a train step's bits
+repeat.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.optim.optimizers import tree_leaves
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-3
@@ -454,15 +457,139 @@ def test_flash_decode_split_counts_and_bits_repeat(card, b, s, splits):
 
 
 def test_attention_kernels_refuse_tensors_that_need_grad(card):
+    """Only the decode kernel refuses a tensor that needs a gradient (the
+    reference never differentiates decode); the prefill kernel under
+    autograd runs its forward with statistics, and its backward."""
     q = torch.randn(1, 64, 4, 32, device=card, requires_grad=True)
     k = torch.randn(1, 64, 2, 32, device=card)
-    before = ops.flash_attention.launches, ops.flash_decode.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.flash_attention(q, k, k)
+    before = (ops.flash_attention.launches, ops.flash_attention_bwd.launches,
+              ops.flash_decode.launches)
+    out = ops.flash_attention(q, k, k)
+    out.sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
     with pytest.raises(RuntimeError, match="no backward"):
         ops.flash_decode(q[:, :1], k, k,
                          torch.ones(1, 64, dtype=torch.bool, device=card))
-    assert (ops.flash_attention.launches, ops.flash_decode.launches) == before
+    assert (ops.flash_attention.launches, ops.flash_attention_bwd.launches,
+            ops.flash_decode.launches) == (before[0] + 1, before[1] + 1,
+                                           before[2])
+
+
+# the backward at chip_smoke.py phase 2b's shapes: llama3.2-1b's heads
+# causal at S=1024 in both dtypes, ragged non-causal S=1000, a window of
+# 128, MQA, qwen2-0.5b's G=7, gemma3's D=256 with window 1024, S below one
+# tile, D=96, D=32
+BWD_CASES = [
+    (1, 1024, 32, 8, 64, True, 0, torch.bfloat16),
+    (1, 1024, 32, 8, 64, True, 0, torch.float32),
+    (2, 1000, 8, 2, 64, False, 0, torch.float32),
+    (1, 1024, 32, 8, 64, True, 128, torch.bfloat16),
+    (2, 512, 8, 1, 64, True, 0, torch.bfloat16),
+    (1, 1000, 14, 2, 64, True, 0, torch.bfloat16),
+    (1, 2048, 8, 4, 256, True, 1024, torch.bfloat16),
+    (1, 50, 32, 8, 64, True, 0, torch.bfloat16),
+    (2, 300, 4, 2, 96, False, 0, torch.float32),
+    (1, 200, 4, 4, 32, True, 0, torch.bfloat16)]
+
+
+def _bwd_inputs(card, b, s, h, kv, d, dtype):
+    g = torch.Generator().manual_seed(7 * s + h + d)
+    return (_rand(g, (b, s, h, d), dtype, card),
+            _rand(g, (b, s, kv, d), dtype, card),
+            _rand(g, (b, s, kv, d), dtype, card),
+            _rand(g, (b, s, h, d), dtype, card))
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window,dtype", BWD_CASES[:8] + [
+    (1, 300, 4, 2, 72, True, 0, torch.bfloat16)])
+def test_flash_attention_stats_on_both_routes(card, b, s, h, kv, d, causal,
+                                              window, dtype):
+    """The statistics (lse = m + log l, (B,H,S) f32) of the route the dtype
+    and D pick, against the plain version's; asking for them changes no
+    bit of the output."""
+    from repro_torch.kernels.flash_attention import prefill_route
+    q, k, v, _ = _bwd_inputs(card, b, s, h, kv, d, dtype)
+    route = prefill_route(dtype, d)
+    before = ops.flash_attention.launches_by_route[route]
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_stats=True)
+    plain = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches_by_route[route] == before + 2
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert torch.equal(out, plain)
+    _, want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      return_stats=True)
+    _att_close(lse, want, dtype)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window,dtype", BWD_CASES)
+def test_flash_attention_bwd_kernel(card, b, s, h, kv, d, causal, window,
+                                    dtype):
+    """dq, dk, dv of the backward kernels against the plain version fed
+    the same q, k, v, out, dout and statistics (the kernel forward's);
+    one count a call; the same bits on a second call."""
+    q, k, v, dout = _bwd_inputs(card, b, s, h, kv, d, dtype)
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_stats=True)
+    before = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                  window=window)
+    again = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_bwd.launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                       torch.ones_like(lse), causal=causal,
+                                       window=window)
+    for x, y, z in zip(got, again, want):
+        assert x.dtype == dtype and x.shape == z.shape
+        assert torch.equal(x, y)
+        _att_close(x, z, dtype)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 9)])
+def test_flash_attention_grad_matches_autograd_of_the_plain_version(
+        card, causal, window):
+    """Under autograd, ops.flash_attention (forward kernel with statistics,
+    backward kernels) against autograd through the plain version, f32."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (_rand(g, (2, 77, 6, 32), torch.float32, card),
+               _rand(g, (2, 77, 2, 32), torch.float32, card),
+               _rand(g, (2, 77, 2, 32), torch.float32, card))
+    dout = _rand(g, (2, 77, 6, 32), torch.float32, card)
+    grads = []
+    for fn in (ops.flash_attention, ref.flash_attention_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, causal=causal, window=window)
+        grads.append(torch.autograd.grad(out, leaves, dout))
+    for x, y in zip(*grads):
+        _att_close(x, y, torch.float32)
+
+
+def test_train_step_bits_repeat_on_the_card(card):
+    """One federated round of a 4-layer reduced llama3.2-1b (G=2, bf16,
+    remat, split FL) twice from the same state: the same bits; the
+    cohorts leave with the same weights."""
+    import dataclasses
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import tree_map
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              num_layers=4)
+    step, lm = make_train_step(cfg, TrainConfig(microbatch=2,
+                                                meta_clusters=2))
+    p0 = lm.init(torch.Generator().manual_seed(0), device=card)
+    cp = tree_map(lambda t: t[None].expand((2,) + tuple(t.shape)), p0)
+    toks = torch.randint(cfg.vocab_size, (2, 2, 1, 4, 64),
+                         generator=torch.Generator().manual_seed(1)).to(card)
+    runs = [step(cp, (), {"tokens": toks}, [0, 3]) for _ in range(2)]
+    (a, _, ma), (b, _, mb) = runs
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert torch.equal(x, y) and torch.equal(x[0], x[1])
+    assert {k: float(v) for k, v in ma.items()} == \
+        {k: float(v) for k, v in mb.items()}
+
 
 
 def _cohort_payload(case, b, n, d, card):

@@ -40,7 +40,7 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = (out.stdout.splitlines() + ["", ""])[:2]
-    assert int(count) >= 62, out.stdout
+    assert int(count) >= 64, out.stdout
     assert bad == "", f"repro_torch pulled in: {bad}"
 
 
@@ -66,6 +66,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     from repro_torch.launch import paper_repro
     with pytest.raises(RuntimeError, match="device='cpu'"):
         paper_repro.main(["--rounds", "1"])
+    from repro_torch.launch import federated_lm, train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        federated_lm.main(["--rounds", "1"])
 
 
 @pytest.mark.parametrize("knob,value", [
