@@ -49,7 +49,10 @@ result line:
      statistics (``BWD_CASES``: llama3.2-1b's heads causal at S=1024 in
      bf16 and f32, S=1000 non-causal, a window of 128, MQA, qwen2-0.5b's
      G=7, gemma3's D=256 with window 1024, S below one tile, D=96, D=32,
-     bf16 D=72), the first case twice, bit for bit;
+     bf16 D=72, phi3's D=128 with a window, G=7 non-causal with a window,
+     bf16 D=96, G=64), each on the route ``bwd_route`` names (by the
+     wrapper's count by route), three cases (two on the tensor cores, one
+     on the CUDA cores) twice, bit for bit;
   3. one round of a small WRN-10-1 on the card and on the CPU from the same
      seed: the ledger and the metadata count must be equal and the new
      weights agree to 2e-3;
@@ -126,10 +129,12 @@ result line:
      same state bit for bit, and the launches of the forward and backward
      attention kernels and of pairwise and Lloyd equal to the counts
      reckoned from the shapes (remat runs each layer's forward twice under
-     grad); the round walls, tokens/s, peak memory, one profiled round
-     (device busy share, top kernels, the attention kernels' device ms a
-     launch), and the backward kernels at one layer's shape beside their
-     plain version, SDPA's backward and their bound; 9b, a reduced-width
+     grad), every backward on the tensor-core route; the round walls,
+     tokens/s, peak memory, one profiled round (device busy share, top
+     kernels, the attention kernels' device ms a launch), and the backward
+     kernels at one layer's shape beside their plain version, SDPA's
+     backward, their bound and the f32 backward (the CUDA-core route) at
+     the same shape; 9b, a reduced-width
      f32 step on the card and on the CPU from the same parameters and
      draws (weights and metrics within 2e-3); 9c, ``python -m
      repro_torch.launch.train --smoke --steps 2 --ckpt-dir
@@ -191,8 +196,11 @@ FLASH_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
 # phase 2b, the forward's statistics and the backward: llama3.2-1b's heads
 # causal at S=1024 in both dtypes, S=1000 non-causal, a window of 128, MQA,
 # qwen2-0.5b's G=7, gemma3's D=256 with window 1024, S below one tile,
-# D=96 (f32: the CUDA-core forward), D=32, and bf16 D=72 (the CUDA-core
-# forward route in bf16)
+# D=96 (f32: the CUDA-core forward), D=32, bf16 D=72 (the CUDA-core
+# forward route in bf16), phi3's D=128 with a window, G=7 non-causal with
+# a window, bf16 D=96 and G=64 (one query a row tile) on the backward's
+# tensor-core route. Each backward runs on the route bwd_route names; the
+# cases in BWD_TWICE run twice, bit for bit.
 BWD_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
              (1, 1024, 32, 8, 64, True, 0, "float32"),
              (2, 1000, 8, 2, 64, False, 0, "float32"),
@@ -203,7 +211,12 @@ BWD_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
              (1, 50, 32, 8, 64, True, 0, "bfloat16"),
              (2, 300, 4, 2, 96, False, 0, "float32"),
              (1, 200, 4, 4, 32, True, 0, "bfloat16"),
-             (1, 300, 4, 2, 72, True, 0, "bfloat16")]
+             (1, 300, 4, 2, 72, True, 0, "bfloat16"),
+             (1, 1500, 8, 2, 128, True, 256, "bfloat16"),
+             (2, 777, 14, 2, 64, False, 200, "bfloat16"),
+             (1, 300, 4, 2, 96, True, 0, "bfloat16"),
+             (1, 130, 64, 1, 64, True, 0, "bfloat16")]
+BWD_TWICE = (0, 1, 12)
 # (b, s, h, kv, d, valid slots, q dtype, cache dtype, splits): splits 1 and
 # 2 are fixed by the shapes; 0 means many (more than 8)
 DECODE_CASES = [(2, 32768, 32, 8, 64, 40, "bfloat16", "bfloat16", None),
@@ -578,7 +591,7 @@ def main() -> None:
 
     from repro_torch.kernels.decode_attention import (MAX_G, plan_for,
                                                       tile_slots)
-    from repro_torch.kernels.flash_attention import prefill_route
+    from repro_torch.kernels.flash_attention import bwd_route, prefill_route
     dlib = build.library("decode_attention")
     check(all(dlib.repro_flash_decode_tile(d) == tile_slots(d)
               for d in (32, 64, 100, 128, 200, 256))
@@ -627,9 +640,9 @@ def main() -> None:
     del q, k, v, kc, vc, valid, got
     # the forward's softmax statistics on the route each case takes (the
     # output bit for bit the same with or without them), and the backward
-    # kernels against the plain version fed the same q, k, v, out, dout
-    # and statistics (the kernel forward's); the first case twice, bit for
-    # bit
+    # kernels, on the route bwd_route names, against the plain version fed
+    # the same q, k, v, out, dout and statistics (the kernel forward's);
+    # the BWD_TWICE cases twice, bit for bit
     for i, (b, s, h, kv, d, causal, window, dt) in enumerate(BWD_CASES):
         dtype = getattr(torch, dt)
         q = randn(b, s, h, d).to(dtype)
@@ -654,11 +667,17 @@ def main() -> None:
                 q, k, v, causal=causal, window=window,
                 return_stats=True)[1], dt, f"stats {what}")
         n_before = ops.flash_attention_bwd.launches
+        b_route = bwd_route(dtype, d, True, h // kv)
+        by_before = dict(ops.flash_attention_bwd.launches_by_route)
         got = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                       window=window)
         torch.cuda.synchronize()
         check(ops.flash_attention_bwd.launches == n_before + 1,
               f"backward {what}: not one count a call")
+        check(ops.flash_attention_bwd.launches_by_route == {
+            r: by_before[r] + (r == b_route) for r in by_before},
+            f"backward {what}: did not run on the {b_route} route")
+        what = f"{what}, backward {b_route}"
         want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
                                            torch.ones_like(lse),
                                            causal=causal, window=window)
@@ -666,7 +685,7 @@ def main() -> None:
             att[f"backward {grad_name} {what}"] = att_check(
                 "flash_attention_bwd", x, y, dt,
                 f"backward {grad_name} {what}")
-        if i == 0:
+        if i in BWD_TWICE:
             again = ops.flash_attention_bwd(q, k, v, out, dout, lse,
                                             causal=causal, window=window)
             torch.cuda.synchronize()
@@ -1813,6 +1832,7 @@ def run_training_phase(dev, rel_err):
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.core import selection as sel_mod
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.flash_attention import bwd_route_for
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.transformer import (split_stages, stage_layers,
@@ -1864,6 +1884,7 @@ def run_training_phase(dev, rel_err):
             walls.append(monotonic() - t0)
             states.append(state)
         launches = ops.launch_counts()
+        bwd_routes = dict(ops.flash_attention_bwd.launches_by_route)
         peak = torch.cuda.max_memory_allocated()
         round_sweeps = list(sweeps)
         # round 1 again from the same state: the same bits
@@ -1912,6 +1933,10 @@ def run_training_phase(dev, rel_err):
           and all(0 < w < 8 for w in round_sweeps),
           f"9a: Lloyd sweeps {round_sweeps}")
     check(launches == want, f"9a: launches {launches}, reckoned {want}")
+    # every backward of the bf16 training run on the tensor cores
+    check(bwd_routes == {"tensor_core": want["flash_attention_bwd"],
+                         "cuda_core": 0},
+          f"9a: backward launches by route {bwd_routes}")
     tokens_round = TRAIN_G * TRAIN_LOCAL * TRAIN_MB * TRAIN_T
     print(f"9a: two rounds at full width, walls {walls}, metrics "
           f"{metrics}, launches {launches}")
@@ -1930,8 +1955,13 @@ def run_training_phase(dev, rel_err):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:12]
-    bwd_names = ("attn_bwd_dot_kernel", "attn_bwd_dkdv_kernel",
-                 "attn_bwd_dq_kernel")
+    # the backward's three launches on each route (Dd is shared)
+    bwd_route_names = {
+        "tensor_core": ("attn_bwd_dot_kernel", "attn_bwd_dkdv_wgmma_kernel",
+                        "attn_bwd_dq_wgmma_kernel"),
+        "cuda_core": ("attn_bwd_dot_kernel", "attn_bwd_dkdv_kernel",
+                      "attn_bwd_dq_kernel")}
+    bwd_names = bwd_route_names["tensor_core"]
     in_round = {}
     for name in bwd_names + ("flash_fwd_wgmma_kernel",):
         hit = [e for e in evs if f"::{name}" in e.key]
@@ -1948,6 +1978,7 @@ def run_training_phase(dev, rel_err):
         "round_wall_s": walls,
         "tokens_per_s": [tokens_round / w for w in walls],
         "metrics": metrics, "launches": launches,
+        "flash_attention_bwd_launches_by_route": bwd_routes,
         "lloyd_sweeps": round_sweeps, "max_memory_allocated": peak,
         "cohorts_bit_equal": True, "replay_bit_identical": True,
         "profiled_round": {
@@ -1972,6 +2003,9 @@ def run_training_phase(dev, rel_err):
     q, k, v, dout = (drandn(b_, s_, h_, d_), drandn(b_, s_, kv_, d_),
                      drandn(b_, s_, kv_, d_), drandn(b_, s_, h_, d_))
     o, lse = ops.flash_attention(q, k, v, return_stats=True)
+    route = bwd_route_for(q, k, v, o, dout)
+    check(route == "tensor_core", f"backward at the training shape: the "
+                                  f"{route} route")
 
     def kern():
         return ops.flash_attention_bwd(q, k, v, o, dout, lse)
@@ -2017,6 +2051,12 @@ def run_training_phase(dev, rel_err):
     nbytes = 2 * (3 * q.numel() + 3 * k.numel() + v.numel()) \
         + 4 * lse.numel()
     b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+    # the f32 backward at the same shape, which stays on the CUDA cores
+    q, k, v, o, dout = (t.float() for t in (q, k, v, o, dout))
+    o, lse = ops.flash_attention(q, k, v, return_stats=True)
+    f32_by_launch = kernel_device_ms(
+        lambda: ops.flash_attention_bwd(q, k, v, o, dout, lse),
+        bwd_route_names["cuda_core"], iters=5, warmup=1)
     del q, k, v, dout, o, lse
     torch.cuda.empty_cache()
 
@@ -2040,10 +2080,16 @@ def run_training_phase(dev, rel_err):
            "library": "SDPA's backward (autograd of "
                       "scaled_dot_product_attention, causal, GQA)",
            "max_abs_err_vs_plain_at_this_shape": shape_err,
-           "kernel_route": "cuda_core, three launches",
-           "ptxas": {"dkdv": ptxas(
-               r"attn_bwd_dkdv_kernelI13__nv_bfloat16Li64E"),
-               "dq": ptxas(r"attn_bwd_dq_kernelI13__nv_bfloat16Li64E")},
+           "kernel_route": f"{route}, three launches",
+           "ptxas": {"dkdv": ptxas(r"attn_bwd_dkdv_wgmma_kernelILi64ELi3E"),
+                     "dq": ptxas(
+                         r"attn_bwd_dq_wgmma_kernelILi64ELi64ELi3E"),
+                     "dkdv_d128": ptxas(
+                         r"attn_bwd_dkdv_wgmma_kernelILi128ELi2E"),
+                     "dq_d128": ptxas(
+                         r"attn_bwd_dq_wgmma_kernelILi128ELi64ELi2E")},
+           "f32_cuda_core_device_ms": sum(f32_by_launch.values()),
+           "f32_cuda_core_device_ms_by_launch": f32_by_launch,
            "shape": [b_, s_, h_, kv_, d_]}
 
     # ---- 9b: a reduced-width f32 step on the card and on the CPU ----

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds). The libraries go to ``build/repro_torch/<hash>/`` at the
-root of the checkout; the hash covers the sources and the flags, so an
-edited kernel is rebuilt and an unchanged one is reused. ``load_all``
-starts one ``nvcc`` per source, all at once, and waits for them.
+root of the checkout; the hash covers the source, the ``csrc`` headers it
+includes (``hopper.cuh``) and the flags, so an edited kernel or header is
+rebuilt and an unchanged one is reused. ``load_all`` starts one ``nvcc``
+per source, all at once, and waits for them.
 
 Nothing is built when a module is imported: the CPU tests import every
 module of the port on machines without ``nvcc``. A missing ``nvcc`` or a
@@ -70,6 +71,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # q, k, v, out, dout, lse, dd, dq, dk, dv, dtype, b, s, h, kv, d,
         # causal, window, scale, stream
         "repro_flash_attention_bwd": ([_P] * 10 + [_I] * 8 + [_F, _P], _I),
+        # the same without dtype (bf16 only)
+        "repro_flash_attention_bwd_tc": ([_P] * 10 + [_I] * 7 + [_F, _P],
+                                         _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "decode_attention": {
@@ -104,9 +108,21 @@ def _flags(name: str) -> List[str]:
     return COMMON_FLAGS + EXTRA_FLAGS[name]
 
 
+def _sources(path: Path, seen: List[Path]) -> List[Path]:
+    """``path`` and every ``csrc`` header it includes with ``#include
+    "..."``, recursively, each once."""
+    if path not in seen:
+        seen.append(path)
+        for inc in re.findall(r'^\s*#include "([^"]+)"', path.read_text(),
+                              re.M):
+            _sources(path.parent / inc, seen)
+    return seen
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in _sources(CSRC / f"{name}.cu", []):
+        h.update(path.read_bytes())
     h.update(" ".join(_flags(name)).encode())
     return h.hexdigest()[:16]
 

@@ -256,8 +256,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output gradient ``dout``, from the forward's ``out`` and statistics
     ``lse`` (B,H,S) f32. q, out, dout (B,S,H,D) and k, v (B,S,KV,D), all
     f32 or all bf16; the gradients come back in that dtype. On the card
-    three CUDA launches (counted once); on the CPU the plain version
-    (``ref.flash_attention_bwd_ref`` with ``m = lse``, ``l = 1``)."""
+    three CUDA launches (counted once, and once in ``launches_by_route``
+    under the route ``flash_attention.bwd_route`` picks); on the CPU the
+    plain version (``ref.flash_attention_bwd_ref`` with ``m = lse``,
+    ``l = 1``)."""
     _check_attention(q, "q", q.dtype, 4, q.device)
     for t, name in ((k, "k"), (v, "v"), (out, "out"), (dout, "dout")):
         _check(t, name, q.dtype, 4, q.device)
@@ -280,15 +282,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                            causal=causal, window=window)
     if b * kv > 65535:
         raise ValueError(f"flash_attention_bwd: B*KV = {b * kv} > 65535")
-    from repro_torch.kernels.flash_attention import launch_flash_attention_bwd
+    from repro_torch.kernels.flash_attention import (
+        bwd_route_for, launch_flash_attention_bwd)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dd = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    route = bwd_route_for(q, k, v, out, dout)
     with obs.timed_block("kernel.flash_attention_bwd", b=b, s=s, h=h,
                          d=d) as sp:
         launch_flash_attention_bwd(q, k, v, out, dout, lse, dd, dq, dk, dv,
-                                   causal, int(window))
+                                   causal, int(window), route)
         sp.sync(dq)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[route] += 1
     return dq, dk, dv
 
 
@@ -340,11 +345,13 @@ quantize_affine.last_plan = quantize_affine_batched.last_plan = None
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's ``launches`` (and the prefill's by route)."""
+    """Zero every wrapper's ``launches`` (and the attention's by route)."""
     for fn in KERNELS:
         fn.launches = 0
-    # the prefill kernel's launches by route; ``launches`` is their total
+    # the prefill kernel's and its backward's launches by route;
+    # ``launches`` is their total
     flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+    flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 reset_launch_counts()

@@ -7,6 +7,10 @@
 * ``flash_attention.prefill_route``: bf16 with D % 16 == 0 and D <= 256
   (and 16-byte aligned data) takes the tensor-core kernel, the rest the
   CUDA-core kernel;
+* ``flash_attention.bwd_route``: the backward's tensor-core kernels take
+  bf16 with D % 16 == 0, D <= 128, at most 64 query heads a kv head and
+  16-byte aligned data; the rest (f32, D 72, D 256) the CUDA-core ones;
+  ``reset_launch_counts`` zeroes both wrappers' counts by route;
 * both modules import, and the wrappers run their plain versions, without
   CUDA.
 """
@@ -75,6 +79,38 @@ def test_prefill_route_by_dtype_and_head_dim(dtype, d, aligned, want):
     assert fa.prefill_route(dtype, d, aligned) == want
 
 
+@pytest.mark.parametrize("dtype,d,aligned,group,want", [
+    (torch.bfloat16, 16, True, 1, "tensor_core"),
+    (torch.bfloat16, 64, True, 4, "tensor_core"),     # llama3.2-1b
+    (torch.bfloat16, 64, True, 7, "tensor_core"),     # qwen2-0.5b
+    (torch.bfloat16, 96, True, 1, "tensor_core"),     # padded to 128
+    (torch.bfloat16, 128, True, 4, "tensor_core"),    # phi3
+    (torch.bfloat16, 64, True, 64, "tensor_core"),    # one query a tile
+    (torch.bfloat16, 256, True, 2, "cuda_core"),      # dK, dV: no room
+    (torch.bfloat16, 72, True, 1, "cuda_core"),       # not a multiple of 16
+    (torch.bfloat16, 144, True, 1, "cuda_core"),
+    (torch.bfloat16, 64, True, 65, "cuda_core"),      # no whole query a tile
+    (torch.bfloat16, 64, False, 4, "cuda_core"),      # no TMA unaligned
+    (torch.float32, 64, True, 4, "cuda_core"),        # f32 stays off TF32
+    (torch.float32, 128, True, 1, "cuda_core")])
+def test_bwd_route_by_dtype_head_dim_and_group(dtype, d, aligned, group,
+                                               want):
+    assert fa.bwd_route(dtype, d, aligned, group) == want
+
+
+def test_bwd_route_reads_the_group_and_the_pointers_alignment():
+    q = torch.zeros(1, 8, 14, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    assert fa.bwd_route_for(q, k, k, q, q) == "tensor_core"
+    assert fa.bwd_route_for(q.float(), k.float(), k.float(), q.float(),
+                            q.float()) == "cuda_core"
+    flat = torch.zeros(1 + q.numel(), dtype=torch.bfloat16)
+    off = flat[1:].view(q.shape)
+    assert fa.bwd_route_for(q, k, k, q, off) == "cuda_core"
+    wide = torch.zeros(1, 8, 130, 64, dtype=torch.bfloat16)
+    assert fa.bwd_route_for(wide, k, k, wide, wide) == "cuda_core"
+
+
 def test_prefill_route_reads_the_pointers_alignment():
     q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
@@ -104,6 +140,14 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors():
     assert ops.launch_counts()["flash_attention"] == 0
     assert ops.flash_attention.launches_by_route == {"tensor_core": 0,
                                                      "cuda_core": 0}
+    out, lse = ops.flash_attention(q, k, k, causal=True, return_stats=True)
+    ops.flash_attention_bwd.launches_by_route["tensor_core"] = 3
+    ops.reset_launch_counts()
+    grads = ops.flash_attention_bwd(q, k, k, out, q, lse, causal=True)
+    assert [g.shape for g in grads] == [q.shape, k.shape, k.shape]
+    assert ops.flash_attention_bwd.launches == 0
+    assert ops.flash_attention_bwd.launches_by_route == {"tensor_core": 0,
+                                                         "cuda_core": 0}
 
 
 def test_ptxas_usage_reads_registers_and_spills():

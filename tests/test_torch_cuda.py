@@ -478,7 +478,9 @@ def test_attention_kernels_refuse_tensors_that_need_grad(card):
 # the backward at chip_smoke.py phase 2b's shapes: llama3.2-1b's heads
 # causal at S=1024 in both dtypes, ragged non-causal S=1000, a window of
 # 128, MQA, qwen2-0.5b's G=7, gemma3's D=256 with window 1024, S below one
-# tile, D=96, D=32
+# tile, D=96, D=32; then phi3's D=128 with a window, G=7 non-causal with a
+# window, bf16 D=96 (the tensor cores, D padded to 128), G=64 (one query a
+# row tile) and bf16 D=72 (the CUDA cores in bf16)
 BWD_CASES = [
     (1, 1024, 32, 8, 64, True, 0, torch.bfloat16),
     (1, 1024, 32, 8, 64, True, 0, torch.float32),
@@ -489,7 +491,12 @@ BWD_CASES = [
     (1, 2048, 8, 4, 256, True, 1024, torch.bfloat16),
     (1, 50, 32, 8, 64, True, 0, torch.bfloat16),
     (2, 300, 4, 2, 96, False, 0, torch.float32),
-    (1, 200, 4, 4, 32, True, 0, torch.bfloat16)]
+    (1, 200, 4, 4, 32, True, 0, torch.bfloat16),
+    (1, 1500, 8, 2, 128, True, 256, torch.bfloat16),
+    (2, 777, 14, 2, 64, False, 200, torch.bfloat16),
+    (1, 300, 4, 2, 96, True, 0, torch.bfloat16),
+    (1, 130, 64, 1, 64, True, 0, torch.bfloat16),
+    (1, 300, 4, 2, 72, True, 0, torch.bfloat16)]
 
 
 def _bwd_inputs(card, b, s, h, kv, d, dtype):
@@ -528,17 +535,22 @@ def test_flash_attention_bwd_kernel(card, b, s, h, kv, d, causal, window,
                                     dtype):
     """dq, dk, dv of the backward kernels against the plain version fed
     the same q, k, v, out, dout and statistics (the kernel forward's);
-    one count a call; the same bits on a second call."""
+    one count a call, on the route ``bwd_route`` names; the same bits on a
+    second call."""
+    from repro_torch.kernels.flash_attention import bwd_route
     q, k, v, dout = _bwd_inputs(card, b, s, h, kv, d, dtype)
     out, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
                                    return_stats=True)
+    route = bwd_route(dtype, d, True, h // kv)
     before = ops.flash_attention_bwd.launches
+    by_route = ops.flash_attention_bwd.launches_by_route[route]
     got = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                   window=window)
     again = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                     window=window)
     torch.cuda.synchronize()
     assert ops.flash_attention_bwd.launches == before + 2
+    assert ops.flash_attention_bwd.launches_by_route[route] == by_route + 2
     want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
                                        torch.ones_like(lse), causal=causal,
                                        window=window)

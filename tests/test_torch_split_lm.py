@@ -14,6 +14,9 @@ optimizer (``sgd`` with momentum, Nesterov and weight decay),
 ``local_update_tree``, ``weight_average`` over trees and ``meta_train``
 over the upper tree with (M, T) targets and the reference's permutations
 against ``repro``'s. Level: 2e-3 (f32); ``remat`` changes no bit.
+``core.compose.evaluate`` scores a ``SplitLM`` by next-token accuracy as
+``repro``'s does, within one token's share, with T unequal and equal to
+the batch size.
 """
 import dataclasses
 
@@ -25,11 +28,13 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.core import fedavg as jfa
+from repro.core.compose import evaluate as jevaluate
 from repro.core.meta_training import meta_train as jmeta_train
 from repro.models.transformer import make_split_lm as jmake_split_lm
 from repro.optim import sgd as jsgd
 from repro_torch.configs import get_config
 from repro_torch.core import fedavg as fa
+from repro_torch.core.compose import evaluate
 from repro_torch.core.meta_training import meta_train
 from repro_torch.models.transformer import (LM, make_split_lm,
                                             params_from_jax, tree_map)
@@ -246,3 +251,39 @@ def test_local_update_weight_average_and_meta_train_over_trees():
     _close(losses.numpy(), jlosses)
     for a, b in zip(_np(up), jax.tree.leaves(jup)):
         _close(a, b)
+
+
+def _half_greedy_tokens(jmodel, jparams, vocab, n, t, seed):
+    """(n, t) tokens in which every other next token is the reference
+    model's argmax (a causal model's logits at i do not read the token at
+    i + 1), so the accuracy is near 1/2, not the near 0 of random
+    tokens."""
+    toks = _tokens(vocab, (n, t), seed)
+    apply = jax.jit(jmodel.apply)
+    for i in range(0, t - 1, 2):
+        logits = np.asarray(apply(jparams, jnp.asarray(toks)))
+        toks[:, i + 1] = logits[:, i].argmax(-1)
+    return toks
+
+
+@pytest.mark.parametrize("n,t,batch_size", [(4, 9, 200), (4, 4, 200),
+                                            (6, 3, 3)])
+def test_evaluate_scores_next_token_accuracy_as_the_reference(n, t,
+                                                              batch_size):
+    """A reduced llama3.2-1b ``SplitLM`` from the same weights: the port's
+    ``evaluate`` equals ``repro``'s within one token's share, 1 / ((T-1)
+    n), with T unequal to the batch size and equal to it (one batch of 4,
+    two batches of 3)."""
+    jcfg, cfg = _configs("llama3.2-1b")
+    jmodel, jlm = jmake_split_lm(jcfg)
+    model, lm = make_split_lm(cfg)
+    tree = _perturb(jlm.init(jax.random.PRNGKey(1)), seed=2)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    params = params_from_jax(tree, cfg, lm=lm)
+    toks = _half_greedy_tokens(jmodel, jparams, cfg.vocab_size, n, t, 9)
+    y = np.zeros(n, np.int32)
+    want = jevaluate(jmodel, jparams, toks, y, batch_size=batch_size)
+    got = evaluate(model, params, torch.from_numpy(toks), torch.from_numpy(y),
+                   batch_size=batch_size)
+    assert want >= 0.3
+    assert abs(got - want) <= 1.0 / ((t - 1) * n) + 1e-6

@@ -8,8 +8,10 @@ Needs one CUDA card. Builds this checkout's kernels and, at llama3.2-1b's
 attention shape in ``chip_smoke.py`` phase 9a (B = 4, S = 4,096, H = 32,
 KV = 8, D = 64, causal), for bf16 and for f32:
 
+* ``route``: the backward's route (``flash_attention.bwd_route_for``:
+  the tensor cores for bf16, the CUDA cores for f32);
 * ``bwd_device_ms``: each of the backward's three launches (``Dd``,
-  dK/dV, dQ) by kernel name, its own device time per call
+  dK/dV, dQ) on that route, by kernel name, its own device time per call
   (``repro_torch.obs.device_time.kernel_device_ms`` over ``ITERS`` calls
   of ``ops.flash_attention_bwd``);
 * ``fwd_device_ms``: the prefill kernel with its statistics, the same
@@ -32,13 +34,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 SHAPE = (4, 4096, 32, 8, 64)            # B, S, H, KV, D
 ITERS = 10
-BWD = ("attn_bwd_dot_kernel", "attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel")
+# the backward's three launches on each route (Dd is shared)
+BWD = {"tensor_core": ("attn_bwd_dot_kernel", "attn_bwd_dkdv_wgmma_kernel",
+                       "attn_bwd_dq_wgmma_kernel"),
+       "cuda_core": ("attn_bwd_dot_kernel", "attn_bwd_dkdv_kernel",
+                     "attn_bwd_dq_kernel")}
 
 
 def main() -> int:
     import torch
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.flash_attention import bwd_route_for
     from repro_torch.obs.device_time import kernel_device_ms
 
     dev = resolve_device("cuda")
@@ -52,9 +59,10 @@ def main() -> int:
         q, k, v, dout = randn(b, s, h, d), randn(b, s, kv, d), \
             randn(b, s, kv, d), randn(b, s, h, d)
         out, lse = ops.flash_attention(q, k, v, return_stats=True)
+        route = bwd_route_for(q, k, v, out, dout)
         bwd = kernel_device_ms(
-            lambda: ops.flash_attention_bwd(q, k, v, out, dout, lse), BWD,
-            iters=ITERS)
+            lambda: ops.flash_attention_bwd(q, k, v, out, dout, lse),
+            BWD[route], iters=ITERS)
         fwd = kernel_device_ms(
             lambda: ops.flash_attention(q, k, v, return_stats=True),
             ("flash_fwd",), iters=ITERS)
@@ -79,6 +87,7 @@ def main() -> int:
         torch.cuda.synchronize()
         print(json.dumps({
             "dtype": str(dtype).removeprefix("torch."), "shape": SHAPE,
+            "route": route,
             "bwd_device_ms": bwd, "fwd_device_ms": fwd,
             "sdpa_bwd_ms": start.elapsed_time(end) / ITERS,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}))
