@@ -36,10 +36,13 @@ result line:
      window of 128, MQA, gemma3's D=256 with window 1024; the tensor-core
      route's edges (S below one key tile, qwen2-0.5b's G=7 at an S that is
      no multiple of the tile, D=128 and D=256 with a window, D=96 and D=32
-     that fill part of a 64-column panel, bf16 D=72 on the CUDA cores),
-     each case counted on the route its dtype and D pick; decode at
-     S=32768 with 40 valid slots, at ragged S=300, with G=1, with G=7, at
-     D=36 (element-wise loads), with each (q, cache) dtype pair, and with
+     that fill part of a 64-column panel, bf16 D=72 on the CUDA cores,
+     qwen3-moe's 32/4 and phi3's 40/10 heads at D=128), each case counted
+     on the route its dtype and D pick; decode at S=32768 with 40 valid
+     slots, at ragged S=300, with G=1, with G=7, at D=36 (element-wise
+     loads), qwen3-moe's heads at its serve shape (batch 4, 32,768 slots)
+     and phi3's at batch 4 over 4,096, with each (q, cache) dtype pair, and
+     with
      1, 2 and many splits of S (the split count checked against the
      plan), one many-split case run twice and compared bit for bit; the
      prefill kernel's softmax statistics (lse, (B,H,S) f32) on the route
@@ -142,10 +145,33 @@ result line:
      restores to the bits of the same run in this process); 9d, ``python
      -m repro_torch.launch.federated_lm --rounds 3`` in its own process
      (exit 0, its lines printed);
+ 10. serve the MoE and phi3 at full width: 10a, qwen3-moe-30b-a3b at full
+     width and depth (48 layers, d_model 2048, 32 / 4 heads, head_dim 128,
+     128 experts of d_ff 768, top 8, vocab 151,936; bf16 weights from seed
+     0 made one layer slice at a time, 61.07 GB): ``launch.serve`` decodes
+     batch 4 against a 32,768-slot cache (prompt 32 teacher-forced, 16 new
+     tokens; flash_decode 48 x 47 = 2,256 launches), one
+     ``make_prefill_step`` call at S=32,768, batch 1 (flash_attention 48
+     launches, all tensor-core), a second call the same bits, logits
+     finite, the peak memory, the dropped share of (token, choice) pairs in
+     prefill and in 8 decode steps, one profiled prefill call and decode
+     step (device busy share, top kernels, the MoE's route, dispatch,
+     experts and combine ranges), and the work's bounds from the shapes;
+     10b, one of its MoE layers on 1,024 tokens in f32 on the card against
+     the CPU (routing, slots and drops equal but for near-ties at a
+     relative gap of 1e-3, y and aux within 2e-3) and against a second
+     card run (the same bits); 10c, phi3-medium-14b at full width cut to 4
+     layers (40 / 10 heads, head_dim 128, the untied 100,352-id head): one
+     2,048-token prefill and 16 decode steps at batch 4 on a 4,096-slot
+     cache, launches counted; 10d, ``python -m repro_torch.launch.serve_lm
+     --arch qwen3-moe-30b-a3b`` and ``--arch phi3-medium-14b`` in their own
+     processes (exit 0);
   5. time each kernel beside its plain version, a library call where one
-     computes the same function, and its bound (the attention kernels at
-     phase 6's shapes, with their route, the decode split count and the
-     registers and spills per thread that ptxas reported). ``ms`` is the
+     computes the same function, and its bound (the attention kernels one
+     row a template instance: head dim 64 at phase 6's shapes and 128 at
+     phase 10a's, each held against its plain version there, with its
+     route, the decode split count and the registers and spills per
+     thread that ptxas reported). ``ms`` is the
      wrapper call's time (CUDA events around back-to-back calls, so the
      host's work between launches counts); for the selection and
      transport kernels ``device_ms`` is the kernels' own device time per
@@ -161,6 +187,7 @@ It prints the kernels line, the card's name and power limit, and last
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -192,7 +219,9 @@ FLASH_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
                (1, 700, 4, 2, 256, False, 300, "bfloat16"),
                (2, 300, 4, 2, 96, False, 0, "bfloat16"),
                (1, 200, 4, 4, 32, True, 0, "bfloat16"),
-               (1, 300, 4, 2, 72, True, 0, "bfloat16")]
+               (1, 300, 4, 2, 72, True, 0, "bfloat16"),
+               (1, 2048, 32, 4, 128, True, 0, "bfloat16"),
+               (1, 2048, 40, 10, 128, True, 0, "bfloat16")]
 # phase 2b, the forward's statistics and the backward: llama3.2-1b's heads
 # causal at S=1024 in both dtypes, S=1000 non-causal, a window of 128, MQA,
 # qwen2-0.5b's G=7, gemma3's D=256 with window 1024, S below one tile,
@@ -230,7 +259,10 @@ DECODE_CASES = [(2, 32768, 32, 8, 64, 40, "bfloat16", "bfloat16", None),
                 (1, 32768, 32, 8, 64, 30000, "bfloat16", "bfloat16", 0),
                 (2, 5000, 14, 2, 64, 4321, "bfloat16", "bfloat16", None),
                 (3, 17, 14, 2, 64, 9, "float32", "bfloat16", None),
-                (2, 300, 8, 2, 36, 200, "bfloat16", "bfloat16", None)]
+                (2, 300, 8, 2, 36, 200, "bfloat16", "bfloat16", None),
+                (4, 32768, 32, 4, 128, 47, "bfloat16", "bfloat16", None),
+                (4, 4096, 40, 10, 128, 2100, "bfloat16", "bfloat16",
+                 None)]
 # phase 6: INPUT_SHAPES' decode_32k (batch cut 128 -> 32: 128 x 32768 x
 # 16 layers of bf16 K/V would be 137 GB) and prefill_32k (batch cut
 # 32 -> 1)
@@ -241,6 +273,17 @@ PREFILL_S = 32768
 # microbatch of 4), meta-training 2 clusters a cohort for 2 steps
 TRAIN_G, TRAIN_LOCAL, TRAIN_MB, TRAIN_T = 2, 2, 4, 4096
 TRAIN_META_CLUSTERS, TRAIN_META_STEPS = 2, 2
+# phase 10a: qwen3-moe-30b-a3b at full width and depth, INPUT_SHAPES'
+# decode_32k (batch cut 128 -> 4: 12.9 GB of bf16 K/V beside 61.07 GB of
+# bf16 weights) and prefill_32k (batch cut 32 -> 1); 10b one of its MoE
+# layers on 1,024 tokens; 10c phi3-medium-14b at full width, depth cut
+# 40 -> 4
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_BATCH, MOE_CACHE, MOE_PROMPT, MOE_TOKENS = 4, 32768, 32, 16
+MOE_PREFILL_S = 32768
+MOE_LAYER_TOKENS = 1024
+PHI3_LAYERS, PHI3_PREFILL_S, PHI3_BATCH, PHI3_CACHE, PHI3_STEPS = \
+    4, 2048, 4, 4096, 16
 
 
 def fail(msg: str) -> None:
@@ -726,7 +769,7 @@ def main() -> None:
     # ---- 3b. a reduced LM on the card and on the CPU -------------------
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models.transformer import LM, cast_params, tree_map
+    from repro_torch.models.transformer import LM, tree_map
     lcfg = get_config("llama3.2-1b").reduced()
     lm_small = LM(lcfg)
     p_cpu = lm_small.init(torch.Generator().manual_seed(7))
@@ -964,7 +1007,9 @@ def main() -> None:
           f"served tokens {served.tokens.shape}")
 
     prefill, lm_full = make_prefill_step(full)           # bf16
-    params_full = lm_full.init(torch.Generator(device=dev).manual_seed(0))
+    # bf16 weights made one layer slice at a time (as launch.serve)
+    pbf = lm_full.init(torch.Generator(device=dev).manual_seed(0),
+                       dtype=torch.bfloat16)
     ptoks = torch.from_numpy(np.random.default_rng(1).integers(
         0, full.vocab_size, (1, PREFILL_S), np.int32)).to(dev)
     torch.cuda.synchronize()
@@ -972,7 +1017,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = monotonic()
-    plogits = prefill(params_full, {"tokens": ptoks})
+    plogits = prefill(pbf, {"tokens": ptoks})
     torch.cuda.synchronize()
     prefill_s = monotonic() - t0
     prefill_launches = ops.launch_counts()
@@ -987,34 +1032,10 @@ def main() -> None:
           "prefill logits not finite or of the wrong shape")
     # where a prefill call's device time goes (profiled again, after the
     # counts are read)
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_profile(fn):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = monotonic()
-            fn()
-            torch.cuda.synchronize()
-            wall = (monotonic() - t) * 1e3
-        evs = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in evs) / 1e3
-        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
-        # each attention kernel's share of the device time
-        shares = {e.key[:80]: e.self_device_time_total / 1e3 / busy
-                  for e in evs if "flash_" in e.key}
-        return {"wall_ms": wall, "device_busy_ms": busy,
-                "device_busy_share": busy / wall,
-                "attention_share_of_device_time": shares,
-                "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                                  for e in top}}
-
     prefill_profile = device_profile(
-        lambda: prefill(params_full, {"tokens": ptoks}))
+        lambda: prefill(pbf, {"tokens": ptoks}))
     # the decode step's logits at the serve shape, and where one decode
     # step's time goes (the counts above are read)
-    pbf = cast_params(params_full, torch.bfloat16)
-    del params_full
     dcache = lm_full.init_cache(SERVE_BATCH, SERVE_CACHE, device=dev)
     dtoks = ptoks[0, :3 * SERVE_BATCH].reshape(SERVE_BATCH, 3)
     for i in range(2):
@@ -1051,6 +1072,11 @@ def main() -> None:
     # on return)
     training, bwd_row = run_training_phase(dev, rel_err)
     print(json.dumps({"training": training}))
+
+    # ---- 10. serving qwen3-moe-30b-a3b and phi3-medium-14b -------------
+    # (its own function: the 61 GB model is freed on return)
+    moe_serving, moe_launches = run_moe_serving_phase(dev, rel_err)
+    print(json.dumps({"moe_serving": moe_serving}))
 
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
@@ -1187,83 +1213,145 @@ def main() -> None:
             row["shape"] = list(qcx.shape)
         rows.append(row)
 
-    # the attention kernels at phase 6's shapes (bf16): one prefill layer
-    # (B=1, S=32768, H=32, KV=8, D=64, causal) and one decode layer of the
-    # serve run's last step (B=32, 32768 slots, 47 of them valid)
+    # the attention kernels, one row a template instance the main path
+    # runs (bf16): D 64 at phase 6's shapes, one prefill layer (B=1,
+    # S=32768, H=32, KV=8, causal) and one decode layer of the serve run's
+    # last step (B=32, 32768 slots, 47 of them valid); D 128 at phase
+    # 10a's, qwen3-moe-30b-a3b's (B=1, S=32768, H=32, KV=4) and (B=4, 32768
+    # slots, 47 valid); phase 10c's phi3 runs the same prefill instance
+    # and the decode's G=4 one (held in 2b at its shapes). Each row's
+    # kernel is held against the plain version at the row's shape; its
+    # device ms is a launch's in the main path's own profile (phase 6's or
+    # 10a's): a trace taken here saw none of the prefill kernel's launches.
     gd = torch.Generator(device=dev).manual_seed(2)
 
     def drandn(*shape):
         return torch.randn(shape, generator=gd, device=dev).to(torch.bfloat16)
 
-    h_, kv_, d_ = full.num_heads, full.num_kv_heads, full.head_dim
-    qa, ka, va = (drandn(1, PREFILL_S, h_, d_), drandn(1, PREFILL_S, kv_, d_),
-                  drandn(1, PREFILL_S, kv_, d_))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     from repro_torch.models import layers as L
-    full_err = att_check(
-        "flash_attention", ops.flash_attention(qa, ka, va),
-        L._sdpa_chunked_raw(qa, ka, va, causal=True, window=0), "bfloat16",
-        "at phase 6's prefill shape")
-    a_bytes = 2 * (2 * qa.numel() + ka.numel() + va.numel())
-    a_flops = 2 * PREFILL_S ** 2 * h_ * d_
-    rows.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:89",
-        "launches": prefill_launches["flash_attention"],
-        "max_abs_err": errs["flash_attention"],
-        "ms": cuda_ms(lambda: ops.flash_attention(qa, ka, va), 5, 1),
-        "kernel_route": prefill_route(qa.dtype, d_),
-        "ptxas": ptxas("flash_attention",
-                       r"flash_fwd_wgmma_kernelILi64ELi128ELi3E"),
-        "plain_ms": cuda_ms(lambda: L._sdpa_chunked_raw(
-            qa, ka, va, causal=True, window=0), 2, 1),
-        "plain": "layers._sdpa_chunked_raw (flash_attention_ref's S x S "
-                 "scores would take 137 GB at S=32768)",
-        "max_abs_err_vs_plain_at_this_shape": full_err,
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(a_bytes, a_flops, H100_BF16_FLOPS))),
-        "library_ms": cuda_ms(lambda: sdpa(
-            qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
-            is_causal=True, enable_gqa=True), 5, 1),
-        "shape": [1, PREFILL_S, h_, kv_, d_]})
-    del qa, ka, va
-    torch.cuda.empty_cache()
-    n_valid = SERVE_PROMPT - 1 + SERVE_TOKENS
-    qd = drandn(SERVE_BATCH, 1, h_, d_)
-    kcd = drandn(SERVE_BATCH, SERVE_CACHE, kv_, d_)
-    vcd = drandn(SERVE_BATCH, SERVE_CACHE, kv_, d_)
-    vmask = (torch.arange(SERVE_CACHE, device=dev) < n_valid).expand(
-        SERVE_BATCH, SERVE_CACHE).contiguous()
-    dec_err = att_check(
-        "flash_decode", ops.flash_decode(qd, kcd, vcd, vmask),
-        ref.flash_decode_ref(qd, kcd, vcd, vmask), "bfloat16",
-        "at phase 6's decode shape")
-    d_bytes = 2 * (2 * qd.numel() + kcd.numel() + vcd.numel()) \
-        + vmask.numel()
-    d_flops = 4 * SERVE_BATCH * h_ * SERVE_CACHE * d_
-    rows.append({
-        "name": "flash_decode", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:59",
-        "launches": serve_launches["flash_decode"],
-        "max_abs_err": errs["flash_decode"],
-        "ms": cuda_ms(lambda: ops.flash_decode(qd, kcd, vcd, vmask), 20, 2),
-        "kernel_route": "cuda_core, split S",
-        "splits": ops.flash_decode.last_splits,
-        "ptxas": ptxas("decode_attention",
-                       r"flash_decode_kernelI13__nv_bfloat16S\d_Li64ELi4E"),
-        "plain_ms": cuda_ms(lambda: ref.flash_decode_ref(qd, kcd, vcd, vmask),
-                            3, 1),
-        "max_abs_err_vs_plain_at_this_shape": dec_err,
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(d_bytes, d_flops, H100_BF16_FLOPS))),
-        "library_ms": cuda_ms(lambda: sdpa(
-            qd.transpose(1, 2), kcd.transpose(1, 2), vcd.transpose(1, 2),
-            attn_mask=vmask[:, None, None, :], enable_gqa=True), 3, 1),
-        "shape": [SERVE_BATCH, SERVE_CACHE, h_, kv_, d_]})
-    del qd, kcd, vcd, vmask
-    torch.cuda.empty_cache()
+
+    def errs_2b(pattern):
+        """The largest error of 2b's cases whose name matches."""
+        return max(v for k, v in att.items() if re.fullmatch(pattern, k))
+
+    def path_device_ms(profile, family):
+        """The device ms a call of the kernels of ``family`` took in the
+        main path's own profile (their launches summed, a launch each)."""
+        per = {k: v for k, v in profile["attention_device_ms_a_launch"]
+               .items() if family in k}
+        check(bool(per), f"the profile holds no {family} launch")
+        return {"device_ms": sum(v["device_ms"] for v in per.values()),
+                "device_ms_by_launch": per}
+
+    def prefill_row(name, s_, h_, kv_, d_, by_phase, instance, profile,
+                    what):
+        qa, ka, va = (drandn(1, s_, h_, d_), drandn(1, s_, kv_, d_),
+                      drandn(1, s_, kv_, d_))
+        full_err = att_check(
+            "flash_attention", ops.flash_attention(qa, ka, va),
+            L._sdpa_chunked_raw(qa, ka, va, causal=True, window=0),
+            "bfloat16", what)
+        a_bytes = 2 * (2 * qa.numel() + ka.numel() + va.numel())
+        a_flops = 2 * s_ ** 2 * h_ * d_
+        row = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:89",
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "max_abs_err": max(full_err, errs_2b(
+                rf"b\d+ s\d+ h\d+ kv\d+ d{d_} .* bfloat16 tensor_core")),
+            "ms": cuda_ms(lambda: ops.flash_attention(qa, ka, va), 5, 1),
+            **path_device_ms(profile, "::flash_fwd_wgmma_kernel<"),
+            "kernel_route": prefill_route(qa.dtype, d_),
+            "instance": instance,
+            "ptxas": ptxas("flash_attention", instance),
+            "plain_ms": cuda_ms(lambda: L._sdpa_chunked_raw(
+                qa, ka, va, causal=True, window=0), 2, 1),
+            "plain": "layers._sdpa_chunked_raw (flash_attention_ref's S x S "
+                     "scores would take 137 GB at S=32768)",
+            "max_abs_err_vs_plain_at_this_shape": full_err,
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(a_bytes, a_flops, H100_BF16_FLOPS))),
+            "library_ms": cuda_ms(lambda: sdpa(
+                qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
+                is_causal=True, enable_gqa=True), 5, 1),
+            "shape": [1, s_, h_, kv_, d_]}
+        del qa, ka, va
+        torch.cuda.empty_cache()
+        return row
+
+    def decode_row(name, b_, s_, n_valid, h_, kv_, d_, by_phase, instances,
+                   profile, what):
+        qd = drandn(b_, 1, h_, d_)
+        kcd, vcd = drandn(b_, s_, kv_, d_), drandn(b_, s_, kv_, d_)
+        vmask = (torch.arange(s_, device=dev) < n_valid).expand(
+            b_, s_).contiguous()
+        dec_err = att_check(
+            "flash_decode", ops.flash_decode(qd, kcd, vcd, vmask),
+            ref.flash_decode_ref(qd, kcd, vcd, vmask), "bfloat16", what)
+        splits = ops.flash_decode.last_splits
+        d_bytes = 2 * (2 * qd.numel() + kcd.numel() + vcd.numel()) \
+            + vmask.numel()
+        d_flops = 4 * b_ * h_ * s_ * d_
+        row = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:59",
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "max_abs_err": max(dec_err, errs_2b(
+                rf"decode b\d+ s\d+ h\d+ kv\d+ d{d_} .* "
+                rf"bfloat16/bfloat16 splits \d+")),
+            "ms": cuda_ms(lambda: ops.flash_decode(qd, kcd, vcd, vmask),
+                          20, 2),
+            **path_device_ms(profile, "::flash_decode_"),
+            "kernel_route": "cuda_core, split S", "splits": splits,
+            "ptxas": {g: ptxas("decode_attention", pattern)
+                      for g, pattern in instances.items()},
+            "plain_ms": cuda_ms(
+                lambda: ref.flash_decode_ref(qd, kcd, vcd, vmask), 3, 1),
+            "max_abs_err_vs_plain_at_this_shape": dec_err,
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(d_bytes, d_flops, H100_BF16_FLOPS))),
+            "library_ms": cuda_ms(lambda: sdpa(
+                qd.transpose(1, 2), kcd.transpose(1, 2), vcd.transpose(1, 2),
+                attn_mask=vmask[:, None, None, :], enable_gqa=True), 3, 1),
+            "shape": [b_, s_, h_, kv_, d_]}
+        del qd, kcd, vcd, vmask
+        torch.cuda.empty_cache()
+        return row
+
+    moe_cfg = get_config(MOE_ARCH)
+    mh, mkv, md = moe_cfg.num_heads, moe_cfg.num_kv_heads, moe_cfg.head_dim
+    rows.append(prefill_row(
+        "flash_attention", PREFILL_S, full.num_heads, full.num_kv_heads,
+        full.head_dim, {"6": prefill_launches["flash_attention"]},
+        r"flash_fwd_wgmma_kernelILi64ELi128ELi3E", prefill_profile,
+        "at phase 6's prefill shape"))
+    rows.append(prefill_row(
+        "flash_attention_d128", MOE_PREFILL_S, mh, mkv, md,
+        {"10a": moe_launches["10a_prefill"],
+         "10c": moe_launches["10c_prefill"]},
+        r"flash_fwd_wgmma_kernelILi128ELi128ELi2E",
+        moe_serving["10a"]["profiled_prefill_call"],
+        "at phase 10a's prefill shape"))
+    rows.append(decode_row(
+        "flash_decode", SERVE_BATCH, SERVE_CACHE,
+        SERVE_PROMPT - 1 + SERVE_TOKENS, full.num_heads, full.num_kv_heads,
+        full.head_dim, {"6": serve_launches["flash_decode"]},
+        {"g4": r"flash_decode_kernelI13__nv_bfloat16S\d_Li64ELi4E"},
+        decode_profile, "at phase 6's decode shape"))
+    rows.append(decode_row(
+        "flash_decode_d128", MOE_BATCH, MOE_CACHE,
+        MOE_PROMPT - 1 + MOE_TOKENS, mh, mkv, md,
+        {"10a": moe_launches["10a_decode"],
+         "10c": moe_launches["10c_decode"]},
+        {"g8": r"flash_decode_kernelI13__nv_bfloat16S\d_Li128ELi8E",
+         "g4": r"flash_decode_kernelI13__nv_bfloat16S\d_Li128ELi4E"},
+        moe_serving["10a"]["profiled_decode_step"],
+        "at phase 10a's decode shape"))
     # the backward kernels, timed by phase 9 at one training layer's shape
     rows.append({**bwd_row, "max_abs_err": errs["flash_attention_bwd"]})
     ops.reset_launch_counts()          # timing launches are not the path's
@@ -2171,6 +2259,364 @@ def run_training_phase(dev, rel_err):
                  "stdout": proc.stdout.strip().splitlines()}
     out["wall_s"] = monotonic() - t_phase
     return out, row
+
+
+
+def device_profile(fn):
+    """Where one call's device time goes: ``fn()`` under torch.profiler,
+    ending in a synchronize -> wall ms, device busy ms and share, each
+    attention kernel's share of the device time, the top kernels by
+    device time and, where ``fn`` runs an MoE layer, the device time of
+    the kernels launched inside each of ``moe_apply``'s ``moe.*`` ranges
+    (route, dispatch, experts, combine; the ranges themselves are not
+    counted as device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs.timing import monotonic
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = (monotonic() - t) * 1e3
+    avgs = prof.key_averages()
+    evs = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("moe.")]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"wall_ms": wall, "device_busy_ms": busy,
+           "device_busy_share": busy / wall,
+           # each attention kernel's share of the device time, and its
+           # launches and device ms a launch
+           "attention_share_of_device_time": {
+               e.key[:80]: e.self_device_time_total / 1e3 / busy
+               for e in evs if "flash_" in e.key},
+           "attention_device_ms_a_launch": {
+               e.key[:80]: {"launches": e.count, "device_ms":
+                            e.self_device_time_total / 1e3 / e.count}
+               for e in evs if "flash_" in e.key},
+           "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                             for e in top}}
+    moe = {e.key: {"calls": e.count, "device_ms": e.device_time_total / 1e3}
+           for e in avgs if e.key.startswith("moe.")
+           and e.device_type == torch.autograd.DeviceType.CPU}
+    if moe:
+        out["moe_ranges"] = moe
+    return out
+
+
+@contextlib.contextmanager
+def moe_pairs():
+    """While open, each ``layers.moe_apply`` call also routes its tokens
+    again with ``layers.moe_route`` and counts the (token, choice) pairs it
+    routes and keeps: yields ``{"routed": int, "kept": [device counts]}``.
+    The layer's output is ``moe_apply``'s own."""
+    from repro_torch.models import layers as L
+    apply, counts = L.moe_apply, {"routed": 0, "kept": []}
+
+    def counted(p, x, *, cfg, **kw):
+        xn = L.rms_norm(x, p["norm"], cfg.norm_eps).reshape(-1, cfg.d_model)
+        keep = L.moe_route(p, xn, cfg=cfg, **kw).keep
+        counts["routed"] += keep.numel()
+        counts["kept"].append(keep.sum())
+        return apply(p, x, cfg=cfg, **kw)
+
+    L.moe_apply = counted
+    try:
+        yield counts
+    finally:
+        L.moe_apply = apply
+
+
+def dropped_share(counts):
+    return 1.0 - sum(int(c) for c in counts["kept"]) / counts["routed"]
+
+
+def run_moe_serving_phase(dev, rel_err):
+    """Phase 10: serving the MoE and phi3 at full width. 10a:
+    qwen3-moe-30b-a3b at full width and depth (bf16 weights from seed 0
+    made one layer slice at a time), ``launch.serve`` at decode_32k's
+    cache and ``make_prefill_step`` at prefill_32k's length (``MOE_*``),
+    launches reckoned from the shapes, a second prefill call bit for bit,
+    a profiled prefill call and decode step, the dropped share of (token,
+    choice) pairs; 10b: one full-width MoE layer in f32 on the card
+    against the CPU and against itself; 10c: phi3-medium-14b at full width,
+    depth cut to ``PHI3_LAYERS``; 10d: ``launch.serve_lm`` in its own
+    process for both archs. Returns (the phase's numbers, its prefill and
+    decode kernel launches by part)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import count_params
+    from repro_torch.obs.timing import monotonic
+
+    out, launches = {}, {}
+    t_phase = monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- 10a: qwen3-moe-30b-a3b at full width and depth ----
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    served = serve.main(["--arch", MOE_ARCH, "--batch", str(MOE_BATCH),
+                         "--prompt-len", str(MOE_PROMPT), "--cache-len",
+                         str(MOE_CACHE), "--tokens", str(MOE_TOKENS)])
+    serve_launches = ops.launch_counts()
+    steps = MOE_PROMPT - 1 + MOE_TOKENS
+    check(serve_launches["flash_decode"] == cfg.num_layers * steps
+          and serve_launches["flash_attention"] == 0,
+          f"10a: serve launches {serve_launches}, want "
+          f"{cfg.num_layers} x {steps} decodes")
+    check(served.tokens.shape == (MOE_BATCH, MOE_TOKENS)
+          and int(served.tokens.min()) >= 0
+          and int(served.tokens.max()) < cfg.padded_vocab,
+          f"10a: served tokens {served.tokens.shape}")
+    launches["10a_decode"] = serve_launches["flash_decode"]
+
+    prefill, lm = make_prefill_step(cfg)                  # bf16
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), dev,
+                     dtype=torch.bfloat16)
+    ptoks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, MOE_PREFILL_S), np.int32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    plogits = prefill(params, {"tokens": ptoks})
+    torch.cuda.synchronize()
+    prefill_s = monotonic() - t0
+    prefill_launches = ops.launch_counts()
+    prefill_routes = dict(ops.flash_attention.launches_by_route)
+    prefill_mem = torch.cuda.max_memory_allocated()
+    check(prefill_launches["flash_attention"] == cfg.num_layers
+          and prefill_routes["tensor_core"] == cfg.num_layers
+          and prefill_launches["flash_decode"] == 0,
+          f"10a: prefill launches {prefill_launches}, by route "
+          f"{prefill_routes}")
+    check(tuple(plogits.shape) == (1, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(plogits).all()),
+          "10a: prefill logits not finite or of the wrong shape")
+    launches["10a_prefill"] = prefill_launches["flash_attention"]
+    with moe_pairs() as pcounts:
+        again = prefill(params, {"tokens": ptoks})
+    check(torch.equal(plogits, again),
+          "10a: two prefill calls on the same tokens differ")
+    prefill_profile = device_profile(
+        lambda: prefill(params, {"tokens": ptoks}))
+    del again
+    # decode steps at the serve shape: logits, the dropped share, a profile
+    dcache = lm.init_cache(MOE_BATCH, MOE_CACHE, device=dev)
+    dtoks = ptoks[0, :9 * MOE_BATCH].reshape(MOE_BATCH, 9)
+    with moe_pairs() as dcounts, torch.no_grad():
+        for i in range(8):
+            dlogits, dcache, _ = lm.apply(params, dtoks[:, i:i + 1],
+                                          mode="decode", cache=dcache,
+                                          dtype=torch.bfloat16)
+            check(bool(torch.isfinite(dlogits).all()),
+                  f"10a: decode logits not finite at step {i}")
+    decode_step, _ = make_decode_step(cfg)
+    decode_profile = device_profile(
+        lambda: decode_step(params, dcache, dtoks[:, 8:9]))
+    del dcache, dlogits, plogits
+    # the least time of the work, from the shapes (bf16 at 989 TFLOP/s,
+    # 3.35 TB/s): a decode step reads every weight (the capacity dispatch
+    # runs every expert) and the whole cache; a prefill call's products
+    s_, d_, e_ = MOE_PREFILL_S, cfg.d_model, cfg.num_experts
+    h_, kv_, hd_, f_ = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                        cfg.d_ff)
+    weight_bytes = 2 * count_params(cfg)
+    kv_bytes = 2 * 2 * MOE_BATCH * MOE_CACHE * cfg.num_layers * kv_ * hd_
+    groups = max(s_ // 512, 1)
+    cap = max(int((s_ // groups) * cfg.num_experts_per_tok / e_ * 1.25), 1)
+    attn_flops = 2 * s_ * s_ * h_ * hd_          # causal: half of 4 S^2 H D
+    expert_flops = 6 * e_ * groups * cap * d_ * f_
+    proj_flops = 2 * s_ * d_ * (2 * h_ * hd_ + 2 * kv_ * hd_ + e_)
+    prefill_flops = cfg.num_layers * (attn_flops + expert_flops
+                                      + proj_flops) \
+        + 2 * d_ * cfg.padded_vocab
+    out["10a"] = {
+        "model": cfg.name, "layers": cfg.num_layers,
+        "params": count_params(cfg),
+        "active_params": count_params(cfg, active_only=True),
+        "serve": {"batch": MOE_BATCH, "cache_len": MOE_CACHE,
+                  "prompt_len": MOE_PROMPT, "new_tokens": MOE_TOKENS,
+                  "prompt_fed_s": served.prompt_s,
+                  "decode_s": served.decode_s,
+                  "decode_ms_per_step": served.decode_s / MOE_TOKENS * 1e3,
+                  "tok_per_s": served.tok_per_s,
+                  "launches": serve_launches,
+                  "flash_decode_launches_reckoned": cfg.num_layers * steps,
+                  "max_memory_allocated": served.peak_bytes,
+                  "decode_step_bound_ms": (weight_bytes + kv_bytes)
+                  / H100_BYTES_PER_S * 1e3,
+                  "weight_bytes": weight_bytes, "kv_cache_bytes": kv_bytes},
+        "prefill": {"batch": 1, "seq_len": MOE_PREFILL_S,
+                    "prefill_s": prefill_s,
+                    "tok_per_s": MOE_PREFILL_S / prefill_s,
+                    "launches": prefill_launches,
+                    "flash_attention_launches_reckoned": cfg.num_layers,
+                    "flash_attention_launches_by_route": prefill_routes,
+                    "max_memory_allocated": prefill_mem,
+                    "second_call_bit_identical": True,
+                    "moe_groups": groups, "moe_capacity": cap,
+                    "bound_ms": bound(weight_bytes, prefill_flops,
+                                      H100_BF16_FLOPS)[0],
+                    "attention_flops_a_layer": attn_flops,
+                    "attention_bound_ms_a_layer":
+                    attn_flops / H100_BF16_FLOPS * 1e3,
+                    "expert_gemm_flops_a_layer": expert_flops,
+                    "expert_gemm_bound_ms_a_layer":
+                    expert_flops / H100_BF16_FLOPS * 1e3},
+        "dropped_share": {
+            "prefill": dropped_share(pcounts),
+            "decode": dropped_share(dcounts),
+            "prefill_pairs": pcounts["routed"],
+            "decode_pairs": dcounts["routed"]},
+        "profiled_prefill_call": prefill_profile,
+        "profiled_decode_step": decode_profile}
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- 10b: one full-width MoE layer in f32, card against CPU ----
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p = L.moe_init(L.ParamInit(gen, dev), cfg)
+    p["norm"] = 1.0 + 0.1 * torch.randn(cfg.d_model, generator=gen,
+                                        device=dev)
+    x = torch.randn(1, MOE_LAYER_TOKENS, cfg.d_model, generator=gen,
+                    device=dev)
+    y, aux = L.moe_apply(p, x, cfg=cfg)
+    y2, aux2 = L.moe_apply(p, x, cfg=cfg)
+    check(torch.equal(y, y2) and torch.equal(aux, aux2),
+          "10b: two card runs of one MoE layer differ")
+
+    def route(pp, xx):
+        xn = L.rms_norm(xx, pp["norm"], cfg.norm_eps).reshape(-1,
+                                                              cfg.d_model)
+        return L.moe_route(pp, xn, cfg=cfg)
+
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+    y_cpu, aux_cpu = L.moe_apply(p_cpu, x.cpu(), cfg=cfg)
+    r, r_cpu = route(p, x), route(p_cpu, x.cpu())
+    topi, topi_cpu = r.topi.cpu(), r_cpu.topi
+    probs = r_cpu.probs
+    worst_gap = 0.0
+    for t, j in torch.nonzero(topi != topi_cpu).tolist():
+        a, b = probs[t, topi[t, j]], probs[t, topi_cpu[t, j]]
+        gap = float((a - b).abs() / torch.maximum(a.abs(), b.abs()))
+        worst_gap = max(worst_gap, gap)
+        check(gap <= 1e-3, f"10b: token {t} choice {j} routed apart, not "
+                           f"at a near-tie (gap {gap})")
+    group_of = torch.arange(topi.shape[0]) // r.group_len
+    moved = set(group_of[(topi != topi_cpu).any(1)].tolist())
+    slots_apart = ((r.pos.cpu() != r_cpu.pos) | (r.keep.cpu()
+                                                  != r_cpu.keep)).any(1)
+    check(set(group_of[slots_apart].tolist()) <= moved,
+          "10b: slots or drops differ in a group routed alike")
+    alike = ((topi == topi_cpu) & (r.keep.cpu() == r_cpu.keep)).all(1)
+    yg = y.cpu().reshape(-1, cfg.d_model)[:len(alike)][alike]
+    yc = y_cpu.reshape(-1, cfg.d_model)[:len(alike)][alike]
+    check(bool(((yg - yc).abs() <= TOL + TOL * yc.abs()).all()),
+          f"10b: y card vs CPU: max abs err {float((yg - yc).abs().max())}")
+    check(abs(float(aux) - float(aux_cpu)) <= TOL + TOL * abs(
+        float(aux_cpu)), f"10b: aux card {float(aux)} vs CPU "
+                         f"{float(aux_cpu)}")
+    out["10b"] = {"tokens": MOE_LAYER_TOKENS, "dtype": "float32",
+                  "groups": r.groups, "capacity": r.cap,
+                  "routing_mismatches": int((topi != topi_cpu).sum()),
+                  "worst_near_tie_gap": worst_gap,
+                  "tokens_routed_alike": int(alike.sum()),
+                  "dropped_pairs": int((~r.keep).sum()),
+                  "y_max_abs_err": float((yg - yc).abs().max()),
+                  "y_max_rel_err": rel_err(yg, yc),
+                  "aux_card": float(aux), "aux_cpu": float(aux_cpu),
+                  "card_repeat_bit_identical": True}
+    del p, p_cpu, x, y, y2, r
+    torch.cuda.empty_cache()
+
+    # ---- 10c: phi3-medium-14b at full width, depth cut ----
+    pcfg = dataclasses.replace(get_config("phi3-medium-14b"),
+                               num_layers=PHI3_LAYERS)
+    prefill, lm = make_prefill_step(pcfg)
+    decode_step, _ = make_decode_step(pcfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), dev,
+                     dtype=torch.bfloat16)
+    ptoks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, pcfg.vocab_size, (PHI3_BATCH, PHI3_PREFILL_S), np.int32)).to(dev)
+    prefill(params, {"tokens": ptoks[:1]})                # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    plogits = prefill(params, {"tokens": ptoks[:1]})
+    torch.cuda.synchronize()
+    phi_prefill_s = monotonic() - t0
+    phi_prefill = ops.launch_counts()
+    phi_routes = dict(ops.flash_attention.launches_by_route)
+    check(phi_prefill["flash_attention"] == PHI3_LAYERS
+          and phi_routes["tensor_core"] == PHI3_LAYERS
+          and tuple(plogits.shape) == (1, 1, pcfg.padded_vocab)
+          and bool(torch.isfinite(plogits).all()),
+          f"10c: prefill launches {phi_prefill}, by route {phi_routes}, "
+          f"logits {tuple(plogits.shape)}")
+    cache = lm.init_cache(PHI3_BATCH, PHI3_CACHE, device=dev)
+    tok = ptoks[:, :1]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = monotonic()
+    for _ in range(PHI3_STEPS):
+        tok, cache = decode_step(params, cache, tok)
+    torch.cuda.synchronize()
+    phi_decode_s = monotonic() - t0
+    phi_decode = ops.launch_counts()
+    check(phi_decode["flash_decode"] == PHI3_LAYERS * PHI3_STEPS
+          and phi_decode["flash_attention"] == 0
+          and 0 <= int(tok.min()) and int(tok.max()) < pcfg.padded_vocab,
+          f"10c: decode launches {phi_decode}")
+    launches["10c_prefill"] = phi_prefill["flash_attention"]
+    launches["10c_decode"] = phi_decode["flash_decode"]
+    out["10c"] = {"model": pcfg.name, "layers": PHI3_LAYERS,
+                  "heads": [pcfg.num_heads, pcfg.num_kv_heads,
+                            pcfg.head_dim],
+                  "untied_head": not pcfg.tie_embeddings,
+                  "padded_vocab": pcfg.padded_vocab,
+                  "prefill": {"seq_len": PHI3_PREFILL_S,
+                              "prefill_s": phi_prefill_s,
+                              "launches": phi_prefill,
+                              "flash_attention_launches_by_route":
+                              phi_routes},
+                  "decode": {"batch": PHI3_BATCH, "cache_len": PHI3_CACHE,
+                             "steps": PHI3_STEPS,
+                             "ms_per_step": phi_decode_s / PHI3_STEPS * 1e3,
+                             "launches": phi_decode}}
+    del params, cache, plogits
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+
+    # ---- 10d: serve_lm in its own process, for both archs ----
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out["10d"] = {}
+    for arch in (MOE_ARCH, "phi3-medium-14b"):
+        t0 = monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
+             arch], cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env=env)
+        check(proc.returncode == 0 and proc.stdout.startswith(
+            f"arch={arch} (reduced)"), f"10d: serve_lm --arch {arch} "
+            f"exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+            f"{proc.stderr[-2000:]}")
+        out["10d"][arch] = {"exit": proc.returncode,
+                            "wall_s": monotonic() - t0,
+                            "stdout": proc.stdout.strip().splitlines()}
+    out["wall_s"] = monotonic() - t_phase
+    return out, launches
 
 
 if __name__ == "__main__":

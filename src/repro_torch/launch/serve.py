@@ -6,13 +6,18 @@ reference does), then decodes greedily with the ring-buffer KV cache.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --smoke --tokens 16 [--device cpu]
 
 Runs on the CUDA device unless ``--device cpu`` is given (and fails if
-there is none). The weights are random (seed 0) and cast to bf16 once per
-run; the steps compute in bf16 as the reference's do.
+there is none). The weights are random (seed 0), drawn in f32 and made
+bf16 one layer slice at a time (``LM.init(dtype=torch.bfloat16)``: the
+f32 tree is never held, so qwen3-moe-30b-a3b's 61 GB of bf16 weights fit
+one 80 GB card at full width); the steps compute in bf16 as the
+reference's do. On a card the last line before ``serve: done`` gives the
+peak device memory of the run.
 """
 from __future__ import annotations
 
 import argparse
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -20,17 +25,18 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step
-from repro_torch.models.transformer import cast_params
 from repro_torch.obs.timing import monotonic, sync
 
 
 @dataclass
 class ServeResult:
     """What one run did: the times on the host clock (each ends in a
-    device synchronize) and the generated token ids (batch, tokens)."""
+    device synchronize), the generated token ids (batch, tokens) and, on
+    a card, the peak device memory in bytes (None on the CPU)."""
     prompt_s: float
     decode_s: float
     tokens: np.ndarray
+    peak_bytes: Optional[int] = None
 
     @property
     def tok_per_s(self) -> float:
@@ -55,9 +61,12 @@ def main(argv=None) -> ServeResult:
         cfg = cfg.reduced()
 
     decode_fn, lm = make_decode_step(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    # the master weights are f32; the steps compute in bf16, so cast once
-    params = cast_params(lm.init(gen), torch.bfloat16)
+    # the steps compute in bf16: the weights are made in bf16 (the bits of
+    # the f32 draws cast), one layer slice at a time
+    params = lm.init(gen, dtype=torch.bfloat16)
     cache = lm.init_cache(args.batch, args.cache_len, device=dev)
 
     rng = np.random.default_rng(0)
@@ -84,8 +93,13 @@ def main(argv=None) -> ServeResult:
           f"batch {args.batch} in {dt:.2f}s "
           f"({args.tokens*args.batch/max(dt,1e-9):.1f} tok/s)")
     print("sample token ids:", out[0][:16].tolist())
+    peak = None
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"peak device memory: {peak} B")
     print("serve: done")
-    return ServeResult(prompt_s=t_prefill, decode_s=dt, tokens=out)
+    return ServeResult(prompt_s=t_prefill, decode_s=dt, tokens=out,
+                       peak_bytes=peak)
 
 
 if __name__ == "__main__":

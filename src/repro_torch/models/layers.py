@@ -1,6 +1,6 @@
-"""Layers of the dense GQA decoders: the port of ``repro.models.layers``
-for the LM serving path (norms, RoPE, the attention cores, the GQA
-attention block and the dense FFN).
+"""Layers of the GQA decoders: the port of ``repro.models.layers`` for the
+LM path (norms, RoPE, the attention cores, the GQA attention block, the
+dense FFN and the capacity-dropped top-k MoE FFN).
 
 Conventions, as in the reference:
   * params are plain dicts of tensors; a scan stage stacks each leaf along
@@ -23,13 +23,17 @@ statistics forward and the backward kernels, on the CPU
 CPU up to 2048 positions ``sdpa_full`` is differentiated by autograd, as
 the reference does. Decode has no gradient.
 
-MLA, MoE, Mamba, RWKV and cross-attention are not ported yet
-(``ROADMAP.md`` Queue 1).
+The MoE (``moe_apply``) is plain torch ops on either device, as the
+reference's einsums: index copies for dispatch and combine, batched GEMMs
+for the experts; its ``moe.*`` profiler ranges name its parts.
+
+MLA, Mamba, RWKV and cross-attention are not ported yet (``ROADMAP.md``
+Queue 1).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -47,29 +51,40 @@ class ParamInit:
     """Draws parameters from a ``torch.Generator`` on its device.
 
     ``lead`` is a leading repeat axis (a scan stage's stacked layers): every
-    leaf gets shape ``lead + shape``. On the ``meta`` device (``gen`` None)
-    only shapes are made, which is how ``registry.count_params`` counts."""
+    leaf gets shape ``lead + shape``, and a stacked leaf is drawn one layer
+    slice at a time (f32 draws from ``gen``, in layer order). ``dtype`` is
+    the leaves' dtype: each slice is drawn and scaled in f32 and cast into
+    the preallocated leaf, so no more than one slice is ever held in f32 and
+    the bits are those of the f32 tree cast afterwards. On the ``meta``
+    device (``gen`` None) only shapes are made, which is how
+    ``registry.count_params`` counts."""
 
     def __init__(self, gen: Optional[torch.Generator],
                  device: Optional[torch.device] = None,
-                 lead: Sequence[int] = ()):
+                 lead: Sequence[int] = (), dtype=torch.float32):
         self.gen = gen
         self.device = torch.device(device) if device is not None \
             else gen.device
         self.lead = tuple(lead)
+        self.dtype = dtype
 
     def stacked(self, repeats: int) -> "ParamInit":
-        return ParamInit(self.gen, self.device, (repeats,))
+        return ParamInit(self.gen, self.device, (repeats,), self.dtype)
 
     def normal(self, shape, scale: float) -> torch.Tensor:
-        shape = self.lead + tuple(shape)
+        shape = tuple(shape)
+        out = torch.empty(self.lead + shape, dtype=self.dtype,
+                          device=self.device)
         if self.device.type == "meta":
-            return torch.empty(shape, device="meta")
-        x = torch.randn(shape, generator=self.gen, device=self.gen.device)
-        return x.mul_(scale).to(self.device)
+            return out
+        for r in range(math.prod(self.lead)):
+            x = torch.randn(shape, generator=self.gen, device=self.gen.device)
+            out.view((-1,) + shape)[r].copy_(x.mul_(scale))
+        return out
 
     def full(self, shape, value: float) -> torch.Tensor:
-        return torch.full(self.lead + tuple(shape), value, device=self.device)
+        return torch.full(self.lead + tuple(shape), value, dtype=self.dtype,
+                          device=self.device)
 
 
 def dense_init(init: ParamInit, shape, scale: Optional[float] = None
@@ -364,3 +379,130 @@ def ffn_init(init: ParamInit, cfg: ModelConfig, d_ff: Optional[int] = None
 def ffn_apply(p, x, *, cfg: ModelConfig):
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     return (act_fn(cfg.act)(xn @ p["w_gate"]) * (xn @ p["w_up"])) @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# MoE: top-k routing into per-expert capacity slots (GShard), the port of
+# the reference's einsum dispatch with index copies
+# --------------------------------------------------------------------------
+def moe_init(init: ParamInit, cfg: ModelConfig) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p = {"norm": init.full((d,), 1.0),
+         "router": dense_init(init, (d, e), scale=0.02),
+         # fan-in of a stacked (e, d, f) leaf is e, as the reference's
+         "we_gate": dense_init(init, (e, d, f)),
+         "we_up": dense_init(init, (e, d, f)),
+         "we_down": dense_init(init, (e, f, d), scale=1.0 / math.sqrt(f))}
+    if cfg.num_shared_experts:
+        fs = f * cfg.num_shared_experts
+        p["ws_gate"] = dense_init(init, (d, fs))
+        p["ws_up"] = dense_init(init, (d, fs))
+        p["ws_down"] = dense_init(init, (fs, d), scale=1.0 / math.sqrt(fs))
+    return p
+
+
+class MoERoute(NamedTuple):
+    """Where ``moe_apply`` sends each (token, choice) of the first
+    ``groups * group_len`` tokens (m of them; the tail gets no MoE output).
+    ``probs`` (m, e) f32; ``topi`` (m, k) experts by descending probability;
+    ``topv`` (m, k) their renormalised weights in the compute dtype;
+    ``pos`` (m, k) the pair's place in its expert's slots of its group,
+    counted token-major, then by choice; ``keep`` (m, k) ``pos < cap``."""
+    probs: torch.Tensor
+    topi: torch.Tensor
+    topv: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    cap: int
+    groups: int
+    group_len: int
+
+
+def moe_route(p, xn: torch.Tensor, *, cfg: ModelConfig,
+              capacity_factor: float = 1.25, group_size: int = 512
+              ) -> MoERoute:
+    """Routing of the normed tokens ``xn`` (n, d), as the reference's
+    ``moe_apply``: ``g = max(n // group_size, 1)`` groups of ``n // g``
+    tokens; the router product in the compute dtype, its softmax in f32;
+    the top k by a stable descending sort (``jax.lax.top_k``'s order: equal
+    probabilities go to the lower expert index first); ``cap =
+    max(int(gs * k / e * capacity_factor), 1)``; a choice past its
+    expert's ``cap`` slots is dropped."""
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    n = xn.shape[0]
+    g = max(n // group_size, 1)
+    gs = n // g
+    m = g * gs
+    probs = torch.softmax((xn[:m] @ p["router"]).to(torch.float32), -1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k].contiguous()
+    topv = (topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+            ).to(xn.dtype)
+    cap = max(int(gs * k / e * capacity_factor), 1)
+    # the pair's place among its expert's pairs in the group: a running
+    # count over (token, choice) of each expert's one-hot column
+    ids = topi.view(g, gs * k)
+    onehot = (ids[..., None] == torch.arange(e, device=xn.device)).to(
+        torch.int32)
+    pos = torch.cumsum(onehot, 1, dtype=torch.int32).gather(
+        -1, ids[..., None])[..., 0].view(m, k).long() - 1
+    return MoERoute(probs, topi, topv, pos, pos < cap, cap, g, gs)
+
+
+def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
+              group_size: int = 512):
+    """The reference's capacity-dropped top-k MoE (``repro.models.layers.
+    moe_apply``) -> (y, aux). Each (expert, group, slot) holds at most one
+    token, so dispatch is a gather of token rows into the (e, g * cap, d)
+    slots (empty slots read a zero row) and the expert products are batched
+    GEMMs over the expert axis; combine gathers each kept (token, choice)'s
+    expert output and sums the k weighted terms in choice order in f32,
+    rounded once. No atomics: the same inputs give the same bits."""
+    b, s, d = x.shape
+    e = cfg.num_experts
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    flat = xn.reshape(-1, d)
+    n = flat.shape[0]
+    with torch.profiler.record_function("moe.route"):
+        r = moe_route(p, flat, cfg=cfg, capacity_factor=capacity_factor,
+                      group_size=group_size)
+    m, k, cap = r.groups * r.group_len, r.topi.shape[1], r.cap
+    slots = e * r.groups * cap
+    with torch.profiler.record_function("moe.dispatch"):
+        group = torch.arange(m, device=x.device)[:, None] // r.group_len
+        dest = (r.topi * r.groups + group) * cap + r.pos      # (m, k)
+        # the token in each slot (m: none, a zero row); dropped pairs all
+        # write the spare last entry, which is cut off
+        token = torch.arange(m, device=x.device)[:, None].expand(m, k)
+        src = torch.full((slots + 1,), m, dtype=torch.long,
+                         device=x.device).scatter_(
+            0, torch.where(r.keep, dest, slots).reshape(-1),
+            token.reshape(-1))[:slots]
+        rows = torch.cat([flat[:m], flat.new_zeros(1, d)])
+        xe = rows[src].view(e, r.groups * cap, d)
+    with torch.profiler.record_function("moe.experts"):
+        he = act_fn(cfg.act)(torch.bmm(xe, p["we_gate"])) \
+            * torch.bmm(xe, p["we_up"])
+        ye = torch.bmm(he, p["we_down"]).view(slots, d)
+    with torch.profiler.record_function("moe.combine"):
+        # a dropped pair reads slot 0 with weight 0 (every slot's row is
+        # finite: an empty slot's is 0); choice-major, so that each
+        # choice's slots and weights are contiguous
+        at = torch.where(r.keep, dest, 0).t().contiguous()
+        w = torch.where(r.keep, r.topv.to(torch.float32), 0.0).t()
+        acc = torch.zeros((m, d), dtype=torch.float32, device=x.device)
+        for j in range(k):
+            acc.addcmul_(w[j, :, None], ye.index_select(0, at[j]))
+        y = acc.to(x.dtype)
+        if m < n:
+            y = torch.cat([y, y.new_zeros(n - m, d)])
+    y = y.view(b, s, d)
+    if cfg.num_shared_experts:
+        y = y + (act_fn(cfg.act)(xn @ p["ws_gate"]) * (xn @ p["ws_up"])
+                 ) @ p["ws_down"]
+    # the load-balance term (over the routed tokens, top-1 choices)
+    me = r.probs.mean(0)
+    ce = (r.topi[:, :1] == torch.arange(e, device=x.device)).to(
+        torch.float32).mean(0)
+    aux = cfg.router_aux_loss * e * torch.sum(me * ce)
+    return y, aux

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig
 
@@ -12,6 +12,16 @@ from repro_torch.configs.base import ModelConfig
 def make_lm(cfg: ModelConfig, force_swa: bool = False):
     from repro_torch.models.transformer import LM
     return LM(cfg, force_swa=force_swa)
+
+
+def make_split_model(cfg_or_id, split_layer: Optional[int] = None):
+    """(SplitLM, lm) of a config or an architecture id:
+    ``transformer.make_split_lm`` at ``split_layer`` (default the config's
+    ``split_layer``), as ``repro.models.make_split_model``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import make_split_lm
+    cfg = get_config(cfg_or_id) if isinstance(cfg_or_id, str) else cfg_or_id
+    return make_split_lm(cfg, split_layer)
 
 
 _EXPERT_KEYS = ("we_gate", "we_up", "we_down")

@@ -1,5 +1,5 @@
 """Config-driven LM assembly: the port of ``repro.models.transformer`` for
-dense GQA decoders (mixer ``attn``, FFN ``dense``).
+GQA decoders (mixer ``attn``; FFN ``dense`` or ``moe``).
 
 A model is a list of STAGES, the reference's own (``layer_specs`` and
 ``decompose`` are copies), so that ``stage_range`` means the same in both
@@ -17,8 +17,13 @@ with no cache. ``make_split_lm`` is the paper's lower/upper view of an LM
 
 ``params_from_jax`` / ``params_to_jax`` map ``repro``'s LM parameter tree
 (numpy arrays) to the port's and back; the two trees have the same
-structure. MLA, MoE, Mamba, RWKV, encoders, cross-attention and vision
-prefixes are not ported yet (``ROADMAP.md`` Queue 1).
+structure. An MoE block's load-balance term is summed over the blocks that
+run (``apply``'s ``aux``), and ``LM.loss`` and ``make_split_lm``'s upper
+loss add it, as the reference's. ``LM.init(gen, dtype=torch.bfloat16)``
+fills each stacked leaf one layer slice at a time (the bits of the f32
+tree cast afterwards), so a full-width model is made without its f32 tree.
+MLA, Mamba, RWKV, encoders, cross-attention and vision prefixes are not
+ported yet (``ROADMAP.md`` Queue 1).
 """
 from __future__ import annotations
 
@@ -136,18 +141,21 @@ def cast_params(params: PyTree, dtype: torch.dtype) -> PyTree:
 
 
 # --------------------------------------------------------------------------
-# per-block init/apply/cache dispatch: mixer attn + ffn dense
+# per-block init/apply/cache dispatch: mixer attn + ffn dense | moe
 # --------------------------------------------------------------------------
 def _check_spec(spec: BlockSpec) -> None:
-    if spec.mixer != "attn" or spec.ffn != "dense":
+    if spec.mixer != "attn" or spec.ffn not in ("dense", "moe"):
         raise NotImplementedError(
             f"block {spec} is not ported to repro_torch yet: only mixer "
-            f"'attn' with ffn 'dense' (ROADMAP.md Queue 1 items 13c-13g)")
+            f"'attn' with ffn 'dense' or 'moe' (ROADMAP.md Queue 1 items "
+            f"13c-13g)")
 
 
 def _block_init(init: L.ParamInit, cfg: ModelConfig, spec: BlockSpec
                 ) -> PyTree:
-    return {"mixer": L.attn_init(init, cfg), "ffn": L.ffn_init(init, cfg)}
+    ffn = L.moe_init(init, cfg) if spec.ffn == "moe" else L.ffn_init(init,
+                                                                      cfg)
+    return {"mixer": L.attn_init(init, cfg), "ffn": ffn}
 
 
 def _block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, seq_len: int,
@@ -158,12 +166,23 @@ def _block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, seq_len: int,
 
 def _block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, mode: str,
                  cache, pos):
+    """-> (x, cache, aux): aux is the MoE's load-balance term, None for a
+    dense FFN (the reference adds a zero)."""
     y, mc = L.attn_apply(params["mixer"], x, cfg=cfg, mode=mode,
                          cache=(cache or {}).get("mixer"), pos=pos,
                          window=spec.window, causal=spec.causal)
     x = x + y
-    x = x + L.ffn_apply(params["ffn"], x, cfg=cfg)
-    return x, ({"mixer": mc} if mc is not None else {})
+    aux = None
+    if spec.ffn == "moe":
+        y, aux = L.moe_apply(params["ffn"], x, cfg=cfg)
+        x = x + y
+    else:
+        x = x + L.ffn_apply(params["ffn"], x, cfg=cfg)
+    return x, ({"mixer": mc} if mc is not None else {}), aux
+
+
+def _add(total, aux):
+    return total if aux is None else total + aux
 
 
 def _layer(tree: PyTree, r: int) -> PyTree:
@@ -188,7 +207,8 @@ def _layers(tree: PyTree, repeats: int) -> List[PyTree]:
 # full model
 # --------------------------------------------------------------------------
 class LM:
-    """Bundles init/apply/cache for one ModelConfig (dense GQA decoders)."""
+    """Bundles init/apply/cache for one ModelConfig (GQA decoders, dense or
+    MoE FFN)."""
 
     def __init__(self, cfg: ModelConfig, force_swa: bool = False,
                  remat: bool = False):
@@ -214,13 +234,17 @@ class LM:
         stacked = init.stacked(stage.repeats)
         return [_block_init(stacked, self.cfg, s) for s in stage.unit]
 
-    def init(self, gen: Optional[torch.Generator], device=None) -> PyTree:
-        """f32 parameters drawn from ``gen`` (on ``gen``'s device, moved to
-        ``device`` if given). ``device="meta"`` with ``gen=None`` gives the
-        shapes alone. The draws differ from ``repro``'s (another generator);
-        tests carry ``repro``'s parameters across with ``params_from_jax``."""
+    def init(self, gen: Optional[torch.Generator], device=None,
+             dtype=torch.float32) -> PyTree:
+        """Parameters drawn from ``gen`` (on ``gen``'s device, moved to
+        ``device`` if given), in ``dtype``: the f32 draws, each stacked
+        leaf one layer slice at a time, cast into leaves of ``dtype``
+        (``cast_params(init(gen), dtype)``'s bits, without the f32 tree).
+        ``device="meta"`` with ``gen=None`` gives the shapes alone. The
+        draws differ from ``repro``'s (another generator); tests carry
+        ``repro``'s parameters across with ``params_from_jax``."""
         cfg = self.cfg
-        init = L.ParamInit(gen, device)
+        init = L.ParamInit(gen, device, dtype=dtype)
         v, d = cfg.padded_vocab, cfg.d_model
         params: dict = {
             "embed": init.normal((v, d), 1.0 / math.sqrt(d)),
@@ -246,6 +270,8 @@ class LM:
 
     # ---------------- apply ----------------
     def _run_stages(self, stages, stage_params, x, mode, cache_stages, pos):
+        """-> (x, the blocks' aux summed in layer order (f32), caches)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
         for si, (st, sp) in enumerate(zip(stages, stage_params)):
             scache = cache_stages[si] if cache_stages is not None else None
@@ -253,8 +279,9 @@ class LM:
                 ncs = []
                 for li, spec in enumerate(st.unit):
                     c = scache[li] if scache is not None else None
-                    x, nc = _block_apply(sp[li], x, spec, self.cfg, mode, c,
-                                         pos)
+                    x, nc, a = _block_apply(sp[li], x, spec, self.cfg, mode,
+                                            c, pos)
+                    aux = _add(aux, a)
                     ncs.append(nc)
                 new_caches.append(ncs)
             elif scache is None:
@@ -263,25 +290,31 @@ class LM:
                 remat = (self.remat and mode == "full"
                          and torch.is_grad_enabled())
                 for lp in _layers(sp, st.repeats):
-                    x = (checkpoint(unit, x, lp, use_reentrant=False)
-                         if remat else unit(x, lp))
+                    x, a = (checkpoint(unit, x, lp, use_reentrant=False)
+                            if remat else unit(x, lp))
+                    aux = _add(aux, a)
                 new_caches.append(None)
             else:
                 for r in range(st.repeats):
                     for ui, spec in enumerate(st.unit):
-                        x, _ = _block_apply(_layer(sp[ui], r), x, spec,
-                                            self.cfg, mode,
-                                            _layer(scache[ui], r), pos)
+                        x, _, a = _block_apply(_layer(sp[ui], r), x, spec,
+                                               self.cfg, mode,
+                                               _layer(scache[ui], r), pos)
+                        aux = _add(aux, a)
                 # the stacked caches were written in place, layer by layer
                 new_caches.append(scache)
-        return x, new_caches
+        return x, aux, new_caches
 
     def _unit_apply(self, unit, mode, pos, x, lp):
         """One repeat of a scan stage (its unit's blocks) without a cache:
-        the body the reference's scan runs (and ``jax.checkpoint``s)."""
+        the body the reference's scan runs (and ``jax.checkpoint``s) ->
+        (x, the unit's aux summed (f32))."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for ui, spec in enumerate(unit):
-            x, _ = _block_apply(lp[ui], x, spec, self.cfg, mode, None, pos)
-        return x
+            x, _, a = _block_apply(lp[ui], x, spec, self.cfg, mode, None,
+                                   pos)
+            aux = _add(aux, a)
+        return x, aux
 
     def embed_tokens(self, params, tokens):
         return params["embed"][tokens] * math.sqrt(self.cfg.d_model)
@@ -293,7 +326,9 @@ class LM:
         """Forward. mode: full (prefill) | decode (1 token + cache).
         stage_range selects a sub-interval of stages; hidden_in feeds
         activations at a stage boundary. Returns (logits or hidden, cache,
-        aux); in decode mode the caller's cache is updated in place.
+        aux), aux the MoE blocks' load-balance terms of the stages run,
+        summed (a 0-d f32 zero with no MoE block); in decode mode the
+        caller's cache is updated in place.
 
         Mixed precision: every f32 leaf is cast to ``dtype`` first, as the
         reference does on each call. A tree already cast with
@@ -318,10 +353,9 @@ class LM:
             h = self.embed_tokens(params, tokens).to(dtype)
 
         cache_stages = cache["stages"][lo:hi] if cache is not None else None
-        h, new_stage_caches = self._run_stages(
+        h, aux, new_stage_caches = self._run_stages(
             self.stages[lo:hi], params["stages"][lo:hi], h, mode,
             cache_stages, pos)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
         new_cache = None
         if cache is not None:
@@ -361,7 +395,7 @@ class LM:
         lp = torch.log_softmax(logits[:, :-1].to(torch.float32), -1)
         tgt = tokens[:, 1:].long()
         nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
-        return nll.mean() + aux
+        return nll.mean() + aux     # the MoE blocks' load-balance term
 
 
 # --------------------------------------------------------------------------

@@ -958,3 +958,81 @@ def test_default_test_matrix_is_one_copy_a_card(card):
     assert sel.default_test_matrix(64, 20, here) is om
     assert sel.default_test_matrix(64, 20, "cuda") is om
     assert torch.equal(om.cpu(), sel.default_test_matrix(64, 20))
+
+
+def test_moe_layer_on_the_card_matches_the_cpu_and_itself(card):
+    """One MoE layer (32 experts, top 4, 600 tokens in groups of 128, one
+    shared expert) in f32: routing, slots and drops equal to the CPU run's
+    (a near-tie at a relative gap of 1e-3 excepted), y and aux within
+    2e-3, and a second card run the same bits (no atomics)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(
+        get_config("qwen3-moe-30b-a3b").reduced(), d_model=256, d_ff=128,
+        num_experts=32, num_experts_per_tok=4, num_shared_experts=1)
+    g = torch.Generator().manual_seed(0)
+    p = L.moe_init(L.ParamInit(g, "cpu"), cfg)
+    x = torch.randn(2, 300, cfg.d_model, generator=g)
+    pc = {k: v.to(card) for k, v in p.items()}
+    y, aux = L.moe_apply(pc, x.to(card), cfg=cfg, group_size=128)
+    y2, aux2 = L.moe_apply(pc, x.to(card), cfg=cfg, group_size=128)
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    want, want_aux = L.moe_apply(p, x, cfg=cfg, group_size=128)
+
+    def route(pp, xx):
+        xn = L.rms_norm(xx, pp["norm"], cfg.norm_eps).reshape(-1,
+                                                              cfg.d_model)
+        return L.moe_route(pp, xn, cfg=cfg, group_size=128)
+
+    r, rc = route(pc, x.to(card)), route(p, x)
+    apart = (r.topi.cpu() != rc.topi)
+    for t, j in torch.nonzero(apart).tolist():
+        a, b = rc.probs[t, r.topi[t, j].item()], rc.probs[t, rc.topi[t, j]]
+        assert abs(a - b) <= 1e-3 * max(abs(a), abs(b))
+    # slots and drops differ only in a group that routed apart; y is held
+    # on the tokens routed alike, which are nearly all of them
+    group = torch.arange(rc.topi.shape[0]) // rc.group_len
+    moved = set(group[apart.any(1)].tolist())
+    slots_apart = ((r.pos.cpu() != rc.pos) | (r.keep.cpu() != rc.keep)).any(1)
+    assert set(group[slots_apart].tolist()) <= moved
+    alike = (~apart & (r.keep.cpu() == rc.keep)).all(1)
+    assert int(alike.sum()) >= 0.95 * len(alike)
+    m = len(alike)
+    assert _rel(y.cpu().reshape(-1, cfg.d_model)[:m][alike],
+                want.reshape(-1, cfg.d_model)[:m][alike]) <= TOL
+    assert abs(float(aux) - float(want_aux)) <= TOL
+
+
+def test_lean_init_and_moe_decode_on_the_card(card):
+    """``LM.init(gen, dtype=bf16)`` on the card gives the bits of the f32
+    init cast (the same per-slice draws), and a reduced qwen3-moe's prefill
+    and 6 decode steps in f32 match the CPU's from the same parameters
+    (decode batch 3: cap 1, so choices drop) within 2e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM, cast_params, tree_map
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    lm = LM(cfg)
+    lean = lm.init(torch.Generator(device=card).manual_seed(1),
+                   dtype=torch.bfloat16)
+    cast = cast_params(lm.init(torch.Generator(device=card).manual_seed(1)),
+                       torch.bfloat16)
+    for a, b in zip(tree_leaves(lean), tree_leaves(cast), strict=True):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    p_cpu = lm.init(torch.Generator().manual_seed(2))
+    p_card = tree_map(lambda t: t.to(card), p_cpu)
+    toks = torch.randint(cfg.vocab_size, (3, 40),
+                         generator=torch.Generator().manual_seed(3))
+    got, _, aux = lm.apply(p_card, toks.to(card))
+    want, _, want_aux = lm.apply(p_cpu, toks)
+    assert _rel(got.cpu(), want) <= TOL
+    assert abs(float(aux) - float(want_aux)) <= TOL
+    caches = [lm.init_cache(3, 8, dtype=torch.float32, device=d)
+              for d in (card, "cpu")]
+    with torch.no_grad():
+        for i in range(6):
+            a, caches[0], _ = lm.apply(p_card, toks[:, i:i + 1].to(card),
+                                       mode="decode", cache=caches[0])
+            b, caches[1], _ = lm.apply(p_cpu, toks[:, i:i + 1],
+                                       mode="decode", cache=caches[1])
+            assert _rel(a.cpu(), b) <= TOL

@@ -1,14 +1,21 @@
 """Parity of the port's LM serving path with the reference's, on the CPU.
 
-For each of ``llama3.2-1b``, ``qwen2-0.5b`` and ``gemma3-4b`` ``.reduced()``
-in f32, the parameters come from ``repro``'s ``LM.init`` (norm weights and
-qkv biases perturbed, so they are not all ones and zeros) and are carried
-across by ``params_from_jax``; the same numpy tokens go through both
-packages. Levels: logits within 2e-3 (f32) for ``prefill_step`` at S=32
-(llama3.2-1b also at S=2050, the chunked branch) and for each of 8
-teacher-forced decode steps on a ring cache that wraps; the stage lists,
-``count_params`` and the configs equal; ``params_to_jax(params_from_jax(t))
-== t`` bit for bit; the serve entry point runs with ``--device cpu``.
+For each of ``llama3.2-1b``, ``qwen2-0.5b``, ``gemma3-4b``,
+``qwen3-moe-30b-a3b`` (MoE FFN) and ``phi3-medium-14b`` (untied head)
+``.reduced()`` in f32, the parameters come from ``repro``'s ``LM.init``
+(norm weights and qkv biases perturbed, so they are not all ones and
+zeros) and are carried across by ``params_from_jax``; the same numpy
+tokens go through both packages. Levels: logits within 2e-3 (f32) for
+``prefill_step`` at S=32 (llama3.2-1b also at S=2050, the chunked branch)
+and for each of 8 teacher-forced decode steps on a ring cache that wraps
+(the MoE's decode batch of 3 has cap 1, so it drops choices, as the
+reference's); greedy tokens equal; ``LM.loss`` (the MoE's load-balance
+term included) within 2e-3; the stage lists, ``count_params`` (all and
+active) and the configs equal; ``params_to_jax(params_from_jax(t)) == t``
+bit for bit; ``LM.init(gen, dtype=torch.bfloat16)`` gives
+``cast_params(LM.init(gen), torch.bfloat16)`` bit for bit; the serve and
+``serve_lm`` entry points run with ``--device cpu``, and ``serve_lm``
+refuses whisper.
 """
 import dataclasses
 import os
@@ -30,12 +37,16 @@ from repro.models import layers as jL
 from repro.models.registry import count_params as jcount
 from repro.models.transformer import LM as JLM
 from repro_torch.configs import INPUT_SHAPES, get_config
+from repro_torch.launch import serve_lm
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import layers as L
 from repro_torch.models.registry import count_params
-from repro_torch.models.transformer import LM, params_from_jax, params_to_jax
+from repro_torch.models.transformer import (LM, cast_params, params_from_jax,
+                                            params_to_jax)
+from repro_torch.optim import tree_leaves
 
-ARCHS = ["llama3.2-1b", "qwen2-0.5b", "gemma3-4b"]
+ARCHS = ["llama3.2-1b", "qwen2-0.5b", "gemma3-4b", "qwen3-moe-30b-a3b",
+         "phi3-medium-14b"]
 TOL = 2e-3
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -150,6 +161,8 @@ def test_stage_list_and_count_params_match(name, reduced):
     assert count_params(cfg) == jcount(jcfg)
     assert count_params(cfg, include_embed=False) == jcount(
         jcfg, include_embed=False)
+    assert count_params(cfg, active_only=True) == jcount(jcfg,
+                                                         active_only=True)
     assert cfg.num_params() == jcfg.num_params()
 
 
@@ -162,6 +175,48 @@ def test_full_width_llama_is_the_served_model():
     assert count_params(cfg) == 1_235_814_400
     assert (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.padded_vocab) == (2048, 32, 8, 64, 8192, 128_256)
+
+
+def test_full_width_qwen3_moe_is_the_served_model():
+    """qwen3-moe-30b-a3b at full width: 48 MoE layers in one scan stage,
+    30,532,634,624 parameters of which 3,353,544,704 are active (8 of 128
+    experts a token), the padded 152,064-id vocab, an untied head."""
+    cfg = get_config("qwen3-moe-30b-a3b")
+    lm = LM(cfg)
+    assert [(s.kind, s.repeats) for s in lm.stages] == [("scan", 48)]
+    assert {s.ffn for s in lm.specs} == {"moe"}
+    assert count_params(cfg) == 30_532_634_624
+    assert count_params(cfg, active_only=True) == 3_353_544_704
+    assert (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.num_experts, cfg.num_experts_per_tok,
+            cfg.padded_vocab) == (2048, 32, 4, 128, 768, 128, 8, 152_064)
+    ffn = lm.init(None, device="meta")["stages"][0][0]["ffn"]
+    assert tuple(ffn["we_gate"].shape) == (48, 128, 2048, 768)
+
+
+def test_loss_matches_with_the_aux_term(arch):
+    """``LM.loss`` of both packages on the same tokens, in f32: for the MoE
+    the load-balance term of its two layers is in it (and is not zero)."""
+    name, jcfg, cfg, _, jparams, params = arch
+    toks = _tokens(cfg.vocab_size, (2, 24), seed=10)
+    want = jax.jit(lambda p, t: JLM(jcfg).loss(p, t))(jparams,
+                                                       jnp.asarray(toks))
+    got = LM(cfg).loss(params, torch.from_numpy(toks))
+    np.testing.assert_allclose(float(got), float(want), rtol=TOL, atol=TOL)
+    _, _, aux = LM(cfg).apply(params, torch.from_numpy(toks))
+    assert (float(aux) > 0) == cfg.is_moe
+
+
+def test_lean_init_is_the_f32_init_cast(arch):
+    """``init(gen, dtype=bf16)`` fills each stacked leaf a layer slice at a
+    time: the same bits as casting the f32 tree from the same seed."""
+    _, _, cfg, _, _, _ = arch
+    lm = LM(cfg)
+    lean = lm.init(torch.Generator().manual_seed(3), dtype=torch.bfloat16)
+    cast = cast_params(lm.init(torch.Generator().manual_seed(3)),
+                       torch.bfloat16)
+    for a, b in zip(tree_leaves(lean), tree_leaves(cast), strict=True):
+        assert a.dtype == b.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
 def test_params_round_trip_bit_for_bit(arch):
@@ -225,6 +280,24 @@ def test_rms_norm_and_rope_match(dtype):
         np.testing.assert_allclose(got.to(torch.float32).numpy(),
                                    np.asarray(want.astype(jnp.float32)),
                                    rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "phi3-medium-14b"])
+def test_serve_lm_runs_on_the_cpu(name, capsys):
+    gen = serve_lm.main(["--arch", name, "--device", "cpu", "--tokens",
+                         "5"])
+    cfg = get_config(name).reduced()
+    assert gen.shape == (4, 5) and 0 <= gen.min() and \
+        gen.max() < cfg.padded_vocab
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == f"arch={name} (reduced) batch=4 cache=64"
+    assert out[1].startswith("5 tokens x 4 reqs in ")
+    assert [ln.split(":")[0] for ln in out[2:]] == ["req0", "req1"]
+
+
+def test_serve_lm_refuses_encoder_decoder_archs():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13g"):
+        serve_lm.main(["--arch", "whisper-medium", "--device", "cpu"])
 
 
 def test_serve_runs_on_the_cpu():

@@ -3,7 +3,8 @@ reference's, on the CPU.
 
 ``make_split_lm`` for ``llama3.2-1b`` and ``qwen2-0.5b`` ``.reduced()``
 (both tie their embeddings; qwen2's is also run untied, so the ``lm_head``
-keys are held too) in f32, from ``repro``'s parameters (norm weights and
+keys are held too) and ``qwen3-moe-30b-a3b`` (MoE FFN, untied; its loss
+and upper loss carry the load-balance term) in f32, from ``repro``'s parameters (norm weights and
 qkv biases perturbed) carried across by ``params_from_jax``:
 ``split`` / ``merge`` leaf by leaf and bit for bit (the reference's keys:
 ``embed_head`` when tied, ``lm_head`` when not), ``apply_lower``,
@@ -13,7 +14,10 @@ attention and differentiate it through their recompute VJP). The tree
 optimizer (``sgd`` with momentum, Nesterov and weight decay),
 ``local_update_tree``, ``weight_average`` over trees and ``meta_train``
 over the upper tree with (M, T) targets and the reference's permutations
-against ``repro``'s. Level: 2e-3 (f32); ``remat`` changes no bit.
+against ``repro``'s. Level: 2e-3 (f32); ``remat`` changes no bit, with
+the MoE's load-balance term summed through the checkpointed layers too.
+``models.make_split_model`` (a config or an id) is ``make_split_lm``'s
+split, and the reference's.
 ``core.compose.evaluate`` scores a ``SplitLM`` by next-token accuracy as
 ``repro``'s does, within one token's share, with T unequal and equal to
 the batch size.
@@ -30,12 +34,14 @@ from repro.configs import get_config as jget_config
 from repro.core import fedavg as jfa
 from repro.core.compose import evaluate as jevaluate
 from repro.core.meta_training import meta_train as jmeta_train
+from repro.models import make_split_model as jmake_split_model
 from repro.models.transformer import make_split_lm as jmake_split_lm
 from repro.optim import sgd as jsgd
 from repro_torch.configs import get_config
 from repro_torch.core import fedavg as fa
 from repro_torch.core.compose import evaluate
 from repro_torch.core.meta_training import meta_train
+from repro_torch.models import make_split_model
 from repro_torch.models.transformer import (LM, make_split_lm,
                                             params_from_jax, tree_map)
 from repro_torch.optim import sgd, tree_leaves, value_and_grad
@@ -43,7 +49,8 @@ from test_torch_round import one_torch_thread  # noqa: F401
 
 TOL = 2e-3
 ARCHS = {"llama3.2-1b": {}, "qwen2-0.5b": {},
-         "qwen2-0.5b-untied": {"tie_embeddings": False}}
+         "qwen2-0.5b-untied": {"tie_embeddings": False},
+         "qwen3-moe-30b-a3b": {}}
 
 
 def _perturb(params, seed):
@@ -169,6 +176,52 @@ def test_remat_changes_no_bit_of_the_gradient():
         grads.append(value_and_grad(model.loss, params, (toks,))[1])
     for a, b in zip(*(tree_leaves(g) for g in grads)):
         assert torch.equal(a, b)
+
+
+def test_remat_changes_no_bit_of_the_moe_gradient():
+    """The same for a 4-layer reduced qwen3-moe: the load-balance term
+    leaves each checkpointed layer beside its hidden state."""
+    _, cfg = _configs("qwen3-moe-30b-a3b", num_layers=4)
+    model, lm = make_split_lm(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (2, 20), seed=6))
+    assert all(st.kind == "scan" for st in lm.stages)
+    out = []
+    for remat in (False, True):
+        lm.remat = remat
+        out.append(value_and_grad(model.loss, params, (toks,)))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(*(tree_leaves(g) for _, g in out)):
+        assert torch.equal(a, b)
+    assert any(bool(g.any()) for g in tree_leaves(
+        [u["ffn"]["router"] for st in out[1][1]["stages"] for u in st]))
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "phi3-medium-14b",
+                                  "llama3.2-1b"])
+def test_make_split_model_is_make_split_lm_and_the_references(name):
+    """By id at full width (the stages and split layer only: nothing is
+    drawn) and by a reduced config at split layer 1 (the split leaves,
+    bit for bit against ``make_split_lm``'s and the reference's)."""
+    model, lm = make_split_model(name)
+    jmodel, jlm = jmake_split_model(name)
+    want_model, want_lm = make_split_lm(get_config(name))
+    assert model.split_layer == want_model.split_layer == jmodel.split_layer
+    assert ([dataclasses.astuple(s) for s in lm.stages]
+            == [dataclasses.astuple(s) for s in want_lm.stages]
+            == [dataclasses.astuple(s) for s in jlm.stages])
+    jcfg, cfg = jget_config(name).reduced(), get_config(name).reduced()
+    model, lm = make_split_model(cfg, 1)
+    jmodel, jlm = jmake_split_model(jcfg, 1)
+    want_model, _ = make_split_lm(cfg, 1)
+    tree = _perturb(jlm.init(jax.random.PRNGKey(7)), seed=8)
+    params = params_from_jax(tree, cfg, lm=lm)
+    for part, want, jpart in zip(model.split(params),
+                                 want_model.split(params),
+                                 jmodel.split(tree)):
+        assert sorted(part) == sorted(want) == sorted(jpart)
+        for a, b, c in zip(_np(part), _np(want), jax.tree.leaves(jpart)):
+            assert np.array_equal(a, b) and np.array_equal(a, c)
 
 
 def test_loss_refuses_the_references_extras():
