@@ -37,14 +37,15 @@ result line:
      route's edges (S below one key tile, qwen2-0.5b's G=7 at an S that is
      no multiple of the tile, D=128 and D=256 with a window, D=96 and D=32
      that fill part of a 64-column panel, bf16 D=72 on the CUDA cores,
-     qwen3-moe's 32/4 and phi3's 40/10 heads at D=128), each case counted
+     qwen3-moe's 32/4 and phi3's 40/10 heads at D=128, MLA's D=192 in
+     bf16 and f32), each case counted
      on the route its dtype and D pick; decode at S=32768 with 40 valid
      slots, at ragged S=300, with G=1, with G=7, at D=36 (element-wise
      loads), qwen3-moe's heads at its serve shape (batch 4, 32,768 slots)
-     and phi3's at batch 4 over 4,096, with each (q, cache) dtype pair, and
-     with
-     1, 2 and many splits of S (the split count checked against the
-     plan), one many-split case run twice and compared bit for bit; the
+     and phi3's at batch 4 over 4,096, MLA's D=192 (G=1), with each (q,
+     cache) dtype pair, and with 1, 2 and many splits of S (the split
+     count checked against the plan), one many-split case run twice and
+     compared bit for bit; the
      prefill kernel's softmax statistics (lse, (B,H,S) f32) on the route
      each case takes, against the plain version's, the output unchanged
      bit for bit by asking for them, and the backward kernels (dq, dk, dv)
@@ -53,7 +54,8 @@ result line:
      bf16 and f32, S=1000 non-causal, a window of 128, MQA, qwen2-0.5b's
      G=7, gemma3's D=256 with window 1024, S below one tile, D=96, D=32,
      bf16 D=72, phi3's D=128 with a window, G=7 non-causal with a window,
-     bf16 D=96, G=64), each on the route ``bwd_route`` names (by the
+     bf16 D=96, G=64, MLA's bf16 D=192), each on the route ``bwd_route``
+     names (by the
      wrapper's count by route), three cases (two on the tensor cores, one
      on the CUDA cores) twice, bit for bit;
   3. one round of a small WRN-10-1 on the card and on the CPU from the same
@@ -166,10 +168,35 @@ result line:
      cache, launches counted; 10d, ``python -m repro_torch.launch.serve_lm
      --arch qwen3-moe-30b-a3b`` and ``--arch phi3-medium-14b`` in their own
      processes (exit 0);
+ 11. serve MLA and RWKV: 11a, deepseek-v2-236b at full width (d_model
+     5120, 128 heads, kv_lora 512, q_lora 1536, q/k heads 128 + 64, v 128,
+     160 routed experts top 6 and 2 shared, vocab 102,400 untied), depth
+     cut 60 -> 6 (the dense layer 0 and 5 MoE layers; 42.16 GB of bf16
+     weights from seed 0 made one layer slice at a time):
+     ``make_decode_step`` at batch 4 on a 32,768-slot latent cache (prompt
+     32 teacher-forced, 16 new tokens; flash_decode 6 x 47 launches at D
+     192 over the rebuilt heads), one ``make_prefill_step`` call at
+     S=32,768, batch 1 (flash_attention 6 launches, all tensor-core, D
+     192), a second call the same bits, logits finite, peak memory, the
+     dropped share, one profiled prefill call and decode step, and the
+     naive step's and the latent floor's bounds; 11b, one full-width MLA
+     layer in f32: a 256-token prefill (the CUDA-core route) and 8 decode
+     steps on a 64-slot ring that wraps, naive and absorbed, card against
+     CPU and naive against absorbed within 2e-3, a second card run the
+     same bits; 11c, rwkv6-3b at full width and depth (32 layers, d_model
+     2560, 40 heads of 64, d_ff 8960, vocab 65,536 untied; 6.18 GB of
+     bf16): ``launch.serve`` at batch 128 (prompt 32, 16 new tokens) and
+     one 32,768-token prefill at batch 1, no kernel launched, a second
+     prefill the same bits, profiles and peak memory; 11d, one full-width
+     RWKV block in f32: 8 decode steps from a zero state equal to its
+     256-token prefill at those positions, card against CPU, within 2e-3;
+     11e, ``python -m repro_torch.launch.serve_lm --arch deepseek-v2-236b``
+     and ``--arch rwkv6-3b`` in their own processes (exit 0);
   5. time each kernel beside its plain version, a library call where one
      computes the same function, and its bound (the attention kernels one
-     row a template instance: head dim 64 at phase 6's shapes and 128 at
-     phase 10a's, each held against its plain version there, with its
+     row a template instance: head dim 64 at phase 6's shapes, 128 at
+     phase 10a's and 192 at phase 11a's, each held against its plain
+     version there (D 192's prefill in chunks of 256 keys), with its
      route, the decode split count and the registers and spills per
      thread that ptxas reported). ``ms`` is the
      wrapper call's time (CUDA events around back-to-back calls, so the
@@ -204,6 +231,10 @@ H100_F32_FLOPS = 67e12           # f32 outside the tensor cores (SXM)
 H100_BF16_FLOPS = 989e12         # bf16 tensor cores, dense (SXM)
 TOL = 2e-3
 ATT_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # tests/test_kernels.py:156
+# the kernels' rows at the main path's shapes: in every block of rows,
+# ||got - want||_F / ||want||_F at most this (a limit that scales with the
+# values, where ATT_TOL's absolute part does not once they are small)
+ROW_REL_TOL = 1e-2
 
 # phase 2b: (b, s, h, kv, d, causal, window, dtype)
 FLASH_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
@@ -221,15 +252,18 @@ FLASH_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
                (1, 200, 4, 4, 32, True, 0, "bfloat16"),
                (1, 300, 4, 2, 72, True, 0, "bfloat16"),
                (1, 2048, 32, 4, 128, True, 0, "bfloat16"),
-               (1, 2048, 40, 10, 128, True, 0, "bfloat16")]
+               (1, 2048, 40, 10, 128, True, 0, "bfloat16"),
+               (1, 2048, 16, 16, 192, True, 0, "bfloat16"),
+               (1, 777, 4, 4, 192, True, 0, "float32")]
 # phase 2b, the forward's statistics and the backward: llama3.2-1b's heads
 # causal at S=1024 in both dtypes, S=1000 non-causal, a window of 128, MQA,
 # qwen2-0.5b's G=7, gemma3's D=256 with window 1024, S below one tile,
 # D=96 (f32: the CUDA-core forward), D=32, bf16 D=72 (the CUDA-core
 # forward route in bf16), phi3's D=128 with a window, G=7 non-causal with
 # a window, bf16 D=96 and G=64 (one query a row tile) on the backward's
-# tensor-core route. Each backward runs on the route bwd_route names; the
-# cases in BWD_TWICE run twice, bit for bit.
+# tensor-core route, and MLA's bf16 D=192 (the backward's CUDA-core
+# route; the forward's tensor-core one). Each backward runs on the route
+# bwd_route names; the cases in BWD_TWICE run twice, bit for bit.
 BWD_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
              (1, 1024, 32, 8, 64, True, 0, "float32"),
              (2, 1000, 8, 2, 64, False, 0, "float32"),
@@ -244,7 +278,8 @@ BWD_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
              (1, 1500, 8, 2, 128, True, 256, "bfloat16"),
              (2, 777, 14, 2, 64, False, 200, "bfloat16"),
              (1, 300, 4, 2, 96, True, 0, "bfloat16"),
-             (1, 130, 64, 1, 64, True, 0, "bfloat16")]
+             (1, 130, 64, 1, 64, True, 0, "bfloat16"),
+             (1, 600, 4, 4, 192, True, 0, "bfloat16")]
 BWD_TWICE = (0, 1, 12)
 # (b, s, h, kv, d, valid slots, q dtype, cache dtype, splits): splits 1 and
 # 2 are fixed by the shapes; 0 means many (more than 8)
@@ -262,6 +297,8 @@ DECODE_CASES = [(2, 32768, 32, 8, 64, 40, "bfloat16", "bfloat16", None),
                 (2, 300, 8, 2, 36, 200, "bfloat16", "bfloat16", None),
                 (4, 32768, 32, 4, 128, 47, "bfloat16", "bfloat16", None),
                 (4, 4096, 40, 10, 128, 2100, "bfloat16", "bfloat16",
+                 None),
+                (4, 4096, 16, 16, 192, 2100, "bfloat16", "bfloat16",
                  None)]
 # phase 6: INPUT_SHAPES' decode_32k (batch cut 128 -> 32: 128 x 32768 x
 # 16 layers of bf16 K/V would be 137 GB) and prefill_32k (batch cut
@@ -284,6 +321,24 @@ MOE_PREFILL_S = 32768
 MOE_LAYER_TOKENS = 1024
 PHI3_LAYERS, PHI3_PREFILL_S, PHI3_BATCH, PHI3_CACHE, PHI3_STEPS = \
     4, 2048, 4, 4096, 16
+# phase 11a: deepseek-v2-236b at full width, depth cut 60 -> 6 (the dense
+# layer 0 and 5 MoE layers: 42.16 GB of bf16 weights), decode_32k's
+# 32,768-slot latent cache at batch 4 (cut from 128) and prefill_32k's
+# 32,768 tokens at batch 1 (cut from 32); 11b one full-width MLA layer;
+# 11c rwkv6-3b at full width and depth, decode_32k's full batch of 128
+# and prefill_32k's length at batch 1; 11d one full-width RWKV block.
+# The prefill kernel's D 192 row is held against its plain version in
+# chunks of MLA_PLAIN_CHUNK keys (the default 1,024 would hold a 17.2 GB
+# f32 score block at H 128)
+MLA_ARCH, MLA_LAYERS = "deepseek-v2-236b", 6
+MLA_BATCH, MLA_CACHE, MLA_PROMPT, MLA_TOKENS = 4, 32768, 32, 16
+MLA_PREFILL_S = 32768
+MLA_LAYER_TOKENS, MLA_RING, MLA_STEPS = 256, 64, 8
+MLA_PLAIN_CHUNK = 256
+RWKV_ARCH = "rwkv6-3b"
+RWKV_BATCH, RWKV_CACHE, RWKV_PROMPT, RWKV_TOKENS = 128, 32768, 32, 16
+RWKV_PREFILL_S = 32768
+RWKV_BLOCK_TOKENS, RWKV_BLOCK_STEPS = 256, 8
 
 
 def fail(msg: str) -> None:
@@ -1078,6 +1133,11 @@ def main() -> None:
     moe_serving, moe_launches = run_moe_serving_phase(dev, rel_err)
     print(json.dumps({"moe_serving": moe_serving}))
 
+    # ---- 11. serving deepseek-v2-236b (MLA) and rwkv6-3b ---------------
+    # (its own function: the 42 GB model is freed on return)
+    mla_rwkv, mla_launches = run_mla_rwkv_phase(dev, rel_err)
+    print(json.dumps({"mla_rwkv_serving": mla_rwkv}))
+
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
         """Mean ms of one call over ``iters`` back-to-back calls (CUDA
@@ -1244,14 +1304,40 @@ def main() -> None:
         return {"device_ms": sum(v["device_ms"] for v in per.values()),
                 "device_ms_by_launch": per}
 
+    def rel_check(k_name, got, want, dim, block, what):
+        """The error against the values' own size, a block of ``block``
+        rows along ``dim`` at a time: the worst block's
+        ||got - want||_F / ||want||_F (held to ROW_REL_TOL) and max |got -
+        want| over its RMS of ``want``, and the whole tensor's ratio."""
+        num = den = worst_rel = worst_max = 0.0
+        for g, w in zip(got.split(block, dim), want.split(block, dim)):
+            w = w.float()
+            e = g.float() - w
+            en, wn = float(e.square().sum()), float(w.square().sum())
+            num, den = num + en, den + wn
+            worst_rel = max(worst_rel, math.sqrt(en / wn))
+            worst_max = max(worst_max, float(e.abs().max())
+                            / math.sqrt(wn / w.numel()))
+        check(worst_rel <= ROW_REL_TOL,
+              f"{k_name} {what}: a block of {block} rows is {worst_rel} "
+              f"off relative to its values, beyond {ROW_REL_TOL}")
+        return {"rel_err": math.sqrt(num / den),
+                "worst_block_rel_err": worst_rel,
+                "worst_block_max_err_over_rms": worst_max,
+                "rel_err_block_rows": block, "rel_err_limit": ROW_REL_TOL}
+
     def prefill_row(name, s_, h_, kv_, d_, by_phase, instance, profile,
-                    what):
+                    what, plain_chunk=1024):
         qa, ka, va = (drandn(1, s_, h_, d_), drandn(1, s_, kv_, d_),
                       drandn(1, s_, kv_, d_))
-        full_err = att_check(
-            "flash_attention", ops.flash_attention(qa, ka, va),
-            L._sdpa_chunked_raw(qa, ka, va, causal=True, window=0),
-            "bfloat16", what)
+
+        def plain():
+            return L._sdpa_chunked_raw(qa, ka, va, causal=True, window=0,
+                                       chunk=plain_chunk)
+        got, want = ops.flash_attention(qa, ka, va), plain()
+        full_err = att_check("flash_attention", got, want, "bfloat16", what)
+        rel = rel_check("flash_attention", got, want, 1, 1024, what)
+        del got, want
         a_bytes = 2 * (2 * qa.numel() + ka.numel() + va.numel())
         a_flops = 2 * s_ ** 2 * h_ * d_
         row = {
@@ -1267,11 +1353,11 @@ def main() -> None:
             "kernel_route": prefill_route(qa.dtype, d_),
             "instance": instance,
             "ptxas": ptxas("flash_attention", instance),
-            "plain_ms": cuda_ms(lambda: L._sdpa_chunked_raw(
-                qa, ka, va, causal=True, window=0), 2, 1),
-            "plain": "layers._sdpa_chunked_raw (flash_attention_ref's S x S "
-                     "scores would take 137 GB at S=32768)",
-            "max_abs_err_vs_plain_at_this_shape": full_err,
+            "plain_ms": cuda_ms(plain, 2, 1),
+            "plain": f"layers._sdpa_chunked_raw in chunks of {plain_chunk} "
+                     f"keys (flash_attention_ref's S x S scores would take "
+                     f"{4 * h_ * s_ * s_ / 1e9:.0f} GB at S={s_})",
+            "max_abs_err_vs_plain_at_this_shape": full_err, **rel,
             **dict(zip(("bound_ms", "bound_by"),
                        bound(a_bytes, a_flops, H100_BF16_FLOPS))),
             "library_ms": cuda_ms(lambda: sdpa(
@@ -1288,10 +1374,12 @@ def main() -> None:
         kcd, vcd = drandn(b_, s_, kv_, d_), drandn(b_, s_, kv_, d_)
         vmask = (torch.arange(s_, device=dev) < n_valid).expand(
             b_, s_).contiguous()
-        dec_err = att_check(
-            "flash_decode", ops.flash_decode(qd, kcd, vcd, vmask),
-            ref.flash_decode_ref(qd, kcd, vcd, vmask), "bfloat16", what)
+        got = ops.flash_decode(qd, kcd, vcd, vmask)
         splits = ops.flash_decode.last_splits
+        want = ref.flash_decode_ref(qd, kcd, vcd, vmask)
+        dec_err = att_check("flash_decode", got, want, "bfloat16", what)
+        rel = rel_check("flash_decode", got, want, 0, 1, what)
+        del got, want
         d_bytes = 2 * (2 * qd.numel() + kcd.numel() + vcd.numel()) \
             + vmask.numel()
         d_flops = 4 * b_ * h_ * s_ * d_
@@ -1312,7 +1400,7 @@ def main() -> None:
                       for g, pattern in instances.items()},
             "plain_ms": cuda_ms(
                 lambda: ref.flash_decode_ref(qd, kcd, vcd, vmask), 3, 1),
-            "max_abs_err_vs_plain_at_this_shape": dec_err,
+            "max_abs_err_vs_plain_at_this_shape": dec_err, **rel,
             **dict(zip(("bound_ms", "bound_by"),
                        bound(d_bytes, d_flops, H100_BF16_FLOPS))),
             "library_ms": cuda_ms(lambda: sdpa(
@@ -1352,6 +1440,25 @@ def main() -> None:
          "g4": r"flash_decode_kernelI13__nv_bfloat16S\d_Li128ELi4E"},
         moe_serving["10a"]["profiled_decode_step"],
         "at phase 10a's decode shape"))
+    # MLA's D 192 (deepseek-v2-236b: 128 query heads over 128 rebuilt kv
+    # heads, values padded to 192) at phase 11a's shapes: the prefill
+    # kernel's <192, 64, 2> instance and the decode kernel's DMAX 256,
+    # GMAX 2 one
+    mla_cfg = get_config(MLA_ARCH)
+    mla_d = mla_cfg.qk_nope_head_dim + mla_cfg.qk_rope_head_dim
+    rows.append(prefill_row(
+        "flash_attention_d192", MLA_PREFILL_S, mla_cfg.num_heads,
+        mla_cfg.num_heads, mla_d, {"11a": mla_launches["11a_prefill"]},
+        r"flash_fwd_wgmma_kernelILi192ELi64ELi2E",
+        mla_rwkv["11a"]["profiled_prefill_call"],
+        "at phase 11a's prefill shape", plain_chunk=MLA_PLAIN_CHUNK))
+    rows.append(decode_row(
+        "flash_decode_d192", MLA_BATCH, MLA_CACHE,
+        MLA_PROMPT - 1 + MLA_TOKENS, mla_cfg.num_heads, mla_cfg.num_heads,
+        mla_d, {"11a": mla_launches["11a_decode"]},
+        {"g2": r"flash_decode_kernelI13__nv_bfloat16S\d_Li256ELi2E"},
+        mla_rwkv["11a"]["profiled_decode_step"],
+        "at phase 11a's decode shape"))
     # the backward kernels, timed by phase 9 at one training layer's shape
     rows.append({**bwd_row, "max_abs_err": errs["flash_attention_bwd"]})
     ops.reset_launch_counts()          # timing launches are not the path's
@@ -2613,6 +2720,400 @@ def run_moe_serving_phase(dev, rel_err):
             f"exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
             f"{proc.stderr[-2000:]}")
         out["10d"][arch] = {"exit": proc.returncode,
+                            "wall_s": monotonic() - t0,
+                            "stdout": proc.stdout.strip().splitlines()}
+    out["wall_s"] = monotonic() - t_phase
+    return out, launches
+
+
+def peak_and_reset():
+    """The peak device memory since the last reset, then a new reset."""
+    import torch
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def run_mla_rwkv_phase(dev, rel_err):
+    """Phase 11: serving deepseek-v2-236b (MLA) and rwkv6-3b. 11a:
+    deepseek at full width, depth cut to ``MLA_LAYERS`` (bf16 weights from
+    seed 0 made one layer slice at a time): ``make_decode_step`` at
+    decode_32k's latent cache (a teacher-forced prompt, then greedy
+    tokens), ``make_prefill_step`` at prefill_32k's length (``MLA_*``),
+    launches reckoned from the shapes, a second prefill call bit for bit,
+    a profiled prefill call and decode step, the dropped share, peak
+    memory and the work's bounds; 11b: one full-width MLA layer in f32 on
+    the card against the CPU, naive against absorbed, and against itself;
+    11c: rwkv6-3b at full width and depth, ``launch.serve`` at decode_32k's
+    full batch and one prefill at prefill_32k's length (``RWKV_*``), no
+    attention launch, a second prefill call bit for bit, profiles; 11d:
+    one full-width RWKV block in f32, its decode steps against its own
+    prefill and the card against the CPU; 11e: ``launch.serve_lm`` in its
+    own process for both archs. Returns (the phase's numbers, the
+    attention kernels' launches in 11a by part)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import count_params
+    from repro_torch.obs.timing import monotonic
+
+    out, launches = {}, {}
+    t_phase = monotonic()
+    peak_and_reset()
+
+    # ---- 11a: deepseek-v2-236b at full width, depth cut ----
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS)
+    nl = cfg.num_layers
+    prefill, lm = make_prefill_step(cfg)                  # bf16
+    decode_step, _ = make_decode_step(cfg)
+    check([(st.kind, st.repeats) for st in lm.stages]
+          == [("unroll", 1), ("scan", nl - 1)],
+          f"11a: stages {lm.stages}")
+    t0 = monotonic()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), dev,
+                     dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = monotonic() - t0
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MLA_BATCH, MLA_PROMPT), np.int32)).to(dev)
+    cache = lm.init_cache(MLA_BATCH, MLA_CACHE, device=dev)
+    weights_mem = peak_and_reset()
+    # the prompt teacher-forced through decode steps, then greedy tokens
+    # (as launch.serve)
+    ops.reset_launch_counts()
+    with moe_pairs() as dcounts:
+        t0 = monotonic()
+        tok = prompt[:, :1]
+        for i in range(1, MLA_PROMPT):
+            _, cache = decode_step(params, cache, tok)
+            tok = prompt[:, i:i + 1]
+        torch.cuda.synchronize()
+        prompt_s = monotonic() - t0
+        gen_toks = []
+        t0 = monotonic()
+        for _ in range(MLA_TOKENS):
+            tok, cache = decode_step(params, cache, tok)
+            gen_toks.append(tok)
+        torch.cuda.synchronize()
+        decode_s = monotonic() - t0
+    decode_launches = ops.launch_counts()
+    decode_mem = peak_and_reset()
+    steps = MLA_PROMPT - 1 + MLA_TOKENS
+    gen_toks = torch.cat(gen_toks, 1)
+    check(decode_launches["flash_decode"] == nl * steps
+          and decode_launches["flash_attention"] == 0,
+          f"11a: decode launches {decode_launches}, want {nl} x {steps} "
+          f"decodes")
+    check(int(gen_toks.min()) >= 0
+          and int(gen_toks.max()) < cfg.padded_vocab,
+          "11a: decoded token ids out of range")
+    check(torch.equal(cache["pos"].cpu(), torch.full(
+        (MLA_BATCH,), steps, dtype=torch.int32)), "11a: cache positions")
+    launches["11a_decode"] = decode_launches["flash_decode"]
+    decode_profile = device_profile(
+        lambda: decode_step(params, cache, tok))
+    del cache
+    peak_and_reset()
+
+    ptoks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, MLA_PREFILL_S), np.int32)).to(dev)
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    plogits = prefill(params, {"tokens": ptoks})
+    torch.cuda.synchronize()
+    prefill_s = monotonic() - t0
+    prefill_launches = ops.launch_counts()
+    prefill_routes = dict(ops.flash_attention.launches_by_route)
+    prefill_mem = peak_and_reset()
+    check(prefill_launches["flash_attention"] == nl
+          and prefill_routes["tensor_core"] == nl
+          and prefill_launches["flash_decode"] == 0,
+          f"11a: prefill launches {prefill_launches}, by route "
+          f"{prefill_routes}")
+    check(tuple(plogits.shape) == (1, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(plogits).all()),
+          "11a: prefill logits not finite or of the wrong shape")
+    launches["11a_prefill"] = prefill_launches["flash_attention"]
+    with moe_pairs() as pcounts:
+        again = prefill(params, {"tokens": ptoks})
+    check(torch.equal(plogits, again),
+          "11a: two prefill calls on the same tokens differ")
+    del again
+    prefill_profile = device_profile(
+        lambda: prefill(params, {"tokens": ptoks}))
+    del plogits, params
+    peak_and_reset()
+    # the least time of the work, from the shapes (bf16 at 989 TFLOP/s,
+    # 3.35 TB/s). Decode: the naive step rebuilds every head's keys and
+    # values from the whole latent cache (2 B S r H (dn + dv) FLOPs a
+    # layer) and reads every weight (the capacity dispatch runs every
+    # expert); an absorbed step's floor is the weights and the latent
+    # cache read once. Prefill: its products.
+    h_, r_, qr_ = cfg.num_heads, cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    d_, e_, f_ = cfg.d_model, cfg.num_experts, cfg.d_ff
+    weight_bytes = 2 * count_params(cfg)
+    latent_bytes = 2 * MLA_BATCH * MLA_CACHE * nl * (r_ + dr)
+    rebuild_flops = 2 * MLA_BATCH * MLA_CACHE * r_ * h_ * (dn + dv)
+    s_ = MLA_PREFILL_S
+    groups = max(s_ // 512, 1)
+    cap = max(int((s_ // groups) * cfg.num_experts_per_tok / e_ * 1.25), 1)
+    attn_flops = 2 * s_ * s_ * h_ * (dn + dr)    # causal: half of 4 S^2 H D
+    proj_flops = 2 * s_ * (d_ * qr_ + qr_ * h_ * (dn + dr) + d_ * r_
+                           + r_ * h_ * (dn + dv) + d_ * dr + h_ * dv * d_)
+    fs = f_ * cfg.num_shared_experts
+    moe_flops = 6 * e_ * groups * cap * d_ * f_ + 6 * s_ * d_ * fs \
+        + 2 * s_ * d_ * e_
+    dense_flops = 6 * s_ * d_ * f_
+    prefill_flops = nl * (attn_flops + proj_flops) + (nl - 1) * moe_flops \
+        + dense_flops + 2 * d_ * cfg.padded_vocab
+    naive_ms = bound(weight_bytes, nl * rebuild_flops, H100_BF16_FLOPS)
+    out["11a"] = {
+        "model": cfg.name, "layers": nl, "params": count_params(cfg),
+        "active_params": count_params(cfg, active_only=True),
+        "weight_bytes": weight_bytes, "init_s": init_s,
+        "weights_and_cache_memory_allocated": weights_mem,
+        "decode": {"batch": MLA_BATCH, "cache_len": MLA_CACHE,
+                   "prompt_len": MLA_PROMPT, "new_tokens": MLA_TOKENS,
+                   "prompt_fed_s": prompt_s, "decode_s": decode_s,
+                   "decode_ms_per_step": decode_s / MLA_TOKENS * 1e3,
+                   "tok_per_s": MLA_BATCH * MLA_TOKENS / decode_s,
+                   "launches": decode_launches,
+                   "flash_decode_launches_reckoned": nl * steps,
+                   "max_memory_allocated": decode_mem,
+                   "latent_cache_bytes": latent_bytes,
+                   "rebuild_flops_a_layer": rebuild_flops,
+                   "naive_step_bound_ms": naive_ms[0],
+                   "naive_step_bound_by": naive_ms[1],
+                   "latent_floor_ms": (weight_bytes + latent_bytes)
+                   / H100_BYTES_PER_S * 1e3},
+        "prefill": {"batch": 1, "seq_len": MLA_PREFILL_S,
+                    "prefill_s": prefill_s,
+                    "tok_per_s": MLA_PREFILL_S / prefill_s,
+                    "launches": prefill_launches,
+                    "flash_attention_launches_reckoned": nl,
+                    "flash_attention_launches_by_route": prefill_routes,
+                    "max_memory_allocated": prefill_mem,
+                    "second_call_bit_identical": True,
+                    "moe_groups": groups, "moe_capacity": cap,
+                    "bound_ms": bound(weight_bytes, prefill_flops,
+                                      H100_BF16_FLOPS)[0],
+                    "attention_flops_a_layer": attn_flops,
+                    "attention_bound_ms_a_layer":
+                    attn_flops / H100_BF16_FLOPS * 1e3},
+        "dropped_share": {
+            "prefill": dropped_share(pcounts),
+            "decode": dropped_share(dcounts),
+            "prefill_pairs": pcounts["routed"],
+            "decode_pairs": dcounts["routed"]},
+        "profiled_prefill_call": prefill_profile,
+        "profiled_decode_step": decode_profile}
+
+    # ---- 11b: one full-width MLA layer in f32, card against CPU ----
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = L.mla_init(L.ParamInit(gen, dev), cfg)
+    for k in [k for k in p if k.endswith("norm")]:
+        p[k] = 1.0 + 0.1 * torch.randn(p[k].shape, generator=gen,
+                                       device=dev)
+    x = torch.randn(2, MLA_LAYER_TOKENS, d_, generator=gen, device=dev)
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+    pos0 = torch.tensor([0, MLA_RING - 4], dtype=torch.int32)
+
+    def run_layer(pp, xx, where):
+        """Prefill, then MLA_STEPS decode steps (the second row's ring
+        wraps) in the naive and the absorbed form."""
+        with torch.no_grad():
+            y, _ = L.mla_apply(pp, xx, cfg=cfg, mode="full")
+            dec = {}
+            for absorbed in (False, True):
+                c = L.mla_cache_init(cfg, 2, MLA_RING, torch.float32, where)
+                dec[absorbed] = torch.cat([L.mla_apply(
+                    pp, xx[:, i:i + 1], cfg=cfg, mode="decode", cache=c,
+                    pos=(pos0 + i).to(where), absorbed=absorbed)[0]
+                    for i in range(MLA_STEPS)], 1)
+        return y, dec[False], dec[True]
+
+    ops.reset_launch_counts()
+    card = run_layer(p, x, dev)
+    layer_launches = ops.launch_counts()
+    layer_routes = dict(ops.flash_attention.launches_by_route)
+    check(layer_routes["cuda_core"] == 1
+          and layer_launches["flash_decode"] == MLA_STEPS,
+          f"11b: launches {layer_launches}, by route {layer_routes}")
+    again = run_layer(p, x, dev)
+    check(all(torch.equal(a, b) for a, b in zip(card, again)),
+          "11b: two card runs of one MLA layer differ")
+    cpu = run_layer(p_cpu, x.cpu(), "cpu")
+    errs_b = {nm: rel_err(a.cpu(), b) for nm, a, b in zip(
+        ("prefill", "naive_decode", "absorbed_decode"), card, cpu)}
+    errs_b["naive_vs_absorbed_on_the_card"] = rel_err(card[1], card[2])
+    check(all(v <= TOL for v in errs_b.values()),
+          f"11b: relative errors {errs_b} beyond {TOL}")
+    out["11b"] = {"tokens": MLA_LAYER_TOKENS, "dtype": "float32",
+                  "ring": MLA_RING, "decode_steps": MLA_STEPS,
+                  "launches": layer_launches,
+                  "flash_attention_launches_by_route": layer_routes,
+                  "max_rel_err": errs_b, "card_repeat_bit_identical": True}
+    del p, p_cpu, x, card, again, cpu
+    peak_and_reset()
+
+    # ---- 11c: rwkv6-3b at full width and depth ----
+    rcfg = get_config(RWKV_ARCH)
+    ops.reset_launch_counts()
+    served = serve.main(["--arch", RWKV_ARCH, "--batch", str(RWKV_BATCH),
+                         "--prompt-len", str(RWKV_PROMPT), "--cache-len",
+                         str(RWKV_CACHE), "--tokens", str(RWKV_TOKENS)])
+    serve_launches = ops.launch_counts()
+    check(not any(serve_launches.values()),
+          f"11c: serve launched kernels {serve_launches}")
+    check(served.tokens.shape == (RWKV_BATCH, RWKV_TOKENS)
+          and int(served.tokens.min()) >= 0
+          and int(served.tokens.max()) < rcfg.padded_vocab,
+          f"11c: served tokens {served.tokens.shape}")
+    peak_and_reset()
+    prefill, lm = make_prefill_step(rcfg)
+    decode_step, _ = make_decode_step(rcfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), dev,
+                     dtype=torch.bfloat16)
+    ptoks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, rcfg.vocab_size, (1, RWKV_PREFILL_S), np.int32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    plogits = prefill(params, {"tokens": ptoks})
+    torch.cuda.synchronize()
+    r_prefill_s = monotonic() - t0
+    r_prefill_launches = ops.launch_counts()
+    r_prefill_mem = peak_and_reset()
+    check(not any(r_prefill_launches.values())
+          and tuple(plogits.shape) == (1, 1, rcfg.padded_vocab)
+          and bool(torch.isfinite(plogits).all()),
+          f"11c: prefill launches {r_prefill_launches}, logits "
+          f"{tuple(plogits.shape)}")
+    again = prefill(params, {"tokens": ptoks})
+    check(torch.equal(plogits, again),
+          "11c: two prefill calls on the same tokens differ")
+    del again
+    r_prefill_profile = device_profile(
+        lambda: prefill(params, {"tokens": ptoks}))
+    cache = lm.init_cache(RWKV_BATCH, RWKV_CACHE, device=dev)
+    dtoks = ptoks[0, :RWKV_BATCH].reshape(RWKV_BATCH, 1)
+    for _ in range(2):
+        dtoks, cache = decode_step(params, cache, dtoks)
+    r_decode_profile = device_profile(
+        lambda: decode_step(params, cache, dtoks))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in (cache["stages"][0][0]["mixer"]["state"],
+                                cache["stages"][0][0]["mixer"]["x_prev"],
+                                cache["stages"][0][0]["ffn_x_prev"]))
+    r_weight_bytes = 2 * count_params(rcfg)
+    out["11c"] = {
+        "model": rcfg.name, "layers": rcfg.num_layers,
+        "params": count_params(rcfg), "weight_bytes": r_weight_bytes,
+        "serve": {"batch": RWKV_BATCH, "cache_len_ignored": RWKV_CACHE,
+                  "prompt_len": RWKV_PROMPT, "new_tokens": RWKV_TOKENS,
+                  "prompt_fed_s": served.prompt_s,
+                  "decode_s": served.decode_s,
+                  "decode_ms_per_step": served.decode_s / RWKV_TOKENS * 1e3,
+                  "tok_per_s": served.tok_per_s,
+                  "launches": serve_launches,
+                  "max_memory_allocated": served.peak_bytes,
+                  "state_bytes": state_bytes,
+                  # a step reads every weight and reads and writes the
+                  # state once
+                  "decode_step_bound_ms": (r_weight_bytes + 2 * state_bytes)
+                  / H100_BYTES_PER_S * 1e3},
+        "prefill": {"batch": 1, "seq_len": RWKV_PREFILL_S,
+                    "prefill_s": r_prefill_s,
+                    "tok_per_s": RWKV_PREFILL_S / r_prefill_s,
+                    "launches": r_prefill_launches,
+                    "max_memory_allocated": r_prefill_mem,
+                    "second_call_bit_identical": True},
+        "profiled_prefill_call": r_prefill_profile,
+        "profiled_decode_step": r_decode_profile}
+    del params, cache, plogits
+    peak_and_reset()
+
+    # ---- 11d: one full-width RWKV block in f32, card against CPU ----
+    gen = torch.Generator(device=dev).manual_seed(6)
+    init = L.ParamInit(gen, dev)
+    tm, cm = L.rwkv_init(init, rcfg), L.rwkv_ffn_init(init, rcfg)
+    hd2 = (rcfg.num_heads, rcfg.head_dim)
+    tm["bonus"] = 0.5 * torch.randn(hd2, generator=gen, device=dev)
+    tm["decay_bias"] = tm["decay_bias"] + torch.randn(
+        tm["decay_bias"].shape, generator=gen, device=dev)
+    for pp in (tm, cm):
+        for k in pp:
+            if k.startswith("mu_"):
+                pp[k] = pp[k] + 0.2 * torch.randn(pp[k].shape, generator=gen,
+                                                  device=dev)
+    x = torch.randn(1, RWKV_BLOCK_TOKENS, rcfg.d_model, generator=gen,
+                    device=dev)
+
+    def run_block(tm_, cm_, xx, where):
+        """The block's prefill, and its first RWKV_BLOCK_STEPS tokens fed
+        one at a time through decode from a zero state."""
+        with torch.no_grad():
+            y, _ = L.rwkv_apply(tm_, xx, cfg=rcfg, mode="full")
+            h = xx + y
+            full = h + L.rwkv_ffn_apply(cm_, h, cfg=rcfg)[0]
+            c = L.rwkv_cache_init(rcfg, 1, device=where)
+            fx = torch.zeros(1, rcfg.d_model, device=where)
+            dec = []
+            for i in range(RWKV_BLOCK_STEPS):
+                y, c = L.rwkv_apply(tm_, xx[:, i:i + 1], cfg=rcfg,
+                                    mode="decode", cache=c)
+                h = xx[:, i:i + 1] + y
+                y, last = L.rwkv_ffn_apply(cm_, h, cfg=rcfg, x_prev=fx)
+                fx.copy_(last)
+                dec.append(h + y)
+        return full, torch.cat(dec, 1)
+
+    ops.reset_launch_counts()
+    card = run_block(tm, cm, x, dev)
+    block_launches = ops.launch_counts()
+    cpu = run_block({k: v.cpu() for k, v in tm.items()},
+                    {k: v.cpu() for k, v in cm.items()}, x.cpu(), "cpu")
+    errs_d = {
+        "decode_vs_prefill_on_the_card": rel_err(
+            card[1], card[0][:, :RWKV_BLOCK_STEPS]),
+        "decode_vs_prefill_on_the_cpu": rel_err(
+            cpu[1], cpu[0][:, :RWKV_BLOCK_STEPS]),
+        "prefill_card_vs_cpu": rel_err(card[0].cpu(), cpu[0]),
+        "decode_card_vs_cpu": rel_err(card[1].cpu(), cpu[1])}
+    check(all(v <= TOL for v in errs_d.values())
+          and not any(block_launches.values()),
+          f"11d: relative errors {errs_d} beyond {TOL}, launches "
+          f"{block_launches}")
+    out["11d"] = {"tokens": RWKV_BLOCK_TOKENS, "dtype": "float32",
+                  "decode_steps": RWKV_BLOCK_STEPS, "max_rel_err": errs_d}
+    del tm, cm, x, card, cpu
+    peak_and_reset()
+    ops.reset_launch_counts()
+
+    # ---- 11e: serve_lm in its own process, for both archs ----
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out["11e"] = {}
+    for arch in (MLA_ARCH, RWKV_ARCH):
+        t0 = monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
+             arch], cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env=env)
+        check(proc.returncode == 0 and proc.stdout.startswith(
+            f"arch={arch} (reduced)"), f"11e: serve_lm --arch {arch} "
+            f"exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+            f"{proc.stderr[-2000:]}")
+        out["11e"][arch] = {"exit": proc.returncode,
                             "wall_s": monotonic() - t0,
                             "stdout": proc.stdout.strip().splitlines()}
     out["wall_s"] = monotonic() - t_phase

@@ -1,9 +1,11 @@
 """Configs of the port: the paper's WRN, the FL knobs, the LM training
 step's knobs and the LM architectures whose path is ported.
 
-``get_config`` knows the GQA decoders that the LM serving path runs: the
-dense ``llama3.2-1b``, ``qwen2-0.5b``, ``gemma3-4b`` and ``phi3-medium-14b``,
-and the mixture-of-experts ``qwen3-moe-30b-a3b`` (copies of ``repro``'s).
+``get_config`` knows the decoders that the LM serving path runs (copies of
+``repro``'s): the dense GQA ``llama3.2-1b``, ``qwen2-0.5b``, ``gemma3-4b``
+and ``phi3-medium-14b``, the mixture-of-experts ``qwen3-moe-30b-a3b``,
+``deepseek-v2-236b`` (MLA attention and an MoE with shared experts) and
+the attention-free ``rwkv6-3b``.
 Every other architecture id of ``repro.configs.ARCHS`` raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item that ports
 its layers; an id ``repro`` does not know either raises ``KeyError``.
@@ -18,18 +20,18 @@ from repro_torch.configs.wrn_cifar import CONFIG as WRN_CONFIG, WRNConfig
 
 # arch-id -> module name (the ported ones)
 ARCHS = {
+    "deepseek-v2-236b":  "deepseek_v2_236b",
     "gemma3-4b":         "gemma3_4b",
     "llama3.2-1b":       "llama3_2_1b",
     "phi3-medium-14b":   "phi3_medium_14b",
     "qwen2-0.5b":        "qwen2_0_5b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "rwkv6-3b":          "rwkv6_3b",
 }
 
 # the rest of repro's ARCHS -> what they wait for (ROADMAP.md Queue 1)
 NOT_PORTED = {
-    "deepseek-v2-236b":     "Queue 1 item 13c (MLA attention)",
     "jamba-1.5-large-398b": "Queue 1 item 13e (Mamba mixer)",
-    "rwkv6-3b":             "Queue 1 item 13f (RWKV time and channel mix)",
     "whisper-medium":       "Queue 1 item 13g (encoder and cross-attention)",
     "internvl2-26b":        "Queue 1 item 13g (vision-prefix embeddings)",
 }

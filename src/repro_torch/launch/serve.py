@@ -11,7 +11,8 @@ bf16 one layer slice at a time (``LM.init(dtype=torch.bfloat16)``: the
 f32 tree is never held, so qwen3-moe-30b-a3b's 61 GB of bf16 weights fit
 one 80 GB card at full width); the steps compute in bf16 as the
 reference's do. On a card the last line before ``serve: done`` gives the
-peak device memory of the run.
+peak device memory of the run. An RWKV model's decode state has a fixed
+size: ``--cache-len`` changes nothing for it, as in the reference.
 """
 from __future__ import annotations
 

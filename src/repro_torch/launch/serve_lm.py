@@ -1,10 +1,13 @@
 """Batched-request serving example: the port's twin of
 ``examples/serve_lm.py``. The reduced config of ``--arch`` in f32 decodes
 greedily from one random token per request with a ring-buffer KV cache
-(sliding-window layers hold O(window) state); the first step is a warm-up
-outside the timed loop.
+(sliding-window layers hold O(window) state; MLA's ring holds the latent;
+RWKV holds a constant-size recurrent state, whatever ``--cache-len``
+says); the first step is a warm-up outside the timed loop.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch gemma3-4b --tokens 24 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch deepseek-v2-236b [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch rwkv6-3b [--device cpu]
 
 Runs on the CUDA device unless ``--device cpu`` is given (and fails if
 there is none). Encoder-decoder architectures (whisper) are refused with

@@ -1,6 +1,7 @@
-"""Layers of the GQA decoders: the port of ``repro.models.layers`` for the
-LM path (norms, RoPE, the attention cores, the GQA attention block, the
-dense FFN and the capacity-dropped top-k MoE FFN).
+"""Layers of the decoders: the port of ``repro.models.layers`` for the LM
+path (norms, RoPE, the attention cores, the GQA attention block, MLA
+attention, the dense FFN, the capacity-dropped top-k MoE FFN and RWKV6's
+time and channel mix).
 
 Conventions, as in the reference:
   * params are plain dicts of tensors; a scan stage stacks each leaf along
@@ -27,8 +28,20 @@ The MoE (``moe_apply``) is plain torch ops on either device, as the
 reference's einsums: index copies for dispatch and combine, batched GEMMs
 for the experts; its ``moe.*`` profiler ranges name its parts.
 
-MLA, Mamba, RWKV and cross-attention are not ported yet (``ROADMAP.md``
-Queue 1).
+MLA (``mla_apply``, deepseek-v2) keeps a latent cache of ``c_kv`` and the
+shared rotary key. Prefill and the default (naive) decode rebuild per-head
+keys of width dn + dr and values padded to that width, and run the same
+attention cores as ``attn_apply``: on a CUDA tensor the prefill and decode
+kernels, on a CPU tensor their plain versions. The absorbed decode
+attends in the latent space with plain torch einsums, as the reference.
+
+RWKV6 (``rwkv_apply``, ``rwkv_ffn_apply``) is plain torch on either
+device, as the reference's jnp scan: the chunked WKV in f32 for prefill,
+the recurrence for decode. Its decode state is replaced every step; the
+new values are copied into the caller's cache tensors, so a stacked
+cache is updated in place as the attention rings are.
+
+Mamba and cross-attention are not ported yet (``ROADMAP.md`` Queue 1).
 """
 from __future__ import annotations
 
@@ -267,6 +280,18 @@ def _sdpa_chunked_raw(q, k, v, *, causal: bool, window: int,
     return out.to(q.dtype)
 
 
+def _prefill_core(q, k, v, *, causal: bool, window: int, chunked: bool):
+    """Prefill attention for ``attn_apply`` and ``mla_apply``: a CUDA
+    tensor runs the hand-written kernel (and its backward) at any s, with
+    no fallback; a CPU tensor the reference's choice, chunked past 2048
+    tokens."""
+    if q.is_cuda:
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    if chunked and q.shape[1] > 2048:
+        return sdpa_chunked(q, k, v, causal=causal, window=window)
+    return sdpa_full(q, k, v, causal=causal, window=window)
+
+
 def sdpa_decode(q, k_cache, v_cache, valid):
     """Single-token attention over a (ring-buffer) cache.
     q:(B,1,H,D) k,v:(B,S,KV,D) valid:(B,S) bool slot-filled mask; the
@@ -353,14 +378,151 @@ def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
         positions = torch.arange(s, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        if q.is_cuda:      # the hand-written kernel (and its backward), any s
-            o = ops.flash_attention(q, k, v, causal=causal, window=window)
-        elif chunked and s > 2048:
-            o = sdpa_chunked(q, k, v, causal=causal, window=window)
-        else:
-            o = sdpa_full(q, k, v, causal=causal, window=window)
+        o = _prefill_core(q, k, v, causal=causal, window=window,
+                          chunked=chunked)
 
     y = o.reshape(b, s, h * hd) @ p["wo"]
+    return y, cache
+
+
+# --------------------------------------------------------------------------
+# MLA attention (deepseek-v2)
+# --------------------------------------------------------------------------
+def mla_init(init: ParamInit, cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    p = {"norm": init.full((d,), 1.0)}
+    if qr > 0:
+        p["w_dq"] = dense_init(init, (d, qr))
+        p["q_norm"] = init.full((qr,), 1.0)
+        p["w_uq"] = dense_init(init, (qr, h * (dn + dr)))
+    else:
+        p["w_q"] = dense_init(init, (d, h * (dn + dr)))
+    p["w_dkv"] = dense_init(init, (d, r))
+    p["kv_norm"] = init.full((r,), 1.0)
+    p["w_uk"] = dense_init(init, (r, h * dn))
+    p["w_uv"] = dense_init(init, (r, h * dv))
+    p["w_kr"] = dense_init(init, (d, dr))
+    p["wo"] = dense_init(init, (h * dv, d), scale=1.0 / math.sqrt(h * dv))
+    return p
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, seq_len: int,
+                   dtype=torch.bfloat16, device=None,
+                   lead: Sequence[int] = ()) -> dict:
+    """The latent ring: ``c_kv`` (B,S,r) and ``k_rope`` (B,S,dr) after
+    RoPE, stacked under ``lead`` as ``attn_cache_init``'s."""
+    lead = tuple(lead)
+    return {"c_kv": torch.zeros(lead + (batch, seq_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros(lead + (batch, seq_len,
+                                          cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def _mla_qkv(p, xn, cfg: ModelConfig):
+    b, s, _ = xn.shape
+    h = cfg.num_heads
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if "w_dq" in p:
+        q = rms_norm(xn @ p["w_dq"], p["q_norm"], cfg.norm_eps) @ p["w_uq"]
+    else:
+        q = xn @ p["w_q"]
+    q = q.reshape(b, s, h, dn + dr)
+    c_kv = rms_norm(xn @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)  # (b,s,r)
+    k_rope = xn @ p["w_kr"]                                        # (b,s,dr)
+    return q, c_kv, k_rope
+
+
+def _mla_heads(c_kv, k_rope, p, cfg: ModelConfig):
+    """Per-head keys (B,S,H,dn+dr) rebuilt from the latent ``c_kv``
+    (B,S,r) and the shared rotary key ``k_rope`` (B,S,dr), and the values
+    (B,S,H,dv) zero-padded to dn + dr, so that both attention cores take
+    them. Each temporary is freed once it is consumed (at deepseek's full
+    width and 32,768 slots a layer's keys are 6.4 GB)."""
+    b, s, _ = c_kv.shape
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, dn)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                       -1)
+    del k_nope
+    v = (c_kv @ p["w_uv"]).reshape(b, s, h, dv)
+    v_pad = F.pad(v, (0, dn + dr - dv))
+    return k_full, v_pad
+
+
+def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
+              window: int = 0, absorbed: bool = False, chunked: bool = True,
+              **_):
+    """MLA. ``absorbed=False`` is the naive form that rebuilds per-head K/V
+    from the latent cache; ``absorbed=True`` attends in the kv_lora latent
+    space (decode only, plain torch: no kernel takes its D = r + dr and
+    H query heads over one latent head).
+
+    Prefill attends over keys of width dn + dr with the values padded to
+    it (sliced back to dv after): on a CUDA tensor the prefill kernel at
+    any S, on a CPU tensor the reference's branch (``sdpa_chunked`` above
+    2048 positions, ``sdpa_full`` up to it). Decode writes the new latent
+    and rotary key IN PLACE at slot ``pos % size`` of the caller's cache,
+    as ``attn_apply`` does, and the naive form runs ``sdpa_decode`` over
+    the rebuilt heads: the decode kernel on a CUDA tensor, its plain
+    version on the CPU. Both scale by 1/sqrt(dn + dr), the reference's."""
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    b, s, _ = xn.shape
+    q, c_kv, k_rope = _mla_qkv(p, xn, cfg)
+
+    if mode == "decode":
+        q_nope, q_rope = q[..., :dn], q[..., dn:]
+        q_rope = apply_rope(q_rope, pos[:, None], cfg.rope_theta)
+        k_rope = apply_rope(k_rope[:, :, None, :], pos[:, None],
+                            cfg.rope_theta)[:, :, 0]
+        ckv_c, kr_c = cache["c_kv"], cache["k_rope"]
+        size = ckv_c.shape[1]
+        slot = (pos % size).long()
+        rows = torch.arange(b, device=x.device)
+        ckv_c[rows, slot] = c_kv[:, 0].to(ckv_c.dtype)
+        kr_c[rows, slot] = k_rope[:, 0].to(kr_c.dtype)
+        valid = (torch.arange(size, device=x.device)[None, :]
+                 <= torch.clamp(pos, max=size - 1)[:, None])
+        if absorbed:
+            scale = 1.0 / math.sqrt(dn + dr)
+            ckv = ckv_c.to(q.dtype)
+            # fold W_uk into q: attend directly in the r-dim latent space
+            w_uk = p["w_uk"].reshape(-1, h, dn)                 # (r,h,dn)
+            q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+            s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat, ckv)
+            s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope,
+                                  kr_c.to(q.dtype))
+            att = (s_lat + s_rope).to(torch.float32) * scale
+            att = torch.where(valid[:, None, None, :], att, NEG)
+            pr = torch.softmax(att, -1).to(q.dtype)
+            o_lat = torch.einsum("bhqk,bkr->bqhr", pr, ckv)
+            w_uv = p["w_uv"].reshape(-1, h, dv)                 # (r,h,dv)
+            o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
+        else:
+            k_full, v_pad = _mla_heads(ckv_c.to(q.dtype), kr_c.to(q.dtype),
+                                       p, cfg)
+            q_full = torch.cat([q_nope, q_rope], -1)
+            o = sdpa_decode(q_full, k_full, v_pad, valid)[..., :dv]
+            del k_full, v_pad
+        cache = {"c_kv": ckv_c, "k_rope": kr_c}
+    else:
+        positions = torch.arange(s, device=x.device)
+        q_nope, q_rope = q[..., :dn], q[..., dn:]
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                            cfg.rope_theta)[:, :, 0]
+        k_full, v_pad = _mla_heads(c_kv, k_rope, p, cfg)
+        q_full = torch.cat([q_nope, q_rope], -1)
+        o = _prefill_core(q_full, k_full, v_pad, causal=True, window=window,
+                          chunked=chunked)
+        del k_full, v_pad
+        o = o[..., :dv]
+    y = o.reshape(b, s, h * dv) @ p["wo"]
     return y, cache
 
 
@@ -506,3 +668,162 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
         torch.float32).mean(0)
     aux = cfg.router_aux_loss * e * torch.sum(me * ce)
     return y, aux
+
+
+# --------------------------------------------------------------------------
+# RWKV6 (Finch) time mix: linear attention with a data-dependent decay
+# --------------------------------------------------------------------------
+def rwkv_init(init: ParamInit, cfg: ModelConfig) -> dict:
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    lora = max(d // 16, 32)
+    return {
+        "norm": init.full((d,), 1.0),
+        "mu_r": init.full((d,), 0.5), "mu_k": init.full((d,), 0.5),
+        "mu_v": init.full((d,), 0.5), "mu_w": init.full((d,), 0.5),
+        "mu_g": init.full((d,), 0.5),
+        "wr": dense_init(init, (d, h * hd)),
+        "wk": dense_init(init, (d, h * hd)),
+        "wv": dense_init(init, (d, h * hd)),
+        "wg": dense_init(init, (d, h * hd)),
+        # the data-dependent decay (Finch): w = f(x) through a LoRA
+        "w_decay1": dense_init(init, (d, lora)),
+        "w_decay2": dense_init(init, (lora, h * hd)),
+        "decay_bias": init.full((h * hd,), -6.0),
+        "bonus": init.full((h, hd), 0.0),
+        "ln_x": init.full((h * hd,), 1.0),
+        "wo": dense_init(init, (h * hd, d), scale=1.0 / math.sqrt(h * hd)),
+    }
+
+
+def rwkv_cache_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                    device=None, lead: Sequence[int] = ()) -> dict:
+    """The recurrent state (B,H,hd,hd) and the token-shift input (B,d),
+    f32 as the reference's, stacked under ``lead``."""
+    lead = tuple(lead)
+    h, hd = cfg.num_heads, cfg.head_dim
+    return {"state": torch.zeros(lead + (batch, h, hd, hd), dtype=dtype,
+                                 device=device),
+            "x_prev": torch.zeros(lead + (batch, cfg.d_model), dtype=dtype,
+                                  device=device)}
+
+
+def _wkv_chunked(r, k, v, w, u, chunk: int = 64):
+    """Chunked linear attention with a per-step diagonal decay, in f32.
+    r, k, v, w: (B,S,H,hd), w in (0, 1); u the bonus (H,hd).
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T;
+    o_t = r_t (S_{t-1} + diag(u) k_t v_t^T).
+
+    The reference's chunking (``nch = max(s // chunk, 1)`` chunks of
+    ``s // nch``) and its per-chunk terms. The terms that read only their
+    own chunk (the intra-chunk pairs, the bonus, each chunk's state
+    increment) are computed for every chunk at once; only the state
+    carried from chunk to chunk runs in order, one chunk at a time."""
+    b, s, h, hd = r.shape
+    nch = max(s // chunk, 1)
+    chunk = s // nch
+
+    def chunks(t):                                     # (n,b,h,c,hd) f32
+        return t.reshape(b, nch, chunk, h, hd).permute(1, 0, 3, 2, 4).to(
+            torch.float32)
+
+    rr, kk, vv, ww = chunks(r), chunks(k), chunks(v), chunks(w)
+    logw = torch.log(torch.clamp(ww, min=1e-6))
+    cum = torch.cumsum(logw, 3)        # sum of log-decays up to & incl t
+    # inter-chunk: r_i sees the carried state through prod_{l<i} w_l
+    r_dec = rr * torch.exp(cum - logw)
+    # intra-chunk pair (i, j<i): coefficient exp(cum_{i-1} - cum_j) a dim
+    k_dec = kk * torch.exp(-cum)
+    att = torch.einsum("nbhcd,nbhed->nbhce", r_dec, k_dec)
+    att = att * torch.tril(torch.ones((chunk, chunk), dtype=att.dtype,
+                                      device=att.device), -1)
+    # the bonus (diagonal): r_t . (u * k_t) v_t
+    diag = torch.einsum("nbhcd,nbhcd->nbhc", rr,
+                        kk * u.to(torch.float32)[None, None, :, None, :])
+    o = torch.einsum("nbhce,nbhed->nbhcd", att, vv) + diag[..., None] * vv
+    del att, k_dec
+    # each chunk's state step: S <- diag(prod w) S + sum_j (prod_{l>j}
+    # w_l) k_j v_j^T
+    wall = torch.exp(cum[:, :, :, -1])                      # (n,b,h,hd)
+    kv = torch.einsum("nbhcd,nbhce->nbhde",
+                      kk * torch.exp(cum[:, :, :, -1:] - cum), vv)
+    state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                        device=r.device)
+    carried = []                       # the state each chunk starts from
+    for n in range(nch):
+        carried.append(state)
+        state = state * wall[n][..., None] + kv[n]
+    o = o + torch.einsum("nbhcd,nbhde->nbhce", r_dec, torch.stack(carried))
+    return o.permute(1, 0, 3, 2, 4).reshape(b, s, h, hd).to(r.dtype)
+
+
+def rwkv_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, **_):
+    """RWKV6's time mix -> (y, cache). Prefill runs ``_wkv_chunked``;
+    decode one step of the recurrence from ``cache`` (``state``,
+    ``x_prev``), whose tensors get the new state IN PLACE (``copy_``: the
+    reference returns new ones); the caller's cache is returned."""
+    h, hd = cfg.num_heads, cfg.head_dim
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    b, s, d = xn.shape
+
+    if mode == "decode":
+        x_prev = cache["x_prev"][:, None].to(xn.dtype)
+    else:
+        x_prev = F.pad(xn, (0, 0, 1, 0))[:, :-1]
+
+    def mix(mu):
+        return xn + (x_prev - xn) * mu
+
+    r = (mix(p["mu_r"]) @ p["wr"]).reshape(b, s, h, hd)
+    k = (mix(p["mu_k"]) @ p["wk"]).reshape(b, s, h, hd)
+    v = (mix(p["mu_v"]) @ p["wv"]).reshape(b, s, h, hd)
+    g = F.silu(mix(p["mu_g"]) @ p["wg"])
+    dec = torch.sigmoid(
+        (torch.tanh(mix(p["mu_w"]) @ p["w_decay1"]) @ p["w_decay2"])
+        + p["decay_bias"]).reshape(b, s, h, hd)
+    # the decay w in (exp(-0.6065), 1): the bound keeps the chunked form's
+    # exp(-cumsum(log w)) inside f32's range (see _wkv_chunked)
+    w = torch.exp(-0.6065 * dec)
+
+    if mode == "decode":
+        state = cache["state"].to(torch.float32)               # (b,h,hd,hd)
+        r1, k1, v1, w1 = (t[:, 0].to(torch.float32) for t in (r, k, v, w))
+        kv = torch.einsum("bhd,bhe->bhde", k1, v1)
+        # o_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
+        o = torch.einsum("bhd,bhde->bhe", r1, state
+                         + p["bonus"].to(torch.float32)[None, :, :, None]
+                         * kv)
+        cache["state"].copy_(state * w1[..., None] + kv)
+        cache["x_prev"].copy_(xn[:, -1])
+        o = o[:, None].to(r.dtype)
+    else:
+        o = _wkv_chunked(r, k, v, w, p["bonus"])
+
+    o = o.reshape(b, s, h * hd)
+    o = rms_norm(o, p["ln_x"], cfg.norm_eps) * g
+    return o @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------
+# RWKV6 channel mix (its FFN)
+# --------------------------------------------------------------------------
+def rwkv_ffn_init(init: ParamInit, cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"norm": init.full((d,), 1.0),
+            "mu_k": init.full((d,), 0.5), "mu_r": init.full((d,), 0.5),
+            "wk": dense_init(init, (d, f)),
+            "wv": dense_init(init, (f, d), scale=1.0 / math.sqrt(f)),
+            "wr": dense_init(init, (d, d))}
+
+
+def rwkv_ffn_apply(p, x, *, cfg: ModelConfig, x_prev=None):
+    """-> (out, xn_last): xn_last is the decode-mode token-shift state.
+    ``x_prev`` (B,d) is the previous token's normed input (decode), None
+    for a prefill's shift."""
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    if x_prev is None:
+        xp = F.pad(xn, (0, 0, 1, 0))[:, :-1]
+    else:
+        xp = x_prev[:, None].to(xn.dtype)
+    k = (xn + (xp - xn) * p["mu_k"]) @ p["wk"]
+    r = torch.sigmoid((xn + (xp - xn) * p["mu_r"]) @ p["wr"])
+    return r * (torch.square(F.relu(k)) @ p["wv"]), xn[:, -1]

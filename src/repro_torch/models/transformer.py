@@ -1,5 +1,6 @@
 """Config-driven LM assembly: the port of ``repro.models.transformer`` for
-GQA decoders (mixer ``attn``; FFN ``dense`` or ``moe``).
+decoders (mixer ``attn``, ``mla`` or ``rwkv``; FFN ``dense``, ``moe`` or
+``rwkv_ffn``).
 
 A model is a list of STAGES, the reference's own (``layer_specs`` and
 ``decompose`` are copies), so that ``stage_range`` means the same in both
@@ -22,8 +23,14 @@ run (``apply``'s ``aux``), and ``LM.loss`` and ``make_split_lm``'s upper
 loss add it, as the reference's. ``LM.init(gen, dtype=torch.bfloat16)``
 fills each stacked leaf one layer slice at a time (the bits of the f32
 tree cast afterwards), so a full-width model is made without its f32 tree.
-MLA, Mamba, RWKV, encoders, cross-attention and vision prefixes are not
-ported yet (``ROADMAP.md`` Queue 1).
+
+In decode mode every block updates the caller's cache in place: the
+attention and MLA rings by a slot write, RWKV's recurrent state and
+token-shift inputs (``state``, ``x_prev``, ``ffn_x_prev``, replaced every
+step) by a ``copy_`` into the cache's tensors. So a scan stage's stacked
+cache, read a layer at a time through views, is current after the step.
+Mamba, encoders, cross-attention and vision prefixes are not ported yet
+(``ROADMAP.md`` Queue 1).
 """
 from __future__ import annotations
 
@@ -141,44 +148,85 @@ def cast_params(params: PyTree, dtype: torch.dtype) -> PyTree:
 
 
 # --------------------------------------------------------------------------
-# per-block init/apply/cache dispatch: mixer attn + ffn dense | moe
+# per-block init/apply/cache dispatch: mixer attn | mla | rwkv, ffn dense
+# | moe | rwkv_ffn
 # --------------------------------------------------------------------------
+_MIXERS = ("attn", "mla", "rwkv")
+_FFNS = ("dense", "moe", "rwkv_ffn")
+
+
 def _check_spec(spec: BlockSpec) -> None:
-    if spec.mixer != "attn" or spec.ffn not in ("dense", "moe"):
+    if spec.mixer not in _MIXERS or spec.ffn not in _FFNS:
         raise NotImplementedError(
-            f"block {spec} is not ported to repro_torch yet: only mixer "
-            f"'attn' with ffn 'dense' or 'moe' (ROADMAP.md Queue 1 items "
-            f"13c-13g)")
+            f"block {spec} is not ported to repro_torch yet: mixers "
+            f"{_MIXERS}, ffns {_FFNS} (ROADMAP.md Queue 1 items 13e and "
+            f"13g)")
 
 
 def _block_init(init: L.ParamInit, cfg: ModelConfig, spec: BlockSpec
                 ) -> PyTree:
-    ffn = L.moe_init(init, cfg) if spec.ffn == "moe" else L.ffn_init(init,
-                                                                      cfg)
-    return {"mixer": L.attn_init(init, cfg), "ffn": ffn}
+    if spec.ffn == "dense":              # the FFN's draws come first
+        ffn = L.ffn_init(init, cfg)
+    elif spec.ffn == "moe":
+        ffn = L.moe_init(init, cfg)
+    else:
+        ffn = L.rwkv_ffn_init(init, cfg)
+    if spec.mixer == "attn":
+        mixer = L.attn_init(init, cfg)
+    elif spec.mixer == "mla":
+        mixer = L.mla_init(init, cfg)
+    else:
+        mixer = L.rwkv_init(init, cfg)
+    return {"mixer": mixer, "ffn": ffn}
 
 
 def _block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, seq_len: int,
                  dtype, device, lead=()) -> PyTree:
+    """A block's decode cache: the attention ring (``window`` slots at
+    most), MLA's latent ring, or RWKV's f32 state and token-shift inputs
+    (whatever ``dtype`` and ``seq_len`` say, as the reference's)."""
+    if spec.mixer == "mla":
+        return {"mixer": L.mla_cache_init(cfg, batch, seq_len, dtype,
+                                          device, lead)}
+    if spec.mixer == "rwkv":
+        return {"mixer": L.rwkv_cache_init(cfg, batch, device=device,
+                                           lead=lead),
+                "ffn_x_prev": torch.zeros(tuple(lead) + (batch,
+                                                         cfg.d_model),
+                                          dtype=torch.float32,
+                                          device=device)}
     return {"mixer": L.attn_cache_init(cfg, batch, seq_len, spec.window,
                                        dtype, device, lead)}
 
 
 def _block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, mode: str,
                  cache, pos):
-    """-> (x, cache, aux): aux is the MoE's load-balance term, None for a
-    dense FFN (the reference adds a zero)."""
-    y, mc = L.attn_apply(params["mixer"], x, cfg=cfg, mode=mode,
-                         cache=(cache or {}).get("mixer"), pos=pos,
-                         window=spec.window, causal=spec.causal)
+    """-> (x, cache, aux): aux is the MoE's load-balance term, None for
+    another FFN (the reference adds a zero)."""
+    kw = dict(cfg=cfg, mode=mode, cache=(cache or {}).get("mixer"), pos=pos,
+              window=spec.window)
+    if spec.mixer == "attn":
+        y, mc = L.attn_apply(params["mixer"], x, causal=spec.causal, **kw)
+    elif spec.mixer == "mla":
+        y, mc = L.mla_apply(params["mixer"], x, absorbed=cfg.mla_absorbed,
+                            **kw)
+    else:
+        y, mc = L.rwkv_apply(params["mixer"], x, **kw)
     x = x + y
     aux = None
+    new_cache = {"mixer": mc} if mc is not None else {}
     if spec.ffn == "moe":
         y, aux = L.moe_apply(params["ffn"], x, cfg=cfg)
         x = x + y
-    else:
+    elif spec.ffn == "dense":
         x = x + L.ffn_apply(params["ffn"], x, cfg=cfg)
-    return x, ({"mixer": mc} if mc is not None else {}), aux
+    else:
+        xp = (cache or {}).get("ffn_x_prev") if mode == "decode" else None
+        y, xn_last = L.rwkv_ffn_apply(params["ffn"], x, cfg=cfg, x_prev=xp)
+        x = x + y
+        if mode == "decode":        # in place, as the mixer's state
+            new_cache["ffn_x_prev"] = xp.copy_(xn_last)
+    return x, new_cache, aux
 
 
 def _add(total, aux):
@@ -207,8 +255,8 @@ def _layers(tree: PyTree, repeats: int) -> List[PyTree]:
 # full model
 # --------------------------------------------------------------------------
 class LM:
-    """Bundles init/apply/cache for one ModelConfig (GQA decoders, dense or
-    MoE FFN)."""
+    """Bundles init/apply/cache for one ModelConfig (decoders: GQA or MLA
+    attention or RWKV's time mix; a dense, MoE or RWKV channel-mix FFN)."""
 
     def __init__(self, cfg: ModelConfig, force_swa: bool = False,
                  remat: bool = False):
@@ -301,7 +349,8 @@ class LM:
                                                self.cfg, mode,
                                                _layer(scache[ui], r), pos)
                         aux = _add(aux, a)
-                # the stacked caches were written in place, layer by layer
+                # the stacked caches were written in place, layer by
+                # layer, through the views (rings and RWKV states alike)
                 new_caches.append(scache)
         return x, aux, new_caches
 

@@ -5,11 +5,12 @@
   slot exactly once, in order, in whole block tiles, with at least one
   split, no empty split and never more splits than tiles;
 * ``flash_attention.prefill_route``: bf16 with D % 16 == 0 and D <= 256
-  (and 16-byte aligned data) takes the tensor-core kernel, the rest the
-  CUDA-core kernel;
+  (and 16-byte aligned data; MLA's D 192 too) takes the tensor-core
+  kernel, the rest the CUDA-core kernel;
 * ``flash_attention.bwd_route``: the backward's tensor-core kernels take
   bf16 with D % 16 == 0, D <= 128, at most 64 query heads a kv head and
-  16-byte aligned data; the rest (f32, D 72, D 256) the CUDA-core ones;
+  16-byte aligned data; the rest (f32, D 72, MLA's D 192, D 256) the
+  CUDA-core ones; the decode plan at MLA's serve shape;
   ``reset_launch_counts`` zeroes both wrappers' counts by route;
 * both modules import, and the wrappers run their plain versions, without
   CUDA.
@@ -58,6 +59,16 @@ def test_decode_split_plan_at_the_card_shapes(s, bkv, want):
     assert splits * bkv >= waves or splits == -(-s // da.tile_slots(64))
 
 
+def test_decode_split_plan_at_mlas_decode_shape():
+    """deepseek-v2-236b's naive decode at batch 4 over 32,768 slots: 512
+    (batch, head) rows of D 192 (DMAX 256: 16-slot tiles, 2,048 of them)
+    need 3 splits for two waves; 682 tiles a split give 4."""
+    splits, per = da.plan_splits(32768, 4 * 128, H100_SMS, 192)
+    assert (splits, per) == (4, 682 * 16)
+    assert da.tile_slots(192) == 16
+    assert splits * 4 * 128 >= da.WAVES * da.RESIDENT_BLOCKS * H100_SMS
+
+
 def test_decode_split_plan_refuses_empty_shapes():
     for args in [(0, 8, 132, 64), (100, 0, 132, 64), (100, 8, 0, 64)]:
         with pytest.raises(ValueError):
@@ -69,6 +80,7 @@ def test_decode_split_plan_refuses_empty_shapes():
     (torch.bfloat16, 16, True, "tensor_core"),
     (torch.bfloat16, 96, True, "tensor_core"),
     (torch.bfloat16, 128, True, "tensor_core"),
+    (torch.bfloat16, 192, True, "tensor_core"),  # MLA: dn + dr = 128 + 64
     (torch.bfloat16, 256, True, "tensor_core"),
     (torch.bfloat16, 72, True, "cuda_core"),     # not a multiple of 16
     (torch.bfloat16, 100, True, "cuda_core"),
@@ -86,6 +98,7 @@ def test_prefill_route_by_dtype_and_head_dim(dtype, d, aligned, want):
     (torch.bfloat16, 96, True, 1, "tensor_core"),     # padded to 128
     (torch.bfloat16, 128, True, 4, "tensor_core"),    # phi3
     (torch.bfloat16, 64, True, 64, "tensor_core"),    # one query a tile
+    (torch.bfloat16, 192, True, 1, "cuda_core"),      # MLA: above 128
     (torch.bfloat16, 256, True, 2, "cuda_core"),      # dK, dV: no room
     (torch.bfloat16, 72, True, 1, "cuda_core"),       # not a multiple of 16
     (torch.bfloat16, 144, True, 1, "cuda_core"),

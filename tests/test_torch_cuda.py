@@ -363,7 +363,8 @@ def _rand(g, shape, dtype, card):
 # shape; then the tensor-core route's edges: S below one key tile, G = 7
 # (qwen2-0.5b's 14 heads over 2) at an S that is no multiple of BK, D=128
 # and D=256 with a window, and head dims that fill part of a 64-column
-# panel (96) or less than one (32); bf16 at D=72 takes the CUDA-core route
+# panel (96) or less than one (32); bf16 at D=72 takes the CUDA-core route;
+# MLA's D=192 (one kv head a query head) on both routes
 @pytest.mark.parametrize("b,s,h,kv,d,causal,window,dtype", [
     (1, 1024, 32, 8, 64, True, 0, torch.bfloat16),
     (1, 1024, 32, 8, 64, True, 0, torch.float32),
@@ -379,7 +380,9 @@ def _rand(g, shape, dtype, card):
     (1, 700, 4, 2, 256, False, 300, torch.bfloat16),
     (2, 300, 4, 2, 96, False, 0, torch.bfloat16),
     (1, 200, 4, 4, 32, True, 0, torch.bfloat16),
-    (1, 300, 4, 2, 72, True, 0, torch.bfloat16)])
+    (1, 300, 4, 2, 72, True, 0, torch.bfloat16),
+    (1, 700, 8, 8, 192, True, 0, torch.bfloat16),
+    (1, 300, 4, 4, 192, True, 0, torch.float32)])
 def test_flash_attention_kernel(card, b, s, h, kv, d, causal, window, dtype):
     from repro_torch.kernels.flash_attention import prefill_route
     g = torch.Generator().manual_seed(s + h + d)
@@ -415,7 +418,8 @@ def _decode_inputs(card, b, s, h, kv, d, fill, dtype, cache_dtype):
 # f32 cache under bf16 q; then the split design's edges: one split (one
 # block tile), two splits, many splits (B=1 at S=32768, both caches), G=7
 # (qwen2-0.5b) at a ragged S, S below one tile, a head dim whose rows are
-# no whole number of 16-byte chunks (element-wise loads)
+# no whole number of 16-byte chunks (element-wise loads), MLA's D=192 at
+# G=1 (the DMAX 256, GMAX 2 instance)
 @pytest.mark.parametrize("b,s,h,kv,d,fill,dtype,cache_dtype", [
     (2, 32768, 32, 8, 64, 40, torch.bfloat16, torch.bfloat16),
     (3, 300, 32, 8, 64, 300, torch.float32, torch.float32),
@@ -428,7 +432,8 @@ def _decode_inputs(card, b, s, h, kv, d, fill, dtype, cache_dtype):
     (1, 32768, 32, 8, 64, None, torch.float32, torch.float32),
     (2, 5000, 14, 2, 64, 4321, torch.bfloat16, torch.bfloat16),
     (3, 17, 14, 2, 64, 9, torch.float32, torch.bfloat16),
-    (2, 300, 8, 2, 36, 200, torch.bfloat16, torch.bfloat16)])
+    (2, 300, 8, 2, 36, 200, torch.bfloat16, torch.bfloat16),
+    (4, 1000, 16, 16, 192, 513, torch.bfloat16, torch.bfloat16)])
 def test_flash_decode_kernel(card, b, s, h, kv, d, fill, dtype, cache_dtype):
     from repro_torch.kernels.decode_attention import plan_for
     q, kc, vc, valid = _decode_inputs(card, b, s, h, kv, d, fill, dtype,
@@ -1036,3 +1041,81 @@ def test_lean_init_and_moe_decode_on_the_card(card):
             b, caches[1], _ = lm.apply(p_cpu, toks[:, i:i + 1],
                                        mode="decode", cache=caches[1])
             assert _rel(a.cpu(), b) <= TOL
+
+
+def _mla_cfg():
+    """A narrow MLA at deepseek-v2's head dims (dn 128, dr 64, dv 128):
+    the attention kernels see D 192."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("deepseek-v2-236b").reduced(), d_model=256, num_heads=4,
+        kv_lora_rank=64, q_lora_rank=32, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, head_dim=192)
+
+
+def test_mla_layer_on_the_card_matches_the_cpu(card):
+    """One MLA layer in f32: prefill of 300 tokens (the prefill kernel,
+    CUDA-core route at D 192) and 6 decode steps at batch 2 on an 8-slot
+    ring (the decode kernel over the rebuilt heads, and the absorbed
+    einsums), card against CPU within 2e-3; in bf16 the prefill runs on
+    the tensor cores."""
+    from repro_torch.models import layers as L
+    cfg = _mla_cfg()
+    g = torch.Generator().manual_seed(0)
+    p = L.mla_init(L.ParamInit(g), cfg)
+    pc = {k: v.to(card) for k, v in p.items()}
+    x = torch.randn(2, 300, cfg.d_model, generator=g)
+    launches = ops.flash_attention.launches_by_route["cuda_core"]
+    got, _ = L.mla_apply(pc, x.to(card), cfg=cfg, mode="full")
+    assert ops.flash_attention.launches_by_route["cuda_core"] == \
+        launches + 1
+    want, _ = L.mla_apply(p, x, cfg=cfg, mode="full")
+    assert _rel(got.cpu(), want) <= TOL
+    tc = ops.flash_attention.launches_by_route["tensor_core"]
+    got16, _ = L.mla_apply({k: v.bfloat16() for k, v in pc.items()},
+                           x.to(card).bfloat16(), cfg=cfg, mode="full")
+    assert ops.flash_attention.launches_by_route["tensor_core"] == tc + 1
+    assert bool(torch.isfinite(got16).all())
+    for absorbed in (False, True):
+        caches = [L.mla_cache_init(cfg, 2, 8, torch.float32, d)
+                  for d in (card, "cpu")]
+        before = ops.flash_decode.launches
+        with torch.no_grad():
+            for i in range(6):
+                pos = torch.tensor([i, i + 3], dtype=torch.int32)
+                a, _ = L.mla_apply(pc, x[:, i:i + 1].to(card), cfg=cfg,
+                                   mode="decode", cache=caches[0],
+                                   pos=pos.to(card), absorbed=absorbed)
+                b, _ = L.mla_apply(p, x[:, i:i + 1], cfg=cfg, mode="decode",
+                                   cache=caches[1], pos=pos,
+                                   absorbed=absorbed)
+                assert _rel(a.cpu(), b) <= TOL
+        assert ops.flash_decode.launches == before + (0 if absorbed else 6)
+
+
+def test_rwkv_block_on_the_card_matches_the_cpu(card):
+    """rwkv6-3b's reduced LM in f32: prefill logits of 128 tokens and 6
+    decode steps (the stacked state written in place) card against CPU
+    within 2e-3, with no attention kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM, tree_map
+    cfg = get_config("rwkv6-3b").reduced()
+    lm = LM(cfg)
+    p_cpu = lm.init(torch.Generator().manual_seed(4))
+    p_card = tree_map(lambda t: t.to(card), p_cpu)
+    toks = torch.randint(cfg.vocab_size, (2, 128),
+                         generator=torch.Generator().manual_seed(5))
+    before = dict(ops.launch_counts())
+    got, _, _ = lm.apply(p_card, toks.to(card))
+    want, _, _ = lm.apply(p_cpu, toks)
+    assert _rel(got.cpu(), want) <= TOL
+    caches = [lm.init_cache(2, 1, device=d) for d in (card, "cpu")]
+    with torch.no_grad():
+        for i in range(6):
+            a, caches[0], _ = lm.apply(p_card, toks[:, i:i + 1].to(card),
+                                       mode="decode", cache=caches[0])
+            b, caches[1], _ = lm.apply(p_cpu, toks[:, i:i + 1],
+                                       mode="decode", cache=caches[1])
+            assert _rel(a.cpu(), b) <= TOL
+    assert ops.launch_counts() == before

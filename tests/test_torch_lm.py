@@ -1,10 +1,13 @@
 """Parity of the port's LM serving path with the reference's, on the CPU.
 
 For each of ``llama3.2-1b``, ``qwen2-0.5b``, ``gemma3-4b``,
-``qwen3-moe-30b-a3b`` (MoE FFN) and ``phi3-medium-14b`` (untied head)
-``.reduced()`` in f32, the parameters come from ``repro``'s ``LM.init``
-(norm weights and qkv biases perturbed, so they are not all ones and
-zeros) and are carried across by ``params_from_jax``; the same numpy
+``qwen3-moe-30b-a3b`` (MoE FFN), ``phi3-medium-14b`` (untied head),
+``deepseek-v2-236b`` (MLA attention, a dense layer 0 and MoE layers with
+a shared expert) and ``rwkv6-3b`` (RWKV's time and channel mix, a
+recurrent state in place of a ring) ``.reduced()`` in f32, the parameters
+come from ``repro``'s ``LM.init`` (norm weights, qkv biases and RWKV's
+per-channel vectors perturbed, so they are not all ones and zeros) and
+are carried across by ``params_from_jax``; the same numpy
 tokens go through both packages. Levels: logits within 2e-3 (f32) for
 ``prefill_step`` at S=32 (llama3.2-1b also at S=2050, the chunked branch)
 and for each of 8 teacher-forced decode steps on a ring cache that wraps
@@ -15,7 +18,9 @@ active) and the configs equal; ``params_to_jax(params_from_jax(t)) == t``
 bit for bit; ``LM.init(gen, dtype=torch.bfloat16)`` gives
 ``cast_params(LM.init(gen), torch.bfloat16)`` bit for bit; the serve and
 ``serve_lm`` entry points run with ``--device cpu``, and ``serve_lm``
-refuses whisper.
+refuses whisper. At full width the stage lists and parameter counts of
+the served models are checked (deepseek-v2-236b's 235,576,284,160 and its
+6-layer cut's 21,081,994,240; rwkv6-3b's 3,089,041,920).
 """
 import dataclasses
 import os
@@ -46,22 +51,26 @@ from repro_torch.models.transformer import (LM, cast_params, params_from_jax,
 from repro_torch.optim import tree_leaves
 
 ARCHS = ["llama3.2-1b", "qwen2-0.5b", "gemma3-4b", "qwen3-moe-30b-a3b",
-         "phi3-medium-14b"]
+         "phi3-medium-14b", "deepseek-v2-236b", "rwkv6-3b"]
 TOL = 2e-3
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
 
 
 def _perturb(params, seed):
-    """Norm weights 1 + 0.1 N(0,1), qkv biases 0.1 N(0,1), from numpy."""
+    """Norm weights (and RWKV's ``ln_x``) 1 + 0.1 N(0,1), qkv biases and
+    RWKV's bonus 0.1 N(0,1), RWKV's mixing coefficients 0.5 + 0.1 N(0,1)
+    and decay bias -6 + N(0,1), from numpy."""
     r = np.random.default_rng(seed)
 
     def f(path, x):
         name = str(getattr(path[-1], "key", ""))
-        if "norm" in name:
+        if "norm" in name or name == "ln_x" or name.startswith("mu_"):
             return x + 0.1 * r.normal(size=x.shape).astype(np.float32)
-        if name in ("bq", "bk", "bv"):
+        if name in ("bq", "bk", "bv", "bonus"):
             return 0.1 * r.normal(size=x.shape).astype(np.float32)
+        if name == "decay_bias":
+            return x + r.normal(size=x.shape).astype(np.float32)
         return x
     return jax.tree_util.tree_map_with_path(f, jax.tree.map(np.asarray,
                                                             params))
@@ -194,6 +203,53 @@ def test_full_width_qwen3_moe_is_the_served_model():
     assert tuple(ffn["we_gate"].shape) == (48, 128, 2048, 768)
 
 
+def test_full_width_deepseek_is_the_served_model():
+    """deepseek-v2-236b at full width: the dense layer 0 unrolled, then 59
+    MoE layers in one scan stage, 235,576,284,160 parameters (the
+    reference's count); MLA's heads 128 x (128 + 64) for q and k, v 128,
+    kv_lora 512, q_lora 1536; 160 routed experts, top 6, 2 shared; the
+    untied 102,400-id head. The card's cut to 6 layers (the dense one and
+    5 MoE) holds 21,081,994,240."""
+    cfg = get_config("deepseek-v2-236b")
+    lm = LM(cfg)
+    assert [(s.kind, s.repeats) for s in lm.stages] == [("unroll", 1),
+                                                       ("scan", 59)]
+    assert [s.mixer for s in lm.specs] == ["mla"] * 60
+    assert [s.ffn for s in lm.specs] == ["dense"] + ["moe"] * 59
+    assert count_params(cfg) == 235_576_284_160
+    assert count_params(dataclasses.replace(cfg, num_layers=6)) == \
+        21_081_994_240
+    assert (cfg.d_model, cfg.num_heads, cfg.qk_nope_head_dim,
+            cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank,
+            cfg.q_lora_rank, cfg.num_experts, cfg.num_experts_per_tok,
+            cfg.num_shared_experts, cfg.padded_vocab) == (
+        5120, 128, 128, 64, 128, 512, 1536, 160, 6, 2, 102_400)
+    mixer = lm.init(None, device="meta")["stages"][1][0]["mixer"]
+    assert tuple(mixer["w_uk"].shape) == (59, 512, 128 * 128)
+    cache = lm.init_cache(4, 64, device="meta")["stages"]
+    assert tuple(cache[1][0]["mixer"]["c_kv"].shape) == (59, 4, 64, 512)
+
+
+def test_full_width_rwkv6_is_the_served_model():
+    """rwkv6-3b at full width: 32 RWKV blocks in one scan stage,
+    3,089,041,920 parameters; its decode state (f32) is 40 heads of
+    64 x 64 and two token-shift vectors a layer, whatever the cache
+    length."""
+    cfg = get_config("rwkv6-3b")
+    lm = LM(cfg)
+    assert [(s.kind, s.repeats) for s in lm.stages] == [("scan", 32)]
+    assert {(s.mixer, s.ffn) for s in lm.specs} == {("rwkv", "rwkv_ffn")}
+    assert count_params(cfg) == 3_089_041_920
+    assert (cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.d_ff,
+            cfg.padded_vocab, cfg.tie_embeddings) == (2560, 40, 64, 8960,
+                                                      65_536, False)
+    block = lm.init_cache(128, 32768, device="meta")["stages"][0][0]
+    assert tuple(block["mixer"]["state"].shape) == (32, 128, 40, 64, 64)
+    assert tuple(block["mixer"]["x_prev"].shape) == (32, 128, 2560)
+    assert tuple(block["ffn_x_prev"].shape) == (32, 128, 2560)
+    assert block["mixer"]["state"].dtype == torch.float32
+
+
 def test_loss_matches_with_the_aux_term(arch):
     """``LM.loss`` of both packages on the same tokens, in f32: for the MoE
     the load-balance term of its two layers is in it (and is not zero)."""
@@ -282,7 +338,8 @@ def test_rms_norm_and_rope_match(dtype):
                                    rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "phi3-medium-14b"])
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "phi3-medium-14b",
+                                  "deepseek-v2-236b", "rwkv6-3b"])
 def test_serve_lm_runs_on_the_cpu(name, capsys):
     gen = serve_lm.main(["--arch", name, "--device", "cpu", "--tokens",
                          "5"])

@@ -3,9 +3,12 @@ reference's, on the CPU.
 
 ``make_split_lm`` for ``llama3.2-1b`` and ``qwen2-0.5b`` ``.reduced()``
 (both tie their embeddings; qwen2's is also run untied, so the ``lm_head``
-keys are held too) and ``qwen3-moe-30b-a3b`` (MoE FFN, untied; its loss
-and upper loss carry the load-balance term) in f32, from ``repro``'s parameters (norm weights and
-qkv biases perturbed) carried across by ``params_from_jax``:
+keys are held too), ``qwen3-moe-30b-a3b`` (MoE FFN, untied; its loss
+and upper loss carry the load-balance term), ``deepseek-v2-236b`` (MLA,
+its dense layer 0 below the split and an MoE layer above) and
+``rwkv6-3b`` (RWKV blocks; the gradient runs through the chunked WKV) in
+f32, from ``repro``'s parameters (norm weights, qkv biases and RWKV's
+per-channel vectors perturbed) carried across by ``params_from_jax``:
 ``split`` / ``merge`` leaf by leaf and bit for bit (the reference's keys:
 ``embed_head`` when tied, ``lm_head`` when not), ``apply_lower``,
 ``upper_loss`` on the same hidden states, and ``loss`` with its gradient
@@ -50,19 +53,23 @@ from test_torch_round import one_torch_thread  # noqa: F401
 TOL = 2e-3
 ARCHS = {"llama3.2-1b": {}, "qwen2-0.5b": {},
          "qwen2-0.5b-untied": {"tie_embeddings": False},
-         "qwen3-moe-30b-a3b": {}}
+         "qwen3-moe-30b-a3b": {}, "deepseek-v2-236b": {}, "rwkv6-3b": {}}
 
 
 def _perturb(params, seed):
-    """Norm weights 1 + 0.1 N(0,1), qkv biases 0.1 N(0,1), from numpy."""
+    """Norm weights (and RWKV's ``ln_x``) 1 + 0.1 N(0,1), qkv biases and
+    RWKV's bonus 0.1 N(0,1), RWKV's mixing coefficients 0.5 + 0.1 N(0,1)
+    and decay bias -6 + N(0,1), from numpy."""
     r = np.random.default_rng(seed)
 
     def f(path, x):
         name = str(getattr(path[-1], "key", ""))
-        if "norm" in name:
+        if "norm" in name or name == "ln_x" or name.startswith("mu_"):
             return x + 0.1 * r.normal(size=x.shape).astype(np.float32)
-        if name in ("bq", "bk", "bv"):
+        if name in ("bq", "bk", "bv", "bonus"):
             return 0.1 * r.normal(size=x.shape).astype(np.float32)
+        if name == "decay_bias":
+            return x + r.normal(size=x.shape).astype(np.float32)
         return x
     return jax.tree_util.tree_map_with_path(f, jax.tree.map(np.asarray,
                                                             params))
