@@ -192,11 +192,40 @@ result line:
      256-token prefill at those positions, card against CPU, within 2e-3;
      11e, ``python -m repro_torch.launch.serve_lm --arch deepseek-v2-236b``
      and ``--arch rwkv6-3b`` in their own processes (exit 0);
+ 12. serve the last three families: 12a, jamba-1.5-large-398b at full
+     width (d_model 8192, Mamba of d_inner 16,384 and state 16, 64 / 8
+     heads of 128, 16 experts of d_ff 24,576, top 2, vocab 65,536
+     untied), depth cut 72 -> 4 (mamba x 3 and attention, the MoE on
+     layers 1 and 3; 46.04 GB of bf16 weights from seed 0):
+     ``launch.serve --layers 4`` at batch 128 on 32,768 slots (prompt 32
+     teacher-forced, 16 new tokens; flash_decode 1 x 47 launches), one
+     32,768-token prefill (flash_attention 1 launch, tensor-core, D 128,
+     G 8), a second call the same bits, the dropped share, profiles,
+     peaks and bounds; 12b, one full-width Mamba layer (a 256-token
+     prefill, 8 decode steps from a zero state) and one full-width
+     whisper cross-attention block (64 tokens over 1,500 encoder rows, 8
+     decode steps) in f32, card against CPU within 1e-4 and the decode
+     steps against the prefill within 1e-5; 12c, whisper-medium at full
+     width and depth (24 + 24 layers, 16 heads of 64, vocab 51,865 tied):
+     ``LM.encode`` over 1,500 stub frames at batch 16 (24 non-causal
+     launches), decode at batch 16 on 32,768 slots with that ``enc_out``
+     (24 self and 24 cross decode launches a step), one 32,768-token
+     prefill at batch 1 with the frames (24 encoder, 24 causal and 24
+     cross launches, the cross ones at Sk 1,500), profiles; 12d,
+     internvl2-26b at full width and depth (48 layers, 48 / 8 heads of
+     128, vocab 92,553): ``launch.serve`` at batch 4 on 32,768 slots (48
+     launches a step), one prefill of 256 prefix embeddings and 32,512
+     text tokens (48 launches), profiles; 12e, ``python -m
+     repro_torch.launch.serve_lm`` for the three archs in their own
+     processes (exit 0);
   5. time each kernel beside its plain version, a library call where one
      computes the same function, and its bound (the attention kernels one
      row a template instance: head dim 64 at phase 6's shapes, 128 at
      phase 10a's and 192 at phase 11a's, each held against its plain
-     version there (D 192's prefill in chunks of 256 keys), with its
+     version there (D 192's prefill in chunks of 256 keys), and one row a
+     new path of phase 12: the encoder's non-causal prefill, the cross
+     prefill at Sk 1,500, the cross decode over 1,500 valid slots,
+     internvl2's D 128 at G 6 for both kernels, with its
      route, the decode split count and the registers and spills per
      thread that ptxas reported). ``ms`` is the
      wrapper call's time (CUDA events around back-to-back calls, so the
@@ -255,6 +284,22 @@ FLASH_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
                (1, 2048, 40, 10, 128, True, 0, "bfloat16"),
                (1, 2048, 16, 16, 192, True, 0, "bfloat16"),
                (1, 777, 4, 4, 192, True, 0, "float32")]
+# phase 2b, a key length Sk unlike S (whisper's cross-attention: S decoder
+# queries over Sk encoder keys, non-causal, no window), on both routes:
+# (b, s, sk, h, kv, d, dtype): S = 1, Sk below one key tile, Sk ragged
+# (whisper's 1,500 frames), S below and above Sk, D 128 at G 4, f32 on the
+# CUDA cores at D 64 and D 96; each case also through the decode kernel
+# (its first query over a fully valid memory), and a causal or windowed
+# call at Sk != S must raise
+CROSS_CASES = [(2, 1, 16, 4, 4, 64, "bfloat16"),
+               (2, 1, 1500, 16, 16, 64, "float32"),
+               (2, 12, 100, 16, 16, 64, "bfloat16"),
+               (1, 300, 1500, 16, 16, 64, "bfloat16"),
+               (1, 2000, 1500, 16, 16, 64, "bfloat16"),
+               (2, 40, 7, 8, 2, 128, "bfloat16"),
+               (1, 300, 1500, 16, 16, 64, "float32"),
+               (2, 700, 130, 8, 8, 64, "float32"),
+               (2, 77, 50, 8, 2, 96, "float32")]
 # phase 2b, the forward's statistics and the backward: llama3.2-1b's heads
 # causal at S=1024 in both dtypes, S=1000 non-causal, a window of 128, MQA,
 # qwen2-0.5b's G=7, gemma3's D=256 with window 1024, S below one tile,
@@ -339,6 +384,34 @@ RWKV_ARCH = "rwkv6-3b"
 RWKV_BATCH, RWKV_CACHE, RWKV_PROMPT, RWKV_TOKENS = 128, 32768, 32, 16
 RWKV_PREFILL_S = 32768
 RWKV_BLOCK_TOKENS, RWKV_BLOCK_STEPS = 256, 8
+# phase 12a: jamba-1.5-large-398b at full width, depth cut 72 -> 4 (its
+# 8-layer unit cut to its first half: mamba x 3, attention; the MoE on
+# layers 1 and 3: 46.04 GB of bf16 weights), decode_32k's full batch of
+# 128 on 32,768 slots (17.2 GB of K/V in the one attention layer) and
+# prefill_32k's 32,768 tokens at batch 1 (cut from 32); 12b one
+# full-width Mamba layer and one full-width cross-attention block in f32,
+# the card against the CPU within CARD_CPU_TOL and the decode steps
+# against the prefill within STEP_TOL; 12c whisper-medium at full width
+# and depth: the encoder over its 1,500 stub frames at batch 16, decode
+# on decode_32k's 32,768 slots at batch 16 (cut from 128: the decoder's
+# self-attention K/V at 128 would be 412 GB; at 16 it is 51.5 GB), one
+# prefill_32k call at batch 1 with the frames; 12d internvl2-26b at full
+# width and depth: decode at batch 4 on 32,768 slots (cut from 128: 25.8
+# GB of K/V beside 39.8 GB of weights), one prefill of its 256 prefix
+# embeddings and 32,512 text tokens at batch 1
+JAMBA_ARCH, JAMBA_LAYERS = "jamba-1.5-large-398b", 4
+JAMBA_BATCH, JAMBA_CACHE, JAMBA_PROMPT, JAMBA_TOKENS = 128, 32768, 32, 16
+JAMBA_PREFILL_S = 32768
+MAMBA_LAYER_TOKENS, MAMBA_STEPS = 256, 8
+CROSS_BLOCK_TOKENS, CROSS_STEPS = 64, 8
+CARD_CPU_TOL, STEP_TOL = 1e-4, 1e-5
+WHISPER_ARCH = "whisper-medium"
+WHISPER_BATCH, WHISPER_CACHE, WHISPER_PROMPT, WHISPER_TOKENS = \
+    16, 32768, 32, 16
+WHISPER_PREFILL_S = 32768
+VLM_ARCH = "internvl2-26b"
+VLM_BATCH, VLM_CACHE, VLM_PROMPT, VLM_TOKENS = 4, 32768, 32, 16
+VLM_PREFILL_S = 32768
 
 
 def fail(msg: str) -> None:
@@ -712,6 +785,32 @@ def main() -> None:
                 f"{route}")
         att[what] = att_check("flash_attention", got, ref.flash_attention_ref(
             q, k, v, causal=causal, window=window), dt, what)
+    for b, s, sk, h, kv, d, dt in CROSS_CASES:
+        dtype = getattr(torch, dt)
+        q = randn(b, s, h, d).to(dtype)
+        k, v = randn(b, sk, kv, d).to(dtype), randn(b, sk, kv, d).to(dtype)
+        route = prefill_route(dtype, d)
+        before = dict(ops.flash_attention.launches_by_route)
+        got = ops.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        check(ops.flash_attention.launches_by_route[route]
+              == before[route] + 1, f"flash_attention did not launch its "
+                                    f"{route} route")
+        what = (f"b{b} s{s} sk{sk} h{h} kv{kv} d{d} causal=False w0 {dt} "
+                f"{route}")
+        want = ref.flash_attention_ref(q, k, v, causal=False)
+        att[what] = att_check("flash_attention", got, want, dt, what)
+        valid = torch.ones(b, sk, dtype=torch.bool, device=dev)
+        one = ops.flash_decode(q[:, :1].contiguous(), k, v, valid)
+        att[f"decode over all {sk} keys {what}"] = att_check(
+            "flash_decode", one, want[:, :1], dt, f"decode {what}")
+        for mask in ({"causal": True}, {"causal": False, "window": 8}):
+            try:
+                ops.flash_attention(q, k, v, **mask)
+            except ValueError:
+                continue
+            check(False, f"flash_attention {what} {mask}: a masked call at "
+                         f"Sk != S did not raise")
     for b, s, h, kv, d, fill, dt, ct, want_splits in DECODE_CASES:
         dtype, ctype = getattr(torch, dt), getattr(torch, ct)
         q = randn(b, 1, h, d).to(dtype)
@@ -1138,6 +1237,12 @@ def main() -> None:
     mla_rwkv, mla_launches = run_mla_rwkv_phase(dev, rel_err)
     print(json.dumps({"mla_rwkv_serving": mla_rwkv}))
 
+    # ---- 12. serving jamba (Mamba), whisper and internvl2 --------------
+    # (its own function: each model is freed before the next)
+    last_families, last_launches, last_profiles = run_last_families_phase(
+        dev, rel_err)
+    print(json.dumps({"last_families_serving": last_families}))
+
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
         """Mean ms of one call over ``iters`` back-to-back calls (CUDA
@@ -1327,19 +1432,24 @@ def main() -> None:
                 "rel_err_block_rows": block, "rel_err_limit": ROW_REL_TOL}
 
     def prefill_row(name, s_, h_, kv_, d_, by_phase, instance, profile,
-                    what, plain_chunk=1024):
-        qa, ka, va = (drandn(1, s_, h_, d_), drandn(1, s_, kv_, d_),
-                      drandn(1, s_, kv_, d_))
+                    what, plain_chunk=1024, b_=1, sk_=None, causal=True):
+        sk_ = sk_ or s_
+        qa, ka, va = (drandn(b_, s_, h_, d_), drandn(b_, sk_, kv_, d_),
+                      drandn(b_, sk_, kv_, d_))
 
         def plain():
-            return L._sdpa_chunked_raw(qa, ka, va, causal=True, window=0,
+            return L._sdpa_chunked_raw(qa, ka, va, causal=causal, window=0,
                                        chunk=plain_chunk)
-        got, want = ops.flash_attention(qa, ka, va), plain()
+
+        def kern():
+            return ops.flash_attention(qa, ka, va, causal=causal)
+        got, want = kern(), plain()
         full_err = att_check("flash_attention", got, want, "bfloat16", what)
         rel = rel_check("flash_attention", got, want, 1, 1024, what)
         del got, want
         a_bytes = 2 * (2 * qa.numel() + ka.numel() + va.numel())
-        a_flops = 2 * s_ ** 2 * h_ * d_
+        # causal: half of the 4 B S Sk H D of the full products
+        a_flops = (2 if causal else 4) * b_ * s_ * sk_ * h_ * d_
         row = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1347,23 +1457,26 @@ def main() -> None:
             "launches": sum(by_phase.values()),
             "launches_by_phase": by_phase,
             "max_abs_err": max(full_err, errs_2b(
-                rf"b\d+ s\d+ h\d+ kv\d+ d{d_} .* bfloat16 tensor_core")),
-            "ms": cuda_ms(lambda: ops.flash_attention(qa, ka, va), 5, 1),
+                rf"b\d+ s\d+ {'sk' if sk_ != s_ else 'h'}\d+ .*d{d_} .* "
+                rf"bfloat16 tensor_core")),
+            "ms": cuda_ms(kern, 5, 1),
             **path_device_ms(profile, "::flash_fwd_wgmma_kernel<"),
             "kernel_route": prefill_route(qa.dtype, d_),
             "instance": instance,
             "ptxas": ptxas("flash_attention", instance),
             "plain_ms": cuda_ms(plain, 2, 1),
             "plain": f"layers._sdpa_chunked_raw in chunks of {plain_chunk} "
-                     f"keys (flash_attention_ref's S x S scores would take "
-                     f"{4 * h_ * s_ * s_ / 1e9:.0f} GB at S={s_})",
+                     f"keys (flash_attention_ref's S x Sk scores would take "
+                     f"{4 * b_ * h_ * s_ * sk_ / 1e9:.1f} GB at S={s_}, "
+                     f"Sk={sk_})",
+            "causal": causal,
             "max_abs_err_vs_plain_at_this_shape": full_err, **rel,
             **dict(zip(("bound_ms", "bound_by"),
                        bound(a_bytes, a_flops, H100_BF16_FLOPS))),
             "library_ms": cuda_ms(lambda: sdpa(
                 qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
-                is_causal=True, enable_gqa=True), 5, 1),
-            "shape": [1, s_, h_, kv_, d_]}
+                is_causal=causal, enable_gqa=True), 5, 1),
+            "shape": [b_, s_, h_, kv_, d_], "key_len": sk_}
         del qa, ka, va
         torch.cuda.empty_cache()
         return row
@@ -1421,7 +1534,8 @@ def main() -> None:
     rows.append(prefill_row(
         "flash_attention_d128", MOE_PREFILL_S, mh, mkv, md,
         {"10a": moe_launches["10a_prefill"],
-         "10c": moe_launches["10c_prefill"]},
+         "10c": moe_launches["10c_prefill"],
+         "12a": last_launches["12a_prefill"]},
         r"flash_fwd_wgmma_kernelILi128ELi128ELi2E",
         moe_serving["10a"]["profiled_prefill_call"],
         "at phase 10a's prefill shape"))
@@ -1435,7 +1549,8 @@ def main() -> None:
         "flash_decode_d128", MOE_BATCH, MOE_CACHE,
         MOE_PROMPT - 1 + MOE_TOKENS, mh, mkv, md,
         {"10a": moe_launches["10a_decode"],
-         "10c": moe_launches["10c_decode"]},
+         "10c": moe_launches["10c_decode"],
+         "12a": last_launches["12a_decode"]},
         {"g8": r"flash_decode_kernelI13__nv_bfloat16S\d_Li128ELi8E",
          "g4": r"flash_decode_kernelI13__nv_bfloat16S\d_Li128ELi4E"},
         moe_serving["10a"]["profiled_decode_step"],
@@ -1459,6 +1574,66 @@ def main() -> None:
         {"g2": r"flash_decode_kernelI13__nv_bfloat16S\d_Li256ELi2E"},
         mla_rwkv["11a"]["profiled_decode_step"],
         "at phase 11a's decode shape"))
+    # phase 12's new paths: whisper's encoder (the prefill kernel without a
+    # causal mask at S 1,500, no multiple of a key tile, B 16, 16 / 16
+    # heads of 64), its decoder's self-attention at G 1 (causal at S
+    # 32,768; the decode kernel over 32,768 slots at batch 16) and its
+    # cross-attention (32,768 decoder queries over 1,500 encoder keys; the
+    # decode kernel over 1,500 valid slots at batch 16), on the D 64
+    # instances; internvl2's D 128 at G 6 (48 / 8 heads) on the D 128
+    # instances (the decode's GMAX 8 one). Launches: 12c's counts by query
+    # and key length. Device ms: the encoder's and internvl2's from 12c's
+    # and 12d's own profiles, the decoder's self and cross calls' from one
+    # call each profiled in 12c (20 calls, a launch's mean)
+    wcfg = get_config(WHISPER_ARCH)
+    vcfg = get_config(VLM_ARCH)
+    wh, wd = wcfg.num_heads, wcfg.head_dim
+    rows.append(prefill_row(
+        "flash_attention_enc", wcfg.encoder_seq_len, wh, wh, wd,
+        {"12c_encode": last_launches["12c_encode"],
+         "12c_prefill": last_launches["12c_prefill_encoder"]},
+        r"flash_fwd_wgmma_kernelILi64ELi128ELi3E",
+        last_profiles["12c_encode"], "at phase 12c's encoder shape",
+        b_=WHISPER_BATCH, causal=False))
+    rows.append(prefill_row(
+        "flash_attention_g1", WHISPER_PREFILL_S, wh, wh, wd,
+        {"12c_prefill": last_launches["12c_prefill_self"]},
+        r"flash_fwd_wgmma_kernelILi64ELi128ELi3E",
+        last_profiles["12c_self_prefill"],
+        "at phase 12c's decoder self-attention prefill shape"))
+    rows.append(decode_row(
+        "flash_decode_g1", WHISPER_BATCH, WHISPER_CACHE,
+        WHISPER_PROMPT - 1 + WHISPER_TOKENS, wh, wh, wd,
+        {"12c_decode": last_launches["12c_decode_self"]},
+        {"g1": r"flash_decode_kernelI13__nv_bfloat16S\d_Li64ELi2E"},
+        last_profiles["12c_self_decode"],
+        "at phase 12c's decoder self-attention decode shape"))
+    rows.append(prefill_row(
+        "flash_attention_cross", WHISPER_PREFILL_S, wh, wh, wd,
+        {"12c_prefill": last_launches["12c_prefill_cross"]},
+        r"flash_fwd_wgmma_kernelILi64ELi128ELi3E",
+        last_profiles["12c_cross_prefill"],
+        "at phase 12c's cross-attention prefill shape",
+        sk_=wcfg.encoder_seq_len, causal=False))
+    rows.append(decode_row(
+        "flash_decode_cross", WHISPER_BATCH, wcfg.encoder_seq_len,
+        wcfg.encoder_seq_len, wh, wh, wd,
+        {"12c_decode": last_launches["12c_decode_cross"]},
+        {"g1": r"flash_decode_kernelI13__nv_bfloat16S\d_Li64ELi2E"},
+        last_profiles["12c_cross_decode"],
+        "at phase 12c's cross-attention decode shape"))
+    rows.append(prefill_row(
+        "flash_attention_d128_g6", VLM_PREFILL_S, vcfg.num_heads,
+        vcfg.num_kv_heads, vcfg.head_dim,
+        {"12d": last_launches["12d_prefill"]},
+        r"flash_fwd_wgmma_kernelILi128ELi128ELi2E",
+        last_profiles["12d_prefill"], "at phase 12d's prefill shape"))
+    rows.append(decode_row(
+        "flash_decode_d128_g6", VLM_BATCH, VLM_CACHE,
+        VLM_PROMPT - 1 + VLM_TOKENS, vcfg.num_heads, vcfg.num_kv_heads,
+        vcfg.head_dim, {"12d": last_launches["12d_decode"]},
+        {"g6": r"flash_decode_kernelI13__nv_bfloat16S\d_Li128ELi8E"},
+        last_profiles["12d_decode"], "at phase 12d's decode shape"))
     # the backward kernels, timed by phase 9 at one training layer's shape
     rows.append({**bwd_row, "max_abs_err": errs["flash_attention_bwd"]})
     ops.reset_launch_counts()          # timing launches are not the path's
@@ -2451,7 +2626,6 @@ def run_moe_serving_phase(dev, rel_err):
     depth cut to ``PHI3_LAYERS``; 10d: ``launch.serve_lm`` in its own
     process for both archs. Returns (the phase's numbers, its prefill and
     decode kernel launches by part)."""
-    import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2649,8 +2823,7 @@ def run_moe_serving_phase(dev, rel_err):
     torch.cuda.empty_cache()
 
     # ---- 10c: phi3-medium-14b at full width, depth cut ----
-    pcfg = dataclasses.replace(get_config("phi3-medium-14b"),
-                               num_layers=PHI3_LAYERS)
+    pcfg = serve.cut_depth(get_config("phi3-medium-14b"), PHI3_LAYERS)
     prefill, lm = make_prefill_step(pcfg)
     decode_step, _ = make_decode_step(pcfg)
     params = lm.init(torch.Generator(device=dev).manual_seed(0), dev,
@@ -2753,7 +2926,6 @@ def run_mla_rwkv_phase(dev, rel_err):
     prefill and the card against the CPU; 11e: ``launch.serve_lm`` in its
     own process for both archs. Returns (the phase's numbers, the
     attention kernels' launches in 11a by part)."""
-    import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2769,7 +2941,7 @@ def run_mla_rwkv_phase(dev, rel_err):
     peak_and_reset()
 
     # ---- 11a: deepseek-v2-236b at full width, depth cut ----
-    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS)
+    cfg = serve.cut_depth(get_config(MLA_ARCH), MLA_LAYERS)
     nl = cfg.num_layers
     prefill, lm = make_prefill_step(cfg)                  # bf16
     decode_step, _ = make_decode_step(cfg)
@@ -3119,6 +3291,569 @@ def run_mla_rwkv_phase(dev, rel_err):
     out["wall_s"] = monotonic() - t_phase
     return out, launches
 
+
+def run_last_families_phase(dev, rel_err):
+    """Phase 12: serving the last three LM families. 12a: jamba at full
+    width, depth cut to ``JAMBA_LAYERS`` (mamba x 3 and attention, the MoE
+    on layers 1 and 3; bf16 weights from seed 0 made one layer slice at a
+    time): ``launch.serve --layers`` at decode_32k's full batch, one
+    prefill at prefill_32k's length, launches reckoned from the shapes, a
+    second prefill call bit for bit, the dropped share, profiles, peaks
+    and bounds; 12b: one full-width Mamba layer and one full-width
+    cross-attention block in f32, the card against the CPU, the decode
+    steps against the prefill; 12c: whisper-medium at full width and
+    depth: ``LM.encode`` over the stub frames, decode on decode_32k's
+    slots with that ``enc_out``, one prefill_32k call with the frames,
+    launches reckoned, profiles; 12d: internvl2-26b at full width and
+    depth: ``launch.serve`` and one prefill of the vision prefix and the
+    text, launches reckoned, profiles; 12e: ``launch.serve_lm`` in its own
+    process for the three archs. Returns (the phase's numbers, the
+    attention kernels' launches by part, the profiles the kernels line
+    reads)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import count_params
+    from repro_torch.obs.timing import monotonic
+
+    out, launches, profiles = {}, {}, {}
+    t_phase = monotonic()
+    peak_and_reset()
+
+    def timed_prefill(prefill, params, batch, nl_launches, what):
+        """One prefill call timed, its launches (all on the tensor cores,
+        ``nl_launches`` of them), finite last-position logits, a second
+        call the same bits -> (seconds, launches, routes, launches by
+        query and key length, peak)."""
+        ops.reset_launch_counts()
+        t0 = monotonic()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        secs = monotonic() - t0
+        got = ops.launch_counts()
+        routes = dict(ops.flash_attention.launches_by_route)
+        lengths = dict(ops.flash_attention.launches_by_lengths)
+        check(got["flash_attention"] == nl_launches
+              and routes["tensor_core"] == nl_launches
+              and got["flash_decode"] == 0,
+              f"{what}: prefill launches {got}, by route {routes}, want "
+              f"{nl_launches}")
+        check(bool(torch.isfinite(logits).all()),
+              f"{what}: prefill logits not finite")
+        again = prefill(params, batch)
+        check(torch.equal(logits, again),
+              f"{what}: two prefill calls on the same inputs differ")
+        return secs, got, routes, lengths, peak_and_reset()
+
+    # ---- 12a: jamba at full width, depth cut ----
+    cfg = serve.cut_depth(get_config(JAMBA_ARCH), JAMBA_LAYERS)
+    steps = JAMBA_PROMPT - 1 + JAMBA_TOKENS
+    n_attn = sum(s.mixer == "attn" for s in make_prefill_step(cfg)[1].specs)
+    check(n_attn == 1, f"12a: {n_attn} attention layers in the cut")
+    ops.reset_launch_counts()
+    served = serve.main(["--arch", JAMBA_ARCH, "--layers", str(JAMBA_LAYERS),
+                         "--batch", str(JAMBA_BATCH), "--prompt-len",
+                         str(JAMBA_PROMPT), "--cache-len", str(JAMBA_CACHE),
+                         "--tokens", str(JAMBA_TOKENS)])
+    serve_launches = ops.launch_counts()
+    check(serve_launches["flash_decode"] == n_attn * steps
+          and serve_launches["flash_attention"] == 0,
+          f"12a: serve launches {serve_launches}, want {n_attn} x {steps} "
+          f"decodes")
+    check(served.tokens.shape == (JAMBA_BATCH, JAMBA_TOKENS)
+          and int(served.tokens.min()) >= 0
+          and int(served.tokens.max()) < cfg.padded_vocab,
+          f"12a: served tokens {served.tokens.shape}")
+    launches["12a_decode"] = serve_launches["flash_decode"]
+    peak_and_reset()
+    prefill, lm = make_prefill_step(cfg)
+    decode_step, _ = make_decode_step(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), dev,
+                     dtype=torch.bfloat16)
+    ptoks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, JAMBA_PREFILL_S), np.int32)).to(dev)
+    with moe_pairs() as pcounts:
+        prefill_s, prefill_launches, prefill_routes, _, prefill_mem = \
+            timed_prefill(prefill, params, {"tokens": ptoks}, n_attn, "12a")
+    launches["12a_prefill"] = prefill_launches["flash_attention"]
+    prefill_profile = device_profile(
+        lambda: prefill(params, {"tokens": ptoks}))
+    peak_and_reset()
+    cache = lm.init_cache(JAMBA_BATCH, JAMBA_CACHE, device=dev)
+    dtoks = ptoks[0, :9 * JAMBA_BATCH].reshape(JAMBA_BATCH, 9)
+    with moe_pairs() as dcounts:
+        for i in range(8):
+            nxt, cache = decode_step(params, cache, dtoks[:, i:i + 1])
+    check(0 <= int(nxt.min()) and int(nxt.max()) < cfg.padded_vocab,
+          "12a: decoded ids out of range")
+    decode_profile = device_profile(
+        lambda: decode_step(params, cache, dtoks[:, 8:9]))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for blk in cache["stages"][0] if "conv" in blk["mixer"]
+                      for t in blk["mixer"].values())
+    decode_mem = peak_and_reset()
+    del cache, params
+    peak_and_reset()
+    # the least time of the work (bf16 at 989 TFLOP/s, 3.35 TB/s): a decode
+    # step reads every weight (the capacity dispatch runs every expert)
+    # and the attention layer's cache, and reads and writes the Mamba
+    # states; a prefill call's products
+    d_, di, st_ = cfg.d_model, cfg.d_inner, cfg.ssm_state_dim
+    h_, kv_, hd_, f_, e_ = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                            cfg.d_ff, cfg.num_experts)
+    r_ = max(d_ // 16, 1)
+    s_ = JAMBA_PREFILL_S
+    weight_bytes = 2 * count_params(cfg)
+    kv_bytes = 2 * 2 * JAMBA_BATCH * JAMBA_CACHE * n_attn * kv_ * hd_
+    groups = max(s_ // 512, 1)
+    cap = max(int((s_ // groups) * cfg.num_experts_per_tok / e_ * 1.25), 1)
+    n_mamba = sum(s.mixer == "mamba" for s in lm.specs)
+    n_moe = sum(s.ffn == "moe" for s in lm.specs)
+    mamba_flops = 2 * s_ * (d_ * 2 * di + di * (r_ + 2 * st_) + r_ * di
+                            + di * d_)
+    attn_flops = 2 * s_ * d_ * (2 * h_ * hd_ + 2 * kv_ * hd_) \
+        + 2 * s_ * s_ * h_ * hd_
+    prefill_flops = n_mamba * mamba_flops + n_attn * attn_flops \
+        + n_moe * (6 * e_ * groups * cap * d_ * f_ + 2 * s_ * d_ * e_) \
+        + (len(lm.specs) - n_moe) * 6 * s_ * d_ * f_ \
+        + 2 * d_ * cfg.padded_vocab
+    out["12a"] = {
+        "model": cfg.name, "layers": len(lm.specs),
+        "block_pattern": list(cfg.block_pattern),
+        "params": count_params(cfg),
+        "active_params": count_params(cfg, active_only=True),
+        "weight_bytes": weight_bytes,
+        "serve": {"batch": JAMBA_BATCH, "cache_len": JAMBA_CACHE,
+                  "prompt_len": JAMBA_PROMPT, "new_tokens": JAMBA_TOKENS,
+                  "prompt_fed_s": served.prompt_s,
+                  "decode_s": served.decode_s,
+                  "decode_ms_per_step": served.decode_s / JAMBA_TOKENS * 1e3,
+                  "tok_per_s": served.tok_per_s,
+                  "launches": serve_launches,
+                  "flash_decode_launches_reckoned": n_attn * steps,
+                  "max_memory_allocated": served.peak_bytes,
+                  "kv_cache_bytes": kv_bytes,
+                  "mamba_state_bytes": state_bytes,
+                  "decode_step_bound_ms": (weight_bytes + kv_bytes
+                                           + 2 * state_bytes)
+                  / H100_BYTES_PER_S * 1e3},
+        "decode_steps_after_prefill": {"steps": 8,
+                                       "max_memory_allocated": decode_mem},
+        "prefill": {"batch": 1, "seq_len": JAMBA_PREFILL_S,
+                    "prefill_s": prefill_s,
+                    "tok_per_s": JAMBA_PREFILL_S / prefill_s,
+                    "launches": prefill_launches,
+                    "flash_attention_launches_reckoned": n_attn,
+                    "flash_attention_launches_by_route": prefill_routes,
+                    "max_memory_allocated": prefill_mem,
+                    "second_call_bit_identical": True,
+                    "moe_groups": groups, "moe_capacity": cap,
+                    "bound_ms": bound(weight_bytes, prefill_flops,
+                                      H100_BF16_FLOPS)[0],
+                    "mamba_gemm_flops_a_layer": mamba_flops},
+        "dropped_share": {
+            "prefill": dropped_share(pcounts),
+            "decode": dropped_share(dcounts),
+            "prefill_pairs": pcounts["routed"],
+            "decode_pairs": dcounts["routed"]},
+        "profiled_prefill_call": prefill_profile,
+        "profiled_decode_step": decode_profile}
+    profiles["12a_prefill"], profiles["12a_decode"] = (prefill_profile,
+                                                       decode_profile)
+
+    # ---- 12b: one Mamba layer and one cross-attention block in f32 ----
+    gen = torch.Generator(device=dev).manual_seed(8)
+    p = L.mamba_init(L.ParamInit(gen, dev), cfg)
+    for k in ("norm", "conv_b", "dt_bias", "D"):
+        p[k] = p[k] + 0.1 * torch.randn(p[k].shape, generator=gen,
+                                        device=dev)
+    x = torch.randn(1, MAMBA_LAYER_TOKENS, d_, generator=gen, device=dev)
+
+    def run_mamba(pp, xx, where):
+        """The layer's prefill, and its first MAMBA_STEPS tokens one at a
+        time through decode from a zero state."""
+        with torch.no_grad():
+            y, _ = L.mamba_apply(pp, xx, cfg=cfg, mode="full")
+            c = L.mamba_cache_init(cfg, 1, device=where)
+            dec = torch.cat([L.mamba_apply(pp, xx[:, i:i + 1], cfg=cfg,
+                                           mode="decode", cache=c)[0]
+                             for i in range(MAMBA_STEPS)], 1)
+        return y, dec, c["ssm"]
+
+    ops.reset_launch_counts()
+    card = run_mamba(p, x, dev)
+    check(not any(ops.launch_counts().values()),
+          "12b: the Mamba layer launched a kernel")
+    again = run_mamba(p, x, dev)
+    check(all(torch.equal(a, b) for a, b in zip(card, again)),
+          "12b: two card runs of one Mamba layer differ")
+    cpu = run_mamba({k: v.cpu() for k, v in p.items()}, x.cpu(), "cpu")
+    errs_m = {"prefill_card_vs_cpu": rel_err(card[0].cpu(), cpu[0]),
+              "decode_card_vs_cpu": rel_err(card[1].cpu(), cpu[1]),
+              "ssm_state_card_vs_cpu": rel_err(card[2].cpu(), cpu[2])}
+    steps_m = {"decode_vs_prefill_on_the_card": rel_err(
+        card[1], card[0][:, :MAMBA_STEPS]),
+        "decode_vs_prefill_on_the_cpu": rel_err(
+        cpu[1], cpu[0][:, :MAMBA_STEPS])}
+    check(all(v <= CARD_CPU_TOL for v in errs_m.values())
+          and all(v <= STEP_TOL for v in steps_m.values()),
+          f"12b: Mamba errors {errs_m} (limit {CARD_CPU_TOL}), decode vs "
+          f"prefill {steps_m} (limit {STEP_TOL})")
+    del p, x, card, again, cpu
+    wcfg = get_config(WHISPER_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    p = L.attn_init(L.ParamInit(gen, dev), wcfg, cross=True)
+    for k in ("norm", "cross_norm"):
+        p[k] = p[k] + 0.1 * torch.randn(p[k].shape, generator=gen,
+                                        device=dev)
+    x = torch.randn(2, CROSS_BLOCK_TOKENS, wcfg.d_model, generator=gen,
+                    device=dev)
+    enc = torch.randn(2, wcfg.encoder_seq_len, wcfg.d_model, generator=gen,
+                      device=dev)
+
+    def run_cross(pp, xx, ee, where):
+        """The block in full mode, then CROSS_STEPS decode steps on a
+        ring of CROSS_BLOCK_TOKENS slots, the same encoder rows."""
+        with torch.no_grad():
+            y, _ = L.attn_apply(pp, xx, cfg=wcfg, mode="full", enc_out=ee)
+            c = L.attn_cache_init(wcfg, 2, CROSS_BLOCK_TOKENS, 0,
+                                  torch.float32, where)
+            dec = torch.cat([L.attn_apply(
+                pp, xx[:, i:i + 1], cfg=wcfg, mode="decode", cache=c,
+                pos=torch.full((2,), i, dtype=torch.int32, device=where),
+                enc_out=ee)[0] for i in range(CROSS_STEPS)], 1)
+        return y, dec
+
+    ops.reset_launch_counts()
+    card = run_cross(p, x, enc, dev)
+    block_launches = ops.launch_counts()
+    block_routes = dict(ops.flash_attention.launches_by_route)
+    check(block_launches["flash_attention"] == 2
+          and block_routes["cuda_core"] == 2
+          and block_launches["flash_decode"] == 2 * CROSS_STEPS,
+          f"12b: cross block launches {block_launches}, by route "
+          f"{block_routes}")
+    cpu = run_cross({k: v.cpu() for k, v in p.items()}, x.cpu(), enc.cpu(),
+                    "cpu")
+    errs_c = {"full_card_vs_cpu": rel_err(card[0].cpu(), cpu[0]),
+              "decode_card_vs_cpu": rel_err(card[1].cpu(), cpu[1])}
+    steps_c = {"decode_vs_full_on_the_card": rel_err(
+        card[1], card[0][:, :CROSS_STEPS]),
+        "decode_vs_full_on_the_cpu": rel_err(cpu[1],
+                                             cpu[0][:, :CROSS_STEPS])}
+    check(all(v <= CARD_CPU_TOL for v in errs_c.values())
+          and all(v <= STEP_TOL for v in steps_c.values()),
+          f"12b: cross block errors {errs_c} (limit {CARD_CPU_TOL}), "
+          f"decode vs full {steps_c} (limit {STEP_TOL})")
+    out["12b"] = {"dtype": "float32", "card_vs_cpu_limit": CARD_CPU_TOL,
+                  "decode_vs_prefill_limit": STEP_TOL,
+                  "mamba": {"tokens": MAMBA_LAYER_TOKENS,
+                            "decode_steps": MAMBA_STEPS,
+                            "d_inner": di, "state": st_,
+                            "rel_err": errs_m, "decode_vs_prefill": steps_m,
+                            "card_repeat_bit_identical": True},
+                  "cross_attention": {
+                      "tokens": CROSS_BLOCK_TOKENS,
+                      "encoder_rows": wcfg.encoder_seq_len,
+                      "decode_steps": CROSS_STEPS,
+                      "launches": block_launches,
+                      "flash_attention_launches_by_route": block_routes,
+                      "rel_err": errs_c, "decode_vs_full": steps_c}}
+    del p, x, enc, card, cpu
+    peak_and_reset()
+
+    # ---- 12c: whisper-medium at full width and depth ----
+    prefill, lm = make_prefill_step(wcfg)
+    decode_step, _ = make_decode_step(wcfg)
+    nl, ne = wcfg.num_layers, wcfg.encoder_layers
+    se = wcfg.encoder_seq_len
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), dev,
+                     dtype=torch.bfloat16)
+    frames = torch.randn(WHISPER_BATCH, se, wcfg.d_model,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             10), device=dev).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        lm.encode(params, frames)                         # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = monotonic()
+        enc = lm.encode(params, frames)
+        torch.cuda.synchronize()
+    encode_s = monotonic() - t0
+    encode_launches = ops.launch_counts()
+    encode_routes = dict(ops.flash_attention.launches_by_route)
+    encode_lengths = dict(ops.flash_attention.launches_by_lengths)
+    check(encode_launches["flash_attention"] == ne
+          and encode_routes["tensor_core"] == ne
+          and encode_lengths == {f"{se}x{se}": ne}
+          and tuple(enc.shape) == (WHISPER_BATCH, se, wcfg.d_model)
+          and bool(torch.isfinite(enc).all()),
+          f"12c: encode launches {encode_launches}, by route "
+          f"{encode_routes}, by lengths {encode_lengths}")
+    launches["12c_encode"] = encode_lengths[f"{se}x{se}"]
+    with torch.no_grad():
+        encode_profile = device_profile(lambda: lm.encode(params, frames))
+    encode_mem = peak_and_reset()
+    cache = lm.init_cache(WHISPER_BATCH, WHISPER_CACHE, device=dev)
+    cache["enc_out"] = enc
+    rng = np.random.default_rng(11)
+    prompt = torch.from_numpy(rng.integers(
+        0, wcfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT),
+        np.int32)).to(dev)
+    wsteps = WHISPER_PROMPT - 1 + WHISPER_TOKENS
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    tok = prompt[:, :1]
+    for i in range(1, WHISPER_PROMPT):
+        _, cache = decode_step(params, cache, tok)
+        tok = prompt[:, i:i + 1]
+    torch.cuda.synchronize()
+    w_prompt_s = monotonic() - t0
+    gen_toks = []
+    t0 = monotonic()
+    for _ in range(WHISPER_TOKENS):
+        tok, cache = decode_step(params, cache, tok)
+        gen_toks.append(tok)
+    torch.cuda.synchronize()
+    w_decode_s = monotonic() - t0
+    w_decode_launches = ops.launch_counts()
+    # one query over the cache's slots (self) or over the encoder's rows
+    # (cross)
+    w_decode_lengths = dict(ops.flash_decode.launches_by_lengths)
+    self_key, cross_key = f"1x{WHISPER_CACHE}", f"1x{se}"
+    gen_toks = torch.cat(gen_toks, 1)
+    check(w_decode_launches["flash_decode"] == 2 * nl * wsteps
+          and w_decode_lengths == {self_key: nl * wsteps,
+                                   cross_key: nl * wsteps}
+          and w_decode_launches["flash_attention"] == 0
+          and 0 <= int(gen_toks.min())
+          and int(gen_toks.max()) < wcfg.padded_vocab,
+          f"12c: decode launches {w_decode_launches}, by lengths "
+          f"{w_decode_lengths}, want {nl} x {wsteps} of {self_key} and of "
+          f"{cross_key}")
+    launches["12c_decode_self"] = w_decode_lengths[self_key]
+    launches["12c_decode_cross"] = w_decode_lengths[cross_key]
+    w_decode_profile = device_profile(
+        lambda: decode_step(params, cache, tok))
+    w_decode_mem = peak_and_reset()
+    del cache
+    peak_and_reset()
+    # one self- and one cross-attention call at each mode's shape, each
+    # profiled alone (the step's profiles mix them, on the same kernel
+    # instance): ``kernel_device_ms``, which profiles again
+    # when the profiler drops a lone launch's event (one did, in a run of
+    # this phase), in the shape of ``device_profile``'s attention entry
+    from repro_torch.obs.device_time import kernel_device_ms
+
+    def launch_profile(fn, names):
+        per = kernel_device_ms(fn, names, iters=20)
+        return {"attention_device_ms_a_launch": {
+            f"::{n}<": {"launches": 1, "device_ms": ms}
+            for n, ms in per.items()}}
+    gq = torch.Generator(device=dev).manual_seed(12)
+    hq, hk, hd = wcfg.num_heads, wcfg.num_kv_heads, wcfg.head_dim
+
+    def brandn(*shape):
+        return torch.randn(shape, generator=gq, device=dev).to(
+            torch.bfloat16)
+    ck, cv = brandn(WHISPER_BATCH, se, hk, hd), brandn(WHISPER_BATCH, se,
+                                                       hk, hd)
+    cq = brandn(WHISPER_BATCH, 1, hq, hd)
+    L._cross_core(cq, ck, cv)
+    profiles["12c_cross_decode"] = launch_profile(
+        lambda: L._cross_core(cq, ck, cv),
+        ("flash_decode_kernel",) + (("flash_decode_combine_kernel",)
+                                    if ops.flash_decode.last_splits > 1
+                                    else ()))
+    cq, ck, cv = (brandn(1, WHISPER_PREFILL_S, hq, hd), ck[:1].contiguous(),
+                  cv[:1].contiguous())
+    profiles["12c_cross_prefill"] = launch_profile(
+        lambda: L._cross_core(cq, ck, cv), ("flash_fwd_wgmma_kernel",))
+    # the decoder's causal self-attention at the prefill's shape, and its
+    # decode over the cache's slots, as many valid as in the last step
+    ck, cv = brandn(1, WHISPER_PREFILL_S, hk, hd), brandn(
+        1, WHISPER_PREFILL_S, hk, hd)
+    profiles["12c_self_prefill"] = launch_profile(
+        lambda: ops.flash_attention(cq, ck, cv, causal=True),
+        ("flash_fwd_wgmma_kernel",))
+    cq = brandn(WHISPER_BATCH, 1, hq, hd)
+    ck, cv = (brandn(WHISPER_BATCH, WHISPER_CACHE, hk, hd),
+              brandn(WHISPER_BATCH, WHISPER_CACHE, hk, hd))
+    svalid = (torch.arange(WHISPER_CACHE, device=dev) < wsteps).expand(
+        WHISPER_BATCH, WHISPER_CACHE).contiguous()
+    ops.flash_decode(cq, ck, cv, svalid)
+    profiles["12c_self_decode"] = launch_profile(
+        lambda: ops.flash_decode(cq, ck, cv, svalid),
+        ("flash_decode_kernel",) + (("flash_decode_combine_kernel",)
+                                    if ops.flash_decode.last_splits > 1
+                                    else ()))
+    del cq, ck, cv, svalid
+    wtoks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, wcfg.vocab_size, (1, WHISPER_PREFILL_S), np.int32)).to(dev)
+    wbatch = {"tokens": wtoks, "enc_frames": frames[:1]}
+    w_prefill_s, w_prefill_launches, w_prefill_routes, w_prefill_lengths, \
+        w_prefill_mem = timed_prefill(prefill, params, wbatch, ne + 2 * nl,
+                                      "12c")
+    # the encoder's launches (1,500 x 1,500), the causal self-attention's
+    # (S x S) and the cross-attention's (S x 1,500), each counted
+    by_part = {"encoder": f"{se}x{se}",
+               "self": f"{WHISPER_PREFILL_S}x{WHISPER_PREFILL_S}",
+               "cross": f"{WHISPER_PREFILL_S}x{se}"}
+    check(w_prefill_lengths == {by_part["encoder"]: ne,
+                                by_part["self"]: nl, by_part["cross"]: nl},
+          f"12c: prefill launches by lengths {w_prefill_lengths}, want "
+          f"{ne} encoder, {nl} self, {nl} cross")
+    for part, key in by_part.items():
+        launches[f"12c_prefill_{part}"] = w_prefill_lengths[key]
+    w_prefill_profile = device_profile(lambda: prefill(params, wbatch))
+    del params, frames, enc
+    peak_and_reset()
+    w_weight = 2 * count_params(wcfg)
+    w_kv = 2 * 2 * WHISPER_BATCH * WHISPER_CACHE * nl * hk * hd
+    # a step re-projects every layer's cross keys and values from enc_out
+    # (the reference's way)
+    reproj = 2 * 2 * WHISPER_BATCH * se * wcfg.d_model * hk * hd * nl
+    out["12c"] = {
+        "model": wcfg.name, "decoder_layers": nl, "encoder_layers": ne,
+        "params": count_params(wcfg), "weight_bytes": w_weight,
+        "encode": {"batch": WHISPER_BATCH, "frames": se,
+                   "encode_s": encode_s, "launches": encode_launches,
+                   "flash_attention_launches_by_lengths": encode_lengths,
+                   "flash_attention_launches_reckoned": ne,
+                   "flash_attention_launches_by_route": encode_routes,
+                   "max_memory_allocated": encode_mem,
+                   "profile": encode_profile},
+        "decode": {"batch": WHISPER_BATCH, "cache_len": WHISPER_CACHE,
+                   "prompt_len": WHISPER_PROMPT,
+                   "new_tokens": WHISPER_TOKENS,
+                   "prompt_fed_s": w_prompt_s, "decode_s": w_decode_s,
+                   "decode_ms_per_step": w_decode_s / WHISPER_TOKENS * 1e3,
+                   "tok_per_s": WHISPER_BATCH * WHISPER_TOKENS / w_decode_s,
+                   "launches": w_decode_launches,
+                   "flash_decode_launches_by_lengths": w_decode_lengths,
+                   "flash_decode_launches_reckoned": 2 * nl * wsteps,
+                   "max_memory_allocated": w_decode_mem,
+                   "kv_cache_bytes": w_kv,
+                   "cross_reprojection_flops": reproj,
+                   "decode_step_bound_ms": bound(
+                       w_weight + w_kv, reproj, H100_BF16_FLOPS)[0]},
+        "prefill": {"batch": 1, "seq_len": WHISPER_PREFILL_S,
+                    "encoder_frames": se, "prefill_s": w_prefill_s,
+                    "tok_per_s": WHISPER_PREFILL_S / w_prefill_s,
+                    "launches": w_prefill_launches,
+                    "flash_attention_launches_reckoned": ne + 2 * nl,
+                    "flash_attention_launches_by_route": w_prefill_routes,
+                    "flash_attention_launches_by_lengths": w_prefill_lengths,
+                    "max_memory_allocated": w_prefill_mem,
+                    "second_call_bit_identical": True},
+        "profiled_prefill_call": w_prefill_profile,
+        "profiled_decode_step": w_decode_profile}
+    profiles["12c_encode"] = encode_profile
+
+    # ---- 12d: internvl2-26b at full width and depth ----
+    vcfg = get_config(VLM_ARCH)
+    nv = vcfg.num_layers
+    vsteps = VLM_PROMPT - 1 + VLM_TOKENS
+    ops.reset_launch_counts()
+    vserved = serve.main(["--arch", VLM_ARCH, "--batch", str(VLM_BATCH),
+                          "--prompt-len", str(VLM_PROMPT), "--cache-len",
+                          str(VLM_CACHE), "--tokens", str(VLM_TOKENS)])
+    v_serve_launches = ops.launch_counts()
+    check(v_serve_launches["flash_decode"] == nv * vsteps
+          and v_serve_launches["flash_attention"] == 0
+          and vserved.tokens.shape == (VLM_BATCH, VLM_TOKENS)
+          and 0 <= int(vserved.tokens.min())
+          and int(vserved.tokens.max()) < vcfg.padded_vocab,
+          f"12d: serve launches {v_serve_launches}, want {nv} x {vsteps}")
+    launches["12d_decode"] = v_serve_launches["flash_decode"]
+    peak_and_reset()
+    prefill, lm = make_prefill_step(vcfg)
+    decode_step, _ = make_decode_step(vcfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), dev,
+                     dtype=torch.bfloat16)
+    npre = vcfg.num_prefix_tokens
+    vbatch = {"tokens": torch.from_numpy(np.random.default_rng(14).integers(
+        0, vcfg.vocab_size, (1, VLM_PREFILL_S - npre), np.int32)).to(dev),
+        "prefix_embeds": torch.randn(
+            1, npre, vcfg.d_model, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(15)).to(
+                torch.bfloat16)}
+    v_prefill_s, v_prefill_launches, v_prefill_routes, _, v_prefill_mem = \
+        timed_prefill(prefill, params, vbatch, nv, "12d")
+    launches["12d_prefill"] = nv
+    v_prefill_profile = device_profile(lambda: prefill(params, vbatch))
+    peak_and_reset()
+    cache = lm.init_cache(VLM_BATCH, VLM_CACHE, device=dev)
+    dtoks = vbatch["tokens"][0, :3 * VLM_BATCH].reshape(VLM_BATCH, 3)
+    for i in range(2):
+        _, cache = decode_step(params, cache, dtoks[:, i:i + 1])
+    v_decode_profile = device_profile(
+        lambda: decode_step(params, cache, dtoks[:, 2:3]))
+    del cache, params, vbatch
+    peak_and_reset()
+    v_weight = 2 * count_params(vcfg)
+    vh, vkv, vhd, vd, vf = (vcfg.num_heads, vcfg.num_kv_heads,
+                            vcfg.head_dim, vcfg.d_model, vcfg.d_ff)
+    v_kv = 2 * 2 * VLM_BATCH * VLM_CACHE * nv * vkv * vhd
+    sv = VLM_PREFILL_S
+    v_gemm = nv * 2 * sv * vd * (2 * vh * vhd + 2 * vkv * vhd + 3 * vf) \
+        + 2 * npre * vd * vd + 2 * vd * vcfg.padded_vocab
+    v_attn = nv * 2 * sv * sv * vh * vhd
+    out["12d"] = {
+        "model": vcfg.name, "layers": nv, "params": count_params(vcfg),
+        "weight_bytes": v_weight, "heads": [vh, vkv, vhd],
+        "serve": {"batch": VLM_BATCH, "cache_len": VLM_CACHE,
+                  "prompt_len": VLM_PROMPT, "new_tokens": VLM_TOKENS,
+                  "prompt_fed_s": vserved.prompt_s,
+                  "decode_s": vserved.decode_s,
+                  "decode_ms_per_step": vserved.decode_s / VLM_TOKENS * 1e3,
+                  "tok_per_s": vserved.tok_per_s,
+                  "launches": v_serve_launches,
+                  "flash_decode_launches_reckoned": nv * vsteps,
+                  "max_memory_allocated": vserved.peak_bytes,
+                  "kv_cache_bytes": v_kv,
+                  "decode_step_bound_ms": (v_weight + v_kv)
+                  / H100_BYTES_PER_S * 1e3},
+        "prefill": {"batch": 1, "prefix_embeddings": npre,
+                    "text_tokens": sv - npre, "positions": sv,
+                    "prefill_s": v_prefill_s, "tok_per_s": sv / v_prefill_s,
+                    "launches": v_prefill_launches,
+                    "flash_attention_launches_reckoned": nv,
+                    "flash_attention_launches_by_route": v_prefill_routes,
+                    "max_memory_allocated": v_prefill_mem,
+                    "second_call_bit_identical": True,
+                    "gemm_flops": v_gemm, "attention_flops": v_attn,
+                    "bound_ms": bound(v_weight, v_gemm + v_attn,
+                                      H100_BF16_FLOPS)[0]},
+        "profiled_prefill_call": v_prefill_profile,
+        "profiled_decode_step": v_decode_profile}
+    profiles["12d_prefill"], profiles["12d_decode"] = (v_prefill_profile,
+                                                       v_decode_profile)
+    ops.reset_launch_counts()
+
+    # ---- 12e: serve_lm in its own process, for the three archs ----
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out["12e"] = {}
+    for arch in (JAMBA_ARCH, WHISPER_ARCH, VLM_ARCH):
+        t0 = monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
+             arch], cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env=env)
+        check(proc.returncode == 0 and proc.stdout.startswith(
+            f"arch={arch} (reduced)"), f"12e: serve_lm --arch {arch} "
+            f"exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+            f"{proc.stderr[-2000:]}")
+        out["12e"][arch] = {"exit": proc.returncode,
+                            "wall_s": monotonic() - t0,
+                            "stdout": proc.stdout.strip().splitlines()}
+    out["wall_s"] = monotonic() - t_phase
+    return out, launches, profiles
 
 if __name__ == "__main__":
     main()

@@ -1,14 +1,15 @@
 """Configs of the port: the paper's WRN, the FL knobs, the LM training
-step's knobs and the LM architectures whose path is ported.
+step's knobs and the LM architectures (copies of ``repro``'s).
 
-``get_config`` knows the decoders that the LM serving path runs (copies of
-``repro``'s): the dense GQA ``llama3.2-1b``, ``qwen2-0.5b``, ``gemma3-4b``
-and ``phi3-medium-14b``, the mixture-of-experts ``qwen3-moe-30b-a3b``,
-``deepseek-v2-236b`` (MLA attention and an MoE with shared experts) and
-the attention-free ``rwkv6-3b``.
-Every other architecture id of ``repro.configs.ARCHS`` raises
-``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item that ports
-its layers; an id ``repro`` does not know either raises ``KeyError``.
+``get_config`` knows every architecture id of ``repro.configs.ARCHS``: the
+dense GQA ``llama3.2-1b``, ``qwen2-0.5b``, ``gemma3-4b`` and
+``phi3-medium-14b``, the mixture-of-experts ``qwen3-moe-30b-a3b``,
+``deepseek-v2-236b`` (MLA attention and an MoE with shared experts), the
+attention-free ``rwkv6-3b``, the Mamba / attention hybrid
+``jamba-1.5-large-398b``, the encoder-decoder ``whisper-medium`` (its mel
+front end stubbed: frame embeddings in) and ``internvl2-26b`` (its vision
+tower stubbed: patch embeddings in, projected and put before the text).
+An id ``repro`` does not know raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -18,31 +19,23 @@ from repro_torch.configs.base import (INPUT_SHAPES, FLConfig, ModelConfig,
                                       ShapeConfig, TrainConfig)
 from repro_torch.configs.wrn_cifar import CONFIG as WRN_CONFIG, WRNConfig
 
-# arch-id -> module name (the ported ones)
+# arch-id -> module name
 ARCHS = {
-    "deepseek-v2-236b":  "deepseek_v2_236b",
-    "gemma3-4b":         "gemma3_4b",
-    "llama3.2-1b":       "llama3_2_1b",
-    "phi3-medium-14b":   "phi3_medium_14b",
-    "qwen2-0.5b":        "qwen2_0_5b",
-    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-    "rwkv6-3b":          "rwkv6_3b",
-}
-
-# the rest of repro's ARCHS -> what they wait for (ROADMAP.md Queue 1)
-NOT_PORTED = {
-    "jamba-1.5-large-398b": "Queue 1 item 13e (Mamba mixer)",
-    "whisper-medium":       "Queue 1 item 13g (encoder and cross-attention)",
-    "internvl2-26b":        "Queue 1 item 13g (vision-prefix embeddings)",
+    "deepseek-v2-236b":     "deepseek_v2_236b",
+    "gemma3-4b":            "gemma3_4b",
+    "internvl2-26b":        "internvl2_26b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "llama3.2-1b":          "llama3_2_1b",
+    "phi3-medium-14b":      "phi3_medium_14b",
+    "qwen2-0.5b":           "qwen2_0_5b",
+    "qwen3-moe-30b-a3b":    "qwen3_moe_30b_a3b",
+    "rwkv6-3b":             "rwkv6_3b",
+    "whisper-medium":       "whisper_medium",
 }
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    """The ``ModelConfig`` of a ported architecture id."""
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported to repro_torch yet: ROADMAP.md "
-            f"{NOT_PORTED[arch_id]}")
+    """The ``ModelConfig`` of an architecture id."""
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; choose from "
                        f"{sorted(ARCHS)}")

@@ -63,8 +63,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_attention": {
         # q, k, v, out, lse (or null), dtype, b, s, h, kv, d, causal,
         # window, scale, stream
-        "repro_flash_attention": ([_P] * 5 + [_I] * 8 + [_F, _P], _I),
-        "repro_flash_attention_tc": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
+        "repro_flash_attention": ([_P] * 5 + [_I] * 9 + [_F, _P], _I),
+        "repro_flash_attention_tc": ([_P] * 5 + [_I] * 8 + [_F, _P], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention_bwd": {

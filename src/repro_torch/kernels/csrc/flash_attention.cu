@@ -4,8 +4,11 @@
 // Replaces the Pallas TPU kernel flash_attention_kernel of
 // src/repro/kernels/flash_attention.py:89 (the prefill attention of every
 // attention layer). Plain version: repro_torch/kernels/ref.py
-// flash_attention_ref. q (B,S,H,D), k/v (B,S,KV,D), f32 or bf16, in the
+// flash_attention_ref. q (B,S,H,D), k/v (B,Sk,KV,D), f32 or bf16, in the
 // reference's layout; query head h reads kv head h / G with G = H / KV.
+// Sk is S for self-attention; whisper's cross-attention has S decoder
+// queries over Sk = 1500 encoder keys (non-causal, no window: the caller
+// refuses a mask with Sk != S).
 //
 // What bounds it on the H100. Operations: at the serve shape (llama3.2-1b,
 // B=1, S=32768, H=32, KV=8, D=64, causal) it does 2*B*S^2*H*D = 4.4e12
@@ -43,7 +46,7 @@
 //   score micro-tile and a 4 x D/16 accumulator per thread).
 //
 // Masking and precision follow the plain version on both routes: a key
-// counts if ki < S (the true length: nothing is padded), qi >= ki when
+// counts if ki < Sk (the true length: nothing is padded), qi >= ki when
 // causal, and qi - ki < window when window > 0; a masked key gets the
 // logit -1e30 on the CUDA-core route and -inf on the tensor-core route
 // (the same weights: every row sees its own key, so by its last tile a
@@ -96,8 +99,8 @@ template <typename T, int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int H, int KV, int D,
-                 int causal, int window, float scale) {
+                 float* __restrict__ lse, int S, int Sk, int H, int KV,
+                 int D, int causal, int window, float scale) {
   constexpr int BK = Tile<DMAX>::BK;
   constexpr int NJ = BK / 16;          // score columns per thread
   constexpr int NC = DMAX / 16;        // output columns per thread
@@ -131,9 +134,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long last = (r0 + ROWS < nrows ? r0 + ROWS : nrows) - 1;
   const long long qlo = r0 / G, qhi = last / G;
-  long long kbeg = 0, kend = S;
+  long long kbeg = 0, kend = Sk;
   if (window > 0) kbeg = qlo - window + 1 > 0 ? qlo - window + 1 : 0;
-  if (causal) kend = qhi + 1 < S ? qhi + 1 : S;
+  if (causal) kend = qhi + 1 < Sk ? qhi + 1 : Sk;
 
   long long qrow[4];
   bool live[4];
@@ -156,7 +159,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const long long ki = k0 + c;
       float kx = 0.f, vx = 0.f;
       if (ki < kend && d < D) {
-        const long long off = (((long long)b * S + ki) * KV + kvh) * D + d;
+        const long long off = (((long long)b * Sk + ki) * KV + kvh) * D + d;
         kx = to_f<T>(k[off]);
         vx = to_f<T>(v[off]);
       }
@@ -189,7 +192,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const long long ki = k0 + tx + 16 * j;
-        bool ok = ki < S;
+        bool ok = ki < Sk;
         if (causal) ok = ok && qrow[i] >= ki;
         if (window > 0) ok = ok && qrow[i] - ki < window;
         s[i][j] = ok ? s[i][j] * scale : NEG;
@@ -205,7 +208,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const long long ki = k0 + tx + 16 * j;
-        const float p = ki < S ? expf(s[i][j] - m_new) : 0.f;
+        const float p = ki < Sk ? expf(s[i][j] - m_new) : 0.f;
         psum += p;
         sp[(ty + 16 * i) * PS + tx + 16 * j] = to_f<T>(from_f<T>(p));
       }
@@ -253,8 +256,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DMAX>
 int launch(const void* q, const void* k, const void* v, void* out,
-           float* lse, int B, int S, int H, int KV, int D, int causal,
-           int window, float scale, cudaStream_t stream) {
+           float* lse, int B, int S, int Sk, int H, int KV, int D,
+           int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -263,19 +266,19 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const long long nrows = (long long)S * (H / KV);
   dim3 grid((unsigned)((nrows + ROWS - 1) / ROWS), (unsigned)(B * KV));
   flash_fwd_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, S, H, KV, D,
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, S, Sk, H, KV, D,
       causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out,
-             float* lse, int B, int S, int H, int KV, int D, int causal,
-             int window, float scale, cudaStream_t st) {
-  if (D <= 32) return launch<T, 32>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, st);
-  if (D <= 64) return launch<T, 64>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, st);
-  if (D <= 128) return launch<T, 128>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, st);
-  return launch<T, 256>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, st);
+             float* lse, int B, int S, int Sk, int H, int KV, int D,
+             int causal, int window, float scale, cudaStream_t st) {
+  if (D <= 32) return launch<T, 32>(q, k, v, out, lse, B, S, Sk, H, KV, D, causal, window, scale, st);
+  if (D <= 64) return launch<T, 64>(q, k, v, out, lse, B, S, Sk, H, KV, D, causal, window, scale, st);
+  if (D <= 128) return launch<T, 128>(q, k, v, out, lse, B, S, Sk, H, KV, D, causal, window, scale, st);
+  return launch<T, 256>(q, k, v, out, lse, B, S, Sk, H, KV, D, causal, window, scale, st);
 }
 
 
@@ -320,18 +323,18 @@ __device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
 template <int DP, int BK>
 __device__ __forceinline__ void softmax_tile(
     float (&sc)[BK / 2], float (&o)[DP / 2], uint32_t (&pa)[BK / 16][4],
-    float (&m)[2], float (&l)[2], long long k0, int S, int causal,
+    float (&m)[2], float (&l)[2], long long k0, int Sk, int causal,
     int window, const long long (&qrow)[2], long long wq_lo,
     long long wq_hi, int col0, float scale) {
   // mask: a tile that straddles a boundary for some row of the
-  // warpgroup (past S, the diagonal, the window's edge) is masked per
+  // warpgroup (past Sk, the diagonal, the window's edge) is masked per
   // element: key offset u (0..BK-1) counts for row h if lo[h] <= u <=
   // hi[h]. A masked key gets -inf: its p is exactly 0, as the -1e30
   // logit's is once the row has a valid key, and every row has one (its
   // own) by its last tile; a row with none so far keeps l = 0, acc = 0.
-  const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > wq_lo) ||
+  const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > wq_lo) ||
                     (window > 0 && k0 <= wq_hi - window);
-  if (edge) mask_key_tile<BK>(sc, k0, S, causal, window, qrow, col0);
+  if (edge) mask_key_tile<BK>(sc, k0, Sk, causal, window, qrow, col0);
   // online softmax; the row max of the raw scores times the (positive)
   // scale is the max of the scaled ones, and exp takes s * scale - m in
   // one fused multiply-add
@@ -395,8 +398,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
                        const __grid_constant__ CUtensorMap tmap_v,
                        const __nv_bfloat16* __restrict__ q,
                        __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ lse, int S, int H, int KV,
-                       int D, int causal, int window, float scale) {
+                       float* __restrict__ lse, int S, int Sk, int H,
+                       int KV, int D, int causal, int window, float scale) {
   using Sh = TcShape<DP, BK, STAGES>;
   constexpr int NS = BK / 2;           // score registers per thread
   constexpr int NO = DP / 2;           // output registers per thread
@@ -415,9 +418,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
   const long long r0 = (long long)(gridDim.x - 1 - blockIdx.x) * TC_ROWS;
   const long long last = (r0 + TC_ROWS < nrows ? r0 + TC_ROWS : nrows) - 1;
   const long long qlo = r0 / G, qhi = last / G;
-  long long kbeg = 0, kend = S;
+  long long kbeg = 0, kend = Sk;
   if (window > 0) kbeg = qlo - window + 1 > 0 ? qlo - window + 1 : 0;
-  if (causal) kend = qhi + 1 < S ? qhi + 1 : S;
+  if (causal) kend = qhi + 1 < Sk ? qhi + 1 : Sk;
   const int ntiles = (int)((kend - kbeg + BK - 1) / BK);
   const int wg = threadIdx.x / 128;
 
@@ -499,7 +502,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
   // the products are issued outside any branch (a wgmma in a divergent
   // path is serialized), so the last tile is peeled off the loop
   for (int t = 0; t + 1 < ntiles; ++t) {
-    softmax_tile<DP, BK>(sc, o, pa, m, l, kbeg + (long long)t * BK, S,
+    softmax_tile<DP, BK>(sc, o, pa, m, l, kbeg + (long long)t * BK, Sk,
                          causal, window, qrow, wq_lo, wq_hi, col0, scale);
     mbar_wait(&full[(t + 1) % STAGES], ((t + 1) / STAGES) & 1);
     named_bar_sync(my_turn, TC_CONSUMERS);
@@ -516,7 +519,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
   }
   {
     const int t = ntiles - 1;
-    softmax_tile<DP, BK>(sc, o, pa, m, l, kbeg + (long long)t * BK, S,
+    softmax_tile<DP, BK>(sc, o, pa, m, l, kbeg + (long long)t * BK, Sk,
                          causal, window, qrow, wq_lo, wq_hi, col0, scale);
     named_bar_sync(my_turn, TC_CONSUMERS);
     wgmma_fence();
@@ -553,12 +556,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
 
 template <int DP, int BK, int STAGES>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
-              float* lse, int B, int S, int H, int KV, int D, int causal,
-              int window, float scale, cudaStream_t stream) {
+              float* lse, int B, int S, int Sk, int H, int KV, int D,
+              int causal, int window, float scale, cudaStream_t stream) {
   using Sh = TcShape<DP, BK, STAGES>;
   CUtensorMap mk, mv;
-  int rc = kv_tensor_map(&mk, k, B, S, KV, D, BK);
-  if (rc == 0) rc = kv_tensor_map(&mv, v, B, S, KV, D, BK);
+  int rc = kv_tensor_map(&mk, k, B, Sk, KV, D, BK);
+  if (rc == 0) rc = kv_tensor_map(&mv, v, B, Sk, KV, D, BK);
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<DP, BK, STAGES>,
@@ -568,8 +571,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   dim3 grid((unsigned)((nrows + TC_ROWS - 1) / TC_ROWS), (unsigned)(B * KV));
   flash_fwd_wgmma_kernel<DP, BK, STAGES><<<grid, TC_THREADS, Sh::SMEM,
                                            stream>>>(
-      mk, mv, (const __nv_bfloat16*)q, (__nv_bfloat16*)out, lse, S, H, KV,
-      D, causal, window, scale);
+      mk, mv, (const __nv_bfloat16*)q, (__nv_bfloat16*)out, lse, S, Sk, H,
+      KV, D, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -577,18 +580,20 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v and out share it). The CUDA-core route,
 // for every shape; the caller checks shapes (D <= 256, H % KV == 0,
-// B * KV <= 65535) and contiguity. lse: (B, H, S) f32 statistics, or null.
+// B * KV <= 65535, Sk >= 1, Sk == S unless non-causal without a window)
+// and contiguity. lse: (B, H, S) f32 statistics, or null.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, void* lse,
-                                     int dtype, int B, int S, int H, int KV,
-                                     int D, int causal, int window,
+                                     int dtype, int B, int S, int Sk, int H,
+                                     int KV, int D, int causal, int window,
                                      float scale, cudaStream_t stream) {
   if (S == 0 || B == 0) return 0;
+  if (Sk <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, (float*)lse, B, S, H, KV, D,
+    return dispatch<float>(q, k, v, out, (float*)lse, B, S, Sk, H, KV, D,
                            causal, window, scale, stream);
-  return dispatch<__nv_bfloat16>(q, k, v, out, (float*)lse, B, S, H, KV, D,
-                                 causal, window, scale, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, out, (float*)lse, B, S, Sk, H, KV,
+                                 D, causal, window, scale, stream);
 }
 
 // The tensor-core route: bf16 only, D % 16 == 0, D <= 256, every pointer
@@ -596,22 +601,23 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // prefill_route picks the route).
 extern "C" int repro_flash_attention_tc(const void* q, const void* k,
                                         const void* v, void* out, void* lse,
-                                        int B, int S, int H, int KV, int D,
-                                        int causal, int window, float scale,
-                                        cudaStream_t stream) {
+                                        int B, int S, int Sk, int H, int KV,
+                                        int D, int causal, int window,
+                                        float scale, cudaStream_t stream) {
   if (S == 0 || B == 0) return 0;
-  if (D % 16 != 0 || D <= 0 || D > 256) return (int)cudaErrorInvalidValue;
+  if (D % 16 != 0 || D <= 0 || D > 256 || Sk <= 0)
+    return (int)cudaErrorInvalidValue;
   float* st = (float*)lse;
   if (D <= 64)
-    return launch_tc<64, 128, 3>(q, k, v, out, st, B, S, H, KV, D, causal,
-                                 window, scale, stream);
+    return launch_tc<64, 128, 3>(q, k, v, out, st, B, S, Sk, H, KV, D,
+                                 causal, window, scale, stream);
   if (D <= 128)
-    return launch_tc<128, 128, 2>(q, k, v, out, st, B, S, H, KV, D, causal,
-                                  window, scale, stream);
+    return launch_tc<128, 128, 2>(q, k, v, out, st, B, S, Sk, H, KV, D,
+                                  causal, window, scale, stream);
   if (D <= 192)
-    return launch_tc<192, 64, 2>(q, k, v, out, st, B, S, H, KV, D, causal,
-                                 window, scale, stream);
-  return launch_tc<256, 64, 2>(q, k, v, out, st, B, S, H, KV, D, causal,
+    return launch_tc<192, 64, 2>(q, k, v, out, st, B, S, Sk, H, KV, D,
+                                 causal, window, scale, stream);
+  return launch_tc<256, 64, 2>(q, k, v, out, st, B, S, Sk, H, KV, D, causal,
                                window, scale, stream);
 }
 

@@ -3,8 +3,10 @@ and of its backward (``csrc/flash_attention_bwd.cu``).
 
 The port's counterpart of ``repro.kernels.flash_attention.
 flash_attention_kernel``: blocked GQA attention with an online softmax in
-f32, causal and/or sliding-window, over q (B,S,H,D) and k/v (B,S,KV,D) in
-f32 or bf16. Nothing is padded: the kernel masks keys at the true S.
+f32, causal and/or sliding-window, over q (B,S,H,D) and k/v (B,Sk,KV,D) in
+f32 or bf16 (Sk = S but for non-causal attention without a window:
+whisper's cross-attention). Nothing is padded: the kernel masks keys at
+the true Sk.
 
 Two routes, picked by ``prefill_route`` from the dtype, the head dim and
 the pointers' alignment (never by trying one and falling back):
@@ -91,24 +93,26 @@ def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            out: torch.Tensor, causal: bool, window: int,
                            route: str,
                            lse: Optional[torch.Tensor] = None) -> None:
-    """out (B,S,H,D) = attention of q over k, v on the card, by ``route``
-    (the caller's ``route_for``; its out must be 16-byte aligned too), and
-    the rows' log-sum-exp into ``lse`` (B,H,S) f32 if given."""
+    """out (B,S,H,D) = attention of q over k, v (B,Sk,KV,D) on the card,
+    by ``route`` (the caller's ``route_for``; its out must be 16-byte
+    aligned too), and the rows' log-sum-exp into ``lse`` (B,H,S) f32 if
+    given."""
     lib = build.library("flash_attention")
     b, s, h, d = q.shape
+    sk = k.shape[1]
     stats = lse.data_ptr() if lse is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if route == "tensor_core":
             err = lib.repro_flash_attention_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                stats, b, s, h, k.shape[2], d, int(causal), window,
+                stats, b, s, sk, h, k.shape[2], d, int(causal), window,
                 1.0 / math.sqrt(d), stream)
         else:
             err = lib.repro_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                stats, DTYPES[q.dtype], b, s, h, k.shape[2], d, int(causal),
-                window, 1.0 / math.sqrt(d), stream)
+                stats, DTYPES[q.dtype], b, s, sk, h, k.shape[2], d,
+                int(causal), window, 1.0 / math.sqrt(d), stream)
     build.check_launch(lib, err, f"flash_attention ({route})")
 
 

@@ -13,7 +13,10 @@ Every wrapper carries a plain integer ``launches`` that it raises by one
 each time it launches its kernel (one Lloyd sweep counts once, although it
 is two CUDA launches, and one attention backward once, although it is
 three). ``reset_launch_counts`` / ``launch_counts`` read and
-zero them all, so a run can show that it went through the kernels.
+zero them all, so a run can show that it went through the kernels. The
+two forward attention wrappers also count their launches by query and
+key length (``launches_by_lengths``), which tells self-attention, an
+encoder and cross-attention apart.
 
 Each launch runs inside an ``obs.timed_block("kernel.<wrapper name>")``
 that syncs the kernel's output when a tracer is active (a no-op
@@ -203,10 +206,13 @@ def _heads(h: int, kv: int, d: int, what: str) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     return_stats: bool = False):
-    """GQA attention of q (B,S,H,D) over k, v (B,S,KV,D), all f32 or all
+    """GQA attention of q (B,S,H,D) over k, v (B,Sk,KV,D), all f32 or all
     bf16 -> (B,S,H,D) in that dtype. ``causal`` masks qi < ki; ``window``
-    > 0 masks qi - ki >= window. No padding and no size threshold: the
-    kernel masks keys at the true S.
+    > 0 masks qi - ki >= window. A key length Sk unlike S (whisper's
+    cross-attention: decoder queries over encoder keys) is taken only
+    without a mask (``causal=False``, ``window=0``) and without a
+    gradient (the backward kernels take Sk = S). No padding and no size
+    threshold: the kernel masks keys at the true Sk.
 
     ``return_stats``: -> (out, lse), lse (B,H,S) f32 each row's log-sum-exp
     of its scaled logits (what ``flash_attention_bwd`` takes). On CUDA
@@ -217,13 +223,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(k, "k", q.dtype, 4, q.device)
     _check(v, "v", q.dtype, 4, q.device)
     b, s, h, d = q.shape
-    kv = k.shape[2]
-    if tuple(k.shape) != (b, s, kv, d) or tuple(v.shape) != (b, s, kv, d):
+    sk, kv = k.shape[1], k.shape[2]
+    if (tuple(k.shape) != (b, sk, kv, d) or tuple(v.shape) != (b, sk, kv, d)
+            or sk == 0):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
-                         f"be {(b, s, kv, d)} for q {tuple(q.shape)}")
+                         f"be {(b, 'Sk > 0', kv, d)} for q "
+                         f"{tuple(q.shape)}")
     _heads(h, kv, d, "flash_attention")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if sk != s and (causal or window):
+        raise ValueError(f"flash_attention: a key length {sk} unlike the "
+                         f"query length {s} needs causal=False and "
+                         f"window=0")
+    if sk != s and _needs_grad(q, k, v):
+        raise NotImplementedError(
+            "flash_attention: no backward for a key length unlike the "
+            "query length (ROADMAP.md Queue 1 item 13k)")
     if not _on_card(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        return_stats=return_stats)
@@ -239,12 +255,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_stats else None)
     route = route_for(q, k, v)
-    with obs.timed_block("kernel.flash_attention", b=b, s=s, h=h,
+    with obs.timed_block("kernel.flash_attention", b=b, s=s, sk=sk, h=h,
                          d=d) as sp:
         launch_flash_attention(q, k, v, out, causal, int(window), route, lse)
         sp.sync(out)
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
+    _count_lengths(flash_attention, s, sk)
     return (out, lse) if return_stats else out
 
 
@@ -266,6 +283,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(lse, "lse", torch.float32, 3, q.device)
     b, s, h, d = q.shape
     kv = k.shape[2]
+    if k.ndim == 4 and k.shape[1] != s:
+        raise NotImplementedError(
+            f"flash_attention_bwd: no backward for a key length "
+            f"{k.shape[1]} unlike the query length {s} (ROADMAP.md Queue 1 "
+            f"item 13k)")
     if (tuple(k.shape) != (b, s, kv, d) or tuple(v.shape) != (b, s, kv, d)
             or out.shape != q.shape or dout.shape != q.shape
             or tuple(lse.shape) != (b, h, s)):
@@ -331,7 +353,17 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                                                        valid, out)
         sp.sync(out)
     flash_decode.launches += 1
+    _count_lengths(flash_decode, 1, s)
     return out
+
+
+def _count_lengths(fn, s: int, sk: int) -> None:
+    """One more launch of ``fn`` at ``s`` queries over ``sk`` keys (or
+    slots), in ``fn.launches_by_lengths`` under ``"<s>x<sk>"``: what tells
+    a model's self-attention, encoder and cross-attention launches
+    apart."""
+    key = f"{s}x{sk}"
+    fn.launches_by_lengths[key] = fn.launches_by_lengths.get(key, 0) + 1
 
 
 KERNELS = (kmeans_pairwise_dist, kmeans_lloyd_step, quantize_affine,
@@ -345,13 +377,17 @@ quantize_affine.last_plan = quantize_affine_batched.last_plan = None
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's ``launches`` (and the attention's by route)."""
+    """Zero every wrapper's ``launches`` (and the attention's by route and
+    by lengths)."""
     for fn in KERNELS:
         fn.launches = 0
     # the prefill kernel's and its backward's launches by route;
     # ``launches`` is their total
     flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
     flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+    # the forward kernels' launches by query and key length
+    flash_attention.launches_by_lengths = {}
+    flash_decode.launches_by_lengths = {}
 
 
 reset_launch_counts()

@@ -8,10 +8,14 @@ says); the first step is a warm-up outside the timed loop.
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch gemma3-4b --tokens 24 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch deepseek-v2-236b [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch rwkv6-3b [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch jamba-1.5-large-398b [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch whisper-medium [--device cpu]
 
 Runs on the CUDA device unless ``--device cpu`` is given (and fails if
-there is none). Encoder-decoder architectures (whisper) are refused with
-``NotImplementedError`` until ``ROADMAP.md`` Queue 1 item 13g ports them.
+there is none). Jamba's Mamba layers hold a constant-size state;
+whisper's decoder cross-attends over the cache's ``enc_out``, zeros as in
+the reference (no encoder pass); internvl2 decodes text only (its vision
+prefix enters in a prefill).
 """
 from __future__ import annotations
 

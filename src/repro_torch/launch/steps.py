@@ -9,8 +9,10 @@ train_step   — ONE federated round per call (the paper's Algorithm 1 on
                the selected sequences, compose. The reference ``vmap``s
                the cohorts over a mesh; on one device the port runs them
                one after another.
-prefill_step — causal forward over the prompt, last-position logits only;
-               the KV cache is not filled (as in the reference).
+prefill_step — causal forward over the prompt (after the encoder's pass
+               or the vision prefix, where the batch has them),
+               last-position logits only; the KV cache is not filled
+               (as in the reference).
 decode_step  — one token against the (ring-buffer) cache, greedy argmax;
                the cache is updated in place and returned.
 
@@ -120,7 +122,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         if extras:
             raise NotImplementedError(
                 f"train_step: {extras} are not ported to repro_torch yet "
-                f"(ROADMAP.md Queue 1 item 13g)")
+                f"(ROADMAP.md Queue 1 item 13k)")
         if tcfg.split_fl and first is None:
             raise ValueError("train_step: split_fl needs each cohort's "
                              "K-means first centre (first=...)")
@@ -226,13 +228,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 def make_prefill_step(cfg: ModelConfig, force_swa: bool = False,
                       dtype=torch.bfloat16):
     """-> (prefill_step(params, batch) -> (B, 1, padded_vocab) logits, lm);
-    ``batch`` is a dict with "tokens" (B, S)."""
+    ``batch`` is a dict with "tokens" (B, S) and, as the model needs them,
+    "prefix_embeds" (B, P, d) or "enc_frames" (B, Se, d)."""
     lm = LM(cfg, force_swa=force_swa)
 
     @torch.no_grad()
     def prefill_step(params, batch):
+        extras = {k: batch[k] for k in ("prefix_embeds", "enc_frames")
+                  if k in batch}
         h_all, _, _ = lm.apply(params, batch["tokens"], mode="full",
-                               return_hidden=True, dtype=dtype)
+                               return_hidden=True, dtype=dtype, **extras)
         # last-position logits only (vocab projection on one position)
         # as the reference: the norm weight and the head come from the
         # tree as given (f32 master weights give f32 last-position logits)

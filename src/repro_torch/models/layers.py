@@ -1,7 +1,7 @@
-"""Layers of the decoders: the port of ``repro.models.layers`` for the LM
-path (norms, RoPE, the attention cores, the GQA attention block, MLA
-attention, the dense FFN, the capacity-dropped top-k MoE FFN and RWKV6's
-time and channel mix).
+"""Layers of the LMs: the port of ``repro.models.layers`` (norms, RoPE,
+the attention cores, the GQA attention block with whisper's
+cross-attention, MLA attention, the dense FFN, the capacity-dropped top-k
+MoE FFN, Mamba and RWKV6's time and channel mix).
 
 Conventions, as in the reference:
   * params are plain dicts of tensors; a scan stage stacks each leaf along
@@ -41,7 +41,18 @@ the recurrence for decode. Its decode state is replaced every step; the
 new values are copied into the caller's cache tensors, so a stacked
 cache is updated in place as the attention rings are.
 
-Mamba and cross-attention are not ported yet (``ROADMAP.md`` Queue 1).
+Whisper's decoder cross-attention (``attn_apply(enc_out=...)``) attends
+non-causally over the encoder's output, re-projected every call as the
+reference does: on a CUDA tensor the prefill kernel with a key length
+unlike the query length, or the decode kernel over a fully valid memory
+for one query; on a CPU tensor ``sdpa_full``, the reference's core.
+
+Mamba (``mamba_apply``, jamba's SSM mixer) is plain torch on either
+device, as the reference's jnp scans: a causal depthwise convolution and
+the selective scan (``_selective_scan``: chunks in order, a log-depth
+scan inside each) for prefill, one step of the recurrence from the conv
+and SSM states (f32 whatever the compute dtype) for decode, the new
+states copied into the caller's cache as RWKV's are.
 """
 from __future__ import annotations
 
@@ -313,7 +324,10 @@ def sdpa_decode(q, k_cache, v_cache, valid):
 # --------------------------------------------------------------------------
 # GQA attention block
 # --------------------------------------------------------------------------
-def attn_init(init: ParamInit, cfg: ModelConfig) -> dict:
+def attn_init(init: ParamInit, cfg: ModelConfig, cross: bool = False
+              ) -> dict:
+    """The GQA block's weights; ``cross`` adds whisper's decoder
+    cross-attention (``cross_norm`` and ``cwq/cwk/cwv/cwo``)."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
         "norm": init.full((d,), 1.0),
@@ -326,6 +340,13 @@ def attn_init(init: ParamInit, cfg: ModelConfig) -> dict:
         p["bq"] = init.full((h * hd,), 0.0)
         p["bk"] = init.full((kv * hd,), 0.0)
         p["bv"] = init.full((kv * hd,), 0.0)
+    if cross:
+        p["cross_norm"] = init.full((d,), 1.0)
+        p["cwq"] = dense_init(init, (d, h * hd))
+        p["cwk"] = dense_init(init, (d, kv * hd))
+        p["cwv"] = dense_init(init, (d, kv * hd))
+        p["cwo"] = dense_init(init, (h * hd, d),
+                              scale=1.0 / math.sqrt(h * hd))
     return p
 
 
@@ -347,10 +368,11 @@ def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
     each row of the caller's cache (the reference rebuilds the whole cache
     each step with a one-hot select; the cache that results is the same,
     without a second copy of it), and the returned cache holds the same
-    tensors."""
-    if enc_out is not None:
-        raise NotImplementedError("cross-attention is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 13g)")
+    tensors.
+
+    ``enc_out`` (B, Se, d), in either mode: whisper's decoder
+    cross-attention after the self-attention (``_cross_core``), its keys
+    and values projected from ``enc_out`` on every call."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     b, s, _ = xn.shape
@@ -382,7 +404,31 @@ def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
                           chunked=chunked)
 
     y = o.reshape(b, s, h * hd) @ p["wo"]
+
+    if enc_out is not None:                    # whisper decoder cross-attn
+        xn2 = rms_norm(x + y, p["cross_norm"], cfg.norm_eps)
+        se = enc_out.shape[1]
+        cq = (xn2 @ p["cwq"]).reshape(b, s, h, hd)
+        ck = (enc_out @ p["cwk"]).reshape(b, se, kv, hd)
+        cv = (enc_out @ p["cwv"]).reshape(b, se, kv, hd)
+        co = _cross_core(cq, ck, cv)
+        y = y + co.reshape(b, s, h * hd) @ p["cwo"]
     return y, cache
+
+
+def _cross_core(q, k, v):
+    """Non-causal attention of q (B,S,H,D) over the encoder's k, v
+    (B,Se,KV,D), the reference's ``sdpa_full(causal=False)``: on a CUDA
+    tensor one query (decode) runs the decode kernel with every one of the
+    Se slots valid, more run the prefill kernel at a key length Se unlike
+    S; a CPU tensor runs ``sdpa_full``."""
+    if q.is_cuda:
+        if q.shape[1] == 1:
+            valid = torch.ones(k.shape[:2], dtype=torch.bool,
+                               device=q.device)
+            return ops.flash_decode(q, k, v, valid)
+        return ops.flash_attention(q, k, v, causal=False)
+    return sdpa_full(q, k, v, causal=False, window=0)
 
 
 # --------------------------------------------------------------------------
@@ -668,6 +714,146 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
         torch.float32).mean(0)
     aux = cfg.router_aux_loss * e * torch.sum(me * ce)
     return y, aux
+
+
+# --------------------------------------------------------------------------
+# Mamba (jamba's SSM mixer)
+# --------------------------------------------------------------------------
+def mamba_init(init: ParamInit, cfg: ModelConfig) -> dict:
+    d, di, st, cw = (cfg.d_model, cfg.d_inner, cfg.ssm_state_dim,
+                     cfg.ssm_conv_width)
+    dt_rank = max(d // 16, 1)
+    a_log = torch.log(torch.arange(1, st + 1, dtype=torch.float32,
+                                   device=init.device)).expand(di, st)
+    return {
+        "norm": init.full((d,), 1.0),
+        "w_in": dense_init(init, (d, 2 * di)),
+        "conv_w": dense_init(init, (cw, di), scale=1.0 / math.sqrt(cw)),
+        "conv_b": init.full((di,), 0.0),
+        "w_x": dense_init(init, (di, dt_rank + 2 * st)),
+        "w_dt": dense_init(init, (dt_rank, di)),
+        "dt_bias": init.full((di,), -4.6),           # softplus^-1(0.01)
+        "A_log": init.full((di, st), 0.0).copy_(a_log),
+        "D": init.full((di,), 1.0),
+        "w_out": dense_init(init, (di, d), scale=1.0 / math.sqrt(di)),
+    }
+
+
+def mamba_cache_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device=None, lead: Sequence[int] = ()) -> dict:
+    """The last ``conv_width - 1`` inputs of the convolution (B,cw-1,di)
+    and the SSM state (B,di,state), f32 as the reference's whatever the
+    cache dtype, stacked under ``lead``."""
+    lead = tuple(lead)
+    di, st, cw = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_conv_width
+    return {"conv": torch.zeros(lead + (batch, cw - 1, di), dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros(lead + (batch, di, st), dtype=dtype,
+                               device=device)}
+
+
+def _scan_doubling(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan along dim 1 of the pairs (a_t, b_t) under the
+    reference's combine ((al, bl), (ar, br)) -> (al * ar, bl * ar + br):
+    Hillis-Steele doubling, log2(len) steps of whole-tensor products
+    (``jax.lax.associative_scan``'s counterpart; not the same tree, so the
+    rounding differs in the last bits). -> (prod a, h) with h_t = a_t
+    h_{t-1} + b_t from h_{-1} = 0."""
+    n, step = a.shape[1], 1
+    while step < n:
+        al, bl = a[:, :-step], b[:, :-step]
+        ar, br = a[:, step:], b[:, step:]
+        a = torch.cat([a[:, :step], al * ar], 1)
+        b = torch.cat([b[:, :step], bl * ar + br], 1)
+        step *= 2
+    return a, b
+
+
+def _selective_scan(u, dt, A, B, C, D, chunk: int = 256):
+    """h_t = exp(dt A) h_{t-1} + dt B_t u_t ; y_t = C_t.h_t + D u_t.
+    u:(b,s,di) dt:(b,s,di) A:(di,st) B,C:(b,s,st).
+
+    The reference's chunking (``nch = max(s // chunk, 1)`` chunks of
+    ``s // nch``), which needs ``s`` to be ``nch`` whole chunks: another
+    length raises ``ValueError``, as the reference's reshape does. The
+    chunks run in order, the state carried from one to the next; inside
+    a chunk ``_scan_doubling``. ``dA`` and ``dBu`` (b, chunk, di, st) are
+    made one chunk at a time (the same numbers elementwise as the
+    reference's whole-sequence tensors, which at jamba's width and 32,768
+    tokens would be 34 GB each)."""
+    b, s, di = u.shape
+    nch = max(s // chunk, 1)
+    chunk = s // nch
+    if nch * chunk != s:
+        raise ValueError(
+            f"_selective_scan: length {s} is not {nch} chunks of {chunk} "
+            f"(the reference's chunking cannot run it either)")
+    # the state in exp(dt A)'s dtype, from zero, as the reference's
+    h = torch.zeros((b, di, A.shape[1]),
+                    dtype=torch.promote_types(dt.dtype, A.dtype),
+                    device=u.device)
+    ys = []
+    for n in range(nch):
+        sl = slice(n * chunk, (n + 1) * chunk)
+        dtc = dt[:, sl, :, None]
+        da = torch.exp(dtc * A)                            # (b,c,di,st)
+        dbu = dtc * B[:, sl, None, :] * u[:, sl, :, None]
+        aa, hh = _scan_doubling(da, dbu)
+        del da, dbu
+        hh = hh + aa * h[:, None]                          # inject carry
+        del aa
+        ys.append(torch.einsum("bcds,bcs->bcd", hh, C[:, sl]))
+        h = hh[:, -1]
+        del hh
+    y = torch.cat(ys, 1)
+    return y + u * D
+
+
+def mamba_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, **_):
+    """Mamba -> (y, cache). Prefill: the causal depthwise convolution over
+    the sequence and ``_selective_scan``; the cache (if any) is returned
+    as it came, as the reference does. Decode: one step from ``cache``
+    (``conv``, ``ssm``), whose tensors get the new states IN PLACE
+    (``copy_``: the reference returns new ones), with the reference's
+    casts: the conv state read as the compute dtype, the SSM state read
+    in the dtype of ``exp(dt A)`` and both stored back in theirs."""
+    di, st, cw = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_conv_width
+    dt_rank = max(cfg.d_model // 16, 1)
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    b, s, _ = xn.shape
+    xz = xn @ p["w_in"]
+    u, z = xz[..., :di], xz[..., di:]
+
+    if mode == "decode":
+        conv_state = torch.cat([cache["conv"],
+                                u.to(cache["conv"].dtype)], 1)
+        uc = torch.einsum("bwd,wd->bd", conv_state.to(u.dtype),
+                          p["conv_w"]) + p["conv_b"]
+        uc = F.silu(uc)[:, None]                           # (b,1,di)
+        dbc = uc @ p["w_x"]
+        dt = F.softplus(dbc[..., :dt_rank] @ p["w_dt"] + p["dt_bias"])
+        B = dbc[..., dt_rank:dt_rank + st]
+        C = dbc[..., dt_rank + st:]
+        A = -torch.exp(p["A_log"])
+        dA = torch.exp(dt[:, 0, :, None] * A)              # (b,di,st)
+        h = cache["ssm"].to(dA.dtype) * dA \
+            + dt[:, 0, :, None] * B[:, 0, None, :] * uc[:, 0, :, None]
+        y = torch.einsum("bds,bs->bd", h, C[:, 0])[:, None] + uc * p["D"]
+        cache["conv"].copy_(conv_state[:, 1:])
+        cache["ssm"].copy_(h)
+    else:
+        upad = F.pad(u, (0, 0, cw - 1, 0))
+        uc = sum(upad[:, i:i + s] * p["conv_w"][i] for i in range(cw)) \
+            + p["conv_b"]
+        uc = F.silu(uc)
+        dbc = uc @ p["w_x"]
+        dt = F.softplus(dbc[..., :dt_rank] @ p["w_dt"] + p["dt_bias"])
+        B = dbc[..., dt_rank:dt_rank + st]
+        C = dbc[..., dt_rank + st:]
+        A = -torch.exp(p["A_log"])
+        y = _selective_scan(uc, dt, A, B, C, p["D"])
+    y = y * F.silu(z)
+    return y @ p["w_out"], cache
 
 
 # --------------------------------------------------------------------------

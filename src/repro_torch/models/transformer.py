@@ -1,6 +1,7 @@
-"""Config-driven LM assembly: the port of ``repro.models.transformer`` for
-decoders (mixer ``attn``, ``mla`` or ``rwkv``; FFN ``dense``, ``moe`` or
-``rwkv_ffn``).
+"""Config-driven LM assembly: the port of ``repro.models.transformer``
+(mixer ``attn``, ``attn_cross``, ``mla``, ``mamba`` or ``rwkv``; FFN
+``dense``, ``moe`` or ``rwkv_ffn``; whisper's encoder and internvl2's
+vision prefix).
 
 A model is a list of STAGES, the reference's own (``layer_specs`` and
 ``decompose`` are copies), so that ``stage_range`` means the same in both
@@ -26,11 +27,19 @@ tree cast afterwards), so a full-width model is made without its f32 tree.
 
 In decode mode every block updates the caller's cache in place: the
 attention and MLA rings by a slot write, RWKV's recurrent state and
-token-shift inputs (``state``, ``x_prev``, ``ffn_x_prev``, replaced every
-step) by a ``copy_`` into the cache's tensors. So a scan stage's stacked
-cache, read a layer at a time through views, is current after the step.
-Mamba, encoders, cross-attention and vision prefixes are not ported yet
-(``ROADMAP.md`` Queue 1).
+token-shift inputs (``state``, ``x_prev``, ``ffn_x_prev``) and Mamba's
+conv and SSM states (``conv``, ``ssm``), replaced every step, by a
+``copy_`` into the cache's tensors. So a scan stage's stacked cache, read
+a layer at a time through views, is current after the step.
+
+An encoder-decoder (whisper) has encoder stages (``enc_stages``,
+non-causal attention and a dense FFN) that ``LM.encode`` runs over the
+stubbed frame embeddings, and decoder blocks whose ``attn_cross`` mixer
+attends over the encoder's output: in full mode ``apply(enc_frames=...)``
+encodes first, in decode mode the output is the cache's ``enc_out``.
+Its decoder adds sinusoidal positions to the token embeddings. A vision
+LM (internvl2) projects ``prefix_embeds`` with ``proj`` and puts them
+before the text, in full mode only, as the reference does.
 """
 from __future__ import annotations
 
@@ -148,21 +157,9 @@ def cast_params(params: PyTree, dtype: torch.dtype) -> PyTree:
 
 
 # --------------------------------------------------------------------------
-# per-block init/apply/cache dispatch: mixer attn | mla | rwkv, ffn dense
-# | moe | rwkv_ffn
+# per-block init/apply/cache dispatch: mixer attn | attn_cross | mla |
+# mamba | rwkv, ffn dense | moe | rwkv_ffn
 # --------------------------------------------------------------------------
-_MIXERS = ("attn", "mla", "rwkv")
-_FFNS = ("dense", "moe", "rwkv_ffn")
-
-
-def _check_spec(spec: BlockSpec) -> None:
-    if spec.mixer not in _MIXERS or spec.ffn not in _FFNS:
-        raise NotImplementedError(
-            f"block {spec} is not ported to repro_torch yet: mixers "
-            f"{_MIXERS}, ffns {_FFNS} (ROADMAP.md Queue 1 items 13e and "
-            f"13g)")
-
-
 def _block_init(init: L.ParamInit, cfg: ModelConfig, spec: BlockSpec
                 ) -> PyTree:
     if spec.ffn == "dense":              # the FFN's draws come first
@@ -171,10 +168,12 @@ def _block_init(init: L.ParamInit, cfg: ModelConfig, spec: BlockSpec
         ffn = L.moe_init(init, cfg)
     else:
         ffn = L.rwkv_ffn_init(init, cfg)
-    if spec.mixer == "attn":
-        mixer = L.attn_init(init, cfg)
+    if spec.mixer in ("attn", "attn_cross"):
+        mixer = L.attn_init(init, cfg, cross=spec.mixer == "attn_cross")
     elif spec.mixer == "mla":
         mixer = L.mla_init(init, cfg)
+    elif spec.mixer == "mamba":
+        mixer = L.mamba_init(init, cfg)
     else:
         mixer = L.rwkv_init(init, cfg)
     return {"mixer": mixer, "ffn": ffn}
@@ -183,8 +182,11 @@ def _block_init(init: L.ParamInit, cfg: ModelConfig, spec: BlockSpec
 def _block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, seq_len: int,
                  dtype, device, lead=()) -> PyTree:
     """A block's decode cache: the attention ring (``window`` slots at
-    most), MLA's latent ring, or RWKV's f32 state and token-shift inputs
-    (whatever ``dtype`` and ``seq_len`` say, as the reference's)."""
+    most), MLA's latent ring, or RWKV's or Mamba's f32 states (whatever
+    ``dtype`` and ``seq_len`` say, as the reference's)."""
+    if spec.mixer == "mamba":
+        return {"mixer": L.mamba_cache_init(cfg, batch, device=device,
+                                            lead=lead)}
     if spec.mixer == "mla":
         return {"mixer": L.mla_cache_init(cfg, batch, seq_len, dtype,
                                           device, lead)}
@@ -200,16 +202,21 @@ def _block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, seq_len: int,
 
 
 def _block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, mode: str,
-                 cache, pos):
+                 cache, pos, enc_out=None):
     """-> (x, cache, aux): aux is the MoE's load-balance term, None for
-    another FFN (the reference adds a zero)."""
+    another FFN (the reference adds a zero). ``enc_out`` is read by an
+    ``attn_cross`` mixer only."""
     kw = dict(cfg=cfg, mode=mode, cache=(cache or {}).get("mixer"), pos=pos,
               window=spec.window)
-    if spec.mixer == "attn":
-        y, mc = L.attn_apply(params["mixer"], x, causal=spec.causal, **kw)
+    if spec.mixer in ("attn", "attn_cross"):
+        y, mc = L.attn_apply(params["mixer"], x, causal=spec.causal,
+                             enc_out=enc_out if spec.mixer == "attn_cross"
+                             else None, **kw)
     elif spec.mixer == "mla":
         y, mc = L.mla_apply(params["mixer"], x, absorbed=cfg.mla_absorbed,
                             **kw)
+    elif spec.mixer == "mamba":
+        y, mc = L.mamba_apply(params["mixer"], x, **kw)
     else:
         y, mc = L.rwkv_apply(params["mixer"], x, **kw)
     x = x + y
@@ -254,25 +261,34 @@ def _layers(tree: PyTree, repeats: int) -> List[PyTree]:
 # --------------------------------------------------------------------------
 # full model
 # --------------------------------------------------------------------------
+def sinusoidal_pos(d: int, positions: torch.Tensor) -> torch.Tensor:
+    """(..., d) f32: sin then cos of ``positions`` times d/2 frequencies
+    from 1 down to 1/10000, the reference's absolute positions."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
 class LM:
-    """Bundles init/apply/cache for one ModelConfig (decoders: GQA or MLA
-    attention or RWKV's time mix; a dense, MoE or RWKV channel-mix FFN)."""
+    """Bundles init/apply/cache for one ModelConfig (GQA or MLA attention,
+    Mamba or RWKV's time mix; a dense, MoE or RWKV channel-mix FFN;
+    whisper's encoder and cross-attention; a vision prefix)."""
 
     def __init__(self, cfg: ModelConfig, force_swa: bool = False,
                  remat: bool = False):
-        if cfg.is_encoder_decoder or cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: encoders and frontends are not ported to "
-                f"repro_torch yet (ROADMAP.md Queue 1 item 13g)")
         self.cfg = cfg
         self.force_swa = force_swa
         # recompute each scan repeat in the backward (jax.checkpoint with
         # no policy: everything recomputed)
         self.remat = remat
         self.specs = layer_specs(cfg, force_swa)
-        for spec in self.specs:
-            _check_spec(spec)
         self.stages = decompose(self.specs)
+        if cfg.is_encoder_decoder:
+            self.enc_specs = layer_specs(cfg, decoder=False)
+            self.enc_stages = decompose(self.enc_specs)
 
     # ---------------- init ----------------
     def _stage_init(self, init: L.ParamInit, stage: Stage) -> PyTree:
@@ -301,6 +317,13 @@ class LM:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(init, (d, v))
+        if cfg.is_encoder_decoder:
+            params["enc_stages"] = [self._stage_init(init, st)
+                                    for st in self.enc_stages]
+            params["enc_norm"] = init.full((d,), 1.0)
+        if cfg.frontend == "vision_stub":
+            # projector from the (stubbed) vision embeddings into d_model
+            params["proj"] = L.dense_init(init, (d, d))
         return params
 
     # ---------------- cache ----------------
@@ -312,12 +335,20 @@ class LM:
                                      device) for s in st.unit]
             return [_block_cache(self.cfg, s, batch, seq_len, dtype, device,
                                  (st.repeats,)) for s in st.unit]
-        return {"stages": [stage_cache(st) for st in self.stages],
-                "pos": torch.zeros((batch,), dtype=torch.int32,
-                                   device=device)}
+        cache = {"stages": [stage_cache(st) for st in self.stages],
+                 "pos": torch.zeros((batch,), dtype=torch.int32,
+                                    device=device)}
+        if self.cfg.is_encoder_decoder:
+            # the encoder's output the decoder's cross-attention reads
+            # (zeros until the caller writes an ``encode`` into it)
+            cache["enc_out"] = torch.zeros(
+                (batch, self.cfg.encoder_seq_len, self.cfg.d_model),
+                dtype=dtype, device=device)
+        return cache
 
     # ---------------- apply ----------------
-    def _run_stages(self, stages, stage_params, x, mode, cache_stages, pos):
+    def _run_stages(self, stages, stage_params, x, mode, cache_stages, pos,
+                    enc_out=None):
         """-> (x, the blocks' aux summed in layer order (f32), caches)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
@@ -328,13 +359,13 @@ class LM:
                 for li, spec in enumerate(st.unit):
                     c = scache[li] if scache is not None else None
                     x, nc, a = _block_apply(sp[li], x, spec, self.cfg, mode,
-                                            c, pos)
+                                            c, pos, enc_out)
                     aux = _add(aux, a)
                     ncs.append(nc)
                 new_caches.append(ncs)
             elif scache is None:
                 unit = functools.partial(self._unit_apply, st.unit, mode,
-                                         pos)
+                                         pos, enc_out)
                 remat = (self.remat and mode == "full"
                          and torch.is_grad_enabled())
                 for lp in _layers(sp, st.repeats):
@@ -347,28 +378,41 @@ class LM:
                     for ui, spec in enumerate(st.unit):
                         x, _, a = _block_apply(_layer(sp[ui], r), x, spec,
                                                self.cfg, mode,
-                                               _layer(scache[ui], r), pos)
+                                               _layer(scache[ui], r), pos,
+                                               enc_out)
                         aux = _add(aux, a)
                 # the stacked caches were written in place, layer by
-                # layer, through the views (rings and RWKV states alike)
+                # layer, through the views (rings and states alike)
                 new_caches.append(scache)
         return x, aux, new_caches
 
-    def _unit_apply(self, unit, mode, pos, x, lp):
+    def _unit_apply(self, unit, mode, pos, enc_out, x, lp):
         """One repeat of a scan stage (its unit's blocks) without a cache:
         the body the reference's scan runs (and ``jax.checkpoint``s) ->
         (x, the unit's aux summed (f32))."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for ui, spec in enumerate(unit):
             x, _, a = _block_apply(lp[ui], x, spec, self.cfg, mode, None,
-                                   pos)
+                                   pos, enc_out)
             aux = _add(aux, a)
         return x, aux
+
+    def encode(self, params, frames):
+        """Whisper's encoder over stubbed frame embeddings (B, Se, d):
+        sinusoidal positions added, the encoder stages (non-causal) in
+        full mode, ``enc_norm``."""
+        pos = torch.arange(frames.shape[1], device=frames.device)
+        h = frames + sinusoidal_pos(self.cfg.d_model, pos)[None].to(
+            frames.dtype)
+        h, _, _ = self._run_stages(self.enc_stages, params["enc_stages"], h,
+                                   "full", None, None)
+        return L.rms_norm(h, params["enc_norm"], self.cfg.norm_eps)
 
     def embed_tokens(self, params, tokens):
         return params["embed"][tokens] * math.sqrt(self.cfg.d_model)
 
     def apply(self, params, tokens, *, mode: str = "full", cache=None,
+              prefix_embeds=None, enc_frames=None,
               return_hidden: bool = False,
               stage_range: Optional[Tuple[int, int]] = None,
               hidden_in=None, dtype=torch.float32):
@@ -379,6 +423,12 @@ class LM:
         summed (a 0-d f32 zero with no MoE block); in decode mode the
         caller's cache is updated in place.
 
+        An encoder-decoder needs ``enc_frames`` (B, Se, d) in full mode
+        (encoded first, in ``dtype``) and reads the cache's ``enc_out``
+        (cast to ``dtype``) in decode mode. ``prefix_embeds`` (B, P, d),
+        full mode only: projected by ``proj`` and put before the text's
+        embeddings, so the output has P + T positions.
+
         Mixed precision: every f32 leaf is cast to ``dtype`` first, as the
         reference does on each call. A tree already cast with
         ``cast_params(params, dtype)`` passes through without a copy, and
@@ -388,6 +438,17 @@ class LM:
             raise ValueError(f"mode must be 'full' or 'decode', got {mode!r}")
         if dtype != torch.float32:
             params = cast_params(params, dtype)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            if mode == "decode":
+                enc_out = cache["enc_out"].to(dtype)
+            else:
+                if enc_frames is None:
+                    raise ValueError(f"{cfg.name}: full mode needs "
+                                     f"enc_frames (B, Se, d)")
+                enc_out = self.encode(params, enc_frames.to(dtype))
+        # whisper's decoder: absolute positions in place of RoPE
+        sinusoidal = cfg.rope_theta == 0 and cfg.is_encoder_decoder
         n_stages = len(self.stages)
         lo, hi = stage_range if stage_range is not None else (0, n_stages)
 
@@ -397,14 +458,22 @@ class LM:
         elif mode == "decode":
             pos = cache["pos"]
             h = self.embed_tokens(params, tokens).to(dtype)
+            if sinusoidal:
+                h = h + sinusoidal_pos(cfg.d_model, pos[:, None]).to(dtype)
         else:
             pos = None
             h = self.embed_tokens(params, tokens).to(dtype)
+            if sinusoidal:
+                h = h + sinusoidal_pos(cfg.d_model, torch.arange(
+                    tokens.shape[1], device=h.device))[None].to(dtype)
+            if prefix_embeds is not None:    # VLM: prepend the patches
+                pe = prefix_embeds.to(dtype) @ params["proj"].to(dtype)
+                h = torch.cat([pe, h], 1)
 
         cache_stages = cache["stages"][lo:hi] if cache is not None else None
         h, aux, new_stage_caches = self._run_stages(
             self.stages[lo:hi], params["stages"][lo:hi], h, mode,
-            cache_stages, pos)
+            cache_stages, pos, enc_out)
 
         new_cache = None
         if cache is not None:
@@ -428,13 +497,13 @@ class LM:
         """Next-token CE, differentiable (the f32 log-softmax of the
         logits, as the reference). batch = tokens, (tokens, labels unused)
         or a dict with "tokens"; the reference's extras (prefix_embeds,
-        enc_frames) are refused (``ROADMAP.md`` Queue 1 item 13g)."""
+        enc_frames) are refused (``ROADMAP.md`` Queue 1 item 13k)."""
         if isinstance(batch, dict):
             extras = sorted(set(batch) & {"prefix_embeds", "enc_frames"})
             if extras:
                 raise NotImplementedError(
                     f"LM.loss: {extras} are not ported to repro_torch yet "
-                    f"(ROADMAP.md Queue 1 item 13g)")
+                    f"(ROADMAP.md Queue 1 item 13k)")
             tokens = batch["tokens"]
         elif isinstance(batch, (tuple, list)):
             tokens = batch[0]

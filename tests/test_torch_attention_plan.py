@@ -13,7 +13,10 @@
   CUDA-core ones; the decode plan at MLA's serve shape;
   ``reset_launch_counts`` zeroes both wrappers' counts by route;
 * both modules import, and the wrappers run their plain versions, without
-  CUDA.
+  CUDA;
+* ``ops.flash_attention`` takes a key length Sk unlike S (whisper's
+  cross-attention) without a mask, on the CPU the plain version, and
+  refuses it with a mask or a gradient.
 """
 import numpy as np
 import pytest
@@ -163,6 +166,28 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors():
                                                          "cuda_core": 0}
 
 
+def test_launch_counts_by_lengths_key_and_reset():
+    """The forward wrappers' ``launches_by_lengths``: one count a launch
+    under ``"<queries>x<keys>"`` (what tells whisper's encoder, its causal
+    self-attention and its cross-attention apart), zeroed by
+    ``reset_launch_counts``; a plain version on the CPU counts nothing."""
+    ops.reset_launch_counts()
+    ops._count_lengths(ops.flash_attention, 32768, 1500)
+    ops._count_lengths(ops.flash_attention, 32768, 1500)
+    ops._count_lengths(ops.flash_attention, 1500, 1500)
+    ops._count_lengths(ops.flash_decode, 1, 32768)
+    assert ops.flash_attention.launches_by_lengths == {"32768x1500": 2,
+                                                       "1500x1500": 1}
+    assert ops.flash_decode.launches_by_lengths == {"1x32768": 1}
+    ops.reset_launch_counts()
+    q = torch.zeros(1, 3, 2, 16)
+    k = torch.zeros(1, 5, 2, 16)
+    ops.flash_attention(q, k, k, causal=False)
+    ops.flash_decode(q[:, :1], k, k, torch.ones(1, 5, dtype=torch.bool))
+    assert ops.flash_attention.launches_by_lengths == {}
+    assert ops.flash_decode.launches_by_lengths == {}
+
+
 def test_ptxas_usage_reads_registers_and_spills():
     """``build.ptxas_usage`` parses the ``-Xptxas -v`` report that
     ``chip_smoke.py`` quotes for the timed instantiations."""
@@ -182,3 +207,51 @@ def test_ptxas_usage_reads_registers_and_spills():
                  "spill_loads": 16},
         "_Zk2": {"registers": 40, "stack_frame": 0, "spill_stores": 0,
                  "spill_loads": 0}}
+
+
+@pytest.mark.parametrize("s,sk", [(1, 16), (12, 16), (40, 7), (7, 70),
+                                  (300, 1500)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_a_key_length_unlike_s_on_the_cpu(s, sk,
+                                                                dtype):
+    """Whisper's cross-attention: S decoder queries over Sk encoder keys
+    (one query, S < Sk, S > Sk, Sk below a key tile), non-causal, no
+    window. The CPU route is the plain version, which equals the
+    reference's ``sdpa_full`` core (``layers.sdpa_full``) within 2e-3
+    (f32) / 2e-2 (bf16); (B, H, S) statistics; no launch counted."""
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(s + sk)
+    q = torch.randn(2, s, 4, 32, generator=g).to(dtype)
+    k = torch.randn(2, sk, 2, 32, generator=g).to(dtype)
+    v = torch.randn(2, sk, 2, 32, generator=g).to(dtype)
+    ops.reset_launch_counts()
+    got, lse = ops.flash_attention(q, k, v, causal=False,
+                                   return_stats=True)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert lse.shape == (2, 4, s) and lse.dtype == torch.float32
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    want = L.sdpa_full(q, k, v, causal=False, window=0)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=tol, atol=tol)
+    assert ops.flash_attention.launches == 0
+
+
+def test_flash_attention_refuses_a_masked_or_differentiated_key_length():
+    """Sk != S only without a mask (causal or window raise ValueError) and
+    without a gradient (the backward's kernels take Sk = S: both the
+    forward under autograd and ``flash_attention_bwd`` raise
+    ``NotImplementedError``); an empty key length is refused."""
+    q = torch.randn(1, 8, 4, 32)
+    k = torch.randn(1, 5, 2, 32)
+    for kw in ({"causal": True}, {"causal": False, "window": 3}):
+        with pytest.raises(ValueError, match="causal=False"):
+            ops.flash_attention(q, k, k, **kw)
+    with pytest.raises(NotImplementedError, match="13k"):
+        ops.flash_attention(q.requires_grad_(), k, k, causal=False)
+    out, lse = ops.flash_attention(q.detach(), k, k, causal=False,
+                                   return_stats=True)
+    with pytest.raises(NotImplementedError, match="13k"):
+        ops.flash_attention_bwd(q.detach(), k, k, out, out, lse,
+                                causal=False)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.detach(), k[:, :0], k[:, :0], causal=False)

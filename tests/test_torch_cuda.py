@@ -12,8 +12,10 @@ runs of two rounds bit-identical; Lloyd bit-identical from
 run to run, ``assign`` equal except at near-ties, sums/mindist/distances
 within 2e-3; the attention kernels (the forward, its statistics and the
 backward) within 2e-3 (f32) and 2e-2 (bf16) of their plain versions on
-the same inputs (``tests/test_kernels.py:156``); a train step's bits
-repeat.
+the same inputs (``tests/test_kernels.py:156``), the prefill kernel also
+at a key length unlike S (whisper's cross-attention) on both routes; a
+train step's bits repeat; jamba's Mamba layer and whisper's reduced LM
+(encoder, self and cross launches) within 2e-3 of the CPU.
 """
 import numpy as np
 import pytest
@@ -1119,3 +1121,98 @@ def test_rwkv_block_on_the_card_matches_the_cpu(card):
                                        mode="decode", cache=caches[1])
             assert _rel(a.cpu(), b) <= TOL
     assert ops.launch_counts() == before
+
+
+# whisper's cross-attention: S decoder queries over Sk encoder keys,
+# non-causal, on both routes: one query, Sk ragged, S below and above Sk
+# (its 1,500 frames), Sk below one key tile at D=128 and G=4, f32 on the
+# CUDA cores at D=64 and D=96
+@pytest.mark.parametrize("b,s,sk,h,kv,d,dtype", [
+    (2, 1, 16, 4, 4, 64, torch.bfloat16),
+    (2, 12, 100, 16, 16, 64, torch.bfloat16),
+    (1, 300, 1500, 16, 16, 64, torch.bfloat16),
+    (1, 2000, 1500, 16, 16, 64, torch.bfloat16),
+    (2, 40, 7, 8, 2, 128, torch.bfloat16),
+    (1, 300, 1500, 16, 16, 64, torch.float32),
+    (2, 77, 50, 8, 2, 96, torch.float32)])
+def test_flash_attention_kernel_with_a_key_length_unlike_s(card, b, s, sk,
+                                                           h, kv, d, dtype):
+    from repro_torch.kernels.flash_attention import prefill_route
+    g = torch.Generator().manual_seed(s + sk + d)
+    q = _rand(g, (b, s, h, d), dtype, card)
+    k = _rand(g, (b, sk, kv, d), dtype, card)
+    v = _rand(g, (b, sk, kv, d), dtype, card)
+    route = prefill_route(dtype, d)
+    ops.reset_launch_counts()
+    got, lse = ops.flash_attention(q, k, v, causal=False, return_stats=True)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches_by_route[route] == 1
+    assert ops.flash_attention.launches_by_lengths == {f"{s}x{sk}": 1}
+    want, wlse = ref.flash_attention_ref(q, k, v, causal=False,
+                                         return_stats=True)
+    _att_close(got, want, dtype)
+    assert float((lse - wlse).abs().max()) <= ATT_TOL[dtype]
+    # the decode kernel over a fully valid memory: the first query's rows
+    valid = torch.ones(b, sk, dtype=torch.bool, device=card)
+    one = ops.flash_decode(q[:, :1].contiguous(), k, v, valid)
+    _att_close(one, want[:, :1], dtype)
+    assert ops.flash_decode.launches_by_lengths == {f"1x{sk}": 1}
+
+
+def test_mamba_and_whisper_on_the_card_match_the_cpu(card):
+    """jamba's reduced Mamba layer in f32 (a 300-token prefill, 6 decode
+    steps writing the state in place) and whisper's reduced LM in f32 (the
+    encoder's non-causal launches, the decoder's causal and cross ones,
+    then 6 decode steps: self and cross decode launches), card against
+    CPU within 2e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import LM, tree_map
+    jcfg = get_config("jamba-1.5-large-398b").reduced()
+    g = torch.Generator().manual_seed(8)
+    p = L.mamba_init(L.ParamInit(g), jcfg)
+    pc = {k: v.to(card) for k, v in p.items()}
+    x = torch.randn(2, 300, jcfg.d_model, generator=g)
+    got, _ = L.mamba_apply(pc, x.to(card), cfg=jcfg, mode="full")
+    want, _ = L.mamba_apply(p, x, cfg=jcfg, mode="full")
+    assert _rel(got.cpu(), want) <= TOL
+    caches = [L.mamba_cache_init(jcfg, 2, device=d) for d in (card, "cpu")]
+    with torch.no_grad():
+        for i in range(6):
+            a, _ = L.mamba_apply(pc, x[:, i:i + 1].to(card), cfg=jcfg,
+                                 mode="decode", cache=caches[0])
+            b, _ = L.mamba_apply(p, x[:, i:i + 1], cfg=jcfg, mode="decode",
+                                 cache=caches[1])
+            assert _rel(a.cpu(), b) <= TOL
+    assert _rel(caches[0]["ssm"].cpu(), caches[1]["ssm"]) <= TOL
+
+    cfg = get_config("whisper-medium").reduced()
+    lm = LM(cfg)
+    p_cpu = lm.init(torch.Generator().manual_seed(9))
+    p_card = tree_map(lambda t: t.to(card), p_cpu)
+    toks = torch.randint(cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(10))
+    frames = torch.randn(2, cfg.encoder_seq_len, cfg.d_model,
+                         generator=torch.Generator().manual_seed(11))
+    before = ops.flash_attention.launches
+    with torch.no_grad():
+        got, _, _ = lm.apply(p_card, toks.to(card),
+                             enc_frames=frames.to(card))
+    # the encoder's layers, then each decoder layer's self and cross
+    assert ops.flash_attention.launches == before + cfg.encoder_layers \
+        + 2 * cfg.num_layers
+    want, _, _ = lm.apply(p_cpu, toks, enc_frames=frames)
+    assert _rel(got.cpu(), want) <= TOL
+    caches = [lm.init_cache(2, 8, dtype=torch.float32, device=d)
+              for d in (card, "cpu")]
+    with torch.no_grad():
+        caches[0]["enc_out"] = lm.encode(p_card, frames.to(card))
+        caches[1]["enc_out"] = lm.encode(p_cpu, frames)
+        before = ops.flash_decode.launches
+        for i in range(6):
+            a, caches[0], _ = lm.apply(p_card, toks[:, i:i + 1].to(card),
+                                       mode="decode", cache=caches[0])
+            b, caches[1], _ = lm.apply(p_cpu, toks[:, i:i + 1],
+                                       mode="decode", cache=caches[1])
+            assert _rel(a.cpu(), b) <= TOL
+    assert ops.flash_decode.launches == before + 6 * 2 * cfg.num_layers

@@ -40,7 +40,7 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = (out.stdout.splitlines() + ["", ""])[:2]
-    assert int(count) >= 69, out.stdout
+    assert int(count) >= 72, out.stdout
     assert bad == "", f"repro_torch pulled in: {bad}"
 
 

@@ -17,10 +17,15 @@ term included) within 2e-3; the stage lists, ``count_params`` (all and
 active) and the configs equal; ``params_to_jax(params_from_jax(t)) == t``
 bit for bit; ``LM.init(gen, dtype=torch.bfloat16)`` gives
 ``cast_params(LM.init(gen), torch.bfloat16)`` bit for bit; the serve and
-``serve_lm`` entry points run with ``--device cpu``, and ``serve_lm``
-refuses whisper. At full width the stage lists and parameter counts of
-the served models are checked (deepseek-v2-236b's 235,576,284,160 and its
-6-layer cut's 21,081,994,240; rwkv6-3b's 3,089,041,920).
+``serve_lm`` entry points run with ``--device cpu`` (whisper's with the
+reference's zero ``enc_out``). The stage lists, ``count_params`` and the
+configs are checked for every one of ``repro``'s ten architectures
+(jamba, whisper and internvl2 have their LM parity in
+``test_torch_mamba.py`` and ``test_torch_encdec.py``). At full width the
+stage lists and parameter counts of the served models are checked
+(deepseek-v2-236b's 235,576,284,160 and its 6-layer cut's
+21,081,994,240; rwkv6-3b's 3,089,041,920; jamba's 4-layer cut, whisper
+and internvl2 at the sizes the card serves).
 """
 import dataclasses
 import os
@@ -42,7 +47,7 @@ from repro.models import layers as jL
 from repro.models.registry import count_params as jcount
 from repro.models.transformer import LM as JLM
 from repro_torch.configs import INPUT_SHAPES, get_config
-from repro_torch.launch import serve_lm
+from repro_torch.launch import serve, serve_lm
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import layers as L
 from repro_torch.models.registry import count_params
@@ -52,6 +57,8 @@ from repro_torch.optim import tree_leaves
 
 ARCHS = ["llama3.2-1b", "qwen2-0.5b", "gemma3-4b", "qwen3-moe-30b-a3b",
          "phi3-medium-14b", "deepseek-v2-236b", "rwkv6-3b"]
+# every architecture of the reference
+ALL_ARCHS = sorted(JARCHS)
 TOL = 2e-3
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -159,7 +166,7 @@ def test_greedy_decode_steps_give_the_same_tokens(arch):
         np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ALL_ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_stage_list_and_count_params_match(name, reduced):
     jcfg, cfg = jget_config(name), get_config(name)
@@ -167,6 +174,9 @@ def test_stage_list_and_count_params_match(name, reduced):
         jcfg, cfg = jcfg.reduced(), cfg.reduced()
     assert ([dataclasses.astuple(s) for s in LM(cfg).stages]
             == [dataclasses.astuple(s) for s in JLM(jcfg).stages])
+    if cfg.is_encoder_decoder:
+        assert ([dataclasses.astuple(s) for s in LM(cfg).enc_stages]
+                == [dataclasses.astuple(s) for s in JLM(jcfg).enc_stages])
     assert count_params(cfg) == jcount(jcfg)
     assert count_params(cfg, include_embed=False) == jcount(
         jcfg, include_embed=False)
@@ -217,7 +227,7 @@ def test_full_width_deepseek_is_the_served_model():
     assert [s.mixer for s in lm.specs] == ["mla"] * 60
     assert [s.ffn for s in lm.specs] == ["dense"] + ["moe"] * 59
     assert count_params(cfg) == 235_576_284_160
-    assert count_params(dataclasses.replace(cfg, num_layers=6)) == \
+    assert count_params(serve.cut_depth(cfg, 6)) == \
         21_081_994_240
     assert (cfg.d_model, cfg.num_heads, cfg.qk_nope_head_dim,
             cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank,
@@ -248,6 +258,52 @@ def test_full_width_rwkv6_is_the_served_model():
     assert tuple(block["mixer"]["x_prev"].shape) == (32, 128, 2560)
     assert tuple(block["ffn_x_prev"].shape) == (32, 128, 2560)
     assert block["mixer"]["state"].dtype == torch.float32
+
+
+def test_full_width_jamba_cut_is_the_served_model():
+    """jamba-1.5-large-398b at full width: 72 layers, one scan stage of 9
+    repeats of the 8-layer unit, 398,555,111,424 parameters (the
+    reference's count). The card's cut to the unit's first half (mamba,
+    mamba, mamba, attn; the MoE on layers 1 and 3) holds 23,021,379,584:
+    Mamba of d_inner 16,384 and state 16, 64 / 8 heads of 128, 16
+    experts of d_ff 24,576, top 2, the untied 65,536-id head."""
+    cfg = get_config("jamba-1.5-large-398b")
+    assert [(s.kind, s.repeats) for s in LM(cfg).stages] == [("scan", 9)]
+    assert count_params(cfg) == 398_555_111_424
+    cut = serve.cut_depth(cfg, 4)
+    lm = LM(cut)
+    assert [(s.mixer, s.ffn) for s in lm.specs] == [
+        ("mamba", "dense"), ("mamba", "moe"), ("mamba", "dense"),
+        ("attn", "moe")]
+    assert count_params(cut) == 23_021_379_584
+    assert (cut.d_model, cut.d_inner, cut.ssm_state_dim, cut.num_heads,
+            cut.num_kv_heads, cut.head_dim, cut.num_experts, cut.d_ff,
+            cut.padded_vocab) == (8192, 16384, 16, 64, 8, 128, 16, 24576,
+                                  65_536)
+    block = lm.init_cache(128, 32768, device="meta")["stages"][0][0]
+    assert tuple(block["mixer"]["ssm"].shape) == (128, 16384, 16)
+    assert block["mixer"]["ssm"].dtype == torch.float32
+
+
+def test_full_width_whisper_and_internvl2_are_the_served_models():
+    """whisper-medium at full width and depth: 24 encoder and 24 decoder
+    layers of 16 heads of 64, 959,309,824 parameters, the 1,500-frame
+    ``enc_out`` in the cache; internvl2-26b: 48 layers, 48 / 8 heads of
+    128, the (d, d) ``proj``, 19,900,471,296 parameters."""
+    w = get_config("whisper-medium")
+    lm = LM(w)
+    assert [(s.kind, s.repeats) for s in lm.stages] == [("scan", 24)]
+    assert [(s.kind, s.repeats) for s in lm.enc_stages] == [("scan", 24)]
+    assert count_params(w) == 959_309_824
+    assert tuple(lm.init_cache(16, 64, device="meta")["enc_out"].shape) \
+        == (16, 1500, 1024)
+    i = get_config("internvl2-26b")
+    assert [(s.kind, s.repeats) for s in LM(i).stages] == [("scan", 48)]
+    assert count_params(i) == 19_900_471_296
+    assert tuple(LM(i).init(None, device="meta")["proj"].shape) == \
+        (6144, 6144)
+    assert (i.num_heads // i.num_kv_heads, i.head_dim, i.padded_vocab) == \
+        (6, 128, 92_672)
 
 
 def test_loss_matches_with_the_aux_term(arch):
@@ -291,7 +347,7 @@ def test_params_from_jax_refuses_another_shape(arch):
         params_from_jax(bad, cfg)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ALL_ARCHS)
 def test_configs_equal_the_reference(name):
     jcfg, cfg = jget_config(name), get_config(name)
     for a, b in [(cfg, jcfg), (cfg.reduced(), jcfg.reduced())]:
@@ -306,9 +362,13 @@ def test_configs_equal_the_reference(name):
 
 
 def test_other_architectures_are_refused_until_ported():
-    for name in sorted(set(JARCHS) - set(ARCHS)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            get_config(name)
+    """Every architecture of the reference is ported: ``get_config`` knows
+    each id and ``LM`` builds for each; an id neither package knows is a
+    ``KeyError``. (The name is the one the test had while some families
+    were still refused; it is kept so the test's record carries on.)"""
+    for name in JARCHS:
+        assert get_config(name).name == name
+        assert LM(get_config(name)).stages
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -339,7 +399,9 @@ def test_rms_norm_and_rope_match(dtype):
 
 
 @pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "phi3-medium-14b",
-                                  "deepseek-v2-236b", "rwkv6-3b"])
+                                  "deepseek-v2-236b", "rwkv6-3b",
+                                  "jamba-1.5-large-398b", "whisper-medium",
+                                  "internvl2-26b"])
 def test_serve_lm_runs_on_the_cpu(name, capsys):
     gen = serve_lm.main(["--arch", name, "--device", "cpu", "--tokens",
                          "5"])
@@ -353,8 +415,16 @@ def test_serve_lm_runs_on_the_cpu(name, capsys):
 
 
 def test_serve_lm_refuses_encoder_decoder_archs():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13g"):
-        serve_lm.main(["--arch", "whisper-medium", "--device", "cpu"])
+    """Whisper is served now, as the reference's ``examples/serve_lm.py``
+    serves it: the cache's ``enc_out`` is zeros (no encoder pass) and the
+    decoder's cross-attention reads it; the generated ids are those of
+    the same run, once more from the same seed. (The name is the one the
+    test had while whisper was refused; it is kept so the test's record
+    carries on.)"""
+    args = ["--arch", "whisper-medium", "--device", "cpu", "--tokens", "4"]
+    gen = serve_lm.main(args)
+    assert gen.shape == (4, 4)
+    np.testing.assert_array_equal(serve_lm.main(args), gen)
 
 
 def test_serve_runs_on_the_cpu():
@@ -366,3 +436,19 @@ def test_serve_runs_on_the_cpu():
     assert out.returncode == 0, out.stderr
     assert "generated 4 tokens x batch 4" in out.stdout
     assert out.stdout.strip().endswith("serve: done")
+
+
+def test_serve_cuts_the_depth_and_serves_jamba_on_the_cpu():
+    """``launch.serve --layers N``: N layers, a block pattern longer than
+    N cut to its first N kinds (jamba's unit to mamba x 3 and attention),
+    a shorter one kept; the reduced jamba cut so serves on the CPU."""
+    cfg = get_config("jamba-1.5-large-398b")
+    cut = serve.cut_depth(cfg, 4)
+    assert cut.num_layers == 4
+    assert cut.block_pattern == ("mamba", "mamba", "mamba", "attn")
+    assert serve.cut_depth(get_config("llama3.2-1b"), 2).block_pattern == \
+        ("attn",)
+    res = serve.main(["--smoke", "--device", "cpu", "--arch",
+                      "jamba-1.5-large-398b", "--layers", "4", "--tokens",
+                      "2", "--prompt-len", "3"])
+    assert res.tokens.shape == (4, 2) and res.peak_bytes is None

@@ -236,7 +236,7 @@ def test_loss_refuses_the_references_extras():
     lm = LM(cfg)
     params = lm.init(torch.Generator().manual_seed(0))
     toks = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="13g"):
+    with pytest.raises(NotImplementedError, match="13k"):
         lm.loss(params, {"tokens": toks, "prefix_embeds": toks})
 
 

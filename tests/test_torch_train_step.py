@@ -120,7 +120,7 @@ def test_train_step_refuses_what_it_does_not_take():
     toks = torch.zeros((1, 1, 1, 4, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="first centre"):
         step(params, (), {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="13g"):
+    with pytest.raises(NotImplementedError, match="13k"):
         step(params, (), {"tokens": toks, "enc_frames": toks}, [0])
 
 
