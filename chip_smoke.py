@@ -57,7 +57,14 @@ result line:
      bf16 D=96, G=64, MLA's bf16 D=192), each on the route ``bwd_route``
      names (by the
      wrapper's count by route), three cases (two on the tensor cores, one
-     on the CUDA cores) twice, bit for bit;
+     on the CUDA cores) twice, bit for bit; then the backward at a key
+     length Sk unlike S (``BWD_CROSS_CASES``: whisper's cross layer, S 300
+     over Sk 1,500, in bf16 and f32, S 2,000 over 1,500, Sk 7 below one
+     key tile, Sk 1,000 at D 128 with G 4, D 96 in f32) and whisper's
+     encoder layer (S = Sk = 1,500, non-causal, bf16), each on the route
+     ``bwd_route`` names and counted under its lengths, within ATT_TOL
+     and ROW_REL_TOL of the plain version, one case a route twice bit for
+     bit, and a causal or windowed call at Sk != S must raise;
   3. one round of a small WRN-10-1 on the card and on the CPU from the same
      seed: the ledger and the metadata count must be equal and the new
      weights agree to 2e-3;
@@ -218,6 +225,18 @@ result line:
      text tokens (48 launches), profiles; 12e, ``python -m
      repro_torch.launch.serve_lm`` for the three archs in their own
      processes (exit 0);
+ 13. train with the extras at phase 9a's cut (G 2 cohorts x 2 local
+     steps x a microbatch of 4 sequences of 4,096 tokens, 2 clusters and
+     2 meta steps, split FL on, two rounds, round 1 replayed bit for
+     bit): 13a, whisper-medium at full width and depth with 1,500 stub
+     frames a sequence (the encoder trained in the local steps, re-encoded
+     by the averaged encoder in the meta steps); 13b, internvl2-26b at
+     full width, depth cut 48 -> 2 (split layer 1), 256 patch embeddings
+     before the 4,096 tokens; each with the attention launches reckoned
+     by query x key length (4096x4096, 1500x1500 and 4096x1500; 4352x4352),
+     every backward on the tensor cores, the peak and one profiled round;
+     13c, a reduced-width f32 round of each with its extra, card against
+     CPU within 2e-3;
   5. time each kernel beside its plain version, a library call where one
      computes the same function, and its bound (the attention kernels one
      row a template instance: head dim 64 at phase 6's shapes, 128 at
@@ -225,7 +244,9 @@ result line:
      version there (D 192's prefill in chunks of 256 keys), and one row a
      new path of phase 12: the encoder's non-causal prefill, the cross
      prefill at Sk 1,500, the cross decode over 1,500 valid slots,
-     internvl2's D 128 at G 6 for both kernels, with its
+     internvl2's D 128 at G 6 for both kernels; the backward one row at
+     phase 9a's layer and one each at phase 13's cross, encoder and
+     D 128 at G 6 layers, with SDPA's backward as the library call; with its
      route, the decode split count and the registers and spills per
      thread that ptxas reported). ``ms`` is the
      wrapper call's time (CUDA events around back-to-back calls, so the
@@ -326,6 +347,22 @@ BWD_CASES = [(1, 1024, 32, 8, 64, True, 0, "bfloat16"),
              (1, 130, 64, 1, 64, True, 0, "bfloat16"),
              (1, 600, 4, 4, 192, True, 0, "bfloat16")]
 BWD_TWICE = (0, 1, 12)
+# phase 2b, the backward at a key length Sk unlike S (the gradient of
+# whisper's cross-attention, non-causal, no window): (b, s, sk, h, kv, d,
+# dtype): whisper's cross layer in bf16 (the tensor cores) and f32 (the
+# CUDA cores), S above Sk, Sk below one key tile, Sk no tile multiple with
+# GQA at D 128, D 96 in f32; then whisper's encoder layer (S = Sk = 1,500,
+# non-causal, no window) in bf16. Each on the route bwd_route names, held
+# by ATT_TOL and ROW_REL_TOL; the BWD_CROSS_TWICE cases (one a route)
+# twice, bit for bit; a causal or windowed call at Sk != S must raise.
+BWD_CROSS_CASES = [(2, 300, 1500, 16, 16, 64, "bfloat16"),
+                   (2, 300, 1500, 16, 16, 64, "float32"),
+                   (1, 2000, 1500, 16, 16, 64, "bfloat16"),
+                   (2, 130, 7, 8, 2, 64, "bfloat16"),
+                   (2, 333, 1000, 16, 4, 128, "bfloat16"),
+                   (2, 77, 50, 8, 2, 96, "float32"),
+                   (2, 1500, 1500, 16, 16, 64, "bfloat16")]
+BWD_CROSS_TWICE = (0, 1)
 # (b, s, h, kv, d, valid slots, q dtype, cache dtype, splits): splits 1 and
 # 2 are fixed by the shapes; 0 means many (more than 8)
 DECODE_CASES = [(2, 32768, 32, 8, 64, 40, "bfloat16", "bfloat16", None),
@@ -412,6 +449,19 @@ WHISPER_PREFILL_S = 32768
 VLM_ARCH = "internvl2-26b"
 VLM_BATCH, VLM_CACHE, VLM_PROMPT, VLM_TOKENS = 4, 32768, 32, 16
 VLM_PREFILL_S = 32768
+# phase 13: training with the extras at phase 9a's cut of train_4k
+# (TRAIN_*: G = 2 cohorts x 2 local steps x one microbatch of 4 sequences
+# of 4,096 text tokens, meta-training 2 clusters a cohort for 2 steps, two
+# rounds):
+# 13a whisper-medium at full width and depth with its 1,500 stub frames a
+# sequence, 13b internvl2-26b at full width, depth cut 48 -> 2 (a lower
+# and an upper layer: split layer 1), its 256 patch embeddings before
+# the 4,096 tokens
+EXTRAS_VLM_LAYERS = 2
+# whisper's decoder holds 448 learned positions (its config's docstring);
+# 13a's 4,096 text tokens are 9a's cut, so the cross-attention backward is
+# also timed at this query length
+WHISPER_DECODER_LEN = 448
 
 
 def fail(msg: str) -> None:
@@ -430,6 +480,311 @@ def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOPS):
     t_mem, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return (max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops
             else "operations")
+
+
+def rel_check(k_name, got, want, dim, block, what):
+    """The error against the values' own size, a block of ``block``
+    rows along ``dim`` at a time: the worst block's
+    ||got - want||_F / ||want||_F (held to ROW_REL_TOL) and max |got -
+    want| over its RMS of ``want``, and the whole tensor's ratio."""
+    num = den = worst_rel = worst_max = 0.0
+    for g, w in zip(got.split(block, dim), want.split(block, dim)):
+        w = w.float()
+        e = g.float() - w
+        en, wn = float(e.square().sum()), float(w.square().sum())
+        num, den = num + en, den + wn
+        worst_rel = max(worst_rel, math.sqrt(en / wn))
+        worst_max = max(worst_max, float(e.abs().max())
+                        / math.sqrt(wn / w.numel()))
+    check(worst_rel <= ROW_REL_TOL,
+          f"{k_name} {what}: a block of {block} rows is {worst_rel} "
+          f"off relative to its values, beyond {ROW_REL_TOL}")
+    return {"rel_err": math.sqrt(num / den),
+            "worst_block_rel_err": worst_rel,
+            "worst_block_max_err_over_rms": worst_max,
+            "rel_err_block_rows": block, "rel_err_limit": ROW_REL_TOL}
+
+
+def events_ms(fn, iters, warmup=1):
+    """Mean ms of one call of ``fn`` over ``iters`` back-to-back calls
+    after ``warmup`` (CUDA events: the wrapper call's time)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ptxas(source, pattern):
+    """Registers and spills per thread that ptxas reported, at phase 1's
+    build, for the one instantiation of ``source`` matching ``pattern``
+    (None unless exactly one matches)."""
+    from repro_torch.kernels import build
+    found = [u for fn, u in build.ptxas_usage(
+        build.ptxas_logs.get(source, "")).items() if re.search(pattern, fn)]
+    return found[0] if len(found) == 1 else None
+
+# the attention backward's three launches on each route (Dd is shared)
+BWD_KERNELS = {
+    "tensor_core": ("attn_bwd_dot_kernel", "attn_bwd_dkdv_wgmma_kernel",
+                    "attn_bwd_dq_wgmma_kernel"),
+    "cuda_core": ("attn_bwd_dot_kernel", "attn_bwd_dkdv_kernel",
+                  "attn_bwd_dq_kernel")}
+
+
+def bwd_row(dev, name, shape, causal, launches, what, seed):
+    """The kernels line's row of the attention backward at ``shape`` =
+    (b, s, sk, h, kv, d) in bf16, inputs drawn from ``seed``: on the
+    tensor cores, held against its plain version (2e-2 each element,
+    ROW_REL_TOL each block of 1,024 rows), its device ms by launch, call
+    ms, plain ms, SDPA's backward ms, its bound and ptxas's registers and
+    spills. ``launches`` is the main path's count."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import bwd_route_for
+    from repro_torch.obs.device_time import kernel_device_ms
+
+    b_, s_, sk_, h_, kv_, d_ = shape
+    gd = torch.Generator(device=dev).manual_seed(seed)
+
+    def drandn(*shp):
+        return torch.randn(shp, generator=gd, device=dev).to(torch.bfloat16)
+
+    q, dout = drandn(b_, s_, h_, d_), drandn(b_, s_, h_, d_)
+    k, v = drandn(b_, sk_, kv_, d_), drandn(b_, sk_, kv_, d_)
+    o, lse = ops.flash_attention(q, k, v, causal=causal, return_stats=True)
+    route = bwd_route_for(q, k, v, o, dout)
+    check(route == "tensor_core", f"{name} {what}: the {route} route")
+
+    def kern():
+        return ops.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
+
+    def plain():
+        return ref.flash_attention_bwd_ref(q, k, v, o, dout, lse,
+                                           torch.ones_like(lse),
+                                           causal=causal)
+    got, want = kern(), plain()
+    errs, rel = [], {}
+    for grad_name, x, y in zip(("dq", "dk", "dv"), got, want):
+        diff = (x.float() - y.float()).abs()
+        errs.append(float(diff.max()))
+        check(bool((diff <= 2e-2 + 2e-2 * y.float().abs()).all()),
+              f"{name} {grad_name} {what}: max abs err {errs[-1]}")
+        rel[grad_name] = rel_check(name, x, y, 1, 1024,
+                                   f"{grad_name} {what}")
+    del got, want
+    by_launch = kernel_device_ms(kern, BWD_KERNELS["tensor_core"], iters=5,
+                                 warmup=1)
+    ms = events_ms(kern, 5)
+    plain_ms = events_ms(plain, 2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    so = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    sdo = dout.transpose(1, 2)
+    library_ms = events_ms(lambda: torch.autograd.grad(
+        so, (qt, kt, vt), sdo, retain_graph=True), 5)
+    # the least work: five products (S, dP, dV, dK, dQ) over the pairs the
+    # mask keeps; q, k, v, out, dout and lse read once, dq, dk, dv written
+    # once
+    pairs = s_ * (s_ + 1) // 2 if causal else s_ * sk_
+    flops = 5 * 2 * b_ * h_ * d_ * pairs
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+    dp = 64 if d_ <= 64 else 128
+    stages = 3 if dp == 64 else 2
+    del q, k, v, dout, o, lse, qt, kt, vt, so, sdo
+    torch.cuda.empty_cache()
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:139",
+        "note": "the gradient of flash_attention_kernel "
+                "(src/repro/kernels/flash_attention.py:89); the "
+                "reference's backward is the jnp custom VJP "
+                "_sdpa_flash_bwd, with no Pallas kernel",
+        "launches": launches, "max_abs_err": max(errs), "ms": ms,
+        "device_ms": sum(by_launch.values()),
+        "device_ms_by_launch": by_launch, "plain_ms": plain_ms,
+        "plain": "ref.flash_attention_bwd_ref (key chunks of 1024)",
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "library": f"SDPA's backward (autograd of "
+                   f"scaled_dot_product_attention, "
+                   f"{'causal' if causal else 'non-causal'}, GQA)",
+        "max_abs_err_vs_plain_at_this_shape": max(errs),
+        "block_rel_err": rel, "kernel_route": f"{route}, three launches",
+        "ptxas": {
+            "dkdv": ptxas("flash_attention_bwd",
+                          rf"attn_bwd_dkdv_wgmma_kernelILi{dp}ELi{stages}E"),
+            "dq": ptxas("flash_attention_bwd",
+                        rf"attn_bwd_dq_wgmma_kernelILi{dp}ELi64ELi"
+                        rf"{stages}E")},
+        "causal": causal, "shape": [b_, s_, h_, kv_, d_], "key_len": sk_}
+
+
+def train_rounds(tag, step, lm, batches, firsts, clusters, tokens):
+    """Two rounds of the train step ``step`` for ``len(firsts[0])``
+    cohorts, all starting from ``lm``'s weights drawn from seed 0, on
+    ``batches`` with the K-means first centres ``firsts``; then round 1
+    replayed from the same state, and one round under the profiler.
+    Checks that the metrics are finite and each round selects at most
+    ``clusters`` rows a cohort, that the cohorts leave each round with
+    the same finite weights, that every leaf moved over the two rounds,
+    and that the replay gives the same bits. Returns (the numbers: walls,
+    tokens/s of ``tokens`` a round, metrics, the peak, the profiled
+    round's device busy share, top kernels and attention kernels' device
+    ms a launch; the two rounds' launches: counts, the backward's by
+    route, forward and backward by query x key length, and each
+    selection's Lloyd sweeps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import selection as sel_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.obs.timing import monotonic
+    from repro_torch.optim.optimizers import tree_leaves
+
+    g_ax = len(firsts[0])
+    state = tree_map(lambda x: x[None].expand((g_ax,) + tuple(x.shape)),
+                     lm.init(torch.Generator(device=batches[0]["tokens"]
+                                             .device).manual_seed(0)))
+    before = [x[0].cpu() for x in tree_leaves(state)]
+    sweeps = []
+    real_select = sel_mod.select_metadata
+
+    def recording(*args, **kwargs):
+        got = real_select(*args, **kwargs)
+        sweeps.append(got.lloyd_iters)
+        return got
+
+    sel_mod.select_metadata = recording
+    try:
+        peak_and_reset()
+        ops.reset_launch_counts()
+        walls, metrics, states = [], [], []
+        for r in range(2):
+            t0 = monotonic()
+            state, _, m = step(state, (), batches[r], firsts[r])
+            metrics.append({k: float(v) for k, v in m.items()})  # syncs
+            walls.append(monotonic() - t0)
+            states.append(state)
+        peak = peak_and_reset()
+    finally:
+        sel_mod.select_metadata = real_select
+    launches = {
+        "counts": ops.launch_counts(),
+        "bwd_by_route": dict(ops.flash_attention_bwd.launches_by_route),
+        "fwd_by_lengths": dict(ops.flash_attention.launches_by_lengths),
+        "bwd_by_lengths": dict(ops.flash_attention_bwd.launches_by_lengths),
+        "lloyd_sweeps": list(sweeps)}
+    last = tree_leaves(states[1])
+    check(all(math.isfinite(v) for m in metrics for v in m.values())
+          and all(0 < m["selected"] <= g_ax * clusters for m in metrics),
+          f"{tag}: metrics {metrics}")
+    check(all(torch.equal(x[0], x[g]) for x in last for g in range(g_ax)),
+          f"{tag}: the cohorts leave the round with different weights")
+    check(all(bool(torch.isfinite(x[0]).all()) for x in last),
+          f"{tag}: weights not finite")
+    last = [x[0].cpu() for x in last]
+    moved = [not torch.equal(x, b) for x, b in zip(last, before)]
+    check(all(moved), f"{tag}: {moved.count(False)} of {len(moved)} leaves "
+                      f"did not move in two rounds")
+    del state, states[1], before
+    # round 1 again from the same state: the same bits
+    replay, _, m_replay = step(states[0], (), batches[1], firsts[1])
+    m_replay = {k: float(v) for k, v in m_replay.items()}
+    check(all(torch.equal(x[0].cpu(), y)
+              for x, y in zip(tree_leaves(replay), last))
+          and m_replay == metrics[1],
+          f"{tag}: round 1 replayed from the same state gave other bits")
+    del states, last
+    # one more round under the profiler: the device busy share, the top
+    # kernels, the attention kernels' device ms a launch
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = monotonic()
+        float(step(replay, (), batches[0], firsts[0])[2]["loss"])
+        torch.cuda.synchronize()
+        prof_wall = (monotonic() - t0) * 1e3
+    del replay
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:12]
+    in_round = {}
+    for name in BWD_KERNELS["tensor_core"] + ("flash_fwd_wgmma_kernel",):
+        hit = [e for e in evs if f"::{name}" in e.key]
+        n = sum(e.count for e in hit)
+        in_round[name] = {
+            "launches": n, "device_ms_per_launch":
+            sum(e.self_device_time_total for e in hit) / 1e3 / max(n, 1)}
+    del prof, evs
+    peak_and_reset()
+    print(f"{tag}: two rounds at full width, walls {walls}, metrics "
+          f"{metrics}, peak {peak}")
+    return {"tokens_per_round": tokens, "round_wall_s": walls,
+            "tokens_per_s": [tokens / w for w in walls],
+            "metrics": metrics, "max_memory_allocated": peak,
+            "cohorts_bit_equal": True, "every_leaf_moved": True,
+            "replay_bit_identical": True,
+            "profiled_round": {
+                "wall_ms": prof_wall, "device_busy_ms": busy,
+                "device_busy_share": busy / prof_wall,
+                "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                                  for e in top},
+                "attention_kernels": in_round}}, launches
+
+
+def card_vs_cpu_round(tag, step, p_cpu, batch, firsts, dev, rel_err):
+    """One round of the reduced f32 train step ``step`` for
+    ``len(firsts)`` cohorts from the weights ``p_cpu``, on the CPU and on
+    the card. Holds within TOL the new weights, the metrics, and each
+    leaf's update (new - old) against the CPU's update's own size (no leaf
+    may stay put); the selections must be equal, the card must launch the
+    attention kernels and the CPU none. -> (the numbers, the card's
+    backward launches by query x key length)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.optim.optimizers import tree_leaves
+
+    runs = {}
+    for where in ("cpu", "card"):
+        d = "cpu" if where == "cpu" else dev
+        cp = tree_map(lambda t: t.to(d)[None].expand(
+            (len(firsts),) + tuple(t.shape)), p_cpu)
+        ops.reset_launch_counts()
+        new, _, m = step(cp, (), {k: v.to(d) for k, v in batch.items()},
+                         firsts)
+        runs[where] = ([x.cpu() for x in tree_leaves(new)],
+                       {k: float(v) for k, v in m.items()},
+                       ops.launch_counts(),
+                       dict(ops.flash_attention_bwd.launches_by_lengths))
+    ops.reset_launch_counts()
+    (lc, mc, cc, _), (lg, mg, cg, bl) = runs["cpu"], runs["card"]
+    e_w = max(rel_err(x, y) for x, y in zip(lg, lc))
+    e_m = max(abs(mg[k] - mc[k]) / (1 + abs(mc[k])) for k in mc)
+    e_u = 0.0
+    for x, y, old in zip(lg, lc, tree_leaves(p_cpu)):
+        size = float((y - old).norm())
+        e_u = max(e_u, float((x - y).norm()) / size if size else math.inf)
+    check(e_w <= TOL and e_u <= TOL and e_m <= TOL
+          and mg["selected"] == mc["selected"],
+          f"{tag}: card vs CPU: weights rel err {e_w}, updates rel err "
+          f"{e_u}, metrics {mg} vs {mc}")
+    check(cg["flash_attention"] > 0 and cg["flash_attention_bwd"] > 0
+          and sum(cc.values()) == 0, f"{tag}: launches card {cg}, CPU {cc}")
+    print(f"{tag}: reduced f32 train round card vs CPU: weights rel err "
+          f"{e_w}, updates rel err {e_u}, metrics rel err {e_m}")
+    return {"weights_max_rel_err": e_w, "updates_max_rel_err": e_u,
+            "metrics_max_rel_err": e_m, "metrics_card": mg,
+            "metrics_cpu": mc, "launches_card": cg,
+            "bwd_launches_by_lengths_card": bl}, bl
 
 
 def main() -> None:
@@ -890,7 +1245,54 @@ def main() -> None:
                   f"backward {what}: two runs on the same inputs differ")
             del again
         del q, k, v, dout, out, lse, plain_out, got, want
-    print(json.dumps({"attention_checks_max_abs_err": att}))
+    bwd_rel = {}              # each gradient's worst block of 1,024 rows
+    for i, (b, s, sk, h, kv, d, dt) in enumerate(BWD_CROSS_CASES):
+        dtype = getattr(torch, dt)
+        q, dout = randn(b, s, h, d).to(dtype), randn(b, s, h, d).to(dtype)
+        k, v = randn(b, sk, kv, d).to(dtype), randn(b, sk, kv, d).to(dtype)
+        out, lse = ops.flash_attention(q, k, v, causal=False,
+                                       return_stats=True)
+        b_route = bwd_route(dtype, d, True, h // kv)
+        ops.reset_launch_counts()
+        got = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=False)
+        torch.cuda.synchronize()
+        what = (f"b{b} s{s} sk{sk} h{h} kv{kv} d{d} causal=False w0 {dt}, "
+                f"backward {b_route}")
+        check(ops.flash_attention_bwd.launches_by_route[b_route] == 1
+              and ops.flash_attention_bwd.launches_by_lengths
+              == {f"{s}x{sk}": 1},
+              f"backward {what}: launches "
+              f"{ops.flash_attention_bwd.launches_by_route}, "
+              f"{ops.flash_attention_bwd.launches_by_lengths}")
+        want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                           torch.ones_like(lse),
+                                           causal=False)
+        for grad_name, x, y in zip(("dq", "dk", "dv"), got, want):
+            att[f"backward {grad_name} {what}"] = att_check(
+                "flash_attention_bwd", x, y, dt,
+                f"backward {grad_name} {what}")
+            bwd_rel[f"backward {grad_name} {what}"] = rel_check(
+                "flash_attention_bwd", x, y, 1, 1024,
+                f"backward {grad_name} {what}")["worst_block_rel_err"]
+        if i in BWD_CROSS_TWICE:
+            again = ops.flash_attention_bwd(q, k, v, out, dout, lse,
+                                            causal=False)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"backward {what}: two runs on the same inputs differ")
+            del again
+        if sk != s:
+            for mask in ({"causal": True}, {"causal": False, "window": 8}):
+                try:
+                    ops.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+                except ValueError:
+                    continue
+                check(False, f"backward {what} {mask}: a masked call at "
+                             f"Sk != S did not raise")
+        del q, k, v, dout, out, lse, got, want
+    ops.reset_launch_counts()
+    print(json.dumps({"attention_checks_max_abs_err": att,
+                      "backward_sk_worst_block_rel_err": bwd_rel}))
 
     # ---- 3. one small round on the card and on the CPU -----------------
     small = get_wrn_config().reduced()
@@ -1243,6 +1645,11 @@ def main() -> None:
         dev, rel_err)
     print(json.dumps({"last_families_serving": last_families}))
 
+    # ---- 13. training with the extras: whisper and internvl2 -----------
+    # (its own function: each model is freed before the next)
+    extras_training, extras_rows = run_extras_training_phase(dev, rel_err)
+    print(json.dumps({"extras_training": extras_training}))
+
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
         """Mean ms of one call over ``iters`` back-to-back calls (CUDA
@@ -1319,13 +1726,7 @@ def main() -> None:
                7 * 4 * 20 * 16384)),
     ]
     # registers and spills per thread of the timed instantiations, from
-    # the -Xptxas -v report of phase 1's build
-    def ptxas(source, pattern):
-        found = [u for fn, u in build.ptxas_usage(
-            build.ptxas_logs.get(source, "")).items()
-            if re.search(pattern, fn)]
-        return found[0] if len(found) == 1 else None
-
+    # the -Xptxas -v report of phase 1's build (``ptxas``)
     # the CUDA launches of each wrapper, by kernel name (a Lloyd sweep is
     # two launches)
     launch_names = {
@@ -1408,28 +1809,6 @@ def main() -> None:
         check(bool(per), f"the profile holds no {family} launch")
         return {"device_ms": sum(v["device_ms"] for v in per.values()),
                 "device_ms_by_launch": per}
-
-    def rel_check(k_name, got, want, dim, block, what):
-        """The error against the values' own size, a block of ``block``
-        rows along ``dim`` at a time: the worst block's
-        ||got - want||_F / ||want||_F (held to ROW_REL_TOL) and max |got -
-        want| over its RMS of ``want``, and the whole tensor's ratio."""
-        num = den = worst_rel = worst_max = 0.0
-        for g, w in zip(got.split(block, dim), want.split(block, dim)):
-            w = w.float()
-            e = g.float() - w
-            en, wn = float(e.square().sum()), float(w.square().sum())
-            num, den = num + en, den + wn
-            worst_rel = max(worst_rel, math.sqrt(en / wn))
-            worst_max = max(worst_max, float(e.abs().max())
-                            / math.sqrt(wn / w.numel()))
-        check(worst_rel <= ROW_REL_TOL,
-              f"{k_name} {what}: a block of {block} rows is {worst_rel} "
-              f"off relative to its values, beyond {ROW_REL_TOL}")
-        return {"rel_err": math.sqrt(num / den),
-                "worst_block_rel_err": worst_rel,
-                "worst_block_max_err_over_rms": worst_max,
-                "rel_err_block_rows": block, "rel_err_limit": ROW_REL_TOL}
 
     def prefill_row(name, s_, h_, kv_, d_, by_phase, instance, profile,
                     what, plain_chunk=1024, b_=1, sk_=None, causal=True):
@@ -1634,8 +2013,11 @@ def main() -> None:
         vcfg.head_dim, {"12d": last_launches["12d_decode"]},
         {"g6": r"flash_decode_kernelI13__nv_bfloat16S\d_Li128ELi8E"},
         last_profiles["12d_decode"], "at phase 12d's decode shape"))
-    # the backward kernels, timed by phase 9 at one training layer's shape
+    # the backward kernels, timed by phase 9 at one training layer's shape,
+    # and by phase 13 at whisper's cross and encoder layers and
+    # internvl2's layer
     rows.append({**bwd_row, "max_abs_err": errs["flash_attention_bwd"]})
+    rows.extend(extras_rows)
     ops.reset_launch_counts()          # timing launches are not the path's
 
     # where one client's round goes (full width, the last global weights)
@@ -2186,27 +2568,23 @@ def run_selection_phase(model, clients, test, cfg, sim, res):
 
 
 def run_training_phase(dev, rel_err):
-    """Phase 9, the federated LM training path. 9a: two rounds of
-    ``make_train_step`` at llama3.2-1b's full width (the train_4k cut in
-    ``TRAIN_*``), its checks and numbers, one profiled round, and the
-    backward kernels at one layer's shape; 9b: a reduced-width f32 step on
-    the card and on the CPU; 9c: ``launch.train --smoke`` in its own
+    """Phase 9, the federated LM training path. 9a: ``train_rounds`` at
+    llama3.2-1b's full width (the train_4k cut in ``TRAIN_*``) with its
+    launches reckoned, and the backward kernels at one layer's shape; 9b:
+    a reduced-width f32 step on the card and on the CPU; 9c: ``launch.train --smoke`` in its own
     process and its checkpoint; 9d: ``launch.federated_lm`` in its own
     process. Returns (the phase's numbers, the backward kernel's row of
     the kernels line but its max_abs_err)."""
     import dataclasses
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.configs import TrainConfig, get_config
-    from repro_torch.core import selection as sel_mod
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import bwd_route_for
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.transformer import (split_stages, stage_layers,
-                                                tree_map)
+    from repro_torch.models.transformer import split_stages, stage_layers
     from repro_torch.obs.device_time import kernel_device_ms
     from repro_torch.obs.timing import monotonic
     from repro_torch.optim.optimizers import tree_leaves
@@ -2224,62 +2602,14 @@ def run_training_phase(dev, rel_err):
     step, lm = make_train_step(full, tcfg)
     shape = (TRAIN_G, TRAIN_LOCAL, 1, TRAIN_MB, TRAIN_T)
     rng = np.random.default_rng(0)
-    toks = [torch.from_numpy(rng.integers(0, full.vocab_size, shape,
-                                          np.int32)).to(dev)
-            for _ in range(2)]
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, full.vocab_size, shape, np.int32)).to(dev)} for _ in range(2)]
     firsts = [rng.integers(0, TRAIN_MB, TRAIN_G).tolist() for _ in range(2)]
-    params0 = lm.init(torch.Generator(device=dev).manual_seed(0))
-    before = [t.cpu() for t in tree_leaves(params0)]
-    state = tree_map(lambda x: x[None].expand((TRAIN_G,) + tuple(x.shape)),
-                     params0)
-    del params0
-    # each selection's Lloyd sweeps, to reckon the Lloyd launches
-    sweeps = []
-    real_select = sel_mod.select_metadata
-
-    def recording(*args, **kwargs):
-        got = real_select(*args, **kwargs)
-        sweeps.append(got.lloyd_iters)
-        return got
-
-    sel_mod.select_metadata = recording
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        walls, metrics, states = [], [], []
-        for r in range(2):
-            t0 = monotonic()
-            state, _, m = step(state, (), {"tokens": toks[r]}, firsts[r])
-            metrics.append({k: float(v) for k, v in m.items()})  # syncs
-            walls.append(monotonic() - t0)
-            states.append(state)
-        launches = ops.launch_counts()
-        bwd_routes = dict(ops.flash_attention_bwd.launches_by_route)
-        peak = torch.cuda.max_memory_allocated()
-        round_sweeps = list(sweeps)
-        # round 1 again from the same state: the same bits
-        replay, _, m_replay = step(states[0], (), {"tokens": toks[1]},
-                                   firsts[1])
-        m_replay = {k: float(v) for k, v in m_replay.items()}
-    finally:
-        sel_mod.select_metadata = real_select
-    last = tree_leaves(states[1])
-    check(all(math.isfinite(v) for m in metrics for v in m.values()),
-          f"9a: metrics not finite {metrics}")
-    check(all(0 < m["selected"] <= TRAIN_G * TRAIN_META_CLUSTERS
-              for m in metrics), f"9a: selected {metrics}")
-    check(all(torch.equal(x[0], x[g]) for x in last
-              for g in range(TRAIN_G)),
-          "9a: the cohorts leave the round with different weights")
-    check(all(bool(torch.isfinite(x[0]).all()) for x in last),
-          "9a: weights not finite")
-    moved = [not torch.equal(x[0].cpu(), b) for x, b in zip(last, before)]
-    check(all(moved), f"9a: {moved.count(False)} of {len(moved)} leaves "
-                      f"did not move in two rounds")
-    check(all(torch.equal(x, y) for x, y in zip(tree_leaves(replay), last))
-          and m_replay == metrics[1],
-          "9a: round 1 replayed from the same state gave other bits")
-    del replay, before, states
+    tokens_round = TRAIN_G * TRAIN_LOCAL * TRAIN_MB * TRAIN_T
+    rounds, got = train_rounds("9a", step, lm, batches, firsts,
+                               TRAIN_META_CLUSTERS, tokens_round)
+    del batches
+    launches, round_sweeps = got["counts"], got["lloyd_sweeps"]
     # launches reckoned from the shapes: each local step's forward runs
     # twice under remat (forward, recompute) and its backward once; the
     # probe runs the lower layers without grad; each meta step runs the
@@ -2304,163 +2634,40 @@ def run_training_phase(dev, rel_err):
           f"9a: Lloyd sweeps {round_sweeps}")
     check(launches == want, f"9a: launches {launches}, reckoned {want}")
     # every backward of the bf16 training run on the tensor cores
-    check(bwd_routes == {"tensor_core": want["flash_attention_bwd"],
-                         "cuda_core": 0},
-          f"9a: backward launches by route {bwd_routes}")
-    tokens_round = TRAIN_G * TRAIN_LOCAL * TRAIN_MB * TRAIN_T
-    print(f"9a: two rounds at full width, walls {walls}, metrics "
-          f"{metrics}, launches {launches}")
-    # one more round under the profiler: device busy share, top kernels,
-    # the backward kernels' device ms a launch
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = monotonic()
-        _, _, m = step(state, (), {"tokens": toks[0]}, firsts[0])
-        float(m["loss"])
-        torch.cuda.synchronize()
-        prof_wall = (monotonic() - t0) * 1e3
-    del state, toks, last, m
-    ops.reset_launch_counts()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in evs) / 1e3
-    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:12]
-    # the backward's three launches on each route (Dd is shared)
-    bwd_route_names = {
-        "tensor_core": ("attn_bwd_dot_kernel", "attn_bwd_dkdv_wgmma_kernel",
-                        "attn_bwd_dq_wgmma_kernel"),
-        "cuda_core": ("attn_bwd_dot_kernel", "attn_bwd_dkdv_kernel",
-                      "attn_bwd_dq_kernel")}
-    bwd_names = bwd_route_names["tensor_core"]
-    in_round = {}
-    for name in bwd_names + ("flash_fwd_wgmma_kernel",):
-        hit = [e for e in evs if f"::{name}" in e.key]
-        n = sum(e.count for e in hit)
-        in_round[name] = {
-            "launches": n, "device_ms_per_launch":
-            sum(e.self_device_time_total for e in hit) / 1e3 / max(n, 1)}
+    check(got["bwd_by_route"] == {"tensor_core": want["flash_attention_bwd"],
+                                  "cuda_core": 0},
+          f"9a: backward launches by route {got['bwd_by_route']}")
     out["9a"] = {
         "model": full.name, "cohorts": TRAIN_G, "local_steps": TRAIN_LOCAL,
         "microbatch": TRAIN_MB, "n_micro": 1, "seq_len": TRAIN_T,
         "meta_clusters": TRAIN_META_CLUSTERS,
         "meta_steps": TRAIN_META_STEPS, "dtype": tcfg.dtype,
-        "remat": tcfg.remat, "tokens_per_round": tokens_round,
-        "round_wall_s": walls,
-        "tokens_per_s": [tokens_round / w for w in walls],
-        "metrics": metrics, "launches": launches,
-        "flash_attention_bwd_launches_by_route": bwd_routes,
-        "lloyd_sweeps": round_sweeps, "max_memory_allocated": peak,
-        "cohorts_bit_equal": True, "replay_bit_identical": True,
-        "profiled_round": {
-            "wall_ms": prof_wall, "device_busy_ms": busy,
-            "device_busy_share": busy / prof_wall,
-            "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                              for e in top},
-            "attention_kernels": in_round}}
-    del prof, evs
-    torch.cuda.empty_cache()
+        "remat": tcfg.remat, "launches": launches,
+        "flash_attention_bwd_launches_by_route": got["bwd_by_route"],
+        "lloyd_sweeps": round_sweeps, **rounds}
 
     # the backward kernels at one training layer's shape, beside their
-    # plain version, SDPA's backward and their bound
-    b_, s_, h_, kv_, d_ = TRAIN_MB, TRAIN_T, full.num_heads, \
-        full.num_kv_heads, full.head_dim
+    # plain version, SDPA's backward and their bound; then the f32
+    # backward at the same shape, which stays on the CUDA cores
+    h_, kv_, d_ = full.num_heads, full.num_kv_heads, full.head_dim
+    row = bwd_row(dev, "flash_attention_bwd",
+                  (TRAIN_MB, TRAIN_T, TRAIN_T, h_, kv_, d_), True,
+                  launches["flash_attention_bwd"], "at the training shape",
+                  seed=5)
     gd = torch.Generator(device=dev).manual_seed(5)
-
-    def drandn(*shape):
-        return torch.randn(shape, generator=gd, device=dev).to(
-            torch.bfloat16)
-
-    q, k, v, dout = (drandn(b_, s_, h_, d_), drandn(b_, s_, kv_, d_),
-                     drandn(b_, s_, kv_, d_), drandn(b_, s_, h_, d_))
+    q, dout, k, v = (torch.randn(TRAIN_MB, TRAIN_T, n, d_, generator=gd,
+                                 device=dev) for n in (h_, h_, kv_, kv_))
     o, lse = ops.flash_attention(q, k, v, return_stats=True)
     route = bwd_route_for(q, k, v, o, dout)
-    check(route == "tensor_core", f"backward at the training shape: the "
-                                  f"{route} route")
-
-    def kern():
-        return ops.flash_attention_bwd(q, k, v, o, dout, lse)
-
-    def events_ms(fn, iters, warmup=1):
-        for _ in range(warmup):
-            fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    got = kern()
-    want_g = ref.flash_attention_bwd_ref(q, k, v, o, dout, lse,
-                                         torch.ones_like(lse))
-    shape_err = max(float((x.float() - y.float()).abs().max())
-                    for x, y in zip(got, want_g))
-    check(all(bool(((x.float() - y.float()).abs()
-                    <= 2e-2 + 2e-2 * y.float().abs()).all())
-              for x, y in zip(got, want_g)),
-          f"backward at the training shape: max abs err {shape_err}")
-    del got, want_g
-    by_launch = kernel_device_ms(kern, bwd_names, iters=5, warmup=1)
-    ms = events_ms(kern, 5)
-    plain_ms = events_ms(lambda: ref.flash_attention_bwd_ref(
-        q, k, v, o, dout, lse, torch.ones_like(lse)), 2)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    so = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    sdo = dout.transpose(1, 2)
-    library_ms = events_ms(lambda: torch.autograd.grad(
-        so, (qt, kt, vt), sdo, retain_graph=True), 5)
-    del qt, kt, vt, so, sdo
-    # the least work: five products (S, dP, dV, dK, dQ) over the causal
-    # pairs; q, k, v, out, dout and lse read once, dq, dk, dv written once
-    pairs = s_ * (s_ + 1) // 2
-    flops = 5 * 2 * b_ * h_ * d_ * pairs
-    nbytes = 2 * (3 * q.numel() + 3 * k.numel() + v.numel()) \
-        + 4 * lse.numel()
-    b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
-    # the f32 backward at the same shape, which stays on the CUDA cores
-    q, k, v, o, dout = (t.float() for t in (q, k, v, o, dout))
-    o, lse = ops.flash_attention(q, k, v, return_stats=True)
+    check(route == "cuda_core", f"f32 backward at the training shape: the "
+                                f"{route} route")
     f32_by_launch = kernel_device_ms(
         lambda: ops.flash_attention_bwd(q, k, v, o, dout, lse),
-        bwd_route_names["cuda_core"], iters=5, warmup=1)
+        BWD_KERNELS["cuda_core"], iters=5, warmup=1)
     del q, k, v, dout, o, lse
     torch.cuda.empty_cache()
-
-    def ptxas(pattern):
-        found = [u for fn, u in build.ptxas_usage(build.ptxas_logs.get(
-            "flash_attention_bwd", "")).items() if re.search(pattern, fn)]
-        return found[0] if len(found) == 1 else None
-
-    row = {"name": "flash_attention_bwd", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-           "replaces": "src/repro/models/layers.py:139",
-           "note": "the gradient of flash_attention_kernel "
-                   "(src/repro/kernels/flash_attention.py:89); the "
-                   "reference's backward is the jnp custom VJP "
-                   "_sdpa_flash_bwd, with no Pallas kernel",
-           "launches": launches["flash_attention_bwd"], "ms": ms,
-           "device_ms": sum(by_launch.values()),
-           "device_ms_by_launch": by_launch, "plain_ms": plain_ms,
-           "plain": "ref.flash_attention_bwd_ref (key chunks of 1024)",
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-           "library": "SDPA's backward (autograd of "
-                      "scaled_dot_product_attention, causal, GQA)",
-           "max_abs_err_vs_plain_at_this_shape": shape_err,
-           "kernel_route": f"{route}, three launches",
-           "ptxas": {"dkdv": ptxas(r"attn_bwd_dkdv_wgmma_kernelILi64ELi3E"),
-                     "dq": ptxas(
-                         r"attn_bwd_dq_wgmma_kernelILi64ELi64ELi3E"),
-                     "dkdv_d128": ptxas(
-                         r"attn_bwd_dkdv_wgmma_kernelILi128ELi2E"),
-                     "dq_d128": ptxas(
-                         r"attn_bwd_dq_wgmma_kernelILi128ELi64ELi2E")},
-           "f32_cuda_core_device_ms": sum(f32_by_launch.values()),
-           "f32_cuda_core_device_ms_by_launch": f32_by_launch,
-           "shape": [b_, s_, h_, kv_, d_]}
+    row.update({"f32_cuda_core_device_ms": sum(f32_by_launch.values()),
+                "f32_cuda_core_device_ms_by_launch": f32_by_launch})
 
     # ---- 9b: a reduced-width f32 step on the card and on the CPU ----
     # (4 layers: two scan stages, so remat runs. As many clusters as probe
@@ -2471,30 +2678,11 @@ def run_training_phase(dev, rel_err):
                                 num_layers=4)
     step32, lm32 = make_train_step(small, TrainConfig(
         dtype="float32", microbatch=4, meta_clusters=4))
-    p_cpu = lm32.init(torch.Generator().manual_seed(7))
     stoks = torch.from_numpy(np.random.default_rng(3).integers(
         0, small.vocab_size, (2, 2, 1, 4, 64), np.int32))
-    runs = {}
-    for where in ("cpu", "card"):
-        p = p_cpu if where == "cpu" else tree_map(lambda t: t.to(dev), p_cpu)
-        cp = tree_map(lambda x: x[None].expand((2,) + tuple(x.shape)), p)
-        ops.reset_launch_counts()
-        new, _, m = step32(cp, (), {"tokens": stoks.to(p["embed"].device)},
-                           [1, 2])
-        runs[where] = (tree_leaves(new), {k: float(v) for k, v in m.items()},
-                       ops.launch_counts())
-    (lc, mc, cc), (lg, mg, cg) = runs["cpu"], runs["card"]
-    e_w = max(rel_err(x.cpu(), y) for x, y in zip(lg, lc))
-    e_m = max(abs(mg[key] - mc[key]) / (1 + abs(mc[key])) for key in mc)
-    check(e_w <= TOL and e_m <= TOL and mg["selected"] == mc["selected"],
-          f"9b: card vs CPU: weights rel err {e_w}, metrics {mg} vs {mc}")
-    check(cg["flash_attention"] > 0 and cg["flash_attention_bwd"] > 0
-          and sum(cc.values()) == 0,
-          f"9b: launches card {cg}, CPU {cc}")
-    out["9b"] = {"weights_max_rel_err": e_w, "metrics_max_rel_err": e_m,
-                 "metrics_card": mg, "metrics_cpu": mc, "launches_card": cg}
-    print(f"9b: reduced f32 train step card vs CPU: weights rel err {e_w}, "
-          f"metrics rel err {e_m}")
+    out["9b"], _ = card_vs_cpu_round(
+        "9b", step32, lm32.init(torch.Generator().manual_seed(7)),
+        {"tokens": stoks}, [1, 2], dev, rel_err)
 
     # ---- 9c: launch.train in its own process, and its checkpoint ----
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
@@ -3854,6 +4042,184 @@ def run_last_families_phase(dev, rel_err):
                             "stdout": proc.stdout.strip().splitlines()}
     out["wall_s"] = monotonic() - t_phase
     return out, launches, profiles
+
+def run_extras_training_phase(dev, rel_err):
+    """Phase 13, training with the extras. 13a: two rounds of
+    ``make_train_step`` at whisper-medium's full width and depth with its
+    encoder frames, 13b: at internvl2-26b's full width, depth cut to 2
+    layers, with its vision prefix (phase 9a's cut), each through
+    ``train_rounds`` with launches reckoned by query and key length and
+    every backward on the tensor cores; 13c: a reduced-width f32 round
+    with each extra on the card and on the CPU. Returns (the phase's
+    numbers, the kernels line's rows of the backward at 13a's cross and
+    encoder shapes and 13b's layer)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import count_params
+    from repro_torch.models.transformer import split_stages, stage_layers
+    from repro_torch.obs.timing import monotonic
+
+    out = {}
+    t_phase = monotonic()
+    peak_and_reset()
+    tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
+                       meta_clusters=TRAIN_META_CLUSTERS,
+                       meta_steps=TRAIN_META_STEPS)
+
+    def reckoned(cfg, lm, positions, rounds=2):
+        """The attention launches of ``rounds`` rounds by query x key
+        length. Under a gradient each layer of a scan stage runs forward
+        twice (remat: forward, recompute), of an unroll stage once, and
+        backward once: each local microbatch runs every layer so; each
+        cohort's probe runs the encoder and the lower layers once without
+        a gradient; each meta step the encoder once without a gradient
+        and the upper layers so. An encoder-decoder's decoder layer runs
+        self-attention (positions x positions) and cross-attention
+        (positions x Se); its encoder Se x Se."""
+        _, b_stage = split_stages(cfg, cfg.split_layer)
+
+        def runs(stages):
+            return sum(stage_layers(st) * (2 if st.kind == "scan"
+                                           and tcfg.remat else 1)
+                       for st in stages)
+        lower = sum(stage_layers(st) for st in lm.stages[:b_stage])
+        upper, enc = cfg.num_layers - lower, cfg.encoder_layers
+        mbs, g, m = TRAIN_G * TRAIN_LOCAL, TRAIN_G, TRAIN_META_STEPS
+        key = f"{positions}x{positions}"
+        fwd = {key: rounds * (mbs * runs(lm.stages) + g * lower
+                              + m * runs(lm.stages[b_stage:]))}
+        bwd = {key: rounds * (mbs * cfg.num_layers + m * upper)}
+        if cfg.is_encoder_decoder:
+            se = cfg.encoder_seq_len
+            fwd[f"{positions}x{se}"] = fwd[key]
+            bwd[f"{positions}x{se}"] = bwd[key]
+            fwd[f"{se}x{se}"] = rounds * (mbs * runs(lm.enc_stages)
+                                          + g * enc + m * enc)
+            bwd[f"{se}x{se}"] = rounds * mbs * enc
+        return fwd, bwd, lower, upper
+
+    def train_full(tag, cfg, key, extra_len):
+        """``train_rounds`` at full width with the extra ``key``
+        (extra_len positions a sequence) and its launches reckoned -> the
+        tag's numbers and the backward launches by lengths."""
+        step, lm = make_train_step(cfg, tcfg)
+        shape = (TRAIN_G, TRAIN_LOCAL, 1, TRAIN_MB, TRAIN_T)
+        positions = TRAIN_T + (extra_len if key == "prefix_embeds" else 0)
+        rng = np.random.default_rng(1)
+        gx = torch.Generator(device=dev).manual_seed(3)
+        batches = [{"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, shape, np.int32)).to(dev),
+            key: torch.randn(shape[:-1] + (extra_len, cfg.d_model),
+                             generator=gx, device=dev)} for _ in range(2)]
+        firsts = [rng.integers(0, TRAIN_MB, TRAIN_G).tolist()
+                  for _ in range(2)]
+        tokens = TRAIN_G * TRAIN_LOCAL * TRAIN_MB * TRAIN_T
+        rounds, got = train_rounds(tag, step, lm, batches, firsts,
+                                   TRAIN_META_CLUSTERS, tokens)
+        del batches
+        launches, sweeps = got["counts"], got["lloyd_sweeps"]
+        fwd_want, bwd_want, lower, upper = reckoned(cfg, lm, positions)
+        check(got["fwd_by_lengths"] == fwd_want
+              and got["bwd_by_lengths"] == bwd_want,
+              f"{tag}: launches by lengths forward {got['fwd_by_lengths']}, "
+              f"backward {got['bwd_by_lengths']}; reckoned {fwd_want}, "
+              f"{bwd_want}")
+        check(got["bwd_by_route"] == {"tensor_core": sum(bwd_want.values()),
+                                      "cuda_core": 0},
+              f"{tag}: backward launches by route {got['bwd_by_route']}")
+        # K-means with K clusters: K-1 init steps and one representatives
+        # pass a cohort, one Lloyd sweep each sweep it ran
+        check(len(sweeps) == 2 * TRAIN_G
+              and launches["kmeans_pairwise_dist"]
+              == 2 * TRAIN_G * TRAIN_META_CLUSTERS
+              and launches["kmeans_lloyd_step"] == sum(sweeps)
+              and launches["flash_decode"] == 0,
+              f"{tag}: launches {launches}, Lloyd sweeps {sweeps}")
+        return {
+            "model": cfg.name, "layers": cfg.num_layers,
+            "encoder_layers": cfg.encoder_layers,
+            "params": count_params(cfg), "extra": key,
+            "extra_positions": extra_len, "cohorts": TRAIN_G,
+            "local_steps": TRAIN_LOCAL, "microbatch": TRAIN_MB,
+            "n_micro": 1, "text_tokens": TRAIN_T, "positions": positions,
+            "split": {"lower_layers": lower, "upper_layers": upper},
+            "stages": [[st.kind, stage_layers(st)] for st in lm.stages],
+            "meta_clusters": TRAIN_META_CLUSTERS,
+            "meta_steps": TRAIN_META_STEPS, "dtype": tcfg.dtype,
+            "remat": tcfg.remat, "launches": launches,
+            "lloyd_sweeps": sweeps,
+            "flash_attention_launches_by_lengths": got["fwd_by_lengths"],
+            "flash_attention_bwd_launches_by_lengths": got["bwd_by_lengths"],
+            "flash_attention_bwd_launches_by_route": got["bwd_by_route"],
+            **rounds}, got["bwd_by_lengths"]
+
+    # ---- 13a: whisper-medium at full width and depth ----
+    wcfg = get_config(WHISPER_ARCH)
+    out["13a"], w_bwd = train_full("13a", wcfg, "enc_frames",
+                                   wcfg.encoder_seq_len)
+    # ---- 13b: internvl2-26b at full width, depth cut ----
+    vcfg = serve.cut_depth(get_config(VLM_ARCH), EXTRAS_VLM_LAYERS)
+    out["13b"], v_bwd = train_full("13b", vcfg, "prefix_embeds",
+                                   vcfg.num_prefix_tokens)
+
+    # ---- 13c: a reduced-width f32 round with each extra, card vs CPU ----
+    # (as many clusters as probe rows, as 9b)
+    out["13c"] = {}
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        small = get_config(arch).reduced()
+        step32, lm32 = make_train_step(small, TrainConfig(
+            dtype="float32", microbatch=4, meta_clusters=4))
+        g = torch.Generator().manual_seed(8)
+        key, n = (("enc_frames", small.encoder_seq_len)
+                  if small.is_encoder_decoder
+                  else ("prefix_embeds", small.num_prefix_tokens))
+        batch = {"tokens": torch.randint(small.vocab_size, (2, 2, 1, 4, 64),
+                                         generator=g),
+                 key: torch.randn(2, 2, 1, 4, n, small.d_model, generator=g)}
+        out["13c"][arch], bl = card_vs_cpu_round(
+            f"13c {arch}", step32, lm32.init(torch.Generator().manual_seed(7)),
+            batch, [1, 2], dev, rel_err)
+        check(not small.is_encoder_decoder
+              or f"64x{small.encoder_seq_len}" in bl,
+              f"13c {arch}: no cross-attention backward on the card ({bl})")
+    ops.reset_launch_counts()
+
+    # ---- the kernels line's rows: the backward at 13a's cross and
+    # encoder shapes and at 13b's layer ----
+    wh, wkv, wd, se = (wcfg.num_heads, wcfg.num_kv_heads, wcfg.head_dim,
+                       wcfg.encoder_seq_len)
+    cross = bwd_row(dev, "flash_attention_bwd_cross",
+                    (TRAIN_MB, TRAIN_T, se, wh, wkv, wd), False,
+                    w_bwd.get(f"{TRAIN_T}x{se}", 0),
+                    "at phase 13a's cross-attention shape", seed=6)
+    # 13a's 4,096 text tokens are 9a's cut; whisper's own decoder holds
+    # WHISPER_DECODER_LEN positions: the same layer at that query length
+    at_len = bwd_row(dev, "flash_attention_bwd_cross",
+                     (TRAIN_MB, WHISPER_DECODER_LEN, se, wh, wkv, wd), False,
+                     0, "at whisper's decoder length", seed=9)
+    cross["at_whisper_decoder_len"] = {
+        k: at_len[k] for k in ("shape", "key_len", "max_abs_err",
+                               "block_rel_err", "ms", "device_ms",
+                               "device_ms_by_launch", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")}
+    vpos = TRAIN_T + vcfg.num_prefix_tokens
+    rows = [cross,
+            bwd_row(dev, "flash_attention_bwd_enc",
+                    (TRAIN_MB, se, se, wh, wkv, wd), False,
+                    w_bwd.get(f"{se}x{se}", 0),
+                    "at phase 13a's encoder shape", seed=7),
+            bwd_row(dev, "flash_attention_bwd_d128_g6",
+                    (TRAIN_MB, vpos, vpos, vcfg.num_heads, vcfg.num_kv_heads,
+                     vcfg.head_dim), True, sum(v_bwd.values()),
+                    "at phase 13b's layer shape", seed=8)]
+    ops.reset_launch_counts()
+    out["wall_s"] = monotonic() - t_phase
+    return out, rows
+
 
 if __name__ == "__main__":
     main()

@@ -1,6 +1,7 @@
 """FedAvg (McMahan et al.) — the paper's Eq. (2) and LocalUpdate (§3.2),
 over the port's parameters (the counterpart of ``repro.core.fedavg``):
-``weight_average`` over flat dicts or trees, ``local_update_tree`` (the
+``weight_average`` over flat dicts or trees, ``client_drift``,
+``local_update_tree`` (the
 reference's ``local_update``: an ``Optimizer`` and its state over a tree,
 the LM path's) and, for the WRN's flat dicts, the engines below.
 
@@ -19,8 +20,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
-from repro_torch.optim.optimizers import (Optimizer, sgd_step, tree_map,
-                                          value_and_grad)
+from repro_torch.optim.optimizers import (Optimizer, sgd_step, tree_leaves,
+                                          tree_map, value_and_grad)
 
 Params = Dict[str, torch.Tensor]
 PyTree = Any
@@ -41,6 +42,19 @@ def weight_average(client_params: Sequence[PyTree],
     with torch.no_grad():
         return tree_map(lambda *xs: sum(wi * x for wi, x in zip(w, xs)),
                         *client_params)
+
+
+def client_drift(client_params: Sequence[PyTree],
+                 global_params: PyTree) -> torch.Tensor:
+    """Diagnostic: the mean over clients of the L2 distance (in f32) of a
+    client's weights from the global model's; it grows with non-IID
+    skew."""
+    def dist(cp):
+        return torch.sqrt(sum(
+            torch.sum((a - b).to(torch.float32) ** 2)
+            for a, b in zip(tree_leaves(cp), tree_leaves(global_params))))
+    with torch.no_grad():
+        return torch.stack([dist(cp) for cp in client_params]).mean()
 
 
 def local_update_tree(params: PyTree, opt: Optimizer, opt_state: PyTree,

@@ -11,15 +11,17 @@ architecture with ``torch.func.functional_call``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
 from repro_torch.models.wrn import WRN, build_wrn, init_params
+from repro_torch.optim.optimizers import tree_map
 
 Params = Dict[str, torch.Tensor]
+PyTree = Any
 
 
 def _strip(params: Params, prefix: str) -> Params:
@@ -81,3 +83,9 @@ class SplitModel:
 def make_split_wrn(cfg) -> SplitModel:
     """SplitModel view of the WRN at the paper's split point."""
     return SplitModel(build_wrn(cfg))
+
+
+def tree_slice_layers(tree: PyTree, start: int, stop: int) -> PyTree:
+    """Every leaf of ``tree`` sliced along axis 0, its stacked-layer axis
+    (views, no copy)."""
+    return tree_map(lambda x: x[start:stop], tree)

@@ -61,18 +61,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {
-        # q, k, v, out, lse (or null), dtype, b, s, h, kv, d, causal,
+        # q, k, v, out, lse (or null), dtype, b, s, sk, h, kv, d, causal,
         # window, scale, stream
         "repro_flash_attention": ([_P] * 5 + [_I] * 9 + [_F, _P], _I),
         "repro_flash_attention_tc": ([_P] * 5 + [_I] * 8 + [_F, _P], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention_bwd": {
-        # q, k, v, out, dout, lse, dd, dq, dk, dv, dtype, b, s, h, kv, d,
-        # causal, window, scale, stream
-        "repro_flash_attention_bwd": ([_P] * 10 + [_I] * 8 + [_F, _P], _I),
+        # q, k, v, out, dout, lse, dd, dq, dk, dv, dtype, b, s, sk, h, kv,
+        # d, causal, window, scale, stream
+        "repro_flash_attention_bwd": ([_P] * 10 + [_I] * 9 + [_F, _P], _I),
         # the same without dtype (bf16 only)
-        "repro_flash_attention_bwd_tc": ([_P] * 10 + [_I] * 7 + [_F, _P],
+        "repro_flash_attention_bwd_tc": ([_P] * 10 + [_I] * 8 + [_F, _P],
                                          _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },

@@ -9,10 +9,14 @@
 // file is that VJP as kernels. Plain version: repro_torch/kernels/ref.py
 // flash_attention_bwd_ref (its port, op for op).
 //
-// Inputs, in the reference's layout: q, dO, O (B,S,H,D), k, v (B,S,KV,D),
-// all f32 or all bf16; lse (B,H,S) f32, the forward's log-sum-exp of each
-// row's scaled logits (flash_attention.cu). Outputs dq (B,S,H,D), dk, dv
-// (B,S,KV,D) in the input type. Three launches on either route, none with
+// Inputs, in the reference's layout: q, dO, O (B,S,H,D), k, v
+// (B,Sk,KV,D), all f32 or all bf16; lse (B,H,S) f32, the forward's
+// log-sum-exp of each row's scaled logits (flash_attention.cu). Outputs dq
+// (B,S,H,D), dk, dv (B,Sk,KV,D) in the input type. Sk is S for
+// self-attention; whisper's cross-attention has S decoder queries over Sk
+// = 1500 encoder keys (non-causal, no window: the caller refuses a mask
+// with Sk != S), and its gradient runs the same kernels with the key
+// grids, tensor maps and key bounds over Sk. Three launches on either route, none with
 // an atomic, so the same inputs give the same bits (the CUDA-core route's
 // kernels are named here; the tensor-core route's 2 and 3 are below):
 //   1. attn_bwd_dot_kernel (both routes): Dd = rowsum(dO * O) in f32,
@@ -30,7 +34,7 @@
 //   3. attn_bwd_dq_kernel: one block per (batch, kv head, tile of BQ
 //      folded rows), walking the key tiles the rows can see, recomputing
 //      p and ds the same way and adding dS.K to dQ in f32 registers.
-// The masks are the forward's: a key counts if ki < S (the true length:
+// The masks are the forward's: a key counts if ki < Sk (the true length:
 // nothing is padded), qi >= ki when causal, qi - ki < window when window
 // > 0. As in the reference, p and ds are rounded to the input type before
 // they enter the products (p to dV, ds to dK and dQ); every sum is f32,
@@ -88,9 +92,12 @@
 //   rows or keys per accumulator row, computed once a tile) runs only on
 //   tiles that straddle a boundary (a mask evaluated element by element
 //   in 64-bit made dQ markedly slower). Keys
-//   past S are masked in dQ (TMA zero-fills them, and a zero key still
+//   past Sk are masked in dQ (TMA zero-fills them, and a zero key still
 //   has p = exp(-lse) != 0); in dK/dV they touch only their own rows,
-//   which are never written. Every wgmma is issued outside any branch.
+//   which are never written (the stores stop at Sk). Without a mask
+//   every key tile sees every row tile, so each dK/dV CTA walks all of
+//   S's row tiles whatever Sk is. Every wgmma is issued outside any
+//   branch.
 //
 // What bounds it on the H100. At the training shape (llama3.2-1b, B=4,
 // S=4096, H=32, KV=8, D=64, causal) one product over the causal pairs is
@@ -218,20 +225,20 @@ __device__ __forceinline__ void load_rows(
   }
 }
 
-// Load BK keys from k0 of k and v (kv head kvh of batch b); keys past S are
-// zero.
+// Load BK keys from k0 of k and v (kv head kvh of batch b); keys past Sk
+// are zero.
 template <typename T, int DMAX>
 __device__ __forceinline__ void load_keys(const T* __restrict__ k,
                                           const T* __restrict__ v, float* sk,
                                           float* sv, long long k0, int b,
-                                          int kvh, int S, int KV, int D) {
+                                          int kvh, int Sk, int KV, int D) {
   using Tl = Tiles<DMAX>;
   for (int i = threadIdx.x; i < Tl::BK * DMAX; i += THREADS) {
     const int c = i / DMAX, d = i % DMAX;
     const long long ki = k0 + c;
     float kx = 0.f, vx = 0.f;
-    if (ki < S && d < D) {
-      const long long off = (((long long)b * S + ki) * KV + kvh) * D + d;
+    if (ki < Sk && d < D) {
+      const long long off = (((long long)b * Sk + ki) * KV + kvh) * D + d;
       kx = to_f<T>(k[off]);
       vx = to_f<T>(v[off]);
     }
@@ -247,7 +254,7 @@ template <typename T, int DMAX>
 __device__ __forceinline__ void probs_and_ds(
     const float* sq, const float* sdo, const float* sk, const float* sv,
     const float* slse, const float* sdd, const int* sqi, float* sp,
-    float* sds, long long k0, int S, int D, int causal, int window,
+    float* sds, long long k0, int Sk, int D, int causal, int window,
     float scale) {
   using Tl = Tiles<DMAX>;
   constexpr int RI = Tl::BQ / 16, NJ = Tl::BK / 16;
@@ -286,7 +293,7 @@ __device__ __forceinline__ void probs_and_ds(
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
       const long long ki = k0 + c;
-      bool ok = qi >= 0 && ki < S;
+      bool ok = qi >= 0 && ki < Sk;
       if (causal) ok = ok && qi >= ki;
       if (window > 0) ok = ok && qi - ki < window;
       const float p = ok ? expf(s[i][j] * scale - slse[r]) : 0.f;
@@ -304,7 +311,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dd, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int H, int KV, int D,
+                     T* __restrict__ dv, int S, int Sk, int H, int KV, int D,
                      int causal, int window, float scale) {
   using Tl = Tiles<DMAX>;
   constexpr int KI = Tl::BK / 16, NC = DMAX / 16;
@@ -324,11 +331,12 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long k0 = (long long)blockIdx.x * Tl::BK;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_keys<T, DMAX>(k, v, sk, sv, k0, b, kvh, S, KV, D);
+  load_keys<T, DMAX>(k, v, sk, sv, k0, b, kvh, Sk, KV, D);
 
   // the queries that can see a key of this tile: from k0 when causal, up
-  // to the tile's last key + window - 1 with a window
-  const long long klast = (k0 + Tl::BK < S ? k0 + Tl::BK : S) - 1;
+  // to the tile's last key + window - 1 with a window (both only at Sk =
+  // S), every query of S without a mask
+  const long long klast = (k0 + Tl::BK < Sk ? k0 + Tl::BK : Sk) - 1;
   long long qlo = causal ? k0 : 0, qhi = S - 1;
   if (window > 0 && klast + window - 1 < qhi) qhi = klast + window - 1;
   const long long row_end = (qhi + 1) * G;
@@ -344,7 +352,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_rows<T, DMAX>(q, dout, lse, dd, sq, sdo, slse, sdd, sqi, r0,
                        row_end, b, kvh, G, S, H, D);
     __syncthreads();
-    probs_and_ds<T, DMAX>(sq, sdo, sk, sv, slse, sdd, sqi, sp, sds, k0, S,
+    probs_and_ds<T, DMAX>(sq, sdo, sk, sv, slse, sdd, sqi, sp, sds, k0, Sk,
                           D, causal, window, scale);
     __syncthreads();
     // dV += P^T.dO, dK += dS^T.Q over the tile's rows, in row order
@@ -371,8 +379,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < KI; ++i) {
     const long long ki = k0 + ty + 16 * i;
-    if (ki >= S) continue;
-    const long long base = (((long long)b * S + ki) * KV + kvh) * D;
+    if (ki >= Sk) continue;
+    const long long base = (((long long)b * Sk + ki) * KV + kvh) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
@@ -391,7 +399,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ dd, T* __restrict__ dq, int S,
-                   int H, int KV, int D, int causal, int window,
+                   int Sk, int H, int KV, int D, int causal, int window,
                    float scale) {
   using Tl = Tiles<DMAX>;
   constexpr int RI = Tl::BQ / 16, NC = DMAX / 16;
@@ -417,9 +425,9 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long last = (r0 + Tl::BQ < nrows ? r0 + Tl::BQ : nrows) - 1;
   const long long qlo = r0 / G, qhi = last / G;
-  long long kbeg = 0, kend = S;
+  long long kbeg = 0, kend = Sk;
   if (window > 0) kbeg = qlo - window + 1 > 0 ? qlo - window + 1 : 0;
-  if (causal) kend = qhi + 1 < S ? qhi + 1 : S;
+  if (causal) kend = qhi + 1 < Sk ? qhi + 1 : Sk;
 
   float adq[RI][NC];
 #pragma unroll
@@ -429,10 +437,10 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (long long k0 = kbeg; k0 < kend; k0 += Tl::BK) {
     __syncthreads();                   // the previous keys are consumed
-    load_keys<T, DMAX>(k, v, sk, sv, k0, b, kvh, S, KV, D);
+    load_keys<T, DMAX>(k, v, sk, sv, k0, b, kvh, Sk, KV, D);
     __syncthreads();
     probs_and_ds<T, DMAX>(sq, sdo, sk, sv, slse, sdd, sqi, nullptr, sds, k0,
-                          S, D, causal, window, scale);
+                          Sk, D, causal, window, scale);
     __syncthreads();
     // dQ += dS.K over the tile's keys, in key order
     for (int c = 0; c < Tl::BK; ++c) {
@@ -466,8 +474,9 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DMAX>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* dd, void* dq,
-               void* dk, void* dv, int B, int S, int H, int KV, int D,
-               int causal, int window, float scale, cudaStream_t stream) {
+               void* dk, void* dv, int B, int S, int Sk, int H, int KV,
+               int D, int causal, int window, float scale,
+               cudaStream_t stream) {
   using Tl = Tiles<DMAX>;
   const long long rows = (long long)B * S * H;
   attn_bwd_dot_kernel<T><<<(unsigned)((rows + THREADS / 32 - 1) /
@@ -487,10 +496,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                              (int)s_q);
   if (err != cudaSuccess) return (int)err;
 
-  dim3 gkv((unsigned)((S + Tl::BK - 1) / Tl::BK), (unsigned)(B * KV));
+  dim3 gkv((unsigned)((Sk + Tl::BK - 1) / Tl::BK), (unsigned)(B * KV));
   attn_bwd_dkdv_kernel<T, DMAX><<<gkv, THREADS, s_kv, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dd,
-      (T*)dk, (T*)dv, S, H, KV, D, causal, window, scale);
+      (T*)dk, (T*)dv, S, Sk, H, KV, D, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -498,7 +507,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   dim3 gq((unsigned)((nrows + Tl::BQ - 1) / Tl::BQ), (unsigned)(B * KV));
   attn_bwd_dq_kernel<T, DMAX><<<gq, THREADS, s_q, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dd,
-      (T*)dq, S, H, KV, D, causal, window, scale);
+      (T*)dq, S, Sk, H, KV, D, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -506,19 +515,19 @@ template <typename T>
 int dispatch_bwd(const void* q, const void* k, const void* v,
                  const void* out, const void* dout, const float* lse,
                  float* dd, void* dq, void* dk, void* dv, int B, int S,
-                 int H, int KV, int D, int causal, int window, float scale,
-                 cudaStream_t st) {
+                 int Sk, int H, int KV, int D, int causal, int window,
+                 float scale, cudaStream_t st) {
   if (D <= 32)
     return launch_bwd<T, 32>(q, k, v, out, dout, lse, dd, dq, dk, dv, B, S,
-                             H, KV, D, causal, window, scale, st);
+                             Sk, H, KV, D, causal, window, scale, st);
   if (D <= 64)
     return launch_bwd<T, 64>(q, k, v, out, dout, lse, dd, dq, dk, dv, B, S,
-                             H, KV, D, causal, window, scale, st);
+                             Sk, H, KV, D, causal, window, scale, st);
   if (D <= 128)
     return launch_bwd<T, 128>(q, k, v, out, dout, lse, dd, dq, dk, dv, B, S,
-                              H, KV, D, causal, window, scale, st);
+                              Sk, H, KV, D, causal, window, scale, st);
   return launch_bwd<T, 256>(q, k, v, out, dout, lse, dd, dq, dk, dv, B, S,
-                            H, KV, D, causal, window, scale, st);
+                            Sk, H, KV, D, causal, window, scale, st);
 }
 
 
@@ -659,8 +668,8 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
                            const float* __restrict__ lse,
                            const float* __restrict__ dd,
                            __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int S, int H,
-                           int KV, int D, int causal, int window,
+                           __nv_bfloat16* __restrict__ dv, int S, int Sk,
+                           int H, int KV, int D, int causal, int window,
                            float scale) {
   using Sh = DkdvShape<DP, STAGES>;
   constexpr int NO = DP / 2;           // dK (or dV) registers per thread
@@ -686,7 +695,8 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
 
   // the row tiles that can see a key of the CTA: from the first query the
   // causal mask lets see k0 to the last the window lets see its last key
-  const int k_last = (k0 + TC_KEYS < S ? k0 + TC_KEYS : S) - 1;
+  // (both only at Sk = S); every row tile of S without a mask
+  const int k_last = (k0 + TC_KEYS < Sk ? k0 + TC_KEYS : Sk) - 1;
   const int t_lo = causal ? k0 / QT : 0;
   int t_hi = ntq - 1;
   if (window > 0 && (long long)k_last + window - 1 < S - 1)
@@ -770,7 +780,7 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
     // they can take turns on the tensor cores: a tile that the causal or
     // window test rules out for one warpgroup's 64 keys is masked whole
     // there (a few tiles at the CTA's two ends), and a warpgroup with no
-    // key below S (the last CTA's second half) computes zero keys that
+    // key below Sk (the last CTA's second half) computes zero keys that
     // are never written. No product sits in a branch.
     const int krow = kw0 + 16 * warp + lane / 4;
     const int col0 = 2 * (lane % 4);
@@ -858,8 +868,8 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int ki = krow + 8 * h;
-      if (ki >= S) continue;
-      const long long base = (((long long)b * S + ki) * KV + kvh) * D;
+      if (ki >= Sk) continue;
+      const long long base = (((long long)b * Sk + ki) * KV + kvh) * D;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int col = 8 * j + col0;
@@ -898,8 +908,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
                          const __nv_bfloat16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ dd,
-                         __nv_bfloat16* __restrict__ dq, int S, int H,
-                         int KV, int D, int causal, int window, float scale) {
+                         __nv_bfloat16* __restrict__ dq, int S, int Sk,
+                         int H, int KV, int D, int causal, int window,
+                         float scale) {
   using Sh = DqShape<DP, BK, STAGES>;
   constexpr int NO = DP / 2;
   extern __shared__ uint8_t smem_raw[];
@@ -917,9 +928,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
   const long long r0 = (long long)(gridDim.x - 1 - blockIdx.x) * TC_ROWS;
   const long long last = (r0 + TC_ROWS < nrows ? r0 + TC_ROWS : nrows) - 1;
   const long long qlo = r0 / G, qhi = last / G;
-  long long kbeg = 0, kend = S;
+  long long kbeg = 0, kend = Sk;
   if (window > 0) kbeg = qlo - window + 1 > 0 ? qlo - window + 1 : 0;
-  if (causal) kend = qhi + 1 < S ? qhi + 1 : S;
+  if (causal) kend = qhi + 1 < Sk ? qhi + 1 : Sk;
   const int ntiles = (int)((kend - kbeg + BK - 1) / BK);
   const int wg = threadIdx.x / 128;
 
@@ -994,14 +1005,14 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
     auto k_at = [&](int s) { return smem_u32(sk + s * Sh::TILE_BYTES); };
     auto v_at = [&](int s) { return smem_u32(sv + s * Sh::TILE_BYTES); };
     // P and dS of key tile t in the score registers, dS in bf16 as the A
-    // operand of dQ += dS.K. On a tile that straddles S, the diagonal or
+    // operand of dQ += dS.K. On a tile that straddles Sk, the diagonal or
     // the window's edge for some row of the warpgroup (edge), a masked
     // score is first set to -inf (p exactly 0), as in the forward.
     auto probs = [&](int t) {
       const long long k0 = kbeg + (long long)t * BK;
-      const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > wq_lo) ||
+      const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > wq_lo) ||
                         (window > 0 && k0 <= wq_hi - window);
-      if (edge) mask_key_tile<BK>(sc, k0, S, causal, window, qrow, col0);
+      if (edge) mask_key_tile<BK>(sc, k0, Sk, causal, window, qrow, col0);
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -1085,8 +1096,8 @@ template <int DP, int STAGES, int BK, int STAGES_Q>
 int launch_bwd_tc(const void* q, const void* k, const void* v,
                   const void* out, const void* dout, const float* lse,
                   float* dd, void* dq, void* dk, void* dv, int B, int S,
-                  int H, int KV, int D, int causal, int window, float scale,
-                  cudaStream_t stream) {
+                  int Sk, int H, int KV, int D, int causal, int window,
+                  float scale, cudaStream_t stream) {
   using Kv = DkdvShape<DP, STAGES>;
   using Qs = DqShape<DP, BK, STAGES_Q>;
   using bf16 = __nv_bfloat16;
@@ -1094,10 +1105,10 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
   CUtensorMap mq, mdo, mk, mv, mkt, mvt;
   int rc = heads_tensor_map(&mq, q, B, S, H, D, G, TC_TILE / G);
   if (rc == 0) rc = heads_tensor_map(&mdo, dout, B, S, H, D, G, TC_TILE / G);
-  if (rc == 0) rc = kv_tensor_map(&mk, k, B, S, KV, D, TC_KEYS);
-  if (rc == 0) rc = kv_tensor_map(&mv, v, B, S, KV, D, TC_KEYS);
-  if (rc == 0) rc = kv_tensor_map(&mkt, k, B, S, KV, D, BK);
-  if (rc == 0) rc = kv_tensor_map(&mvt, v, B, S, KV, D, BK);
+  if (rc == 0) rc = kv_tensor_map(&mk, k, B, Sk, KV, D, TC_KEYS);
+  if (rc == 0) rc = kv_tensor_map(&mv, v, B, Sk, KV, D, TC_KEYS);
+  if (rc == 0) rc = kv_tensor_map(&mkt, k, B, Sk, KV, D, BK);
+  if (rc == 0) rc = kv_tensor_map(&mvt, v, B, Sk, KV, D, BK);
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(
       attn_bwd_dkdv_wgmma_kernel<DP, STAGES>,
@@ -1116,11 +1127,11 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  dim3 gkv((unsigned)((S + TC_KEYS - 1) / TC_KEYS), (unsigned)(B * KV));
+  dim3 gkv((unsigned)((Sk + TC_KEYS - 1) / TC_KEYS), (unsigned)(B * KV));
   attn_bwd_dkdv_wgmma_kernel<DP, STAGES><<<gkv, TC_THREADS, Kv::SMEM,
                                            stream>>>(
-      mq, mdo, mk, mv, lse, dd, (bf16*)dk, (bf16*)dv, S, H, KV, D, causal,
-      window, scale);
+      mq, mdo, mk, mv, lse, dd, (bf16*)dk, (bf16*)dv, S, Sk, H, KV, D,
+      causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -1128,30 +1139,32 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
   dim3 gq((unsigned)((nrows + TC_ROWS - 1) / TC_ROWS), (unsigned)(B * KV));
   attn_bwd_dq_wgmma_kernel<DP, BK, STAGES_Q><<<gq, TC_THREADS, Qs::SMEM,
                                                stream>>>(
-      mkt, mvt, (const bf16*)q, (const bf16*)dout, lse, dd, (bf16*)dq, S, H,
-      KV, D, causal, window, scale);
+      mkt, mvt, (const bf16*)q, (const bf16*)dout, lse, dd, (bf16*)dq, S,
+      Sk, H, KV, D, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v, out, dout and the three gradients
-// share it); lse and dd (B, H, S) f32, dd a scratch the first launch fills.
-// The caller checks shapes (D <= 256, H % KV == 0, B * KV <= 65535) and
-// contiguity. Returns the first launch error, 0 if none.
+// share it); lse and dd (B, H, S) f32, dd a scratch the first launch fills;
+// k, v, dk, dv over Sk keys. The caller checks shapes (D <= 256, H % KV ==
+// 0, B * KV <= 65535, Sk >= 1, Sk == S unless non-causal without a window)
+// and contiguity. Returns the first launch error, 0 if none.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* dd, void* dq, void* dk,
-    void* dv, int dtype, int B, int S, int H, int KV, int D, int causal,
-    int window, float scale, cudaStream_t stream) {
+    void* dv, int dtype, int B, int S, int Sk, int H, int KV, int D,
+    int causal, int window, float scale, cudaStream_t stream) {
   if (S == 0 || B == 0) return 0;
+  if (Sk <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch_bwd<float>(q, k, v, out, dout, (const float*)lse,
-                               (float*)dd, dq, dk, dv, B, S, H, KV, D,
+                               (float*)dd, dq, dk, dv, B, S, Sk, H, KV, D,
                                causal, window, scale, stream);
   return dispatch_bwd<__nv_bfloat16>(q, k, v, out, dout, (const float*)lse,
-                                     (float*)dd, dq, dk, dv, B, S, H, KV, D,
-                                     causal, window, scale, stream);
+                                     (float*)dd, dq, dk, dv, B, S, Sk, H, KV,
+                                     D, causal, window, scale, stream);
 }
 
 // The tensor-core route: bf16 only, D % 16 == 0, D <= 128, H / KV <= 64,
@@ -1160,18 +1173,18 @@ extern "C" int repro_flash_attention_bwd(
 extern "C" int repro_flash_attention_bwd_tc(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* dd, void* dq, void* dk,
-    void* dv, int B, int S, int H, int KV, int D, int causal, int window,
-    float scale, cudaStream_t stream) {
+    void* dv, int B, int S, int Sk, int H, int KV, int D, int causal,
+    int window, float scale, cudaStream_t stream) {
   if (S == 0 || B == 0) return 0;
-  if (D % 16 != 0 || D <= 0 || D > 128 || H / KV > TC_TILE)
+  if (D % 16 != 0 || D <= 0 || D > 128 || H / KV > TC_TILE || Sk <= 0)
     return (int)cudaErrorInvalidValue;
   const float* st = (const float*)lse;
   if (D <= 64)
     return launch_bwd_tc<64, 3, 64, 3>(q, k, v, out, dout, st, (float*)dd,
-                                       dq, dk, dv, B, S, H, KV, D, causal,
-                                       window, scale, stream);
+                                       dq, dk, dv, B, S, Sk, H, KV, D,
+                                       causal, window, scale, stream);
   return launch_bwd_tc<128, 2, 64, 2>(q, k, v, out, dout, st, (float*)dd,
-                                      dq, dk, dv, B, S, H, KV, D, causal,
+                                      dq, dk, dv, B, S, Sk, H, KV, D, causal,
                                       window, scale, stream);
 }
 

@@ -22,8 +22,8 @@ Both routes write the softmax statistics on request: ``lse`` (B,H,S) f32,
 each row's log-sum-exp of its scaled logits (``m + log l``, the
 reference's ``(m, l)`` of ``_sdpa_chunked_raw`` folded into one number).
 The backward takes them: three launches (``Dd = rowsum(dO * O)``, dK/dV by
-key tile, dQ by row tile), by one of two routes that ``bwd_route`` picks
-the same way:
+key tile, dQ by row tile), at any Sk the forward takes, by one of two
+routes that ``bwd_route`` picks the same way:
 
 * ``"tensor_core"``: bf16, D % 16 == 0, D <= 128, at most 64 query heads a
   kv head, 16-byte aligned data. wgmma on bf16 tiles that TMA brings in
@@ -124,14 +124,15 @@ def launch_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
                                causal: bool, window: int, route: str) -> None:
     """dq, dk, dv of the attention that gave ``out`` and ``lse``, for the
     output gradient ``dout``, on the card by ``route`` (the caller's
-    ``bwd_route_for``): three launches; ``dd`` (B,H,S) f32 is their
-    scratch."""
+    ``bwd_route_for``): three launches over q's S queries and k's Sk keys;
+    ``dd`` (B,H,S) f32 is their scratch."""
     lib = build.library("flash_attention_bwd")
     b, s, h, d = q.shape
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr())
-    shape = (b, s, h, k.shape[2], d, int(causal), window, 1.0 / math.sqrt(d))
+    shape = (b, s, k.shape[1], h, k.shape[2], d, int(causal), window,
+             1.0 / math.sqrt(d))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if route == "tensor_core":

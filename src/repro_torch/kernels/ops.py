@@ -210,9 +210,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 -> (B,S,H,D) in that dtype. ``causal`` masks qi < ki; ``window``
     > 0 masks qi - ki >= window. A key length Sk unlike S (whisper's
     cross-attention: decoder queries over encoder keys) is taken only
-    without a mask (``causal=False``, ``window=0``) and without a
-    gradient (the backward kernels take Sk = S). No padding and no size
-    threshold: the kernel masks keys at the true Sk.
+    without a mask (``causal=False``, ``window=0``), with or without a
+    gradient. No padding and no size threshold: the kernel masks keys at
+    the true Sk.
 
     ``return_stats``: -> (out, lse), lse (B,H,S) f32 each row's log-sum-exp
     of its scaled logits (what ``flash_attention_bwd`` takes). On CUDA
@@ -236,10 +236,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: a key length {sk} unlike the "
                          f"query length {s} needs causal=False and "
                          f"window=0")
-    if sk != s and _needs_grad(q, k, v):
-        raise NotImplementedError(
-            "flash_attention: no backward for a key length unlike the "
-            "query length (ROADMAP.md Queue 1 item 13k)")
     if not _on_card(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        return_stats=return_stats)
@@ -271,25 +267,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int = 0):
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the
     output gradient ``dout``, from the forward's ``out`` and statistics
-    ``lse`` (B,H,S) f32. q, out, dout (B,S,H,D) and k, v (B,S,KV,D), all
-    f32 or all bf16; the gradients come back in that dtype. On the card
-    three CUDA launches (counted once, and once in ``launches_by_route``
-    under the route ``flash_attention.bwd_route`` picks); on the CPU the
-    plain version (``ref.flash_attention_bwd_ref`` with ``m = lse``,
-    ``l = 1``)."""
+    ``lse`` (B,H,S) f32. q, out, dout (B,S,H,D) and k, v (B,Sk,KV,D), all
+    f32 or all bf16 (Sk unlike S only with ``causal=False``, ``window=0``,
+    as the forward); the gradients come back in that dtype. On the card
+    three CUDA launches (counted once, once in ``launches_by_route`` under
+    the route ``flash_attention.bwd_route`` picks and once in
+    ``launches_by_lengths`` under ``"<S>x<Sk>"``); on the CPU the plain
+    version (``ref.flash_attention_bwd_ref`` with ``m = lse``, ``l =
+    1``)."""
     _check_attention(q, "q", q.dtype, 4, q.device)
     for t, name in ((k, "k"), (v, "v"), (out, "out"), (dout, "dout")):
         _check(t, name, q.dtype, 4, q.device)
     _check(lse, "lse", torch.float32, 3, q.device)
     b, s, h, d = q.shape
-    kv = k.shape[2]
-    if k.ndim == 4 and k.shape[1] != s:
-        raise NotImplementedError(
-            f"flash_attention_bwd: no backward for a key length "
-            f"{k.shape[1]} unlike the query length {s} (ROADMAP.md Queue 1 "
-            f"item 13k)")
-    if (tuple(k.shape) != (b, s, kv, d) or tuple(v.shape) != (b, s, kv, d)
-            or out.shape != q.shape or dout.shape != q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if (tuple(k.shape) != (b, sk, kv, d) or tuple(v.shape) != (b, sk, kv, d)
+            or sk == 0 or out.shape != q.shape or dout.shape != q.shape
             or tuple(lse.shape) != (b, h, s)):
         raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, out "
@@ -298,6 +291,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _heads(h, kv, d, "flash_attention_bwd")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if sk != s and (causal or window):
+        raise ValueError(f"flash_attention_bwd: a key length {sk} unlike "
+                         f"the query length {s} needs causal=False and "
+                         f"window=0")
     if not _on_card(q, "flash_attention_bwd"):
         return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
                                            torch.ones_like(lse),
@@ -309,13 +306,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dd = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     route = bwd_route_for(q, k, v, out, dout)
-    with obs.timed_block("kernel.flash_attention_bwd", b=b, s=s, h=h,
-                         d=d) as sp:
+    with obs.timed_block("kernel.flash_attention_bwd", b=b, s=s, sk=sk,
+                         h=h, d=d) as sp:
         launch_flash_attention_bwd(q, k, v, out, dout, lse, dd, dq, dk, dv,
                                    causal, int(window), route)
         sp.sync(dq)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_route[route] += 1
+    _count_lengths(flash_attention_bwd, s, sk)
     return dq, dk, dv
 
 
@@ -385,8 +383,9 @@ def reset_launch_counts() -> None:
     # ``launches`` is their total
     flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
     flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
-    # the forward kernels' launches by query and key length
+    # the attention kernels' launches by query and key length
     flash_attention.launches_by_lengths = {}
+    flash_attention_bwd.launches_by_lengths = {}
     flash_decode.launches_by_lengths = {}
 
 

@@ -29,7 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import selection as sel
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import LM, split_stages
+from repro_torch.models.transformer import LM, split_stages, unpack_batch
 from repro_torch.optim.optimizers import sgd, tree_map, value_and_grad
 
 PyTree = Any
@@ -63,7 +63,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     * ``client_params``: the full model's tree with a leading cohort axis
       G on every leaf (f32 master weights); ``opt_state`` the optimizer's
       state stacked the same way (``()`` for plain SGD);
-    * ``batch``: {"tokens": (G, L, n_micro, mb, T) int};
+    * ``batch``: {"tokens": (G, L, n_micro, mb, T) int} and, as the model
+      takes them, the reference's extras beside them, (G, L, n_micro, mb,
+      ...): "prefix_embeds" (..., P, d) for a VLM, "enc_frames" (..., Se,
+      d) for an encoder-decoder (any other key raises ``ValueError``);
     * ``first``: with ``split_fl``, each cohort's K-means first centre (see
       ``FirstCentres``; the reference draws it from its key);
     * ``metrics``: {"loss", and with ``split_fl`` "meta_loss",
@@ -79,17 +82,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     lm_split.stages, boundary_stage = split_stages(cfg, cfg.split_layer)
     n_stages = len(lm_split.stages)
 
-    def local_loss(p, tokens):
-        return lm_split.loss(p, tokens, dtype=dt)
+    def local_loss(p, batch):
+        return lm_split.loss(p, batch, dtype=dt)
 
-    def one_cohort(params, opt_state, tokens):
+    def one_cohort(params, opt_state, tokens, extras):
         """L local steps (each over microbatches with f32 gradient
-        accumulation) -> (params, opt_state, mean loss)."""
+        accumulation; each microbatch with its extras) -> (params,
+        opt_state, mean loss)."""
         step_losses = []
-        for tok_mb in tokens:                  # (n_micro, mb, T) a step
+        for li, tok_mb in enumerate(tokens):   # (n_micro, mb, T) a step
             g_sum, losses = None, []
-            for t in tok_mb:
-                loss, g = value_and_grad(local_loss, params, t)
+            for mi, t in enumerate(tok_mb):
+                batch = dict(tokens=t,
+                             **{k: v[li, mi] for k, v in extras.items()})
+                loss, g = value_and_grad(local_loss, params, batch)
                 g = tree_map(lambda x: x.to(torch.float32), g)
                 g_sum = g if g_sum is None else tree_map(torch.add, g_sum, g)
                 losses.append(loss)
@@ -101,28 +107,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             step_losses.append(torch.stack(losses).mean())
         return params, opt_state, torch.stack(step_losses).mean()
 
-    def select_cohort(params, probe, first_row):
-        """§3.1 on one cohort: the hidden states of its probe batch at the
-        split (computed from the cohort's new weights), mean-pooled over T,
-        PCA + K-means over all rows -> the selected (acts, tokens, valid)."""
+    def select_cohort(params, probe, probe_ex, first_row):
+        """§3.1 on one cohort: the hidden states of its probe batch (with
+        its extras) at the split (computed from the cohort's new weights),
+        mean-pooled over the T (+ P) positions, PCA + K-means over all rows
+        -> the selected (acts, tokens, extras, valid)."""
         with torch.no_grad():
             acts, _, _ = lm_split.apply(params, probe, mode="full",
                                         stage_range=(0, boundary_stage),
-                                        dtype=dt)          # (mb, T, d)
-            s_ = sel.select_metadata(
+                                        dtype=dt, **probe_ex)
+            s_ = sel.select_metadata(                      # (mb, T(+P), d)
                 acts.mean(1), None, first_row, per_class=False,
                 clusters_per_class=tcfg.meta_clusters,
                 pca_components=min(tcfg.pca_components, probe.shape[0] - 1),
                 kmeans_iters=8)
-            return acts[s_.indices], probe[s_.indices], s_.valid
+            idx = s_.indices
+            return (acts[idx], probe[idx],
+                    {k: v[idx] for k, v in probe_ex.items()}, s_.valid)
 
     def train_step(client_params, opt_state, batch, first=None):
-        tokens = batch["tokens"]
-        extras = sorted(set(batch) - {"tokens"})
-        if extras:
-            raise NotImplementedError(
-                f"train_step: {extras} are not ported to repro_torch yet "
-                f"(ROADMAP.md Queue 1 item 13k)")
+        tokens, extras = unpack_batch(batch)
         if tcfg.split_fl and first is None:
             raise ValueError("train_step: split_fl needs each cohort's "
                              "K-means first centre (first=...)")
@@ -131,16 +135,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         for g in range(g_ax):
             p = tree_map(lambda x: x[g], client_params)
             s = tree_map(lambda x: x[g], opt_state) if opt_state else ()
-            p, s, loss = one_cohort(p, s, tokens[g])
+            p, s, loss = one_cohort(p, s, tokens[g],
+                                    {k: v[g] for k, v in extras.items()})
             new_p.append(p)
             new_s.append(s)
             losses.append(loss)
             if tcfg.split_fl:
                 # the probe: each cohort's first microbatch of its first
-                # local step, read by the cohort's new weights
+                # local step (and its extras), read by the cohort's new
+                # weights
                 probe = tokens[g, 0, 0]                    # (mb, T)
+                probe_ex = {k: v[g, 0, 0] for k, v in extras.items()}
                 selected.append(select_cohort(
-                    p, probe, _first_centre(first, g, probe.shape[0])))
+                    p, probe, probe_ex,
+                    _first_centre(first, g, probe.shape[0])))
         new_s = tree_stack(new_s) if opt_state else ()
 
         # ---- FedAvg (Eq. 2): the mean over the G cohorts ----
@@ -161,9 +169,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 
         if tcfg.split_fl:
             # server aggregation: the selected maps of every cohort
-            meta_acts = torch.cat([a for a, _, _ in selected])
-            meta_tok = torch.cat([t for _, t, _ in selected])
-            meta_w = torch.cat([v for _, _, v in selected]).to(
+            meta_acts = torch.cat([a for a, _, _, _ in selected])
+            meta_tok = torch.cat([t for _, t, _, _ in selected])
+            meta_ex = {k: torch.cat([e[k] for _, _, e, _ in selected])
+                       for k in extras}
+            meta_w = torch.cat([v for _, _, _, v in selected]).to(
                 torch.float32)
             del selected
             # meta-train the upper part from the averaged upper
@@ -171,18 +181,29 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                      "final_norm": avg["final_norm"]}
             if "lm_head" in avg:
                 upper["lm_head"] = avg["lm_head"]
+            # the selected maps hold the prefix's positions too
+            n_prefix = (cfg.num_prefix_tokens if "prefix_embeds" in extras
+                        else 0)
 
-            def upper_loss(up, a_mb, t_mb, w_mb):
+            def upper_loss(up, a_mb, t_mb, w_mb, ex_mb):
                 p_view = {"stages": [None] * boundary_stage
                           + list(up["stages"]),
                           "final_norm": up["final_norm"],
                           "embed": avg["embed"]}
                 if "lm_head" in up:
                     p_view["lm_head"] = up["lm_head"]
+                if cfg.is_encoder_decoder:
+                    # the upper half's cross-attention reads the selected
+                    # rows' frames through the averaged encoder, which is
+                    # not in ``up``: no gradient reaches it here
+                    p_view["enc_stages"] = avg["enc_stages"]
+                    p_view["enc_norm"] = avg["enc_norm"]
                 h, _, aux = lm_split.apply(
                     p_view, None, mode="full", hidden_in=a_mb,
                     stage_range=(boundary_stage, n_stages),
-                    return_hidden=True, dtype=dt)
+                    return_hidden=True, dtype=dt,
+                    enc_frames=ex_mb.get("enc_frames"))
+                h = h[:, n_prefix:]
                 hn = L.rms_norm(h, up["final_norm"].to(h.dtype),
                                 cfg.norm_eps)
                 if "lm_head" in up:
@@ -198,7 +219,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             meta_losses = []
             for _ in range(tcfg.meta_steps):
                 loss_m, gm = value_and_grad(upper_loss, upper, meta_acts,
-                                            meta_tok, meta_w)
+                                            meta_tok, meta_w, meta_ex)
                 with torch.no_grad():
                     upper = tree_map(lambda p_, g_: p_ - tcfg.lr * g_,
                                      upper, gm)

@@ -421,7 +421,9 @@ def _cross_core(q, k, v):
     (B,Se,KV,D), the reference's ``sdpa_full(causal=False)``: on a CUDA
     tensor one query (decode) runs the decode kernel with every one of the
     Se slots valid, more run the prefill kernel at a key length Se unlike
-    S; a CPU tensor runs ``sdpa_full``."""
+    S (under autograd through ``FlashAttention``, whose backward is the
+    backward kernels at Se); a CPU tensor runs ``sdpa_full`` under plain
+    autograd, as the reference."""
     if q.is_cuda:
         if q.shape[1] == 1:
             valid = torch.ones(k.shape[:2], dtype=torch.bool,

@@ -496,24 +496,39 @@ class LM:
     def loss(self, params, batch, dtype=torch.float32):
         """Next-token CE, differentiable (the f32 log-softmax of the
         logits, as the reference). batch = tokens, (tokens, labels unused)
-        or a dict with "tokens"; the reference's extras (prefix_embeds,
-        enc_frames) are refused (``ROADMAP.md`` Queue 1 item 13k)."""
-        if isinstance(batch, dict):
-            extras = sorted(set(batch) & {"prefix_embeds", "enc_frames"})
-            if extras:
-                raise NotImplementedError(
-                    f"LM.loss: {extras} are not ported to repro_torch yet "
-                    f"(ROADMAP.md Queue 1 item 13k)")
-            tokens = batch["tokens"]
-        elif isinstance(batch, (tuple, list)):
-            tokens = batch[0]
-        else:
-            tokens = batch
-        logits, _, aux = self.apply(params, tokens, mode="full", dtype=dtype)
+        or a dict with "tokens" and, as the model takes them, the
+        reference's extras "prefix_embeds" (B, P, d) and "enc_frames" (B,
+        Se, d) (any other key raises ``ValueError``). With a prefix the
+        predictions for the text start after its ``num_prefix_tokens``
+        positions."""
+        tokens, extras = unpack_batch(batch)
+        logits, _, aux = self.apply(params, tokens, mode="full", dtype=dtype,
+                                    **extras)
+        if extras.get("prefix_embeds") is not None:
+            logits = logits[:, self.cfg.num_prefix_tokens:]
         lp = torch.log_softmax(logits[:, :-1].to(torch.float32), -1)
         tgt = tokens[:, 1:].long()
         nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
         return nll.mean() + aux     # the MoE blocks' load-balance term
+
+
+EXTRAS = ("prefix_embeds", "enc_frames")
+
+
+def unpack_batch(batch) -> Tuple[Any, dict]:
+    """(tokens, extras) of a batch as ``LM.loss`` takes it (the reference's
+    ``LM._unpack``): a dict gives its "tokens" and whichever of ``EXTRAS``
+    it holds, and refuses any other key; a tuple or list its first item; a
+    tensor itself."""
+    if isinstance(batch, dict):
+        unknown = sorted(set(batch) - {"tokens", *EXTRAS})
+        if unknown:
+            raise ValueError(f"batch keys {unknown}: an LM batch holds "
+                             f"'tokens' and {list(EXTRAS)}")
+        return batch["tokens"], {k: batch[k] for k in EXTRAS if k in batch}
+    if isinstance(batch, (tuple, list)):
+        return batch[0], {}
+    return batch, {}
 
 
 # --------------------------------------------------------------------------

@@ -31,8 +31,14 @@ Instrumentation idiom (all no-ops when disabled)::
     obs.gauge("fl.stragglers", late)
     obs.event("selection_sketch", client=3, occupancy=...)
 
+Bench reports go through ``obs.registry.write_bench`` (a BENCH_*.json
+and a fingerprinted line of ``experiments/bench_history.jsonl``), and
+``python -m repro_torch.obs regress`` gates them against that history;
+``obs.timing.timeit`` times calls, synced on their outputs.
+
 Not ported yet (ROADMAP item 10b): the reference's cost model
-(``obs/profile.py``) and bench registry (``obs/registry.py``).
+(``obs/profile.py``) and the tracer's utilization branch, which wait for
+the H100 roofline of item 15.
 """
 from __future__ import annotations
 
@@ -42,14 +48,15 @@ from repro_torch.obs.device_time import kernel_device_ms
 from repro_torch.obs.metrics import (NULL_METRICS, Counter, Gauge, Histogram,
                                      MeteredLedger, MetricsRegistry,
                                      NullMetrics)
-from repro_torch.obs.timing import monotonic, sync
+from repro_torch.obs.timing import Timing, monotonic, sync, timeit
 from repro_torch.obs.tracer import (NULL_SPAN, NULL_TRACER, SCHEMA,
                                     NullTracer, Span, TraceError, Tracer,
                                     get_tracer, load_trace, span_paths,
                                     to_chrome, use_tracer)
 
 __all__ = [
-    "kernel_device_ms", "monotonic", "sync", "SCHEMA", "Tracer",
+    "kernel_device_ms", "monotonic", "sync", "Timing", "timeit",
+    "SCHEMA", "Tracer",
     "NullTracer", "NULL_TRACER", "Span", "NULL_SPAN", "TraceError",
     "load_trace", "span_paths", "to_chrome", "get_tracer", "use_tracer",
     "span", "timed_block", "event", "inc", "gauge", "MetricsRegistry",

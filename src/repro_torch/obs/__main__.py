@@ -3,10 +3,12 @@
   python -m repro_torch.obs summarize TRACE.jsonl
   python -m repro_torch.obs export-chrome TRACE.jsonl OUT.json
   python -m repro_torch.obs diff A.jsonl B.jsonl
+  python -m repro_torch.obs regress [BENCH_x.json ...] [--history H.jsonl]
 
-Exit codes: 0 ok / traces structurally identical; 1 diff found a
-difference; 2 usage or unreadable input. The traces are the reference's
-schema, so either package's CLI reads either's traces.
+Exit codes: 0 ok / traces structurally identical / no regression; 1 diff
+found a difference or regress a gated failure; 2 usage or unreadable
+input. The traces and the bench history are the reference's schemas, so
+either package's CLI reads either's files.
 
 ``diff`` compares structure, not wall time (two runs never agree on
 nanoseconds): span counts and ledger bytes per span path, event counts
@@ -16,10 +18,13 @@ when a change claims to be byte- and shape-neutral.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 import sys
 from typing import Any, Dict
 
+from repro_torch.obs import registry
 from repro_torch.obs.tracer import (TraceError, load_trace, span_paths,
                                     to_chrome)
 
@@ -118,6 +123,43 @@ def cmd_diff(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_regress(args: argparse.Namespace) -> int:
+    """``regress``: gate BENCH_*.json scalars against the run history
+    (``experiments/bench_history.jsonl``); exit 1 on any gated failure."""
+    try:
+        history = registry.load_history(args.history)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    files = args.bench or sorted(glob.glob("BENCH_*.json"))
+    if not files:
+        print("error: no BENCH_*.json files given or found", file=sys.stderr)
+        return 2
+    failed = False
+    for path in files:
+        name = registry.bench_name(path)
+        if name is None:
+            print(f"error: {path}: not a BENCH_*.json file", file=sys.stderr)
+            return 2
+        try:
+            with open(path) as f:
+                report = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"error: {path}: {e}", file=sys.stderr)
+            return 2
+        rep = registry.regress_report(name, report, history, k=args.k,
+                                      min_history=args.min_history)
+        verdict = "FAIL" if rep["failures"] else "ok"
+        print(f"{name:12s} {verdict}  ({rep['checked']} scalars gated, "
+              f"{rep['history_points']} history points)")
+        for note in rep["notes"]:
+            print(f"  note: {note}")
+        for fail in rep["failures"]:
+            print(f"  FAIL: {fail}")
+        failed = failed or bool(rep["failures"])
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     """CLI dispatcher for ``python -m repro_torch.obs`` subcommands."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.obs",
@@ -134,6 +176,17 @@ def main(argv=None) -> int:
     p.add_argument("a")
     p.add_argument("b")
     p.set_defaults(fn=cmd_diff)
+    p = sub.add_parser(
+        "regress", help="gate BENCH_*.json files against the run history")
+    p.add_argument("bench", nargs="*",
+                   help="BENCH_*.json files (default: ./BENCH_*.json)")
+    p.add_argument("--history",
+                   default=os.path.join("experiments", "bench_history.jsonl"))
+    p.add_argument("--k", type=float, default=4.0,
+                   help="threshold half-width in MADs (default 4)")
+    p.add_argument("--min-history", type=int, default=3,
+                   help="history points required before a scalar is gated")
+    p.set_defaults(fn=cmd_regress)
     try:
         args = ap.parse_args(argv)
     except SystemExit as e:

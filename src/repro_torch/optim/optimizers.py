@@ -1,5 +1,5 @@
-"""SGD over parameter trees and the paper's explicit L2 penalty: the port of
-``repro.optim.optimizers``' ``Optimizer`` / ``sgd`` and ``apply_l2``.
+"""SGD and AdamW over parameter trees, the paper's explicit L2 penalty and
+the global-norm clip: the port of ``repro.optim.optimizers``.
 
 The paper trains with SGD (lr 0.1) and studies L2 regularization
 (Tables 6/7). An update is ``p + u`` with ``u = -lr * g``, the same two
@@ -99,6 +99,59 @@ def sgd(lr, momentum: float = 0.0, weight_decay: float = 0.0,
         return upd, new_m
 
     return Optimizer(init, update)
+
+
+class AdamState(NamedTuple):
+    """AdamW's state: the first and second moment trees and the step count
+    (a 0-d int32 tensor)."""
+    mu: PyTree
+    nu: PyTree
+    count: torch.Tensor
+
+
+def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    """AdamW (decoupled weight decay), as the reference's: bias-corrected
+    moments, ``lr`` a float or a schedule of the step (the count after
+    this update unless ``step`` is given)."""
+
+    def init(params):
+        return AdamState(tree_map(torch.zeros_like, params),
+                         tree_map(torch.zeros_like, params),
+                         torch.zeros((), dtype=torch.int32))
+
+    @torch.no_grad()
+    def update(grads, state, params, step=None):
+        count = state.count + 1
+        lr_t = _as_lr(lr, count if step is None else step)
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu,
+                      grads)
+        c1 = 1 - b1 ** count.to(torch.float32)
+        c2 = 1 - b2 ** count.to(torch.float32)
+
+        def u(m, v, p):
+            step_ = m / c1 / (torch.sqrt(v / c2) + eps)
+            if weight_decay:
+                step_ = step_ + weight_decay * p.to(step_.dtype)
+            return -lr_t * step_
+
+        return tree_map(u, mu, nu, params), AdamState(mu, nu, count)
+
+    return Optimizer(init, update)
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """The L2 norm of every leaf together, in f32 (a 0-d tensor)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
+    """``grads`` scaled by min(1, max_norm / global_norm(grads))."""
+    n = global_norm(grads)
+    scale = torch.clamp(max_norm / (n + 1e-12), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads)
 
 
 def sgd_step(params: Params, grads: Params, lr: float) -> Params:

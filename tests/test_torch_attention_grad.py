@@ -15,7 +15,11 @@ The same numpy inputs and output gradient go through ``repro`` and
   * the kernel's statistics convention: ``flash_attention_ref``'s lse
     against the reference's ``m + log l``, and the CPU wrappers
     (``ops.flash_attention(return_stats=True)`` then
-    ``ops.flash_attention_bwd``) against autograd.
+    ``ops.flash_attention_bwd``) against autograd;
+  * the CPU wrappers at a key length Sk unlike S (whisper's
+    cross-attention: one query, S below and above Sk, Sk below a key
+    tile, GQA and MQA) against ``jax.vjp`` of the reference's
+    ``sdpa_full(causal=False)``.
 Cases: causal, windowed and non-causal; GQA and MQA. Levels: 2e-3 at f32
 and 2e-2 at bf16 (``tests/test_kernels.py:156``). At bf16 the chunked
 gradient and the plain backward are held to the reference's function run
@@ -173,6 +177,41 @@ def test_the_kernels_statistics_are_the_references_m_plus_log_l(
         _close(x, y.numpy(), _tol(name))
 
 
+# (b, s, sk, h, kv, d, dtype): S above and below Sk, one query, Sk below a
+# key tile, MQA, bf16
+CROSS_CASES = [(2, 12, 40, 4, 2, 16, "f32"),
+               (1, 50, 7, 4, 4, 32, "f32"),
+               (2, 1, 30, 8, 2, 16, "f32"),
+               (1, 20, 33, 4, 1, 8, "f32"),
+               (2, 33, 20, 8, 2, 16, "bf16")]
+
+
+@pytest.mark.parametrize("b,s,sk,h,kv,d,name", CROSS_CASES)
+def test_backward_at_a_key_length_unlike_s_matches_the_reference(
+        b, s, sk, h, kv, d, name):
+    """``ops.flash_attention(causal=False, return_stats=True)`` then
+    ``ops.flash_attention_bwd`` on the CPU (the plain versions) against
+    ``jax.vjp`` of the reference's ``sdpa_full(causal=False)`` (in f32 on
+    the same values at bf16, as above); dk, dv are (B, Sk, KV, D)."""
+    rng = np.random.default_rng(5 * s + sk)
+    (qt, qj), (kt, kj), (vt, vj), (dt, dj) = [
+        _draw(rng, shape, name) for shape in
+        ((b, s, h, d), (b, sk, kv, d), (b, sk, kv, d), (b, s, h, d))]
+    ops.reset_launch_counts()
+    out, lse = ops.flash_attention(qt, kt, vt, causal=False,
+                                   return_stats=True)
+    got = ops.flash_attention_bwd(qt, kt, vt, out, dt, lse, causal=False)
+    jout, want = _jax_grads(jax.jit(functools.partial(
+        jL.sdpa_full, causal=False, window=0)), *_f32(qj, kj, vj, dj))
+    _close(out, jout, _tol(name))
+    assert [tuple(x.shape) for x in got] == [(b, s, h, d), (b, sk, kv, d),
+                                            (b, sk, kv, d)]
+    for x, y in zip(got, want):
+        assert x.dtype == DTYPES[name][0]
+        _close(x, y, _tol(name))
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+
+
 def test_flash_attention_under_grad_on_the_cpu_is_the_plain_version():
     """On CPU tensors ``ops.flash_attention`` under autograd is the plain
     version, differentiated by autograd; no kernel is counted."""
@@ -198,3 +237,11 @@ def test_backward_wrapper_refuses_what_the_kernels_do_not_take():
         ops.flash_attention_bwd(q, kv, kv, q, q.transpose(1, 2), lse)
     with pytest.raises(ValueError):
         ops.flash_attention_bwd(q, kv, kv, q, q, lse, window=-1)
+    # a key length unlike S only without a mask, and never 0
+    for mask in ({}, {"causal": True}, {"causal": False, "window": 2}):
+        with pytest.raises(ValueError, match="causal=False"):
+            ops.flash_attention_bwd(q, kv[:, :3], kv[:, :3], q, q, lse,
+                                    **mask)
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd(q, kv[:, :0], kv[:, :0], q, q, lse,
+                                causal=False)

@@ -237,21 +237,43 @@ def test_flash_attention_takes_a_key_length_unlike_s_on_the_cpu(s, sk,
 
 
 def test_flash_attention_refuses_a_masked_or_differentiated_key_length():
-    """Sk != S only without a mask (causal or window raise ValueError) and
-    without a gradient (the backward's kernels take Sk = S: both the
-    forward under autograd and ``flash_attention_bwd`` raise
-    ``NotImplementedError``); an empty key length is refused."""
-    q = torch.randn(1, 8, 4, 32)
-    k = torch.randn(1, 5, 2, 32)
+    """Sk != S only without a mask: causal or a window raise ValueError,
+    in the forward, under autograd and in ``flash_attention_bwd``; an
+    empty key length is refused. (The gradient of an unmasked call at
+    Sk != S is taken: the test below.)"""
+    q = torch.randn(1, 8, 4, 32, generator=torch.Generator().manual_seed(0))
+    k = torch.randn(1, 5, 2, 32, generator=torch.Generator().manual_seed(1))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, k)]
+    for kw in ({"causal": True}, {"causal": False, "window": 3}):
+        for args in ((q, k, k), leaves):
+            with pytest.raises(ValueError, match="causal=False"):
+                ops.flash_attention(*args, **kw)
+    out, lse = ops.flash_attention(q, k, k, causal=False, return_stats=True)
     for kw in ({"causal": True}, {"causal": False, "window": 3}):
         with pytest.raises(ValueError, match="causal=False"):
-            ops.flash_attention(q, k, k, **kw)
-    with pytest.raises(NotImplementedError, match="13k"):
-        ops.flash_attention(q.requires_grad_(), k, k, causal=False)
-    out, lse = ops.flash_attention(q.detach(), k, k, causal=False,
-                                   return_stats=True)
-    with pytest.raises(NotImplementedError, match="13k"):
-        ops.flash_attention_bwd(q.detach(), k, k, out, out, lse,
-                                causal=False)
+            ops.flash_attention_bwd(q, k, k, out, out, lse, **kw)
     with pytest.raises(ValueError):
-        ops.flash_attention(q.detach(), k[:, :0], k[:, :0], causal=False)
+        ops.flash_attention(q, k[:, :0], k[:, :0], causal=False)
+
+
+def test_flash_attention_takes_a_gradient_at_a_key_length_unlike_s():
+    """Under autograd an unmasked call at Sk != S is taken: on the CPU it
+    is the plain version differentiated by autograd, and
+    ``flash_attention_bwd`` with the forward's statistics gives the same
+    gradients; no launch is counted."""
+    q = torch.randn(1, 8, 4, 32, generator=torch.Generator().manual_seed(0))
+    k = torch.randn(1, 5, 2, 32, generator=torch.Generator().manual_seed(1))
+    out, lse = ops.flash_attention(q, k, k, causal=False, return_stats=True)
+    ops.reset_launch_counts()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, k)]
+    got = ops.flash_attention(*leaves, causal=False)
+    dout = torch.ones(got.shape)
+    grads = torch.autograd.grad(got, leaves, dout)
+    want = ops.flash_attention_bwd(q, k, k, out, dout, lse, causal=False)
+    assert torch.equal(got.detach(), out)
+    for x, y in zip(grads, want):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=2e-3,
+                                   atol=2e-3)
+    assert ops.flash_attention.launches == 0
+    assert ops.flash_attention_bwd.launches == 0
+    assert ops.flash_attention_bwd.launches_by_lengths == {}

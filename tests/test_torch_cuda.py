@@ -12,10 +12,11 @@ runs of two rounds bit-identical; Lloyd bit-identical from
 run to run, ``assign`` equal except at near-ties, sums/mindist/distances
 within 2e-3; the attention kernels (the forward, its statistics and the
 backward) within 2e-3 (f32) and 2e-2 (bf16) of their plain versions on
-the same inputs (``tests/test_kernels.py:156``), the prefill kernel also
+the same inputs (``tests/test_kernels.py:156``), the prefill kernel and the backward also
 at a key length unlike S (whisper's cross-attention) on both routes; a
 train step's bits repeat; jamba's Mamba layer and whisper's reduced LM
-(encoder, self and cross launches) within 2e-3 of the CPU.
+(encoder, self and cross launches) within 2e-3 of the CPU, and a train
+round of whisper's and internvl2's reduced LMs with their extras.
 """
 import numpy as np
 import pytest
@@ -1157,6 +1158,95 @@ def test_flash_attention_kernel_with_a_key_length_unlike_s(card, b, s, sk,
     one = ops.flash_decode(q[:, :1].contiguous(), k, v, valid)
     _att_close(one, want[:, :1], dtype)
     assert ops.flash_decode.launches_by_lengths == {f"1x{sk}": 1}
+
+
+# the backward at a key length Sk unlike S (chip_smoke.py phase 2b's
+# cases): whisper's cross layer in both dtypes, S above Sk, Sk below one
+# key tile, Sk no tile multiple with GQA at D=128, D=96 in f32; then
+# whisper's encoder layer (S = Sk, non-causal) in bf16
+@pytest.mark.parametrize("b,s,sk,h,kv,d,dtype", [
+    (2, 300, 1500, 16, 16, 64, torch.bfloat16),
+    (2, 300, 1500, 16, 16, 64, torch.float32),
+    (1, 2000, 1500, 16, 16, 64, torch.bfloat16),
+    (2, 130, 7, 8, 2, 64, torch.bfloat16),
+    (2, 333, 1000, 16, 4, 128, torch.bfloat16),
+    (2, 77, 50, 8, 2, 96, torch.float32),
+    (2, 1500, 1500, 16, 16, 64, torch.bfloat16)])
+def test_flash_attention_bwd_kernel_with_a_key_length_unlike_s(
+        card, b, s, sk, h, kv, d, dtype):
+    """dq (B,S,H,D), dk, dv (B,Sk,KV,D) of the backward kernels against the
+    plain version on the same inputs and statistics; one count a call on
+    the route ``bwd_route`` names, counted under ``"<S>x<Sk>"``; the same
+    bits on a second call; a causal or windowed call raises."""
+    from repro_torch.kernels.flash_attention import bwd_route
+    g = torch.Generator().manual_seed(3 * s + sk + d)
+    q = _rand(g, (b, s, h, d), dtype, card)
+    k = _rand(g, (b, sk, kv, d), dtype, card)
+    v = _rand(g, (b, sk, kv, d), dtype, card)
+    dout = _rand(g, (b, s, h, d), dtype, card)
+    out, lse = ops.flash_attention(q, k, v, causal=False, return_stats=True)
+    route = bwd_route(dtype, d, True, h // kv)
+    ops.reset_launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=False)
+    again = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=False)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_bwd.launches_by_route[route] == 2
+    assert ops.flash_attention_bwd.launches_by_lengths == {f"{s}x{sk}": 2}
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                       torch.ones_like(lse), causal=False)
+    for x, y, z in zip(got, again, want):
+        assert x.dtype == dtype and x.shape == z.shape
+        assert torch.equal(x, y)
+        _att_close(x, z, dtype)
+    if sk != s:
+        for mask in ({"causal": True}, {"causal": False, "window": 8}):
+            with pytest.raises(ValueError, match="causal=False"):
+                ops.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b"])
+def test_train_step_with_the_extras_on_the_card_matches_the_cpu(card, arch):
+    """One round of the reduced arch with its extra (enc_frames or
+    prefix_embeds), f32, split FL on, card against CPU within 2e-3, each
+    leaf's update within 2e-3 of the CPU's update's norm (the backward at
+    Sk unlike S on the CUDA cores for whisper's cross layers); selections
+    equal."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import tree_map
+    cfg = get_config(arch).reduced()
+    step, lm = make_train_step(cfg, TrainConfig(dtype="float32",
+                                                microbatch=4,
+                                                meta_clusters=4))
+    p_cpu = lm.init(torch.Generator().manual_seed(4))
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(cfg.vocab_size, (2, 2, 1, 4, 24), generator=g)
+    key, n = (("enc_frames", cfg.encoder_seq_len) if cfg.is_encoder_decoder
+              else ("prefix_embeds", cfg.num_prefix_tokens))
+    extra = torch.randn(2, 2, 1, 4, n, cfg.d_model, generator=g)
+    ops.reset_launch_counts()
+    runs = []
+    for dev in ("cpu", card):
+        p = tree_map(lambda t: t.to(dev), p_cpu)
+        cp = tree_map(lambda t: t[None].expand((2,) + tuple(t.shape)), p)
+        new, _, m = step(cp, (), {"tokens": toks.to(dev),
+                                  key: extra.to(dev)}, [1, 2])
+        runs.append((tree_leaves(new), {k: float(v) for k, v in m.items()}))
+    (lc, mc), (lg, mg) = runs
+    assert mg["selected"] == mc["selected"]
+    for name in mc:
+        assert abs(mg[name] - mc[name]) <= TOL * (1 + abs(mc[name]))
+    for x, y, old in zip(lg, lc, tree_leaves(p_cpu)):
+        assert _rel(x.cpu(), y) <= TOL
+        # the update itself, against the CPU's update's own size: every
+        # leaf moves (the encoder's through the cross-attention's gradient)
+        size = float((y - old).norm())
+        assert size > 0
+        assert float((x.cpu() - y).norm()) <= TOL * size
+    assert ops.flash_attention_bwd.launches > 0
+    if cfg.is_encoder_decoder:
+        assert f"24x{cfg.encoder_seq_len}" in \
+            ops.flash_attention_bwd.launches_by_lengths
 
 
 def test_mamba_and_whisper_on_the_card_match_the_cpu(card):

@@ -232,12 +232,38 @@ def test_make_split_model_is_make_split_lm_and_the_references(name):
 
 
 def test_loss_refuses_the_references_extras():
+    """What ``LM.loss`` refuses of a batch: a dict key that is neither
+    "tokens" nor one of the reference's extras (which are taken: the test
+    below); a dict of "tokens" alone is the tokens' loss."""
     _, cfg = _configs("llama3.2-1b")
     lm = LM(cfg)
     params = lm.init(torch.Generator().manual_seed(0))
-    toks = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="13k"):
-        lm.loss(params, {"tokens": toks, "prefix_embeds": toks})
+    toks = torch.randint(cfg.vocab_size, (2, 6),
+                         generator=torch.Generator().manual_seed(1))
+    assert torch.equal(lm.loss(params, {"tokens": toks}),
+                       lm.loss(params, toks))
+    with pytest.raises(ValueError, match="labels"):
+        lm.loss(params, {"tokens": toks, "labels": toks})
+
+
+def test_loss_takes_the_references_extras():
+    """``LM.loss`` and ``SplitLM.loss`` take internvl2's prefix: the
+    text's predictions start after its ``num_prefix_tokens`` positions.
+    The extras' parity with ``repro`` is in
+    ``tests/test_torch_train_extras.py``."""
+    vcfg = get_config("internvl2-26b").reduced()
+    vtoks = torch.randint(vcfg.vocab_size, (2, 6),
+                          generator=torch.Generator().manual_seed(1))
+    model, vlm = make_split_lm(vcfg)
+    vparams = vlm.init(torch.Generator().manual_seed(2))
+    prefix = torch.randn(2, vcfg.num_prefix_tokens, vcfg.d_model,
+                         generator=torch.Generator().manual_seed(3))
+    logits, _, _ = vlm.apply(vparams, vtoks, prefix_embeds=prefix)
+    lp = torch.log_softmax(logits[:, vcfg.num_prefix_tokens:-1], -1)
+    want = -torch.gather(lp, -1, vtoks[:, 1:, None].long()).mean()
+    batch = {"tokens": vtoks, "prefix_embeds": prefix}
+    for got in (vlm.loss(vparams, batch), model.loss(vparams, batch)):
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
 def _tree(rng):

@@ -120,8 +120,10 @@ def test_train_step_refuses_what_it_does_not_take():
     toks = torch.zeros((1, 1, 1, 4, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="first centre"):
         step(params, (), {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="13k"):
-        step(params, (), {"tokens": toks, "enc_frames": toks}, [0])
+    # the reference's extras are taken (tests/test_torch_train_extras.py);
+    # any other batch key is refused
+    with pytest.raises(ValueError, match="labels"):
+        step(params, (), {"tokens": toks, "labels": toks}, [0])
 
 
 def test_first_centres_may_come_from_a_generator():
