@@ -237,6 +237,26 @@ result line:
      every backward on the tensor cores, the peak and one profiled round;
      13c, a reduced-width f32 round of each with its extra, card against
      CPU within 2e-3;
+ 14. the multi-device launch over ``torch.distributed`` (counts zeroed
+     before each run and read after it; the K-means, quantize and
+     attention kernels each launched): 14a, one process as an NCCL world
+     of 1 on the 1 x 1 smoke mesh, llama3.2-1b's train step at full width
+     with phase 9a's cut at G = 2 and G = 4 cohorts, two rounds each
+     (launches reckoned as 9a's): round walls, tokens/s, the peak and the
+     cohort phase's peak (the running FedAvg sum and the meta step's
+     head a microbatch of rows at a time keep the round's peak from
+     growing with G: checked within half a tree), and round 0's running
+     average against the stacked mean of the same cohort trees on the
+     card (bit for bit at G = 2, within 1e-5 at G = 4); then the step with
+     the depth cut 16 -> 4 and 2,048-token sequences at G = 2; 14b, two
+     gloo processes on the one card (``--ranks-child``, spawned here; a
+     child's failure fails the run): phase 4's FL round at full width
+     through ``run_round(mesh=)`` over a 1-D "data" mesh, equal bit for
+     bit (global and composed weights, ledger, losses, |D_M|) to the
+     one-device cohort engine on the same draws (the ranks' K-means
+     launches adding up to its own), and the depth-cut train
+     step over the fed axis (one cohort a rank): both ranks the same bits,
+     within 1e-5 of 14a's one-rank step;
   5. time each kernel beside its plain version, a library call where one
      computes the same function, and its bound (the attention kernels one
      row a template instance: head dim 64 at phase 6's shapes, 128 at
@@ -276,9 +296,10 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
-H100_F32_FLOPS = 67e12           # f32 outside the tensor cores (SXM)
-H100_BF16_FLOPS = 989e12         # bf16 tensor cores, dense (SXM)
+# the card's data-sheet peaks, from the port's one copy of them
+from repro_torch.launch.mesh import (  # noqa: E402
+    H100_HBM_BW as H100_BYTES_PER_S, H100_PEAK_FLOPS_BF16 as H100_BF16_FLOPS,
+    H100_PEAK_FLOPS_F32 as H100_F32_FLOPS)
 TOL = 2e-3
 ATT_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # tests/test_kernels.py:156
 # the kernels' rows at the main path's shapes: in every block of rows,
@@ -628,11 +649,23 @@ def bwd_row(dev, name, shape, causal, launches, what, seed):
         "causal": causal, "shape": [b_, s_, h_, kv_, d_], "key_len": sk_}
 
 
-def train_rounds(tag, step, lm, batches, firsts, clusters, tokens):
+def sweep_recorder():
+    """-> (an ``observe`` hook for ``make_train_step`` that keeps each
+    cohort selection's Lloyd sweeps, the list it appends them to)."""
+    sweeps = []
+
+    def observe(event, value):
+        if event == "selection":
+            sweeps.append(value.lloyd_iters)
+    return observe, sweeps
+
+
+def train_rounds(tag, step, lm, batches, firsts, clusters, tokens, sweeps):
     """Two rounds of the train step ``step`` for ``len(firsts[0])``
     cohorts, all starting from ``lm``'s weights drawn from seed 0, on
     ``batches`` with the K-means first centres ``firsts``; then round 1
     replayed from the same state, and one round under the profiler.
+    ``sweeps`` is the list the step's hook (``sweep_recorder``) fills.
     Checks that the metrics are finite and each round selects at most
     ``clusters`` rows a cohort, that the cohorts leave each round with
     the same finite weights, that every leaf moved over the two rounds,
@@ -644,7 +677,6 @@ def train_rounds(tag, step, lm, batches, firsts, clusters, tokens):
     selection's Lloyd sweeps)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import selection as sel_mod
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import tree_map
     from repro_torch.obs.timing import monotonic
@@ -655,28 +687,17 @@ def train_rounds(tag, step, lm, batches, firsts, clusters, tokens):
                      lm.init(torch.Generator(device=batches[0]["tokens"]
                                              .device).manual_seed(0)))
     before = [x[0].cpu() for x in tree_leaves(state)]
-    sweeps = []
-    real_select = sel_mod.select_metadata
-
-    def recording(*args, **kwargs):
-        got = real_select(*args, **kwargs)
-        sweeps.append(got.lloyd_iters)
-        return got
-
-    sel_mod.select_metadata = recording
-    try:
-        peak_and_reset()
-        ops.reset_launch_counts()
-        walls, metrics, states = [], [], []
-        for r in range(2):
-            t0 = monotonic()
-            state, _, m = step(state, (), batches[r], firsts[r])
-            metrics.append({k: float(v) for k, v in m.items()})  # syncs
-            walls.append(monotonic() - t0)
-            states.append(state)
-        peak = peak_and_reset()
-    finally:
-        sel_mod.select_metadata = real_select
+    sweeps.clear()
+    peak_and_reset()
+    ops.reset_launch_counts()
+    walls, metrics, states = [], [], []
+    for r in range(2):
+        t0 = monotonic()
+        state, _, m = step(state, (), batches[r], firsts[r])
+        metrics.append({k: float(v) for k, v in m.items()})  # syncs
+        walls.append(monotonic() - t0)
+        states.append(state)
+    peak = peak_and_reset()
     launches = {
         "counts": ops.launch_counts(),
         "bwd_by_route": dict(ops.flash_attention_bwd.launches_by_route),
@@ -1650,6 +1671,12 @@ def main() -> None:
     extras_training, extras_rows = run_extras_training_phase(dev, rel_err)
     print(json.dumps({"extras_training": extras_training}))
 
+    # ---- 14. the multi-device launch over torch.distributed ------------
+    # (its own function: the models are freed on return; 14b's ranks are
+    # child processes, joined before it returns)
+    ranks, ranks_launches = run_ranks_phase(dev, model, clients, cfg)
+    print(json.dumps({"ranks": ranks}))
+
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
         """Mean ms of one call over ``iters`` back-to-back calls (CUDA
@@ -2018,6 +2045,10 @@ def main() -> None:
     # internvl2's layer
     rows.append({**bwd_row, "max_abs_err": errs["flash_attention_bwd"]})
     rows.extend(extras_rows)
+    # phase 14's launches, on the row named after each kernel's wrapper
+    for row in rows:
+        if row["name"] in ranks_launches:
+            row["launches_14"] = ranks_launches[row["name"]]
     ops.reset_launch_counts()          # timing launches are not the path's
 
     # where one client's round goes (full width, the last global weights)
@@ -2567,6 +2598,31 @@ def run_selection_phase(model, clients, test, cfg, sim, res):
     return out
 
 
+def reckon_train_launches(cfg, g, sweeps, rounds=2):
+    """The kernels' launches of ``rounds`` rounds of 9a's step (``TRAIN_*``
+    at ``g`` cohorts, every stage a scan) on ``cfg``, from the shapes:
+    each local step's forward runs twice under remat (forward, recompute)
+    and its backward once; the probe runs the lower layers without grad;
+    each meta step runs the upper layers twice and their backward once;
+    K-means with K clusters launches K-1 init steps and one
+    representatives pass a cohort, and one Lloyd sweep each sweep it ran
+    (``sweeps``)."""
+    from repro_torch.models.transformer import split_stages, stage_layers
+    stages, b_stage = split_stages(cfg, cfg.split_layer)
+    lower = sum(stage_layers(st) for st in stages[:b_stage])
+    upper = cfg.num_layers - lower
+    local = g * TRAIN_LOCAL * 1
+    return {"flash_attention": rounds * (local * 2 * cfg.num_layers
+                                         + g * lower
+                                         + TRAIN_META_STEPS * 2 * upper),
+            "flash_attention_bwd": rounds * (local * cfg.num_layers
+                                             + TRAIN_META_STEPS * upper),
+            "kmeans_pairwise_dist": rounds * g * TRAIN_META_CLUSTERS,
+            "kmeans_lloyd_step": sum(sweeps),
+            "flash_decode": 0, "quantize_affine": 0,
+            "quantize_affine_batched": 0}
+
+
 def run_training_phase(dev, rel_err):
     """Phase 9, the federated LM training path. 9a: ``train_rounds`` at
     llama3.2-1b's full width (the train_4k cut in ``TRAIN_*``) with its
@@ -2584,7 +2640,6 @@ def run_training_phase(dev, rel_err):
     from repro_torch.kernels.flash_attention import bwd_route_for
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.transformer import split_stages, stage_layers
     from repro_torch.obs.device_time import kernel_device_ms
     from repro_torch.obs.timing import monotonic
     from repro_torch.optim.optimizers import tree_leaves
@@ -2599,7 +2654,8 @@ def run_training_phase(dev, rel_err):
     tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
                        meta_clusters=TRAIN_META_CLUSTERS,
                        meta_steps=TRAIN_META_STEPS)
-    step, lm = make_train_step(full, tcfg)
+    observe, sweeps = sweep_recorder()
+    step, lm = make_train_step(full, tcfg, observe=observe)
     shape = (TRAIN_G, TRAIN_LOCAL, 1, TRAIN_MB, TRAIN_T)
     rng = np.random.default_rng(0)
     batches = [{"tokens": torch.from_numpy(rng.integers(
@@ -2607,28 +2663,10 @@ def run_training_phase(dev, rel_err):
     firsts = [rng.integers(0, TRAIN_MB, TRAIN_G).tolist() for _ in range(2)]
     tokens_round = TRAIN_G * TRAIN_LOCAL * TRAIN_MB * TRAIN_T
     rounds, got = train_rounds("9a", step, lm, batches, firsts,
-                               TRAIN_META_CLUSTERS, tokens_round)
+                               TRAIN_META_CLUSTERS, tokens_round, sweeps)
     del batches
     launches, round_sweeps = got["counts"], got["lloyd_sweeps"]
-    # launches reckoned from the shapes: each local step's forward runs
-    # twice under remat (forward, recompute) and its backward once; the
-    # probe runs the lower layers without grad; each meta step runs the
-    # upper layers twice and their backward once; K-means with K clusters
-    # launches K-1 init steps and one representatives pass a cohort, and
-    # one Lloyd sweep each sweep it ran (below the cap of 8: it converged)
-    stages, b_stage = split_stages(full, full.split_layer)
-    lower = sum(stage_layers(st) for st in stages[:b_stage])
-    upper = full.num_layers - lower
-    local = TRAIN_G * TRAIN_LOCAL * 1
-    want = {"flash_attention": 2 * (local * 2 * full.num_layers
-                                    + TRAIN_G * lower
-                                    + TRAIN_META_STEPS * 2 * upper),
-            "flash_attention_bwd": 2 * (local * full.num_layers
-                                        + TRAIN_META_STEPS * upper),
-            "kmeans_pairwise_dist": 2 * TRAIN_G * TRAIN_META_CLUSTERS,
-            "kmeans_lloyd_step": sum(round_sweeps),
-            "flash_decode": 0, "quantize_affine": 0,
-            "quantize_affine_batched": 0}
+    want = reckon_train_launches(full, TRAIN_G, round_sweeps)
     check(len(round_sweeps) == 2 * TRAIN_G
           and all(0 < w < 8 for w in round_sweeps),
           f"9a: Lloyd sweeps {round_sweeps}")
@@ -4106,7 +4144,8 @@ def run_extras_training_phase(dev, rel_err):
         """``train_rounds`` at full width with the extra ``key``
         (extra_len positions a sequence) and its launches reckoned -> the
         tag's numbers and the backward launches by lengths."""
-        step, lm = make_train_step(cfg, tcfg)
+        observe, sweeps = sweep_recorder()
+        step, lm = make_train_step(cfg, tcfg, observe=observe)
         shape = (TRAIN_G, TRAIN_LOCAL, 1, TRAIN_MB, TRAIN_T)
         positions = TRAIN_T + (extra_len if key == "prefix_embeds" else 0)
         rng = np.random.default_rng(1)
@@ -4119,7 +4158,7 @@ def run_extras_training_phase(dev, rel_err):
                   for _ in range(2)]
         tokens = TRAIN_G * TRAIN_LOCAL * TRAIN_MB * TRAIN_T
         rounds, got = train_rounds(tag, step, lm, batches, firsts,
-                                   TRAIN_META_CLUSTERS, tokens)
+                                   TRAIN_META_CLUSTERS, tokens, sweeps)
         del batches
         launches, sweeps = got["counts"], got["lloyd_sweeps"]
         fwd_want, bwd_want, lower, upper = reckoned(cfg, lm, positions)
@@ -4221,5 +4260,432 @@ def run_extras_training_phase(dev, rel_err):
     return out, rows
 
 
+# phase 14: the multi-device launch. 14a at one NCCL rank, llama3.2-1b at
+# full width with phase 9a's cut (TRAIN_*) at G = 2 and 4 cohorts; 14b two
+# gloo ranks on the one card (NCCL cannot put two ranks on one card): the
+# FL round of phase 4 over a 1-D "data" mesh, and the train step at full
+# width with the depth cut 16 -> 4 and the sequences 4,096 -> 2,048 (two
+# processes share the card's 80 GB: the f32 log-softmax of a microbatch
+# is 4 x 4,096 x 128,256 x 4 B = 8.4 GB at 4,096)
+RANKS_G = (2, 4)
+RANKS_WORLD = 2
+RANKS_LM_LAYERS, RANKS_LM_T = 4, 2048
+# 14b's train step against 14a's one-rank step on the same inputs
+RANKS_LM_TOL = 1e-5
+
+
+def _leaf_digest(leaves):
+    """SHA-256 of the leaves' bytes, in order."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for x in leaves:
+        h.update(x.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _ranks_lm(dev, mesh, job):
+    """The 14b train step (llama3.2-1b at full width, ``RANKS_LM_LAYERS``
+    layers, G = 2 sequences of ``RANKS_LM_T`` a cohort) on ``mesh`` from
+    the seeds in ``job`` -> (the first cohort's new leaves, metrics, wall
+    s, peak bytes)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.fedavg import broadcast_to_clients
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.obs.timing import monotonic
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                              num_layers=RANKS_LM_LAYERS)
+    step, lm = make_train_step(cfg, TrainConfig(
+        local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
+        meta_clusters=TRAIN_META_CLUSTERS, meta_steps=TRAIN_META_STEPS),
+        mesh=mesh)
+    params = lm.init(torch.Generator(device=dev).manual_seed(job["seed"]))
+    tokens = torch.from_numpy(job["tokens"]).to(dev)
+    peak_and_reset()
+    t0 = monotonic()
+    new, _, metrics = step(broadcast_to_clients(params, tokens.shape[0]), (),
+                           {"tokens": tokens}, job["first"])
+    metrics = {k: float(v) for k, v in metrics.items()}       # syncs
+    wall = monotonic() - t0
+    leaves = [x[0].cpu() for x in tree_leaves(new)]
+    del new, params
+    return leaves, metrics, wall, peak_and_reset()
+
+
+def ranks_child(rank, world, init_file, job_path, out_path):
+    """One of 14b's gloo ranks on the card: the FL round over a 1-D "data"
+    mesh and the train step over the smoke mesh's fed axis, from the job
+    the parent saved; writes what it got (and, rank 0, its new leaves)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_wrn_config
+    from repro_torch.core.distributed import selection_mesh
+    from repro_torch.core.rounds import run_round
+    from repro_torch.core.split import make_split_wrn
+    from repro_torch.device import resolve_device
+    from repro_torch.fl.comms import CommLedger
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.obs.timing import monotonic
+
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(0)
+    build.load_all()
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        job = torch.load(job_path, weights_only=False)
+        fl = job["fl"]
+        model = make_split_wrn(get_wrn_config())
+        params = {k: v.to(dev) for k, v in fl["params"].items()}
+        ledger = CommLedger()
+        ops.reset_launch_counts()
+        t0 = monotonic()
+        res = run_round(model, params, model.split(params)[1],
+                        fl["clients"], fl["cfg"], fl["draws"], ledger=ledger,
+                        num_classes=10,
+                        mesh=selection_mesh(device_type="cuda"))
+        torch.cuda.synchronize()
+        out = {"fl": {
+            "wall_s": monotonic() - t0, "launches": ops.launch_counts(),
+            "global": {k: v.cpu() for k, v in res.global_params.items()},
+            "composed": {k: v.cpu() for k, v in res.composed_params.items()},
+            "ledger": ledger.summary(), "losses": res.client_losses,
+            "metadata_count": res.metadata_count}}
+        del res, params
+        ops.reset_launch_counts()
+        leaves, metrics, wall, peak = _ranks_lm(
+            dev, make_smoke_mesh(device_type="cuda"), job["lm"])
+        out["lm"] = {"launches": ops.launch_counts(), "metrics": metrics,
+                     "wall_s": wall, "max_memory_allocated": peak,
+                     "digest": _leaf_digest(leaves)}
+        if rank == 0:
+            torch.save(leaves, job["lm"]["leaves_path"])
+        torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks_phase(dev, model, clients, cfg):
+    """Phase 14, the multi-device launch. 14a: one NCCL rank, the smoke
+    mesh (1 x 1); llama3.2-1b's train step at full width with phase 9a's
+    cut at G = 2 and 4 cohorts, two rounds each, launches reckoned, the
+    round walls, tokens/s and peaks (the cohort phase's too), and, on the
+    trees of round 0, the running FedAvg sum against the stacked mean
+    (``fedavg.weight_average_stacked``) on the card; then 14b's train
+    step at one rank. 14b: two gloo processes on the card: phase 4's FL
+    round (``model``, ``clients``, ``cfg``) through ``run_round(mesh=)``
+    against the one-device cohort engine on the same draws, bit for bit;
+    the train step over the fed axis, the same bits on both ranks, within
+    ``RANKS_LM_TOL`` of 14a's one-rank step. -> (the numbers, launches by
+    kernel: {"14a": n, "14b": n})."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import fedavg as fa
+    from repro_torch.core.rounds import (GeneratorDraws, RecordingDraws,
+                                         run_round)
+    from repro_torch.fl.comms import CommLedger
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import join_world
+    from repro_torch.obs.timing import monotonic
+    from repro_torch.optim.optimizers import tree_leaves
+
+    out = {}
+    t_phase = monotonic()
+    peak_and_reset()
+    # NCCL's bootstrap (one rank talking to itself) and gloo's pairs on
+    # the loopback interface: the ranks are all on this machine
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    join_world(dev)                       # one process: NCCL, world size 1
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"14a: backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}")
+    lm_job = {"seed": 14, "tokens": np.random.default_rng(14).integers(
+        0, get_config("llama3.2-1b").vocab_size,
+        (2, TRAIN_LOCAL, 1, TRAIN_MB, RANKS_LM_T), np.int32),
+        "first": [1, 2]}
+    try:
+        mesh = make_smoke_mesh(device_type="cuda")
+        full = get_config("llama3.2-1b")
+        tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
+                           meta_clusters=TRAIN_META_CLUSTERS,
+                           meta_steps=TRAIN_META_STEPS)
+        # what the rounds show through the step's hook: each cohort's
+        # Lloyd sweeps; the peak once the cohorts are summed; round 0's
+        # trained trees and their average
+        rec = {}
+
+        def observe(event, value):
+            if event == "selection":
+                rec["sweeps"].append(value.lloyd_iters)
+            elif event == "cohorts_done":
+                torch.cuda.synchronize()
+                rec["cohort_peak"].append(torch.cuda.max_memory_allocated())
+            elif rec["mean"] is None and event == "cohort":
+                rec["trees"].append([x.cpu() for x in tree_leaves(value)])
+            elif rec["mean"] is None and event == "average":
+                rec["mean"] = [x.cpu() for x in tree_leaves(value)]
+
+        step, lm = make_train_step(full, tcfg, mesh=mesh, observe=observe)
+        tree_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(
+            lm.init(None, device="meta")))
+        launches14 = {}
+        out["14a"] = {"model": full.name, "tree_bytes": tree_bytes,
+                      "mesh": "1x1 (data, model), NCCL, world size 1"}
+        for g in RANKS_G:
+            rng = np.random.default_rng(140 + g)
+            shape = (g, TRAIN_LOCAL, 1, TRAIN_MB, TRAIN_T)
+            batches = [{"tokens": torch.from_numpy(rng.integers(
+                0, full.vocab_size, shape, np.int32)).to(dev)}
+                for _ in range(2)]
+            firsts = [rng.integers(0, TRAIN_MB, g).tolist()
+                      for _ in range(2)]
+            # the weights from seed 0, held by the rounds' state alone
+            state = fa.broadcast_to_clients(
+                lm.init(torch.Generator(device=dev).manual_seed(0)), g)
+            rec.update(trees=[], mean=None, cohort_peak=[], sweeps=[])
+            sweeps = rec["sweeps"]
+            walls, metrics, peaks = [], [], []
+            peak_and_reset()
+            ops.reset_launch_counts()
+            for r in range(2):
+                t0 = monotonic()
+                state, _, m = step(state, (), batches[r], firsts[r])
+                metrics.append({k: float(v) for k, v in m.items()})
+                walls.append(monotonic() - t0)
+                peaks.append(peak_and_reset())
+            launches = ops.launch_counts()
+            want = reckon_train_launches(full, g, sweeps)
+            check(launches == want,
+                  f"14a G={g}: launches {launches}, reckoned {want}")
+            for k_name in ("flash_attention", "flash_attention_bwd",
+                           "kmeans_pairwise_dist", "kmeans_lloyd_step"):
+                launches14.setdefault(k_name, {})["14a"] = (
+                    launches14.get(k_name, {}).get("14a", 0)
+                    + launches[k_name])
+            check(all(math.isfinite(v) for m in metrics for v in m.values())
+                  and all(bool(torch.isfinite(x).all())
+                          for x in tree_leaves(state)),
+                  f"14a G={g}: metrics {metrics} or weights not finite")
+            del state, batches
+            # the running average of round 0 against the stacked mean of
+            # the same trees, leaf by leaf on the card
+            check(len(rec["trees"]) == g, f"14a G={g}: "
+                  f"{len(rec['trees'])} trees recorded")
+            same, max_diff = True, 0.0
+            for i, got in enumerate(rec["mean"]):
+                want_i = fa.weight_average_stacked(torch.stack(
+                    [t[i] for t in rec["trees"]]).to(dev))
+                got = got.to(dev)
+                same = same and torch.equal(got, want_i)
+                max_diff = max(max_diff, float((got - want_i).abs().max()))
+                del want_i, got
+            del rec["trees"]
+            check(g != 2 or same, f"14a G=2: the running average is not "
+                                  f"the stacked mean bit for bit "
+                                  f"(max diff {max_diff})")
+            check(max_diff <= 1e-5, f"14a G={g}: running vs stacked max "
+                                    f"diff {max_diff}")
+            tokens = g * TRAIN_LOCAL * TRAIN_MB * TRAIN_T
+            out["14a"][f"G{g}"] = {
+                "cohorts": g, "tokens_per_round": tokens,
+                "round_wall_s": walls,
+                "tokens_per_s": [tokens / w for w in walls],
+                "metrics": metrics, "max_memory_allocated": peaks,
+                "cohort_phase_peak": rec["cohort_peak"],
+                "launches": launches, "lloyd_sweeps": sweeps,
+                "running_vs_stacked": {"bit_identical": same,
+                                       "max_abs_diff": max_diff},
+                "round_0_note": "round 0 also copies every cohort's tree "
+                                "and the average to the host"}
+            print(f"14a G={g}: walls {walls}, peaks {peaks}, cohort-phase "
+                  f"peaks {rec['cohort_peak']}, running vs stacked "
+                  f"{'bit-identical' if same else max_diff}")
+        p2, p4 = (out["14a"][f"G{g}"]["max_memory_allocated"][1]
+                  for g in RANKS_G)
+        c2, c4 = (out["14a"][f"G{g}"]["cohort_phase_peak"][1]
+                  for g in RANKS_G)
+        out["14a"]["peak_G4_minus_G2"] = p4 - p2
+        out["14a"]["cohort_phase_peak_G4_minus_G2"] = c4 - c2
+        # the stacked path kept every cohort's tree until FedAvg: two more
+        # trees at G = 4 than at G = 2
+        out["14a"]["stacked_path_extra_reckoned"] = 2 * tree_bytes
+        print(f"14a: peak G=4 - G=2: {p4 - p2} B (cohort phase {c4 - c2} "
+              f"B); the stacked path would add {2 * tree_bytes} B")
+        check(p4 - p2 < tree_bytes // 2,
+              f"14a: the round's peak grew {p4 - p2} B from G=2 to G=4")
+        del step, lm
+        # 14b's train step at one rank, the reference for its two ranks
+        ops.reset_launch_counts()
+        one_leaves, one_metrics, one_wall, one_peak = _ranks_lm(dev, mesh,
+                                                                lm_job)
+        one_launches = ops.launch_counts()
+        out["14a"]["depth_cut_step"] = {
+            "layers": RANKS_LM_LAYERS, "seq_len": RANKS_LM_T,
+            "metrics": one_metrics, "wall_s": one_wall,
+            "max_memory_allocated": one_peak, "launches": one_launches}
+        for k_name in ("flash_attention", "flash_attention_bwd"):
+            launches14[k_name]["14a"] += one_launches[k_name]
+    finally:
+        dist.destroy_process_group()
+    peak_and_reset()
+
+    # ---- 14b: two gloo ranks on the one card ----
+    # the one-device cohort engine (phase 4b's) on phase 4's round, its
+    # draws recorded and replayed to the ranks
+    fcfg = dataclasses.replace(cfg, distributed_selection=True)
+    params = model.init(torch.Generator().manual_seed(14), dev)
+    rec = RecordingDraws(GeneratorDraws(torch.Generator().manual_seed(15)))
+    led = CommLedger()
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    one = run_round(model, params, model.split(params)[1], clients, fcfg,
+                    rec, ledger=led, num_classes=10)
+    torch.cuda.synchronize()
+    one_fl_wall = monotonic() - t0
+    one_fl_launches = ops.launch_counts()
+    work = os.path.join(ROOT, "build", "phase14")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    job = {"fl": {"params": {k: v.cpu() for k, v in params.items()},
+                  "clients": clients, "cfg": fcfg, "draws": rec.replay()},
+           "lm": {**lm_job, "leaves_path": os.path.join(work, "lm0.pt")}}
+    job_path = os.path.join(work, "job.pt")
+    torch.save(job, job_path)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "GLOO_SOCKET_IFNAME": "lo"}          # see NCCL_SOCKET_IFNAME
+    t0 = monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ranks-child", str(r),
+         str(RANKS_WORLD), os.path.join(work, "init"), job_path,
+         os.path.join(work, f"out{r}.pt")], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(RANKS_WORLD)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=400)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+    ranks_wall = monotonic() - t0
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"14b: rank {r} exited "
+                                    f"{proc.returncode}:\n{log[-3000:]}")
+    got = [torch.load(os.path.join(work, f"out{r}.pt"), weights_only=False)
+           for r in range(RANKS_WORLD)]
+    for r, o in enumerate(got):
+        f = o["fl"]
+        for what, a, b in [("global", f["global"], one.global_params),
+                           ("composed", f["composed"], one.composed_params)]:
+            check(all(torch.equal(a[k], b[k].cpu()) for k in b),
+                  f"14b rank {r}: {what} params differ from the "
+                  f"one-device cohort engine's")
+        check(f["ledger"] == led.summary() and f["losses"] ==
+              one.client_losses and f["metadata_count"] ==
+              one.metadata_count,
+              f"14b rank {r}: ledger, losses or |D_M| differ")
+    digests = {o["lm"]["digest"] for o in got}
+    metrics = [o["lm"]["metrics"] for o in got]
+    check(len(digests) == 1 and all(m == metrics[0] for m in metrics),
+          "14b: the ranks leave the train step with different bits")
+    rank0 = torch.load(job["lm"]["leaves_path"], weights_only=False)
+    lm_bits = all(torch.equal(a, b) for a, b in zip(rank0, one_leaves))
+    lm_err = max(float(((a - b).abs() / (1 + b.abs())).max())
+                 for a, b in zip(rank0, one_leaves))
+    check(lm_err <= RANKS_LM_TOL,
+          f"14b: two ranks vs one: {lm_err} beyond {RANKS_LM_TOL}")
+    del rank0, one_leaves
+    # each rank selected its share: the ranks' K-means launches add up to
+    # the one-device engine's, and each rank quantized the whole cohort
+    # once
+    for k_name in ("kmeans_pairwise_dist", "kmeans_lloyd_step",
+                   "quantize_affine_batched"):
+        n = sum(o["fl"]["launches"][k_name] for o in got)
+        check(n > 0, f"14b: {k_name} never launched in the FL round")
+        check(n == (RANKS_WORLD if k_name == "quantize_affine_batched"
+                    else one_fl_launches[k_name]),
+              f"14b: {k_name} launched {n} times over the ranks, "
+              f"{one_fl_launches[k_name]} on one device")
+        launches14.setdefault(k_name, {})["14b"] = n
+    for k_name in ("flash_attention", "flash_attention_bwd",
+                   "kmeans_pairwise_dist", "kmeans_lloyd_step"):
+        n = sum(o["lm"]["launches"][k_name] for o in got)
+        check(n > 0, f"14b: {k_name} never launched in the train step")
+        launches14[k_name]["14b"] = launches14[k_name].get("14b", 0) + n
+    out["14b"] = {
+        "world": RANKS_WORLD, "backend": "gloo (host-staged collectives)",
+        "wall_s": ranks_wall,
+        "fl_round": {"bit_identical_to_one_device_engine": True,
+                     "one_device_wall_s": one_fl_wall,
+                     "one_device_launches": one_fl_launches,
+                     "rank_walls_s": [o["fl"]["wall_s"] for o in got],
+                     "metadata_count": one.metadata_count,
+                     "ledger_up": led.summary()["up"],
+                     "launches_by_rank": [o["fl"]["launches"] for o in got]},
+        "train_step": {"layers": RANKS_LM_LAYERS, "seq_len": RANKS_LM_T,
+                       "ranks_bit_identical": True,
+                       "bit_identical_to_one_rank": lm_bits,
+                       "max_rel_err_vs_one_rank": lm_err,
+                       "limit": RANKS_LM_TOL, "metrics": metrics[0],
+                       "rank_walls_s": [o["lm"]["wall_s"] for o in got],
+                       "rank_peaks": [o["lm"]["max_memory_allocated"]
+                                      for o in got],
+                       "launches_by_rank": [o["lm"]["launches"]
+                                            for o in got]}}
+    print(f"14b: FL round over 2 ranks = the one-device engine bit for bit; "
+          f"train step: ranks equal, vs one rank {lm_err} "
+          f"({'bit-identical' if lm_bits else 'within the limit'})")
+    shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = monotonic() - t_phase
+    return out, launches14
+
+
+def phase14_alone() -> None:
+    """``python3 chip_smoke.py --phase 14``: build the kernels, then phase
+    14 alone on phase 4's model, clients and configuration; prints its
+    numbers and the card's name and power limit."""
+    import torch
+    from repro_torch.configs import FLConfig, get_wrn_config
+    from repro_torch.core.split import make_split_wrn
+    from repro_torch.data import SyntheticImageDataset, partition_k_shards
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.obs.timing import monotonic
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    dev = resolve_device("cuda")
+    t0 = monotonic()
+    build.load_all()
+    print(f"build_s: {monotonic() - t0:.3f}")
+    wcfg = get_wrn_config()
+    train = SyntheticImageDataset(50_000, image_size=wcfg.image_size, seed=0)
+    clients = partition_k_shards(train, num_clients=4, k_classes=2,
+                                 samples_per_client=2_500)
+    cfg = FLConfig(num_clients=4, clients_per_round=4, transport_codec="int8")
+    ranks, launches = run_ranks_phase(dev, make_split_wrn(wcfg), clients, cfg)
+    print(json.dumps({"ranks": ranks, "launches_14": launches}))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ranks-child"]:
+        ranks_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    elif sys.argv[1:] == ["--phase", "14"]:
+        phase14_alone()
+    else:
+        main()

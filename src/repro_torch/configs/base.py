@@ -263,10 +263,13 @@ class TrainConfig:
     """The federated LM training step's knobs (``launch/steps.py``
     ``make_train_step``), a copy of ``repro.configs.base.TrainConfig``.
 
-    ``fed_axis`` and ``seq_shard_activations`` only place tensors on a
-    device mesh in the reference; the port trains on one device, so they
-    are accepted and change nothing (the mesh is ``ROADMAP.md`` Queue 1
-    item 15)."""
+    On a mesh the step's cohorts ride the fed axes that
+    ``launch/specs.py`` ``fed_layout`` picks ("data", with "pod" before it
+    on two pods), as the reference's; ``fed_axis`` is not read there, nor
+    in the reference. ``seq_shard_activations`` picks the head-aware
+    plan of the train layout (``launch/specs.py`` ``input_specs``); the
+    sequence-sharded activations themselves need a model axis, which the
+    port plans and does not execute (``ROADMAP.md`` item 15b)."""
     local_steps: int = 2               # L local SGD steps between FedAvg syncs
     microbatch: int = 8                # tokens rows per grad-accum microstep
     lr: float = 0.1
@@ -274,12 +277,12 @@ class TrainConfig:
     weight_decay: float = 0.0
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    fed_axis: str = "data"             # accepted; one device has no mesh
+    fed_axis: str = "data"             # accepted; fed_layout picks the axes
     remat: bool = True
     # paper technique in the step:
     split_fl: bool = True              # lower=FedAvg, upper=metadata-trained
     meta_clusters: int = 8             # clusters per cohort for selection
     meta_steps: int = 2                # server-side upper-training steps
     pca_components: int = 64
-    seq_shard_activations: bool = False  # accepted; one device has no mesh
+    seq_shard_activations: bool = False  # the train plan's head_aware
     fedavg_compress: str = ""            # "" | "bf16" (delta sum dtype)

@@ -1,0 +1,88 @@
+"""The collectives the port runs over a ``torch.distributed`` group: an
+all-gather and a summing all-reduce of a whole tree, and ``Ranks``, the
+group with this process's place in it.
+
+NCCL takes CUDA tensors directly. gloo sums CUDA tensors but cannot
+gather them, so under gloo every tensor goes through host memory: the
+choice is made once, from the group's backend (``stages_on_host``), never
+by catching a failure. NCCL cannot put two ranks on one card, so on one
+card NCCL gives world size 1 and two processes there run on gloo.
+
+The gather moves bytes (every leaf viewed as uint8 on the wire), so any
+dtype arrives bit for bit; the sum is the backend's, the same bits on
+every rank.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.optim.optimizers import tree_map
+
+PyTree = Any
+
+
+class Ranks(NamedTuple):
+    """A process group (None: the default one), this process's rank in
+    it and its size."""
+    group: Optional[Any]
+    rank: int
+    size: int
+
+    @classmethod
+    def of(cls, group=None) -> "Ranks":
+        if not dist.is_initialized():
+            raise RuntimeError("collectives need the default process group: "
+                               "call torch.distributed.init_process_group")
+        return cls(group, dist.get_rank(group), dist.get_world_size(group))
+
+    def share(self, n: int) -> range:
+        """This rank's contiguous share of ``n`` items, which ``size``
+        must divide."""
+        if n % self.size:
+            raise ValueError(f"{n} items do not split over {self.size} ranks")
+        per = n // self.size
+        return range(self.rank * per, (self.rank + 1) * per)
+
+
+def stages_on_host(group=None) -> bool:
+    """Whether this group's collectives go through host memory (gloo)."""
+    return dist.get_backend(group) == "gloo"
+
+
+def _gather_bytes(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
+    """(size, *x.shape) of every rank's ``x``, in rank order."""
+    wire = x.detach().contiguous().reshape(-1).view(torch.uint8)
+    if stages_on_host(ranks.group):
+        wire = wire.cpu()
+        parts = [torch.empty_like(wire) for _ in range(ranks.size)]
+        dist.all_gather(parts, wire, group=ranks.group)
+        out = torch.stack(parts).to(x.device)
+    else:
+        out = torch.empty((ranks.size, wire.numel()), dtype=torch.uint8,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, wire, group=ranks.group)
+    return out.view(x.dtype).reshape((ranks.size,) + tuple(x.shape))
+
+
+def all_gather_tree(tree: PyTree, ranks: Ranks) -> PyTree:
+    """Every leaf gathered from every rank: a new leading axis of
+    ``ranks.size``, in rank order (every rank's leaf of the same shape and
+    dtype), bit for bit."""
+    return tree_map(lambda x: _gather_bytes(x, ranks), tree)
+
+
+def all_reduce_sum_tree(tree: PyTree, ranks: Ranks) -> PyTree:
+    """Every leaf summed over the ranks, in place; returns ``tree``."""
+    def one(x: torch.Tensor):
+        if stages_on_host(ranks.group) and x.device.type != "cpu":
+            host = x.detach().cpu()
+            dist.all_reduce(host, group=ranks.group)
+            x.copy_(host)
+        else:
+            dist.all_reduce(x, group=ranks.group)
+        return x
+    with torch.no_grad():
+        return tree_map(one, tree)

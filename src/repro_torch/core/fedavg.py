@@ -1,6 +1,8 @@
 """FedAvg (McMahan et al.) — the paper's Eq. (2) and LocalUpdate (§3.2),
 over the port's parameters (the counterpart of ``repro.core.fedavg``):
-``weight_average`` over flat dicts or trees, ``client_drift``,
+``weight_average`` over flat dicts or trees, its stacked form
+``weight_average_stacked`` with ``broadcast_to_clients``, ``RunningSum``
+(Eq. 2 over a cohort axis one trained tree at a time), ``client_drift``,
 ``local_update_tree`` (the
 reference's ``local_update``: an ``Optimizer`` and its state over a tree,
 the LM path's) and, for the WRN's flat dicts, the engines below.
@@ -42,6 +44,67 @@ def weight_average(client_params: Sequence[PyTree],
     with torch.no_grad():
         return tree_map(lambda *xs: sum(wi * x for wi, x in zip(w, xs)),
                         *client_params)
+
+
+def weight_average_stacked(stacked: PyTree, axis: int = 0) -> PyTree:
+    """Eq. 2 over a stacked client axis: the mean of every leaf along
+    ``axis``."""
+    with torch.no_grad():
+        return tree_map(lambda x: torch.mean(x, dim=axis), stacked)
+
+
+def broadcast_to_clients(params: PyTree, num_clients: int) -> PyTree:
+    """Every leaf with a leading client axis of ``num_clients`` (a view:
+    every client reads the same storage)."""
+    return tree_map(lambda x: x[None].expand((num_clients,)
+                                             + tuple(x.shape)), params)
+
+
+class RunningSum:
+    """Eq. 2 over a cohort axis, one trained tree at a time: ``add`` sums
+    a cohort's tree into one accumulator as soon as the cohort is done, so
+    the caller drops the tree and the memory does not grow with the
+    number of cohorts. ``all_reduce`` sums the accumulators of the ranks
+    that ran the other cohorts; ``mean(count)`` is Eq. 2's average.
+
+    With ``base`` (the round's starting weights) the sum is of the
+    bf16-rounded deltas ``(new - base)`` accumulated in f32, rounded to
+    bf16 once at the end, divided by the count there and added back to
+    ``base`` in its dtype: the reference's ``fedavg_compress="bf16"``.
+    Without it, the trees themselves are summed in their dtype."""
+
+    def __init__(self, base: Optional[PyTree] = None):
+        self.base = base
+        self.total: Optional[PyTree] = None
+
+    def add(self, tree: PyTree) -> None:
+        with torch.no_grad():
+            if self.base is not None:
+                term = tree_map(lambda n, b: (n - b).to(torch.bfloat16)
+                                .to(torch.float32), tree, self.base)
+            elif self.total is None:
+                term = tree_map(torch.clone, tree)
+            else:
+                term = tree
+            if self.total is None:
+                self.total = term
+            else:
+                tree_map(lambda acc, x: acc.add_(x), self.total, term)
+
+    def all_reduce(self, ranks) -> None:
+        """Sum the accumulators over ``ranks`` (a ``collectives.Ranks``),
+        the same bits on every rank."""
+        from repro_torch.core.collectives import all_reduce_sum_tree
+        all_reduce_sum_tree(self.total, ranks)
+
+    def mean(self, count: int) -> PyTree:
+        """The average of ``count`` trees from the sum."""
+        with torch.no_grad():
+            if self.base is None:
+                return tree_map(lambda s: s / count, self.total)
+            return tree_map(lambda b, s: b + (s.to(torch.bfloat16)
+                                              / count).to(b.dtype),
+                            self.base, self.total)
 
 
 def client_drift(client_params: Sequence[PyTree],

@@ -17,6 +17,10 @@ the same bits on the same draws. Both select one client at a time, so
         M_COM(t) <- ModelCompose(W_G^l(t-1), W_S^u(t))
         W_G(t)   <- WeightAverage(W_Ck(t))                      # Eq. 2
 
+Given a ``mesh``, the cohort engine splits the clients over its "data"
+axis (``core/distributed.py``) and the round's bits stay the one-device
+engine's.
+
 Randomness is explicit. A ``Draws`` object supplies every draw the round
 needs — each class's first K-means centre, the randomized PCA's test
 matrix, the LocalUpdate and the meta-training permutations, the cohort —
@@ -46,8 +50,7 @@ from repro_torch.core.selection import default_test_matrix, select_metadata
 from repro_torch.core.split import SplitModel
 from repro_torch.data.partition import ClientData
 from repro_torch.fl.comms import CommLedger
-from repro_torch.fl.transport.channel import Channel
-from repro_torch.fl.transport.codecs import get_codec
+from repro_torch.fl.transport.channel import Channel, knowledge_codec
 
 Params = Dict[str, torch.Tensor]
 
@@ -128,6 +131,61 @@ class GeneratorDraws:
 
     def locate(self, tick, arrivals=None, flush=0):
         """Ignored: one generator, drawn in call order."""
+
+
+class RecordingDraws:
+    """``Draws`` that hand out ``inner``'s and keep a host copy of each
+    client's draws and of the meta-training orders, so ``replay()`` can
+    give the same round again (to the ranks of a mesh in other processes,
+    say). The cohort is not drawn: a recorded round takes it as given."""
+
+    def __init__(self, inner):
+        self.inner, self.clients, self.meta = inner, {}, None
+
+    def client(self, position, client, num_classes, epochs):
+        got = self.inner.client(position, client, num_classes, epochs)
+        self.clients[position] = ClientDraws(got.first_centres.cpu(),
+                                             got.local_perms.cpu())
+        return got
+
+    def meta_perms(self, m, epochs):
+        perms = self.inner.meta_perms(m, epochs)
+        self.meta = ((m, epochs), perms.cpu())
+        return perms
+
+    def cohort(self, num_available, m):
+        raise NotImplementedError("a recorded round takes its cohort as "
+                                  "given")
+
+    def replay(self) -> "ReplayDraws":
+        """The draws recorded so far, to be handed out again. A replay
+        holds no generator: its clients' PCA test matrix is
+        ``default_test_matrix`` (``GeneratorDraws``'s; the exact PCA
+        solver reads none)."""
+        return ReplayDraws(dict(self.clients), self.meta)
+
+
+class ReplayDraws:
+    """A round's draws handed out again: each client position's
+    ``ClientDraws`` and the meta-training orders (``((m, epochs),
+    perms)``), as ``RecordingDraws`` took them; a ``meta_perms`` call of
+    other sizes raises. Plain tensors, so it pickles."""
+
+    def __init__(self, clients: Dict[int, ClientDraws], meta):
+        self.clients, self.meta = clients, meta
+
+    def client(self, position, client, num_classes, epochs):
+        return self.clients[position]
+
+    def meta_perms(self, m, epochs):
+        if (m, epochs) != self.meta[0]:
+            raise ValueError(f"meta_perms({m}, {epochs}): recorded "
+                             f"{self.meta[0]}")
+        return self.meta[1]
+
+    def cohort(self, num_available, m):
+        raise NotImplementedError("a replayed round takes its cohort as "
+                                  "given")
 
 
 @dataclass
@@ -247,7 +305,7 @@ def client_round(model: SplitModel, params: Params, client: ClientData,
                                       cfg.clusters_per_class, client_id,
                                       x.shape[0])
             metadata = ssp.sync(channel.upload_knowledge(
-                client_id, *triple, get_codec(cfg.transport_codec)))
+                client_id, *triple, knowledge_codec(cfg)))
             del triple
             if ssp.enabled and metadata is not None:
                 n_sel = int(metadata[2].sum())
@@ -310,7 +368,7 @@ def server_round(model: SplitModel, prev_global: Params, upper_init: Params,
 def run_cohort(model: SplitModel, params: Params, clients: List[ClientData],
                cfg: FLConfig, draws: Draws, channel: Channel,
                num_classes: int, client_ids: Optional[List[int]] = None,
-               steps: Optional[fa.CapturedSteps] = None):
+               steps: Optional[fa.CapturedSteps] = None, mesh=None):
     """The client side of one round for a whole cohort, with the engine
     dispatch in one place (``run_round`` and ``FLSimulation`` share it):
     the cohort engine when ``cfg.distributed_selection`` is set (and the
@@ -318,17 +376,24 @@ def run_cohort(model: SplitModel, params: Params, clients: List[ClientData],
     are taken first, in cohort order, whatever the engine. ``client_ids``
     are the members' global indices (default: cohort position), on which
     a faulty channel keys its fates; ``steps`` holds the captured SGD
-    steps on the card. Returns per-client lists (params, metadata or None,
-    loss, Lloyd sweeps)."""
+    steps on the card; ``mesh`` (a ``DeviceMesh`` whose "data" axis is
+    wider than 1) splits the cohort engine's clients over its ranks, and
+    the client loop takes none. Returns per-client lists (params, metadata
+    or None, loss, Lloyd sweeps)."""
     from repro_torch.core import distributed as D
     if client_ids is None:
         client_ids = list(range(len(clients)))
+    engine = cfg.distributed_selection and cfg.use_selection
+    if D.data_axis_size(mesh) > 1 and not engine:
+        raise ValueError("a mesh splits the cohort engine's clients: it "
+                         "needs distributed_selection=True and "
+                         "use_selection=True")
     cds = [draws.client(pos, c, num_classes, cfg.local_epochs)
            for pos, c in enumerate(clients)]
-    if cfg.distributed_selection and cfg.use_selection:
+    if engine:
         return D.cohort_round(model, params, clients, cfg, cds, channel,
                               num_classes, client_ids=client_ids,
-                              steps=steps)
+                              steps=steps, mesh=mesh)
     out = ([], [], [], [])
     for c, cid, cd in zip(clients, client_ids, cds):
         for acc, v in zip(out, client_round(
@@ -341,17 +406,19 @@ def run_cohort(model: SplitModel, params: Params, clients: List[ClientData],
 def run_round(model: SplitModel, global_params: Params, upper_init: Params,
               clients: List[ClientData], cfg: FLConfig, draws: Draws,
               ledger: Optional[CommLedger] = None,
-              num_classes: int = 10) -> RoundResult:
+              num_classes: int = 10, mesh=None) -> RoundResult:
     """One round over ``clients`` (no broadcast charge, as the reference's
     ``run_round``); the ledger gets every upload's exact bytes. The round
-    owns its captured SGD steps and frees them at its end."""
+    owns its captured SGD steps and frees them at its end. ``mesh`` as
+    ``run_cohort``'s: every rank calls with the same arguments and returns
+    the same round."""
     ledger = ledger if ledger is not None else CommLedger()
     channel = Channel(ledger, checksum=cfg.transport_checksum)
     steps = fa.CapturedSteps()
     try:
         cparams, metas, losses, _ = run_cohort(
             model, global_params, clients, cfg, draws, channel, num_classes,
-            steps=steps)
+            steps=steps, mesh=mesh)
     finally:
         steps.release()
     res = server_round(model, global_params, upper_init, cparams, metas, cfg,

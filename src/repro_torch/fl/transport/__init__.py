@@ -6,10 +6,16 @@
                 on the card, its plain version on the CPU); ``Quantized``
                 carries a payload through the cohort's batched quantize
   ``channel``   the perfect wire that charges every frame's exact bytes,
-                with the cohort's batched knowledge upload
+                with the cohort's batched knowledge upload, and the
+                reference's module-level helpers over a ledger
   ``errors``    the typed ``FrameError`` family of the decode side
 """
-from repro_torch.fl.transport.channel import Channel, prequantize_cohort
+from repro_torch.fl.transport.channel import (Channel, broadcast_weights,
+                                              knowledge_codec,
+                                              prequantize_cohort,
+                                              upload_knowledge,
+                                              upload_knowledge_batched,
+                                              upload_update)
 from repro_torch.fl.transport.codecs import (Int8Codec, Quantized,
                                              TensorCodec, codec_by_code,
                                              get_codec)
@@ -29,6 +35,8 @@ __all__ = [
     "FrameError", "HEADER_BYTES", "Int8Codec", "LengthMismatch",
     "Quantized", "SelectedKnowledge", "TensorCodec", "TruncatedFrame",
     "UnknownCodec", "UnknownDtype", "UpperUpdate", "WeightBroadcast",
-    "WrongMessageType", "codec_by_code", "get_codec", "prequantize_cohort",
-    "pytree_frame_nbytes", "tree_leaves", "unflatten_like",
+    "WrongMessageType", "broadcast_weights", "codec_by_code", "get_codec",
+    "knowledge_codec", "prequantize_cohort", "pytree_frame_nbytes",
+    "tree_leaves", "unflatten_like", "upload_knowledge",
+    "upload_knowledge_batched", "upload_update",
 ]

@@ -10,6 +10,11 @@ decodes, so a lossy codec's effect on MetaTraining is end to end.
 deterministic crashes, bit-flips, truncations and duplicates between
 ``encode`` and ``decode``; the round engines cannot tell the difference.
 
+The module-level helpers (``broadcast_weights``, ``upload_update``,
+``upload_knowledge``, ``upload_knowledge_batched``) are the reference's
+perfect-wire wrappers over a ``CommLedger``, and ``knowledge_codec`` the
+codec an ``FLConfig`` asks for.
+
 ``upload_knowledge_batched`` is the stacked cohort's entry: for the int8
 codec it runs ONE batched quantize over the gathered
 ``(sel_acts, sel_y, valid)`` triple (``kernels.ops.quantize_affine_batched``:
@@ -27,7 +32,8 @@ import torch
 
 from repro_torch import obs
 from repro_torch.fl.comms import CommLedger
-from repro_torch.fl.transport.codecs import Int8Codec, Quantized, TensorCodec
+from repro_torch.fl.transport.codecs import (Int8Codec, Quantized,
+                                             TensorCodec, get_codec)
 from repro_torch.fl.transport.messages import (SelectedKnowledge,
                                                pytree_frame_nbytes)
 from repro_torch.kernels import ops
@@ -155,3 +161,50 @@ def prequantize_cohort(codec: TensorCodec, sel_acts: torch.Tensor,
     bounds = np.cumsum([0] + [int(v.sum()) for v in valid])
     return [Quantized(codes[bounds[i]:bounds[i + 1]], float(xs[i, 0]),
                       float(xs[i, 1])) for i in range(b)]
+
+
+# --------------------------------------------------------------------------
+# module-level helpers: the reference's perfect-wire wrappers over a ledger
+# --------------------------------------------------------------------------
+def broadcast_weights(ledger: CommLedger, params: Params,
+                      num_clients: int) -> int:
+    """Perfect-wire ``Channel.broadcast_weights``: one WeightBroadcast
+    frame a member, each charged to ``ledger`` at its exact size; returns
+    the bytes charged."""
+    return Channel(ledger).broadcast_weights(params, num_clients)
+
+
+def upload_update(ledger: CommLedger, params: Params) -> int:
+    """client -> server: the UpperUpdate frame for Eq. 2, charged to
+    ``ledger`` at its exact size (from leaf shapes and dtypes); returns the
+    bytes."""
+    nbytes = pytree_frame_nbytes(params)
+    ledger.upload("weights", nbytes)
+    return nbytes
+
+
+def upload_knowledge(ledger: CommLedger, acts, labels, valid,
+                     codec: TensorCodec,
+                     pre: Optional[Quantized] = None) -> Tuple:
+    """Perfect-wire ``Channel.upload_knowledge`` for one client (id 0):
+    encode, charge the exact frame bytes, return the decoded triple."""
+    return Channel(ledger).upload_knowledge(0, acts, labels, valid, codec,
+                                            pre=pre)
+
+
+def upload_knowledge_batched(ledger: CommLedger, sel_acts, sel_ys, valid,
+                             codec: TensorCodec) -> List[Tuple]:
+    """Perfect-wire ``Channel.upload_knowledge_batched`` over a stacked
+    cohort (clients numbered 0..B-1): one batched quantize under the int8
+    codec, every frame charged at its exact bytes, each client's decoded
+    triple."""
+    return Channel(ledger).upload_knowledge_batched(
+        range(_host(valid).shape[0]), sel_acts, sel_ys, valid, codec)
+
+
+def knowledge_codec(cfg) -> TensorCodec:
+    """The codec an ``FLConfig`` asks for (its ``transport_codec``). The
+    reference also reads ``use_pallas_selection`` here; the port has no
+    such knob: int8 quantizes with the CUDA kernel on the card and its
+    plain version on the CPU."""
+    return get_codec(cfg.transport_codec)

@@ -1,0 +1,175 @@
+"""Input specs: the port of ``repro.launch.specs``. For every (arch x
+input shape x mesh) it gives what a step takes (parameters, optimizer
+state, batch, caches), each as a ``Placed``: a tensor on the ``meta``
+device (shape and dtype, no storage) beside its spec.
+
+Shapes come without a generator: ``LM.init(None, device="meta")`` and
+``LM.init_cache(..., device="meta")`` make empty meta tensors and draw
+nothing, and the batch's tensors are ``torch.empty`` on the meta device.
+Nothing here allocates memory or needs a device, so the production
+mesh's specs are computed from its axis sizes alone
+(``launch.mesh.mesh_axis_sizes``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.launch import sharding as sh
+from repro_torch.models.transformer import LM
+
+PyTree = Any
+
+
+class Placed(NamedTuple):
+    """A meta tensor (its shape and dtype) beside its spec (one entry a
+    dim: None, an axis name or a tuple of axis names)."""
+    tensor: torch.Tensor
+    spec: sh.Spec
+
+
+def _meta(shape, dtype, spec) -> Placed:
+    return Placed(torch.empty(tuple(shape), dtype=dtype, device="meta"),
+                  tuple(spec))
+
+
+def _with_specs(shapes: PyTree, specs: PyTree) -> PyTree:
+    if isinstance(shapes, dict):
+        return {k: _with_specs(v, specs[k]) for k, v in shapes.items()}
+    if isinstance(shapes, (list, tuple)):
+        return [_with_specs(v, s) for v, s in zip(shapes, specs)]
+    return Placed(shapes, specs)
+
+
+def fed_layout(cfg: ModelConfig, axes: sh.Axes
+               ) -> Tuple[int, Tuple[str, ...]]:
+    """(G cohorts, the mesh axes that carry them) for the train step: the
+    "data" axis, with "pod" before it on two pods; above
+    ``FSDP_THRESHOLD`` parameters "data" shards the weights, so only the
+    pods carry cohorts."""
+    from repro_torch.models.registry import count_params
+    huge = count_params(cfg) > sh.FSDP_THRESHOLD
+    p_ax, d_ax = axes.get("pod", 1), axes.get("data", 1)
+    if huge:
+        return (p_ax, ("pod",)) if p_ax > 1 else (1, ())
+    if p_ax > 1:
+        return p_ax * d_ax, ("pod", "data")
+    return d_ax, ("data",)
+
+
+def param_specs(cfg: ModelConfig, axes: sh.Axes, lm: Optional[LM] = None,
+                fed_axes: Optional[Tuple[str, ...]] = None, g: int = 0,
+                param_dtype=torch.float32, head_aware: bool = True):
+    """-> (the parameter tree as ``Placed`` leaves, its ``Plan``); with
+    ``fed_axes`` and ``g`` > 0 every leaf has a leading cohort axis G."""
+    lm = lm or LM(cfg)
+    shapes = lm.init(None, device="meta", dtype=param_dtype)
+    stacked = fed_axes is not None and g > 0
+    if stacked:
+        shapes = _stack(shapes, g)
+    plan = sh.plan_params(cfg, axes, shapes,
+                          fed_axes=fed_axes if stacked else None,
+                          head_aware=head_aware)
+    return _with_specs(shapes, plan.params), plan
+
+
+def _stack(shapes: PyTree, g: int) -> PyTree:
+    if isinstance(shapes, dict):
+        return {k: _stack(v, g) for k, v in shapes.items()}
+    if isinstance(shapes, (list, tuple)):
+        return [_stack(v, g) for v in shapes]
+    return torch.empty((g,) + tuple(shapes.shape), dtype=shapes.dtype,
+                       device="meta")
+
+
+def _extras_specs(cfg: ModelConfig, lead: tuple, lead_spec: tuple,
+                  dtype=torch.bfloat16) -> Dict[str, Placed]:
+    """The stub front ends' inputs: a VLM's patch embeddings, an
+    encoder-decoder's frames."""
+    ex = {}
+    if cfg.frontend == "vision_stub":
+        ex["prefix_embeds"] = _meta(
+            lead + (cfg.num_prefix_tokens, cfg.d_model), dtype,
+            lead_spec + (None, None))
+    if cfg.frontend == "audio_stub":
+        ex["enc_frames"] = _meta(lead + (cfg.encoder_seq_len, cfg.d_model),
+                                 dtype, lead_spec + (None, None))
+    return ex
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, axes: sh.Axes,
+                tcfg: Optional[TrainConfig] = None,
+                force_swa: bool = False, lm: Optional[LM] = None,
+                cache_seq_shard: bool = False) -> Dict[str, Any]:
+    """Everything a step takes for (arch, shape, mesh axes), as
+    ``Placed`` leaves, with the plan. ``lm`` must be the step's own LM
+    where its stages differ from the default (the train step splits them
+    at the paper's layer j).
+
+    Train: params (G, ...) f32, opt_state () (plain SGD), batch
+    {"tokens": (G, L, n_micro, mb, T) int32, and the extras}, and "first"
+    (G,) int64, each cohort's K-means first centre, which the port's step
+    takes where the reference's takes a key; with "g" and "fed_axes".
+    Prefill: bf16 params, batch {"tokens": (B, S)} and extras. Decode:
+    bf16 params, the bf16 cache and tokens (B, 1)."""
+    tcfg = tcfg or TrainConfig()
+    p_ax, d_ax = axes.get("pod", 1), axes.get("data", 1)
+
+    if shape.kind == "train":
+        g, fed_axes = fed_layout(cfg, axes)
+        lm = lm or LM(cfg, remat=tcfg.remat)
+        # head-aware replication is right for training only with
+        # sequence-sharded activations
+        params, plan = param_specs(cfg, axes, lm, fed_axes=fed_axes, g=g,
+                                   head_aware=tcfg.seq_shard_activations)
+        cohort_batch = max(shape.global_batch // max(g, 1), 1)
+        mb = min(tcfg.microbatch, cohort_batch)
+        n_micro = max(cohort_batch // mb, 1)
+        lead = (g, tcfg.local_steps, n_micro, mb)
+        # the cohort axis over the fed axes; a cohort's rows over any batch
+        # axis the cohorts do not use (FSDP: rows over "data")
+        row_axes = tuple(a for a in ("data",)
+                         if a not in fed_axes and axes.get(a, 1) > 1
+                         and mb % axes.get(a, 1) == 0)
+        fed_spec = (fed_axes if len(fed_axes) > 1 else
+                    (fed_axes[0] if fed_axes else None),)
+        lead_spec = fed_spec + (None, None,
+                                row_axes if len(row_axes) > 1 else
+                                (row_axes[0] if row_axes else None))
+        batch = {"tokens": _meta(lead + (shape.seq_len,), torch.int32,
+                                 lead_spec + (None,))}
+        batch.update(_extras_specs(cfg, lead, lead_spec))
+        first = _meta((g,), torch.int64, (None,))
+        return dict(mode="train", params=params, opt_state=(), batch=batch,
+                    first=first, plan=plan, g=g, fed_axes=fed_axes)
+
+    # inference: head-aware replication is right for decode (fractional
+    # heads' resharding dominates the tiny attention) and wrong for
+    # prefill (replicated quadratic attention on every model rank)
+    lm = lm or LM(cfg, force_swa=force_swa)
+    params, plan = param_specs(cfg, axes, lm, param_dtype=torch.bfloat16,
+                               head_aware=(shape.kind == "decode"))
+    b = shape.global_batch
+    if p_ax > 1 and b % (p_ax * d_ax) == 0:
+        bspec: Any = ("pod", "data")
+    elif b % d_ax == 0 and d_ax > 1:
+        bspec = "data"
+    else:
+        bspec = None
+
+    if shape.kind == "prefill":
+        batch = {"tokens": _meta((b, shape.seq_len), torch.int32,
+                                 (bspec, None))}
+        batch.update(_extras_specs(cfg, (b,), (bspec,)))
+        return dict(mode="prefill", params=params, batch=batch, plan=plan)
+
+    # decode: ONE new token against a seq_len cache
+    cache_shapes = lm.init_cache(b, shape.seq_len, dtype=torch.bfloat16,
+                                 device="meta")
+    cplan = sh.cache_plan(cfg, axes, cache_shapes, b,
+                          seq_shard=cache_seq_shard)
+    return dict(mode="decode", params=params,
+                cache=_with_specs(cache_shapes, cplan),
+                tokens=_meta((b, 1), torch.int32, (bspec, None)), plan=plan)

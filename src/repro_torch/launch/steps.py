@@ -7,8 +7,18 @@ train_step   — ONE federated round per call (the paper's Algorithm 1 on
                path: hidden states at the split layer, PCA + K-means
                selection per cohort, meta-training of the upper part on
                the selected sequences, compose. The reference ``vmap``s
-               the cohorts over a mesh; on one device the port runs them
-               one after another.
+               the cohorts over a mesh. The port runs them one after
+               another, and FedAvg is a running sum (``fedavg.RunningSum``):
+               each cohort's trained tree is added as soon as the cohort
+               is done and then dropped, so the memory does not grow with
+               G. Given a mesh whose fed axes (``specs.fed_layout``) hold
+               w ranks, each rank runs its G/w cohorts; the sums are
+               all-reduced, the per-cohort losses and selected rows
+               all-gathered in cohort order, and every rank runs the same
+               meta steps, so every rank leaves with the same weights. The
+               meta steps take the head and its log-softmax a microbatch
+               of selected rows at a time, so their memory does not grow
+               with G either.
 prefill_step — causal forward over the prompt (after the encoder's pass
                or the vision prefix, where the batch has them),
                last-position logits only; the KV cache is not filled
@@ -25,9 +35,12 @@ from __future__ import annotations
 from typing import Any, Sequence, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core import fedavg as fa
 from repro_torch.core import selection as sel
+from repro_torch.core.collectives import Ranks, all_gather_tree
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import LM, split_stages, unpack_batch
 from repro_torch.optim.optimizers import sgd, tree_map, value_and_grad
@@ -48,6 +61,14 @@ def _first_centre(first: FirstCentres, g: int, rows: int) -> int:
     return int(first[g])
 
 
+def _head_nll(hn: torch.Tensor, tokens: torch.Tensor,
+              w_head: torch.Tensor) -> torch.Tensor:
+    """Next-token NLL (rows, T-1) of normed hidden states through the
+    head, the log-softmax in f32."""
+    lp = torch.log_softmax((hn @ w_head)[:, :-1].to(torch.float32), -1)
+    return -torch.gather(lp, -1, tokens[:, 1:].long()[..., None])[..., 0]
+
+
 def tree_stack(trees: Sequence[PyTree]) -> PyTree:
     """One tree whose leaves stack the trees' leaves on a new axis 0."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)
@@ -56,7 +77,33 @@ def tree_stack(trees: Sequence[PyTree]) -> PyTree:
 # --------------------------------------------------------------------------
 # train: one federated round per call
 # --------------------------------------------------------------------------
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def fed_ranks(cfg: ModelConfig, mesh) -> Ranks:
+    """The ranks that carry the train step's cohorts on ``mesh``: its fed
+    axes (``specs.fed_layout``), this process's place among them. Only the
+    fed axis is executed: a model axis above 1, or a "data" axis that
+    ``fed_layout`` leaves to shard the weights (FSDP), raises
+    (``ROADMAP.md`` item 15b)."""
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.launch.specs import fed_layout
+    axes = mesh_axis_sizes(mesh)
+    if axes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"the train step runs the fed axis only; a model axis of "
+            f"{axes['model']} is planned, not executed (ROADMAP.md item 15b)")
+    _, fed_axes = fed_layout(cfg, axes)
+    if axes.get("data", 1) > 1 and "data" not in fed_axes:
+        raise NotImplementedError(
+            f"{cfg.name} shards its weights over 'data' (FSDP), which is "
+            f"planned, not executed (ROADMAP.md item 15b)")
+    # with the model axis at 1 (and "data" unsharded) the fed axes span
+    # the mesh, which spans the world: one fed axis is its mesh dim's
+    # group, two are the world
+    group = mesh.get_group(fed_axes[0]) if len(fed_axes) == 1 else None
+    return Ranks.of(group)
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
+                    observe=None):
     """-> (train_step, lm). ``train_step(client_params, opt_state, batch,
     first) -> (new_client_params, opt_state, metrics)``:
 
@@ -73,7 +120,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
       "selected"}, 0-d tensors.
 
     Every cohort leaves the round with W_G(t), the composed model (the
-    returned leaves are views of one tree)."""
+    returned leaves are views of one tree).
+
+    With a ``mesh`` (a ``DeviceMesh`` over the world, ``launch.mesh``),
+    every rank calls the step with the same arguments; the w ranks of the
+    fed axes (``fed_ranks``) split the G cohorts, contiguous and in order
+    (w must divide G), and every rank returns the same round.
+
+    ``observe``, where given, is called as ``observe(event, value)`` so a
+    caller can read the round's inner values without copying the step:
+    ("cohort", the cohort's trained tree) as each of this rank's cohorts
+    is done, before the running sum takes it; ("selection", the cohort's
+    ``selection.Selection``) with ``split_fl``; ("cohorts_done", None)
+    once every cohort is in the sum (the sums all-reduced), before the
+    mean; ("average", the FedAvg mean W_G) before the meta steps."""
+    ranks = fed_ranks(cfg, mesh) if mesh is not None else None
+    observe = observe or (lambda event, value: None)
     opt = sgd(tcfg.lr, momentum=tcfg.momentum,
               weight_decay=tcfg.weight_decay)
     dt = _dtype(tcfg)
@@ -121,6 +183,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                 clusters_per_class=tcfg.meta_clusters,
                 pca_components=min(tcfg.pca_components, probe.shape[0] - 1),
                 kmeans_iters=8)
+            observe("selection", s_)
             idx = s_.indices
             return (acts[idx], probe[idx],
                     {k: v[idx] for k, v in probe_ex.items()}, s_.valid)
@@ -131,13 +194,21 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             raise ValueError("train_step: split_fl needs each cohort's "
                              "K-means first centre (first=...)")
         g_ax = tokens.shape[0]
-        new_p, new_s, losses, selected = [], [], [], []
-        for g in range(g_ax):
+        mine = ranks.share(g_ax) if ranks is not None else range(g_ax)
+        # every cohort's first centre, drawn in cohort order on every rank
+        firsts = ([_first_centre(first, g, tokens.shape[3])
+                   for g in range(g_ax)] if tcfg.split_fl else None)
+        # FedAvg (Eq. 2) as a running sum: each cohort's trained tree is
+        # added as soon as the cohort is done, then dropped
+        total = fa.RunningSum(
+            tree_map(lambda x: x[0], client_params)
+            if tcfg.fedavg_compress == "bf16" else None)
+        new_s, losses, selected = [], [], []
+        for g in mine:
             p = tree_map(lambda x: x[g], client_params)
             s = tree_map(lambda x: x[g], opt_state) if opt_state else ()
             p, s, loss = one_cohort(p, s, tokens[g],
                                     {k: v[g] for k, v in extras.items()})
-            new_p.append(p)
             new_s.append(s)
             losses.append(loss)
             if tcfg.split_fl:
@@ -146,35 +217,41 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                 # weights
                 probe = tokens[g, 0, 0]                    # (mb, T)
                 probe_ex = {k: v[g, 0, 0] for k, v in extras.items()}
-                selected.append(select_cohort(
-                    p, probe, probe_ex,
-                    _first_centre(first, g, probe.shape[0])))
+                selected.append(select_cohort(p, probe, probe_ex,
+                                              firsts[g]))
+            observe("cohort", p)
+            total.add(p)
+            del p
+        losses = torch.stack(losses)
         new_s = tree_stack(new_s) if opt_state else ()
+        if tcfg.split_fl:
+            # each field stacked over this rank's cohorts
+            selected = (torch.stack([a for a, _, _, _ in selected]),
+                        torch.stack([t for _, t, _, _ in selected]),
+                        {k: torch.stack([e[k] for _, _, e, _ in selected])
+                         for k in extras},
+                        torch.stack([v for _, _, _, v in selected]))
+        if ranks is not None:
+            # the other ranks' cohorts: sums added, the rest gathered in
+            # cohort order ((w, G/w, ...) -> (G, ...))
+            total.all_reduce(ranks)
+            losses, new_s, selected = tree_map(
+                lambda x: x.reshape((g_ax,) + tuple(x.shape[2:])),
+                all_gather_tree((losses, new_s, selected), ranks))
 
-        # ---- FedAvg (Eq. 2): the mean over the G cohorts ----
+        observe("cohorts_done", None)
         with torch.no_grad():
-            if tcfg.fedavg_compress == "bf16":
-                # cohort DELTAS summed in bf16 (cohorts start each round
-                # from identical weights, so deltas are small), the mean
-                # added back in the parameter's dtype
-                base = tree_map(lambda x: x[0], client_params)
-                avg = tree_map(
-                    lambda b, *ns: b + (torch.stack(
-                        [(n - b).to(torch.bfloat16) for n in ns]).sum(0)
-                        / len(ns)).to(b.dtype), base, *new_p)
-            else:
-                avg = tree_map(lambda *xs: torch.stack(xs).mean(0), *new_p)
-        del new_p
-        metrics = {"loss": torch.stack(losses).mean()}
+            avg = total.mean(g_ax)
+        del total
+        observe("average", avg)
+        metrics = {"loss": losses.mean()}
 
         if tcfg.split_fl:
-            # server aggregation: the selected maps of every cohort
-            meta_acts = torch.cat([a for a, _, _, _ in selected])
-            meta_tok = torch.cat([t for _, t, _, _ in selected])
-            meta_ex = {k: torch.cat([e[k] for _, _, e, _ in selected])
-                       for k in extras}
-            meta_w = torch.cat([v for _, _, _, v in selected]).to(
-                torch.float32)
+            # server aggregation: the selected maps of every cohort, in
+            # cohort order
+            meta_acts, meta_tok, meta_ex, meta_w = tree_map(
+                lambda x: x.reshape((-1,) + tuple(x.shape[2:])), selected)
+            meta_w = meta_w.to(torch.float32)
             del selected
             # meta-train the upper part from the averaged upper
             upper = {"stages": list(avg["stages"][boundary_stage:]),
@@ -206,13 +283,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                 h = h[:, n_prefix:]
                 hn = L.rms_norm(h, up["final_norm"].to(h.dtype),
                                 cfg.norm_eps)
-                if "lm_head" in up:
-                    logits = hn @ up["lm_head"].to(h.dtype)
-                else:
-                    logits = hn @ avg["embed"].T.to(h.dtype)
-                lp = torch.log_softmax(logits[:, :-1].to(torch.float32), -1)
-                nll = -torch.gather(lp, -1,
-                                    t_mb[:, 1:].long()[..., None])[..., 0]
+                w_head = (up["lm_head"] if "lm_head" in up
+                          else avg["embed"].T).to(h.dtype)
+                # the head and its f32 log-softmax a chunk of
+                # ``microbatch`` rows at a time, recomputed in the
+                # backward: the step holds one chunk's logits however
+                # many rows the G cohorts selected
+                mb = tcfg.microbatch
+                nll = torch.cat([checkpoint(_head_nll, hn[i:i + mb],
+                                            t_mb[i:i + mb], w_head,
+                                            use_reentrant=False)
+                                 for i in range(0, hn.shape[0], mb)])
                 per = nll.mean(-1) + aux
                 return (per * w_mb).sum() / torch.clamp(w_mb.sum(), min=1.0)
 

@@ -37,8 +37,8 @@ and a fingerprinted line of ``experiments/bench_history.jsonl``), and
 ``obs.timing.timeit`` times calls, synced on their outputs.
 
 Not ported yet (ROADMAP item 10b): the reference's cost model
-(``obs/profile.py``) and the tracer's utilization branch, which wait for
-the H100 roofline of item 15.
+(``obs/profile.py``) and the tracer's utilization branch, with the dry
+run and its H100 roofline over flop counts, which they read.
 """
 from __future__ import annotations
 

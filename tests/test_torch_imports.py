@@ -31,7 +31,12 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names))
 print(" ".join(bad))
+print(" ".join(names))
 """
+
+# the modules of the multi-device launch, which must be in the walk
+LAUNCH = {"repro_torch.launch.mesh", "repro_torch.launch.sharding",
+          "repro_torch.launch.specs", "repro_torch.core.collectives"}
 
 
 def test_every_module_imports_without_jax_or_repro():
@@ -39,9 +44,10 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", PROBE], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    count, bad = (out.stdout.splitlines() + ["", ""])[:2]
-    assert int(count) >= 75, out.stdout
+    count, bad, names = (out.stdout.splitlines() + ["", "", ""])[:3]
+    assert int(count) >= 79, out.stdout
     assert bad == "", f"repro_torch pulled in: {bad}"
+    assert LAUNCH <= set(names.split()), out.stdout
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):

@@ -69,6 +69,19 @@ def test_train_prints_the_reference_lines(capsys, split_fl):
         assert all(np.isfinite(v) for v in metrics.values())
 
 
+@pytest.mark.parametrize("asked,env,cards,want", [
+    ("cuda:1", {}, 2, "cuda:1"),
+    ("cuda", {}, 2, "cuda"),
+    ("cpu", {"WORLD_SIZE": "2", "LOCAL_RANK": "1"}, 2, "cpu"),
+    ("cuda:0", {"WORLD_SIZE": "2", "LOCAL_RANK": "1"}, 2, "cuda:1"),
+    ("cuda", {"WORLD_SIZE": "4", "LOCAL_RANK": "3"}, 2, "cuda:1")])
+def test_rank_device(asked, env, cards, want):
+    """Outside torchrun the device asked for, its index kept; under it
+    card LOCAL_RANK mod the cards."""
+    assert train.rank_device(torch.device(asked), env, cards) == (
+        torch.device(want))
+
+
 def test_train_checkpoint_restores_under_the_reference(tmp_path):
     ck = str(tmp_path / "ck")
     assert train.main(["--smoke", "--device", "cpu", "--steps", "2",
