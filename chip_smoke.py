@@ -257,6 +257,21 @@ result line:
      launches adding up to its own), and the depth-cut train
      step over the fed axis (one cohort a rank): both ranks the same bits,
      within 1e-5 of 14a's one-rank step;
+ 15. the cost model and the dry run (``--phase 15`` runs it alone after
+     the build): 15a, phase 4's FL round at full width for 2 clients x 2
+     rounds, untraced and traced (``obs.profile``): the same weights,
+     ledger and launches; every ``kernel.*`` span carries flops, bytes,
+     the card's peaks and a utilization and HBM utilization in (0, 1.05];
+     every ``compile`` event (the recompile sentinel: a kernel launch, a
+     selection or a LocalUpdate capture at a new signature) falls in
+     round 0, once a signature; 15b, llama3.2-1b at full width on the
+     card's 1 x 1 mesh: the dry run's count (``launch/dryrun.run_one``,
+     meta tensors) of phase 6's prefill, phase 6's decode step and phase
+     9a's train cut at one cohort, beside the step's wall measured here:
+     FLOPs / wall / bf16 peak and bytes / wall / HBM bandwidth each at
+     most 1.05, the count's attention launches equal to the step's; then
+     ``python -m repro_torch.launch.dryrun --smoke --all`` in its own
+     process, exit 0;
   5. time each kernel beside its plain version, a library call where one
      computes the same function, and its bound (the attention kernels one
      row a template instance: head dim 64 at phase 6's shapes, 128 at
@@ -268,7 +283,8 @@ result line:
      phase 9a's layer and one each at phase 13's cross, encoder and
      D 128 at G 6 layers, with SDPA's backward as the library call; with its
      route, the decode split count and the registers and spills per
-     thread that ptxas reported). ``ms`` is the
+     thread that ptxas reported; each row's bound from ``kernels/cost.py``'s
+     count of its launch). ``ms`` is the
      wrapper call's time (CUDA events around back-to-back calls, so the
      host's work between launches counts); for the selection and
      transport kernels ``device_ms`` is the kernels' own device time per
@@ -503,6 +519,12 @@ def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOPS):
             else "operations")
 
 
+def kernel_bound(kc, peak: float = H100_F32_FLOPS):
+    """``bound`` of one launch's work as ``kernels/cost.py`` counts it (a
+    ``KernelCost``)."""
+    return bound(kc.hbm_bytes, kc.flops, peak)
+
+
 def rel_check(k_name, got, want, dim, block, what):
     """The error against the values' own size, a block of ``block``
     rows along ``dim`` at a time: the worst block's
@@ -542,6 +564,28 @@ def events_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def device_ms_by_launch(fn, names, **kw):
+    """``obs.device_time.kernel_device_ms(fn, names, **kw)``, or None where
+    the profiler saw too few launches in every profile it took (said on
+    stderr): the row's ``ms``, from CUDA events, stands beside it."""
+    from repro_torch.obs.device_time import LaunchesNotSeen, kernel_device_ms
+    try:
+        return kernel_device_ms(fn, names, **kw)
+    except LaunchesNotSeen as e:
+        print(f"device time not measured: {e}", file=sys.stderr)
+        return None
+
+
+def device_ms_fields(by_launch, prefix=""):
+    """A row's device-time fields from ``device_ms_by_launch``'s result."""
+    if by_launch is None:
+        return {f"{prefix}device_ms": None,
+                f"{prefix}device_ms_by_launch":
+                    "not measured: the profiler saw no launch"}
+    return {f"{prefix}device_ms": sum(by_launch.values()),
+            f"{prefix}device_ms_by_launch": by_launch}
+
+
 def ptxas(source, pattern):
     """Registers and spills per thread that ptxas reported, at phase 1's
     build, for the one instantiation of ``source`` matching ``pattern``
@@ -567,9 +611,8 @@ def bwd_row(dev, name, shape, causal, launches, what, seed):
     ms, plain ms, SDPA's backward ms, its bound and ptxas's registers and
     spills. ``launches`` is the main path's count."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost as kcost, ops, ref
     from repro_torch.kernels.flash_attention import bwd_route_for
-    from repro_torch.obs.device_time import kernel_device_ms
 
     b_, s_, sk_, h_, kv_, d_ = shape
     gd = torch.Generator(device=dev).manual_seed(seed)
@@ -600,8 +643,8 @@ def bwd_row(dev, name, shape, causal, launches, what, seed):
         rel[grad_name] = rel_check(name, x, y, 1, 1024,
                                    f"{grad_name} {what}")
     del got, want
-    by_launch = kernel_device_ms(kern, BWD_KERNELS["tensor_core"], iters=5,
-                                 warmup=1)
+    by_launch = device_ms_by_launch(kern, BWD_KERNELS["tensor_core"],
+                                    iters=5, warmup=1)
     ms = events_ms(kern, 5)
     plain_ms = events_ms(plain, 2)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -611,13 +654,11 @@ def bwd_row(dev, name, shape, causal, launches, what, seed):
     sdo = dout.transpose(1, 2)
     library_ms = events_ms(lambda: torch.autograd.grad(
         so, (qt, kt, vt), sdo, retain_graph=True), 5)
-    # the least work: five products (S, dP, dV, dK, dQ) over the pairs the
-    # mask keeps; q, k, v, out, dout and lse read once, dq, dk, dv written
-    # once
-    pairs = s_ * (s_ + 1) // 2 if causal else s_ * sk_
-    flops = 5 * 2 * b_ * h_ * d_ * pairs
-    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-    b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+    # the least work (kernels/cost.py): five products (S, dP, dV, dK, dQ)
+    # over the pairs the mask keeps; q, k, v, out, dout and lse read once,
+    # dq, dk, dv written once
+    b_ms, b_by = kernel_bound(kcost.flash_attention_bwd(
+        b_, s_, h_, kv_, d_, sk=sk_, causal=causal), H100_BF16_FLOPS)
     dp = 64 if d_ <= 64 else 128
     stages = 3 if dp == 64 else 2
     del q, k, v, dout, o, lse, qt, kt, vt, so, sdo
@@ -631,8 +672,7 @@ def bwd_row(dev, name, shape, causal, launches, what, seed):
                 "reference's backward is the jnp custom VJP "
                 "_sdpa_flash_bwd, with no Pallas kernel",
         "launches": launches, "max_abs_err": max(errs), "ms": ms,
-        "device_ms": sum(by_launch.values()),
-        "device_ms_by_launch": by_launch, "plain_ms": plain_ms,
+        **device_ms_fields(by_launch), "plain_ms": plain_ms,
         "plain": "ref.flash_attention_bwd_ref (key chunks of 1024)",
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         "library": f"SDPA's backward (autograd of "
@@ -831,9 +871,8 @@ def main() -> None:
     from repro_torch.fl.transport.channel import Channel
     from repro_torch.fl.transport.codecs import get_codec
     from repro_torch.device import sm_count
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, cost as kcost, ops, ref
     from repro_torch.kernels.kmeans import plan_for_rows, plan_rows
-    from repro_torch.obs.device_time import kernel_device_ms
     from repro_torch.obs.timing import monotonic, sync
 
     dev = resolve_device("cuda")          # also turns TF32 off
@@ -1676,6 +1715,8 @@ def main() -> None:
     # child processes, joined before it returns)
     ranks, ranks_launches = run_ranks_phase(dev, model, clients, cfg)
     print(json.dumps({"ranks": ranks}))
+    # ---- 15. the cost model and the dry run against the card ---------
+    print(json.dumps({"cost": run_cost_phase(dev, model, clients, test)}))
 
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
@@ -1722,8 +1763,7 @@ def main() -> None:
 
     def quant_bound(valid_rows):
         # the valid rows in, the mask in, every code and the params out
-        return bound(4 * valid_rows * 16384 + 100 + 100 * 16384 + 8,
-                     7 * valid_rows * 16384)
+        return kernel_bound(kcost.quantize_affine(100, 16384, valid_rows))
 
     rows = []
     spec = [
@@ -1732,15 +1772,13 @@ def main() -> None:
          lambda: ops.kmeans_pairwise_dist(x, c_init),
          lambda: ref.kmeans_pairwise_dist_ref(x, c_init),
          lambda: torch.cdist(x, c_init),
-         bound(4 * (n * p_ + kk * p_ + n * kk),
-               2 * n * kk * p_ + 2 * (n + kk) * p_ + 3 * n * kk)),
+         kernel_bound(kcost.kmeans_pairwise_dist(n, p_, kk))),
         ("kmeans_lloyd_step", "src/repro_torch/kernels/csrc/kmeans.cu",
          "src/repro/kernels/kmeans.py:127",
          lambda: ops.kmeans_lloyd_step(x, c_all, lm),
          lambda: ref.kmeans_lloyd_ref(x, c_all, lm), None,
-         bound(4 * (n * p_ + ck * p_ + n * ck + 2 * n + ck * p_ + ck),
-               2 * n * ck * p_ + 2 * (n + ck) * p_ + 4 * n * ck
-               + w_rows * p_)),
+         kernel_bound(kcost.kmeans_lloyd_step(n, p_, ck,
+                                              admissible_rows=w_rows))),
         ("quantize_affine", "src/repro_torch/kernels/csrc/quantize.cu",
          "src/repro/kernels/quantize.py:81",
          lambda: ops.quantize_affine(qx, qm),
@@ -1749,8 +1787,8 @@ def main() -> None:
          "src/repro/kernels/quantize.py:81",
          lambda: ops.quantize_affine_batched(qcx, qcm),
          lambda: ref.quantize_affine_batched_ref(qcx, qcm), None,
-         bound(4 * (4 * 20 * 16384) + 4 * 100 + 4 * 100 * 16384 + 4 * 8,
-               7 * 4 * 20 * 16384)),
+         kernel_bound(kcost.quantize_affine_batched(4, 100, 16384,
+                                                    4 * 20))),
     ]
     # registers and spills per thread of the timed instantiations, from
     # the -Xptxas -v report of phase 1's build (``ptxas``)
@@ -1772,14 +1810,13 @@ def main() -> None:
         "l2": r"quantize_affine_cohort_kernelILb0E"}}
     for k_name, src, tpu, kern, plain, lib, (b_ms, b_by) in spec:
         ms = cuda_ms(kern)
-        by_launch = kernel_device_ms(kern, launch_names[k_name][1])
+        by_launch = device_ms_by_launch(kern, launch_names[k_name][1])
         plain_ms = cuda_ms(plain)
         lib_ms = cuda_ms(lib) if lib is not None else None
         row = {"name": k_name, "route": "cuda", "source": src,
                "replaces": tpu, "launches": counting[k_name],
                "max_abs_err": errs[k_name], "ms": ms,
-               "device_ms": sum(by_launch.values()),
-               "device_ms_by_launch": by_launch, "plain_ms": plain_ms,
+               **device_ms_fields(by_launch), "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                "ptxas": {nm: ptxas(launch_names[k_name][0], pattern)
                          for nm, pattern in ptxas_patterns.get(
@@ -1792,10 +1829,11 @@ def main() -> None:
             for valid_rows, qmv in qmasks.items():
                 def qcall(qmv=qmv):
                     return ops.quantize_affine(qx, qmv)
-                q_ms = kernel_device_ms(qcall, ("quantize_affine_kernel",))
+                q_ms = device_ms_by_launch(qcall,
+                                           ("quantize_affine_kernel",))
                 qb_ms, qb_by = quant_bound(valid_rows)
                 row["by_mask"][f"{valid_rows}_of_100_valid"] = {
-                    "device_ms": q_ms["quantize_affine_kernel"],
+                    "device_ms": q_ms and q_ms["quantize_affine_kernel"],
                     "ms": cuda_ms(qcall), "bound_ms": qb_ms,
                     "bound_by": qb_by, "plain_ms": cuda_ms(
                         lambda qmv=qmv: ref.quantize_affine_ref(qx, qmv))}
@@ -1833,7 +1871,10 @@ def main() -> None:
         main path's own profile (their launches summed, a launch each)."""
         per = {k: v for k, v in profile["attention_device_ms_a_launch"]
                .items() if family in k}
-        check(bool(per), f"the profile holds no {family} launch")
+        if not per:
+            print(f"device time not measured: the profile holds no "
+                  f"{family} launch", file=sys.stderr)
+            return device_ms_fields(None)
         return {"device_ms": sum(v["device_ms"] for v in per.values()),
                 "device_ms_by_launch": per}
 
@@ -1853,9 +1894,9 @@ def main() -> None:
         full_err = att_check("flash_attention", got, want, "bfloat16", what)
         rel = rel_check("flash_attention", got, want, 1, 1024, what)
         del got, want
-        a_bytes = 2 * (2 * qa.numel() + ka.numel() + va.numel())
         # causal: half of the 4 B S Sk H D of the full products
-        a_flops = (2 if causal else 4) * b_ * s_ * sk_ * h_ * d_
+        a_cost = kcost.flash_attention(b_, s_, h_, kv_, d_, sk=sk_,
+                                       causal=causal)
         row = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1878,7 +1919,7 @@ def main() -> None:
             "causal": causal,
             "max_abs_err_vs_plain_at_this_shape": full_err, **rel,
             **dict(zip(("bound_ms", "bound_by"),
-                       bound(a_bytes, a_flops, H100_BF16_FLOPS))),
+                       kernel_bound(a_cost, H100_BF16_FLOPS))),
             "library_ms": cuda_ms(lambda: sdpa(
                 qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
                 is_causal=causal, enable_gqa=True), 5, 1),
@@ -1899,9 +1940,7 @@ def main() -> None:
         dec_err = att_check("flash_decode", got, want, "bfloat16", what)
         rel = rel_check("flash_decode", got, want, 0, 1, what)
         del got, want
-        d_bytes = 2 * (2 * qd.numel() + kcd.numel() + vcd.numel()) \
-            + vmask.numel()
-        d_flops = 4 * b_ * h_ * s_ * d_
+        d_cost = kcost.flash_decode(b_, s_, h_, kv_, d_)
         row = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1921,7 +1960,7 @@ def main() -> None:
                 lambda: ref.flash_decode_ref(qd, kcd, vcd, vmask), 3, 1),
             "max_abs_err_vs_plain_at_this_shape": dec_err, **rel,
             **dict(zip(("bound_ms", "bound_by"),
-                       bound(d_bytes, d_flops, H100_BF16_FLOPS))),
+                       kernel_bound(d_cost, H100_BF16_FLOPS))),
             "library_ms": cuda_ms(lambda: sdpa(
                 qd.transpose(1, 2), kcd.transpose(1, 2), vcd.transpose(1, 2),
                 attn_mask=vmask[:, None, None, :], enable_gqa=True), 3, 1),
@@ -2640,7 +2679,6 @@ def run_training_phase(dev, rel_err):
     from repro_torch.kernels.flash_attention import bwd_route_for
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.obs.device_time import kernel_device_ms
     from repro_torch.obs.timing import monotonic
     from repro_torch.optim.optimizers import tree_leaves
 
@@ -2699,13 +2737,12 @@ def run_training_phase(dev, rel_err):
     route = bwd_route_for(q, k, v, o, dout)
     check(route == "cuda_core", f"f32 backward at the training shape: the "
                                 f"{route} route")
-    f32_by_launch = kernel_device_ms(
+    f32_by_launch = device_ms_by_launch(
         lambda: ops.flash_attention_bwd(q, k, v, o, dout, lse),
         BWD_KERNELS["cuda_core"], iters=5, warmup=1)
     del q, k, v, dout, o, lse
     torch.cuda.empty_cache()
-    row.update({"f32_cuda_core_device_ms": sum(f32_by_launch.values()),
-                "f32_cuda_core_device_ms_by_launch": f32_by_launch})
+    row.update(device_ms_fields(f32_by_launch, "f32_cuda_core_"))
 
     # ---- 9b: a reduced-width f32 step on the card and on the CPU ----
     # (4 layers: two scan stages, so remat runs. As many clusters as probe
@@ -3871,13 +3908,12 @@ def run_last_families_phase(dev, rel_err):
     peak_and_reset()
     # one self- and one cross-attention call at each mode's shape, each
     # profiled alone (the step's profiles mix them, on the same kernel
-    # instance): ``kernel_device_ms``, which profiles again
+    # instance): ``device_ms_by_launch``, which profiles again
     # when the profiler drops a lone launch's event (one did, in a run of
     # this phase), in the shape of ``device_profile``'s attention entry
-    from repro_torch.obs.device_time import kernel_device_ms
 
     def launch_profile(fn, names):
-        per = kernel_device_ms(fn, names, iters=20)
+        per = device_ms_by_launch(fn, names, iters=20) or {}
         return {"attention_device_ms_a_launch": {
             f"::{n}<": {"launches": 1, "device_ms": ms}
             for n, ms in per.items()}}
@@ -4653,6 +4689,250 @@ def run_ranks_phase(dev, model, clients, cfg):
     return out, launches14
 
 
+def _round_of(spans_by_id, span_id):
+    """The ``round`` attribute of the round span above ``span_id`` (None
+    outside any round)."""
+    while span_id is not None:
+        sp = spans_by_id[span_id]
+        if sp.name == "round":
+            return sp.attrs["round"]
+        span_id = sp.parent_id
+    return None
+
+
+def run_cost_phase(dev, model, clients, test):
+    """Phase 15, the cost model and the dry run against the card. 15a:
+    phase 4's FL round at full width (WRN-40-1 split after group 1, 2,500
+    rows a client) for 2 clients and 2 rounds, untraced and traced: the
+    same weights, ledger and launches; every ``kernel.*`` span carries
+    flops, bytes, the card's peaks and a utilization in (0, 1.05] of each;
+    each ``compile.<fn>`` counter equals its signature counters and its
+    ``compile`` events, the run's LocalUpdate capture is one, and no
+    compile event falls under a round >= 1.
+    15b: llama3.2-1b at full width on the card's mesh (1 x 1): the dry
+    run's count (``launch/dryrun.run_one``) of phase 6's prefill, phase
+    6's decode step and phase 9a's train cut at one cohort (the 1 x 1
+    mesh's data axis carries one), beside the step's measured wall in this
+    run: FLOPs / wall / bf16 peak and bytes / wall / HBM bandwidth, each
+    at most 1.05, and the count's attention launches equal to the step's;
+    then ``python -m repro_torch.launch.dryrun --smoke --all`` in its own
+    process, which must exit 0. Returns the phase's numbers."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import FLConfig, TrainConfig, get_config
+    from repro_torch.fl.simulation import FLSimulation
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import H100_HBM_BW, H100_PEAK_FLOPS_BF16
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.obs.timing import monotonic
+
+    out = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]}
+    t_phase = monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- 15a: a traced FL round with the profile on ----
+    cfg = FLConfig(num_clients=2, clients_per_round=2, transport_codec="int8")
+    runs = {}
+    for observability in (False, True):
+        sim = FLSimulation(model, clients[:2], test, dataclasses.replace(
+            cfg, observability=observability), seed=0)
+        ops.reset_launch_counts()
+        t0 = monotonic()
+        res = sim.run(rounds=2)
+        wall = monotonic() - t0
+        runs[observability] = (
+            {k: v.cpu().numpy().tobytes()
+             for k, v in sim.server.global_params.items()},
+            res.comm, ops.launch_counts(), sim.tracer, wall)
+        del sim
+    for i, what in enumerate(("weights", "ledger", "launches")):
+        check(runs[False][i] == runs[True][i],
+              f"15a: the traced run's {what} differ from the untraced run's")
+    launches = runs[True][2]
+    for k_name in ("kmeans_pairwise_dist", "kmeans_lloyd_step",
+                   "quantize_affine"):
+        check(launches[k_name] > 0, f"15a: {k_name} was never launched")
+    tr = runs[True][3]
+    by_id = {sp.span_id: sp for sp in tr.spans}
+    kspans = [sp for sp in tr.spans if sp.name.startswith("kernel.")]
+    check(len(kspans) == sum(launches.values()),
+          f"15a: {len(kspans)} kernel spans for launches {launches}")
+    util = {}
+    for sp in kspans:
+        a = sp.attrs
+        missing = [k for k in ("flops", "hbm_bytes", "peak_flops",
+                               "peak_hbm_bw", "utilization",
+                               "hbm_utilization") if k not in a]
+        check(not missing, f"15a: a {sp.name} span lacks {missing}")
+        for key in ("utilization", "hbm_utilization"):
+            check(0 < a[key] <= 1.05,
+                  f"15a: a {sp.name} span's {key} is {a[key]}: a count "
+                  f"beyond the card's peak is a wrong count")
+        u = util.setdefault(sp.name, {"spans": 0, "flops": 0.0,
+                                      "hbm_bytes": 0.0, "wall_s": 0.0,
+                                      "max_utilization": 0.0,
+                                      "max_hbm_utilization": 0.0,
+                                      "peak_flops": a["peak_flops"],
+                                      "peak_hbm_bw": a["peak_hbm_bw"]})
+        u["spans"] += 1
+        u["flops"] += a["flops"]
+        u["hbm_bytes"] += a["hbm_bytes"]
+        u["wall_s"] += sp.duration
+        u["max_utilization"] = max(u["max_utilization"], a["utilization"])
+        u["max_hbm_utilization"] = max(u["max_hbm_utilization"],
+                                       a["hbm_utilization"])
+    for u in util.values():
+        u["utilization"] = u["flops"] / u["wall_s"] / u["peak_flops"]
+        u["hbm_utilization"] = u["hbm_bytes"] / u["wall_s"] / u["peak_hbm_bw"]
+    compiles = [e for e in tr.events if e["name"] == "compile"]
+    late = [(e["attrs"]["fn"], _round_of(by_id, e["parent"]))
+            for e in compiles if (_round_of(by_id, e["parent"]) or 0) >= 1]
+    check(not late, f"15a: compile events under a round >= 1: {late}")
+    counters = tr.metrics.snapshot()["counters"]
+    by_fn = {}
+    for e in compiles:
+        by_fn[e["attrs"]["fn"]] = by_fn.get(e["attrs"]["fn"], 0) + 1
+    for fn, n in by_fn.items():
+        sigs = [k for k in counters if k.startswith(f"compile.{fn}.")]
+        check(counters.get(f"compile.{fn}") == n == len(sigs),
+              f"15a: compile.{fn} {counters.get(f'compile.{fn}')}, {n} "
+              f"events, {len(sigs)} signatures")
+    # a signature this process launched before under a tracer (phase 7's
+    # traced service) is no new compile, as the reference's sentinel
+    # counts a signature once a process; the run's own CUDA graph capture
+    # always is
+    check("local_update_stack" in by_fn,
+          "15a: the LocalUpdate's capture made no compile event")
+    selects = [sp for sp in tr.spans if sp.name == "select"
+               and "utilization" in sp.attrs]
+    local = [sp for sp in tr.spans if sp.name == "local_update"
+             and "utilization" in sp.attrs]
+    check(selects and local, "15a: the select and local_update spans "
+                             "carry no utilization")
+    out["15a"] = {
+        "clients": 2, "rounds": 2, "rows_a_client": 2500,
+        "wall_s_untraced": runs[False][4], "wall_s_traced": runs[True][4],
+        "bit_identical_to_untraced": True, "launches": launches,
+        "kernel_spans": util, "compiles_round_0": by_fn,
+        "compiles_after_round_0": 0,
+        "select_utilization": [sp.attrs["utilization"] for sp in selects],
+        "select_flops": [sp.attrs["flops"] for sp in selects],
+        "local_update_utilization": [sp.attrs["utilization"]
+                                     for sp in local],
+        "local_update_flops": [sp.attrs["flops"] for sp in local]}
+    del runs, tr
+    torch.cuda.empty_cache()
+
+    # ---- 15b: the dry run on the card's mesh against measured time ----
+    full = get_config("llama3.2-1b")
+    axes = {"data": 1, "model": 1}
+
+    def shares(tag, rec, wall, launched):
+        c = rec["cost"]
+        check(rec["status"] == "ok" and rec["per_device_rule"] == "exact",
+              f"15b {tag}: the dry run's record {rec.get('status')} "
+              f"{rec.get('error')}")
+        flops_share = c["flops"] / wall / H100_PEAK_FLOPS_BF16
+        bytes_share = c["bytes accessed"] / wall / H100_HBM_BW
+        for what, v in (("FLOPs", flops_share), ("bytes", bytes_share)):
+            check(0 < v <= 1.05, f"15b {tag}: counted {what} / wall / peak "
+                                 f"is {v}, beyond the card's peak")
+        for k_name in ("flash_attention", "flash_attention_bwd",
+                       "flash_decode"):
+            check(c["kernel_launches"].get(k_name, 0)
+                  == launched.get(k_name, 0),
+                  f"15b {tag}: the count has {k_name} "
+                  f"{c['kernel_launches'].get(k_name, 0)} times, the step "
+                  f"launched it {launched.get(k_name, 0)}")
+        return {"flops": c["flops"], "bytes": c["bytes accessed"],
+                "transcendentals": c["transcendentals"],
+                "kernel_flops": c["kernel_flops"],
+                "kernel_bytes": c["kernel_bytes"],
+                "kernel_launches": c["kernel_launches"],
+                "unknown_trip_counts": rec["collectives"][
+                    "unknown_trip_counts"],
+                "count_s": rec["t_compile_s"], "wall_s": wall,
+                "flops_share_of_bf16_peak": flops_share,
+                "bytes_share_of_hbm_bw": bytes_share,
+                "roofline": rec["roofline"], "launches": launched}
+
+    def timed(fn, iters):
+        fn()                                      # warm
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = monotonic()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (monotonic() - t0) / iters
+        return wall, {k: v // iters for k, v in ops.launch_counts().items()}
+
+    prefill, lm_full = make_prefill_step(full)
+    pbf = lm_full.init(torch.Generator(device=dev).manual_seed(0),
+                       dtype=torch.bfloat16)
+    ptoks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, full.vocab_size, (1, PREFILL_S), np.int32)).to(dev)
+    wall, launched = timed(lambda: prefill(pbf, {"tokens": ptoks}), 2)
+    out["15b_prefill"] = shares("prefill", dryrun.run_one(
+        full.name, "prefill_32k", axes=axes, verbose=False,
+        shape_override={"global_batch": 1, "seq_len": PREFILL_S}), wall,
+        launched)
+    decode_step, _ = make_decode_step(full)
+    dcache = lm_full.init_cache(SERVE_BATCH, SERVE_CACHE, device=dev)
+    dtoks = ptoks[0, :SERVE_BATCH].reshape(SERVE_BATCH, 1)
+    wall, launched = timed(lambda: decode_step(pbf, dcache, dtoks), 10)
+    out["15b_decode"] = shares("decode", dryrun.run_one(
+        full.name, "decode_32k", axes=axes, verbose=False,
+        shape_override={"global_batch": SERVE_BATCH,
+                        "seq_len": SERVE_CACHE}), wall, launched)
+    del pbf, dcache, ptoks
+    torch.cuda.empty_cache()
+    tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
+                       meta_clusters=TRAIN_META_CLUSTERS,
+                       meta_steps=TRAIN_META_STEPS)
+    step, lm_t = make_train_step(full, tcfg)
+    state = tree_map(lambda x: x[None], lm_t.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(2).integers(
+        0, full.vocab_size, (1, TRAIN_LOCAL, 1, TRAIN_MB, TRAIN_T),
+        np.int32)).to(dev)}
+    wall, launched = timed(
+        lambda: float(step(state, (), batch, [0])[2]["loss"]), 1)
+    out["15b_train"] = shares("train", dryrun.run_one(
+        full.name, "train_4k", axes=axes, tcfg=tcfg, verbose=False,
+        shape_override={"global_batch": TRAIN_MB, "seq_len": TRAIN_T}),
+        wall, launched)
+    out["15b_train"]["cohorts"] = 1
+    del state, batch, step
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+
+    # the smoke dry run over every pair, in its own process
+    t0 = monotonic()
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--smoke",
+         "--all", "--out", os.path.join(ROOT, "build", "dryrun_smoke")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    check(proc.returncode == 0, f"15b: the smoke dry run exited "
+                                f"{proc.returncode}: {tail[0]} "
+                                f"{proc.stderr[-2000:]}")
+    out["15b_dryrun_smoke"] = {"exit": proc.returncode, "summary": tail[0],
+                               "wall_s": monotonic() - t0}
+    out["wall_s"] = monotonic() - t_phase
+    return out
+
+
 def phase14_alone() -> None:
     """``python3 chip_smoke.py --phase 14``: build the kernels, then phase
     14 alone on phase 4's model, clients and configuration; prints its
@@ -4682,10 +4962,38 @@ def phase14_alone() -> None:
                          text=True, check=True).stdout.strip())
 
 
+def phase15_alone() -> None:
+    """``python3 chip_smoke.py --phase 15``: phase 1's build, then phase
+    15 alone, on phase 4's data (a quick check of the cost model and the
+    dry run)."""
+    import torch
+    from repro_torch.configs import get_wrn_config
+    from repro_torch.core.split import make_split_wrn
+    from repro_torch.data import SyntheticImageDataset, partition_k_shards
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.obs.timing import monotonic
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    dev = resolve_device("cuda")
+    t0 = monotonic()
+    build.load_all()
+    print(f"build_s: {monotonic() - t0:.3f}")
+    wcfg = get_wrn_config()
+    train = SyntheticImageDataset(50_000, image_size=wcfg.image_size, seed=0)
+    test = SyntheticImageDataset(2_000, image_size=wcfg.image_size, seed=1)
+    clients = partition_k_shards(train, num_clients=4, k_classes=2,
+                                 samples_per_client=2_500)
+    print(json.dumps({"cost": run_cost_phase(dev, make_split_wrn(wcfg),
+                                             clients, test)}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ranks-child"]:
         ranks_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     elif sys.argv[1:] == ["--phase", "14"]:
         phase14_alone()
+    elif sys.argv[1:] == ["--phase", "15"]:
+        phase15_alone()
     else:
         main()

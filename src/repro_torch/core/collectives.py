@@ -11,6 +11,12 @@ card NCCL gives world size 1 and two processes there run on gloo.
 The gather moves bytes (every leaf viewed as uint8 on the wire), so any
 dtype arrives bit for bit; the sum is the backend's, the same bits on
 every rank.
+
+While a count is open (the dry run's, ``launch/flop_analysis.py``) each
+leaf's collective is charged to it by kind and output bytes; on ``meta``
+leaves nothing is sent (the gather returns empty meta tensors of its
+output's shape), so a step's collectives are counted without a process
+group.
 """
 from __future__ import annotations
 
@@ -67,16 +73,31 @@ def _gather_bytes(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
     return out.view(x.dtype).reshape((ranks.size,) + tuple(x.shape))
 
 
+def _charge(kind: str, x: torch.Tensor) -> None:
+    from repro_torch.launch import flop_analysis
+    flop_analysis.charge_collective(kind, x.numel() * x.element_size())
+
+
 def all_gather_tree(tree: PyTree, ranks: Ranks) -> PyTree:
     """Every leaf gathered from every rank: a new leading axis of
     ``ranks.size``, in rank order (every rank's leaf of the same shape and
     dtype), bit for bit."""
-    return tree_map(lambda x: _gather_bytes(x, ranks), tree)
+    def one(x: torch.Tensor) -> torch.Tensor:
+        if x.is_meta:
+            out = torch.empty((ranks.size,) + tuple(x.shape), dtype=x.dtype,
+                              device="meta")
+            _charge("all-gather", out)
+            return out
+        return _gather_bytes(x, ranks)
+    return tree_map(one, tree)
 
 
 def all_reduce_sum_tree(tree: PyTree, ranks: Ranks) -> PyTree:
     """Every leaf summed over the ranks, in place; returns ``tree``."""
     def one(x: torch.Tensor):
+        if x.is_meta:
+            _charge("all-reduce", x)
+            return x
         if stages_on_host(ranks.group) and x.device.type != "cpu":
             host = x.detach().cpu()
             dist.all_reduce(host, group=ranks.group)

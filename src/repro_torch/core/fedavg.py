@@ -15,6 +15,12 @@ compiled ``lax.scan`` per client. Both run the same ops on the same
 inputs; only the host's part differs. The graphs belong to their caller:
 a ``CapturedSteps`` holds them for one owner (an FL run, a round) and
 frees them, with their memory, when the owner releases it.
+
+Under a tracer a capture is the LocalUpdate's compile: ``CapturedSteps``
+reports each new capture to the recompile sentinel as
+``compile.local_update_stack`` (the reference's profiled name), and each
+replayed LocalUpdate adds its FLOPs and bytes (one SGD step counted on
+meta tensors, times the steps) to the open span.
 """
 from __future__ import annotations
 
@@ -22,6 +28,9 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.obs.profile import (CostRecord, charge_span,
+                                     compile_sentinel)
+from repro_torch.obs.tracer import get_tracer
 from repro_torch.optim.optimizers import (Optimizer, sgd_step, tree_leaves,
                                           tree_map, value_and_grad)
 
@@ -205,6 +214,8 @@ class CapturedStep:
                  y: torch.Tensor, order: torch.Tensor, loss_fn: LossFn):
         dev = x.device
         self.steps = order.shape[0]
+        self.loss_fn, self.lr = loss_fn, lr
+        self._cost = None
         self.params = {k: v.detach().clone() for k, v in params.items()}
         self.x, self.y = x.detach().clone(), y.detach().clone()
         self.order = order.to(dev, torch.int64).clone()
@@ -248,8 +259,29 @@ class CapturedStep:
             self.step.zero_()
         for _ in range(self.steps):
             self.graph.replay()
+        if get_tracer().enabled:
+            charge_span(self.cost(), (self.x,))
         return ({k: v.clone() for k, v in self.params.items()},
                 self.losses.clone())
+
+    def cost(self):
+        """The LocalUpdate's ``obs.profile.CostRecord``: one SGD step
+        counted on meta tensors (``launch/flop_analysis.count``), times
+        the steps; counted once, None where the count fails (it is
+        telemetry)."""
+        if self._cost is None:
+            from repro_torch.launch import flop_analysis
+            try:
+                sc, _ = flop_analysis.count(
+                    _sgd_step, self.loss_fn, self.lr, self.params, self.x,
+                    self.y, self.order, self.step, self.losses)
+                self._cost = CostRecord(
+                    flops=sc.flops * self.steps,
+                    hbm_bytes=sc.bytes * self.steps,
+                    transcendentals=sc.transcendentals * self.steps)
+            except Exception:
+                self._cost = False
+        return self._cost or None
 
 
 class CapturedSteps:
@@ -272,6 +304,10 @@ class CapturedSteps:
                tuple((k, tuple(v.shape), v.dtype) for k, v in params.items()))
         if key not in self._steps:
             self._steps[key] = CapturedStep(params, lr, x, y, order, loss_fn)
+            # the sentinel: a capture is this LocalUpdate's compile
+            compile_sentinel("local_update_stack",
+                             f"{getattr(loss_fn, '__qualname__', '')}|"
+                             f"{key[1:]}", len(self._steps))
         return self._steps[key]
 
     def __len__(self) -> int:

@@ -31,6 +31,16 @@ PCA's Gaussian test matrix, or a ``(d, l, device)`` callable that makes
 it once the sketch width l is known (default: the port's own fixed draw,
 ``default_test_matrix``; the reference's is fixed too, from
 ``PRNGKey(0x9CA)``).
+
+``select_metadata``, ``select_metadata_batched``,
+``select_metadata_reference`` and ``kmeans`` are ``obs.profile.profiled``
+entries, as the reference's are ``profiled_jit`` ones: under a tracer each
+new signature counts as a compile and the call's count of FLOPs and bytes
+goes on the open span. On ``meta`` tensors (the dry run's count,
+``launch/flop_analysis.py``) nothing can be read from the data: the first
+centres are taken as row 0 and the Lloyd loop runs one sweep and marks
+the count a lower bound, as the reference's cost model counts a dynamic
+``while`` once.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import BIG
+from repro_torch.obs.profile import profiled
 
 
 OMEGA_SEED = 0x9CA        # the seed of the port's fixed test matrix
@@ -232,8 +243,27 @@ def kmeans_init(x: torch.Tensor, k: int, first: int,
         d = ops.kmeans_pairwise_dist(x, c)           # (N, k)
         d = torch.where((cols < i)[None, :], d, BIG)
         dmin = torch.where(valid, torch.amin(d, dim=1), -BIG)
-        c[i] = x[torch.argmax(dmin)]
+        if x.is_meta:          # a meta index cannot be read on the host
+            c[i] = x.index_select(0, torch.argmax(dmin)[None])[0]
+        else:
+            c[i] = x[torch.argmax(dmin)]
     return c
+
+
+def _first_row(first) -> int:
+    """A first-centre row (an int or a 0-d tensor); on a meta tensor,
+    whose value cannot be read, row 0."""
+    if isinstance(first, torch.Tensor) and first.is_meta:
+        return 0
+    return int(first)
+
+
+def _first_rows(first, n: int) -> List[int]:
+    """The ``n`` first-centre rows of ``first`` (a tensor or a sequence);
+    on a meta tensor, row 0 each."""
+    if isinstance(first, torch.Tensor) and first.is_meta:
+        return [0] * n
+    return [int(f) for f in first.tolist()]
 
 
 def lloyd_iterate(x: torch.Tensor, c0: torch.Tensor, lmask: torch.Tensor,
@@ -250,13 +280,20 @@ def lloyd_iterate(x: torch.Tensor, c0: torch.Tensor, lmask: torch.Tensor,
         newc = sums / torch.clamp(counts, min=1.0)[:, None]
         # empty clusters keep their centre (classic Lloyd behaviour)
         newc = torch.where(counts[:, None] > 0, newc, c)
-        done = bool(torch.equal(newc, c))
+        if x.is_meta:
+            # the fixed point is in the data: count one sweep, flagged
+            from repro_torch.launch.flop_analysis import note_unknown_trip
+            note_unknown_trip()
+            done = True
+        else:
+            done = bool(torch.equal(newc, c))
         c, i = newc, i + 1
     if not done:
         stats = ops.kmeans_lloyd_step(x, c, lmask)
     return c, stats, i
 
 
+@profiled(static_argnames=("k", "iters"))
 def kmeans(x: torch.Tensor, k: int, first: int, iters: int = 25,
            mask: Optional[torch.Tensor] = None) -> KMeansState:
     """K-means of the (N, P) rows of ``x`` (the ``mask`` rows, default
@@ -267,7 +304,7 @@ def kmeans(x: torch.Tensor, k: int, first: int, iters: int = 25,
              if mask is None else mask.to(torch.bool))
     lmask = torch.where(valid, 0.0, BIG).to(x.dtype)[:, None].expand(
         n, k).contiguous()
-    c0 = kmeans_init(x, k, first, valid)
+    c0 = kmeans_init(x, k, _first_row(first), valid)
     c, (assign, own, _, sizes), sweeps = lloyd_iterate(x, c0, lmask, iters)
     return KMeansState(c, assign, own, sizes, sweeps)
 
@@ -292,6 +329,11 @@ def representatives(x: torch.Tensor, km: KMeansState,
                        torch.argmin(dsame, dim=0))
 
 
+_SELECT_STATICS = ("num_classes", "clusters_per_class", "pca_components",
+                   "kmeans_iters", "per_class", "pca_solver")
+
+
+@profiled(static_argnames=_SELECT_STATICS)
 def select_metadata(acts: torch.Tensor, labels: Optional[torch.Tensor],
                     first, *, num_classes: int = 10,
                     clusters_per_class: int = 10, pca_components: int = 200,
@@ -307,14 +349,15 @@ def select_metadata(acts: torch.Tensor, labels: Optional[torch.Tensor],
 ``Omega``)."""
     feats = fit_features(acts, pca_components, pca_solver, omega)
     if not per_class or labels is None:
-        km = kmeans(feats, clusters_per_class, int(first), kmeans_iters)
+        km = kmeans(feats, clusters_per_class, _first_row(first),
+                    kmeans_iters)
         idx = representatives(feats, km)
         return Selection(idx, km.cluster_sizes > 0, feats, km.iters)
 
     kk = clusters_per_class
     ck = num_classes * kk
     labels = labels.to(feats.device)
-    first = [int(f) for f in first.tolist()]
+    first = _first_rows(first, num_classes)
     c0 = torch.cat([kmeans_init(feats, kk, first[c], labels == c)
                     for c in range(num_classes)])           # (CK, P)
 
@@ -337,6 +380,7 @@ def select_metadata(acts: torch.Tensor, labels: Optional[torch.Tensor],
     return Selection(idx, sizes > 0, feats, sweeps)
 
 
+@profiled(static_argnames=_SELECT_STATICS)
 def select_metadata_batched(acts: torch.Tensor,
                             labels: Optional[torch.Tensor],
                             first: torch.Tensor, **knobs) -> Selection:
@@ -381,6 +425,7 @@ def _seed_kmeans(x: torch.Tensor, k: int, first: int, iters: int,
     return KMeansState(c, assign, own, sizes, iters)
 
 
+@profiled(static_argnames=_SELECT_STATICS[:-1])
 def select_metadata_reference(acts: torch.Tensor,
                               labels: Optional[torch.Tensor], first, *,
                               num_classes: int = 10,
@@ -397,13 +442,14 @@ def select_metadata_reference(acts: torch.Tensor,
     p = feature_count(n, flat.shape[1], pca_components)
     feats = pca_transform(pca_fit(flat, p), flat).contiguous()
     if not per_class or labels is None:
-        km = _seed_kmeans(feats, clusters_per_class, int(first),
+        km = _seed_kmeans(feats, clusters_per_class,
+                          _first_row(first),
                           kmeans_iters, torch.ones(
                               (n,), dtype=torch.bool, device=feats.device))
         return Selection(representatives(feats, km), km.cluster_sizes > 0,
                          feats, kmeans_iters)
     labels = labels.to(feats.device)
-    first = [int(f) for f in first.tolist()]
+    first = _first_rows(first, num_classes)
     idxs, valids = [], []
     for c in range(num_classes):
         m = labels == c

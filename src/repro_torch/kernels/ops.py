@@ -21,7 +21,16 @@ encoder and cross-attention apart.
 Each launch runs inside an ``obs.timed_block("kernel.<wrapper name>")``
 that syncs the kernel's output when a tracer is active (a no-op
 otherwise), so a trace holds one ``kernel.*`` span a launch. The plain
-versions on the CPU open none.
+versions on the CPU open none. The launch itself goes through a
+``obs.profile.profiled`` entry (the reference's ``profiled_jit`` entries):
+under a tracer it counts each new launch signature as a compile and
+attaches the launch's FLOPs and bytes (``kernels/cost.py``) to the span,
+which turns them into a utilization of the card's peaks.
+
+A ``meta`` tensor (the dry run's count, ``launch/flop_analysis.py``)
+launches nothing and runs no plain version: the wrapper checks it as it
+would a CUDA tensor, charges its kernel's ``kernels/cost.py`` count to the
+open count and returns empty meta outputs of the kernel's shapes.
 """
 from __future__ import annotations
 
@@ -30,17 +39,112 @@ from typing import Dict
 import torch
 
 from repro_torch import obs
-from repro_torch.kernels import ref
+from repro_torch.kernels import cost, ref
 from repro_torch.kernels.flash_attention import ROUTES
+from repro_torch.obs.profile import profiled
 
 
 def _on_card(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one, else raise."""
-    if t.device.type == "cuda":
+    """True for a CUDA or a meta tensor (the kernel's route: a launch, or
+    the dry run's charge), False for a CPU one, else raise."""
+    if t.device.type in ("cuda", "meta"):
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{what}: no engine for device {t.device}")
+
+
+def _charge(name: str, kc: cost.KernelCost) -> None:
+    """A meta call of wrapper ``name``: its launch's count, charged to the
+    open count (the dry run's), in place of a launch."""
+    from repro_torch.launch import flop_analysis
+    flop_analysis.charge_kernel(name, kc)
+
+
+# the launches, as profiled entries (module-level, so the signature sets
+# live across rounds: the sentinel counts every *new* launch signature);
+# each imports its launcher when first called
+def _launch_pdist(x, c, out):
+    from repro_torch.kernels.kmeans import launch_pairwise_dist
+    return launch_pairwise_dist(x, c, out)
+
+
+def _launch_lloyd(x, c, lmask, assign, mindist, member, sums, counts):
+    from repro_torch.kernels.kmeans import launch_lloyd
+    return launch_lloyd(x, c, lmask, assign, mindist, member, sums, counts)
+
+
+def _launch_quant(x, rowmask, q, scratch, plan):
+    from repro_torch.kernels.quantize import launch_quantize_affine
+    return launch_quantize_affine(x, rowmask, q, scratch, plan)
+
+
+def _launch_quant_cohort(x, rowmask, q, scratch, plan):
+    from repro_torch.kernels.quantize import launch_quantize_affine_cohort
+    return launch_quantize_affine_cohort(x, rowmask, q, scratch, plan)
+
+
+def _launch_flash(q, k, v, out, causal, window, route, lse):
+    from repro_torch.kernels.flash_attention import launch_flash_attention
+    return launch_flash_attention(q, k, v, out, causal, window, route, lse)
+
+
+def _launch_flash_bwd(q, k, v, out, dout, lse, dd, dq, dk, dv, causal,
+                      window, route):
+    from repro_torch.kernels.flash_attention import \
+        launch_flash_attention_bwd
+    return launch_flash_attention_bwd(q, k, v, out, dout, lse, dd, dq, dk,
+                                      dv, causal, window, route)
+
+
+def _launch_decode(q, k_cache, v_cache, valid, out):
+    from repro_torch.kernels.decode_attention import launch_flash_decode
+    return launch_flash_decode(q, k_cache, v_cache, valid, out)
+
+
+def _attention_cost(q, k, v, out, causal, window, route, lse):
+    b, s, h, d = q.shape
+    return cost.flash_attention(b, s, h, k.shape[2], d, sk=k.shape[1],
+                                dtype=q.dtype, causal=causal, window=window,
+                                return_stats=lse is not None)
+
+
+def _attention_bwd_cost(q, k, v, out, dout, lse, dd, dq, dk, dv, causal,
+                        window, route):
+    b, s, h, d = q.shape
+    return cost.flash_attention_bwd(b, s, h, k.shape[2], d, sk=k.shape[1],
+                                    dtype=q.dtype, causal=causal,
+                                    window=window)
+
+
+def _decode_cost(q, k_cache, v_cache, valid, out):
+    b, _, h, d = q.shape
+    return cost.flash_decode(b, k_cache.shape[1], h, k_cache.shape[2], d,
+                             dtype=q.dtype, cache_dtype=k_cache.dtype)
+
+
+_pdist = profiled(_launch_pdist, name="kmeans_pairwise_dist_kernel",
+                  cost=lambda x, c, out: cost.kmeans_pairwise_dist(
+                      x.shape[0], x.shape[1], c.shape[0]))
+_lloyd = profiled(_launch_lloyd, name="kmeans_lloyd_kernel",
+                  cost=lambda x, c, *_: cost.kmeans_lloyd_step(
+                      x.shape[0], x.shape[1], c.shape[0]))
+_quant = profiled(_launch_quant, name="quantize_affine_kernel",
+                  static_argnames=("plan",),
+                  cost=lambda x, *_: cost.quantize_affine(*x.shape))
+_quant_cohort = profiled(_launch_quant_cohort,
+                         name="quantize_affine_cohort_kernel",
+                         static_argnames=("plan",),
+                         cost=lambda x, *_: cost.quantize_affine_batched(
+                             *x.shape))
+_flash = profiled(_launch_flash, name="flash_attention_kernel",
+                  static_argnames=("causal", "window", "route"),
+                  cost=_attention_cost)
+_flash_bwd = profiled(_launch_flash_bwd, name="flash_attention_bwd_kernel",
+                      static_argnames=("causal", "window", "route"),
+                      cost=_attention_bwd_cost)
+_decode = profiled(_launch_decode, name="flash_decode_kernel",
+                   cost=_decode_cost)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -72,10 +176,12 @@ def kmeans_pairwise_dist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, k), dtype=torch.float32, device=x.device)
     if n == 0:                          # nothing to launch
         return out
-    from repro_torch.kernels.kmeans import launch_pairwise_dist
+    if x.is_meta:
+        _charge("kmeans_pairwise_dist", cost.kmeans_pairwise_dist(n, d, k))
+        return out
     with obs.timed_block("kernel.kmeans_pairwise_dist", n=n, d=d,
                          k=k) as sp:
-        kmeans_pairwise_dist.last_plan = launch_pairwise_dist(x, c, out)
+        kmeans_pairwise_dist.last_plan = _pdist(x, c, out)
         sp.sync(out)
     kmeans_pairwise_dist.launches += 1
     return out
@@ -97,15 +203,17 @@ def kmeans_lloyd_step(x: torch.Tensor, c: torch.Tensor, lmask: torch.Tensor):
         raise ValueError(f"lmask must be {(n, k)}, got {tuple(lmask.shape)}")
     if not _on_card(x, "kmeans_lloyd_step"):
         return ref.kmeans_lloyd_ref(x, c, lmask)
-    from repro_torch.kernels.kmeans import launch_lloyd
     dev = x.device
     assign = torch.empty((n,), dtype=torch.int32, device=dev)
     mindist = torch.empty((n,), dtype=torch.float32, device=dev)
     member = torch.empty((n,), dtype=torch.int32, device=dev)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
+    if x.is_meta:
+        _charge("kmeans_lloyd_step", cost.kmeans_lloyd_step(n, d, k))
+        return assign, mindist, sums, counts
     with obs.timed_block("kernel.kmeans_lloyd_step", n=n, d=d, k=k) as sp:
-        kmeans_lloyd_step.last_plan = launch_lloyd(
+        kmeans_lloyd_step.last_plan = _lloyd(
             x, c, lmask, assign, mindist, member, sums, counts)
         sp.sync(counts)
     kmeans_lloyd_step.launches += 1
@@ -123,14 +231,19 @@ def quantize_affine(x: torch.Tensor, rowmask: torch.Tensor):
         raise ValueError(f"rowmask has {rowmask.shape[0]} rows, x has {n}")
     if not _on_card(x, "quantize_affine"):
         return ref.quantize_affine_ref(x, rowmask)
-    from repro_torch.kernels.quantize import launch_quantize_affine, plan_for
+    if x.is_meta:
+        _charge("quantize_affine", cost.quantize_affine(n, d))
+        params = torch.empty((2,), dtype=torch.float32, device="meta")
+        return (torch.empty((n, d), dtype=torch.int8, device="meta"),
+                params[0], params[1])
+    from repro_torch.kernels.quantize import plan_for
     plan = plan_for(x)
     q = torch.empty((n, d), dtype=torch.int8, device=x.device)
     # (xmin, scale), then each block's (min, max) partial
     scratch = torch.empty((2 + 2 * plan.grid,), dtype=torch.float32,
                           device=x.device)
     with obs.timed_block("kernel.quantize_affine", n=n, d=d) as sp:
-        launch_quantize_affine(x, rowmask, q, scratch, plan)
+        _quant(x, rowmask, q, scratch, plan)
         sp.sync(scratch)
     quantize_affine.last_plan = plan
     quantize_affine.launches += 1
@@ -155,15 +268,19 @@ def quantize_affine_batched(x: torch.Tensor, rowmask: torch.Tensor):
     if b == 0:                          # nothing to launch
         empty = torch.empty(0, device=x.device)
         return q, empty, empty
-    from repro_torch.kernels.quantize import (launch_quantize_affine_cohort,
-                                              plan_for_cohort)
+    if x.is_meta:
+        _charge("quantize_affine_batched",
+                cost.quantize_affine_batched(b, n, d))
+        params = torch.empty((b, 2), dtype=torch.float32, device="meta")
+        return q, params[:, 0], params[:, 1]
+    from repro_torch.kernels.quantize import plan_for_cohort
     plan = plan_for_cohort(x)
     # each client's (xmin, scale), then each virtual block's partial
     scratch = torch.empty((2 * b + 2 * b * plan.per_client,),
                           dtype=torch.float32, device=x.device)
     with obs.timed_block("kernel.quantize_affine_batched", b=b, n=n,
                          d=d) as sp:
-        launch_quantize_affine_cohort(x, rowmask, q, scratch, plan)
+        _quant_cohort(x, rowmask, q, scratch, plan)
         sp.sync(scratch)
     quantize_affine_batched.last_plan = plan
     quantize_affine_batched.launches += 1
@@ -245,15 +362,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # (imported here: models.layers imports this module)
         from repro_torch.models.layers import FlashAttention
         return FlashAttention.apply(q, k, v, causal, int(window), 1024)
-    from repro_torch.kernels.flash_attention import (launch_flash_attention,
-                                                     route_for)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_stats else None)
+    if q.is_meta:
+        _charge("flash_attention", cost.flash_attention(
+            b, s, h, kv, d, sk=sk, dtype=q.dtype, causal=causal,
+            window=int(window), return_stats=return_stats))
+        return (out, lse) if return_stats else out
+    from repro_torch.kernels.flash_attention import route_for
     route = route_for(q, k, v)
     with obs.timed_block("kernel.flash_attention", b=b, s=s, sk=sk, h=h,
                          d=d) as sp:
-        launch_flash_attention(q, k, v, out, causal, int(window), route, lse)
+        _flash(q, k, v, out, causal, int(window), route, lse)
         sp.sync(out)
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
@@ -301,15 +422,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                            causal=causal, window=window)
     if b * kv > 65535:
         raise ValueError(f"flash_attention_bwd: B*KV = {b * kv} > 65535")
-    from repro_torch.kernels.flash_attention import (
-        bwd_route_for, launch_flash_attention_bwd)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.is_meta:
+        _charge("flash_attention_bwd", cost.flash_attention_bwd(
+            b, s, h, kv, d, sk=sk, dtype=q.dtype, causal=causal,
+            window=int(window)))
+        return dq, dk, dv
+    from repro_torch.kernels.flash_attention import bwd_route_for
     dd = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     route = bwd_route_for(q, k, v, out, dout)
     with obs.timed_block("kernel.flash_attention_bwd", b=b, s=s, sk=sk,
                          h=h, d=d) as sp:
-        launch_flash_attention_bwd(q, k, v, out, dout, lse, dd, dq, dk, dv,
-                                   causal, int(window), route)
+        _flash_bwd(q, k, v, out, dout, lse, dd, dq, dk, dv, causal,
+                   int(window), route)
         sp.sync(dq)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_route[route] += 1
@@ -340,15 +465,17 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if not _on_card(q, "flash_decode"):
         return ref.flash_decode_ref(q, k_cache, v_cache, valid)
     _no_grad("flash_decode", q, k_cache, v_cache)
-    from repro_torch.kernels.decode_attention import (MAX_G,
-                                                      launch_flash_decode)
+    from repro_torch.kernels.decode_attention import MAX_G
     if h // kv > MAX_G:
         raise ValueError(f"flash_decode: {h // kv} query heads per kv head "
                          f"exceed the kernel's {MAX_G}")
     out = torch.empty_like(q)
+    if q.is_meta:
+        _charge("flash_decode", cost.flash_decode(
+            b, s, h, kv, d, dtype=q.dtype, cache_dtype=k_cache.dtype))
+        return out
     with obs.timed_block("kernel.flash_decode", b=b, s=s, h=h, d=d) as sp:
-        flash_decode.last_splits = launch_flash_decode(q, k_cache, v_cache,
-                                                       valid, out)
+        flash_decode.last_splits = _decode(q, k_cache, v_cache, valid, out)
         sp.sync(out)
     flash_decode.launches += 1
     _count_lengths(flash_decode, 1, s)

@@ -32,7 +32,7 @@ master weights, whose gradients come back f32 through the casts.
 """
 from __future__ import annotations
 
-from typing import Any, Sequence, Union
+from typing import Any, Optional, Sequence, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -58,6 +58,8 @@ def _dtype(tcfg: TrainConfig) -> torch.dtype:
 def _first_centre(first: FirstCentres, g: int, rows: int) -> int:
     if isinstance(first, torch.Generator):
         return int(torch.randint(rows, (1,), generator=first))
+    if isinstance(first, torch.Tensor) and first.is_meta:
+        return 0            # the dry run's count: no value to read
     return int(first[g])
 
 
@@ -103,7 +105,7 @@ def fed_ranks(cfg: ModelConfig, mesh) -> Ranks:
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
-                    observe=None):
+                    observe=None, ranks: Optional[Ranks] = None):
     """-> (train_step, lm). ``train_step(client_params, opt_state, batch,
     first) -> (new_client_params, opt_state, metrics)``:
 
@@ -133,8 +135,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     is done, before the running sum takes it; ("selection", the cohort's
     ``selection.Selection``) with ``split_fl``; ("cohorts_done", None)
     once every cohort is in the sum (the sums all-reduced), before the
-    mean; ("average", the FedAvg mean W_G) before the meta steps."""
-    ranks = fed_ranks(cfg, mesh) if mesh is not None else None
+    mean; ("average", the FedAvg mean W_G) before the meta steps.
+
+    ``ranks``, where no ``mesh`` is given, are the fed ranks themselves:
+    the dry run (``launch/dryrun.py``) counts one rank's share of the step
+    on meta tensors through a ``Ranks`` with no process group, whose
+    collectives are charged, not sent."""
+    if mesh is not None:
+        ranks = fed_ranks(cfg, mesh)
     observe = observe or (lambda event, value: None)
     opt = sgd(tcfg.lr, momentum=tcfg.momentum,
               weight_decay=tcfg.weight_decay)

@@ -192,6 +192,13 @@ def sdpa_full(q, k, v, *, causal: bool, window: int):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def _on_kernels(t: torch.Tensor) -> bool:
+    """Whether attention on ``t`` takes the kernel wrappers' route: a CUDA
+    tensor launches the kernels, a meta one (the dry run's count) charges
+    their cost there; a CPU tensor runs the plain versions below."""
+    return t.is_cuda or t.is_meta
+
+
 def sdpa_chunked(q, k, v, *, causal: bool, window: int, chunk: int = 1024):
     """Online-softmax attention over KV chunks; under autograd the
     recompute VJP of ``FlashAttention`` (the reference's ``_sdpa_flash``)."""
@@ -218,7 +225,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk):
-        if q.is_cuda:
+        if _on_kernels(q):
             out, lse = ops.flash_attention(q, k, v, causal=causal,
                                            window=window, return_stats=True)
             ctx.save_for_backward(q, k, v, out, lse)
@@ -233,7 +240,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         dout = dout.contiguous()
-        if dout.is_cuda:
+        if _on_kernels(dout):
             q, k, v, out, lse = ctx.saved_tensors
             dq, dk, dv = ops.flash_attention_bwd(
                 q, k, v, out, dout, lse, causal=ctx.causal,
@@ -296,7 +303,7 @@ def _prefill_core(q, k, v, *, causal: bool, window: int, chunked: bool):
     tensor runs the hand-written kernel (and its backward) at any s, with
     no fallback; a CPU tensor the reference's choice, chunked past 2048
     tokens."""
-    if q.is_cuda:
+    if _on_kernels(q):
         return ops.flash_attention(q, k, v, causal=causal, window=window)
     if chunked and q.shape[1] > 2048:
         return sdpa_chunked(q, k, v, causal=causal, window=window)
@@ -309,7 +316,7 @@ def sdpa_decode(q, k_cache, v_cache, valid):
     caches are read as q's dtype. A CUDA tensor runs the flash-decode
     kernel (which converts the cache in registers); a CPU tensor runs the
     plain version below."""
-    if q.is_cuda:
+    if _on_kernels(q):
         return ops.flash_decode(q, k_cache, v_cache, valid)
     h, kv = q.shape[2], k_cache.shape[2]
     k = _repeat_kv(k_cache.to(q.dtype), h // kv)
@@ -424,7 +431,7 @@ def _cross_core(q, k, v):
     S (under autograd through ``FlashAttention``, whose backward is the
     backward kernels at Se); a CPU tensor runs ``sdpa_full`` under plain
     autograd, as the reference."""
-    if q.is_cuda:
+    if _on_kernels(q):
         if q.shape[1] == 1:
             valid = torch.ones(k.shape[:2], dtype=torch.bool,
                                device=q.device)

@@ -1,7 +1,8 @@
 """repro_torch.obs — observability of the port: span tracing, a metrics
-registry with a byte-true CommLedger bridge, and timed blocks around the
-CUDA kernels and round phases (the counterpart of ``repro.obs``), beside
-the clock (``obs.timing``) and a kernel's device time by name
+registry with a byte-true CommLedger bridge, timed blocks around the CUDA
+kernels and round phases, and the cost model that turns their FLOPs and
+bytes into a utilization of the card (the counterpart of ``repro.obs``),
+beside the clock (``obs.timing``) and a kernel's device time by name
 (``obs.device_time``).
 
 One knob: ``FLConfig.observability`` (default off). Off, every hook in the
@@ -36,9 +37,15 @@ and a fingerprinted line of ``experiments/bench_history.jsonl``), and
 ``python -m repro_torch.obs regress`` gates them against that history;
 ``obs.timing.timeit`` times calls, synced on their outputs.
 
-Not ported yet (ROADMAP item 10b): the reference's cost model
-(``obs/profile.py``) and the tracer's utilization branch, with the dry
-run and its H100 roofline over flop counts, which they read.
+The cost model (``obs.profile``): ``profiled`` wraps the kernel launches,
+the selection pipeline and (through ``compile_sentinel``) the captured
+LocalUpdate. Under a tracer each new call signature is a ``compile``
+event and ``compile.<name>`` counter (the recompile sentinel), and each
+call's ``CostRecord`` (FLOPs and bytes: ``kernels/cost.py`` for a launch,
+``launch/flop_analysis.py``'s meta-tensor count otherwise) goes on the
+open span, which computes ``utilization`` and ``hbm_utilization`` of the
+card's peaks (``peak_table``) when it closes. ``roofline`` is the one
+roofline calculator; the dry run (``launch/dryrun.py``) reads it.
 """
 from __future__ import annotations
 
@@ -48,6 +55,8 @@ from repro_torch.obs.device_time import kernel_device_ms
 from repro_torch.obs.metrics import (NULL_METRICS, Counter, Gauge, Histogram,
                                      MeteredLedger, MetricsRegistry,
                                      NullMetrics)
+from repro_torch.obs.profile import (CostRecord, ProfiledFunction,
+                                     peak_table, profiled, roofline)
 from repro_torch.obs.timing import Timing, monotonic, sync, timeit
 from repro_torch.obs.tracer import (NULL_SPAN, NULL_TRACER, SCHEMA,
                                     NullTracer, Span, TraceError, Tracer,
@@ -61,7 +70,8 @@ __all__ = [
     "load_trace", "span_paths", "to_chrome", "get_tracer", "use_tracer",
     "span", "timed_block", "event", "inc", "gauge", "MetricsRegistry",
     "NullMetrics", "NULL_METRICS", "Counter", "Gauge", "Histogram",
-    "MeteredLedger",
+    "MeteredLedger", "CostRecord", "ProfiledFunction", "profiled",
+    "peak_table", "roofline",
 ]
 
 

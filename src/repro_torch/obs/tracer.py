@@ -97,6 +97,18 @@ class Span:
             raise RuntimeError(
                 f"span stack corrupted: closed {self.name!r}, top was "
                 f"{top.name!r}")
+        # cost-annotated span (obs.profile attached flops + peaks): now
+        # that the duration is known, derive the card's utilization — not
+        # for "captured" spans, whose wall covers a CUDA graph capture,
+        # not device time, and a utilization from it would be fiction
+        a = self.attrs
+        if "flops" in a and a.get("peak_flops") and "captured" not in a:
+            dur = self.t1 - self.t0
+            if dur > 0:
+                a["utilization"] = a["flops"] / dur / a["peak_flops"]
+                if a.get("hbm_bytes") and a.get("peak_hbm_bw"):
+                    a["hbm_utilization"] = (a["hbm_bytes"] / dur
+                                            / a["peak_hbm_bw"])
         self.tracer.spans.append(self)
 
     @property

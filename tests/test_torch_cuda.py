@@ -1306,3 +1306,19 @@ def test_mamba_and_whisper_on_the_card_match_the_cpu(card):
                                        mode="decode", cache=caches[1])
             assert _rel(a.cpu(), b) <= TOL
     assert ops.flash_decode.launches == before + 6 * 2 * cfg.num_layers
+
+
+def test_the_card_route_launches_as_before_inside_a_count(card):
+    """On the card a wrapper launches its kernel, counted once, and
+    charges no open count (a CUDA tensor is not the dry run's meta
+    run)."""
+    from repro_torch.launch import flop_analysis
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(300, 16, generator=g, device=card)
+    c = torch.randn(5, 16, generator=g, device=card)
+    ops.reset_launch_counts()
+    with flop_analysis.counting() as sc:
+        got = ops.kmeans_pairwise_dist(x, c)
+    assert ops.launch_counts()["kmeans_pairwise_dist"] == 1
+    assert not sc.kernel_launches
+    assert _rel(got, ref.kmeans_pairwise_dist_ref(x, c)) < TOL
