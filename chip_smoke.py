@@ -272,6 +272,19 @@ result line:
      most 1.05, the count's attention launches equal to the step's; then
      ``python -m repro_torch.launch.dryrun --smoke --all`` in its own
      process, exit 0;
+ 16. the model axis (``--phase 16`` runs it alone after the build):
+     llama3.2-1b tensor parallel over gloo processes on the one card
+     (``--model-axis-child``, spawned here; a child's failure fails the
+     run), its weights DTensors on the steps' plans, against the one-rank
+     steps run first on the same seeds: 16a, on a 1 x 2 mesh, phase 15b's
+     1 x 32,768 prefill and 8 teacher-forced decode steps at phase 6's
+     batch 32 over 32,768 slots: every rank the same logits, tokens and
+     K/V bits, within 2e-2 (relative Frobenius) of one rank's, each rank
+     launching one rank's attention kernels on its heads; 16b, phase
+     14b's train cut with one cluster a probe row on 1 x 2 (G = 1) and on
+     four processes as 2 x 2 (G = 2): every rank the same W_G bits, the
+     losses and each leaf within 2e-2 of one rank's, the launches per
+     rank (the kernels line's ``launches_16``);
   5. time each kernel beside its plain version, a library call where one
      computes the same function, and its bound (the attention kernels one
      row a template instance: head dim 64 at phase 6's shapes, 128 at
@@ -879,6 +892,7 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
+    t_script = monotonic()
 
     # ---- 1. build ------------------------------------------------------
     t0 = monotonic()
@@ -1717,6 +1731,11 @@ def main() -> None:
     print(json.dumps({"ranks": ranks}))
     # ---- 15. the cost model and the dry run against the card ---------
     print(json.dumps({"cost": run_cost_phase(dev, model, clients, test)}))
+    # ---- 16. the model axis: tensor parallel over gloo ranks ----------
+    # (its own function: the ranks are child processes, joined before it
+    # returns)
+    model_axis, ma_launches = run_model_axis_phase(dev)
+    print(json.dumps({"model_axis": model_axis}))
 
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
@@ -2084,10 +2103,13 @@ def main() -> None:
     # internvl2's layer
     rows.append({**bwd_row, "max_abs_err": errs["flash_attention_bwd"]})
     rows.extend(extras_rows)
-    # phase 14's launches, on the row named after each kernel's wrapper
+    # phase 14's and 16's launches (16's per rank), on the row named
+    # after each kernel's wrapper
     for row in rows:
         if row["name"] in ranks_launches:
             row["launches_14"] = ranks_launches[row["name"]]
+        if row["name"] in ma_launches:
+            row["launches_16"] = ma_launches[row["name"]]
     ops.reset_launch_counts()          # timing launches are not the path's
 
     # where one client's round goes (full width, the last global weights)
@@ -2204,6 +2226,8 @@ def main() -> None:
                       "profiled_captured_local_update": busy(lprof,
                                                              lu_wall_ms)}))
 
+    # the whole run's wall (its limit is 1,200 s)
+    print(f"script_wall_s: {monotonic() - t_script:.3f}")
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4933,6 +4957,387 @@ def run_cost_phase(dev, model, clients, test):
     return out
 
 
+# phase 16: the model axis. llama3.2-1b at full width over gloo processes
+# on the one card (NCCL cannot put two ranks on one card), its weights
+# DTensors on the steps' plans; 16a phase 15b's prefill (1 x 32,768) and
+# phase 6's decode shape (batch 32 over 32,768 slots) for
+# MA_DECODE_STEPS teacher-forced steps on a 1 x 2 mesh; 16b phase 14b's
+# train cut (RANKS_LM_*) with one cluster a probe row (no exact ties in
+# the selection) on 1 x 2 (G = 1) and on 4 processes as 2 x 2 (G = 2)
+MA_DECODE_STEPS = 8
+MA_TOL = ATT_TOL["bfloat16"]           # 2e-2, tests/test_kernels.py:156
+MA_KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode",
+              "kmeans_pairwise_dist", "kmeans_lloyd_step")
+
+
+def _ma_serve(dev, mesh, job):
+    """16a on ``mesh`` (None: one rank): the prefill step, then the
+    teacher-forced decode steps, bf16 weights from ``job["seed"]`` ->
+    the logits, the picked tokens and the written K/V slots (this rank's
+    kv heads) on the host, the walls, peak and launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.launch.specs import cache_on_mesh, step_plan
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.obs.timing import monotonic
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = get_config("llama3.2-1b")
+    prefill, lm = make_prefill_step(cfg, mesh=mesh)
+    decode, _ = make_decode_step(cfg, mesh=mesh)
+    params = lm.init(torch.Generator(device=dev).manual_seed(job["seed"]),
+                     dtype=torch.bfloat16)
+    if mesh is not None:
+        # one tree through both steps: decode's (head-aware) plan
+        params = sh.distribute_tree(params, step_plan(
+            cfg, mesh_axis_sizes(mesh), "decode", lm=lm), mesh)
+    ptoks = torch.from_numpy(job["prefill"]).to(dev)
+    dtoks = torch.from_numpy(job["decode"]).to(dev)
+    peak_and_reset()
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    logits = prefill(params, {"tokens": ptoks})
+    torch.cuda.synchronize()
+    prefill_wall = monotonic() - t0
+    prefill_launches = ops.launch_counts()
+    batch = dtoks.shape[0]
+    cache = (cache_on_mesh(lm, mesh, batch, SERVE_CACHE, device=dev)
+             if mesh is not None else
+             lm.init_cache(batch, SERVE_CACHE, device=dev))
+    ops.reset_launch_counts()
+    picked, walls = [], []
+    for i in range(dtoks.shape[1]):
+        t0 = monotonic()
+        nxt, cache = decode(params, cache, dtoks[:, i:i + 1])
+        picked.append(nxt.cpu())                       # syncs
+        walls.append(monotonic() - t0)
+    decode_launches = ops.launch_counts()
+    # the slots the steps wrote, every layer's k and v (this rank's heads)
+    kv = [x[:, :, :dtoks.shape[1]].cpu() for x in
+          tree_leaves(sh.local_tree(cache)["stages"])]
+    out = {"logits": logits.cpu(), "tokens": torch.cat(picked, 1), "kv": kv,
+           "prefill_wall_s": prefill_wall,
+           "decode_ms_per_step": [w * 1e3 for w in walls],
+           "max_memory_allocated": peak_and_reset(),
+           "launches": {"prefill": prefill_launches,
+                        "decode": decode_launches}}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ma_f32_prefill(dev, job):
+    """16a's prefill on one rank in f32 from the same bf16 weights (cast
+    up): the logits both bf16 runs are read against."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.optim.optimizers import tree_map
+    prefill, lm = make_prefill_step(get_config("llama3.2-1b"),
+                                    dtype=torch.float32)
+    params = tree_map(lambda x: x.float(), lm.init(torch.Generator(
+        device=dev).manual_seed(job["seed"]), dtype=torch.bfloat16))
+    logits = prefill(params, {"tokens": torch.from_numpy(
+        job["prefill"]).to(dev)}).cpu()
+    del params
+    peak_and_reset()
+    return logits
+
+
+def _ma_train(dev, mesh, job, g):
+    """16b on ``mesh`` (None: one rank): one round of the depth-cut train
+    step over ``g`` cohorts, f32 weights from ``job["seed"]`` -> the
+    first cohort's W_G leaves on the host, the metrics, wall, peak and
+    launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.fedavg import broadcast_to_clients
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.launch.specs import step_plan
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.obs.timing import monotonic
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                              num_layers=RANKS_LM_LAYERS)
+    tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
+                       meta_clusters=TRAIN_MB, meta_steps=TRAIN_META_STEPS)
+    step, lm = make_train_step(cfg, tcfg, mesh=mesh)
+    state = broadcast_to_clients(lm.init(torch.Generator(
+        device=dev).manual_seed(job["seed"])), g)
+    if mesh is not None:
+        state = sh.distribute_tree(state, step_plan(
+            cfg, mesh_axis_sizes(mesh), "train", tcfg, lm, g), mesh)
+    tokens = torch.from_numpy(job["tokens"][:g]).to(dev)
+    peak_and_reset()
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    new, _, metrics = step(state, (), {"tokens": tokens}, job["first"][:g])
+    metrics = {k: float(v) for k, v in metrics.items()}       # syncs
+    wall = monotonic() - t0
+    launches = ops.launch_counts()
+    peak = peak_and_reset()
+    del state
+    leaves = [x[0].cpu() for x in tree_leaves(sh.gather_tree(new))]
+    del new
+    torch.cuda.empty_cache()
+    return {"leaves": leaves, "metrics": metrics, "wall_s": wall,
+            "max_memory_allocated": peak, "launches": launches}
+
+
+def model_axis_child(rank, world, init_file, job_path, out_path):
+    """One of phase 16's gloo ranks on the card: the job's parts on its
+    mesh; writes what it got (rank 0 also the W_G leaves of 16b)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import PRODUCTION_AXES, mesh_over_world
+
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(0)
+    build.load_all()
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        job = torch.load(job_path, weights_only=False)
+        mesh = mesh_over_world(tuple(job["mesh"]), PRODUCTION_AXES, "cuda")
+        out = {}
+        if "serve" in job:
+            out["serve"] = _ma_serve(dev, mesh, job["serve"])
+        if "train" in job:
+            got = _ma_train(dev, mesh, job["train"], job["g"])
+            out["train"] = {k: v for k, v in got.items() if k != "leaves"}
+            out["train"]["digest"] = _leaf_digest(got["leaves"])
+            if rank == 0:
+                torch.save(got["leaves"], job["leaves_path"])
+        torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(work, world, job, tag):
+    """Phase 16's ``world`` gloo ranks on the card for ``job``, joined ->
+    their outputs (a rank's failure fails the run)."""
+    import torch
+    job_path = os.path.join(work, f"job_{tag}.pt")
+    torch.save(job, job_path)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "GLOO_SOCKET_IFNAME": "lo"}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--model-axis-child",
+         str(r), str(world), os.path.join(work, f"init_{tag}"), job_path,
+         os.path.join(work, f"out_{tag}_{r}.pt")], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=900)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"16 {tag}: rank {r} exited "
+                                    f"{proc.returncode}:\n{log[-3000:]}")
+    return [torch.load(os.path.join(work, f"out_{tag}_{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def _fro_rel(got, want):
+    import torch
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def run_model_axis_phase(dev):
+    """Phase 16, the model axis: llama3.2-1b tensor parallel over gloo
+    processes on the card, against the one-rank steps run here first on
+    the same seeds (their outputs kept on the host, the card freed).
+    16a (1 x 2): prefill and decode at full width and depth; every rank's
+    logits, tokens and K/V the same bits; the logits and the written K/V
+    slots within ``MA_TOL`` (||got - want||_F / ||want||_F) of one rank's;
+    each rank's attention launches those of one rank. 16b: the depth-cut
+    train step on 1 x 2 (G = 1) and 2 x 2 (G = 2): every rank's gathered
+    W_G the same bits; the losses and each leaf within ``MA_TOL`` of one
+    rank's (max |got - want| / (1 + |want|)); the launches per rank.
+    -> (the numbers, launches per rank by kernel and part)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.obs.timing import monotonic
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    t_phase = monotonic()
+    vocab = get_config("llama3.2-1b").vocab_size
+    rng = np.random.default_rng(16)
+    serve_job = {"seed": 16,
+                 "prefill": rng.integers(0, vocab, (1, PREFILL_S), np.int32),
+                 "decode": rng.integers(0, vocab, (SERVE_BATCH,
+                                                   MA_DECODE_STEPS),
+                                        np.int32)}
+    train_job = {"seed": 17, "tokens": rng.integers(
+        0, vocab, (2, TRAIN_LOCAL, 1, TRAIN_MB, RANKS_LM_T), np.int32),
+        "first": [1, 2]}
+    # the one-rank steps on the same seeds, kept on the host
+    one = {"serve": _ma_serve(dev, None, serve_job),
+           "f32_logits": _ma_f32_prefill(dev, serve_job)}
+    for g in (1, 2):
+        one[f"train_G{g}"] = _ma_train(dev, None, train_job, g)
+    peak_and_reset()
+    work = os.path.join(ROOT, "build", "phase16")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = monotonic()
+    two = _spawn_ranks(work, 2, {
+        "mesh": (1, 2), "serve": serve_job, "train": train_job, "g": 1,
+        "leaves_path": os.path.join(work, "w_1x2.pt")}, "1x2")
+    wall_two = monotonic() - t0
+    t0 = monotonic()
+    four = _spawn_ranks(work, 4, {
+        "mesh": (2, 2), "train": train_job, "g": 2,
+        "leaves_path": os.path.join(work, "w_2x2.pt")}, "2x2")
+    wall_four = monotonic() - t0
+
+    # ---- 16a ----
+    want = one["serve"]
+    got = [o["serve"] for o in two]
+    for what in ("logits", "tokens"):
+        check(all(torch.equal(o[what], got[0][what]) for o in got),
+              f"16a: the ranks' {what} differ")
+    logits_err = _fro_rel(got[0]["logits"], want["logits"])
+    check(logits_err <= MA_TOL, f"16a: prefill logits vs one rank "
+                                f"{logits_err} beyond {MA_TOL}")
+    # the ranks' kv heads side by side are one rank's
+    kv_err = max(_fro_rel(torch.cat([o["kv"][i] for o in got], -2), w)
+                 for i, w in enumerate(want["kv"]))
+    check(kv_err <= MA_TOL, f"16a: written K/V vs one rank {kv_err} beyond "
+                            f"{MA_TOL}")
+    # both bf16 runs against the f32 logits of the same weights: the
+    # model axis as far from them as one rank (not a gate: two bf16
+    # roundings of one function differ by about their own error)
+    f32_err = {"one_rank": _fro_rel(want["logits"], one["f32_logits"]),
+               "ranks": _fro_rel(got[0]["logits"], one["f32_logits"])}
+    same_tokens = float((got[0]["tokens"] == want["tokens"]).float().mean())
+    for part in ("prefill", "decode"):
+        for k_name in ("flash_attention", "flash_decode"):
+            n = [o["launches"][part][k_name] for o in got]
+            check(n == [want["launches"][part][k_name]] * 2,
+                  f"16a {part}: {k_name} launched {n} times on the ranks, "
+                  f"{want['launches'][part][k_name]} on one")
+        check(sum(want["launches"][part].values()) > 0,
+              f"16a {part}: no kernel launched")
+    out = {"card": card, "16a": {
+        "model": "llama3.2-1b", "mesh": "1x2 (data, model), gloo",
+        "prefill_tokens": PREFILL_S, "decode_batch": SERVE_BATCH,
+        "decode_slots": SERVE_CACHE, "decode_steps": MA_DECODE_STEPS,
+        "ranks_bit_identical": True, "prefill_logits_rel_err": logits_err,
+        "written_kv_rel_err": kv_err, "tokens_equal_share": same_tokens,
+        "logits_rel_err_vs_f32": f32_err,
+        "limit": MA_TOL,
+        "one_rank": {k: want[k] for k in ("prefill_wall_s",
+                                          "decode_ms_per_step",
+                                          "max_memory_allocated",
+                                          "launches")},
+        "ranks": [{k: o[k] for k in ("prefill_wall_s", "decode_ms_per_step",
+                                     "max_memory_allocated", "launches")}
+                  for o in got]}}
+    print(f"16a ({card}): prefill {[o['prefill_wall_s'] for o in got]} s "
+          f"(one rank {want['prefill_wall_s']}), logits rel err "
+          f"{logits_err}, K/V rel err {kv_err}, tokens equal "
+          f"{same_tokens}; vs the f32 logits {f32_err}")
+
+    # ---- 16b ----
+    for tag, ranks, g in (("1x2", two, 1), ("2x2", four, 2)):
+        runs = [o["train"] for o in ranks]
+        check(len({r["digest"] for r in runs}) == 1
+              and all(r["metrics"] == runs[0]["metrics"] for r in runs),
+              f"16b {tag}: the ranks leave the step with different bits")
+        w = one[f"train_G{g}"]
+        leaves = torch.load(os.path.join(work, f"w_{tag}.pt"),
+                            weights_only=False)
+        leaf_err = max(float(((a - b).abs() / (1 + b.abs())).max())
+                       for a, b in zip(leaves, w["leaves"]))
+        loss_err = max(abs(runs[0]["metrics"][k] - w["metrics"][k])
+                       / (1 + abs(w["metrics"][k])) for k in w["metrics"])
+        check(runs[0]["metrics"]["selected"] == w["metrics"]["selected"]
+              == g * TRAIN_MB, f"16b {tag}: selected "
+                               f"{runs[0]['metrics']['selected']}")
+        check(leaf_err <= MA_TOL and loss_err <= MA_TOL,
+              f"16b {tag}: vs one rank, leaves {leaf_err}, metrics "
+              f"{loss_err}, beyond {MA_TOL}")
+        per_rank = {k: [r["launches"][k] for r in runs] for k in MA_KERNELS}
+        for k_name in ("flash_attention", "flash_attention_bwd",
+                       "kmeans_pairwise_dist", "kmeans_lloyd_step"):
+            n = per_rank[k_name]
+            check(min(n) > 0 and len(set(n)) == 1,
+                  f"16b {tag}: {k_name} launched {n} times on the ranks")
+            if g == 1:
+                check(n[0] == w["launches"][k_name],
+                      f"16b {tag}: {k_name} {n[0]} on a rank, "
+                      f"{w['launches'][k_name]} on one")
+            elif k_name.startswith("kmeans"):
+                # each fed rank selects its cohort: one model rank of each
+                # fed rank adds up to one rank's two cohorts
+                check(n[0] + n[2] == w["launches"][k_name],
+                      f"16b {tag}: {k_name} {n} on the ranks, "
+                      f"{w['launches'][k_name]} on one")
+        out[f"16b_{tag}"] = {
+            "layers": RANKS_LM_LAYERS, "seq_len": RANKS_LM_T, "cohorts": g,
+            "ranks_bit_identical": True, "max_leaf_err_vs_one_rank":
+                leaf_err, "max_metric_err_vs_one_rank": loss_err,
+            "limit": MA_TOL, "metrics": runs[0]["metrics"],
+            "one_rank": {k: w[k] for k in ("metrics", "wall_s",
+                                            "max_memory_allocated",
+                                            "launches")},
+            "rank_walls_s": [r["wall_s"] for r in runs],
+            "rank_peaks": [r["max_memory_allocated"] for r in runs],
+            "launches_by_rank": per_rank}
+        print(f"16b {tag} ({card}): walls {[r['wall_s'] for r in runs]} s "
+              f"(one rank {w['wall_s']}), peaks "
+              f"{[r['max_memory_allocated'] for r in runs]}, leaves vs one "
+              f"rank {leaf_err}, launches {per_rank}")
+    launches16 = {k: {"16a": [o["launches"]["prefill"][k]
+                              + o["launches"]["decode"][k] for o in got],
+                      "16b_1x2": out["16b_1x2"]["launches_by_rank"][k],
+                      "16b_2x2": out["16b_2x2"]["launches_by_rank"][k]}
+                  for k in MA_KERNELS}
+    out["spawn_wall_s"] = {"1x2": wall_two, "2x2": wall_four}
+    out["wall_s"] = monotonic() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    return out, launches16
+
+
+def phase16_alone() -> None:
+    """``python3 chip_smoke.py --phase 16``: build the kernels, then
+    phase 16 alone; prints its numbers and the card's name and power
+    limit."""
+    import torch
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.obs.timing import monotonic
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    dev = resolve_device("cuda")
+    t0 = monotonic()
+    build.load_all()
+    print(f"build_s: {monotonic() - t0:.3f}")
+    out, launches = run_model_axis_phase(dev)
+    print(json.dumps({"model_axis": out, "launches_16": launches}))
+    print(out["card"])
+
+
 def phase14_alone() -> None:
     """``python3 chip_smoke.py --phase 14``: build the kernels, then phase
     14 alone on phase 4's model, clients and configuration; prints its
@@ -4995,5 +5400,10 @@ if __name__ == "__main__":
         phase14_alone()
     elif sys.argv[1:] == ["--phase", "15"]:
         phase15_alone()
+    elif sys.argv[1:2] == ["--model-axis-child"]:
+        model_axis_child(int(sys.argv[2]), int(sys.argv[3]),
+                         *sys.argv[4:7])
+    elif sys.argv[1:] == ["--phase", "16"]:
+        phase16_alone()
     else:
         main()

@@ -1,12 +1,16 @@
 """The collectives the port runs over a ``torch.distributed`` group: an
-all-gather and a summing all-reduce of a whole tree, and ``Ranks``, the
-group with this process's place in it.
+all-gather and a summing all-reduce of a whole tree, the same two on one
+tensor (``all_gather_cat`` along a dim; ``all_reduce_tensor``, a sum or a
+max, out of place), and ``Ranks``, the group with this process's place
+in it.
 
-NCCL takes CUDA tensors directly. gloo sums CUDA tensors but cannot
-gather them, so under gloo every tensor goes through host memory: the
-choice is made once, from the group's backend (``stages_on_host``), never
-by catching a failure. NCCL cannot put two ranks on one card, so on one
-card NCCL gives world size 1 and two processes there run on gloo.
+NCCL takes CUDA tensors directly. Under gloo every tensor goes through
+host memory: the choice is made once, from the group's backend
+(``stages_on_host``), never by catching a failure (gloo's support for
+CUDA tensors varies by release, and DTensor's gathers over gloo killed
+both ranks on CUDA tensors with torch 2.11: ``tools/gloo_cuda_probe.py``).
+NCCL cannot put two ranks on one card, so on one card NCCL gives world
+size 1 and two processes there run on gloo.
 
 The gather moves bytes (every leaf viewed as uint8 on the wire), so any
 dtype arrives bit for bit; the sum is the backend's, the same bits on
@@ -90,6 +94,29 @@ def all_gather_tree(tree: PyTree, ranks: Ranks) -> PyTree:
             return out
         return _gather_bytes(x, ranks)
     return tree_map(one, tree)
+
+
+def all_gather_cat(x: torch.Tensor, ranks: Ranks, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` (each of the same shape), concatenated along
+    ``dim`` in rank order, bit for bit."""
+    parts = _gather_bytes(x, ranks)
+    return torch.cat(parts.unbind(0), dim)
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce_tensor(x: torch.Tensor, ranks: Ranks,
+                      op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over ``ranks`` ("sum" or "max") into a new tensor
+    (``x`` is not written), the same bits on every rank."""
+    if stages_on_host(ranks.group) and x.device.type != "cpu":
+        out = x.detach().cpu().contiguous()
+        dist.all_reduce(out, op=_OPS[op], group=ranks.group)
+        return out.to(x.device)
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=_OPS[op], group=ranks.group)
+    return out
 
 
 def all_reduce_sum_tree(tree: PyTree, ranks: Ranks) -> PyTree:

@@ -27,6 +27,11 @@ under a tracer it counts each new launch signature as a compile and
 attaches the launch's FLOPs and bytes (``kernels/cost.py``) to the span,
 which turns them into a utilization of the card's peaks.
 
+A wrapper takes plain tensors only: a DTensor (a model axis's shard,
+``launch/sharding.py``) raises and names the wrapper. The tensor-parallel
+steps call the kernels on each rank's local tensors
+(``models/model_axis.py``).
+
 A ``meta`` tensor (the dry run's count, ``launch/flop_analysis.py``)
 launches nothing and runs no plain version: the wrapper checks it as it
 would a CUDA tensor, charges its kernel's ``kernels/cost.py`` count to the
@@ -147,6 +152,15 @@ _decode = profiled(_launch_decode, name="flash_decode_kernel",
                    cost=_decode_cost)
 
 
+def _plain(what: str, *ts) -> None:
+    """Refuse a DTensor: a kernel takes this rank's local tensor."""
+    from torch.distributed.tensor import DTensor
+    for t in ts:
+        if isinstance(t, DTensor):
+            raise TypeError(f"{what}: got a DTensor; the kernel takes a "
+                            f"rank's local tensor (DTensor.to_local())")
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
            device: torch.device) -> None:
     if not isinstance(t, torch.Tensor):
@@ -164,6 +178,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
 
 def kmeans_pairwise_dist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """(N, D), (K, D) f32 -> (N, K) f32 squared distances."""
+    _plain("kmeans_pairwise_dist", x, c)
     _check(x, "x", torch.float32, 2, x.device)
     _check(c, "c", torch.float32, 2, x.device)
     n, d = x.shape
@@ -191,6 +206,7 @@ def kmeans_lloyd_step(x: torch.Tensor, c: torch.Tensor, lmask: torch.Tensor):
     """Fused Lloyd sweep: (N, D), (K, D), (N, K) additive mask, all f32 ->
     (assign (N,) int32, mindist (N,) f32, sums (K, D) f32, counts (K,) f32).
     """
+    _plain("kmeans_lloyd_step", x, c, lmask)
     _check(x, "x", torch.float32, 2, x.device)
     _check(c, "c", torch.float32, 2, x.device)
     _check(lmask, "lmask", torch.float32, 2, x.device)
@@ -224,6 +240,7 @@ def quantize_affine(x: torch.Tensor, rowmask: torch.Tensor):
     """Per-tensor affine int8 of (N, D) f32 ``x`` over the rows where the
     (N,) bool ``rowmask`` is set -> (q (N, D) int8, xmin, scale), the last
     two 0-d f32 tensors. Byte-exact against ``ref.quantize_affine_ref``."""
+    _plain("quantize_affine", x, rowmask)
     _check(x, "x", torch.float32, 2, x.device)
     _check(rowmask, "rowmask", torch.bool, 1, x.device)
     n, d = x.shape
@@ -256,6 +273,7 @@ def quantize_affine_batched(x: torch.Tensor, rowmask: torch.Tensor):
     int8, xmin (B,), scale (B,)), each client's statistics over its own
     valid rows. Byte-exact against ``ref.quantize_affine_batched_ref`` and
     against B calls of ``quantize_affine``."""
+    _plain("quantize_affine_batched", x, rowmask)
     _check(x, "x", torch.float32, 3, x.device)
     _check(rowmask, "rowmask", torch.bool, 2, x.device)
     b, n, d = x.shape
@@ -336,6 +354,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensors that need a gradient (and no stats asked for) the call goes
     through ``models.layers.FlashAttention``, whose forward is this kernel
     with its statistics and whose backward is ``flash_attention_bwd``."""
+    _plain("flash_attention", q, k, v)
     _check_attention(q, "q", q.dtype, 4, q.device)
     _check(k, "k", q.dtype, 4, q.device)
     _check(v, "v", q.dtype, 4, q.device)
@@ -396,6 +415,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``launches_by_lengths`` under ``"<S>x<Sk>"``); on the CPU the plain
     version (``ref.flash_attention_bwd_ref`` with ``m = lse``, ``l =
     1``)."""
+    _plain("flash_attention_bwd", q, k, v, out, dout, lse)
     _check_attention(q, "q", q.dtype, 4, q.device)
     for t, name in ((k, "k"), (v, "v"), (out, "out"), (dout, "dout")):
         _check(t, name, q.dtype, 4, q.device)
@@ -447,6 +467,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     """One query token q (B,1,H,D) against ring-buffer caches (B,S,KV,D)
     under the (B,S) bool ``valid`` mask -> (B,1,H,D) in q's dtype. q and the
     caches are each f32 or bf16; the caches are read as q's dtype."""
+    _plain("flash_decode", q, k_cache, v_cache, valid)
     _check_attention(q, "q", q.dtype, 4, q.device)
     _check_attention(k_cache, "k_cache", k_cache.dtype, 4, q.device)
     _check(v_cache, "v_cache", k_cache.dtype, 4, q.device)

@@ -13,15 +13,24 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multipod] [--out build/dryrun]
   ... --smoke   (the small mesh and the reduced configs: the CI path)
 
-Per device. The port executes a mesh whose model axis is 1 (the fed axis
-over ranks, ``launch/steps.py`` ``fed_ranks``): there the count is one
-rank's, exactly — its share of the cohorts with the collectives it joins
-(charged, not sent) and the replicated meta steps; inference on each
-rank's shard of the batch. A model axis above 1 (the production 16 x 16
-and 2 x 16 x 16 meshes, the 2 x 2 smoke mesh) or FSDP is planned, not
-executed (``ROADMAP.md`` item 15b): the record then holds the whole step's
-count divided evenly over the chips, ``"per_device_rule": "even_split"``,
-a lower bound on a rank's work with none of its collectives.
+Per device. On a mesh whose model axis is 1 (the fed axis over ranks,
+``launch/steps.py`` ``fed_ranks``) the count is one rank's, exactly — its
+share of the cohorts with the collectives it joins (charged, not sent)
+and the replicated meta steps; inference on each rank's shard of the
+batch. A model axis above 1 (the production 16 x 16 and 2 x 16 x 16
+meshes, the 2 x 2 smoke mesh) or FSDP is counted as the whole step's count
+divided evenly over the chips, ``"per_device_rule": "even_split"``, a
+lower bound on a rank's work with none of its collectives: one rank's
+count of a tensor-parallel step is the rest of ``ROADMAP.md`` item 15b.
+
+Of those even-split pairs the port now executes (``launch/steps.py`` on a
+mesh) the dense attention families' — llama3.2-1b, qwen2-0.5b, gemma3-4b,
+phi3-medium-14b, internvl2-26b and whisper-medium — on one pod: train_4k
+and prefill_32k on every mesh, and decode_32k where ``cache_plan`` splits
+the kv heads over "model" (the smoke mesh; at 16 x 16 whisper-medium's 16
+kv heads only: the others' cache splits the head dim, which raises). The
+experts, MLA, Mamba and RWKV under a model axis, FSDP, the two-pod meshes'
+inference and long_500k (its sequence over "data") raise there.
 
 ``memory``: argument and output bytes a device from the specs (each leaf
 divided over the axes its spec shards it on); there is no compiler, so

@@ -18,9 +18,18 @@ Strategies, as the reference's:
 
 A dim that does not divide its axis stays replicated, and the plan
 records it. The planners take axis sizes (``launch.mesh.mesh_axis_sizes``),
-so a plan needs no devices. Only the fed axis is executed
-(``launch/steps.py``); a model axis above 1 and FSDP are planned here and
-not run (``ROADMAP.md`` item 15b).
+so a plan needs no devices. ``launch/steps.py`` executes the fed axis, and
+the model axis for the dense attention families (tensor parallel:
+``models/model_axis.py``); FSDP, the experts over "model" and the
+sequence-sharded layouts are planned here and not run (``ROADMAP.md``
+item 15b).
+
+``distribute_tree`` puts a tree of full tensors (every rank holding the
+same) on a plan's placements as DTensors, each rank keeping its own part
+with no collective; ``gather_tree`` gathers a DTensor tree back to full
+tensors through ``core/collectives.py`` (host-staged under gloo, which
+gathers no CUDA tensor); ``local_tree`` and ``wrap_tree`` go between a
+DTensor tree and its local tensors.
 
 The parameter trees are the port's (``LM.init``), which carry the
 reference's leaf names; leaves are walked as the reference's
@@ -31,6 +40,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 
@@ -74,6 +85,101 @@ class Plan:
         names = tuple(mesh.mesh_dim_names)
         return tree_map_specs(lambda s: to_placements(s, names),
                               self.params)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def map_with_placements(fn: Callable, tree: PyTree,
+                        placements: PyTree) -> PyTree:
+    """``fn(leaf, its placements)`` over a tensor tree and a tree of
+    placement tuples of the same structure (a tuple there is a leaf's)."""
+    if isinstance(tree, dict):
+        if set(tree) != set(placements):
+            raise ValueError(f"keys {sorted(tree)} where the placements "
+                             f"have {sorted(placements)}")
+        return {k: map_with_placements(fn, v, placements[k])
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        if len(tree) != len(placements):
+            raise ValueError(f"a list of {len(tree)} where the placements "
+                             f"have {len(placements)}")
+        return type(tree)(map_with_placements(fn, v, p)
+                          for v, p in zip(tree, placements))
+    return None if tree is None else fn(tree, placements)
+
+
+def distribute_tree(tree: PyTree, placements: PyTree, mesh) -> PyTree:
+    """Every full leaf of ``tree`` as a DTensor on ``mesh`` with its
+    placements (a ``Plan``, or a tree of placement tuples): each rank keeps
+    a contiguous copy of its own part, its coordinate's even chunk of every
+    sharded dim (the plan shards only dims that divide). Every rank must
+    hold the same tree; nothing is sent."""
+    from torch.distributed.tensor import DTensor, Shard
+    if isinstance(placements, Plan):
+        placements = placements.placements(mesh)
+    coord = mesh.get_coordinate()
+
+    def one(x, pl):
+        local = x
+        for mdim, p in enumerate(pl):
+            if isinstance(p, Shard):
+                size = local.shape[p.dim] // mesh.size(mdim)
+                local = local.narrow(p.dim, coord[mdim] * size, size)
+        return DTensor.from_local(
+            local.clone(memory_format=torch.contiguous_format), mesh,
+            tuple(pl), run_check=False, shape=x.shape,
+            stride=torch.empty(x.shape, device="meta").stride())
+    return map_with_placements(one, tree, placements)
+
+
+def gather_tree(tree: PyTree) -> PyTree:
+    """Every DTensor leaf gathered to its full tensor on every rank, bit
+    for bit (a plain leaf is returned as it is)."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.core.collectives import Ranks, all_gather_cat
+    from repro_torch.optim.optimizers import tree_map
+
+    def one(x):
+        if not _is_dtensor(x):
+            return x
+        out, mesh = x.to_local(), x.device_mesh
+        # minor mesh dims first: a dim split over several axes holds the
+        # major axis's chunks of the minor's
+        for mdim in reversed(range(mesh.ndim)):
+            p = x.placements[mdim]
+            if isinstance(p, Shard) and mesh.size(mdim) > 1:
+                out = all_gather_cat(out, Ranks.of(mesh.get_group(mdim)),
+                                     p.dim)
+        return out
+    return tree_map(one, tree)
+
+
+def local_tree(tree: PyTree) -> PyTree:
+    """Each DTensor leaf's local tensor (a plain leaf as it is)."""
+    from repro_torch.optim.optimizers import tree_map
+    return tree_map(lambda x: x.to_local() if _is_dtensor(x) else x, tree)
+
+
+def placements_of(tree: PyTree) -> PyTree:
+    """Each leaf's placements: a DTensor's, () for a plain tensor."""
+    def one(x):
+        return tuple(x.placements) if _is_dtensor(x) else ()
+    if isinstance(tree, dict):
+        return {k: placements_of(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(placements_of(v) for v in tree)
+    return None if tree is None else one(tree)
+
+
+def wrap_tree(local: PyTree, placements: PyTree, mesh) -> PyTree:
+    """Local tensors back into DTensors on ``mesh`` with ``placements``
+    (``placements_of``'s tree); a leaf with no placements stays plain."""
+    from torch.distributed.tensor import DTensor
+    return map_with_placements(lambda x, p: DTensor.from_local(
+        x, mesh, tuple(p), run_check=False) if p else x, local, placements)
 
 
 def to_placements(spec: Spec, mesh_axes: Tuple[str, ...]) -> tuple:

@@ -9,6 +9,13 @@ nothing, and the batch's tensors are ``torch.empty`` on the meta device.
 Nothing here allocates memory or needs a device, so the production
 mesh's specs are computed from its axis sizes alone
 (``launch.mesh.mesh_axis_sizes``).
+
+What a step executes on a mesh takes the same plans: ``step_plan`` is the
+parameters' plan of a step kind (as ``input_specs`` plans it), which
+``sharding.distribute_tree`` places; ``cache_on_mesh`` makes a decode
+cache as DTensors on ``cache_plan``'s placements (each rank allocating
+its own shard only), and ``check_cache_placements`` holds a cache to them
+and refuses the layouts the port does not execute.
 """
 from __future__ import annotations
 
@@ -173,3 +180,114 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, axes: sh.Axes,
     return dict(mode="decode", params=params,
                 cache=_with_specs(cache_shapes, cplan),
                 tokens=_meta((b, 1), torch.int32, (bspec, None)), plan=plan)
+
+
+# --------------------------------------------------------------------------
+# the plans a step executes
+# --------------------------------------------------------------------------
+def step_plan(cfg: ModelConfig, axes: sh.Axes, kind: str,
+              tcfg: Optional[TrainConfig] = None, lm: Optional[LM] = None,
+              g: int = 0) -> sh.Plan:
+    """The parameters' plan of a step ``kind`` ("train", "prefill" or
+    "decode") on a mesh of ``axes``, as ``input_specs`` plans it: the
+    train step's G-stacked tree (``g`` cohorts over the fed axes; ``lm``
+    the step's own, split at layer j), head-aware by
+    ``tcfg.seq_shard_activations``; prefill's plain tree with the flat
+    heads sharded, decode's head-aware (serving one tree through both
+    takes decode's)."""
+    if kind == "train":
+        tcfg = tcfg or TrainConfig()
+        _, fed_axes = fed_layout(cfg, axes)
+        return param_specs(cfg, axes, lm or LM(cfg, remat=tcfg.remat),
+                           fed_axes=fed_axes, g=g,
+                           head_aware=tcfg.seq_shard_activations)[1]
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"unknown step kind {kind!r}")
+    return param_specs(cfg, axes, lm or LM(cfg),
+                       head_aware=kind == "decode")[1]
+
+
+def _cache_refusal(specs: PyTree, axes: sh.Axes) -> None:
+    """``NotImplementedError`` for a cache plan the port does not execute:
+    k/v with the head dim or the sequence over "model", or the sequence
+    over "data" (long_500k's batch of 1); an axis of 1 splits nothing."""
+    def names(entry):
+        return () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+
+    def walk(path, spec):
+        if path and path[-1] in ("k", "v") and len(spec) >= 4:
+            off = len(spec) - 4
+            for dim, what in ((off + 1, "the sequence"),
+                              (off + 3, "the head dim")):
+                for ax in names(spec[dim]):
+                    if axes.get(ax, 1) == 1:
+                        continue
+                    raise NotImplementedError(
+                        f"a decode cache with {what} over {ax!r} is "
+                        f"planned, not executed (ROADMAP.md item 15b)")
+        return spec
+    _walk_specs(walk, specs, ())
+
+
+def _walk_specs(fn, tree, path):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _walk_specs(fn, v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            _walk_specs(fn, v, path + (i,))
+    else:
+        fn(path, tree)
+
+
+def _cache_placements(cfg: ModelConfig, mesh, shapes: PyTree,
+                      batch: int) -> PyTree:
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    axes = mesh_axis_sizes(mesh)
+    specs = sh.cache_plan(cfg, axes, shapes, batch)
+    _cache_refusal(specs, axes)
+    names = tuple(mesh.mesh_dim_names)
+    return sh.tree_map_specs(lambda s: sh.to_placements(s, names), specs)
+
+
+def cache_on_mesh(lm: LM, mesh, batch: int, seq_len: int,
+                  dtype=torch.bfloat16, device=None) -> PyTree:
+    """``lm.init_cache(batch, seq_len)`` as DTensors on ``cache_plan``'s
+    placements over ``mesh``: each rank allocates its own shard (zeros)
+    only."""
+    from torch.distributed.tensor import DTensor, Shard
+    shapes = lm.init_cache(batch, seq_len, dtype=dtype, device="meta")
+    placements = _cache_placements(lm.cfg, mesh, shapes, batch)
+
+    def one(x, pl):
+        shape = list(x.shape)
+        for mdim, p in enumerate(pl):
+            if isinstance(p, Shard):
+                shape[p.dim] //= mesh.size(mdim)
+        local = torch.zeros(shape, dtype=x.dtype, device=device)
+        return DTensor.from_local(local, mesh, tuple(pl), run_check=False,
+                                  shape=x.shape, stride=x.stride())
+    return sh.map_with_placements(one, shapes, placements)
+
+
+def check_cache_placements(cfg: ModelConfig, mesh, cache: PyTree,
+                           batch: int) -> PyTree:
+    """``cache``'s placements, which must be ``cache_plan``'s for its
+    shapes on ``mesh`` (``ValueError`` otherwise; ``NotImplementedError``
+    for a plan the port does not execute)."""
+    shapes = _meta_like(cache)
+    want = _cache_placements(cfg, mesh, shapes, batch)
+    got = sh.placements_of(cache)
+    if got != want:
+        raise ValueError("decode on a mesh takes its cache as DTensors on "
+                         "cache_plan's placements (specs.cache_on_mesh)")
+    return got
+
+
+def _meta_like(tree: PyTree) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _meta_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_meta_like(v) for v in tree]
+    return torch.empty(tuple(tree.shape), dtype=tree.dtype, device="meta")

@@ -18,7 +18,14 @@ train_step   — ONE federated round per call (the paper's Algorithm 1 on
                meta steps, so every rank leaves with the same weights. The
                meta steps take the head and its log-softmax a microbatch
                of selected rows at a time, so their memory does not grow
-               with G either.
+               with G either. A mesh whose "model" axis is above 1 runs
+               tensor parallel inside each cohort (the dense attention
+               families: ``models/model_axis.py``): the weights are
+               DTensors on the train plan (``launch/specs.py``
+               ``step_plan``), each rank trains its shard of them, the
+               selection runs on every model rank over the same replicated
+               activations, and the round returns DTensors on the same
+               placements.
 prefill_step — causal forward over the prompt (after the encoder's pass
                or the vision prefix, where the batch has them),
                last-position logits only; the KV cache is not filled
@@ -26,13 +33,22 @@ prefill_step — causal forward over the prompt (after the encoder's pass
 decode_step  — one token against the (ring-buffer) cache, greedy argmax;
                the cache is updated in place and returned.
 
+Given a mesh, prefill and decode take their weights as DTensors on either
+inference plan (``step_plan``) and the cache on ``cache_plan``'s
+placements (``specs.cache_on_mesh``), its kv heads over "model": each rank
+runs its heads' kernels and its shard of the FFN and of the vocabulary,
+the batch's rows over "data" where they divide, and every rank returns
+the same logits or tokens. Experts, MLA, Mamba and RWKV on a model axis,
+FSDP, sequence-sharded activations and a cache sharded on the head dim or
+the sequence raise ``NotImplementedError`` (``ROADMAP.md`` item 15b).
+
 Inference computes in ``dtype`` (bf16 by default, as the reference) and
 runs without autograd; training computes in ``TrainConfig.dtype`` on f32
 master weights, whose gradients come back f32 through the casts.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Union
+from typing import Any, NamedTuple, Optional, Sequence, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -41,9 +57,12 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import fedavg as fa
 from repro_torch.core import selection as sel
 from repro_torch.core.collectives import Ranks, all_gather_tree
+from repro_torch.launch import sharding as sh
 from repro_torch.models import layers as L
+from repro_torch.models import model_axis as MA
 from repro_torch.models.transformer import LM, split_stages, unpack_batch
-from repro_torch.optim.optimizers import sgd, tree_map, value_and_grad
+from repro_torch.optim.optimizers import (sgd, tree_leaves, tree_map,
+                                          value_and_grad)
 
 PyTree = Any
 # each cohort's K-means first centre: a (G,) index tensor or sequence, or a
@@ -64,11 +83,11 @@ def _first_centre(first: FirstCentres, g: int, rows: int) -> int:
 
 
 def _head_nll(hn: torch.Tensor, tokens: torch.Tensor,
-              w_head: torch.Tensor) -> torch.Tensor:
+              w_head: torch.Tensor, vocab: int) -> torch.Tensor:
     """Next-token NLL (rows, T-1) of normed hidden states through the
-    head, the log-softmax in f32."""
-    lp = torch.log_softmax((hn @ w_head)[:, :-1].to(torch.float32), -1)
-    return -torch.gather(lp, -1, tokens[:, 1:].long()[..., None])[..., 0]
+    head, the log-softmax in f32 (over the ranks' vocabulary chunks on a
+    model axis)."""
+    return MA.next_token_nll(hn, w_head, tokens, vocab)
 
 
 def tree_stack(trees: Sequence[PyTree]) -> PyTree:
@@ -79,29 +98,92 @@ def tree_stack(trees: Sequence[PyTree]) -> PyTree:
 # --------------------------------------------------------------------------
 # train: one federated round per call
 # --------------------------------------------------------------------------
-def fed_ranks(cfg: ModelConfig, mesh) -> Ranks:
-    """The ranks that carry the train step's cohorts on ``mesh``: its fed
-    axes (``specs.fed_layout``), this process's place among them. Only the
-    fed axis is executed: a model axis above 1, or a "data" axis that
-    ``fed_layout`` leaves to shard the weights (FSDP), raises
-    (``ROADMAP.md`` item 15b)."""
+class StepRanks(NamedTuple):
+    """The groups a step runs over on a mesh: ``fed`` the ranks that split
+    the cohorts (the train step; None: one), ``model`` the model axis
+    (None at 1), ``data`` the ranks that split an inference batch (None
+    at 1), and the mesh."""
+    fed: Optional[Ranks]
+    model: Optional[Ranks]
+    data: Optional[Ranks]
+    mesh: Any
+
+
+def _not_on_model_axis(cfg: ModelConfig) -> Optional[str]:
+    """What of ``cfg`` a model axis does not execute yet (None: a dense
+    attention family, which it does)."""
+    kinds = set(cfg.layer_kinds())
+    missing = ((["experts (expert parallelism)"] if cfg.is_moe else [])
+               + (["MLA attention"] if cfg.attention_kind == "mla" else [])
+               + [f"{k} layers" for k in ("mamba", "rwkv") if k in kinds])
+    return " and ".join(missing) or None
+
+
+def _model_ranks(cfg: ModelConfig, mesh, axes) -> Optional[Ranks]:
+    m = axes.get("model", 1)
+    if m == 1:
+        return None
+    missing = _not_on_model_axis(cfg)
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name} has {missing}: a model axis of {m} runs the dense "
+            f"attention families only; the rest is planned, not executed "
+            f"(ROADMAP.md item 15b)")
+    return Ranks.of(mesh.get_group("model"))
+
+
+def fed_ranks(cfg: ModelConfig, mesh,
+              tcfg: Optional[TrainConfig] = None) -> StepRanks:
+    """The ranks of the train step on ``mesh``: its fed axes
+    (``specs.fed_layout``) carry the cohorts, its "model" axis runs each
+    cohort tensor parallel (dense attention families). Raises
+    ``NotImplementedError`` (``ROADMAP.md`` item 15b) for a "data" axis
+    that ``fed_layout`` leaves to shard the weights (FSDP), another family
+    on a model axis, and sequence-sharded activations there."""
     from repro_torch.launch.mesh import mesh_axis_sizes
     from repro_torch.launch.specs import fed_layout
     axes = mesh_axis_sizes(mesh)
-    if axes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"the train step runs the fed axis only; a model axis of "
-            f"{axes['model']} is planned, not executed (ROADMAP.md item 15b)")
     _, fed_axes = fed_layout(cfg, axes)
     if axes.get("data", 1) > 1 and "data" not in fed_axes:
         raise NotImplementedError(
             f"{cfg.name} shards its weights over 'data' (FSDP), which is "
             f"planned, not executed (ROADMAP.md item 15b)")
-    # with the model axis at 1 (and "data" unsharded) the fed axes span
-    # the mesh, which spans the world: one fed axis is its mesh dim's
-    # group, two are the world
-    group = mesh.get_group(fed_axes[0]) if len(fed_axes) == 1 else None
-    return Ranks.of(group)
+    model = _model_ranks(cfg, mesh, axes)
+    if model is None:
+        # the fed axes span the mesh, which spans the world: one fed axis
+        # is its mesh dim's group, two are the world
+        group = mesh.get_group(fed_axes[0]) if len(fed_axes) == 1 else None
+        return StepRanks(Ranks.of(group), None, None, mesh)
+    if tcfg is not None and tcfg.seq_shard_activations:
+        raise NotImplementedError(
+            "sequence-sharded activations on a model axis are planned, not "
+            "executed (ROADMAP.md item 15b)")
+    if len(fed_axes) == 1:
+        group = mesh.get_group(fed_axes[0])
+    else:                                  # ("pod", "data"): one group
+        group = mesh[fed_axes]._flatten().get_group()
+    return StepRanks(Ranks.of(group), model, None, mesh)
+
+
+def _serve_ranks(cfg: ModelConfig, mesh) -> StepRanks:
+    """The ranks of prefill and decode on ``mesh``: the model axis, and
+    the "data" axis over the batch's rows."""
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.models.registry import count_params
+    axes = mesh_axis_sizes(mesh)
+    if axes.get("pod", 1) > 1:
+        raise NotImplementedError(
+            "inference over 'pod' and 'data' is planned, not executed "
+            "(ROADMAP.md item 15b)")
+    data = axes.get("data", 1)
+    if data > 1 and count_params(cfg) > sh.FSDP_THRESHOLD:
+        raise NotImplementedError(
+            f"{cfg.name} shards its weights over 'data' (FSDP), which is "
+            f"planned, not executed (ROADMAP.md item 15b)")
+    model = _model_ranks(cfg, mesh, axes)
+    return StepRanks(None, model,
+                     Ranks.of(mesh.get_group("data")) if data > 1 else None,
+                     mesh)
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
@@ -140,9 +222,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     ``ranks``, where no ``mesh`` is given, are the fed ranks themselves:
     the dry run (``launch/dryrun.py``) counts one rank's share of the step
     on meta tensors through a ``Ranks`` with no process group, whose
-    collectives are charged, not sent."""
+    collectives are charged, not sent.
+
+    On a mesh whose "model" axis is above 1 ``client_params`` (and a
+    momentum ``opt_state``) are DTensors on the train plan's placements
+    (``specs.step_plan(cfg, axes, "train", tcfg, lm, g)``, placed by
+    ``sharding.distribute_tree``): each rank holds its fed share of the
+    cohorts and its model shard of every leaf, trains them tensor
+    parallel, and gets DTensors back on the same placements
+    (``sharding.gather_tree`` gives the full tree); ``observe`` then sees
+    the local shards."""
+    model = None
     if mesh is not None:
-        ranks = fed_ranks(cfg, mesh)
+        ranks, model, _, _ = fed_ranks(cfg, mesh, tcfg)
     observe = observe or (lambda event, value: None)
     opt = sgd(tcfg.lr, momentum=tcfg.momentum,
               weight_decay=tcfg.weight_decay)
@@ -196,13 +288,41 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
             return (acts[idx], probe[idx],
                     {k: v[idx] for k, v in probe_ex.items()}, s_.valid)
 
+    plans = {}
+
+    def placed_args(client_params, opt_state, g_ax):
+        """The round's DTensor arguments checked against the train plan
+        -> (their placements, local params, local opt_state)."""
+        if g_ax not in plans:
+            from repro_torch.launch.mesh import mesh_axis_sizes
+            from repro_torch.launch.specs import step_plan
+            plans[g_ax] = step_plan(cfg, mesh_axis_sizes(mesh), "train",
+                                    tcfg, lm_split, g_ax).placements(mesh)
+        got = sh.placements_of(client_params)
+        if got != plans[g_ax]:
+            raise ValueError("train_step on a model axis takes the cohorts' "
+                             "parameters as DTensors on the train plan "
+                             "(sharding.distribute_tree(tree, "
+                             "specs.step_plan(..., 'train', ...), mesh))")
+        return got, sh.local_tree(client_params), sh.local_tree(opt_state)
+
     def train_step(client_params, opt_state, batch, first=None):
+        with MA.over(model):
+            return one_round(client_params, opt_state, batch, first)
+
+    def one_round(client_params, opt_state, batch, first):
         tokens, extras = unpack_batch(batch)
         if tcfg.split_fl and first is None:
             raise ValueError("train_step: split_fl needs each cohort's "
                              "K-means first centre (first=...)")
         g_ax = tokens.shape[0]
         mine = ranks.share(g_ax) if ranks is not None else range(g_ax)
+        placed, at = None, 0
+        if model is not None:
+            # this rank's cohorts (from ``at``) and shards, local
+            placed, client_params, opt_state = placed_args(
+                client_params, opt_state, g_ax)
+            at = mine.start
         # every cohort's first centre, drawn in cohort order on every rank
         firsts = ([_first_centre(first, g, tokens.shape[3])
                    for g in range(g_ax)] if tcfg.split_fl else None)
@@ -213,8 +333,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
             if tcfg.fedavg_compress == "bf16" else None)
         new_s, losses, selected = [], [], []
         for g in mine:
-            p = tree_map(lambda x: x[g], client_params)
-            s = tree_map(lambda x: x[g], opt_state) if opt_state else ()
+            p = tree_map(lambda x: x[g - at], client_params)
+            s = tree_map(lambda x: x[g - at], opt_state) if opt_state else ()
             p, s, loss = one_cohort(p, s, tokens[g],
                                     {k: v[g] for k, v in extras.items()})
             new_s.append(s)
@@ -241,11 +361,15 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                         torch.stack([v for _, _, _, v in selected]))
         if ranks is not None:
             # the other ranks' cohorts: sums added, the rest gathered in
-            # cohort order ((w, G/w, ...) -> (G, ...))
+            # cohort order ((w, G/w, ...) -> (G, ...)); on a model axis the
+            # optimizer's state stays with its cohorts' ranks
             total.all_reduce(ranks)
-            losses, new_s, selected = tree_map(
+            losses, gathered_s, selected = tree_map(
                 lambda x: x.reshape((g_ax,) + tuple(x.shape[2:])),
-                all_gather_tree((losses, new_s, selected), ranks))
+                all_gather_tree((losses, new_s if placed is None else (),
+                                 selected), ranks))
+            if placed is None:
+                new_s = gathered_s
 
         observe("cohorts_done", None)
         with torch.no_grad():
@@ -300,6 +424,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                 mb = tcfg.microbatch
                 nll = torch.cat([checkpoint(_head_nll, hn[i:i + mb],
                                             t_mb[i:i + mb], w_head,
+                                            cfg.padded_vocab,
                                             use_reentrant=False)
                                  for i in range(0, hn.shape[0], mb)])
                 per = nll.mean(-1) + aux
@@ -323,8 +448,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                 avg["lm_head"] = upper["lm_head"]
 
         # redistribute: next round every cohort starts from W_G(t)
+        n = g_ax if placed is None else len(mine)
         new_client_params = tree_map(
-            lambda x: x[None].expand((g_ax,) + tuple(x.shape)), avg)
+            lambda x: x[None].expand((n,) + tuple(x.shape)), avg)
+        if placed is not None:
+            new_client_params = sh.wrap_tree(new_client_params, placed, mesh)
+            if opt_state:
+                new_s = sh.wrap_tree(new_s, placed, mesh)
         return new_client_params, new_s, metrics
 
     return train_step, lm_split
@@ -335,41 +465,116 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
 # --------------------------------------------------------------------------
 
 
+def _rows(data: Optional[Ranks], batch: int) -> Optional[slice]:
+    """This rank's rows of an inference batch over "data" (None: all of
+    them, where there is no data axis or the rows do not divide, as the
+    plan then leaves the batch replicated)."""
+    if data is None or batch % data.size:
+        return None
+    per = batch // data.size
+    return slice(data.rank * per, (data.rank + 1) * per)
+
+
+def _gather_rows(x: torch.Tensor, data: Optional[Ranks],
+                 rows: Optional[slice]) -> torch.Tensor:
+    if rows is None:
+        return x
+    return all_gather_tree(x, data).reshape((-1,) + tuple(x.shape[1:]))
+
+
+def _serve_params(params, sr: Optional[StepRanks]):
+    """The weights' local tensors; on a mesh a DTensor leaf may shard over
+    "model" only (another axis would be FSDP)."""
+    if sr is None:
+        return params
+    names = tuple(sr.mesh.mesh_dim_names)
+    for x in tree_leaves(params):
+        for name, p in zip(names, getattr(x, "placements", ())):
+            if name != "model" and not p.is_replicate():
+                raise NotImplementedError(
+                    f"inference weights sharded over {name!r} (FSDP) are "
+                    f"planned, not executed (ROADMAP.md item 15b)")
+    return sh.local_tree(params)
+
+
 def make_prefill_step(cfg: ModelConfig, force_swa: bool = False,
-                      dtype=torch.bfloat16):
+                      dtype=torch.bfloat16, mesh=None):
     """-> (prefill_step(params, batch) -> (B, 1, padded_vocab) logits, lm);
     ``batch`` is a dict with "tokens" (B, S) and, as the model needs them,
-    "prefix_embeds" (B, P, d) or "enc_frames" (B, Se, d)."""
+    "prefix_embeds" (B, P, d) or "enc_frames" (B, Se, d).
+
+    With a ``mesh`` the weights are DTensors on an inference plan
+    (``specs.step_plan(..., "prefill")`` or ``"decode"``), or plain
+    replicated tensors; every rank takes the whole batch and returns the
+    whole logits, the same bits on every rank."""
     lm = LM(cfg, force_swa=force_swa)
+    sr = _serve_ranks(cfg, mesh) if mesh is not None else None
+    model = sr.model if sr is not None else None
 
     @torch.no_grad()
     def prefill_step(params, batch):
+        params = _serve_params(params, sr)
         extras = {k: batch[k] for k in ("prefix_embeds", "enc_frames")
                   if k in batch}
-        h_all, _, _ = lm.apply(params, batch["tokens"], mode="full",
-                               return_hidden=True, dtype=dtype, **extras)
-        # last-position logits only (vocab projection on one position)
-        # as the reference: the norm weight and the head come from the
-        # tree as given (f32 master weights give f32 last-position logits)
-        h = L.rms_norm(h_all[:, -1:], params["final_norm"], cfg.norm_eps)
-        if cfg.tie_embeddings:
-            return h @ params["embed"].T.to(h.dtype)
-        return h @ params["lm_head"].to(h.dtype)
+        tokens = batch["tokens"]
+        rows = _rows(sr.data, tokens.shape[0]) if sr is not None else None
+        if rows is not None:
+            tokens = tokens[rows]
+            extras = {k: v[rows] for k, v in extras.items()}
+        with MA.over(model):
+            h_all, _, _ = lm.apply(params, tokens, mode="full",
+                                   return_hidden=True, dtype=dtype, **extras)
+            # last-position logits only (vocab projection on one position)
+            # as the reference: the norm weight and the head come from the
+            # tree as given (f32 master weights give f32 last-position
+            # logits)
+            h = L.rms_norm(h_all[:, -1:], params["final_norm"],
+                           cfg.norm_eps)
+            out = MA.head_logits(h, lm.head(params, h), cfg.padded_vocab)
+        return _gather_rows(out, sr.data if sr else None, rows)
 
     return prefill_step, lm
 
 
 def make_decode_step(cfg: ModelConfig, force_swa: bool = False,
-                     dtype=torch.bfloat16):
+                     dtype=torch.bfloat16, mesh=None):
     """-> (decode_step(params, cache, tokens (B, 1)) -> (next (B, 1) int32,
-    cache), lm)."""
+    cache), lm).
+
+    With a ``mesh``, the weights as ``make_prefill_step``'s and the cache
+    a DTensor tree on ``cache_plan``'s placements
+    (``specs.cache_on_mesh``): each rank writes and reads the kv heads of
+    its shard, in place, and every rank returns the whole batch's
+    tokens."""
     lm = LM(cfg, force_swa=force_swa)
+    sr = _serve_ranks(cfg, mesh) if mesh is not None else None
+    model = sr.model if sr is not None else None
 
     @torch.no_grad()
     def decode_step(params, cache, tokens):
-        logits, new_cache, _ = lm.apply(params, tokens, mode="decode",
-                                        cache=cache, dtype=dtype)
+        params = _serve_params(params, sr)
+        placed = None
+        if sr is not None:
+            from repro_torch.launch.specs import check_cache_placements
+            placed = check_cache_placements(cfg, sr.mesh, cache,
+                                            tokens.shape[0])
+            cache = sh.local_tree(cache)
+        rows = _rows(sr.data, tokens.shape[0]) if sr is not None else None
+        pos = cache["pos"]
+        if rows is not None:
+            # the positions are replicated, the rest of the cache holds
+            # this rank's rows
+            tokens = tokens[rows]
+            cache = dict(cache, pos=pos[rows])
+        with MA.over(model):
+            logits, new_cache, _ = lm.apply(params, tokens, mode="decode",
+                                            cache=cache, dtype=dtype)
         next_tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        if rows is not None:
+            next_tok = _gather_rows(next_tok, sr.data, rows)
+            new_cache["pos"] = pos + 1
+        if placed is not None:
+            new_cache = sh.wrap_tree(new_cache, placed, sr.mesh)
         return next_tok, new_cache
 
     return decode_step, lm

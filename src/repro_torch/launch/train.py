@@ -8,12 +8,15 @@ mesh: under ``--smoke`` the smoke mesh over the world (one process, or
 production mesh, which needs 256 ranks and so raises on one card, as the
 reference does without 256 devices. The cohorts G are ``fed_layout``'s on
 the mesh (one process: G = 1; N ranks on the smoke mesh's "data" axis: G =
-N, one cohort a rank). The train step executes the fed axis only, so it
-runs where the smoke mesh's model axis is 1: at any N but 4 (the
-reference's (2, 2) mesh), where it raises, naming ROADMAP item 15b.
+N, one cohort a rank). At N = 4 the smoke mesh is the reference's (2, 2):
+two cohorts over "data", each trained tensor parallel over "model", the
+weights DTensors on the train plan (``specs.step_plan``); an arch the
+model axis does not run yet (experts, MLA, Mamba, RWKV) raises there,
+naming ROADMAP item 15b.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --smoke --steps 4 [--device cpu]
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke --device cpu
 
 Runs on the CUDA device unless ``--device cpu`` is given (and fails if
 there is none). The process group comes from torchrun's environment where
@@ -39,7 +42,8 @@ from repro_torch.configs import TrainConfig, get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (make_production_mesh, make_smoke_mesh,
                                      mesh_axis_sizes)
-from repro_torch.launch.specs import fed_layout
+from repro_torch.launch.sharding import distribute_tree, gather_tree
+from repro_torch.launch.specs import fed_layout, step_plan
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.transformer import tree_map
 from repro_torch.obs.timing import monotonic
@@ -109,7 +113,8 @@ def _train(args, dev: torch.device) -> int:
                        microbatch=min(8, args.global_batch))
     step_fn, lm = make_train_step(cfg, tcfg, mesh=mesh)
     # the reference's input_specs on a mesh of G cohorts
-    g, _ = fed_layout(cfg, mesh_axis_sizes(mesh))
+    axes = mesh_axis_sizes(mesh)
+    g, _ = fed_layout(cfg, axes)
     cohort_batch = max(args.global_batch // g, 1)
     mb = min(tcfg.microbatch, cohort_batch)
     n_micro = max(cohort_batch // mb, 1)
@@ -119,6 +124,10 @@ def _train(args, dev: torch.device) -> int:
     params0 = lm.init(torch.Generator(device=dev).manual_seed(1))
     client_params = tree_map(
         lambda x: x[None].expand((g,) + tuple(x.shape)), params0)
+    if axes.get("model", 1) > 1:
+        # each rank its cohorts' shards of the weights
+        client_params = distribute_tree(
+            client_params, step_plan(cfg, axes, "train", tcfg, lm, g), mesh)
     opt_state = ()
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir and lead else None
     rng = np.random.default_rng(0)
@@ -132,9 +141,11 @@ def _train(args, dev: torch.device) -> int:
         metrics = {k: float(v) for k, v in metrics.items()}   # syncs
         if lead:
             print(f"round {t}: {metrics}  ({monotonic()-t0:.2f}s)")
-        if mgr:
-            mgr.save(t, tree_map(lambda x: x[0], client_params),
-                     {"arch": args.arch})
+        if args.ckpt_dir:
+            # every rank joins the gather (of the shards on a model axis)
+            avg = tree_map(lambda x: x[0], gather_tree(client_params))
+            if mgr:
+                mgr.save(t, avg, {"arch": args.arch})
     if lead:
         print("train: done")
     return 0

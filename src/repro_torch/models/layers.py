@@ -47,6 +47,14 @@ reference does: on a CUDA tensor the prefill kernel with a key length
 unlike the query length, or the decode kernel over a fully valid memory
 for one query; on a CPU tensor ``sdpa_full``, the reference's core.
 
+On a model axis (inside ``model_axis.over``, the step's tensor-parallel
+run) ``attn_apply`` and ``ffn_apply`` take each rank's shard of their
+weights, as the sharding plan places them: the attention runs the kernels
+on the heads this rank's columns of ``wq`` and rows of ``wo`` hold
+(``_attn_apply_tp``), the FFN is column- then row-parallel, and each sums
+its output over the ranks (``model_axis``). A block whose weights are all
+replicated runs as on one rank.
+
 Mamba (``mamba_apply``, jamba's SSM mixer) is plain torch on either
 device, as the reference's jnp scans: a causal depthwise convolution and
 the selective scan (``_selective_scan``: chunks in order, a log-depth
@@ -64,6 +72,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.models import model_axis as MA
 
 NEG = -1e30
 
@@ -381,6 +390,10 @@ def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
     cross-attention after the self-attention (``_cross_core``), its keys
     and values projected from ``enc_out`` on every call."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if MA.active() is not None and p["wq"].shape[-1] != h * hd:
+        return _attn_apply_tp(p, x, cfg=cfg, mode=mode, cache=cache, pos=pos,
+                              window=window, causal=causal, chunked=chunked,
+                              enc_out=enc_out)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     b, s, _ = xn.shape
     q, k, v = xn @ p["wq"], xn @ p["wk"], xn @ p["wv"]
@@ -420,6 +433,110 @@ def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
         cv = (enc_out @ p["cwv"]).reshape(b, se, kv, hd)
         co = _cross_core(cq, ck, cv)
         y = y + co.reshape(b, s, h * hd) @ p["cwo"]
+    return y, cache
+
+
+def _tp_heads(xq, xkv, p, names, cfg: ModelConfig, cache_kv=None):
+    """This rank's query heads and the kv heads they read, projected from
+    ``xq`` and ``xkv`` by the weights ``names`` (q, k, v and their biases)
+    of ``p`` -> (share, q (B,S,h1-h0,D), k and v (B,Sk,n,D), the first of
+    their n kv heads): the share's [k0, k1), and the kv heads
+    ``cache_kv`` of a cache shard where given."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    wq, wk, wv, bq, bk, bv = names
+    q, qcols = MA.project(xq, p[wq], p.get(bq), h * hd)
+    share = MA.head_share(h, kv, hd, *qcols)
+    need = (share.k0, share.k1)
+    if cache_kv is not None:
+        need = (min(need[0], cache_kv[0]), max(need[1], cache_kv[1]))
+    k, kcols = MA.project(xkv, p[wk], p.get(bk), kv * hd)
+    v, vcols = MA.project(xkv, p[wv], p.get(bv), kv * hd)
+    return (share, MA.take_heads(q, qcols, (share.h0, share.h1), hd),
+            MA.take_heads(k, kcols, need, hd),
+            MA.take_heads(v, vcols, need, hd), need[0])
+
+
+def _tp_kv(t: torch.Tensor, share, first: int) -> torch.Tensor:
+    """kv heads [k0, k1) of ``t`` (its heads from ``first``), in the order
+    the share's query heads read them, contiguous (what the kernels
+    take)."""
+    t = t[:, :, share.k0 - first:share.k1 - first]
+    if share.kv_index is not None:
+        t = t.index_select(2, torch.tensor(share.kv_index, device=t.device))
+    return t.contiguous()
+
+
+def _tp_out(o: torch.Tensor, share, wo: torch.Tensor, hd: int
+            ) -> torch.Tensor:
+    """This rank's columns of the heads' output through its rows of
+    ``wo``, summed over the ranks."""
+    b, s = o.shape[:2]
+    lo, hi = share.lo, share.hi
+    if wo.shape[0] != hi - lo:
+        raise ValueError(f"wo holds {wo.shape[0]} rows where this rank's "
+                         f"query columns are {hi - lo}: the plan must "
+                         f"shard wo's rows as wq's columns")
+    flat = o.reshape(b, s, -1)[..., lo - share.h0 * hd:hi - share.h0 * hd]
+    return MA.reduce(flat @ wo)
+
+
+def _attn_apply_tp(p, x, *, cfg: ModelConfig, mode: str, cache, pos,
+                   window: int, causal: bool, chunked: bool, enc_out):
+    """``attn_apply`` on one rank of a model axis, its weights this rank's
+    shards (``model_axis``): the normed input enters by ``copy``, each
+    rank computes its query heads (``model_axis.head_share``) against the
+    kv heads they read, on the kernels as one rank would, and ``wo``'s
+    partial products are summed. In decode the new key and value go to
+    the kv heads this rank's cache holds (the plan shards the cache on
+    whole kv heads, or replicates it)."""
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    xn = MA.copy(rms_norm(x, p["norm"], cfg.norm_eps))
+    b, s, _ = xn.shape
+    names = ("wq", "wk", "wv", "bq", "bk", "bv")
+    if mode == "decode":
+        k_cache, v_cache = cache["k"], cache["v"]
+        if k_cache.shape[-1] != hd:
+            raise NotImplementedError(
+                "a decode cache sharded on the head dim over 'model' is "
+                "planned, not executed (ROADMAP.md item 15b)")
+        c0, c1 = MA.chunk_of(kv, k_cache.shape[2])
+        share, q, k, v, first = _tp_heads(xn, xn, p, names, cfg, (c0, c1))
+        if not (c0 <= share.k0 and share.k1 <= c1):
+            raise NotImplementedError(
+                "this rank's query heads read kv heads its cache shard does "
+                "not hold (ROADMAP.md item 15b)")
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+        size = k_cache.shape[1]
+        slot = (pos % size).long()
+        rows = torch.arange(b, device=x.device)
+        k_cache[rows, slot] = k[:, 0, c0 - first:c1 - first].to(
+            k_cache.dtype)
+        v_cache[rows, slot] = v[:, 0, c0 - first:c1 - first].to(
+            v_cache.dtype)
+        valid = (torch.arange(size, device=x.device)[None, :]
+                 <= torch.clamp(pos, max=size - 1)[:, None])
+        o = sdpa_decode(q.contiguous(), _tp_kv(k_cache, share, c0),
+                        _tp_kv(v_cache, share, c0), valid)
+        cache = {"k": k_cache, "v": v_cache}
+    else:
+        share, q, k, v, first = _tp_heads(xn, xn, p, names, cfg)
+        positions = torch.arange(s, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        o = _prefill_core(q.contiguous(), _tp_kv(k, share, first),
+                          _tp_kv(v, share, first), causal=causal,
+                          window=window, chunked=chunked)
+    y = _tp_out(o, share, p["wo"], hd)
+
+    if enc_out is not None:                    # whisper decoder cross-attn
+        xn2 = MA.copy(rms_norm(x + y, p["cross_norm"], cfg.norm_eps))
+        share, cq, ck, cv, first = _tp_heads(
+            xn2, MA.copy(enc_out), p,
+            ("cwq", "cwk", "cwv", "cbq", "cbk", "cbv"), cfg)
+        co = _cross_core(cq.contiguous(), _tp_kv(ck, share, first),
+                         _tp_kv(cv, share, first))
+        y = y + _tp_out(co, share, p["cwo"], hd)
     return y, cache
 
 
@@ -594,7 +711,14 @@ def ffn_init(init: ParamInit, cfg: ModelConfig, d_ff: Optional[int] = None
 
 
 def ffn_apply(p, x, *, cfg: ModelConfig):
+    """The gated FFN; on a model axis (``model_axis``) with ``w_gate`` and
+    ``w_up`` column-sharded and ``w_down`` row-sharded, each rank's
+    product summed over the ranks."""
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    if MA.active() is not None and p["w_down"].shape[0] != cfg.d_ff:
+        xn = MA.copy(xn)
+        return MA.reduce((act_fn(cfg.act)(xn @ p["w_gate"])
+                          * (xn @ p["w_up"])) @ p["w_down"])
     return (act_fn(cfg.act)(xn @ p["w_gate"]) * (xn @ p["w_up"])) @ p["w_down"]
 
 

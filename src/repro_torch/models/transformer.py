@@ -40,6 +40,13 @@ encodes first, in decode mode the output is the cache's ``enc_out``.
 Its decoder adds sinusoidal positions to the token embeddings. A vision
 LM (internvl2) projects ``prefix_embeds`` with ``proj`` and puts them
 before the text, in full mode only, as the reference does.
+
+On a model axis (``model_axis.over``: each rank holds its shard of the
+leaves) the embedding's rows and the head's columns split the
+vocabulary: the lookup is masked to this rank's rows and summed over the
+ranks, ``apply``'s logits are gathered over them, and ``loss`` takes the
+log-softmax over the split vocabulary (``model_axis.next_token_nll``)
+without gathering the logits.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import model_axis as MA
 from repro_torch.optim.optimizers import tree_map
 
 PyTree = Any
@@ -409,7 +417,15 @@ class LM:
         return L.rms_norm(h, params["enc_norm"], self.cfg.norm_eps)
 
     def embed_tokens(self, params, tokens):
-        return params["embed"][tokens] * math.sqrt(self.cfg.d_model)
+        return MA.embed(params["embed"], tokens, self.cfg.padded_vocab) \
+            * math.sqrt(self.cfg.d_model)
+
+    def head(self, params, h):
+        """The head's weight (d, vocab, or this rank's columns of it) in
+        ``h``'s dtype: the tied embedding's transpose, or ``lm_head``."""
+        w = params["embed"].T if self.cfg.tie_embeddings \
+            else params["lm_head"]
+        return w.to(h.dtype)
 
     def apply(self, params, tokens, *, mode: str = "full", cache=None,
               prefix_embeds=None, enc_frames=None,
@@ -486,10 +502,7 @@ class LM:
             return h, new_cache, aux
 
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        if cfg.tie_embeddings:
-            logits = h @ params["embed"].T.to(h.dtype)
-        else:
-            logits = h @ params["lm_head"].to(h.dtype)
+        logits = MA.head_logits(h, self.head(params, h), cfg.padded_vocab)
         return logits, new_cache, aux
 
     # ---------------- losses ----------------
@@ -502,6 +515,16 @@ class LM:
         predictions for the text start after its ``num_prefix_tokens``
         positions."""
         tokens, extras = unpack_batch(batch)
+        if MA.active() is not None:
+            # the log-softmax over the vocabulary split over the ranks
+            h, _, aux = self.apply(params, tokens, mode="full", dtype=dtype,
+                                   return_hidden=True, **extras)
+            if extras.get("prefix_embeds") is not None:
+                h = h[:, self.cfg.num_prefix_tokens:]
+            hn = L.rms_norm(h, params["final_norm"].to(h.dtype),
+                            self.cfg.norm_eps)
+            return MA.next_token_nll(hn, self.head(params, hn), tokens,
+                                     self.cfg.padded_vocab).mean() + aux
         logits, _, aux = self.apply(params, tokens, mode="full", dtype=dtype,
                                     **extras)
         if extras.get("prefix_embeds") is not None:

@@ -22,9 +22,10 @@ against the port's one-device engines and the reference.
     reference's ``make_train_step`` (G = 2 and 4).
 
 The ranks' processes start first and run while this process computes
-the reference's rounds. A train step on a mesh with a model axis, or
-FSDP over "data", raises and names ROADMAP item 15b (the fake process
-group stands in for the 4 ranks).
+the reference's rounds. A train step on a mesh with a model axis for an
+arch with experts, or FSDP over "data", raises and names ROADMAP item 15b
+(the fake process group stands in for the 4 ranks; the dense families'
+model axis is ``test_torch_model_axis.py``'s).
 """
 import dataclasses
 import os
@@ -280,7 +281,7 @@ def fake_world():
 
 
 @pytest.mark.parametrize("world,arch,what", [
-    (4, "llama3.2-1b", "a model axis of 2"),
+    (4, "qwen3-moe-30b-a3b", "a model axis of 2"),
     (2, "deepseek-v2-236b", "FSDP")])
 def test_the_train_step_runs_the_fed_axis_only(fake_world, world, arch,
                                                what):

@@ -1,0 +1,104 @@
+"""One rank of ``tests/test_torch_model_axis.py``: a process of a gloo world
+on the CPU. It reads a job (``torch.save``d by the test): a list of cases,
+each a step kind on a mesh shape with its config, full weights and
+inputs. It places the weights on the step's plan
+(``sharding.distribute_tree``), runs the port's step on the mesh, gathers
+what the step returns (``sharding.gather_tree``) and saves it, with the
+query heads each attention call of this rank ran on, for the test to
+compare. It imports torch and ``repro_torch`` only.
+
+    python tests/torch_model_axis_worker.py RANK WORLD INIT_FILE JOB OUT
+"""
+import datetime
+import sys
+
+import torch
+import torch.distributed as dist
+
+
+def _mesh(shape):
+    from repro_torch.launch.mesh import PRODUCTION_AXES, mesh_over_world
+    return mesh_over_world(tuple(shape), PRODUCTION_AXES, "cpu")
+
+
+def _prefill(case, mesh, axes):
+    from repro_torch.launch.sharding import distribute_tree
+    from repro_torch.launch.specs import step_plan
+    from repro_torch.launch.steps import make_prefill_step
+    step, lm = make_prefill_step(case["cfg"], dtype=torch.float32, mesh=mesh)
+    params = distribute_tree(case["params"], step_plan(
+        case["cfg"], axes, case["plan"], lm=lm), mesh)
+    return step(params, case["batch"])
+
+
+def _decode(case, mesh, axes):
+    from repro_torch.launch.sharding import distribute_tree, gather_tree
+    from repro_torch.launch.specs import cache_on_mesh, step_plan
+    from repro_torch.launch.steps import make_decode_step
+    cfg, tokens = case["cfg"], case["tokens"]
+    step, lm = make_decode_step(cfg, dtype=torch.float32, mesh=mesh)
+    params = distribute_tree(case["params"], step_plan(
+        cfg, axes, "decode", lm=lm), mesh)
+    cache = cache_on_mesh(lm, mesh, tokens.shape[0], case["slots"],
+                          dtype=torch.float32)
+    picked = []
+    for i in range(tokens.shape[1]):        # teacher-forced
+        nxt, cache = step(params, cache, tokens[:, i:i + 1])
+        picked.append(nxt)
+    return torch.cat(picked, 1), gather_tree(cache)
+
+
+def _train(case, mesh, axes):
+    from repro_torch.core.fedavg import broadcast_to_clients
+    from repro_torch.launch.sharding import distribute_tree, gather_tree
+    from repro_torch.launch.specs import step_plan
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.optim.optimizers import tree_map
+    cfg, tcfg, g = case["cfg"], case["tcfg"], case["g"]
+    step, lm = make_train_step(cfg, tcfg, mesh=mesh)
+    plan = step_plan(cfg, axes, "train", tcfg, lm, g)
+    stacked = broadcast_to_clients(case["params"], g)
+    params = distribute_tree(stacked, plan, mesh)
+    # a momentum's state on the params' placements
+    state = (distribute_tree(tree_map(torch.zeros_like, stacked), plan,
+                             mesh) if tcfg.momentum else ())
+    new, new_s, metrics = step(params, state, case["batch"], case["first"])
+    return ([x[0] for x in tree_leaves(gather_tree((new, new_s)))],
+            {k: float(v) for k, v in metrics.items()})
+
+
+RUN = {"prefill": _prefill, "decode": _decode, "train": _train}
+
+
+def run(job):
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.models import layers as L
+    heads = []
+    for name in ("_prefill_core", "sdpa_decode"):
+        def seen(q, *args, _fn=getattr(L, name), **kwargs):
+            heads.append(q.shape[2])
+            return _fn(q, *args, **kwargs)
+        setattr(L, name, seen)
+    out = {}
+    for key, case in job.items():
+        mesh = _mesh(case["mesh"])
+        heads.clear()
+        got = RUN[case["kind"]](case, mesh, mesh_axis_sizes(mesh))
+        out[key] = (got, sorted(set(heads)))
+    return out
+
+
+def main(rank, world, init_file, job_path, out_path):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        torch.save(run(torch.load(job_path, weights_only=False)), out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])
