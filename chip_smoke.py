@@ -155,12 +155,12 @@ result line:
      -m repro_torch.launch.federated_lm --rounds 3`` in its own process
      (exit 0, its lines printed);
  10. serve the MoE and phi3 at full width: 10a, qwen3-moe-30b-a3b at full
-     width and depth (48 layers, d_model 2048, 32 / 4 heads, head_dim 128,
+     width, depth cut 48 -> 24 (d_model 2048, 32 / 4 heads, head_dim 128,
      128 experts of d_ff 768, top 8, vocab 151,936; bf16 weights from seed
-     0 made one layer slice at a time, 61.07 GB): ``launch.serve`` decodes
+     0 made one layer slice at a time): ``launch.serve`` decodes
      batch 4 against a 32,768-slot cache (prompt 32 teacher-forced, 16 new
-     tokens; flash_decode 48 x 47 = 2,256 launches), one
-     ``make_prefill_step`` call at S=32,768, batch 1 (flash_attention 48
+     tokens; flash_decode 24 x 47 = 1,128 launches), one
+     ``make_prefill_step`` call at S=32,768, batch 1 (flash_attention 24
      launches, all tensor-core), a second call the same bits, logits
      finite, the peak memory, the dropped share of (token, choice) pairs in
      prefill and in 8 decode steps, one profiled prefill call and decode
@@ -276,8 +276,8 @@ result line:
      llama3.2-1b tensor parallel over gloo processes on the one card
      (``--model-axis-child``, spawned here; a child's failure fails the
      run), its weights DTensors on the steps' plans, against the one-rank
-     steps run first on the same seeds: 16a, on a 1 x 2 mesh, phase 15b's
-     1 x 32,768 prefill and 8 teacher-forced decode steps at phase 6's
+     steps run first on the same seeds: 16a, on a 1 x 2 mesh, cut to 8 of
+     its 16 layers, phase 15b's 1 x 32,768 prefill and 8 teacher-forced decode steps at phase 6's
      batch 32 over 32,768 slots: every rank the same logits, tokens and
      K/V bits, within 2e-2 (relative Frobenius) of one rank's, each rank
      launching one rank's attention kernels on its heads; 16b, phase
@@ -285,6 +285,29 @@ result line:
      four processes as 2 x 2 (G = 2): every rank the same W_G bits, the
      losses and each leaf within 2e-2 of one rank's, the launches per
      rank (the kernels line's ``launches_16``);
+ 17. the model axis for the other four families (``--phase 17`` runs it
+     alone after the build): qwen3-moe-30b-a3b (4 layers, its experts
+     over the ranks), deepseek-v2-236b (its first 2 layers: MLA, one
+     dense and one MoE layer with shared experts), jamba-1.5-large-398b
+     (its first 4: Mamba, Mamba + MoE, Mamba, attention + MoE) and
+     rwkv6-3b (4 layers) at full width, tensor parallel over one 1 x 2
+     gloo world on the card (one spawn, the archs in turn; rank weights
+     drawn shard by shard, ``specs.params_on_mesh``), against the
+     one-rank steps run first on the same seeds: 17a, a 1 x 4,096
+     prefill and 4 teacher-forced decode steps at batch 4 over 4,096
+     slots, in bf16: every rank the same logits, tokens and gathered
+     cache bits, the logits and each cache leaf within 2e-2 (relative
+     Frobenius) of one rank's (a cache beyond it only where a decode
+     route flipped), the MoE's flipped (token, choice) pairs and dropped
+     share printed, the attention launches a rank one rank's, MLA's
+     latent-gather bytes a step; the three MoE archs again in f32
+     (jamba 3 layers), where no route flips: within 1e-3 and the dropped
+     share one rank's; 17b, one round at G = 1 of qwen3-moe and rwkv6
+     (split at layer 2, 2,048 tokens a row) with one cluster a probe
+     row: every rank the same W_G bits, the losses within 2e-2 of one
+     rank's and each leaf's update (W_G - W_0) within 0.5 (qwen3-moe)
+     or 0.2 (rwkv6) of one rank's, relative Frobenius, the launches a
+     rank one rank's (``launches_17``);
   5. time each kernel beside its plain version, a library call where one
      computes the same function, and its bound (the attention kernels one
      row a template instance: head dim 64 at phase 6's shapes, 128 at
@@ -442,12 +465,14 @@ PREFILL_S = 32768
 # microbatch of 4), meta-training 2 clusters a cohort for 2 steps
 TRAIN_G, TRAIN_LOCAL, TRAIN_MB, TRAIN_T = 2, 2, 4, 4096
 TRAIN_META_CLUSTERS, TRAIN_META_STEPS = 2, 2
-# phase 10a: qwen3-moe-30b-a3b at full width and depth, INPUT_SHAPES'
-# decode_32k (batch cut 128 -> 4: 12.9 GB of bf16 K/V beside 61.07 GB of
-# bf16 weights) and prefill_32k (batch cut 32 -> 1); 10b one of its MoE
-# layers on 1,024 tokens; 10c phi3-medium-14b at full width, depth cut
-# 40 -> 4
+# phase 10a: qwen3-moe-30b-a3b at full width, INPUT_SHAPES' decode_32k
+# (batch cut 128 -> 4) and prefill_32k (batch cut 32 -> 1), its depth cut
+# 48 -> MOE_LAYERS to keep the whole script near its time budget as the
+# model-axis phases grew (at full depth: 12.9 GB of bf16 K/V beside 61.07
+# GB of bf16 weights); 10b one of its MoE layers on 1,024 tokens; 10c
+# phi3-medium-14b at full width, depth cut 40 -> 4
 MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 24
 MOE_BATCH, MOE_CACHE, MOE_PROMPT, MOE_TOKENS = 4, 32768, 32, 16
 MOE_PREFILL_S = 32768
 MOE_LAYER_TOKENS = 1024
@@ -1736,6 +1761,9 @@ def main() -> None:
     # returns)
     model_axis, ma_launches = run_model_axis_phase(dev)
     print(json.dumps({"model_axis": model_axis}))
+    # ---- 17. the model axis for MoE, MLA, Mamba and RWKV ---------------
+    families, fam_launches = run_model_axis_families_phase(dev)
+    print(json.dumps({"model_axis_families": families}))
 
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
@@ -2103,13 +2131,15 @@ def main() -> None:
     # internvl2's layer
     rows.append({**bwd_row, "max_abs_err": errs["flash_attention_bwd"]})
     rows.extend(extras_rows)
-    # phase 14's and 16's launches (16's per rank), on the row named
-    # after each kernel's wrapper
+    # phase 14's, 16's and 17's launches (16's and 17's per rank), on the
+    # row named after each kernel's wrapper
     for row in rows:
         if row["name"] in ranks_launches:
             row["launches_14"] = ranks_launches[row["name"]]
         if row["name"] in ma_launches:
             row["launches_16"] = ma_launches[row["name"]]
+        if row["name"] in fam_launches:
+            row["launches_17"] = fam_launches[row["name"]]
     ops.reset_launch_counts()          # timing launches are not the path's
 
     # where one client's round goes (full width, the last global weights)
@@ -2783,52 +2813,85 @@ def run_training_phase(dev, rel_err):
         "9b", step32, lm32.init(torch.Generator().manual_seed(7)),
         {"tokens": stoks}, [1, 2], dev, rel_err)
 
-    # ---- 9c: launch.train in its own process, and its checkpoint ----
+    # ---- 9c: launch.train in its own process, and its checkpoint; 9d's
+    # process (the federated_lm twin) runs beside it ----
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    ck_dir = os.path.join(ROOT, "build", "phase9_ckpt")
-    ck_here = os.path.join(ROOT, "build", "phase9_ckpt_here")
-    for d in (ck_dir, ck_here):
-        shutil.rmtree(d, ignore_errors=True)
-    t0 = monotonic()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-         "--steps", "2", "--ckpt-dir", ck_dir], cwd=ROOT,
-        capture_output=True, text=True, timeout=300, env=env)
-    train_s = monotonic() - t0
-    check(proc.returncode == 0 and proc.stdout.strip().endswith(
-        "train: done"), f"9c: train exited {proc.returncode}:\n"
-                        f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    # the same run in this process: its checkpoint and the other
-    # process's restore to the same bits
-    train_mod.main(["--smoke", "--steps", "2", "--ckpt-dir", ck_here])
-    smoke = get_config("llama3.2-1b").reduced()
-    target = make_train_step(smoke, TrainConfig())[1].init(
-        torch.Generator().manual_seed(0))
-    (t_a, meta_a), (t_b, _) = (restore_checkpoint(d, target)
-                               for d in (ck_dir, ck_here))
-    check(meta_a["step"] == 1 and meta_a["arch"] == "llama3.2-1b"
-          and all(torch.equal(x, y) for x, y in zip(tree_leaves(t_a),
-                                                      tree_leaves(t_b))),
-          "9c: the train process's checkpoint does not restore to this "
-          "process's bits")
-    out["9c"] = {"exit": proc.returncode, "wall_s": train_s,
-                 "restored_bit_identical": True,
-                 "stdout": proc.stdout.strip().splitlines()}
-
-    # ---- 9d: the federated_lm twin in its own process ----
-    t0 = monotonic()
-    proc = subprocess.run(
+    t9d = monotonic()
+    proc_9d = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.federated_lm",
-         "--rounds", "3"], cwd=ROOT, capture_output=True, text=True,
-        timeout=300, env=env)
-    check(proc.returncode == 0, f"9d: federated_lm exited "
-                                f"{proc.returncode}:\n{proc.stdout[-2000:]}"
-                                f"\n{proc.stderr[-2000:]}")
-    out["9d"] = {"exit": proc.returncode, "wall_s": monotonic() - t0,
-                 "stdout": proc.stdout.strip().splitlines()}
+         "--rounds", "3"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        ck_dir = os.path.join(ROOT, "build", "phase9_ckpt")
+        ck_here = os.path.join(ROOT, "build", "phase9_ckpt_here")
+        for d in (ck_dir, ck_here):
+            shutil.rmtree(d, ignore_errors=True)
+        t0 = monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+             "--steps", "2", "--ckpt-dir", ck_dir], cwd=ROOT,
+            capture_output=True, text=True, timeout=300, env=env)
+        train_s = monotonic() - t0
+        check(proc.returncode == 0 and proc.stdout.strip().endswith(
+            "train: done"), f"9c: train exited {proc.returncode}:\n"
+                            f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        # the same run in this process: its checkpoint and the other
+        # process's restore to the same bits
+        train_mod.main(["--smoke", "--steps", "2", "--ckpt-dir", ck_here])
+        smoke = get_config("llama3.2-1b").reduced()
+        target = make_train_step(smoke, TrainConfig())[1].init(
+            torch.Generator().manual_seed(0))
+        (t_a, meta_a), (t_b, _) = (restore_checkpoint(d, target)
+                                   for d in (ck_dir, ck_here))
+        check(meta_a["step"] == 1 and meta_a["arch"] == "llama3.2-1b"
+              and all(torch.equal(x, y) for x, y in
+                      zip(tree_leaves(t_a), tree_leaves(t_b))),
+              "9c: the train process's checkpoint does not restore to "
+              "this process's bits")
+        out["9c"] = {"exit": proc.returncode, "wall_s": train_s,
+                     "restored_bit_identical": True,
+                     "stdout": proc.stdout.strip().splitlines()}
+        # ---- 9d: the federated_lm twin's process, started with 9c ----
+        stdout, stderr = proc_9d.communicate(timeout=300)
+    finally:
+        proc_9d.kill()
+    check(proc_9d.returncode == 0, f"9d: federated_lm exited "
+                                   f"{proc_9d.returncode}:\n"
+                                   f"{stdout[-2000:]}\n{stderr[-2000:]}")
+    out["9d"] = {"exit": proc_9d.returncode, "wall_s": monotonic() - t9d,
+                 "stdout": stdout.strip().splitlines()}
     out["wall_s"] = monotonic() - t_phase
     return out, row
 
+
+
+def serve_lm_in_processes(tag, archs):
+    """``python -m repro_torch.launch.serve_lm --arch A`` for each arch,
+    each in its own process, all started together (they share the card;
+    each serves its reduced config) -> {arch: its exit, wall from the
+    start to its join, stdout}. A failure fails the run."""
+    from repro_torch.obs.timing import monotonic
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = monotonic()
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
+         arch], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for arch in archs}
+    out = {}
+    try:
+        for arch, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            check(proc.returncode == 0 and stdout.startswith(
+                f"arch={arch} (reduced)"), f"{tag}: serve_lm --arch {arch} "
+                f"exited {proc.returncode}:\n{stdout[-2000:]}\n"
+                f"{stderr[-2000:]}")
+            out[arch] = {"exit": proc.returncode,
+                         "wall_s": monotonic() - t0,
+                         "stdout": stdout.strip().splitlines()}
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    return out
 
 
 def device_profile(fn):
@@ -2903,8 +2966,8 @@ def dropped_share(counts):
 
 def run_moe_serving_phase(dev, rel_err):
     """Phase 10: serving the MoE and phi3 at full width. 10a:
-    qwen3-moe-30b-a3b at full width and depth (bf16 weights from seed 0
-    made one layer slice at a time), ``launch.serve`` at decode_32k's
+    qwen3-moe-30b-a3b at full width cut to ``MOE_LAYERS`` (bf16 weights
+    from seed 0 made one layer slice at a time), ``launch.serve`` at decode_32k's
     cache and ``make_prefill_step`` at prefill_32k's length (``MOE_*``),
     launches reckoned from the shapes, a second prefill call bit for bit,
     a profiled prefill call and decode step, the dropped share of (token,
@@ -2928,11 +2991,12 @@ def run_moe_serving_phase(dev, rel_err):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # ---- 10a: qwen3-moe-30b-a3b at full width and depth ----
-    cfg = get_config(MOE_ARCH)
+    # ---- 10a: qwen3-moe-30b-a3b at full width, MOE_LAYERS deep ----
+    cfg = serve.cut_depth(get_config(MOE_ARCH), MOE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    served = serve.main(["--arch", MOE_ARCH, "--batch", str(MOE_BATCH),
+    served = serve.main(["--arch", MOE_ARCH, "--layers", str(MOE_LAYERS),
+                         "--batch", str(MOE_BATCH),
                          "--prompt-len", str(MOE_PROMPT), "--cache-len",
                          str(MOE_CACHE), "--tokens", str(MOE_TOKENS)])
     serve_launches = ops.launch_counts()
@@ -3167,21 +3231,7 @@ def run_moe_serving_phase(dev, rel_err):
     ops.reset_launch_counts()
 
     # ---- 10d: serve_lm in its own process, for both archs ----
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    out["10d"] = {}
-    for arch in (MOE_ARCH, "phi3-medium-14b"):
-        t0 = monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
-             arch], cwd=ROOT, capture_output=True, text=True, timeout=300,
-            env=env)
-        check(proc.returncode == 0 and proc.stdout.startswith(
-            f"arch={arch} (reduced)"), f"10d: serve_lm --arch {arch} "
-            f"exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
-            f"{proc.stderr[-2000:]}")
-        out["10d"][arch] = {"exit": proc.returncode,
-                            "wall_s": monotonic() - t0,
-                            "stdout": proc.stdout.strip().splitlines()}
+    out["10d"] = serve_lm_in_processes("10d", (MOE_ARCH, "phi3-medium-14b"))
     out["wall_s"] = monotonic() - t_phase
     return out, launches
 
@@ -3560,21 +3610,7 @@ def run_mla_rwkv_phase(dev, rel_err):
     ops.reset_launch_counts()
 
     # ---- 11e: serve_lm in its own process, for both archs ----
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    out["11e"] = {}
-    for arch in (MLA_ARCH, RWKV_ARCH):
-        t0 = monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
-             arch], cwd=ROOT, capture_output=True, text=True, timeout=300,
-            env=env)
-        check(proc.returncode == 0 and proc.stdout.startswith(
-            f"arch={arch} (reduced)"), f"11e: serve_lm --arch {arch} "
-            f"exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
-            f"{proc.stderr[-2000:]}")
-        out["11e"][arch] = {"exit": proc.returncode,
-                            "wall_s": monotonic() - t0,
-                            "stdout": proc.stdout.strip().splitlines()}
+    out["11e"] = serve_lm_in_processes("11e", (MLA_ARCH, RWKV_ARCH))
     out["wall_s"] = monotonic() - t_phase
     return out, launches
 
@@ -4123,21 +4159,8 @@ def run_last_families_phase(dev, rel_err):
     ops.reset_launch_counts()
 
     # ---- 12e: serve_lm in its own process, for the three archs ----
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    out["12e"] = {}
-    for arch in (JAMBA_ARCH, WHISPER_ARCH, VLM_ARCH):
-        t0 = monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
-             arch], cwd=ROOT, capture_output=True, text=True, timeout=300,
-            env=env)
-        check(proc.returncode == 0 and proc.stdout.startswith(
-            f"arch={arch} (reduced)"), f"12e: serve_lm --arch {arch} "
-            f"exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
-            f"{proc.stderr[-2000:]}")
-        out["12e"][arch] = {"exit": proc.returncode,
-                            "wall_s": monotonic() - t0,
-                            "stdout": proc.stdout.strip().splitlines()}
+    out["12e"] = serve_lm_in_processes("12e", (JAMBA_ARCH, WHISPER_ARCH,
+                                               VLM_ARCH))
     out["wall_s"] = monotonic() - t_phase
     return out, launches, profiles
 
@@ -4965,9 +4988,20 @@ def run_cost_phase(dev, model, clients, test):
 # train cut (RANKS_LM_*) with one cluster a probe row (no exact ties in
 # the selection) on 1 x 2 (G = 1) and on 4 processes as 2 x 2 (G = 2)
 MA_DECODE_STEPS = 8
+# 16a's depth, cut 16 -> 8 to keep the whole script near its time budget
+# as phase 17 grew (its row-parallel sums move f32 partials through host
+# memory: 256 MiB a product at 32,768 tokens)
+MA_SERVE_LAYERS = 8
 MA_TOL = ATT_TOL["bfloat16"]           # 2e-2, tests/test_kernels.py:156
 MA_KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode",
               "kmeans_pairwise_dist", "kmeans_lloyd_step")
+
+
+def _ma_serve_cfg():
+    """16a's llama3.2-1b: full width, ``MA_SERVE_LAYERS`` deep."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cut_depth
+    return cut_depth(get_config("llama3.2-1b"), MA_SERVE_LAYERS)
 
 
 def _ma_serve(dev, mesh, job):
@@ -4976,7 +5010,6 @@ def _ma_serve(dev, mesh, job):
     the logits, the picked tokens and the written K/V slots (this rank's
     kv heads) on the host, the walls, peak and launches."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import mesh_axis_sizes
@@ -4985,7 +5018,7 @@ def _ma_serve(dev, mesh, job):
     from repro_torch.obs.timing import monotonic
     from repro_torch.optim.optimizers import tree_leaves
 
-    cfg = get_config("llama3.2-1b")
+    cfg = _ma_serve_cfg()
     prefill, lm = make_prefill_step(cfg, mesh=mesh)
     decode, _ = make_decode_step(cfg, mesh=mesh)
     params = lm.init(torch.Generator(device=dev).manual_seed(job["seed"]),
@@ -5033,11 +5066,9 @@ def _ma_f32_prefill(dev, job):
     """16a's prefill on one rank in f32 from the same bf16 weights (cast
     up): the logits both bf16 runs are read against."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.optim.optimizers import tree_map
-    prefill, lm = make_prefill_step(get_config("llama3.2-1b"),
-                                    dtype=torch.float32)
+    prefill, lm = make_prefill_step(_ma_serve_cfg(), dtype=torch.float32)
     params = tree_map(lambda x: x.float(), lm.init(torch.Generator(
         device=dev).manual_seed(job["seed"]), dtype=torch.bfloat16))
     logits = prefill(params, {"tokens": torch.from_numpy(
@@ -5092,8 +5123,9 @@ def _ma_train(dev, mesh, job, g):
 
 
 def model_axis_child(rank, world, init_file, job_path, out_path):
-    """One of phase 16's gloo ranks on the card: the job's parts on its
-    mesh; writes what it got (rank 0 also the W_G leaves of 16b)."""
+    """One of phase 16's or 17's gloo ranks on the card: the job's parts
+    on its mesh; writes what it got (rank 0 also the W_G leaves of 16b,
+    and 17's gathered caches and W_G leaves)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -5119,21 +5151,27 @@ def model_axis_child(rank, world, init_file, job_path, out_path):
             out["train"]["digest"] = _leaf_digest(got["leaves"])
             if rank == 0:
                 torch.save(got["leaves"], job["leaves_path"])
+        if "families" in job:
+            out["families"] = _ma17_child(dev, mesh, rank, job["families"],
+                                          job["work"])
         torch.save(out, out_path)
     finally:
         dist.destroy_process_group()
 
 
-def _spawn_ranks(work, world, job, tag):
-    """Phase 16's ``world`` gloo ranks on the card for ``job``, joined ->
-    their outputs (a rank's failure fails the run)."""
+def _spawn_ranks(work, world, job, tag, phase="16", env=(), script=None):
+    """Phase 16's (or 17's) ``world`` gloo ranks on the card for ``job``
+    (``env``: more of the children's environment; ``script``: the file
+    whose ``--model-axis-child`` they run, this one by default), joined
+    -> their outputs (a rank's failure fails the run)."""
     import torch
     job_path = os.path.join(work, f"job_{tag}.pt")
     torch.save(job, job_path)
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
-           "GLOO_SOCKET_IFNAME": "lo"}
+           "GLOO_SOCKET_IFNAME": "lo", **dict(env)}
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--model-axis-child",
+        [sys.executable, script or os.path.abspath(__file__),
+         "--model-axis-child",
          str(r), str(world), os.path.join(work, f"init_{tag}"), job_path,
          os.path.join(work, f"out_{tag}_{r}.pt")], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -5146,7 +5184,7 @@ def _spawn_ranks(work, world, job, tag):
         for proc in procs:
             proc.kill()
     for r, (proc, log) in enumerate(zip(procs, logs)):
-        check(proc.returncode == 0, f"16 {tag}: rank {r} exited "
+        check(proc.returncode == 0, f"{phase} {tag}: rank {r} exited "
                                     f"{proc.returncode}:\n{log[-3000:]}")
     return [torch.load(os.path.join(work, f"out_{tag}_{r}.pt"),
                        weights_only=False) for r in range(world)]
@@ -5163,7 +5201,8 @@ def run_model_axis_phase(dev):
     """Phase 16, the model axis: llama3.2-1b tensor parallel over gloo
     processes on the card, against the one-rank steps run here first on
     the same seeds (their outputs kept on the host, the card freed).
-    16a (1 x 2): prefill and decode at full width and depth; every rank's
+    16a (1 x 2): prefill and decode at full width, ``MA_SERVE_LAYERS``
+    deep; every rank's
     logits, tokens and K/V the same bits; the logits and the written K/V
     slots within ``MA_TOL`` (||got - want||_F / ||want||_F) of one rank's;
     each rank's attention launches those of one rank. 16b: the depth-cut
@@ -5239,8 +5278,8 @@ def run_model_axis_phase(dev):
         check(sum(want["launches"][part].values()) > 0,
               f"16a {part}: no kernel launched")
     out = {"card": card, "16a": {
-        "model": "llama3.2-1b", "mesh": "1x2 (data, model), gloo",
-        "prefill_tokens": PREFILL_S, "decode_batch": SERVE_BATCH,
+        "model": "llama3.2-1b", "layers": MA_SERVE_LAYERS,
+        "mesh": "1x2 (data, model), gloo", "prefill_tokens": PREFILL_S, "decode_batch": SERVE_BATCH,
         "decode_slots": SERVE_CACHE, "decode_steps": MA_DECODE_STEPS,
         "ranks_bit_identical": True, "prefill_logits_rel_err": logits_err,
         "written_kv_rel_err": kv_err, "tokens_equal_share": same_tokens,
@@ -5317,6 +5356,528 @@ def run_model_axis_phase(dev):
     out["wall_s"] = monotonic() - t_phase
     shutil.rmtree(work, ignore_errors=True)
     return out, launches16
+
+
+# phase 17: the model axis for the other four families, at full width over
+# one 1 x 2 gloo world on the card (``--model-axis-child``, four archs in
+# turn), against their one-rank steps run first here on the same seeds.
+# 17a serves each arch cut in depth (MA17_LAYERS): a
+# 1 x MA17_S prefill, then MA17_STEPS teacher-forced decode steps at batch
+# MA17_BATCH over MA17_SLOTS slots, in bf16 at MA_TOL. In bf16 the ranks'
+# activations differ from one rank's in a few bits (a row-parallel
+# product sums its f32 partials in another order), enough to flip
+# near-tied top-k choices of the random routers: thousands of (token,
+# choice) pairs in prefill, which move the dropped share, and one decode
+# flip moves a whole cache row (jamba's, PERF.md). So a bf16 run holds
+# its cache leaves only where no decode route flipped, and does not hold
+# the dropped share; the MoE archs run again in f32 (MA17_F32, the
+# kernels' f32 routes; jamba 3 layers, its 4 would not fit the card in
+# f32), where nothing flips, at MA17_F32_TOL with the dropped share one
+# rank's. 17b trains qwen3-moe and rwkv6 (4 layers, split at layer 2,
+# bf16 compute) one round at G = 1 with one cluster a probe row, each
+# W_G leaf's update (W_G - W_0) held to one rank's at MA17_UPDATE_TOL
+# (relative Frobenius). On an NVIDIA H100 80GB HBM3 at 700 W the sound
+# steps read at most 0.336 (qwen3-moe, its routes flipping) and 0.074
+# (rwkv6); a mutated copy whose router gradient was doubled
+# (``copy(copy(topv))``) read 2.546, one whose ranks each kept their own
+# share (``topv`` without ``copy``) 0.783 (and the ranks' bits differed)
+MA17_LAYERS = {"qwen3-moe-30b-a3b": 4, "deepseek-v2-236b": 2,
+               "jamba-1.5-large-398b": 4, "rwkv6-3b": 4}
+MA17_F32 = {"qwen3-moe-30b-a3b": 4, "deepseek-v2-236b": 2,
+            "jamba-1.5-large-398b": 3}
+MA17_F32_TOL = 1e-3
+MA17_UPDATE_TOL = {"qwen3-moe-30b-a3b": 0.5, "rwkv6-3b": 0.2}
+MA17_S, MA17_BATCH, MA17_SLOTS, MA17_STEPS = 4096, 4, 4096, 4
+MA17_TRAIN, MA17_TRAIN_T = ("qwen3-moe-30b-a3b", "rwkv6-3b"), 2048
+MA17_KERNELS = MA_KERNELS
+
+
+def _ma17_cfg(arch, layers=None):
+    """``arch`` at full width cut to ``layers`` (default its
+    ``MA17_LAYERS``; jamba's block pattern to its first kinds: Mamba,
+    Mamba + MoE, Mamba, attention + MoE; deepseek's first dense and first
+    MoE layer); training splits the 4-layer cuts at layer 2
+    (``split_fraction``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cut_depth
+    return cut_depth(get_config(arch), layers or MA17_LAYERS[arch])
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """While open, every ``layers.moe_route`` call keeps its top-k experts
+    and its kept and routed pair counts, on the card (no sync): yields the
+    list of (topi, kept, routed); ``routes_on_host`` reads it after the
+    timed calls."""
+    from repro_torch.models import layers as L
+    route, seen = L.moe_route, []
+
+    def kept(p, xn, **kw):
+        r = route(p, xn, **kw)
+        seen.append((r.topi, r.keep.sum(), r.keep.numel()))
+        return r
+
+    L.moe_route = kept
+    try:
+        yield seen
+    finally:
+        L.moe_route = route
+
+
+def routes_on_host(seen):
+    return [(topi.cpu(), int(kept), n) for topi, kept, n in seen]
+
+
+def _in_turns(mesh, fn):
+    """``fn()`` on one rank of ``mesh`` after the other (the ranks share
+    the card: drawing a leaf takes it whole in f32 for a moment, 12.9 GB
+    for jamba's experts), each rank's cache freed before the next."""
+    import torch
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            free, _ = torch.cuda.mem_get_info()
+            print(f"rank {r}'s turn: {torch.cuda.memory_allocated()} B "
+                  f"allocated, {torch.cuda.memory_reserved()} B reserved, "
+                  f"{free} B free on the card", flush=True)
+            out = fn()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _ma17_serve(dev, mesh, arch, job):
+    """17a for ``arch`` on ``mesh`` (None: one rank): bf16 weights from
+    ``job["seed"]`` (on a mesh drawn shard by shard: ``params_on_mesh``),
+    the prefill, then the teacher-forced decode steps -> the logits, the
+    tokens, the routes, the walls, peak and launches, and the cache
+    gathered whole (its leaves on the host, and their digest)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.launch.specs import (cache_on_mesh, params_on_mesh,
+                                          step_plan)
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.obs.timing import monotonic
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = _ma17_cfg(arch, job.get("layers"))
+    dtype = getattr(torch, job.get("dtype", "bfloat16"))
+    prefill, lm = make_prefill_step(cfg, mesh=mesh, dtype=dtype)
+    decode, _ = make_decode_step(cfg, mesh=mesh, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(job["seed"])
+    t0 = monotonic()
+    if mesh is None:
+        params = lm.init(gen, dtype=dtype)
+    else:                   # one tree through both steps: decode's plan
+        params = _in_turns(mesh, lambda: params_on_mesh(
+            lm, gen, step_plan(cfg, mesh_axis_sizes(mesh), "decode",
+                               lm=lm), mesh, dtype=dtype, device=dev))
+    init_wall = monotonic() - t0
+    weights_bytes = torch.cuda.memory_allocated()
+    ptoks = torch.from_numpy(job["prefill"]).to(dev)
+    dtoks = torch.from_numpy(job["decode"]).to(dev)
+    peak_and_reset()
+    ops.reset_launch_counts()
+    with moe_routes() as routes:
+        t0 = monotonic()
+        logits = prefill(params, {"tokens": ptoks})
+        torch.cuda.synchronize()
+        prefill_wall = monotonic() - t0
+        prefill_launches = ops.launch_counts()
+        prefill_routes = len(routes)
+        cache = (cache_on_mesh(lm, mesh, MA17_BATCH, MA17_SLOTS,
+                               dtype=dtype, device=dev)
+                 if mesh is not None else
+                 lm.init_cache(MA17_BATCH, MA17_SLOTS, dtype=dtype,
+                               device=dev))
+        ops.reset_launch_counts()
+        picked, walls = [], []
+        for i in range(dtoks.shape[1]):
+            t0 = monotonic()
+            nxt, cache = decode(params, cache, dtoks[:, i:i + 1])
+            picked.append(nxt.cpu())                       # syncs
+            walls.append(monotonic() - t0)
+        decode_launches = ops.launch_counts()
+    peak = peak_and_reset()
+    del params
+    t0 = monotonic()
+    leaves = [x.cpu() for x in tree_leaves(
+        sh.gather_tree(cache) if mesh is not None else cache)]
+    del cache
+    torch.cuda.empty_cache()
+    return {"logits": logits.cpu(), "tokens": torch.cat(picked, 1),
+            "routes": routes_on_host(routes),
+            "prefill_routes": prefill_routes, "cache": leaves,
+            "cache_digest": _leaf_digest(leaves),
+            "init_wall_s": init_wall,
+            "gather_cache_wall_s": monotonic() - t0,
+            "prefill_wall_s": prefill_wall,
+            "decode_ms_per_step": [w * 1e3 for w in walls],
+            "max_memory_allocated": peak, "weights_bytes": weights_bytes,
+            "launches": {"prefill": prefill_launches,
+                         "decode": decode_launches}}
+
+
+def _ma17_train(dev, mesh, arch, job):
+    """17b for ``arch`` on ``mesh`` (None: one rank): one round of the
+    depth-cut train step at G = 1, f32 weights from ``job["seed"]`` ->
+    the W_G leaves on the host (gathered whole; one rank: also each leaf's
+    update norm ||W_G - W_0||), the metrics, wall, peak and launches."""
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.fedavg import broadcast_to_clients
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.launch.specs import step_plan
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.obs.timing import monotonic
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = _ma17_cfg(arch)
+    tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
+                       meta_clusters=TRAIN_MB, meta_steps=TRAIN_META_STEPS)
+    step, lm = make_train_step(cfg, tcfg, mesh=mesh)
+
+    def init():
+        state = broadcast_to_clients(lm.init(torch.Generator(
+            device=dev).manual_seed(job["seed"])), 1)
+        return state if mesh is None else sh.distribute_tree(
+            state, step_plan(cfg, mesh_axis_sizes(mesh), "train", tcfg,
+                             lm, 1), mesh)
+    t0 = monotonic()
+    state = init() if mesh is None else _in_turns(mesh, init)
+    init_wall = monotonic() - t0
+    start = None if mesh is not None else [x[0].cpu()
+                                            for x in tree_leaves(state)]
+    tokens = torch.from_numpy(job["tokens"]).to(dev)
+    peak_and_reset()
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    new, _, metrics = step(state, (), {"tokens": tokens}, job["first"])
+    metrics = {k: float(v) for k, v in metrics.items()}       # syncs
+    wall = monotonic() - t0
+    launches = ops.launch_counts()
+    peak = peak_and_reset()
+    del state
+    t0 = monotonic()
+    leaves = [x[0].cpu() for x in tree_leaves(sh.gather_tree(new))]
+    del new
+    torch.cuda.empty_cache()
+    norms = start and [float(torch.linalg.vector_norm(a - b))
+                       for a, b in zip(leaves, start)]
+    return {"leaves": leaves, "update_norms": norms, "metrics": metrics,
+            "wall_s": wall, "init_wall_s": init_wall,
+            "gather_wall_s": monotonic() - t0,
+            "max_memory_allocated": peak, "launches": launches}
+
+
+def _update_errs(got, want, norms):
+    """Each leaf's update on the ranks against one rank's, relative
+    Frobenius: ||(got - W_0) - (want - W_0)|| / ||want - W_0||, ``norms``
+    one rank's ||want - W_0|| (a leaf one rank leaves unchanged: 0 if the
+    ranks leave it so too, else inf)."""
+    import torch
+    errs = []
+    for g, w, u in zip(got, want, norms):
+        d = float(torch.linalg.vector_norm(g - w))
+        errs.append(d / u if u else (0.0 if d == 0 else float("inf")))
+    return errs
+
+
+def _ma17_jobs(vocabs):
+    """Each arch's inputs, from numpy seeded 17: 17a's prompt and decode
+    tokens, 17b's round; the MoE archs' f32 serving on the same inputs
+    (tagged "<arch> f32")."""
+    import numpy as np
+    rng = np.random.default_rng(17)
+    jobs = {}
+    for i, arch in enumerate(MA17_LAYERS):
+        v = vocabs[arch]
+        jobs[arch] = {"serve": {
+            "seed": 170 + i,
+            "prefill": rng.integers(0, v, (1, MA17_S), np.int32),
+            "decode": rng.integers(0, v, (MA17_BATCH, MA17_STEPS),
+                                   np.int32)}}
+        if arch in MA17_TRAIN:
+            jobs[arch]["train"] = {"seed": 175 + i, "first": [1],
+                                   "tokens": rng.integers(0, v, (
+                                       1, TRAIN_LOCAL, 1, TRAIN_MB,
+                                       MA17_TRAIN_T), np.int32)}
+    for arch, layers in MA17_F32.items():
+        jobs[f"{arch} f32"] = {"arch": arch, "serve": dict(
+            jobs[arch]["serve"], dtype="float32", layers=layers)}
+    return jobs
+
+
+def _ma17_child(dev, mesh, rank, jobs, work):
+    """Phase 17's part of a ``--model-axis-child``: the jobs in turn (each
+    an arch's, keyed by the arch or by a tag with its "arch"); rank 0
+    writes the gathered caches and W_G leaves under ``work``, every rank
+    their digests."""
+    import torch
+    from repro_torch.obs.timing import monotonic
+    out = {}
+    for tag, job in jobs.items():
+        arch = job.get("arch", tag)
+        got = {"serve": _ma17_serve(dev, mesh, arch, job["serve"])}
+        if "train" in job:
+            got["train"] = _ma17_train(dev, mesh, arch, job["train"])
+            t0 = monotonic()
+            got["train"]["digest"] = _leaf_digest(got["train"]["leaves"])
+            got["train"]["digest_wall_s"] = monotonic() - t0
+        t0 = monotonic()
+        if rank == 0:
+            torch.save({"cache": got["serve"]["cache"],
+                        "leaves": got.get("train", {}).get("leaves")},
+                       os.path.join(work, f"w17_{tag}.pt"))
+        got["save_wall_s"] = monotonic() - t0
+        got["serve"].pop("cache")
+        got.get("train", {}).pop("leaves", None)
+        out[tag] = got
+    return out
+
+
+def _flipped(routes, want, lo=0, hi=None):
+    """(token, choice) pairs routed to another expert than one rank's,
+    over the MoE calls [lo, hi) of the run (None: a call count apart)."""
+    if len(routes) != len(want):
+        return None
+    return sum(int((a != b).sum()) for (a, _, _), (b, _, _)
+               in zip(routes[lo:hi], want[lo:hi]))
+
+
+def _dropped(routes):
+    routed = sum(n for _, _, n in routes)
+    return 1.0 - sum(k for _, k, _ in routes) / routed if routed else 0.0
+
+
+def run_model_axis_families_phase(dev):
+    """Phase 17: qwen3-moe-30b-a3b, deepseek-v2-236b,
+    jamba-1.5-large-398b and rwkv6-3b at full width (``MA17_LAYERS``
+    deep) tensor parallel over a 1 x 2 gloo world on the card (one spawn,
+    the archs in turn), against the one-rank steps run first on the same
+    seeds (their outputs kept on the host, the card freed). 17a: every
+    rank the same logits, tokens and gathered cache bits; the logits and
+    each cache leaf within ``MA_TOL`` (relative Frobenius) of one rank's,
+    the MoE's dropped share one rank's and its flipped (token, choice)
+    pairs counted; the attention launches a rank one rank's. 17b
+    (``MA17_TRAIN``): every rank the same W_G bits, the losses within
+    ``MA_TOL`` of one rank's (max |got - want| / (1 + |want|)) and each
+    leaf's update within ``MA17_UPDATE_TOL`` of one rank's
+    (``_update_errs``); the launches a rank one rank's. Every arch's
+    numbers are printed before a failure fails the phase. -> (the
+    numbers, launches per rank by kernel)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.obs.timing import monotonic
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    t_phase = monotonic()
+    jobs = _ma17_jobs({a: get_config(a).vocab_size for a in MA17_LAYERS})
+    one = {}
+    for tag, job in jobs.items():
+        arch = job.get("arch", tag)
+        one[tag] = {"serve": _ma17_serve(dev, None, arch, job["serve"])}
+        if "train" in job:
+            one[tag]["train"] = _ma17_train(dev, None, arch, job["train"])
+    one_wall = monotonic() - t_phase
+    peak_and_reset()
+    print(f"17: one rank's steps {one_wall} s; the card before the ranks: "
+          f"{torch.cuda.memory_allocated()} B allocated, "
+          f"{torch.cuda.mem_get_info()[0]} B free ({card})")
+    work = os.path.join(ROOT, "build", "phase17")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = monotonic()
+    # the ranks' allocators in growable segments: two ranks of jamba's
+    # weights share the card, and each draws its 12.9 GB f32 leaves in
+    # turn (``_in_turns``)
+    ranks = _spawn_ranks(work, 2, {"mesh": (1, 2), "families": jobs,
+                                   "work": work}, "17_1x2", phase="17",
+                         env={"PYTORCH_CUDA_ALLOC_CONF":
+                              "expandable_segments:True"})
+    spawn_wall = monotonic() - t0
+
+    out = {"card": card, "one_rank_wall_s": one_wall,
+           "spawn_wall_s": spawn_wall,
+           "rank_parts_s": [{tag: {"save": got["save_wall_s"], **{
+               f"{part}_{k}": got[part][k] for part in ("serve", "train")
+               if part in got for k in ("init_wall_s", "gather_wall_s",
+                                        "gather_cache_wall_s",
+                                        "digest_wall_s", "wall_s",
+                                        "prefill_wall_s")
+               if k in got[part]}} for tag, got in r["families"].items()}
+               for r in ranks]}
+    launches = {k: [0, 0] for k in MA17_KERNELS}
+    problems = []           # every arch's numbers printed before a failure
+
+    def expect(ok, msg):
+        if not ok:
+            problems.append(msg)
+    for tag, job in jobs.items():
+        arch = job.get("arch", tag)
+        f32 = job["serve"].get("dtype") == "float32"
+        runs = [r["families"][tag] for r in ranks]
+        saved = torch.load(os.path.join(work, f"w17_{tag}.pt"),
+                           weights_only=False)
+        # ---- 17a ----
+        got, want = [r["serve"] for r in runs], one[tag]["serve"]
+        for what in ("logits", "tokens"):
+            expect(all(torch.equal(g[what], got[0][what]) for g in got),
+                  f"17a {tag}: the ranks' {what} differ")
+        expect(len({g["cache_digest"] for g in got}) == 1,
+              f"17a {tag}: the ranks' gathered caches differ")
+        logits_err = _fro_rel(got[0]["logits"], want["logits"])
+        cache_err = max(_fro_rel(a, b) if a.is_floating_point()
+                        else float(not torch.equal(a, b))
+                        for a, b in zip(saved["cache"], want["cache"]))
+        flips = _flipped(got[0]["routes"], want["routes"])
+        n_pre = want["prefill_routes"]
+        decode_flips = _flipped(got[0]["routes"], want["routes"], n_pre)
+        dropped = (_dropped(got[0]["routes"]), _dropped(want["routes"]))
+        same_tokens = float((got[0]["tokens"] == want["tokens"]).float()
+                            .mean())
+        tol = MA17_F32_TOL if f32 else MA_TOL
+        print(f"17a {tag} ({card}): logits rel err {logits_err}, cache "
+              f"rel err {cache_err}, flips {flips} ({decode_flips} in "
+              f"decode), dropped {dropped}", flush=True)
+        expect(flips is not None, f"17a {tag}: MoE calls differ in number")
+        expect(logits_err <= tol, f"17a {tag}: vs one rank, logits "
+                                  f"{logits_err} beyond {tol}")
+        # a decode flip makes a cache row another function's (bf16 only)
+        expect(cache_err <= tol or (not f32 and decode_flips),
+               f"17a {tag}: vs one rank, cache {cache_err} beyond {tol} "
+               f"({decode_flips} decode flips)")
+        expect(dropped[0] == dropped[1] or not f32,
+               f"17a {tag}: dropped share {dropped} vs one rank, "
+               f"{flips} flipped pairs")
+        for part in ("prefill", "decode"):
+            for k_name in ("flash_attention", "flash_decode"):
+                n = [g["launches"][part].get(k_name, 0) for g in got]
+                expect(n == [want["launches"][part].get(k_name, 0)] * 2,
+                      f"17a {tag} {part}: {k_name} launched {n} times "
+                      f"on the ranks, "
+                      f"{want['launches'][part].get(k_name, 0)} on one")
+                for r, c in enumerate(n):
+                    launches[k_name][r] += c
+        cfg = _ma17_cfg(arch, job["serve"].get("layers"))
+        n_mla = sum(1 for k in cfg.layer_kinds() if k == "attn") \
+            if cfg.attention_kind == "mla" else 0
+        dtype = job["serve"].get("dtype", "bfloat16")
+        row = {"model": arch, "layers": cfg.num_layers,
+               "dtype": dtype, "mesh": "1x2 (data, model), gloo",
+               "prefill_tokens": MA17_S, "decode_batch": MA17_BATCH,
+               "decode_slots": MA17_SLOTS, "decode_steps": MA17_STEPS,
+               "ranks_bit_identical": True,
+               "prefill_logits_rel_err": logits_err,
+               "max_cache_leaf_rel_err": cache_err,
+               "tokens_equal_share": same_tokens, "limit": tol,
+               "cache_beyond_limit_after_decode_flips": bool(
+                   cache_err > tol and decode_flips),
+               "moe_flipped_pairs": flips,
+               "moe_flipped_pairs_decode": decode_flips,
+               "moe_dropped_share": dropped[0],
+               "moe_dropped_share_one_rank": dropped[1],
+               "mla_latent_gather_bytes_a_step": (
+                   n_mla * MA17_BATCH * MA17_SLOTS * cfg.kv_lora_rank
+                   * getattr(torch, dtype).itemsize),
+               "one_rank": {k: want[k] for k in (
+                   "prefill_wall_s", "decode_ms_per_step",
+                   "max_memory_allocated", "weights_bytes", "launches")},
+               "ranks": [{k: g[k] for k in (
+                   "prefill_wall_s", "decode_ms_per_step",
+                   "max_memory_allocated", "weights_bytes", "launches")}
+                         for g in got]}
+        out[f"17a {tag}"] = row
+        print(f"17a {tag} ({card}): prefill "
+              f"{[g['prefill_wall_s'] for g in got]} s (one rank "
+              f"{want['prefill_wall_s']}), decode ms/step "
+              f"{[g['decode_ms_per_step'] for g in got]}, peaks "
+              f"{[g['max_memory_allocated'] for g in got]}, logits rel err "
+              f"{logits_err}, cache rel err {cache_err}, flips {flips}, "
+              f"dropped {dropped}, latent gather "
+              f"{row['mla_latent_gather_bytes_a_step']} B/step")
+        # ---- 17b ----
+        if "train" not in job:
+            continue
+        tr, w = [r["train"] for r in runs], one[tag]["train"]
+        expect(len({t["digest"] for t in tr}) == 1
+              and all(t["metrics"] == tr[0]["metrics"] for t in tr),
+              f"17b {arch}: the ranks leave the step with different bits")
+        errs = _update_errs(saved["leaves"], w["leaves"], w["update_norms"])
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        leaf_err = errs[worst]
+        loss_err = max(abs(tr[0]["metrics"][k] - w["metrics"][k])
+                       / (1 + abs(w["metrics"][k])) for k in w["metrics"])
+        print(f"17b {arch} ({card}): update rel err by leaf {errs}, "
+              f"metrics {loss_err}", flush=True)
+        expect(tr[0]["metrics"]["selected"] == w["metrics"]["selected"]
+              == TRAIN_MB, f"17b {arch}: selected "
+                           f"{tr[0]['metrics']['selected']}")
+        expect(leaf_err <= MA17_UPDATE_TOL[arch] and loss_err <= MA_TOL,
+              f"17b {arch}: vs one rank, leaf {worst}'s update {leaf_err} "
+              f"beyond {MA17_UPDATE_TOL[arch]}, or metrics {loss_err} "
+              f"beyond {MA_TOL}")
+        per_rank = {k: [t["launches"].get(k, 0) for t in tr]
+                    for k in MA17_KERNELS}
+        for k_name, n in per_rank.items():
+            expect(n == [w["launches"].get(k_name, 0)] * 2,
+                  f"17b {arch}: {k_name} {n} on the ranks, "
+                  f"{w['launches'].get(k_name, 0)} on one")
+            for r, c in enumerate(n):
+                launches[k_name][r] += c
+        out[f"17b {arch}"] = {
+            "layers": MA17_LAYERS[arch], "seq_len": MA17_TRAIN_T,
+            "cohorts": 1, "ranks_bit_identical": True,
+            "max_leaf_update_rel_err": leaf_err, "worst_leaf": worst,
+            "update_rel_err_by_leaf": errs,
+            "max_metric_err_vs_one_rank": loss_err,
+            "limits": {"update": MA17_UPDATE_TOL[arch], "metrics": MA_TOL},
+            "metrics": tr[0]["metrics"],
+            "one_rank": {k: w[k] for k in ("metrics", "wall_s",
+                                            "max_memory_allocated",
+                                            "launches")},
+            "rank_walls_s": [t["wall_s"] for t in tr],
+            "rank_peaks": [t["max_memory_allocated"] for t in tr],
+            "launches_by_rank": per_rank}
+        print(f"17b {arch} ({card}): walls {[t['wall_s'] for t in tr]} s "
+              f"(one rank {w['wall_s']}), peaks "
+              f"{[t['max_memory_allocated'] for t in tr]}, worst leaf "
+              f"update vs one rank {leaf_err}, launches {per_rank}")
+    for k_name in ("flash_attention", "flash_attention_bwd", "flash_decode",
+                   "kmeans_pairwise_dist", "kmeans_lloyd_step"):
+        check(min(launches[k_name]) > 0,
+              f"17: {k_name} launched {launches[k_name]} times on the "
+              f"ranks")
+    check(not problems, "; ".join(problems))
+    out["wall_s"] = monotonic() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    return out, launches
+
+
+def phase17_alone() -> None:
+    """``python3 chip_smoke.py --phase 17``: build the kernels, then
+    phase 17 alone; prints its numbers and the card's name and power
+    limit."""
+    import torch
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.obs.timing import monotonic
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    dev = resolve_device("cuda")
+    t0 = monotonic()
+    build.load_all()
+    print(f"build_s: {monotonic() - t0:.3f}")
+    out, launches = run_model_axis_families_phase(dev)
+    print(json.dumps({"model_axis_families": out, "launches_17": launches}))
+    print(out["card"])
 
 
 def phase16_alone() -> None:
@@ -5405,5 +5966,7 @@ if __name__ == "__main__":
                          *sys.argv[4:7])
     elif sys.argv[1:] == ["--phase", "16"]:
         phase16_alone()
+    elif sys.argv[1:] == ["--phase", "17"]:
+        phase17_alone()
     else:
         main()

@@ -268,8 +268,8 @@ class TrainConfig:
     on two pods), as the reference's; ``fed_axis`` is not read there, nor
     in the reference. ``seq_shard_activations`` picks the head-aware
     plan of the train layout (``launch/specs.py`` ``input_specs``); the
-    sequence-sharded activations themselves need a model axis, which the
-    port plans and does not execute (``ROADMAP.md`` item 15b)."""
+    sequence-sharded activations themselves are planned and not executed:
+    on a model axis the step raises (``ROADMAP.md`` item 15b)."""
     local_steps: int = 2               # L local SGD steps between FedAvg syncs
     microbatch: int = 8                # tokens rows per grad-accum microstep
     lr: float = 0.1

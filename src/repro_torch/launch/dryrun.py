@@ -24,13 +24,15 @@ lower bound on a rank's work with none of its collectives: one rank's
 count of a tensor-parallel step is the rest of ``ROADMAP.md`` item 15b.
 
 Of those even-split pairs the port now executes (``launch/steps.py`` on a
-mesh) the dense attention families' — llama3.2-1b, qwen2-0.5b, gemma3-4b,
-phi3-medium-14b, internvl2-26b and whisper-medium — on one pod: train_4k
-and prefill_32k on every mesh, and decode_32k where ``cache_plan`` splits
-the kv heads over "model" (the smoke mesh; at 16 x 16 whisper-medium's 16
-kv heads only: the others' cache splits the head dim, which raises). The
-experts, MLA, Mamba and RWKV under a model axis, FSDP, the two-pod meshes'
-inference and long_500k (its sequence over "data") raise there.
+mesh) every family's on one pod where no FSDP is planned: train_4k and
+prefill_32k, and decode_32k where ``cache_plan`` splits no k/v cache on
+its head dim (the smoke mesh; at 16 x 16 whisper-medium's 16 kv heads,
+and MLA's latent, Mamba's and RWKV's states). The dry run still records
+them ``even_split``: a rank's own count of a tensor-parallel step is the
+rest of item 15b. FSDP (jamba and deepseek with "data" above 1), RWKV or
+MLA heads that do not divide the model axis (rwkv6-3b's 40 over 16), the
+two-pod meshes' inference and long_500k (its sequence over "data") raise
+there.
 
 ``memory``: argument and output bytes a device from the specs (each leaf
 divided over the axes its spec shards it on); there is no compiler, so

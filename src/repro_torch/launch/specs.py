@@ -12,10 +12,12 @@ mesh's specs are computed from its axis sizes alone
 
 What a step executes on a mesh takes the same plans: ``step_plan`` is the
 parameters' plan of a step kind (as ``input_specs`` plans it), which
-``sharding.distribute_tree`` places; ``cache_on_mesh`` makes a decode
+``sharding.distribute_tree`` places (``params_on_mesh`` draws it there,
+each rank keeping its shards only); ``cache_on_mesh`` makes a decode
 cache as DTensors on ``cache_plan``'s placements (each rank allocating
-its own shard only), and ``check_cache_placements`` holds a cache to them
-and refuses the layouts the port does not execute.
+its own shard only: k/v, MLA's latent, Mamba's and RWKV's states), and
+``check_cache_placements`` holds a cache to them and refuses the layouts
+the port does not execute.
 """
 from __future__ import annotations
 
@@ -210,16 +212,20 @@ def step_plan(cfg: ModelConfig, axes: sh.Axes, kind: str,
 def _cache_refusal(specs: PyTree, axes: sh.Axes) -> None:
     """``NotImplementedError`` for a cache plan the port does not execute:
     k/v with the head dim or the sequence over "model", or the sequence
-    over "data" (long_500k's batch of 1); an axis of 1 splits nothing."""
+    over "data" (long_500k's batch of 1), and MLA's latent ring with its
+    sequence split; an axis of 1 splits nothing. The latent's r, Mamba's
+    channels, RWKV's heads and token shift over "model" are executed."""
     def names(entry):
         return () if entry is None else (
             (entry,) if isinstance(entry, str) else tuple(entry))
 
     def walk(path, spec):
-        if path and path[-1] in ("k", "v") and len(spec) >= 4:
-            off = len(spec) - 4
+        ring = {"k": 4, "v": 4, "c_kv": 3, "k_rope": 3}.get(
+            path[-1] if path else None)
+        if ring and len(spec) >= ring:
+            off = len(spec) - ring
             for dim, what in ((off + 1, "the sequence"),
-                              (off + 3, "the head dim")):
+                              (off + 3, "the head dim"))[:ring - 2]:
                 for ax in names(spec[dim]):
                     if axes.get(ax, 1) == 1:
                         continue
@@ -249,6 +255,81 @@ def _cache_placements(cfg: ModelConfig, mesh, shapes: PyTree,
     _cache_refusal(specs, axes)
     names = tuple(mesh.mesh_dim_names)
     return sh.tree_map_specs(lambda s: sh.to_placements(s, names), specs)
+
+
+def params_on_mesh(lm: LM, gen: torch.Generator, placements, mesh,
+                   dtype=torch.float32, device=None) -> PyTree:
+    """``sharding.distribute_tree(lm.init(gen, device, dtype),
+    placements, mesh)`` without the whole tree: each leaf is drawn as
+    ``lm.init`` draws it (the same calls on ``gen``, so the same bits) and
+    cut to this rank's part at once, so a rank holds its shards and one
+    whole layer slice at most (jamba's 4-layer cut is 23 B parameters,
+    46 GB in bf16). ``placements`` a ``Plan`` or a tree of placement
+    tuples."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.models import layers as L
+    if isinstance(placements, sh.Plan):
+        placements = placements.placements(mesh)
+    # which leaf each of ``init``'s calls makes, from a meta draw
+    calls: list = []
+
+    class Recorder(L.ParamInit):
+        def normal(self, shape, scale):
+            calls.append(super().normal(shape, scale))
+            return calls[-1]
+
+        def full(self, shape, value):
+            calls.append(super().full(shape, value))
+            return calls[-1]
+
+    shapes = lm.draw(Recorder(None, "meta", dtype=dtype))
+    order = {id(t): i for i, t in enumerate(calls)}
+    by_call: list = [None] * len(calls)
+    sh.map_with_placements(
+        lambda x, pl: by_call.__setitem__(order[id(x)], pl), shapes,
+        placements)
+    coord = mesh.get_coordinate()
+    at = iter(by_call)
+
+    def cut(x, pl, skip=0):
+        """This rank's part of ``x`` under placements ``pl`` (whose dims
+        count ``skip`` leading dims ``x`` does not have)."""
+        for mdim, p in enumerate(pl):
+            if isinstance(p, Shard):
+                size = x.shape[p.dim - skip] // mesh.size(mdim)
+                x = x.narrow(p.dim - skip, coord[mdim] * size, size)
+        return x
+
+    class Sharder(L.ParamInit):
+        def normal(self, shape, scale):
+            pl, lead = next(at), len(self.lead)
+            if any(isinstance(p, Shard) and p.dim < lead for p in pl):
+                raise ValueError("params_on_mesh: a plan that splits a "
+                                 "stacked layer axis")
+            # each layer slice drawn whole in f32, as ``ParamInit.normal``
+            # draws it, and cut before it is cast: no whole leaf in
+            # ``dtype`` is ever made
+            out = torch.empty(self.lead + tuple(cut(torch.empty(
+                shape, device="meta"), pl, lead).shape), dtype=self.dtype,
+                device=self.device)
+            flat = out.view((-1,) + tuple(out.shape[lead:]))
+            for r in range(flat.shape[0]):
+                x = torch.randn(shape, generator=self.gen,
+                                device=self.gen.device)
+                flat[r].copy_(cut(x.mul_(scale), pl, lead))
+            return out
+
+        def full(self, shape, value):
+            x = super().full(shape, value)
+            local = cut(x, next(at))
+            return local if local is x else local.clone(
+                memory_format=torch.contiguous_format)
+
+    local = lm.draw(Sharder(gen, device, dtype=dtype))
+    return sh.map_with_placements(
+        lambda x, pl: DTensor.from_local(x, mesh, tuple(pl),
+                                         run_check=False),
+        local, placements)
 
 
 def cache_on_mesh(lm: LM, mesh, batch: int, seq_len: int,

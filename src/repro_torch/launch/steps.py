@@ -19,12 +19,14 @@ train_step   — ONE federated round per call (the paper's Algorithm 1 on
                meta steps take the head and its log-softmax a microbatch
                of selected rows at a time, so their memory does not grow
                with G either. A mesh whose "model" axis is above 1 runs
-               tensor parallel inside each cohort (the dense attention
-               families: ``models/model_axis.py``): the weights are
-               DTensors on the train plan (``launch/specs.py``
-               ``step_plan``), each rank trains its shard of them, the
-               selection runs on every model rank over the same replicated
-               activations, and the round returns DTensors on the same
+               tensor parallel inside each cohort (every family:
+               ``models/model_axis.py``; the experts expert parallel):
+               the weights are DTensors on the train plan
+               (``launch/specs.py`` ``step_plan``), each rank trains its
+               shard of them, the selection runs on every model rank over
+               the same replicated activations, the MoE's ``aux`` enters
+               the loss as on one rank (every rank computes the whole
+               route), and the round returns DTensors on the same
                placements.
 prefill_step — causal forward over the prompt (after the encoder's pass
                or the vision prefix, where the batch has them),
@@ -35,12 +37,14 @@ decode_step  — one token against the (ring-buffer) cache, greedy argmax;
 
 Given a mesh, prefill and decode take their weights as DTensors on either
 inference plan (``step_plan``) and the cache on ``cache_plan``'s
-placements (``specs.cache_on_mesh``), its kv heads over "model": each rank
-runs its heads' kernels and its shard of the FFN and of the vocabulary,
-the batch's rows over "data" where they divide, and every rank returns
-the same logits or tokens. Experts, MLA, Mamba and RWKV on a model axis,
-FSDP, sequence-sharded activations and a cache sharded on the head dim or
-the sequence raise ``NotImplementedError`` (``ROADMAP.md`` item 15b).
+placements (``specs.cache_on_mesh``): the kv heads, MLA's latent, Mamba's
+channels and RWKV's heads over "model". Each rank runs its heads' kernels
+(MLA's rebuilt from the gathered latent), its experts, its channels and
+its shard of the FFN and of the vocabulary, the batch's rows over "data"
+where they divide, and every rank returns the same logits or tokens.
+FSDP, sequence-sharded activations, a k/v cache sharded on the head dim
+or the sequence and inference over "pod" raise ``NotImplementedError``
+(``ROADMAP.md`` item 15b).
 
 Inference computes in ``dtype`` (bf16 by default, as the reference) and
 runs without autograd; training computes in ``TrainConfig.dtype`` on f32
@@ -109,37 +113,19 @@ class StepRanks(NamedTuple):
     mesh: Any
 
 
-def _not_on_model_axis(cfg: ModelConfig) -> Optional[str]:
-    """What of ``cfg`` a model axis does not execute yet (None: a dense
-    attention family, which it does)."""
-    kinds = set(cfg.layer_kinds())
-    missing = ((["experts (expert parallelism)"] if cfg.is_moe else [])
-               + (["MLA attention"] if cfg.attention_kind == "mla" else [])
-               + [f"{k} layers" for k in ("mamba", "rwkv") if k in kinds])
-    return " and ".join(missing) or None
-
-
-def _model_ranks(cfg: ModelConfig, mesh, axes) -> Optional[Ranks]:
-    m = axes.get("model", 1)
-    if m == 1:
-        return None
-    missing = _not_on_model_axis(cfg)
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name} has {missing}: a model axis of {m} runs the dense "
-            f"attention families only; the rest is planned, not executed "
-            f"(ROADMAP.md item 15b)")
-    return Ranks.of(mesh.get_group("model"))
+def _model_ranks(mesh, axes) -> Optional[Ranks]:
+    return (Ranks.of(mesh.get_group("model")) if axes.get("model", 1) > 1
+            else None)
 
 
 def fed_ranks(cfg: ModelConfig, mesh,
               tcfg: Optional[TrainConfig] = None) -> StepRanks:
     """The ranks of the train step on ``mesh``: its fed axes
     (``specs.fed_layout``) carry the cohorts, its "model" axis runs each
-    cohort tensor parallel (dense attention families). Raises
-    ``NotImplementedError`` (``ROADMAP.md`` item 15b) for a "data" axis
-    that ``fed_layout`` leaves to shard the weights (FSDP), another family
-    on a model axis, and sequence-sharded activations there."""
+    cohort tensor parallel. Raises ``NotImplementedError`` (``ROADMAP.md``
+    item 15b) for a "data" axis that ``fed_layout`` leaves to shard the
+    weights (FSDP) and for sequence-sharded activations on a model
+    axis."""
     from repro_torch.launch.mesh import mesh_axis_sizes
     from repro_torch.launch.specs import fed_layout
     axes = mesh_axis_sizes(mesh)
@@ -148,16 +134,18 @@ def fed_ranks(cfg: ModelConfig, mesh,
         raise NotImplementedError(
             f"{cfg.name} shards its weights over 'data' (FSDP), which is "
             f"planned, not executed (ROADMAP.md item 15b)")
-    model = _model_ranks(cfg, mesh, axes)
+    model = _model_ranks(mesh, axes)
+    if model is not None and tcfg is not None and tcfg.seq_shard_activations:
+        raise NotImplementedError(
+            "sequence-sharded activations on a model axis are planned, not "
+            "executed (ROADMAP.md item 15b)")
+    if not fed_axes:                       # a huge arch on one pod: G = 1
+        return StepRanks(None, model, None, mesh)
     if model is None:
         # the fed axes span the mesh, which spans the world: one fed axis
         # is its mesh dim's group, two are the world
         group = mesh.get_group(fed_axes[0]) if len(fed_axes) == 1 else None
         return StepRanks(Ranks.of(group), None, None, mesh)
-    if tcfg is not None and tcfg.seq_shard_activations:
-        raise NotImplementedError(
-            "sequence-sharded activations on a model axis are planned, not "
-            "executed (ROADMAP.md item 15b)")
     if len(fed_axes) == 1:
         group = mesh.get_group(fed_axes[0])
     else:                                  # ("pod", "data"): one group
@@ -180,7 +168,7 @@ def _serve_ranks(cfg: ModelConfig, mesh) -> StepRanks:
         raise NotImplementedError(
             f"{cfg.name} shards its weights over 'data' (FSDP), which is "
             f"planned, not executed (ROADMAP.md item 15b)")
-    model = _model_ranks(cfg, mesh, axes)
+    model = _model_ranks(mesh, axes)
     return StepRanks(None, model,
                      Ranks.of(mesh.get_group("data")) if data > 1 else None,
                      mesh)

@@ -10,9 +10,9 @@ reference does without 256 devices. The cohorts G are ``fed_layout``'s on
 the mesh (one process: G = 1; N ranks on the smoke mesh's "data" axis: G =
 N, one cohort a rank). At N = 4 the smoke mesh is the reference's (2, 2):
 two cohorts over "data", each trained tensor parallel over "model", the
-weights DTensors on the train plan (``specs.step_plan``); an arch the
-model axis does not run yet (experts, MLA, Mamba, RWKV) raises there,
-naming ROADMAP item 15b.
+weights DTensors on the train plan (``specs.step_plan``), for every
+arch; an arch above ``FSDP_THRESHOLD`` (jamba, deepseek) shards its
+weights over "data" there (FSDP), which raises, naming ROADMAP item 15b.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --smoke --steps 4 [--device cpu]
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke --device cpu

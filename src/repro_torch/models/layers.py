@@ -48,12 +48,15 @@ unlike the query length, or the decode kernel over a fully valid memory
 for one query; on a CPU tensor ``sdpa_full``, the reference's core.
 
 On a model axis (inside ``model_axis.over``, the step's tensor-parallel
-run) ``attn_apply`` and ``ffn_apply`` take each rank's shard of their
-weights, as the sharding plan places them: the attention runs the kernels
-on the heads this rank's columns of ``wq`` and rows of ``wo`` hold
-(``_attn_apply_tp``), the FFN is column- then row-parallel, and each sums
-its output over the ranks (``model_axis``). A block whose weights are all
-replicated runs as on one rank.
+run) every layer takes each rank's shard of its weights, as the sharding
+plan places them: the attention runs the kernels on the heads this rank's
+columns of ``wq`` and rows of ``wo`` hold (``_attn_apply_tp``), MLA on the
+heads of its columns of ``w_uq``, ``w_uk`` and ``w_uv`` (the D 192
+kernels on them), the FFN is column- then row-parallel, the MoE runs its
+experts (expert parallelism, the route whole on every rank), Mamba its
+chunk of ``d_inner`` and RWKV its heads; each sums its output over the
+ranks (``model_axis``). A block whose weights are all replicated runs as
+on one rank.
 
 Mamba (``mamba_apply``, jamba's SSM mixer) is plain torch on either
 device, as the reference's jnp scans: a causal depthwise convolution and
@@ -64,8 +67,9 @@ states copied into the caller's cache as RWKV's are.
 """
 from __future__ import annotations
 
+import copy
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -102,7 +106,9 @@ class ParamInit:
         self.dtype = dtype
 
     def stacked(self, repeats: int) -> "ParamInit":
-        return ParamInit(self.gen, self.device, (repeats,), self.dtype)
+        out = copy.copy(self)
+        out.lead = (repeats,)
+        return out
 
     def normal(self, shape, scale: float) -> torch.Tensor:
         shape = tuple(shape)
@@ -477,7 +483,7 @@ def _tp_out(o: torch.Tensor, share, wo: torch.Tensor, hd: int
                          f"query columns are {hi - lo}: the plan must "
                          f"shard wo's rows as wq's columns")
     flat = o.reshape(b, s, -1)[..., lo - share.h0 * hd:hi - share.h0 * hd]
-    return MA.reduce(flat @ wo)
+    return MA.row_product(flat, wo)
 
 
 def _attn_apply_tp(p, x, *, cfg: ModelConfig, mode: str, cache, pos,
@@ -593,34 +599,70 @@ def mla_cache_init(cfg: ModelConfig, batch: int, seq_len: int,
                                   dtype=dtype, device=device)}
 
 
-def _mla_qkv(p, xn, cfg: ModelConfig):
-    b, s, _ = xn.shape
+def _mla_heads_of(p, cfg: ModelConfig, cache) -> Optional[Tuple[int, int]]:
+    """The query heads [h0, h1) this rank computes on a model axis where
+    any of MLA's leaves (or its latent cache) is split; None on one rank
+    or where every leaf is whole."""
+    if MA.active() is None:
+        return None
     h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    wq = p["w_uq"] if "w_uq" in p else p["w_q"]
+    split = (wq.shape[-1] != h * (dn + dr) or p["w_uk"].shape[-1] != h * dn
+             or p["w_uv"].shape[-1] != h * dv or p["wo"].shape[0] != h * dv
+             or (cache is not None
+                 and cache["c_kv"].shape[-1] != cfg.kv_lora_rank))
+    return MA.even_share(h, "MLA heads") if split else None
+
+
+def _mla_qkv(p, xn, cfg: ModelConfig, heads=None):
+    """q (B,S,H,dn+dr), the latent ``c_kv`` (B,S,r) and the shared rotary
+    key (B,S,dr); on a model axis (``heads`` [h0, h1)) q of those heads,
+    the replicated down-projections computed whole on every rank and
+    entering the rank's heads through ``copy``."""
+    b, s, _ = xn.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     if "w_dq" in p:
-        q = rms_norm(xn @ p["w_dq"], p["q_norm"], cfg.norm_eps) @ p["w_uq"]
+        cq, wq = rms_norm(xn @ p["w_dq"], p["q_norm"], cfg.norm_eps), \
+            p["w_uq"]
     else:
-        q = xn @ p["w_q"]
-    q = q.reshape(b, s, h, dn + dr)
+        cq, wq = xn, p["w_q"]
     c_kv = rms_norm(xn @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)  # (b,s,r)
     k_rope = xn @ p["w_kr"]                                        # (b,s,dr)
+    if heads is not None:
+        cq, c_kv, k_rope = MA.copy(cq), MA.copy(c_kv), MA.copy(k_rope)
+        wq = MA.part(wq, cfg.num_heads * (dn + dr), heads[0] * (dn + dr),
+                     heads[1] * (dn + dr))
+    q = (cq @ wq).reshape(b, s, -1, dn + dr)
     return q, c_kv, k_rope
 
 
-def _mla_heads(c_kv, k_rope, p, cfg: ModelConfig):
+def _mla_up(p, cfg: ModelConfig, heads=None):
+    """``w_uk`` (r, H*dn) and ``w_uv`` (r, H*dv), or the columns of this
+    rank's heads."""
+    if heads is None:
+        return p["w_uk"], p["w_uv"]
+    h, (h0, h1) = cfg.num_heads, heads
+    dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    return (MA.part(p["w_uk"], h * dn, h0 * dn, h1 * dn),
+            MA.part(p["w_uv"], h * dv, h0 * dv, h1 * dv))
+
+
+def _mla_heads(c_kv, k_rope, w_uk, w_uv, cfg: ModelConfig):
     """Per-head keys (B,S,H,dn+dr) rebuilt from the latent ``c_kv``
     (B,S,r) and the shared rotary key ``k_rope`` (B,S,dr), and the values
     (B,S,H,dv) zero-padded to dn + dr, so that both attention cores take
-    them. Each temporary is freed once it is consumed (at deepseek's full
-    width and 32,768 slots a layer's keys are 6.4 GB)."""
+    them; H the heads of ``w_uk`` (r, H*dn) and ``w_uv`` (r, H*dv). Each
+    temporary is freed once it is consumed (at deepseek's full width and
+    32,768 slots a layer's keys are 6.4 GB)."""
     b, s, _ = c_kv.shape
-    h = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, dn)
+    h = w_uk.shape[-1] // dn
+    k_nope = (c_kv @ w_uk).reshape(b, s, h, dn)
     k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
                        -1)
     del k_nope
-    v = (c_kv @ p["w_uv"]).reshape(b, s, h, dv)
+    v = (c_kv @ w_uv).reshape(b, s, h, dv)
     v_pad = F.pad(v, (0, dn + dr - dv))
     return k_full, v_pad
 
@@ -640,12 +682,23 @@ def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
     and rotary key IN PLACE at slot ``pos % size`` of the caller's cache,
     as ``attn_apply`` does, and the naive form runs ``sdpa_decode`` over
     the rebuilt heads: the decode kernel on a CUDA tensor, its plain
-    version on the CPU. Both scale by 1/sqrt(dn + dr), the reference's."""
+    version on the CPU. Both scale by 1/sqrt(dn + dr), the reference's.
+
+    On a model axis (``model_axis``) each rank computes the query heads of
+    its columns of ``w_uq`` (``w_q``), ``w_uk`` and ``w_uv`` and rows of
+    ``wo`` (a replicated one sliced), from ``c_kv`` and ``k_rope``
+    computed whole on every rank; ``wo``'s partial products are summed.
+    A latent cache split on r holds this rank's chunk of every slot: the
+    rank writes its chunk and gathers the ring's latent for the rebuild
+    (``k_rope``, replicated, every rank writes whole)."""
     h = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    heads = _mla_heads_of(p, cfg, cache if mode == "decode" else None)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     b, s, _ = xn.shape
-    q, c_kv, k_rope = _mla_qkv(p, xn, cfg)
+    q, c_kv, k_rope = _mla_qkv(p, xn, cfg, heads)
+    hl = q.shape[2]
+    w_uk, w_uv = _mla_up(p, cfg, heads)
 
     if mode == "decode":
         q_nope, q_rope = q[..., :dn], q[..., dn:]
@@ -656,15 +709,18 @@ def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
         size = ckv_c.shape[1]
         slot = (pos % size).long()
         rows = torch.arange(b, device=x.device)
-        ckv_c[rows, slot] = c_kv[:, 0].to(ckv_c.dtype)
+        ckv_c[rows, slot] = MA.mine(c_kv[:, 0], ckv_c.shape[-1]).to(
+            ckv_c.dtype)
         kr_c[rows, slot] = k_rope[:, 0].to(kr_c.dtype)
         valid = (torch.arange(size, device=x.device)[None, :]
                  <= torch.clamp(pos, max=size - 1)[:, None])
+        # the ring's whole latent (gathered where the cache is split)
+        ckv = MA.whole(ckv_c, cfg.kv_lora_rank) if heads else ckv_c
         if absorbed:
             scale = 1.0 / math.sqrt(dn + dr)
-            ckv = ckv_c.to(q.dtype)
+            ckv = ckv.to(q.dtype)
             # fold W_uk into q: attend directly in the r-dim latent space
-            w_uk = p["w_uk"].reshape(-1, h, dn)                 # (r,h,dn)
+            w_uk = w_uk.reshape(-1, hl, dn)                     # (r,h,dn)
             q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
             s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat, ckv)
             s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope,
@@ -673,14 +729,15 @@ def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
             att = torch.where(valid[:, None, None, :], att, NEG)
             pr = torch.softmax(att, -1).to(q.dtype)
             o_lat = torch.einsum("bhqk,bkr->bqhr", pr, ckv)
-            w_uv = p["w_uv"].reshape(-1, h, dv)                 # (r,h,dv)
+            w_uv = w_uv.reshape(-1, hl, dv)                     # (r,h,dv)
             o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
         else:
-            k_full, v_pad = _mla_heads(ckv_c.to(q.dtype), kr_c.to(q.dtype),
-                                       p, cfg)
+            k_full, v_pad = _mla_heads(ckv.to(q.dtype), kr_c.to(q.dtype),
+                                       w_uk, w_uv, cfg)
             q_full = torch.cat([q_nope, q_rope], -1)
             o = sdpa_decode(q_full, k_full, v_pad, valid)[..., :dv]
             del k_full, v_pad
+        del ckv
         cache = {"c_kv": ckv_c, "k_rope": kr_c}
     else:
         positions = torch.arange(s, device=x.device)
@@ -688,14 +745,17 @@ def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
         k_rope = apply_rope(k_rope[:, :, None, :], positions,
                             cfg.rope_theta)[:, :, 0]
-        k_full, v_pad = _mla_heads(c_kv, k_rope, p, cfg)
+        k_full, v_pad = _mla_heads(c_kv, k_rope, w_uk, w_uv, cfg)
         q_full = torch.cat([q_nope, q_rope], -1)
         o = _prefill_core(q_full, k_full, v_pad, causal=True, window=window,
                           chunked=chunked)
         del k_full, v_pad
         o = o[..., :dv]
-    y = o.reshape(b, s, h * dv) @ p["wo"]
-    return y, cache
+    o = o.reshape(b, s, hl * dv)
+    if heads is None:
+        return o @ p["wo"], cache
+    wo = MA.part(p["wo"], h * dv, heads[0] * dv, heads[1] * dv, dim=0)
+    return MA.row_product(o, wo), cache
 
 
 # --------------------------------------------------------------------------
@@ -710,16 +770,23 @@ def ffn_init(init: ParamInit, cfg: ModelConfig, d_ff: Optional[int] = None
             "w_down": dense_init(init, (f, d), scale=1.0 / math.sqrt(f))}
 
 
-def ffn_apply(p, x, *, cfg: ModelConfig):
-    """The gated FFN; on a model axis (``model_axis``) with ``w_gate`` and
-    ``w_up`` column-sharded and ``w_down`` row-sharded, each rank's
-    product summed over the ranks."""
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    if MA.active() is not None and p["w_down"].shape[0] != cfg.d_ff:
+def _gated(xn, w_gate, w_up, w_down, f: int, act: str):
+    """``(act(xn @ w_gate) * (xn @ w_up)) @ w_down`` of width ``f``; on a
+    model axis (``model_axis``) with ``w_gate`` and ``w_up``
+    column-sharded and ``w_down`` row-sharded, each rank's product summed
+    over the ranks."""
+    if MA.active() is not None and w_down.shape[0] != f:
         xn = MA.copy(xn)
-        return MA.reduce((act_fn(cfg.act)(xn @ p["w_gate"])
-                          * (xn @ p["w_up"])) @ p["w_down"])
-    return (act_fn(cfg.act)(xn @ p["w_gate"]) * (xn @ p["w_up"])) @ p["w_down"]
+        return MA.row_product(act_fn(act)(xn @ w_gate) * (xn @ w_up),
+                              w_down)
+    return (act_fn(act)(xn @ w_gate) * (xn @ w_up)) @ w_down
+
+
+def ffn_apply(p, x, *, cfg: ModelConfig):
+    """The gated FFN (tensor parallel on a model axis: ``_gated``)."""
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    return _gated(xn, p["w_gate"], p["w_up"], p["w_down"], cfg.d_ff,
+                  cfg.act)
 
 
 # --------------------------------------------------------------------------
@@ -798,7 +865,18 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
     slots (empty slots read a zero row) and the expert products are batched
     GEMMs over the expert axis; combine gathers each kept (token, choice)'s
     expert output and sums the k weighted terms in choice order in f32,
-    rounded once. No atomics: the same inputs give the same bits."""
+    rounded once. No atomics: the same inputs give the same bits.
+
+    On a model axis (``model_axis``) with the experts split (expert
+    parallelism: ``we_*`` sharded on the expert dim), every rank computes
+    the whole route from the replicated tokens (the same bits, drops and
+    ``aux``), runs the products of its experts' slots only and combines
+    its experts' kept terms into an f32 partial in choice order; the
+    partials are summed over the ranks before the one rounding. The
+    tokens and the weights ``topv`` enter the rank's work through
+    ``copy``, so the router's gradient is the whole one, once. Experts
+    that do not divide the axis stay replicated and every rank runs them
+    all. The shared experts are column- then row-parallel (``_gated``)."""
     b, s, d = x.shape
     e = cfg.num_experts
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
@@ -809,6 +887,11 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
                       group_size=group_size)
     m, k, cap = r.groups * r.group_len, r.topi.shape[1], r.cap
     slots = e * r.groups * cap
+    # this rank's experts [e0, e1) (all of them on one rank)
+    e0, e1 = (MA.chunk_of(e, p["we_gate"].shape[0])
+              if MA.active() is not None else (0, e))
+    spread = e1 - e0 != e
+    per = r.groups * cap                               # slots an expert
     with torch.profiler.record_function("moe.dispatch"):
         group = torch.arange(m, device=x.device)[:, None] // r.group_len
         dest = (r.topi * r.groups + group) * cap + r.pos      # (m, k)
@@ -819,28 +902,36 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
                          device=x.device).scatter_(
             0, torch.where(r.keep, dest, slots).reshape(-1),
             token.reshape(-1))[:slots]
-        rows = torch.cat([flat[:m], flat.new_zeros(1, d)])
-        xe = rows[src].view(e, r.groups * cap, d)
+        tokens = MA.copy(flat[:m]) if spread else flat[:m]
+        rows = torch.cat([tokens, flat.new_zeros(1, d)])
+        xe = rows[src[e0 * per:e1 * per]].view(e1 - e0, per, d)
     with torch.profiler.record_function("moe.experts"):
         he = act_fn(cfg.act)(torch.bmm(xe, p["we_gate"])) \
             * torch.bmm(xe, p["we_up"])
-        ye = torch.bmm(he, p["we_down"]).view(slots, d)
+        ye = torch.bmm(he, p["we_down"]).view((e1 - e0) * per, d)
     with torch.profiler.record_function("moe.combine"):
-        # a dropped pair reads slot 0 with weight 0 (every slot's row is
-        # finite: an empty slot's is 0); choice-major, so that each
-        # choice's slots and weights are contiguous
-        at = torch.where(r.keep, dest, 0).t().contiguous()
-        w = torch.where(r.keep, r.topv.to(torch.float32), 0.0).t()
+        # a dropped pair (or another rank's) reads slot 0 with weight 0
+        # (every slot's row is finite: an empty slot's is 0);
+        # choice-major, so that each choice's slots and weights are
+        # contiguous
+        keep, topv = r.keep, r.topv
+        if spread:
+            keep = keep & (r.topi >= e0) & (r.topi < e1)
+            topv = MA.copy(topv)
+        at = torch.where(keep, dest - e0 * per, 0).t().contiguous()
+        w = torch.where(keep, topv.to(torch.float32), 0.0).t()
         acc = torch.zeros((m, d), dtype=torch.float32, device=x.device)
         for j in range(k):
             acc.addcmul_(w[j, :, None], ye.index_select(0, at[j]))
+        if spread:
+            acc = MA.reduce(acc)
         y = acc.to(x.dtype)
         if m < n:
             y = torch.cat([y, y.new_zeros(n - m, d)])
     y = y.view(b, s, d)
     if cfg.num_shared_experts:
-        y = y + (act_fn(cfg.act)(xn @ p["ws_gate"]) * (xn @ p["ws_up"])
-                 ) @ p["ws_down"]
+        y = y + _gated(xn, p["ws_gate"], p["ws_up"], p["ws_down"],
+                       cfg.d_ff * cfg.num_shared_experts, cfg.act)
     # the load-balance term (over the routed tokens, top-1 choices)
     me = r.probs.mean(0)
     ce = (r.topi[:, :1] == torch.arange(e, device=x.device)).to(
@@ -942,6 +1033,34 @@ def _selective_scan(u, dt, A, B, C, D, chunk: int = 256):
     return y + u * D
 
 
+def _mamba_inner(p, xn, cfg: ModelConfig):
+    """-> (u, z, the leaves of the rank's channels): ``xn @ w_in`` split
+    into the convolution's input u and the gate z (B,S,di), and
+    ``conv_w``, ``conv_b``, ``w_x``, ``w_dt``, ``dt_bias``, ``A_log``,
+    ``D`` and ``w_out``. On a model axis with ``d_inner`` split
+    (``model_axis``) each rank takes its chunk [lo, hi) of the channels:
+    a column split of ``w_in`` holds [u | z] by columns (at 2 ranks one
+    rank all of u, the other all of z), so ``xn @ w_in`` is gathered and
+    both halves' chunk taken; a replicated leaf is sliced (``part``)."""
+    di = cfg.d_inner
+    names = ("conv_w", "conv_b", "w_x", "w_dt", "dt_bias", "A_log", "D",
+             "w_out")
+    if MA.active() is None or p["w_out"].shape[0] == di:
+        xz = xn @ p["w_in"]
+        return (xz[..., :di], xz[..., di:]) + tuple(p[k] for k in names)
+    lo, hi = MA.chunk_of(di, p["w_out"].shape[0])
+    xc = MA.copy(xn)
+    if p["w_in"].shape[-1] == 2 * di:
+        w_in = MA.copy(p["w_in"])
+        u, z = xc @ w_in[:, lo:hi], xc @ w_in[:, di + lo:di + hi]
+    else:
+        xz = MA.gather(xc @ p["w_in"], -1, summed=True)
+        u, z = xz[..., lo:hi], xz[..., di + lo:di + hi]
+    dim = {"w_x": 0, "A_log": 0, "w_out": 0}
+    return (u, z) + tuple(MA.part(p[k], di, lo, hi, dim.get(k, -1))
+                          for k in names)
+
+
 def mamba_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, **_):
     """Mamba -> (y, cache). Prefill: the causal depthwise convolution over
     the sequence and ``_selective_scan``; the cache (if any) is returned
@@ -949,44 +1068,53 @@ def mamba_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, **_):
     (``conv``, ``ssm``), whose tensors get the new states IN PLACE
     (``copy_``: the reference returns new ones), with the reference's
     casts: the conv state read as the compute dtype, the SSM state read
-    in the dtype of ``exp(dt A)`` and both stored back in theirs."""
-    di, st, cw = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_conv_width
+    in the dtype of ``exp(dt A)`` and both stored back in theirs.
+
+    On a model axis (``_mamba_inner``) each rank runs the convolution and
+    the scan on its chunk of ``d_inner`` (its caches' chunk: ``cache_plan``
+    splits them there); ``dbc = u @ w_x`` is a row-parallel partial sum
+    that every rank then reads (``model_axis.row_product(shared=True)``),
+    and ``w_out``'s partial products are summed."""
+    st, cw = cfg.ssm_state_dim, cfg.ssm_conv_width
     dt_rank = max(cfg.d_model // 16, 1)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     b, s, _ = xn.shape
-    xz = xn @ p["w_in"]
-    u, z = xz[..., :di], xz[..., di:]
+    u, z, conv_w, conv_b, w_x, w_dt, dt_bias, a_log, d_skip, w_out = \
+        _mamba_inner(p, xn, cfg)
+    split = w_out.shape[0] != cfg.d_inner
+
+    def project(uc):
+        dbc = MA.row_product(uc, w_x, shared=True) if split else uc @ w_x
+        dt = F.softplus(dbc[..., :dt_rank] @ w_dt + dt_bias)
+        return dt, dbc[..., dt_rank:dt_rank + st], dbc[..., dt_rank + st:]
 
     if mode == "decode":
+        if cache["ssm"].shape[-2] != u.shape[-1]:
+            raise ValueError(f"an SSM cache of {cache['ssm'].shape[-2]} "
+                             f"channels where this rank runs "
+                             f"{u.shape[-1]}")
         conv_state = torch.cat([cache["conv"],
                                 u.to(cache["conv"].dtype)], 1)
         uc = torch.einsum("bwd,wd->bd", conv_state.to(u.dtype),
-                          p["conv_w"]) + p["conv_b"]
+                          conv_w) + conv_b
         uc = F.silu(uc)[:, None]                           # (b,1,di)
-        dbc = uc @ p["w_x"]
-        dt = F.softplus(dbc[..., :dt_rank] @ p["w_dt"] + p["dt_bias"])
-        B = dbc[..., dt_rank:dt_rank + st]
-        C = dbc[..., dt_rank + st:]
-        A = -torch.exp(p["A_log"])
+        dt, B, C = project(uc)
+        A = -torch.exp(a_log)
         dA = torch.exp(dt[:, 0, :, None] * A)              # (b,di,st)
         h = cache["ssm"].to(dA.dtype) * dA \
             + dt[:, 0, :, None] * B[:, 0, None, :] * uc[:, 0, :, None]
-        y = torch.einsum("bds,bs->bd", h, C[:, 0])[:, None] + uc * p["D"]
+        y = torch.einsum("bds,bs->bd", h, C[:, 0])[:, None] + uc * d_skip
         cache["conv"].copy_(conv_state[:, 1:])
         cache["ssm"].copy_(h)
     else:
         upad = F.pad(u, (0, 0, cw - 1, 0))
-        uc = sum(upad[:, i:i + s] * p["conv_w"][i] for i in range(cw)) \
-            + p["conv_b"]
+        uc = sum(upad[:, i:i + s] * conv_w[i] for i in range(cw)) + conv_b
         uc = F.silu(uc)
-        dbc = uc @ p["w_x"]
-        dt = F.softplus(dbc[..., :dt_rank] @ p["w_dt"] + p["dt_bias"])
-        B = dbc[..., dt_rank:dt_rank + st]
-        C = dbc[..., dt_rank + st:]
-        A = -torch.exp(p["A_log"])
-        y = _selective_scan(uc, dt, A, B, C, p["D"])
+        dt, B, C = project(uc)
+        A = -torch.exp(a_log)
+        y = _selective_scan(uc, dt, A, B, C, d_skip)
     y = y * F.silu(z)
-    return y @ p["w_out"], cache
+    return (MA.row_product(y, w_out) if split else y @ w_out), cache
 
 
 # --------------------------------------------------------------------------
@@ -1075,51 +1203,103 @@ def _wkv_chunked(r, k, v, w, u, chunk: int = 64):
     return o.permute(1, 0, 3, 2, 4).reshape(b, s, h, hd).to(r.dtype)
 
 
+_RWKV_COLS = ("wr", "wk", "wv", "wg", "w_decay2")
+
+
+def _rwkv_heads_of(p, cfg: ModelConfig) -> Optional[Tuple[int, int]]:
+    """The heads [h0, h1) this rank runs on a model axis where any of the
+    time mix's head-wide leaves is split; None on one rank or where every
+    leaf is whole."""
+    if MA.active() is None:
+        return None
+    full = cfg.num_heads * cfg.head_dim
+    split = (any(p[k].shape[-1] != full for k in _RWKV_COLS)
+             or p["wo"].shape[0] != full)
+    return MA.even_share(cfg.num_heads, "RWKV heads") if split else None
+
+
+def _ln_x(o, w, eps: float, full: int):
+    """``rms_norm(o, w)`` over ``full`` channels of which ``o`` holds this
+    rank's (the mean square summed over the ranks, its gradient too)."""
+    if o.shape[-1] == full:
+        return rms_norm(o, w, eps)
+    ss = torch.sum(torch.square(o.to(torch.float32)), -1, keepdim=True)
+    var = MA.sum_over(ss) / full
+    return (o * torch.rsqrt(var + eps)).to(o.dtype) * w
+
+
 def rwkv_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, **_):
     """RWKV6's time mix -> (y, cache). Prefill runs ``_wkv_chunked``;
     decode one step of the recurrence from ``cache`` (``state``,
     ``x_prev``), whose tensors get the new state IN PLACE (``copy_``: the
-    reference returns new ones); the caller's cache is returned."""
+    reference returns new ones); the caller's cache is returned.
+
+    On a model axis (``model_axis``) each rank runs its heads: its
+    columns of ``wr``, ``wk``, ``wv``, ``wg`` and ``w_decay2`` and rows of
+    ``wo`` (a replicated leaf sliced, as are ``decay_bias``, ``bonus`` and
+    ``ln_x``), the mixes of the whole normed input (which enters through
+    ``copy``, the mixing coefficients and ``w_decay1`` too). ``ln_x``'s
+    mean square runs over every head (``_ln_x``), ``wo``'s partial
+    products are summed; the cache's state holds the rank's heads and its
+    token shift ``x_prev``, split on d_model, is gathered to be read and
+    written back a chunk a rank."""
     h, hd = cfg.num_heads, cfg.head_dim
+    full = h * hd
+    heads = _rwkv_heads_of(p, cfg)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     b, s, d = xn.shape
+    lo, hi = (heads[0] * hd, heads[1] * hd) if heads else (0, full)
+    hl = (hi - lo) // hd
 
+    def rep(w):                       # a replicated leaf the rank reads
+        return MA.copy(w) if heads else w
+
+    def cols(w, dim=-1):              # the rank's columns of a leaf
+        return MA.part(w, full, lo, hi, dim) if heads else w
+
+    xc = rep(xn)
     if mode == "decode":
-        x_prev = cache["x_prev"][:, None].to(xn.dtype)
+        x_prev = MA.whole(cache["x_prev"], d)[:, None].to(xn.dtype)
     else:
-        x_prev = F.pad(xn, (0, 0, 1, 0))[:, :-1]
+        x_prev = F.pad(xc, (0, 0, 1, 0))[:, :-1]
 
     def mix(mu):
-        return xn + (x_prev - xn) * mu
+        return xc + (x_prev - xc) * rep(p[mu])
 
-    r = (mix(p["mu_r"]) @ p["wr"]).reshape(b, s, h, hd)
-    k = (mix(p["mu_k"]) @ p["wk"]).reshape(b, s, h, hd)
-    v = (mix(p["mu_v"]) @ p["wv"]).reshape(b, s, h, hd)
-    g = F.silu(mix(p["mu_g"]) @ p["wg"])
+    r = (mix("mu_r") @ cols(p["wr"])).reshape(b, s, hl, hd)
+    k = (mix("mu_k") @ cols(p["wk"])).reshape(b, s, hl, hd)
+    v = (mix("mu_v") @ cols(p["wv"])).reshape(b, s, hl, hd)
+    g = F.silu(mix("mu_g") @ cols(p["wg"]))
     dec = torch.sigmoid(
-        (torch.tanh(mix(p["mu_w"]) @ p["w_decay1"]) @ p["w_decay2"])
-        + p["decay_bias"]).reshape(b, s, h, hd)
+        (torch.tanh(mix("mu_w") @ rep(p["w_decay1"])) @ cols(p["w_decay2"]))
+        + cols(p["decay_bias"])).reshape(b, s, hl, hd)
     # the decay w in (exp(-0.6065), 1): the bound keeps the chunked form's
     # exp(-cumsum(log w)) inside f32's range (see _wkv_chunked)
     w = torch.exp(-0.6065 * dec)
+    bonus = (MA.part(p["bonus"], h, heads[0], heads[1], 0) if heads
+             else p["bonus"])
 
     if mode == "decode":
+        if cache["state"].shape[-3] != hl:
+            raise ValueError(f"an RWKV state of {cache['state'].shape[-3]} "
+                             f"heads where this rank runs {hl}")
         state = cache["state"].to(torch.float32)               # (b,h,hd,hd)
         r1, k1, v1, w1 = (t[:, 0].to(torch.float32) for t in (r, k, v, w))
         kv = torch.einsum("bhd,bhe->bhde", k1, v1)
         # o_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
         o = torch.einsum("bhd,bhde->bhe", r1, state
-                         + p["bonus"].to(torch.float32)[None, :, :, None]
-                         * kv)
+                         + bonus.to(torch.float32)[None, :, :, None] * kv)
         cache["state"].copy_(state * w1[..., None] + kv)
-        cache["x_prev"].copy_(xn[:, -1])
+        cache["x_prev"].copy_(MA.mine(xn[:, -1], cache["x_prev"].shape[-1]))
         o = o[:, None].to(r.dtype)
     else:
-        o = _wkv_chunked(r, k, v, w, p["bonus"])
+        o = _wkv_chunked(r, k, v, w, bonus)
 
-    o = o.reshape(b, s, h * hd)
-    o = rms_norm(o, p["ln_x"], cfg.norm_eps) * g
-    return o @ p["wo"], cache
+    o = o.reshape(b, s, hl * hd)
+    o = _ln_x(o, cols(p["ln_x"]), cfg.norm_eps, full) * g
+    if heads is None:
+        return o @ p["wo"], cache
+    return MA.row_product(o, cols(p["wo"], 0)), cache
 
 
 # --------------------------------------------------------------------------
@@ -1137,12 +1317,22 @@ def rwkv_ffn_init(init: ParamInit, cfg: ModelConfig) -> dict:
 def rwkv_ffn_apply(p, x, *, cfg: ModelConfig, x_prev=None):
     """-> (out, xn_last): xn_last is the decode-mode token-shift state.
     ``x_prev`` (B,d) is the previous token's normed input (decode), None
-    for a prefill's shift."""
+    for a prefill's shift.
+
+    On a model axis (``model_axis``) with ``wk`` split by columns and
+    ``wv`` by rows, each rank's key mix enters through ``copy`` and its
+    partial product is summed; ``wr`` is replicated, so the receptance is
+    computed whole on every rank and multiplies after the sum."""
+    f = cfg.d_ff
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     if x_prev is None:
         xp = F.pad(xn, (0, 0, 1, 0))[:, :-1]
     else:
         xp = x_prev[:, None].to(xn.dtype)
-    k = (xn + (xp - xn) * p["mu_k"]) @ p["wk"]
+    xk = xn + (xp - xn) * p["mu_k"]
     r = torch.sigmoid((xn + (xp - xn) * p["mu_r"]) @ p["wr"])
-    return r * (torch.square(F.relu(k)) @ p["wv"]), xn[:, -1]
+    if MA.active() is None or p["wv"].shape[0] == f:
+        return r * (torch.square(F.relu(xk @ p["wk"])) @ p["wv"]), xn[:, -1]
+    lo, hi = MA.chunk_of(f, p["wv"].shape[0])
+    k = MA.copy(xk) @ MA.part(p["wk"], f, lo, hi)
+    return r * MA.row_product(torch.square(F.relu(k)), p["wv"]), xn[:, -1]

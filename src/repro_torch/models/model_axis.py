@@ -18,12 +18,32 @@ each an autograd function:
               weight used for one rank's heads only);
 * ``reduce``  the forward summed over the ranks, identity backward: the
               output of a row-parallel product (attention's ``wo``, the
-              FFN's ``w_down``) and the masked embedding lookup;
+              FFN's ``w_down``: ``row_product``), the MoE's f32 combine
+              and the masked embedding lookup;
 * ``gather``  all-gather along a dim: ``summed=False`` where what follows
               is replicated (the head's logits; the backward takes this
               rank's chunk), ``summed=True`` where each rank uses its own
-              part of the result (fractional heads; the backward sums,
-              then takes the chunk: a reduce-scatter).
+              part of the result (fractional heads, Mamba's ``[u | z]``;
+              the backward sums, then takes the chunk: a reduce-scatter);
+* ``sum_over`` the forward summed over the ranks and the gradient summed
+              too (``reduce`` then ``copy``): a partial sum that every
+              rank then reads for its own part, as RWKV's ``ln_x``
+              statistic over all heads.
+
+``row_product`` is ``reduce(a @ w)`` (or ``sum_over``'s, ``shared=True``,
+for Mamba's ``dbc = u @ w_x``) rounded as one rank's product is: each
+rank's partial kept in f32, summed in f32, rounded once to ``a``'s dtype.
+Rounding each bf16 partial and summing in bf16 takes three roundings
+where one rank takes one: 2.9e-3 from one rank's product and 37% of its
+bits differ, against 1.1-2.3e-4 and 0.2-0.7% (``tools/row_parallel_
+rounding.py``, NVIDIA H100 80GB HBM3, 700 W).
+
+``part`` is a rank's slice of a leaf: its shard where the plan splits
+the leaf, or the slice of a replicated leaf taken through ``copy`` (so
+the leaf's gradient is summed over the ranks), as Mamba's ``conv_w``,
+RWKV's ``bonus`` and a head-aware plan's replicated ``wk`` are read.
+``whole`` and ``mine`` go between a state split on its last dim (RWKV's
+token shift in the cache) and the whole vector a rank reads.
 
 They go through ``core/collectives.py`` rather than DTensor's own
 redistributions: on one card the ranks are gloo processes, and there
@@ -115,8 +135,63 @@ class _Gather(torch.autograd.Function):
                 None)
 
 
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks):
+        ctx.ranks = ranks
+        return all_reduce_tensor(x, ranks)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_tensor(g, ctx.ranks), None
+
+
+def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` of 2-D operands before its rounding: f32 (or ``a``'s
+    wider dtype) with the GEMM's own f32 accumulation."""
+    if a.dtype not in (torch.bfloat16, torch.float16):
+        return a @ w
+    if a.is_cuda:
+        return torch.mm(a, w, out_dtype=torch.float32)
+    return a.float() @ w.float()
+
+
+class _RowProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, w, ranks, shared):
+        ctx.ranks, ctx.shared = ranks, shared
+        ctx.save_for_backward(a, w)
+        y = all_reduce_tensor(_mm_f32(a.reshape(-1, a.shape[-1]), w), ranks)
+        return y.to(a.dtype).view(tuple(a.shape[:-1]) + (w.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        if ctx.shared:
+            g = all_reduce_tensor(g, ctx.ranks)
+        g2 = g.reshape(-1, g.shape[-1])
+        ga = (g2 @ w.t()).view(a.shape) if ctx.needs_input_grad[0] else None
+        gw = (a.reshape(-1, a.shape[-1]).t() @ g2
+              if ctx.needs_input_grad[1] else None)
+        return ga, gw, None, None
+
+
+def row_product(a: torch.Tensor, w: torch.Tensor,
+                shared: bool = False) -> torch.Tensor:
+    """``reduce(a @ w)`` (``shared``: ``sum_over(a @ w)``) of this rank's
+    columns of ``a`` and rows of ``w``, summed before its one rounding;
+    ``a @ w`` outside a model axis."""
+    if _RANKS is None:
+        return a @ w
+    return _RowProduct.apply(a, w, _RANKS, shared)
+
+
 def copy(x: torch.Tensor) -> torch.Tensor:
     return _Copy.apply(x, _RANKS)
+
+
+def sum_over(x: torch.Tensor) -> torch.Tensor:
+    return _SumOver.apply(x, _RANKS)
 
 
 def reduce(x: torch.Tensor) -> torch.Tensor:
@@ -125,6 +200,50 @@ def reduce(x: torch.Tensor) -> torch.Tensor:
 
 def gather(x: torch.Tensor, dim: int, summed: bool) -> torch.Tensor:
     return _Gather.apply(x, _RANKS, dim % x.ndim, summed)
+
+
+def even_share(n: int, what: str) -> Tuple[int, int]:
+    """This rank's even chunk [lo, hi) of ``n`` whole items (heads,
+    experts, channels); ``NotImplementedError`` where they do not divide
+    the axis (a fractional head a rank)."""
+    if n % _RANKS.size:
+        raise NotImplementedError(
+            f"{n} {what} over a model axis of {_RANKS.size}: fractional "
+            f"{what} a rank are planned, not executed (ROADMAP.md item 15b)")
+    per = n // _RANKS.size
+    return _RANKS.rank * per, (_RANKS.rank + 1) * per
+
+
+def part(w: torch.Tensor, full: int, lo: int, hi: int,
+         dim: int = -1) -> torch.Tensor:
+    """[lo, hi) of ``w``'s dim ``dim`` of ``full`` entries, this rank's
+    part: the leaf itself where the plan shards that dim into exactly
+    this chunk, else (a replicated leaf) its slice through ``copy``."""
+    n = w.shape[dim]
+    if n == full:
+        if hi - lo == full:
+            return w if _RANKS is None else copy(w)
+        return copy(w).narrow(dim, lo, hi - lo)
+    if chunk_of(full, n) != (lo, hi):
+        raise ValueError(f"a shard [{chunk_of(full, n)}) of {full} where "
+                         f"this rank computes [{lo}, {hi})")
+    return w
+
+
+def whole(x: torch.Tensor, full: int) -> torch.Tensor:
+    """``x`` gathered over the ranks along its last dim where it holds
+    this rank's chunk of ``full`` (as it is where it is whole)."""
+    if x.shape[-1] == full:
+        return x
+    chunk_of(full, x.shape[-1])
+    return gather(x, -1, summed=False)
+
+
+def mine(x: torch.Tensor, local: int) -> torch.Tensor:
+    """This rank's chunk of ``local`` entries of ``x``'s last dim (``x``
+    as it is where ``local`` is its whole width)."""
+    lo, hi = chunk_of(x.shape[-1], local)
+    return x[..., lo:hi]
 
 
 # --------------------------------------------------------------------------

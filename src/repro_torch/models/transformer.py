@@ -213,7 +213,8 @@ def _block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, mode: str,
                  cache, pos, enc_out=None):
     """-> (x, cache, aux): aux is the MoE's load-balance term, None for
     another FFN (the reference adds a zero). ``enc_out`` is read by an
-    ``attn_cross`` mixer only."""
+    ``attn_cross`` mixer only. On a model axis every rank computes the
+    whole route, so ``aux`` is each rank's whole term, added once."""
     kw = dict(cfg=cfg, mode=mode, cache=(cache or {}).get("mixer"), pos=pos,
               window=spec.window)
     if spec.mixer in ("attn", "attn_cross"):
@@ -237,10 +238,15 @@ def _block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, mode: str,
         x = x + L.ffn_apply(params["ffn"], x, cfg=cfg)
     else:
         xp = (cache or {}).get("ffn_x_prev") if mode == "decode" else None
-        y, xn_last = L.rwkv_ffn_apply(params["ffn"], x, cfg=cfg, x_prev=xp)
+        # on a model axis the cache may hold this rank's chunk of d_model:
+        # the mix reads it whole, the rank writes its chunk back
+        y, xn_last = L.rwkv_ffn_apply(
+            params["ffn"], x, cfg=cfg,
+            x_prev=None if xp is None else MA.whole(xp, cfg.d_model))
         x = x + y
         if mode == "decode":        # in place, as the mixer's state
-            new_cache["ffn_x_prev"] = xp.copy_(xn_last)
+            new_cache["ffn_x_prev"] = xp.copy_(MA.mine(xn_last,
+                                                       xp.shape[-1]))
     return x, new_cache, aux
 
 
@@ -315,8 +321,13 @@ class LM:
         ``device="meta"`` with ``gen=None`` gives the shapes alone. The
         draws differ from ``repro``'s (another generator); tests carry
         ``repro``'s parameters across with ``params_from_jax``."""
+        return self.draw(L.ParamInit(gen, device, dtype=dtype))
+
+    def draw(self, init: L.ParamInit) -> PyTree:
+        """The parameter tree drawn through ``init`` (``init``'s calls in
+        the order ``init`` makes them: a ``ParamInit`` subclass can place
+        each leaf as it is drawn, ``specs.params_on_mesh``)."""
         cfg = self.cfg
-        init = L.ParamInit(gen, device, dtype=dtype)
         v, d = cfg.padded_vocab, cfg.d_model
         params: dict = {
             "embed": init.normal((v, d), 1.0 / math.sqrt(d)),

@@ -32,10 +32,15 @@ cross-attention; reduced) run prefill, decode and the train step on
 to the reference. Each rank records the query heads of its attention
 calls: h / m of them.
 
-(d) What a model axis still refuses names ROADMAP item 15b: experts, MLA,
-    Mamba and RWKV, FSDP, sequence-sharded activations and a cache split
-    on the head dim (the fake process group stands in for the ranks); a
-    DTensor reaching a kernel wrapper raises and names the wrapper.
+(d) What a model axis still refuses names ROADMAP item 15b: FSDP (also
+    jamba's and deepseek's, in train, prefill and decode),
+    sequence-sharded activations, a k/v cache split on the head dim and
+    inference over "pod" (the fake process group stands in for the
+    ranks); a DTensor reaching a kernel wrapper raises and names the
+    wrapper. The MoE, MLA, Mamba and RWKV families on a model axis are
+    ``tests/test_torch_model_axis_moe_mla.py`` and
+    ``tests/test_torch_model_axis_ssm.py``; ``specs.params_on_mesh`` is
+    held here to the distributed init.
 """
 import dataclasses
 import os
@@ -58,7 +63,8 @@ from repro.models.transformer import LM as JLM
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.core.fedavg import broadcast_to_clients
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import PRODUCTION_AXES, mesh_over_world
+from repro_torch.launch.mesh import (MULTI_POD_AXES, PRODUCTION_AXES,
+                                     mesh_over_world)
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.models.transformer import LM, params_from_jax
@@ -270,6 +276,7 @@ def worlds(tmp_path_factory):
     odd = Port(ODD, 9, (1,))
     four.update(odd.cases(ODD, (1, 4), 1, {"prefill": ("prefill",),
                                            "train": 1}))
+    two.update(_row_cases())
     procs = {2: _spawn(tmp, 2, two), 4: _spawn(tmp, 4, four)}
 
     # meanwhile: the one-rank steps and the reference's
@@ -290,6 +297,23 @@ def worlds(tmp_path_factory):
             assert proc.returncode == 0, f"rank {r} of {world}:\n{log[-3000:]}"
             outs[(world, r)] = torch.load(out, weights_only=False)
     return dict(outs=outs, one=one, ref=ref, llama=llama)
+
+
+def _row_cases():
+    """bf16 operands of a row-parallel product over 1 x 2, with each
+    rank's upstream gradient (the same on both where the output is
+    reduced, each its own where every rank reads the sum)."""
+    rng = np.random.default_rng(11)
+
+    def bf16(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).to(
+            torch.bfloat16)
+    a, w = bf16(64, 256), bf16(256, 96, scale=0.05)
+    g = bf16(64, 96)
+    return {("row", shared): dict(kind="row", mesh=(1, 2), a=a, w=w,
+                                  shared=shared,
+                                  g=[g, bf16(64, 96)] if shared else [g, g])
+            for shared in (False, True)}
 
 
 def _ranks(worlds, world, key):
@@ -414,26 +438,92 @@ def fake_world():
     def join(world, shape):
         dist.init_process_group("fake", store=FakeStore(), rank=0,
                                 world_size=world)
-        return mesh_over_world(shape, PRODUCTION_AXES, "cpu")
+        return mesh_over_world(shape, PRODUCTION_AXES if len(shape) == 2
+                               else MULTI_POD_AXES, "cpu")
     yield join
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("qwen3-moe-30b-a3b", "experts"), ("deepseek-v2-236b", "MLA"),
-    ("jamba-1.5-large-398b", "mamba layers"), ("rwkv6-3b", "rwkv layers")])
+def _refused(step, cfg, mesh, tcfg=None):
+    """Build ``step`` ("train", "prefill" or "decode") of ``cfg`` on
+    ``mesh``, and for decode its cache there too."""
+    if step == "train":
+        return make_train_step(cfg, tcfg or TrainConfig(), mesh=mesh)
+    if step == "prefill":
+        return make_prefill_step(cfg, mesh=mesh)
+    from repro_torch.launch.specs import cache_on_mesh
+    _, lm = make_decode_step(cfg, mesh=mesh)
+    return cache_on_mesh(lm, mesh, 2, 8)
+
+
 @pytest.mark.parametrize("step", ["train", "prefill", "decode"])
-def test_other_families_on_a_model_axis_raise(fake_world, arch, what,
-                                               step):
-    mesh = fake_world(2, (1, 2))
-    make = {"train": lambda: make_train_step(get_config(arch),
-                                             TrainConfig(), mesh=mesh),
-            "prefill": lambda: make_prefill_step(get_config(arch),
-                                                 mesh=mesh),
-            "decode": lambda: make_decode_step(get_config(arch), mesh=mesh)}
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
+                                  "deepseek-v2-236b"])
+def test_the_families_fsdp_on_a_model_axis_raises(fake_world, arch, step):
+    """Every family runs on a model axis now; what still raises is the
+    rest of item 15b. Jamba and deepseek shard their weights over "data"
+    (FSDP) on a 2 x 2 mesh."""
+    mesh = fake_world(4, (2, 2))
     with pytest.raises(NotImplementedError, match="item 15b") as err:
-        make[step]()
-    assert what in str(err.value) and "a model axis of 2" in str(err.value)
+        _refused(step, get_config(arch), mesh)
+    assert "FSDP" in str(err.value)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-236b",
+                                  "jamba-1.5-large-398b", "rwkv6-3b"])
+def test_the_families_sequence_sharded_activations_raise(fake_world,
+                                                          arch):
+    mesh = fake_world(2, (1, 2))
+    with pytest.raises(NotImplementedError, match="item 15b") as err:
+        _refused("train", get_config(arch).reduced(), mesh,
+                 TrainConfig(seq_shard_activations=True))
+    assert "sequence-sharded" in str(err.value)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_the_families_kv_cache_split_on_the_head_dim_raises(fake_world,
+                                                            arch):
+    """The reduced qwen3-moe's and jamba's 2 kv heads do not divide a
+    model axis of 4, so ``cache_plan`` splits their k/v head dim."""
+    mesh = fake_world(4, (1, 4))
+    with pytest.raises(NotImplementedError, match="item 15b") as err:
+        _refused("decode", get_config(arch).reduced(), mesh)
+    assert "head dim" in str(err.value)
+
+
+@pytest.mark.parametrize("step", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "rwkv6-3b"])
+def test_the_families_inference_over_pod_raises(fake_world, arch, step):
+    mesh = fake_world(4, (2, 1, 2))
+    with pytest.raises(NotImplementedError, match="item 15b") as err:
+        _refused(step, get_config(arch).reduced(), mesh)
+    assert "'pod'" in str(err.value)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-236b",
+                                  "jamba-1.5-large-398b", "rwkv6-3b"])
+def test_params_on_mesh_is_the_distributed_init(fake_world, arch):
+    """``specs.params_on_mesh`` draws each leaf as ``LM.init`` does and
+    keeps this rank's part: the bits of ``distribute_tree(lm.init(gen))``
+    on decode's plan, leaf by leaf, with their placements."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.launch.specs import params_on_mesh, step_plan
+    mesh = fake_world(2, (1, 2))
+    cfg = get_config(arch).reduced()
+    lm = LM(cfg)
+    plan = step_plan(cfg, mesh_axis_sizes(mesh), "decode", lm=lm)
+    got = params_on_mesh(lm, torch.Generator().manual_seed(5), plan, mesh,
+                         dtype=torch.bfloat16)
+    want = sh.distribute_tree(lm.init(torch.Generator().manual_seed(5),
+                                      dtype=torch.bfloat16), plan, mesh)
+    assert sh.placements_of(got) == sh.placements_of(want)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert a.shape == b.shape and torch.equal(a.to_local(),
+                                                  b.to_local())
+    assert any(not p.is_replicate() for x in tree_leaves(got)
+               for p in x.placements)
 
 
 @pytest.mark.parametrize("step", ["train", "prefill"])
@@ -524,3 +614,30 @@ def test_train_step_with_momentum_on_the_model_axis(worlds):
     for k in metrics:
         assert abs(metrics[k] - want_metrics[k]) <= 1e-5 * (
             1 + abs(want_metrics[k]))
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_row_product_rounds_once(worlds, shared):
+    """A row-parallel product in bf16 keeps each rank's partial in f32
+    and rounds the sum once, as one rank's GEMM rounds its f32
+    accumulation once; summing bf16 partials lies farther from the
+    exact product. Its gradients are one rank's: ``g @ w.T`` and
+    ``a.T @ g``, ``g`` summed over the ranks where every rank reads the
+    sum (``shared``)."""
+    case = _row_cases()[("row", shared)]
+    (y, ga, gw), _ = _ranks(worlds, 2, ("row", shared))[0]
+    a, w = case["a"], case["w"]
+    h = a.shape[1] // 2
+    parts = [a[:, :h].contiguous().float() @ w[:h].float(),
+             a[:, h:].contiguous().float() @ w[h:].float()]
+    assert torch.equal(y, (parts[0] + parts[1]).to(torch.bfloat16))
+    exact = a.double() @ w.double()
+    twice = (parts[0].bfloat16() + parts[1].bfloat16()).double()
+    assert (torch.linalg.norm(y.double() - exact)
+            < torch.linalg.norm(twice - exact))
+    g = (case["g"][0].double() + case["g"][1].double() if shared
+         else case["g"][0].double())
+    for got, want in ((ga, g @ w.double().t()), (gw, a.double().t() @ g)):
+        assert got.dtype == torch.bfloat16
+        assert (torch.linalg.norm(got.double() - want)
+                / torch.linalg.norm(want)) < 1e-2

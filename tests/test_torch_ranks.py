@@ -281,7 +281,7 @@ def fake_world():
 
 
 @pytest.mark.parametrize("world,arch,what", [
-    (4, "qwen3-moe-30b-a3b", "a model axis of 2"),
+    (4, "jamba-1.5-large-398b", "FSDP"),
     (2, "deepseek-v2-236b", "FSDP")])
 def test_the_train_step_runs_the_fed_axis_only(fake_world, world, arch,
                                                what):

@@ -1,11 +1,13 @@
 """One rank of ``tests/test_torch_model_axis.py``: a process of a gloo world
 on the CPU. It reads a job (``torch.save``d by the test): a list of cases,
 each a step kind on a mesh shape with its config, full weights and
-inputs. It places the weights on the step's plan
-(``sharding.distribute_tree``), runs the port's step on the mesh, gathers
-what the step returns (``sharding.gather_tree``) and saves it, with the
-query heads each attention call of this rank ran on, for the test to
-compare. It imports torch and ``repro_torch`` only.
+inputs (prefill and decode in f32 unless the case names a dtype), or
+one layer with its weights and input, or one row-parallel product. It places the weights
+on the step's plan (``sharding.distribute_tree``), runs the port's step
+(or the layer) on the mesh, gathers what the step returns
+(``sharding.gather_tree``) and saves it, with the query heads each
+attention call of this rank ran on, for the test to compare. It imports
+torch and ``repro_torch`` only.
 
     python tests/torch_model_axis_worker.py RANK WORLD INIT_FILE JOB OUT
 """
@@ -25,7 +27,8 @@ def _prefill(case, mesh, axes):
     from repro_torch.launch.sharding import distribute_tree
     from repro_torch.launch.specs import step_plan
     from repro_torch.launch.steps import make_prefill_step
-    step, lm = make_prefill_step(case["cfg"], dtype=torch.float32, mesh=mesh)
+    step, lm = make_prefill_step(case["cfg"], mesh=mesh,
+                                 dtype=case.get("dtype", torch.float32))
     params = distribute_tree(case["params"], step_plan(
         case["cfg"], axes, case["plan"], lm=lm), mesh)
     return step(params, case["batch"])
@@ -36,11 +39,12 @@ def _decode(case, mesh, axes):
     from repro_torch.launch.specs import cache_on_mesh, step_plan
     from repro_torch.launch.steps import make_decode_step
     cfg, tokens = case["cfg"], case["tokens"]
-    step, lm = make_decode_step(cfg, dtype=torch.float32, mesh=mesh)
+    dtype = case.get("dtype", torch.float32)
+    step, lm = make_decode_step(cfg, dtype=dtype, mesh=mesh)
     params = distribute_tree(case["params"], step_plan(
         cfg, axes, "decode", lm=lm), mesh)
     cache = cache_on_mesh(lm, mesh, tokens.shape[0], case["slots"],
-                          dtype=torch.float32)
+                          dtype=dtype)
     picked = []
     for i in range(tokens.shape[1]):        # teacher-forced
         nxt, cache = step(params, cache, tokens[:, i:i + 1])
@@ -68,7 +72,49 @@ def _train(case, mesh, axes):
             {k: float(v) for k, v in metrics.items()})
 
 
-RUN = {"prefill": _prefill, "decode": _decode, "train": _train}
+def _layer(case, mesh, axes):
+    """One layer's forward on the model axis: its weights on the plan
+    (under the block's key, "mixer" or "ffn", whose path the planner
+    reads), their local shards run inside ``model_axis.over``."""
+    from repro_torch.core.collectives import Ranks
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_axis as MA
+    cfg, layer = case["cfg"], case["layer"]
+    slot = "ffn" if layer in ("moe", "rwkv_ffn") else "mixer"
+    tree = {slot: case["params"]}
+    plan = sh.plan_params(cfg, axes, tree, head_aware=case["head_aware"])
+    p = sh.local_tree(sh.distribute_tree(tree, plan, mesh))[slot]
+    x = case["x"]
+    with MA.over(Ranks.of(mesh.get_group("model"))):
+        if layer == "moe":
+            return L.moe_apply(p, x, cfg=cfg)
+        if layer == "rwkv_ffn":
+            return L.rwkv_ffn_apply(p, x, cfg=cfg)[0]
+        return getattr(L, f"{layer}_apply")(p, x, cfg=cfg, mode="full")[0]
+
+
+def _row(case, mesh, axes):
+    """``model_axis.row_product`` of this rank's chunk of ``a``'s columns
+    and ``w``'s rows, then its backward under this rank's upstream
+    gradient ``g[rank]`` -> (y, the gradients of ``a`` and ``w``
+    gathered over the ranks)."""
+    from repro_torch.core.collectives import Ranks, all_gather_cat
+    from repro_torch.models import model_axis as MA
+    ranks = Ranks.of(mesh.get_group("model"))
+    n = case["a"].shape[-1] // ranks.size
+    lo = ranks.rank * n
+    a = case["a"][:, lo:lo + n].clone().requires_grad_()
+    w = case["w"][lo:lo + n].clone().requires_grad_()
+    with MA.over(ranks):
+        y = MA.row_product(a, w, shared=case["shared"])
+    y.backward(case["g"][ranks.rank])
+    return (y.detach(), all_gather_cat(a.grad, ranks, 1),
+            all_gather_cat(w.grad, ranks, 0))
+
+
+RUN = {"prefill": _prefill, "decode": _decode, "train": _train,
+       "layer": _layer, "row": _row}
 
 
 def run(job):
