@@ -155,12 +155,12 @@ result line:
      -m repro_torch.launch.federated_lm --rounds 3`` in its own process
      (exit 0, its lines printed);
  10. serve the MoE and phi3 at full width: 10a, qwen3-moe-30b-a3b at full
-     width, depth cut 48 -> 24 (d_model 2048, 32 / 4 heads, head_dim 128,
+     width, depth cut 48 -> 12 (d_model 2048, 32 / 4 heads, head_dim 128,
      128 experts of d_ff 768, top 8, vocab 151,936; bf16 weights from seed
      0 made one layer slice at a time): ``launch.serve`` decodes
      batch 4 against a 32,768-slot cache (prompt 32 teacher-forced, 16 new
-     tokens; flash_decode 24 x 47 = 1,128 launches), one
-     ``make_prefill_step`` call at S=32,768, batch 1 (flash_attention 24
+     tokens; flash_decode 12 x 47 = 564 launches), one
+     ``make_prefill_step`` call at S=32,768, batch 1 (flash_attention 12
      launches, all tensor-core), a second call the same bits, logits
      finite, the peak memory, the dropped share of (token, choice) pairs in
      prefill and in 8 decode steps, one profiled prefill call and decode
@@ -178,10 +178,10 @@ result line:
  11. serve MLA and RWKV: 11a, deepseek-v2-236b at full width (d_model
      5120, 128 heads, kv_lora 512, q_lora 1536, q/k heads 128 + 64, v 128,
      160 routed experts top 6 and 2 shared, vocab 102,400 untied), depth
-     cut 60 -> 6 (the dense layer 0 and 5 MoE layers; 42.16 GB of bf16
-     weights from seed 0 made one layer slice at a time):
+     cut 60 -> 3 (the dense layer 0 and 2 MoE layers; bf16 weights from
+     seed 0 made one layer slice at a time):
      ``make_decode_step`` at batch 4 on a 32,768-slot latent cache (prompt
-     32 teacher-forced, 16 new tokens; flash_decode 6 x 47 launches at D
+     32 teacher-forced, 16 new tokens; flash_decode 3 x 47 launches at D
      192 over the rebuilt heads), one ``make_prefill_step`` call at
      S=32,768, batch 1 (flash_attention 6 launches, all tensor-core, D
      192), a second call the same bits, logits finite, peak memory, the
@@ -241,16 +241,17 @@ result line:
      before each run and read after it; the K-means, quantize and
      attention kernels each launched): 14a, one process as an NCCL world
      of 1 on the 1 x 1 smoke mesh, llama3.2-1b's train step at full width
-     with phase 9a's cut at G = 2 and G = 4 cohorts, two rounds each
+     with phase 9a's cut, its depth cut 16 -> 4, at G = 2 and G = 4
+     cohorts, two rounds each
      (launches reckoned as 9a's): round walls, tokens/s, the peak and the
      cohort phase's peak (the running FedAvg sum and the meta step's
      head a microbatch of rows at a time keep the round's peak from
      growing with G: checked within half a tree), and round 0's running
      average against the stacked mean of the same cohort trees on the
      card (bit for bit at G = 2, within 1e-5 at G = 4); then the step with
-     the depth cut 16 -> 4 and 2,048-token sequences at G = 2; 14b, two
-     gloo processes on the one card (``--ranks-child``, spawned here; a
-     child's failure fails the run): phase 4's FL round at full width
+     2,048-token sequences at G = 2; 14b, two gloo processes on the one
+     card (``--ranks-child``, started with the phase, waiting for their
+     job; a child's failure fails the run): phase 4's FL round at full width
      through ``run_round(mesh=)`` over a 1-D "data" mesh, equal bit for
      bit (global and composed weights, ledger, losses, |D_M|) to the
      one-device cohort engine on the same draws (the ranks' K-means
@@ -276,13 +277,14 @@ result line:
      llama3.2-1b tensor parallel over gloo processes on the one card
      (``--model-axis-child``, spawned here; a child's failure fails the
      run), its weights DTensors on the steps' plans, against the one-rank
-     steps run first on the same seeds: 16a, on a 1 x 2 mesh, cut to 8 of
+     steps run first on the same seeds: 16a, on a 1 x 2 mesh, cut to 4 of
      its 16 layers, phase 15b's 1 x 32,768 prefill and 8 teacher-forced decode steps at phase 6's
      batch 32 over 32,768 slots: every rank the same logits, tokens and
      K/V bits, within 2e-2 (relative Frobenius) of one rank's, each rank
      launching one rank's attention kernels on its heads; 16b, phase
      14b's train cut with one cluster a probe row on 1 x 2 (G = 1) and on
-     four processes as 2 x 2 (G = 2): every rank the same W_G bits, the
+     four processes as 2 x 2 (G = 2), the two worlds running at once:
+     every rank the same W_G bits, the
      losses and each leaf within 2e-2 of one rank's, the launches per
      rank (the kernels line's ``launches_16``);
  17. the model axis for the other four families (``--phase 17`` runs it
@@ -303,11 +305,35 @@ result line:
      latent-gather bytes a step; the three MoE archs again in f32
      (jamba 3 layers), where no route flips: within 1e-3 and the dropped
      share one rank's; 17b, one round at G = 1 of qwen3-moe and rwkv6
-     (split at layer 2, 2,048 tokens a row) with one cluster a probe
+     cut to 2 layers (split at layer 1, 2,048 tokens a row) with one
+     cluster a probe
      row: every rank the same W_G bits, the losses within 2e-2 of one
      rank's and each leaf's update (W_G - W_0) within 0.5 (qwen3-moe)
      or 0.2 (rwkv6) of one rank's, relative Frobenius, the launches a
      rank one rank's (``launches_17``);
+ 18. FSDP and the split decode caches (``--phase 18`` runs it alone
+     after the build): gloo worlds of 4 and then 2 processes on the card
+     against the one-rank steps run first on the same seeds, in bf16; the
+     cut models' FSDP plans taken at a threshold of 0 (their full depths
+     pass the real one): 18a deepseek-v2-236b and jamba-1.5-large-398b cut
+     to 2 layers on 2 x 2, their weights over "data" and "model", a 4 x
+     4,096 prefill and 1 decode step at batch 4 over 4,096 slots: the
+     logits and caches within 2e-2 of one rank's, each rank's weight
+     bytes and peak beside their reckoning; 18b deepseek cut to its first
+     layer, one round at G = 1 on 2 x 2 (2 local steps x 4 rows x 2,048
+     tokens), each leaf's update within ``P18_UPDATE_TOL`` of one rank's;
+     18c decode over filled caches on every placement ``cache_plan``
+     makes: gemma3-4b at full width and depth at long_500k on 2 x 1 (the
+     rings' sequence over "data"; its keys drawn 4x, so the softmax
+     peaks), deepseek's 2-layer cut at long_500k on 2 x 2 (FSDP, the
+     latent ring over "data"; absorbed), llama3.2-1b's 8 layers with
+     ``cache_seq_shard`` on 1 x 2, qwen2-0.5b's 2 layers on 1 x 4 (the
+     head dim over "model", its gather's bytes a step): the logits within
+     2e-2 of one rank's (gemma3-4b: or no farther from one rank's f32
+     decode than 1.25x one rank's own); 18d the kernels line's
+     ``flash_decode_stats`` row (``launches_18`` per rank): o and lse
+     against the plain version, two halves of a ring merged against the
+     whole decode, which three wrong merges must fail;
   5. time each kernel beside its plain version, a library call where one
      computes the same function, and its bound (the attention kernels one
      row a template instance: head dim 64 at phase 6's shapes, 128 at
@@ -331,11 +357,20 @@ result line:
      one client's round (LocalUpdate eager and captured, with the device
      busy share of a captured one) and the client side of a full-width
      round on the cohort engine and on the client-by-client loop.
-It prints the kernels line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. It imports nothing of JAX or ``repro``.
+The script's own processes run beside the phases that do not wait for
+them: 7d's and 8c's start before phase 7, 9c's and 9d's with phase 9,
+10d's, 11e's and 12e's ``serve_lm`` with their phases, the smoke dry run
+before phase 9, 14b's ranks with phase 14 and 16's, 17's and 18's gloo
+ranks before their one-rank steps (18's before phase 17), each waiting
+for its job; a phase reads its processes where it checks them. Each part
+of the run prints ``lap <part>: <s since the start>`` on stderr as it
+begins. It prints the kernels line, the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``. It imports nothing of JAX or
+``repro``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
@@ -344,9 +379,18 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+_T0 = time.monotonic()
+
+
+def lap(label: str) -> None:
+    """The seconds since the script started, on stderr, as a part of the
+    run begins: where a run's time goes."""
+    print(f"lap {label}: {time.monotonic() - _T0:.1f} s", file=sys.stderr,
+          flush=True)
 
 # the card's data-sheet peaks, from the port's one copy of them
 from repro_torch.launch.mesh import (  # noqa: E402
@@ -467,19 +511,19 @@ TRAIN_G, TRAIN_LOCAL, TRAIN_MB, TRAIN_T = 2, 2, 4, 4096
 TRAIN_META_CLUSTERS, TRAIN_META_STEPS = 2, 2
 # phase 10a: qwen3-moe-30b-a3b at full width, INPUT_SHAPES' decode_32k
 # (batch cut 128 -> 4) and prefill_32k (batch cut 32 -> 1), its depth cut
-# 48 -> MOE_LAYERS to keep the whole script near its time budget as the
-# model-axis phases grew (at full depth: 12.9 GB of bf16 K/V beside 61.07
-# GB of bf16 weights); 10b one of its MoE layers on 1,024 tokens; 10c
+# 48 -> 24 -> MOE_LAYERS to keep the whole script near its time budget as
+# the model-axis phases grew (at full depth: 12.9 GB of bf16 K/V beside
+# 61.07 GB of bf16 weights); 10b one of its MoE layers on 1,024 tokens; 10c
 # phi3-medium-14b at full width, depth cut 40 -> 4
 MOE_ARCH = "qwen3-moe-30b-a3b"
-MOE_LAYERS = 24
+MOE_LAYERS = 12
 MOE_BATCH, MOE_CACHE, MOE_PROMPT, MOE_TOKENS = 4, 32768, 32, 16
 MOE_PREFILL_S = 32768
 MOE_LAYER_TOKENS = 1024
 PHI3_LAYERS, PHI3_PREFILL_S, PHI3_BATCH, PHI3_CACHE, PHI3_STEPS = \
     4, 2048, 4, 4096, 16
-# phase 11a: deepseek-v2-236b at full width, depth cut 60 -> 6 (the dense
-# layer 0 and 5 MoE layers: 42.16 GB of bf16 weights), decode_32k's
+# phase 11a: deepseek-v2-236b at full width, depth cut 60 -> 6 -> 3 (the
+# dense layer 0 and 2 MoE layers; the script's time), decode_32k's
 # 32,768-slot latent cache at batch 4 (cut from 128) and prefill_32k's
 # 32,768 tokens at batch 1 (cut from 32); 11b one full-width MLA layer;
 # 11c rwkv6-3b at full width and depth, decode_32k's full batch of 128
@@ -487,7 +531,7 @@ PHI3_LAYERS, PHI3_PREFILL_S, PHI3_BATCH, PHI3_CACHE, PHI3_STEPS = \
 # The prefill kernel's D 192 row is held against its plain version in
 # chunks of MLA_PLAIN_CHUNK keys (the default 1,024 would hold a 17.2 GB
 # f32 score block at H 128)
-MLA_ARCH, MLA_LAYERS = "deepseek-v2-236b", 6
+MLA_ARCH, MLA_LAYERS = "deepseek-v2-236b", 3
 MLA_BATCH, MLA_CACHE, MLA_PROMPT, MLA_TOKENS = 4, 32768, 32, 16
 MLA_PREFILL_S = 32768
 MLA_LAYER_TOKENS, MLA_RING, MLA_STEPS = 256, 64, 8
@@ -812,18 +856,17 @@ def train_rounds(tag, step, lm, batches, firsts, clusters, tokens, sweeps):
         torch.cuda.synchronize()
         prof_wall = (monotonic() - t0) * 1e3
     del replay
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in evs) / 1e3
-    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:12]
+    totals = DeviceTotals(prof)
+    busy = totals.busy_ms()
+    top = totals.top(12)
     in_round = {}
     for name in BWD_KERNELS["tensor_core"] + ("flash_fwd_wgmma_kernel",):
-        hit = [e for e in evs if f"::{name}" in e.key]
-        n = sum(e.count for e in hit)
+        hit = [v for k, v in totals.by_name.items() if f"::{name}" in k]
+        n = sum(c for c, _ in hit)
         in_round[name] = {
             "launches": n, "device_ms_per_launch":
-            sum(e.self_device_time_total for e in hit) / 1e3 / max(n, 1)}
-    del prof, evs
+            sum(us for _, us in hit) / 1e3 / max(n, 1)}
+    del prof, totals
     peak_and_reset()
     print(f"{tag}: two rounds at full width, walls {walls}, metrics "
           f"{metrics}, peak {peak}")
@@ -835,8 +878,7 @@ def train_rounds(tag, step, lm, batches, firsts, clusters, tokens, sweeps):
             "profiled_round": {
                 "wall_ms": prof_wall, "device_busy_ms": busy,
                 "device_busy_share": busy / prof_wall,
-                "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                                  for e in top},
+                "top_device_ms": {k[:80]: us / 1e3 for k, _, us in top},
                 "attention_kernels": in_round}}, launches
 
 
@@ -919,11 +961,13 @@ def main() -> None:
           f"CUDA {torch.version.cuda}")
     t_script = monotonic()
 
+    lap("1")
     # ---- 1. build ------------------------------------------------------
     t0 = monotonic()
     build.load_all(verbose=True)
     print(f"build_s: {monotonic() - t0:.3f}")
 
+    lap("2")
     # ---- 2. kernels vs plain versions on the card ----------------------
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -1204,6 +1248,7 @@ def main() -> None:
     del x, m
     print("kernel checks: passed")
 
+    lap("2b")
     # ---- 2b. attention kernels vs plain versions on the card -----------
     def att_check(k_name, got, want, dtype, what):
         tol = ATT_TOL[dtype]
@@ -1393,6 +1438,7 @@ def main() -> None:
     print(json.dumps({"attention_checks_max_abs_err": att,
                       "backward_sk_worst_block_rel_err": bwd_rel}))
 
+    lap("3")
     # ---- 3. one small round on the card and on the CPU -----------------
     small = get_wrn_config().reduced()
     sm = make_split_wrn(small)
@@ -1421,6 +1467,7 @@ def main() -> None:
     print(f"small round card vs cpu: ledger equal "
           f"({lg['total_up']} B up), |D_M|={rg.metadata_count}")
 
+    lap("3b")
     # ---- 3b. a reduced LM on the card and on the CPU -------------------
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -1455,6 +1502,7 @@ def main() -> None:
     print(f"reduced LM card vs cpu: prefill + 8 decode steps, max rel err "
           f"{max(lm_errs)}")
 
+    lap("3c")
     # ---- 3c. two runs of two small rounds, bit for bit -----------------
     # fresh FLSimulations from one seed in this process (cuDNN pinned to
     # deterministic algorithms by resolve_device): weights, ledger, the
@@ -1481,6 +1529,7 @@ def main() -> None:
     print(f"two runs of two small rounds: bit-identical "
           f"(Lloyd sweeps {runs[0][6]}, |D_M| {runs[0][5]})")
 
+    lap("3d")
     # ---- 3d. the cohort engine against the client loop, on the card -----
     # two rounds of the small WRN-10-1, then both again under a fault plan
     # (checksums on): the same bits, the same fault log
@@ -1550,6 +1599,7 @@ def main() -> None:
               f"(drops {runs[0][7]}, retransmits {runs[0][8]}, "
               f"{len(runs[0][9])} fault events)")
 
+    lap("4")
     # ---- 4. the main path at full WRN-40-1 width -----------------------
     wcfg = get_wrn_config()
     model = make_split_wrn(wcfg)
@@ -1586,6 +1636,7 @@ def main() -> None:
         "ledger": {"up": res.comm["up"], "down": res.comm["down"]},
         "m_com_acc": res.test_acc, "fedavg_acc": res.fedavg_acc}))
 
+    lap("4b")
     # ---- 4b. the main path again, on the cohort engine -----------------
     ccfg = dataclasses.replace(cfg, distributed_selection=True)
     csim = FLSimulation(model, clients, test, ccfg, seed=0)
@@ -1624,14 +1675,18 @@ def main() -> None:
         "client_loop_round_wall_s": res.round_wall_s,
         "bit_identical_to_phase_4": True,
         "launches": cohort_launches}}))
+    # 7d's and 8c's processes start now and run beside phases 7 and 8
+    early = start_phase78_processes()
+    lap("7")
     # ---- 7. the async service at full width ----------------------------
     # (its own function: the services and their weights are freed on return)
     print(json.dumps({"service": run_service_phase(
-        model, clients, test, cfg, sim, res, launches)}))
+        model, clients, test, cfg, sim, res, launches, early["7d"])}))
+    lap("8")
     # ---- 8. the rest of selection, the checkpoint and paper_repro ------
     # (its own function: its maps and runs are freed on return)
     print(json.dumps({"selection_and_checkpoint": run_selection_phase(
-        model, clients, test, cfg, sim, res)}))
+        model, clients, test, cfg, sim, res, early["8c"])}))
     # each run freed its captured LocalUpdate graphs when it returned: what
     # stays on the card for serving is phase 5's data, not the FL runs'
     del csim
@@ -1640,6 +1695,7 @@ def main() -> None:
     print(json.dumps({"memory_allocated_before_serving":
                       torch.cuda.memory_allocated()}))
 
+    lap("6")
     # ---- 6. serve llama3.2-1b at full width ----------------------------
     from repro_torch.launch import serve
     full = get_config("llama3.2-1b")
@@ -1722,49 +1778,68 @@ def main() -> None:
         "profiled_prefill_call": prefill_profile,
         "profiled_decode_step": decode_profile}))
 
+    # the smoke dry run (host only) runs beside phases 9-15
+    smoke = start_dryrun_smoke()
+    lap("9")
     # ---- 9. the federated LM training path -----------------------------
     # (its own function: the model, its gradients and the probes are freed
     # on return)
     training, bwd_row = run_training_phase(dev, rel_err)
     print(json.dumps({"training": training}))
 
+    lap("10")
     # ---- 10. serving qwen3-moe-30b-a3b and phi3-medium-14b -------------
     # (its own function: the 61 GB model is freed on return)
     moe_serving, moe_launches = run_moe_serving_phase(dev, rel_err)
     print(json.dumps({"moe_serving": moe_serving}))
 
+    lap("11")
     # ---- 11. serving deepseek-v2-236b (MLA) and rwkv6-3b ---------------
     # (its own function: the 42 GB model is freed on return)
     mla_rwkv, mla_launches = run_mla_rwkv_phase(dev, rel_err)
     print(json.dumps({"mla_rwkv_serving": mla_rwkv}))
 
+    lap("12")
     # ---- 12. serving jamba (Mamba), whisper and internvl2 --------------
     # (its own function: each model is freed before the next)
     last_families, last_launches, last_profiles = run_last_families_phase(
         dev, rel_err)
     print(json.dumps({"last_families_serving": last_families}))
 
+    lap("13")
     # ---- 13. training with the extras: whisper and internvl2 -----------
     # (its own function: each model is freed before the next)
     extras_training, extras_rows = run_extras_training_phase(dev, rel_err)
     print(json.dumps({"extras_training": extras_training}))
 
+    lap("14")
     # ---- 14. the multi-device launch over torch.distributed ------------
     # (its own function: the models are freed on return; 14b's ranks are
     # child processes, joined before it returns)
     ranks, ranks_launches = run_ranks_phase(dev, model, clients, cfg)
     print(json.dumps({"ranks": ranks}))
+    lap("15")
     # ---- 15. the cost model and the dry run against the card ---------
-    print(json.dumps({"cost": run_cost_phase(dev, model, clients, test)}))
+    print(json.dumps({"cost": run_cost_phase(dev, model, clients, test,
+                                             smoke)}))
+    lap("16")
     # ---- 16. the model axis: tensor parallel over gloo ranks ----------
     # (its own function: the ranks are child processes, joined before it
     # returns)
     model_axis, ma_launches = run_model_axis_phase(dev)
     print(json.dumps({"model_axis": model_axis}))
+    lap("17")
     # ---- 17. the model axis for MoE, MLA, Mamba and RWKV ---------------
+    # phase 18's gloo worlds start now: their start-up runs beside phase 17
+    p18 = start_phase18()
     families, fam_launches = run_model_axis_families_phase(dev)
     print(json.dumps({"model_axis_families": families}))
+    lap("18")
+    # ---- 18. FSDP and the split decode caches over gloo ranks ---------
+    fsdp_seq, p18_launches = run_fsdp_seq_phase(dev, p18)
+    print(json.dumps({"fsdp_seq": fsdp_seq}))
 
+    lap("5")
     # ---- 5. timings ----------------------------------------------------
     def cuda_ms(fn, iters=50, warmup=3):
         """Mean ms of one call over ``iters`` back-to-back calls (CUDA
@@ -1891,6 +1966,7 @@ def main() -> None:
             row["shape"] = list(qcx.shape)
         rows.append(row)
 
+    lap("5 attention rows")
     # the attention kernels, one row a template instance the main path
     # runs (bf16): D 64 at phase 6's shapes, one prefill layer (B=1,
     # S=32768, H=32, KV=8, causal) and one decode layer of the serve run's
@@ -1958,7 +2034,9 @@ def main() -> None:
             "kernel_route": prefill_route(qa.dtype, d_),
             "instance": instance,
             "ptxas": ptxas("flash_attention", instance),
-            "plain_ms": cuda_ms(plain, 2, 1),
+            # one call (the check's call above warmed it): the plain
+            # versions take 0.4-4.2 s a call at these shapes
+            "plain_ms": cuda_ms(plain, 1, 0),
             "plain": f"layers._sdpa_chunked_raw in chunks of {plain_chunk} "
                      f"keys (flash_attention_ref's S x Sk scores would take "
                      f"{4 * b_ * h_ * s_ * sk_ / 1e9:.1f} GB at S={s_}, "
@@ -2131,8 +2209,11 @@ def main() -> None:
     # internvl2's layer
     rows.append({**bwd_row, "max_abs_err": errs["flash_attention_bwd"]})
     rows.extend(extras_rows)
-    # phase 14's, 16's and 17's launches (16's and 17's per rank), on the
-    # row named after each kernel's wrapper
+    # 18d: the decode kernel with its statistics, at one gemma3-4b rank's
+    # long_500k ring
+    rows.append(_p18_stats_row(dev, p18_launches["flash_decode_stats"]))
+    # phase 14's, 16's, 17's and 18's launches (16's to 18's per rank), on
+    # the row named after each kernel's wrapper
     for row in rows:
         if row["name"] in ranks_launches:
             row["launches_14"] = ranks_launches[row["name"]]
@@ -2140,6 +2221,8 @@ def main() -> None:
             row["launches_16"] = ma_launches[row["name"]]
         if row["name"] in fam_launches:
             row["launches_17"] = fam_launches[row["name"]]
+        if row["name"] in p18_launches:
+            row["launches_18"] = p18_launches[row["name"]]
     ops.reset_launch_counts()          # timing launches are not the path's
 
     # where one client's round goes (full width, the last global weights)
@@ -2159,6 +2242,7 @@ def main() -> None:
         torch.cuda.synchronize()
         return (monotonic() - t) / iters * 1e3, out
 
+    lap("5 phases")
     phases = {}
     with torch.no_grad():
         phases["lower_forward_ms"], acts = timed(
@@ -2241,14 +2325,12 @@ def main() -> None:
     ops.reset_launch_counts()
 
     def busy(prof, wall):
-        evs = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        b_ms = sum(e.self_device_time_total for e in evs) / 1e3
-        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:10]
+        totals = DeviceTotals(prof)
+        b_ms = totals.busy_ms()
         return {"wall_ms": wall, "device_busy_ms": b_ms,
                 "device_busy_share": b_ms / wall,
-                "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                                  for e in top}}
+                "top_device_ms": {k[:80]: us / 1e3
+                                  for k, _, us in totals.top(10)}}
 
     print(json.dumps({"phases_ms": phases, "lloyd_sweeps": sel.lloyd_iters,
                       "client_rows": int(xs.shape[0]),
@@ -2269,10 +2351,33 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def run_service_phase(model, clients, test, cfg, sim, res, launches):
+# 8c's paper_repro checkpoint and JSON, written by its own process
+PAPER_CK = os.path.join(ROOT, "build", "phase8c_paper_ckpt")
+PAPER_OUT = os.path.join(ROOT, "build", "phase8c_paper_repro.json")
+
+
+def start_phase78_processes():
+    """7d's ``serve_fl --sync-check`` and 8c's ``paper_repro`` (phase 4's
+    full width), each in its own process (``start_module``), started
+    together before phase 7 so that they run beside phases 7 and 8 ->
+    {"7d": ..., "8c": ...} for ``finish_module``."""
+    shutil.rmtree(PAPER_CK, ignore_errors=True)
+    if os.path.exists(PAPER_OUT):
+        os.remove(PAPER_OUT)
+    return {"7d": start_module("7d_serve_fl", [
+        "repro_torch.launch.serve_fl", "--ticks", "2", "--sync-check"]),
+        "8c": start_module("8c_paper_repro", [
+            "repro_torch.launch.paper_repro", "--full-wrn", "--rounds", "2",
+            "--clients", "4", "--samples-per-client", "2500", "--ckpt-dir",
+            PAPER_CK, "--out", PAPER_OUT])}
+
+
+def run_service_phase(model, clients, test, cfg, sim, res, launches,
+                      serve_fl):
     """Phase 7: ``FLService`` at phase 4's full width, against phase 4's
     ``FLSimulation`` run (``sim``, ``res``, its launch counts
-    ``launches``); returns the phase's numbers."""
+    ``launches``); 7d waits for ``serve_fl``, the launcher's process
+    (``start_phase78_processes``). Returns the phase's numbers."""
     import dataclasses
     from collections import Counter
 
@@ -2427,18 +2532,13 @@ def run_service_phase(model, clients, test, cfg, sim, res, launches):
     del svc, tr, led
 
     # 7d: the launcher's sync check, on the card, in its own process
-    t0 = monotonic()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve_fl", "--ticks", "2",
-         "--sync-check"], cwd=ROOT, capture_output=True, text=True,
-        timeout=300, env={**os.environ,
-                          "PYTHONPATH": os.path.join(ROOT, "src")})
-    check(proc.returncode == 0 and "weights=OK ledger=OK" in proc.stdout,
-          f"7d: serve_fl --sync-check exited {proc.returncode}:\n"
-          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    out["7d_serve_fl"] = {"exit": proc.returncode,
-                          "wall_s": monotonic() - t0,
-                          "stdout": proc.stdout.strip().splitlines()}
+    # (started before phase 7; its wall is from its start)
+    code, stdout, stderr, wall = finish_module(serve_fl, 300)
+    check(code == 0 and "weights=OK ledger=OK" in stdout,
+          f"7d: serve_fl --sync-check exited {code}:\n"
+          f"{stdout[-2000:]}\n{stderr[-2000:]}")
+    out["7d_serve_fl"] = {"exit": code, "wall_s": wall,
+                          "stdout": stdout.strip().splitlines()}
     return out
 
 
@@ -2447,11 +2547,12 @@ PAPER_REPRO_KEYS = {"config", "test_acc", "fedavg_acc", "metadata_counts",
                     "selected_fraction", "comm", "wall_time_s"}
 
 
-def run_selection_phase(model, clients, test, cfg, sim, res):
+def run_selection_phase(model, clients, test, cfg, sim, res, paper_repro):
     """Phase 8 at phase 4's full width: 8a the randomized PCA through
     ``FLSimulation`` and one client's selection on the card against the
     CPU; 8b the all-rows path, the batched entry and the seed oracle on
-    phase 4's client maps; 8c the checkpoint and ``paper_repro``. Returns
+    phase 4's client maps; 8c the checkpoint, and ``paper_repro``'s
+    process (``start_phase78_processes``) waited for and read. Returns
     the phase's numbers (``sim`` and ``res`` are phase 4's run)."""
     import dataclasses
 
@@ -2629,9 +2730,7 @@ def run_selection_phase(model, clients, test, cfg, sim, res):
     # each run starts from empty directories (a step left by an earlier
     # run would be the latest, or prune this run's)
     ck_dir = os.path.join(ROOT, "build", "phase8c_ckpt")
-    paper_ck = os.path.join(ROOT, "build", "phase8c_paper_ckpt")
-    for path in (ck_dir, paper_ck):
-        shutil.rmtree(path, ignore_errors=True)
+    shutil.rmtree(ck_dir, ignore_errors=True)
     mgr = ckpt.CheckpointManager(ck_dir, max_to_keep=1)
     mgr.save(2, params_to_jax(params), {"cfg": str(cfg)})
     tree, meta = mgr.restore(params_to_jax(params))
@@ -2655,24 +2754,15 @@ def run_selection_phase(model, clients, test, cfg, sim, res):
               for a, b in zip([got["bf16"]] + got["ids"],
                               [small["bf16"]] + small["ids"])),
           "8c: the bf16 / int tree did not come back bit for bit")
-    paper_out = os.path.join(ROOT, "build", "phase8c_paper_repro.json")
-    t0 = monotonic()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.paper_repro",
-         "--full-wrn", "--rounds", "2", "--clients", "4",
-         "--samples-per-client", "2500", "--ckpt-dir", paper_ck, "--out",
-         paper_out], cwd=ROOT, capture_output=True, text=True, timeout=600,
-        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
-    paper_s = monotonic() - t0
-    check(proc.returncode == 0,
-          f"8c: paper_repro exited {proc.returncode}:\n"
-          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    with open(paper_out) as f:
+    code, stdout, stderr, paper_s = finish_module(paper_repro, 600)
+    check(code == 0, f"8c: paper_repro exited {code}:\n"
+                     f"{stdout[-2000:]}\n{stderr[-2000:]}")
+    with open(PAPER_OUT) as f:
         written = json.load(f)
     check(set(written) == PAPER_REPRO_KEYS,
           f"8c: paper_repro wrote keys {sorted(written)}")
     wrn40 = params_to_jax(model.init(torch.Generator().manual_seed(0), dev))
-    tree, meta = ckpt.restore_checkpoint(paper_ck, wrn40)
+    tree, meta = ckpt.restore_checkpoint(PAPER_CK, wrn40)
     restored = params_from_jax(tree, device=dev)
     check(meta["step"] == 2 and sorted(restored) == sorted(params)
           and all(torch.isfinite(v).all() for v in restored.values()),
@@ -2681,12 +2771,12 @@ def run_selection_phase(model, clients, test, cfg, sim, res):
         "w_g_bit_identical": True, "bf16_int_tree_bit_identical": True,
         "w_g_checkpoint_bytes": os.path.getsize(os.path.join(
             ck_dir, "ckpt_00000002.npz")),
-        "paper_repro": {"exit": proc.returncode, "wall_s": paper_s,
+        "paper_repro": {"exit": code, "wall_s": paper_s,
                         "test_acc": written["test_acc"],
                         "fedavg_acc": written["fedavg_acc"],
                         "metadata_counts": written["metadata_counts"],
                         "selected_fraction": written["selected_fraction"],
-                        "stdout": proc.stdout.strip().splitlines()[-3:]}}
+                        "stdout": stdout.strip().splitlines()[-3:]}}
     out["wall_s"] = monotonic() - t_phase
     return out
 
@@ -2712,7 +2802,7 @@ def reckon_train_launches(cfg, g, sweeps, rounds=2):
                                              + TRAIN_META_STEPS * upper),
             "kmeans_pairwise_dist": rounds * g * TRAIN_META_CLUSTERS,
             "kmeans_lloyd_step": sum(sweeps),
-            "flash_decode": 0, "quantize_affine": 0,
+            "flash_decode": 0, "flash_decode_stats": 0, "quantize_affine": 0,
             "quantize_affine_batched": 0}
 
 
@@ -2720,10 +2810,11 @@ def run_training_phase(dev, rel_err):
     """Phase 9, the federated LM training path. 9a: ``train_rounds`` at
     llama3.2-1b's full width (the train_4k cut in ``TRAIN_*``) with its
     launches reckoned, and the backward kernels at one layer's shape; 9b:
-    a reduced-width f32 step on the card and on the CPU; 9c: ``launch.train --smoke`` in its own
-    process and its checkpoint; 9d: ``launch.federated_lm`` in its own
-    process. Returns (the phase's numbers, the backward kernel's row of
-    the kernels line but its max_abs_err)."""
+    a reduced-width f32 step on the card and on the CPU; 9c:
+    ``launch.train --smoke`` in its own process and its checkpoint; 9d:
+    ``launch.federated_lm`` in its own process (both processes started
+    with the phase, beside 9a and 9b). Returns (the phase's numbers, the
+    backward kernel's row of the kernels line but its max_abs_err)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2740,7 +2831,18 @@ def run_training_phase(dev, rel_err):
     t_phase = monotonic()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    # 9c's and 9d's processes (reduced configs) run beside 9a and 9b
+    ck_dir = os.path.join(ROOT, "build", "phase9_ckpt")
+    ck_here = os.path.join(ROOT, "build", "phase9_ckpt_here")
+    for d in (ck_dir, ck_here):
+        shutil.rmtree(d, ignore_errors=True)
+    proc_9c = start_module("9c_train", [
+        "repro_torch.launch.train", "--smoke", "--steps", "2", "--ckpt-dir",
+        ck_dir])
+    proc_9d = start_module("9d_federated_lm", [
+        "repro_torch.launch.federated_lm", "--rounds", "3"])
 
+    lap("9a")
     # ---- 9a: full width, two rounds of G cohorts ----
     full = get_config("llama3.2-1b")
     tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
@@ -2798,6 +2900,7 @@ def run_training_phase(dev, rel_err):
     torch.cuda.empty_cache()
     row.update(device_ms_fields(f32_by_launch, "f32_cuda_core_"))
 
+    lap("9b")
     # ---- 9b: a reduced-width f32 step on the card and on the CPU ----
     # (4 layers: two scan stages, so remat runs. As many clusters as probe
     # rows: a 2-row cluster's centre is equidistant from its rows, so
@@ -2813,85 +2916,115 @@ def run_training_phase(dev, rel_err):
         "9b", step32, lm32.init(torch.Generator().manual_seed(7)),
         {"tokens": stoks}, [1, 2], dev, rel_err)
 
+    lap("9c")
     # ---- 9c: launch.train in its own process, and its checkpoint; 9d's
-    # process (the federated_lm twin) runs beside it ----
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    t9d = monotonic()
-    proc_9d = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.federated_lm",
-         "--rounds", "3"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
-    try:
-        ck_dir = os.path.join(ROOT, "build", "phase9_ckpt")
-        ck_here = os.path.join(ROOT, "build", "phase9_ckpt_here")
-        for d in (ck_dir, ck_here):
-            shutil.rmtree(d, ignore_errors=True)
-        t0 = monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-             "--steps", "2", "--ckpt-dir", ck_dir], cwd=ROOT,
-            capture_output=True, text=True, timeout=300, env=env)
-        train_s = monotonic() - t0
-        check(proc.returncode == 0 and proc.stdout.strip().endswith(
-            "train: done"), f"9c: train exited {proc.returncode}:\n"
-                            f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-        # the same run in this process: its checkpoint and the other
-        # process's restore to the same bits
-        train_mod.main(["--smoke", "--steps", "2", "--ckpt-dir", ck_here])
-        smoke = get_config("llama3.2-1b").reduced()
-        target = make_train_step(smoke, TrainConfig())[1].init(
-            torch.Generator().manual_seed(0))
-        (t_a, meta_a), (t_b, _) = (restore_checkpoint(d, target)
-                                   for d in (ck_dir, ck_here))
-        check(meta_a["step"] == 1 and meta_a["arch"] == "llama3.2-1b"
-              and all(torch.equal(x, y) for x, y in
-                      zip(tree_leaves(t_a), tree_leaves(t_b))),
-              "9c: the train process's checkpoint does not restore to "
-              "this process's bits")
-        out["9c"] = {"exit": proc.returncode, "wall_s": train_s,
-                     "restored_bit_identical": True,
-                     "stdout": proc.stdout.strip().splitlines()}
-        # ---- 9d: the federated_lm twin's process, started with 9c ----
-        stdout, stderr = proc_9d.communicate(timeout=300)
-    finally:
-        proc_9d.kill()
-    check(proc_9d.returncode == 0, f"9d: federated_lm exited "
-                                   f"{proc_9d.returncode}:\n"
-                                   f"{stdout[-2000:]}\n{stderr[-2000:]}")
-    out["9d"] = {"exit": proc_9d.returncode, "wall_s": monotonic() - t9d,
+    # process (the federated_lm twin) ran beside it ----
+    code, stdout, stderr, train_s = finish_module(proc_9c, 300)
+    check(code == 0 and stdout.strip().endswith("train: done"),
+          f"9c: train exited {code}:\n{stdout[-2000:]}\n{stderr[-2000:]}")
+    # the same run in this process: its checkpoint and the other
+    # process's restore to the same bits
+    train_mod.main(["--smoke", "--steps", "2", "--ckpt-dir", ck_here])
+    smoke = get_config("llama3.2-1b").reduced()
+    target = make_train_step(smoke, TrainConfig())[1].init(
+        torch.Generator().manual_seed(0))
+    (t_a, meta_a), (t_b, _) = (restore_checkpoint(d, target)
+                               for d in (ck_dir, ck_here))
+    check(meta_a["step"] == 1 and meta_a["arch"] == "llama3.2-1b"
+          and all(torch.equal(x, y) for x, y in
+                  zip(tree_leaves(t_a), tree_leaves(t_b))),
+          "9c: the train process's checkpoint does not restore to "
+          "this process's bits")
+    out["9c"] = {"exit": code, "wall_s": train_s,
+                 "restored_bit_identical": True,
+                 "stdout": stdout.strip().splitlines()}
+    lap("9d")
+    # ---- 9d: the federated_lm twin's process, started with 9c ----
+    code, stdout, stderr, wall_9d = finish_module(proc_9d, 300)
+    check(code == 0, f"9d: federated_lm exited {code}:\n"
+                     f"{stdout[-2000:]}\n{stderr[-2000:]}")
+    out["9d"] = {"exit": code, "wall_s": wall_9d,
                  "stdout": stdout.strip().splitlines()}
     out["wall_s"] = monotonic() - t_phase
     return out, row
 
 
 
-def serve_lm_in_processes(tag, archs):
+def start_serve_lm(tag, archs):
     """``python -m repro_torch.launch.serve_lm --arch A`` for each arch,
-    each in its own process, all started together (they share the card;
-    each serves its reduced config) -> {arch: its exit, wall from the
-    start to its join, stdout}. A failure fails the run."""
-    from repro_torch.obs.timing import monotonic
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    t0 = monotonic()
-    procs = {arch: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
-         arch], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for arch in archs}
+    each in its own process (``start_module``), all started together at
+    the start of their phase (they share the card; each serves its
+    reduced config) -> {arch: its process} for ``finish_serve_lm``."""
+    return {arch: start_module(f"{tag}_serve_lm_{arch}", [
+        "repro_torch.launch.serve_lm", "--arch", arch]) for arch in archs}
+
+
+def finish_serve_lm(tag, started):
+    """Wait for ``start_serve_lm``'s processes -> {arch: its exit, wall
+    from its start to its join, stdout}. A failure fails the run."""
     out = {}
-    try:
-        for arch, proc in procs.items():
-            stdout, stderr = proc.communicate(timeout=300)
-            check(proc.returncode == 0 and stdout.startswith(
-                f"arch={arch} (reduced)"), f"{tag}: serve_lm --arch {arch} "
-                f"exited {proc.returncode}:\n{stdout[-2000:]}\n"
-                f"{stderr[-2000:]}")
-            out[arch] = {"exit": proc.returncode,
-                         "wall_s": monotonic() - t0,
-                         "stdout": stdout.strip().splitlines()}
-    finally:
-        for proc in procs.values():
-            proc.kill()
+    for arch, proc in started.items():
+        code, stdout, stderr, wall = finish_module(proc, 300)
+        check(code == 0 and stdout.startswith(f"arch={arch} (reduced)"),
+              f"{tag}: serve_lm --arch {arch} exited {code}:\n"
+              f"{stdout[-2000:]}\n{stderr[-2000:]}")
+        out[arch] = {"exit": code, "wall_s": wall,
+                     "stdout": stdout.strip().splitlines()}
     return out
+
+
+class DeviceTotals:
+    """A ``torch.profiler`` profile's device events read from its raw
+    events: ``by_name`` {name: [launches, device us]} of the kernels,
+    copies and sets (not the ``moe.*`` ranges' device spans), and
+    ``ranges`` {"moe.*" range: [calls, device us of the kernels its ops
+    launched]}. ``key_averages`` gives the same sums, but first builds a
+    Python object for every host and device event and their tree, ~0.4 ms
+    an event: tens of seconds for a prefill or a training round of 10^5
+    launches."""
+
+    def __init__(self, prof):
+        from torch.autograd import DeviceType
+        from torch.autograd.profiler_util import _rewrite_name
+        self.by_name, self.ranges = {}, {}
+        ranges, op_at, kernels = {}, {}, []
+        for e in prof.profiler.kineto_results.events():
+            kind = e.device_type()
+            if kind == DeviceType.CPU:
+                if (e.linked_correlation_id() == 0 and not e.is_async()
+                        and e.start_thread_id() == e.end_thread_id()):
+                    name = e.name()
+                    if name.startswith("moe."):
+                        ranges.setdefault(e.start_thread_id(), []).append(
+                            (e.start_ns(), e.end_ns(), name))
+                        self.ranges.setdefault(name, [0, 0.0])[0] += 1
+                    op_at[e.correlation_id()] = (e.start_thread_id(),
+                                                 e.start_ns())
+            elif kind == DeviceType.CUDA:
+                name = _rewrite_name(e.name(), with_wildcard=True)
+                if name.startswith("moe."):
+                    continue
+                us = (e.end_ns() - e.start_ns()) / 1e3
+                row = self.by_name.setdefault(name, [0, 0.0])
+                row[0] += 1
+                row[1] += us
+                if e.linked_correlation_id() > 0:
+                    kernels.append((e.linked_correlation_id(), us))
+        if ranges:
+            for corr, us in kernels:
+                thread, t = op_at.get(corr, (None, 0))
+                for lo, hi, name in ranges.get(thread, ()):
+                    if lo <= t <= hi:
+                        self.ranges[name][1] += us
+
+    def busy_ms(self):
+        return sum(us for _, us in self.by_name.values()) / 1e3
+
+    def top(self, n):
+        """The ``n`` names with the most device time: [(name, launches,
+        device us)]."""
+        return sorted(((k, c, us) for k, (c, us) in self.by_name.items()),
+                      key=lambda r: -r[2])[:n]
 
 
 def device_profile(fn):
@@ -2911,27 +3044,22 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = (monotonic() - t) * 1e3
-    avgs = prof.key_averages()
-    evs = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.key.startswith("moe.")]
-    busy = sum(e.self_device_time_total for e in evs) / 1e3
-    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    totals = DeviceTotals(prof)
+    busy = totals.busy_ms()
+    flash = {k: v for k, v in totals.by_name.items() if "flash_" in k}
     out = {"wall_ms": wall, "device_busy_ms": busy,
            "device_busy_share": busy / wall,
            # each attention kernel's share of the device time, and its
            # launches and device ms a launch
            "attention_share_of_device_time": {
-               e.key[:80]: e.self_device_time_total / 1e3 / busy
-               for e in evs if "flash_" in e.key},
+               k[:80]: us / 1e3 / busy for k, (_, us) in flash.items()},
            "attention_device_ms_a_launch": {
-               e.key[:80]: {"launches": e.count, "device_ms":
-                            e.self_device_time_total / 1e3 / e.count}
-               for e in evs if "flash_" in e.key},
-           "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                             for e in top}}
-    moe = {e.key: {"calls": e.count, "device_ms": e.device_time_total / 1e3}
-           for e in avgs if e.key.startswith("moe.")
-           and e.device_type == torch.autograd.DeviceType.CPU}
+               k[:80]: {"launches": c, "device_ms": us / 1e3 / c}
+               for k, (c, us) in flash.items()},
+           "top_device_ms": {k[:80]: us / 1e3
+                             for k, _, us in totals.top(8)}}
+    moe = {k: {"calls": c, "device_ms": us / 1e3}
+           for k, (c, us) in totals.ranges.items()}
     if moe:
         out["moe_ranges"] = moe
     return out
@@ -2987,10 +3115,13 @@ def run_moe_serving_phase(dev, rel_err):
     from repro_torch.obs.timing import monotonic
 
     out, launches = {}, {}
+    # 10d's serve_lm processes (reduced configs) run beside the phase
+    serve_lm = start_serve_lm("10d", (MOE_ARCH, "phi3-medium-14b"))
     t_phase = monotonic()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    lap("10a")
     # ---- 10a: qwen3-moe-30b-a3b at full width, MOE_LAYERS deep ----
     cfg = serve.cut_depth(get_config(MOE_ARCH), MOE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
@@ -3117,6 +3248,7 @@ def run_moe_serving_phase(dev, rel_err):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    lap("10b")
     # ---- 10b: one full-width MoE layer in f32, card against CPU ----
     gen = torch.Generator(device=dev).manual_seed(4)
     p = L.moe_init(L.ParamInit(gen, dev), cfg)
@@ -3173,6 +3305,7 @@ def run_moe_serving_phase(dev, rel_err):
     del p, p_cpu, x, y, y2, r
     torch.cuda.empty_cache()
 
+    lap("10c")
     # ---- 10c: phi3-medium-14b at full width, depth cut ----
     pcfg = serve.cut_depth(get_config("phi3-medium-14b"), PHI3_LAYERS)
     prefill, lm = make_prefill_step(pcfg)
@@ -3230,8 +3363,9 @@ def run_moe_serving_phase(dev, rel_err):
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
 
+    lap("10d")
     # ---- 10d: serve_lm in its own process, for both archs ----
-    out["10d"] = serve_lm_in_processes("10d", (MOE_ARCH, "phi3-medium-14b"))
+    out["10d"] = finish_serve_lm("10d", serve_lm)
     out["wall_s"] = monotonic() - t_phase
     return out, launches
 
@@ -3274,9 +3408,12 @@ def run_mla_rwkv_phase(dev, rel_err):
     from repro_torch.obs.timing import monotonic
 
     out, launches = {}, {}
+    # 11e's serve_lm processes (reduced configs) run beside the phase
+    serve_lm = start_serve_lm("11e", (MLA_ARCH, RWKV_ARCH))
     t_phase = monotonic()
     peak_and_reset()
 
+    lap("11a")
     # ---- 11a: deepseek-v2-236b at full width, depth cut ----
     cfg = serve.cut_depth(get_config(MLA_ARCH), MLA_LAYERS)
     nl = cfg.num_layers
@@ -3426,6 +3563,7 @@ def run_mla_rwkv_phase(dev, rel_err):
         "profiled_prefill_call": prefill_profile,
         "profiled_decode_step": decode_profile}
 
+    lap("11b")
     # ---- 11b: one full-width MLA layer in f32, card against CPU ----
     gen = torch.Generator(device=dev).manual_seed(5)
     p = L.mla_init(L.ParamInit(gen, dev), cfg)
@@ -3474,6 +3612,7 @@ def run_mla_rwkv_phase(dev, rel_err):
     del p, p_cpu, x, card, again, cpu
     peak_and_reset()
 
+    lap("11c")
     # ---- 11c: rwkv6-3b at full width and depth ----
     rcfg = get_config(RWKV_ARCH)
     ops.reset_launch_counts()
@@ -3552,6 +3691,7 @@ def run_mla_rwkv_phase(dev, rel_err):
     del params, cache, plogits
     peak_and_reset()
 
+    lap("11d")
     # ---- 11d: one full-width RWKV block in f32, card against CPU ----
     gen = torch.Generator(device=dev).manual_seed(6)
     init = L.ParamInit(gen, dev)
@@ -3609,8 +3749,9 @@ def run_mla_rwkv_phase(dev, rel_err):
     peak_and_reset()
     ops.reset_launch_counts()
 
+    lap("11e")
     # ---- 11e: serve_lm in its own process, for both archs ----
-    out["11e"] = serve_lm_in_processes("11e", (MLA_ARCH, RWKV_ARCH))
+    out["11e"] = finish_serve_lm("11e", serve_lm)
     out["wall_s"] = monotonic() - t_phase
     return out, launches
 
@@ -3644,6 +3785,9 @@ def run_last_families_phase(dev, rel_err):
     from repro_torch.obs.timing import monotonic
 
     out, launches, profiles = {}, {}, {}
+    # 12e's serve_lm processes (reduced configs) run beside the phase
+    serve_lm = start_serve_lm("12e", (JAMBA_ARCH, WHISPER_ARCH,
+                                                VLM_ARCH))
     t_phase = monotonic()
     peak_and_reset()
 
@@ -3672,6 +3816,7 @@ def run_last_families_phase(dev, rel_err):
               f"{what}: two prefill calls on the same inputs differ")
         return secs, got, routes, lengths, peak_and_reset()
 
+    lap("12a")
     # ---- 12a: jamba at full width, depth cut ----
     cfg = serve.cut_depth(get_config(JAMBA_ARCH), JAMBA_LAYERS)
     steps = JAMBA_PROMPT - 1 + JAMBA_TOKENS
@@ -3788,6 +3933,7 @@ def run_last_families_phase(dev, rel_err):
     profiles["12a_prefill"], profiles["12a_decode"] = (prefill_profile,
                                                        decode_profile)
 
+    lap("12b")
     # ---- 12b: one Mamba layer and one cross-attention block in f32 ----
     gen = torch.Generator(device=dev).manual_seed(8)
     p = L.mamba_init(L.ParamInit(gen, dev), cfg)
@@ -3889,6 +4035,7 @@ def run_last_families_phase(dev, rel_err):
     del p, x, enc, card, cpu
     peak_and_reset()
 
+    lap("12c")
     # ---- 12c: whisper-medium at full width and depth ----
     prefill, lm = make_prefill_step(wcfg)
     decode_step, _ = make_decode_step(wcfg)
@@ -4077,6 +4224,7 @@ def run_last_families_phase(dev, rel_err):
         "profiled_decode_step": w_decode_profile}
     profiles["12c_encode"] = encode_profile
 
+    lap("12d")
     # ---- 12d: internvl2-26b at full width and depth ----
     vcfg = get_config(VLM_ARCH)
     nv = vcfg.num_layers
@@ -4158,9 +4306,9 @@ def run_last_families_phase(dev, rel_err):
                                                        v_decode_profile)
     ops.reset_launch_counts()
 
+    lap("12e")
     # ---- 12e: serve_lm in its own process, for the three archs ----
-    out["12e"] = serve_lm_in_processes("12e", (JAMBA_ARCH, WHISPER_ARCH,
-                                               VLM_ARCH))
+    out["12e"] = finish_serve_lm("12e", serve_lm)
     out["wall_s"] = monotonic() - t_phase
     return out, launches, profiles
 
@@ -4279,15 +4427,18 @@ def run_extras_training_phase(dev, rel_err):
             "flash_attention_bwd_launches_by_route": got["bwd_by_route"],
             **rounds}, got["bwd_by_lengths"]
 
+    lap("13a")
     # ---- 13a: whisper-medium at full width and depth ----
     wcfg = get_config(WHISPER_ARCH)
     out["13a"], w_bwd = train_full("13a", wcfg, "enc_frames",
                                    wcfg.encoder_seq_len)
+    lap("13b")
     # ---- 13b: internvl2-26b at full width, depth cut ----
     vcfg = serve.cut_depth(get_config(VLM_ARCH), EXTRAS_VLM_LAYERS)
     out["13b"], v_bwd = train_full("13b", vcfg, "prefix_embeds",
                                    vcfg.num_prefix_tokens)
 
+    lap("13c")
     # ---- 13c: a reduced-width f32 round with each extra, card vs CPU ----
     # (as many clusters as probe rows, as 9b)
     out["13c"] = {}
@@ -4310,6 +4461,7 @@ def run_extras_training_phase(dev, rel_err):
               f"13c {arch}: no cross-attention backward on the card ({bl})")
     ops.reset_launch_counts()
 
+    lap("13 rows")
     # ---- the kernels line's rows: the backward at 13a's cross and
     # encoder shapes and at 13b's layer ----
     wh, wkv, wd, se = (wcfg.num_heads, wcfg.num_kv_heads, wcfg.head_dim,
@@ -4344,12 +4496,15 @@ def run_extras_training_phase(dev, rel_err):
 
 
 # phase 14: the multi-device launch. 14a at one NCCL rank, llama3.2-1b at
-# full width with phase 9a's cut (TRAIN_*) at G = 2 and 4 cohorts; 14b two
-# gloo ranks on the one card (NCCL cannot put two ranks on one card): the
-# FL round of phase 4 over a 1-D "data" mesh, and the train step at full
-# width with the depth cut 16 -> 4 and the sequences 4,096 -> 2,048 (two
-# processes share the card's 80 GB: the f32 log-softmax of a microbatch
-# is 4 x 4,096 x 128,256 x 4 B = 8.4 GB at 4,096)
+# full width with phase 9a's cut (TRAIN_*) at G = 2 and 4 cohorts, its
+# depth cut 16 -> RANKS_LM_LAYERS (9a trains all 16; 14a's round 0 copies
+# every cohort's f32 tree to the host, 4.9 GB each at 16 layers: the cut
+# for the script's time); 14b two gloo ranks on the one card (NCCL cannot
+# put two ranks on one card): the FL round of phase 4 over a 1-D "data"
+# mesh, and the train step at full width with the depth cut 16 -> 4 and
+# the sequences 4,096 -> 2,048 (two processes share the card's 80 GB: the
+# f32 log-softmax of a microbatch is 4 x 4,096 x 128,256 x 4 B = 8.4 GB
+# at 4,096)
 RANKS_G = (2, 4)
 RANKS_WORLD = 2
 RANKS_LM_LAYERS, RANKS_LM_T = 4, 2048
@@ -4401,9 +4556,11 @@ def _ranks_lm(dev, mesh, job):
 
 
 def ranks_child(rank, world, init_file, job_path, out_path):
-    """One of 14b's gloo ranks on the card: the FL round over a 1-D "data"
-    mesh and the train step over the smoke mesh's fed axis, from the job
-    the parent saved; writes what it got (and, rank 0, its new leaves)."""
+    """One of 14b's gloo ranks on the card: started with phase 14, it
+    reaches the card and joins the group, then waits for the job the
+    parent saves after 14a; the FL round over a 1-D "data" mesh and the
+    train step over the smoke mesh's fed axis; writes what it got (and,
+    rank 0, its new leaves)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -4420,10 +4577,18 @@ def ranks_child(rank, world, init_file, job_path, out_path):
     dev = resolve_device("cuda")
     torch.cuda.set_device(0)
     build.load_all()
+    a = torch.randn(1024, 1024, device=dev)
+    torch.mm(a, a).sum().item()
+    del a
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=300))
+                            timeout=datetime.timedelta(seconds=600))
     try:
+        parent = os.getppid()
+        while not os.path.exists(job_path):
+            if os.getppid() != parent:          # the smoke is gone
+                return
+            time.sleep(0.05)
         job = torch.load(job_path, weights_only=False)
         fl = job["fl"]
         model = make_split_wrn(get_wrn_config())
@@ -4488,6 +4653,21 @@ def run_ranks_phase(dev, model, clients, cfg):
     out = {}
     t_phase = monotonic()
     peak_and_reset()
+    # 14b's ranks start now and reach the card beside 14a; they wait for
+    # their job file
+    work = os.path.join(ROOT, "build", "phase14")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    job_path = os.path.join(work, "job.pt")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "GLOO_SOCKET_IFNAME": "lo"}          # see NCCL_SOCKET_IFNAME
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ranks-child", str(r),
+         str(RANKS_WORLD), os.path.join(work, "init"), job_path,
+         os.path.join(work, f"out{r}.pt")], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(RANKS_WORLD)]
+    _STARTED.extend(procs)
     # NCCL's bootstrap (one rank talking to itself) and gloo's pairs on
     # the loopback interface: the ranks are all on this machine
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
@@ -4501,7 +4681,8 @@ def run_ranks_phase(dev, model, clients, cfg):
         "first": [1, 2]}
     try:
         mesh = make_smoke_mesh(device_type="cuda")
-        full = get_config("llama3.2-1b")
+        full = dataclasses.replace(get_config("llama3.2-1b"),
+                                   num_layers=RANKS_LM_LAYERS)
         tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
                            meta_clusters=TRAIN_META_CLUSTERS,
                            meta_steps=TRAIN_META_STEPS)
@@ -4525,7 +4706,8 @@ def run_ranks_phase(dev, model, clients, cfg):
         tree_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(
             lm.init(None, device="meta")))
         launches14 = {}
-        out["14a"] = {"model": full.name, "tree_bytes": tree_bytes,
+        out["14a"] = {"model": full.name, "layers": full.num_layers,
+                      "tree_bytes": tree_bytes,
                       "mesh": "1x1 (data, model), NCCL, world size 1"}
         for g in RANKS_G:
             rng = np.random.default_rng(140 + g)
@@ -4625,6 +4807,7 @@ def run_ranks_phase(dev, model, clients, cfg):
         dist.destroy_process_group()
     peak_and_reset()
 
+    lap("14b")
     # ---- 14b: two gloo ranks on the one card ----
     # the one-device cohort engine (phase 4b's) on phase 4's round, its
     # draws recorded and replayed to the ranks
@@ -4639,23 +4822,12 @@ def run_ranks_phase(dev, model, clients, cfg):
     torch.cuda.synchronize()
     one_fl_wall = monotonic() - t0
     one_fl_launches = ops.launch_counts()
-    work = os.path.join(ROOT, "build", "phase14")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
     job = {"fl": {"params": {k: v.cpu() for k, v in params.items()},
                   "clients": clients, "cfg": fcfg, "draws": rec.replay()},
            "lm": {**lm_job, "leaves_path": os.path.join(work, "lm0.pt")}}
-    job_path = os.path.join(work, "job.pt")
-    torch.save(job, job_path)
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
-           "GLOO_SOCKET_IFNAME": "lo"}          # see NCCL_SOCKET_IFNAME
+    torch.save(job, job_path + ".tmp")
+    os.replace(job_path + ".tmp", job_path)       # the ranks' go
     t0 = monotonic()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--ranks-child", str(r),
-         str(RANKS_WORLD), os.path.join(work, "init"), job_path,
-         os.path.join(work, f"out{r}.pt")], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(RANKS_WORLD)]
     logs = []
     try:
         for proc in procs:
@@ -4747,7 +4919,53 @@ def _round_of(spans_by_id, span_id):
     return None
 
 
-def run_cost_phase(dev, model, clients, test):
+def start_module(tag, args):
+    """``python -m <args>`` from the checkout in its own process, started
+    now, its output in files ``build/<tag>.out`` and ``.err`` (no pipe to
+    fill while nobody reads it) -> (the process, the two files, the start
+    time) for ``finish_module``. Killed at exit if still running."""
+    from repro_torch.obs.timing import monotonic
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    logs = [open(os.path.join(ROOT, "build", f"{tag}.{k}"), "w+")
+            for k in ("out", "err")]
+    t0 = monotonic()
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
+                            env=env, stdout=logs[0], stderr=logs[1],
+                            text=True)
+    _STARTED.append(proc)
+    return proc, logs, t0
+
+
+def finish_module(started, timeout):
+    """Wait up to ``timeout`` s for a ``start_module`` process (killed
+    past it) -> (its exit code, stdout, stderr, s from its start to
+    now)."""
+    from repro_torch.obs.timing import monotonic
+    proc, logs, t0 = started
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    for f in logs:
+        f.seek(0)
+    stdout, stderr = (f.read() for f in logs)
+    for f in logs:
+        f.close()
+    return proc.returncode, stdout, stderr, monotonic() - t0
+
+
+def start_dryrun_smoke():
+    """Start the smoke dry run over every pair (``launch/dryrun.py
+    --smoke --all``: meta tensors, the host only) in its own process
+    (``start_module``) for phase 15b to wait for."""
+    return start_module("dryrun_smoke", [
+        "repro_torch.launch.dryrun", "--smoke", "--all", "--out",
+        os.path.join(ROOT, "build", "dryrun_smoke")])
+
+
+def run_cost_phase(dev, model, clients, test, smoke=None):
     """Phase 15, the cost model and the dry run against the card. 15a:
     phase 4's FL round at full width (WRN-40-1 split after group 1, 2,500
     rows a client) for 2 clients and 2 rounds, untraced and traced: the
@@ -4786,6 +5004,7 @@ def run_cost_phase(dev, model, clients, test):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    lap("15a")
     # ---- 15a: a traced FL round with the profile on ----
     cfg = FLConfig(num_clients=2, clients_per_round=2, transport_codec="int8")
     runs = {}
@@ -4879,6 +5098,9 @@ def run_cost_phase(dev, model, clients, test):
     del runs, tr
     torch.cuda.empty_cache()
 
+    smoke = smoke or start_dryrun_smoke()
+
+    lap("15b")
     # ---- 15b: the dry run on the card's mesh against measured time ----
     full = get_config("llama3.2-1b")
     axes = {"data": 1, "model": 1}
@@ -4963,19 +5185,12 @@ def run_cost_phase(dev, model, clients, test):
     ops.reset_launch_counts()
     torch.cuda.empty_cache()
 
-    # the smoke dry run over every pair, in its own process
-    t0 = monotonic()
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--smoke",
-         "--all", "--out", os.path.join(ROOT, "build", "dryrun_smoke")],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    tail = proc.stdout.strip().splitlines()[-1:] or [""]
-    check(proc.returncode == 0, f"15b: the smoke dry run exited "
-                                f"{proc.returncode}: {tail[0]} "
-                                f"{proc.stderr[-2000:]}")
-    out["15b_dryrun_smoke"] = {"exit": proc.returncode, "summary": tail[0],
-                               "wall_s": monotonic() - t0}
+    code, stdout, stderr, smoke_s = finish_module(smoke, 600)
+    tail = stdout.strip().splitlines()[-1:] or [""]
+    check(code == 0, f"15b: the smoke dry run exited {code}: {tail[0]} "
+                     f"{stderr[-2000:]}")
+    out["15b_dryrun_smoke"] = {"exit": code, "summary": tail[0],
+                               "wall_s": smoke_s}
     out["wall_s"] = monotonic() - t_phase
     return out
 
@@ -4988,10 +5203,10 @@ def run_cost_phase(dev, model, clients, test):
 # train cut (RANKS_LM_*) with one cluster a probe row (no exact ties in
 # the selection) on 1 x 2 (G = 1) and on 4 processes as 2 x 2 (G = 2)
 MA_DECODE_STEPS = 8
-# 16a's depth, cut 16 -> 8 to keep the whole script near its time budget
-# as phase 17 grew (its row-parallel sums move f32 partials through host
-# memory: 256 MiB a product at 32,768 tokens)
-MA_SERVE_LAYERS = 8
+# 16a's depth, cut 16 -> 8 -> 4 to keep the whole script near its time
+# budget as phases 17 and 18 grew (its row-parallel sums move f32 partials
+# through host memory: 256 MiB a product at 32,768 tokens)
+MA_SERVE_LAYERS = 4
 MA_TOL = ATT_TOL["bfloat16"]           # 2e-2, tests/test_kernels.py:156
 MA_KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode",
               "kmeans_pairwise_dist", "kmeans_lloyd_step")
@@ -5122,10 +5337,11 @@ def _ma_train(dev, mesh, job, g):
             "max_memory_allocated": peak, "launches": launches}
 
 
-def model_axis_child(rank, world, init_file, job_path, out_path):
-    """One of phase 16's or 17's gloo ranks on the card: the job's parts
-    on its mesh; writes what it got (rank 0 also the W_G leaves of 16b,
-    and 17's gathered caches and W_G leaves)."""
+def model_axis_child(rank, world, init_file, job_path, out_path, go_path):
+    """One of phase 16's, 17's or 18's gloo ranks on the card: once
+    ``go_path`` exists (``_join_ranks``), the job's parts on its mesh;
+    writes what it got (rank 0 also the W_G leaves of 16b, and 17's
+    gathered caches and W_G leaves)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -5136,12 +5352,36 @@ def model_axis_child(rank, world, init_file, job_path, out_path):
     dev = resolve_device("cuda")
     torch.cuda.set_device(0)
     build.load_all()
+    # every rank's first card work at once, before the items order the
+    # ranks (``_in_turns``): a cold process spends seconds on its first
+    # draws and products, which the turns would otherwise add up
+    a = torch.randn(1024, 1024, device=dev)
+    torch.mm(a, a).bfloat16().float().sum().item()
+    del a
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=600))
     try:
         job = torch.load(job_path, weights_only=False)
         mesh = mesh_over_world(tuple(job["mesh"]), PRODUCTION_AXES, "cuda")
+        # and the first placed draw (a process's first DTensors and meta
+        # draws cost it ~10 s), on a reduced model, every rank at once
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import mesh_axis_sizes
+        from repro_torch.launch.specs import params_on_mesh, step_plan
+        from repro_torch.models.transformer import LM
+        cfg = get_config("llama3.2-1b").reduced()
+        lm = LM(cfg)
+        params_on_mesh(lm, torch.Generator(device=dev).manual_seed(0),
+                       step_plan(cfg, mesh_axis_sizes(mesh), "decode",
+                                 lm=lm), mesh, dtype=torch.bfloat16,
+                       device=dev)
+        del lm
+        parent = os.getppid()
+        while not os.path.exists(go_path):
+            if os.getppid() != parent:          # the smoke is gone
+                return
+            time.sleep(0.05)
         out = {}
         if "serve" in job:
             out["serve"] = _ma_serve(dev, mesh, job["serve"])
@@ -5154,40 +5394,74 @@ def model_axis_child(rank, world, init_file, job_path, out_path):
         if "families" in job:
             out["families"] = _ma17_child(dev, mesh, rank, job["families"],
                                           job["work"])
+        if "p18" in job:
+            out["p18"] = _p18_child(dev, rank, job["p18"], job["work"])
         torch.save(out, out_path)
     finally:
         dist.destroy_process_group()
 
 
-def _spawn_ranks(work, world, job, tag, phase="16", env=(), script=None):
-    """Phase 16's (or 17's) ``world`` gloo ranks on the card for ``job``
-    (``env``: more of the children's environment; ``script``: the file
-    whose ``--model-axis-child`` they run, this one by default), joined
-    -> their outputs (a rank's failure fails the run)."""
+def _start_ranks(work, world, job, tag, env=(), script=None):
+    """Start ``world`` gloo ranks on the card for ``job`` (``env``: more
+    of the children's environment; ``script``: the file whose
+    ``--model-axis-child`` they run, this one by default). Each imports,
+    reaches the card, joins the group and makes its first placed draw,
+    then waits for ``_join_ranks`` before the job's items: a phase starts
+    its ranks before its one-rank steps, so that their start-up runs
+    beside them. -> the handle ``_join_ranks`` takes."""
     import torch
     job_path = os.path.join(work, f"job_{tag}.pt")
     torch.save(job, job_path)
+    go = os.path.join(work, f"go_{tag}")
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
            "GLOO_SOCKET_IFNAME": "lo", **dict(env)}
     procs = [subprocess.Popen(
         [sys.executable, script or os.path.abspath(__file__),
          "--model-axis-child",
          str(r), str(world), os.path.join(work, f"init_{tag}"), job_path,
-         os.path.join(work, f"out_{tag}_{r}.pt")], cwd=ROOT, env=env,
+         os.path.join(work, f"out_{tag}_{r}.pt"), go], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
-    logs = []
+    _STARTED.extend(procs)
+    return {"procs": procs, "go": go, "work": work, "tag": tag}
+
+
+_STARTED = []                   # every rank started, killed at exit
+
+
+@atexit.register
+def _stop_started():
+    for proc in _STARTED:
+        if proc.poll() is None:
+            proc.kill()
+
+
+def _join_ranks(ranks, phase="16"):
+    """Let the ranks of ``_start_ranks`` run their job and wait for them
+    -> their outputs (a rank's failure fails the run)."""
+    import torch
+    open(ranks["go"], "w").close()
+    procs, logs = ranks["procs"], []
     try:
         for proc in procs:
             logs.append(proc.communicate(timeout=900)[0])
     finally:
         for proc in procs:
             proc.kill()
-    for r, (proc, log) in enumerate(zip(procs, logs)):
-        check(proc.returncode == 0, f"{phase} {tag}: rank {r} exited "
-                                    f"{proc.returncode}:\n{log[-3000:]}")
-    return [torch.load(os.path.join(work, f"out_{tag}_{r}.pt"),
-                       weights_only=False) for r in range(world)]
+    bad = [f"rank {r} exited {proc.returncode}:\n{log[-3000:]}"
+           for r, (proc, log) in enumerate(zip(procs, logs))
+           if proc.returncode != 0]
+    check(not bad, f"{phase} {ranks['tag']}: " + "\n".join(bad))
+    return [torch.load(os.path.join(ranks["work"],
+                                    f"out_{ranks['tag']}_{r}.pt"),
+                       weights_only=False) for r in range(len(procs))]
+
+
+def _spawn_ranks(work, world, job, tag, phase="16", env=(), script=None):
+    """``_start_ranks`` and ``_join_ranks`` at once -> the ranks'
+    outputs."""
+    return _join_ranks(_start_ranks(work, world, job, tag, env, script),
+                       phase)
 
 
 def _fro_rel(got, want):
@@ -5229,26 +5503,31 @@ def run_model_axis_phase(dev):
     train_job = {"seed": 17, "tokens": rng.integers(
         0, vocab, (2, TRAIN_LOCAL, 1, TRAIN_MB, RANKS_LM_T), np.int32),
         "first": [1, 2]}
-    # the one-rank steps on the same seeds, kept on the host
+    work = os.path.join(ROOT, "build", "phase16")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = monotonic()
+    two = _start_ranks(work, 2, {
+        "mesh": (1, 2), "serve": serve_job, "train": train_job, "g": 1,
+        "leaves_path": os.path.join(work, "w_1x2.pt")}, "1x2")
+    four = _start_ranks(work, 4, {
+        "mesh": (2, 2), "train": train_job, "g": 2,
+        "leaves_path": os.path.join(work, "w_2x2.pt")}, "2x2")
+    # the one-rank steps on the same seeds, kept on the host, while the
+    # ranks start
     one = {"serve": _ma_serve(dev, None, serve_job),
            "f32_logits": _ma_f32_prefill(dev, serve_job)}
     for g in (1, 2):
         one[f"train_G{g}"] = _ma_train(dev, None, train_job, g)
     peak_and_reset()
-    work = os.path.join(ROOT, "build", "phase16")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    t0 = monotonic()
-    two = _spawn_ranks(work, 2, {
-        "mesh": (1, 2), "serve": serve_job, "train": train_job, "g": 1,
-        "leaves_path": os.path.join(work, "w_1x2.pt")}, "1x2")
+    # both worlds run at once (six ranks, ~10.2 GB each at most)
+    open(four["go"], "w").close()
+    two = _join_ranks(two)
     wall_two = monotonic() - t0
-    t0 = monotonic()
-    four = _spawn_ranks(work, 4, {
-        "mesh": (2, 2), "train": train_job, "g": 2,
-        "leaves_path": os.path.join(work, "w_2x2.pt")}, "2x2")
+    four = _join_ranks(four)
     wall_four = monotonic() - t0
 
+    lap("16a")
     # ---- 16a ----
     want = one["serve"]
     got = [o["serve"] for o in two]
@@ -5297,6 +5576,7 @@ def run_model_axis_phase(dev):
           f"{logits_err}, K/V rel err {kv_err}, tokens equal "
           f"{same_tokens}; vs the f32 logits {f32_err}")
 
+    lap("16b")
     # ---- 16b ----
     for tag, ranks, g in (("1x2", two, 1), ("2x2", four, 2)):
         runs = [o["train"] for o in ranks]
@@ -5373,12 +5653,12 @@ def run_model_axis_phase(dev):
 # the dropped share; the MoE archs run again in f32 (MA17_F32, the
 # kernels' f32 routes; jamba 3 layers, its 4 would not fit the card in
 # f32), where nothing flips, at MA17_F32_TOL with the dropped share one
-# rank's. 17b trains qwen3-moe and rwkv6 (4 layers, split at layer 2,
-# bf16 compute) one round at G = 1 with one cluster a probe row, each
+# rank's. 17b trains qwen3-moe and rwkv6 (cut to MA17_TRAIN_LAYERS, split
+# at layer 1; bf16 compute) one round at G = 1 with one cluster a probe row, each
 # W_G leaf's update (W_G - W_0) held to one rank's at MA17_UPDATE_TOL
 # (relative Frobenius). On an NVIDIA H100 80GB HBM3 at 700 W the sound
-# steps read at most 0.336 (qwen3-moe, its routes flipping) and 0.074
-# (rwkv6); a mutated copy whose router gradient was doubled
+# steps at 4 layers read at most 0.336 (qwen3-moe, its routes flipping)
+# and 0.074 (rwkv6); a mutated copy whose router gradient was doubled
 # (``copy(copy(topv))``) read 2.546, one whose ranks each kept their own
 # share (``topv`` without ``copy``) 0.783 (and the ranks' bits differed)
 MA17_LAYERS = {"qwen3-moe-30b-a3b": 4, "deepseek-v2-236b": 2,
@@ -5389,6 +5669,10 @@ MA17_F32_TOL = 1e-3
 MA17_UPDATE_TOL = {"qwen3-moe-30b-a3b": 0.5, "rwkv6-3b": 0.2}
 MA17_S, MA17_BATCH, MA17_SLOTS, MA17_STEPS = 4096, 4, 4096, 4
 MA17_TRAIN, MA17_TRAIN_T = ("qwen3-moe-30b-a3b", "rwkv6-3b"), 2048
+# 17b's depth, cut 4 -> 2 (split at layer 1) to keep the whole script near
+# its time budget as phase 18 came: most of 17b's wall was rank 0 gathering
+# qwen3-moe's 4-layer f32 W_G through host memory, hashing and saving it
+MA17_TRAIN_LAYERS = 2
 MA17_KERNELS = MA_KERNELS
 
 
@@ -5537,7 +5821,7 @@ def _ma17_train(dev, mesh, arch, job):
     from repro_torch.obs.timing import monotonic
     from repro_torch.optim.optimizers import tree_leaves
 
-    cfg = _ma17_cfg(arch)
+    cfg = _ma17_cfg(arch, job.get("layers"))
     tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
                        meta_clusters=TRAIN_MB, meta_steps=TRAIN_META_STEPS)
     step, lm = make_train_step(cfg, tcfg, mesh=mesh)
@@ -5604,6 +5888,7 @@ def _ma17_jobs(vocabs):
                                    np.int32)}}
         if arch in MA17_TRAIN:
             jobs[arch]["train"] = {"seed": 175 + i, "first": [1],
+                                   "layers": MA17_TRAIN_LAYERS,
                                    "tokens": rng.integers(0, v, (
                                        1, TRAIN_LOCAL, 1, TRAIN_MB,
                                        MA17_TRAIN_T), np.int32)}
@@ -5680,6 +5965,17 @@ def run_model_axis_families_phase(dev):
                           text=True, check=True).stdout.strip()
     t_phase = monotonic()
     jobs = _ma17_jobs({a: get_config(a).vocab_size for a in MA17_LAYERS})
+    work = os.path.join(ROOT, "build", "phase17")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = monotonic()
+    # the ranks' allocators in growable segments: two ranks of jamba's
+    # weights share the card, and each draws its 12.9 GB f32 leaves in
+    # turn (``_in_turns``); they start while the one-rank steps run
+    ranks = _start_ranks(work, 2, {"mesh": (1, 2), "families": jobs,
+                                   "work": work}, "17_1x2",
+                         env={"PYTORCH_CUDA_ALLOC_CONF":
+                              "expandable_segments:True"})
     one = {}
     for tag, job in jobs.items():
         arch = job.get("arch", tag)
@@ -5691,17 +5987,7 @@ def run_model_axis_families_phase(dev):
     print(f"17: one rank's steps {one_wall} s; the card before the ranks: "
           f"{torch.cuda.memory_allocated()} B allocated, "
           f"{torch.cuda.mem_get_info()[0]} B free ({card})")
-    work = os.path.join(ROOT, "build", "phase17")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    t0 = monotonic()
-    # the ranks' allocators in growable segments: two ranks of jamba's
-    # weights share the card, and each draws its 12.9 GB f32 leaves in
-    # turn (``_in_turns``)
-    ranks = _spawn_ranks(work, 2, {"mesh": (1, 2), "families": jobs,
-                                   "work": work}, "17_1x2", phase="17",
-                         env={"PYTORCH_CUDA_ALLOC_CONF":
-                              "expandable_segments:True"})
+    ranks = _join_ranks(ranks, phase="17")
     spawn_wall = monotonic() - t0
 
     out = {"card": card, "one_rank_wall_s": one_wall,
@@ -5726,6 +6012,7 @@ def run_model_axis_families_phase(dev):
         runs = [r["families"][tag] for r in ranks]
         saved = torch.load(os.path.join(work, f"w17_{tag}.pt"),
                            weights_only=False)
+        lap("17a")
         # ---- 17a ----
         got, want = [r["serve"] for r in runs], one[tag]["serve"]
         for what in ("logits", "tokens"):
@@ -5803,6 +6090,7 @@ def run_model_axis_families_phase(dev):
               f"{logits_err}, cache rel err {cache_err}, flips {flips}, "
               f"dropped {dropped}, latent gather "
               f"{row['mla_latent_gather_bytes_a_step']} B/step")
+        lap("17b")
         # ---- 17b ----
         if "train" not in job:
             continue
@@ -5833,7 +6121,7 @@ def run_model_axis_families_phase(dev):
             for r, c in enumerate(n):
                 launches[k_name][r] += c
         out[f"17b {arch}"] = {
-            "layers": MA17_LAYERS[arch], "seq_len": MA17_TRAIN_T,
+            "layers": MA17_TRAIN_LAYERS, "seq_len": MA17_TRAIN_T,
             "cohorts": 1, "ranks_bit_identical": True,
             "max_leaf_update_rel_err": leaf_err, "worst_leaf": worst,
             "update_rel_err_by_leaf": errs,
@@ -5859,6 +6147,696 @@ def run_model_axis_families_phase(dev):
     out["wall_s"] = monotonic() - t_phase
     shutil.rmtree(work, ignore_errors=True)
     return out, launches
+
+
+# phase 18: FSDP and the split decode caches, at full width over gloo
+# processes on the card (``--model-axis-child``: one world of 4, then one
+# of 2), against the one-rank steps run first here on the same seeds, in
+# bf16. The cut models lie below ``sharding.FSDP_THRESHOLD`` (which their
+# full depth passes), so the FSDP items put the planner's threshold at 0
+# for their own run (``_fsdp_planned``): the plan is the full model's,
+# layer for layer.
+# 18a serves jamba-1.5-large-398b (2 layers: Mamba, Mamba + MoE) and
+# deepseek-v2-236b (2: the dense one, then MoE with shared experts) on 2 x 2
+# with their weights over "data" and "model": a P18_BATCH x MA17_S
+# prefill, then P18_SERVE_STEPS teacher-forced decode steps at batch P18_BATCH
+# over MA17_SLOTS slots, held as 17a holds its steps.
+# 18b trains deepseek-v2-236b cut to its first layer (MLA and the dense
+# FFN, the embedding and the head) one round at G = 1 on 2 x 2 (2 local
+# steps x 4 rows x P18_TRAIN_T tokens, f32 masters, bf16 compute), each W_G
+# leaf's update held to one rank's at P18_UPDATE_TOL (relative
+# Frobenius). No MoE layer: its f32 training on four processes of one card
+# does not fit (the 2-layer cut's 5.2e9 parameters are 20.8 GB of f32
+# masters and as much in gradients, before each rank's gathered block).
+# 18c decodes a few teacher-forced steps over caches filled with
+# seeded bf16 keys and values up to a position (``_p18_fill``), on the
+# placements ``cache_plan`` makes: gemma3-4b at full width and depth at
+# long_500k on 2 x 1 (its 524,288-slot global rings and 1,024-slot local
+# rings over "data"); deepseek-v2-236b's 2-layer cut at long_500k on 2 x 2
+# (FSDP weights, the MLA heads over "model", the latent ring over "data"),
+# in its absorbed form (the naive form's rebuilt keys and values of
+# 524,288 slots are 51.5 GB on one rank, 12.9 GB a rank on four ranks of
+# one card); llama3.2-1b's 8-layer cut with ``cache_seq_shard`` on 1 x 2;
+# qwen2-0.5b's 2-layer cut on 1 x 4, whose 2 kv heads do not divide 4 (the
+# head dim split, gathered a layer and a step). Logits within MA_TOL of
+# one rank's.
+P18_SERVE = {"jamba-1.5-large-398b": 2, "deepseek-v2-236b": 2}
+P18_BATCH = 4
+# 18a's decode steps: every FSDP step gathers each block's weights through
+# host memory (gloo's rate between two ranks of one card:
+# ``tools/gloo_throughput.py``), 4.0-5.7 s a step for deepseek's cut and
+# 9.6-16.5 s for jamba's: cut 4 -> 1 to keep the script inside its time
+# limit
+P18_SERVE_STEPS = {"jamba-1.5-large-398b": 1, "deepseek-v2-236b": 1}
+P18_TRAIN_ARCH, P18_TRAIN_LAYERS, P18_TRAIN_T = "deepseek-v2-236b", 1, 2048
+# 18b's limit: on an NVIDIA H100 80GB HBM3 at 700 W the sound round read at
+# most 0.0105 (MLA's ``w_uk``); a copy whose step did not average the
+# data-replicated leaves' gradients over the data ranks (``mean_grads``
+# dropped) read 0.255-0.448 on those leaves, with the ranks' bits apart
+P18_UPDATE_TOL = 0.1
+# tag -> (arch, layers (None: all), mesh, batch, slots, filled positions,
+#         cache_seq_shard, MLA absorbed, FSDP planned, decode steps);
+# deepseek's FSDP steps cut 4 -> 1 as 18a's (5.8-8.3 s a step), qwen2's
+# head-dim gathers 4 -> 2 (1.8-3.0 s a step)
+P18_CACHES = {
+    "gemma3-4b long_500k": ("gemma3-4b", None, (2, 1), 1, 524288, 393216,
+                            False, False, False, 4),
+    "deepseek-v2-236b long_500k": ("deepseek-v2-236b", 2, (2, 2), 1, 524288,
+                                   393216, False, True, True, 1),
+    "llama3.2-1b cache_seq_shard": ("llama3.2-1b", 8, (1, 2), 32, 32768,
+                                    32764, True, False, False, 4),
+    "qwen2-0.5b head dim": ("qwen2-0.5b", 2, (1, 4), 32, 32768, 32764,
+                            False, False, False, 2),
+}
+# the kernels line's flash_decode_stats row: one gemma3-4b rank's ring at
+# long_500k (B 1, 262,144 of the 524,288 slots, 4 kv heads, G 2, D 256),
+# the rank that holds the later half (131,072 of its slots filled)
+P18_STATS_SHAPE = (1, 262144, 8, 4, 256)
+P18_STATS_VALID = 131072
+# its lse against the plain version's, absolute (both f32; a rank's weight
+# in the merge is exp of it, so 1e-3 holds that weight within 0.1%)
+P18_LSE_TOL = 1e-3
+P18_KERNELS = MA_KERNELS + ("flash_decode_stats",)
+# 18c's items whose bf16 logits are also held against one rank's decode of
+# the same bf16 weights and cache values in f32: beyond MA_TOL of one
+# rank's, the ranks' logits may lie no farther from that f32 decode than
+# P18_FLOOR_RATIO times one rank's own (gemma3-4b's 34 layers carry one
+# rank's bf16 rounding, and the ranks' own, 2.4e-2 apart at the plain
+# fill, 4.6e-2 with its keys scaled). gemma3-4b's keys are filled 4x
+# (P18_KEY_SCALE): over 393,216 slots of N(0, 1) keys the softmax is so
+# flat that the attention's output is ~0.003 and barely reaches the
+# logits, and ranks merged with equal weights read a ratio of 1.065. With
+# the keys 4x, on an NVIDIA H100 80GB HBM3 at 700 W (tools/merge_faults.py)
+# the sound ranks read 0.993, equal weights 11.4 and the second rank's
+# part dropped 13.0
+P18_F32_FLOOR = ("gemma3-4b long_500k",)
+P18_FLOOR_RATIO = 1.25
+P18_KEY_SCALE = {"gemma3-4b long_500k": 4.0}
+
+
+@contextlib.contextmanager
+def _fsdp_planned(on):
+    """While open (``on``), the planner's FSDP threshold at 0: every model
+    shards a second weight dim over "data", as the cut models' full
+    depths do."""
+    from repro_torch.launch import sharding
+    saved = sharding.FSDP_THRESHOLD
+    if on:
+        sharding.FSDP_THRESHOLD = 0
+    try:
+        yield
+    finally:
+        sharding.FSDP_THRESHOLD = saved
+
+
+def _p18_cfg(arch, layers, absorbed=False):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch) if layers is None else _ma17_cfg(arch, layers)
+    return dataclasses.replace(cfg, mla_absorbed=True) if absorbed else cfg
+
+
+def _ring_leaves(tree, name=None):
+    """The attention and latent ring leaves of a cache, in a fixed
+    order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _ring_leaves(tree[k], k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _ring_leaves(v, name)]
+    return [(name, tree)] if name in ("k", "v", "c_kv", "k_rope") else []
+
+
+def _p18_fill(cache, fill, seed, dev, mesh=None, key_scale=1.0):
+    """Every ring of ``cache`` (plain, or DTensors on ``mesh``) filled with
+    seeded bf16 values at its slots below ``fill`` (zeros above; the
+    keys, ``k``, times ``key_scale``), one layer slice drawn whole on the
+    card at a time and this rank's part of it kept, so one rank and the
+    ranks hold the same ring; the positions set to ``fill``."""
+    import itertools
+    import torch
+    coord = mesh.get_coordinate() if mesh is not None else None
+    for i, (name, x) in enumerate(_ring_leaves(cache["stages"])):
+        local = x.to_local() if mesh is not None else x
+        nlead = x.ndim - (4 if name in ("k", "v") else 3)
+        at = {}                             # tensor dim -> (index, parts)
+        for md, p in enumerate(getattr(x, "placements", ())):
+            if not p.is_replicate():
+                idx, n = at.get(p.dim, (0, 1))
+                at[p.dim] = (idx * mesh.size(md) + coord[md],
+                             n * mesh.size(md))
+        for j, lead in enumerate(itertools.product(
+                *(range(n) for n in x.shape[:nlead]))):
+            g = torch.Generator(device=dev).manual_seed(seed + 1000 * i + j)
+            full = torch.randn(tuple(x.shape[nlead:]), generator=g,
+                               device=dev, dtype=torch.bfloat16)
+            full[:, fill:] = 0
+            if name == "k" and key_scale != 1.0:
+                full *= key_scale
+            for dim, (idx, n) in at.items():
+                size = full.shape[dim - nlead] // n
+                full = full.narrow(dim - nlead, idx * size, size)
+            local[lead].copy_(full)
+            del full
+    pos = cache["pos"].to_local() if mesh is not None else cache["pos"]
+    pos.fill_(fill)
+    torch.cuda.synchronize()
+
+
+def _p18_decode(dev, mesh, tag, job, dtype=None):
+    """18c's ``tag`` on ``mesh`` (None: one rank): bf16 weights from
+    ``job["seed"]`` (on a mesh drawn shard by shard on decode's plan), the
+    cache filled (``_p18_fill``), the item's teacher-forced decode
+    steps -> their logits and tokens on the host, walls, peak, weight and
+    cache bytes, launches and the head-dim gather's bytes. ``dtype``
+    f32 (one rank only): the same bf16 weights and cache values held and
+    computed in f32, the decode's rounding floor."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.launch.specs import (cache_on_mesh, params_on_mesh,
+                                          step_plan)
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import layers as L
+    from repro_torch.obs.timing import monotonic
+    from repro_torch.optim.optimizers import tree_map
+
+    arch, layers, _, batch, slots, fill, seq_shard, absorbed, fsdp, \
+        steps = P18_CACHES[tag]
+    cfg = _p18_cfg(arch, layers, absorbed)
+    with _fsdp_planned(fsdp):
+        step, lm = make_decode_step(cfg, mesh=mesh,
+                                    dtype=dtype or torch.bfloat16,
+                                    cache_seq_shard=seq_shard,
+                                    return_logits=True)
+        gen = torch.Generator(device=dev).manual_seed(job["seed"])
+        t0 = monotonic()
+        if mesh is None:
+            params = lm.init(gen, dtype=torch.bfloat16)
+            if dtype is not None:
+                params = tree_map(lambda x: x.to(dtype), params)
+        else:               # all ranks at once: no leaf slice above 5 GB
+            params = params_on_mesh(
+                lm, gen, step_plan(cfg, mesh_axis_sizes(mesh), "decode",
+                                   lm=lm), mesh, dtype=torch.bfloat16,
+                device=dev)
+        init_wall = monotonic() - t0
+        weights_bytes = torch.cuda.memory_allocated()
+        cache = (lm.init_cache(batch, slots, dtype=dtype or torch.bfloat16,
+                               device=dev) if mesh is None
+                 else cache_on_mesh(lm, mesh, batch, slots, device=dev,
+                                    seq_shard=seq_shard))
+        _p18_fill(cache, fill, job["seed"] + 1, dev, mesh,
+                  job.get("key_scale", 1.0))
+        cache_bytes = torch.cuda.memory_allocated() - weights_bytes
+        toks = torch.from_numpy(job["decode"]).to(dev)
+        peak_and_reset()
+        ops.reset_launch_counts()
+        L.head_dim_gather["bytes"] = 0
+        logits, picked, walls = [], [], []
+        for i in range(steps):
+            t0 = monotonic()
+            nxt, cache, lg = step(params, cache, toks[:, i:i + 1])
+            picked.append(nxt.cpu())                       # syncs
+            walls.append(monotonic() - t0)
+            logits.append(lg.float().cpu())
+        launches = ops.launch_counts()
+        gathered = L.head_dim_gather["bytes"]
+    peak = peak_and_reset()
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"logits": torch.stack(logits), "tokens": torch.cat(picked, 1),
+            "decode_ms_per_step": [w * 1e3 for w in walls],
+            "max_memory_allocated": peak, "weights_bytes": weights_bytes,
+            "cache_bytes": cache_bytes, "launches": launches,
+            "init_wall_s": init_wall,
+            "head_dim_gather_bytes_a_step": gathered / steps}
+
+
+def _p18_jobs(vocabs):
+    """The inputs, from numpy seeded 18: 18a's prompts and decode tokens,
+    18b's round, 18c's decode tokens."""
+    import numpy as np
+    rng = np.random.default_rng(18)
+    serve = {}
+    for i, (arch, layers) in enumerate(P18_SERVE.items()):
+        v = vocabs[arch]
+        serve[arch] = {"seed": 180 + i, "layers": layers,
+                       "prefill": rng.integers(0, v, (P18_BATCH, MA17_S),
+                                               np.int32),
+                       "decode": rng.integers(0, v, (
+                           P18_BATCH, P18_SERVE_STEPS[arch]), np.int32)}
+    train = {"seed": 185, "first": [1], "layers": P18_TRAIN_LAYERS,
+             "tokens": rng.integers(0, vocabs[P18_TRAIN_ARCH], (
+                 1, TRAIN_LOCAL, 1, TRAIN_MB, P18_TRAIN_T), np.int32)}
+    caches = {tag: {"seed": 186 + i, "decode": rng.integers(
+        0, vocabs[spec[0]], (spec[3], spec[9]), np.int32),
+        "key_scale": P18_KEY_SCALE.get(tag, 1.0)}
+        for i, (tag, spec) in enumerate(P18_CACHES.items())}
+    return {"serve": serve, "train": train, "caches": caches}
+
+
+def _p18_child(dev, rank, job, work):
+    """Phase 18's part of a ``--model-axis-child``: ``job["items"]`` in
+    turn, each (kind, tag, mesh shape) on its own mesh over the world;
+    rank 0 writes 18a's gathered caches and 18b's W_G leaves under
+    ``work``, every rank their digests."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import PRODUCTION_AXES, mesh_over_world
+    from repro_torch.obs.timing import monotonic
+    jobs, out = job["jobs"], {}
+    for kind, tag, shape in job["items"]:
+        t0 = monotonic()
+        mesh = mesh_over_world(tuple(shape), PRODUCTION_AXES, "cuda")
+        if kind == "serve":
+            with _fsdp_planned(True):
+                got = _ma17_serve(dev, mesh, tag, jobs["serve"][tag])
+            if rank == 0:
+                torch.save(got["cache"], os.path.join(work, f"w18_{tag}.pt"))
+            got.pop("cache")
+        elif kind == "train":
+            with _fsdp_planned(True):
+                got = _ma17_train(dev, mesh, tag, jobs["train"])
+            got["digest"] = _leaf_digest(got["leaves"])
+            if rank == 0:
+                torch.save(got["leaves"], os.path.join(work, "w18_train.pt"))
+            got.pop("leaves")
+        else:
+            got = _p18_decode(dev, mesh, tag, jobs["caches"][tag])
+        dist.barrier()
+        got["item_wall_s"] = monotonic() - t0
+        out[(kind, tag)] = got
+    return out
+
+
+def _p18_reckoning(arch, layers, axes, absorbed=False):
+    """Bytes a rank holds of ``arch``'s bf16 weights on decode's plan with
+    FSDP over ``axes``: (its shards, the whole tree / ranks, the leaves
+    whole on every rank, the largest block gathered over "data")."""
+    import math
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.specs import step_plan
+    from repro_torch.models.transformer import LM
+    cfg = _p18_cfg(arch, layers, absorbed)
+    lm = LM(cfg)
+    shapes = lm.init(None, device="meta", dtype=torch.bfloat16)
+    with _fsdp_planned(True):
+        plan = step_plan(cfg, axes, "decode", lm=lm)
+    ranks = math.prod(axes.values())
+
+    def walk(x, spec):
+        n = x.numel() * x.element_size()
+        split = math.prod(axes.get(a, 1) for e in spec if e is not None
+                          for a in ((e,) if isinstance(e, str) else e))
+        data = any(e == "data" or (isinstance(e, tuple) and "data" in e)
+                   for e in spec)
+        return n, n // split, (n if split == 1 else 0), (
+            n // split * axes.get("data", 1) if data else n // split)
+
+    def total(tree, specs):
+        if isinstance(tree, dict):
+            return [total(tree[k], specs[k]) for k in tree]
+        if isinstance(tree, (list, tuple)):
+            return [total(a, b) for a, b in zip(tree, specs)]
+        return walk(tree, specs)
+
+    def flat(t):
+        return [t] if isinstance(t, tuple) else [x for v in t
+                                                 for x in flat(v)]
+    leaves = flat(total(shapes, plan.params))
+    blocks = [sum(g[3] for g in flat(total(blk, bsp)))
+              // (st.repeats if st.kind == "scan" else 1)
+              for stage, sspec, st in zip(shapes["stages"],
+                                          plan.params["stages"], lm.stages)
+              for blk, bsp in zip(stage, sspec)]
+    return {"rank_shard_bytes": sum(x[1] for x in leaves),
+            "total_over_ranks_bytes": sum(x[0] for x in leaves) // ranks,
+            "replicated_bytes": sum(x[2] for x in leaves),
+            "largest_block_gathered_bytes": max(blocks)}
+
+
+def _p18_stats_row(dev, launches):
+    """The kernels line's ``flash_decode_stats`` row: the decode kernel
+    with its statistics at ``P18_STATS_SHAPE``, its output held against
+    the plain version (ATT_TOL, ROW_REL_TOL) and its lse (P18_LSE_TOL),
+    the merge of a whole ring's two halves against the whole decode
+    (ROW_REL_TOL a head), which three wrong merges must fail; device ms,
+    call ms, the plain version's and SDPA's, the bound, registers and
+    spills.
+    ``launches``: phase 18's, per rank."""
+    import torch
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import merge_parts
+    b, s, h, kv, d = P18_STATS_SHAPE
+    g = torch.Generator(device=dev).manual_seed(184)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+    q, kc, vc = randn(b, 1, h, d), randn(b, s, kv, d), randn(b, s, kv, d)
+    valid = (torch.arange(s, device=dev) < P18_STATS_VALID).expand(
+        b, s).contiguous()
+    o, lse = ops.flash_decode(q, kc, vc, valid, stats=True)
+    splits = ops.flash_decode.last_splits
+    want_o, want_lse = ref.flash_decode_stats_ref(q, kc, vc, valid)
+    tol = ATT_TOL["bfloat16"]
+    o_err = float((o - want_o).abs().max())
+    lse_err = float((lse - want_lse).abs().max())
+    check(bool(((o - want_o).abs() <= tol + tol * want_o.abs()).all())
+          and lse_err <= P18_LSE_TOL,
+          f"flash_decode_stats: o {o_err} beyond {tol} or lse {lse_err} "
+          f"beyond {P18_LSE_TOL}")
+    rel = rel_check("flash_decode_stats", o, want_o, 2, 1,
+                    "at one gemma3-4b rank's long_500k ring")
+    del want_o, want_lse
+    # two ranks' halves of a whole ring, merged, against the whole decode
+    q2 = q.clone()
+    kw, vw = torch.cat([kc, randn(b, s, kv, d)], 1), torch.cat(
+        [vc, randn(b, s, kv, d)], 1)
+    vw_mask = (torch.arange(2 * s, device=dev) < s + P18_STATS_VALID
+               ).expand(b, 2 * s).contiguous()
+    halves = [ops.flash_decode(q2, kw[:, sl].contiguous(),
+                               vw[:, sl].contiguous(),
+                               vw_mask[:, sl].contiguous(), stats=True)
+              for sl in (slice(0, s), slice(s, 2 * s))]
+    os_ = torch.stack([x for x, _ in halves])
+    ls = torch.stack([x for _, x in halves])
+    whole = ops.flash_decode(q2, kw, vw, vw_mask)
+    merge = rel_check("flash_decode_stats", merge_parts(os_, ls,
+                                                        torch.bfloat16),
+                      whole, 2, 1, "two halves merged, against the whole "
+                                   "ring's decode")
+    # wrong merges the check must refuse: its worst head's error for each
+    faults = {"equal_weights": (os_[0] + os_[1]) / 2,
+              "second_half_dropped": os_[0],
+              "first_lse_off_by_0.26": merge_parts(
+                  os_, ls + torch.tensor([0.26, 0.0], device=dev)[
+                      :, None, None], torch.float32)}
+    faults = {k: max(_fro_rel(f[:, :, i], whole[:, :, i]) for i in range(h))
+              for k, f in faults.items()}
+    check(min(faults.values()) > ROW_REL_TOL,
+          f"flash_decode_stats: a wrong merge passes the check: {faults}")
+    del kw, vw, vw_mask, halves, os_, ls, whole
+    kc_cost = kcost.flash_decode(b, s, h, kv, d, stats=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = {
+        "name": "flash_decode_stats", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:59",
+        "launches": sum(launches), "launches_by_rank_18": launches,
+        "max_abs_err": max(o_err, lse_err),
+        "max_abs_err_o": o_err, "max_abs_err_lse": lse_err,
+        "merge_of_two_halves_vs_whole": merge,
+        "wrong_merges_worst_head_rel_err": faults,
+        "ms": events_ms(lambda: ops.flash_decode(q, kc, vc, valid,
+                                                 stats=True), 20, 2),
+        **device_ms_fields(device_ms_by_launch(
+            lambda: ops.flash_decode(q, kc, vc, valid, stats=True),
+            ("flash_decode_kernel", "flash_decode_combine_kernel"),
+            iters=20)),
+        "kernel_route": "cuda_core, split S, statistics", "splits": splits,
+        "ptxas": ptxas("decode_attention",
+                       r"flash_decode_kernelI13__nv_bfloat16S\d_Li256ELi2E"),
+        "plain_ms": events_ms(lambda: ref.flash_decode_stats_ref(
+            q, kc, vc, valid), 3, 1),
+        "plain": "ref.flash_decode_stats_ref",
+        **rel,
+        **dict(zip(("bound_ms", "bound_by"),
+                   kernel_bound(kc_cost, H100_BF16_FLOPS))),
+        "library_ms": events_ms(lambda: sdpa(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=valid[:, None, None, :], enable_gqa=True), 3, 1),
+        "library": "scaled_dot_product_attention (the output only: no "
+                   "statistics)",
+        "shape": [b, s, h, kv, d], "valid_slots": P18_STATS_VALID}
+    del q, kc, vc, valid
+    torch.cuda.empty_cache()
+    return row
+
+
+def start_phase18():
+    """Phase 18's inputs, and its two gloo worlds started: each rank
+    reaches the card, joins its group and makes its first placed draw,
+    then waits, holding little, for ``run_fsdp_seq_phase`` (the script
+    starts them before phase 17, so that their start-up runs beside it)
+    -> what ``run_fsdp_seq_phase`` takes."""
+    from repro_torch.configs import get_config
+    archs = set(P18_SERVE) | {P18_TRAIN_ARCH} | {
+        v[0] for v in P18_CACHES.values()}
+    jobs = _p18_jobs({a: get_config(a).vocab_size for a in archs})
+    work = os.path.join(ROOT, "build", "phase18")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    four = [("serve", a, (2, 2)) for a in P18_SERVE] + [
+        ("train", P18_TRAIN_ARCH, (2, 2))] + [
+        ("cache", tag, spec[2]) for tag, spec in P18_CACHES.items()
+        if spec[2][0] * spec[2][1] == 4]
+    two = [("cache", tag, spec[2]) for tag, spec in P18_CACHES.items()
+           if spec[2][0] * spec[2][1] == 2]
+    env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+
+    def start(world, items):
+        return _start_ranks(work, world, {"mesh": items[0][2], "p18": {
+            "jobs": jobs, "items": items}, "work": work}, f"18_{world}",
+            env=env)
+    return {"jobs": jobs, "work": work, "started": {4: start(4, four),
+                                                    2: start(2, two)}}
+
+
+def run_fsdp_seq_phase(dev, p18=None):
+    """Phase 18: FSDP and the split decode caches over gloo worlds on the
+    card (one of 4 ranks: 18a, 18b, deepseek's and qwen2's 18c; one of 2:
+    gemma3's and llama's 18c; ``p18`` from ``start_phase18``, started
+    here if None), against the one-rank steps run first on the same seeds
+    (their outputs kept on the host, the card freed); the world of 4 is
+    let go first, then the world of 2. Every item's numbers are printed
+    before a failure fails the phase. -> (the numbers, flash_decode_stats'
+    launches per rank of the world of 4 and of 2, launches per rank by
+    kernel)."""
+    import torch
+    from repro_torch.obs.timing import monotonic
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    t_phase = monotonic()
+    p18 = p18 or start_phase18()
+    jobs, work, started = p18["jobs"], p18["work"], p18["started"]
+    one = {}
+    for arch in P18_SERVE:
+        one[("serve", arch)] = _ma17_serve(dev, None, arch,
+                                           jobs["serve"][arch])
+    one[("train", P18_TRAIN_ARCH)] = _ma17_train(dev, None, P18_TRAIN_ARCH,
+                                                 jobs["train"])
+    for tag in P18_CACHES:
+        one[("cache", tag)] = _p18_decode(dev, None, tag,
+                                          jobs["caches"][tag])
+    for tag in P18_F32_FLOOR:
+        one[("cache f32", tag)] = _p18_decode(
+            dev, None, tag, jobs["caches"][tag], dtype=torch.float32)
+    one_wall = monotonic() - t_phase
+    peak_and_reset()
+    print(f"18: one rank's steps {one_wall} s; the card before the ranks: "
+          f"{torch.cuda.memory_allocated()} B allocated ({card})",
+          flush=True)
+    walls = {}
+    ranks = {}
+    t0 = monotonic()
+    for world in (4, 2):
+        got = _join_ranks(started[world], phase="18")
+        walls[f"world_{world}_s"] = monotonic() - t0
+        t0 = monotonic()
+        for r, out in enumerate(got):
+            for key, v in out["p18"].items():
+                ranks.setdefault(key, []).append(v)
+    out = {"card": card, "one_rank_wall_s": one_wall, **walls}
+    launches = {k: [] for k in P18_KERNELS}
+    problems = []
+
+    def expect(ok, msg):
+        if not ok:
+            problems.append(msg)
+
+    def count(key, got):
+        for k_name in P18_KERNELS:
+            per = [g["launches"].get(k_name, 0) if "prefill" not in
+                   g["launches"] else sum(g["launches"][p].get(k_name, 0)
+                                          for p in ("prefill", "decode"))
+                   for g in got]
+            launches[k_name].append(per)
+
+    axes22 = {"data": 2, "model": 2}
+    lap("18a")
+    # ---- 18a ----
+    for arch, layers in P18_SERVE.items():
+        got, want = ranks[("serve", arch)], one[("serve", arch)]
+        cache = torch.load(os.path.join(work, f"w18_{arch}.pt"),
+                           weights_only=False)
+        for what in ("logits", "tokens"):
+            expect(all(torch.equal(g[what], got[0][what]) for g in got),
+                   f"18a {arch}: the ranks' {what} differ")
+        expect(len({g["cache_digest"] for g in got}) == 1,
+               f"18a {arch}: the ranks' gathered caches differ")
+        logits_err = _fro_rel(got[0]["logits"], want["logits"])
+        cache_err = max(_fro_rel(a, b) if a.is_floating_point()
+                        else float(not torch.equal(a, b))
+                        for a, b in zip(cache, want["cache"]))
+        decode_flips = _flipped(got[0]["routes"], want["routes"],
+                                want["prefill_routes"])
+        expect(logits_err <= MA_TOL, f"18a {arch}: logits {logits_err} "
+                                     f"beyond {MA_TOL} of one rank's")
+        expect(cache_err <= MA_TOL or decode_flips,
+               f"18a {arch}: cache {cache_err} beyond {MA_TOL} "
+               f"({decode_flips} decode flips)")
+        reck = _p18_reckoning(arch, layers, axes22)
+        count(arch, got)
+        row = {"model": arch, "layers": layers, "mesh": "2x2 (data, model)",
+               "prefill": [P18_BATCH, MA17_S], "decode_batch": P18_BATCH,
+               "decode_slots": MA17_SLOTS,
+               "decode_steps": P18_SERVE_STEPS[arch],
+               "prefill_logits_rel_err": logits_err,
+               "max_cache_leaf_rel_err": cache_err, "limit": MA_TOL,
+               "moe_flipped_pairs_decode": decode_flips,
+               "reckoning": reck,
+               "rank_weights_bytes": [g["weights_bytes"] for g in got],
+               "rank_peaks": [g["max_memory_allocated"] for g in got],
+               "rank_prefill_wall_s": [g["prefill_wall_s"] for g in got],
+               "item_walls_s": [g["item_wall_s"] for g in got],
+               "rank_init_walls_s": [g["init_wall_s"] for g in got],
+               "rank_decode_ms_per_step": [g["decode_ms_per_step"]
+                                           for g in got],
+               "one_rank": {k: want[k] for k in (
+                   "prefill_wall_s", "decode_ms_per_step",
+                   "max_memory_allocated", "weights_bytes")}}
+        out[f"18a {arch}"] = row
+        print(f"18a {arch} ({card}): logits rel err {logits_err}, cache "
+              f"rel err {cache_err}, decode flips {decode_flips}; rank "
+              f"weights {row['rank_weights_bytes']} B beside "
+              f"{reck['total_over_ranks_bytes']} (total / 4) + "
+              f"{reck['replicated_bytes']} (whole on every rank): "
+              f"{reck['rank_shard_bytes']} reckoned; peaks "
+              f"{row['rank_peaks']} beside shard + one block gathered "
+              f"over 'data' {reck['rank_shard_bytes'] + reck['largest_block_gathered_bytes']}"
+              f" + activations; prefill {row['rank_prefill_wall_s']} s "
+              f"(one rank {want['prefill_wall_s']}), decode ms/step "
+              f"{got[0]['decode_ms_per_step']}, item walls "
+              f"{row['item_walls_s']} s (init {row['rank_init_walls_s']})",
+              flush=True)
+    lap("18b")
+    # ---- 18b ----
+    tr, w = ranks[("train", P18_TRAIN_ARCH)], one[("train", P18_TRAIN_ARCH)]
+    expect(len({t["digest"] for t in tr}) == 1
+           and all(t["metrics"] == tr[0]["metrics"] for t in tr),
+           "18b: the ranks leave the round with different bits")
+    leaves = torch.load(os.path.join(work, "w18_train.pt"),
+                        weights_only=False)
+    errs = _update_errs(leaves, w["leaves"], w["update_norms"])
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    loss_err = max(abs(tr[0]["metrics"][k] - w["metrics"][k])
+                   / (1 + abs(w["metrics"][k])) for k in w["metrics"])
+    expect(errs[worst] <= P18_UPDATE_TOL and loss_err <= MA_TOL,
+           f"18b: leaf {worst}'s update {errs[worst]} beyond "
+           f"{P18_UPDATE_TOL} or metrics {loss_err} beyond {MA_TOL}")
+    count("train", tr)
+    out["18b"] = {"model": P18_TRAIN_ARCH, "layers": P18_TRAIN_LAYERS,
+                  "seq_len": P18_TRAIN_T, "mesh": "2x2 (data, model)",
+                  "max_leaf_update_rel_err": errs[worst],
+                  "worst_leaf": worst, "update_rel_err_by_leaf": errs,
+                  "limit": P18_UPDATE_TOL,
+                  "max_metric_err_vs_one_rank": loss_err,
+                  "metrics": tr[0]["metrics"],
+                  "one_rank": {k: w[k] for k in ("metrics", "wall_s",
+                                                  "max_memory_allocated")},
+                  "rank_walls_s": [t["wall_s"] for t in tr],
+                  "item_walls_s": [t["item_wall_s"] for t in tr],
+                  "rank_peaks": [t["max_memory_allocated"] for t in tr]}
+    print(f"18b {P18_TRAIN_ARCH} ({card}): update rel err by leaf {errs}, "
+          f"metrics {loss_err}, walls {out['18b']['rank_walls_s']} s (one "
+          f"rank {w['wall_s']}), peaks {out['18b']['rank_peaks']}",
+          flush=True)
+    lap("18c")
+    # ---- 18c ----
+    for tag, spec in P18_CACHES.items():
+        got, want = ranks[("cache", tag)], one[("cache", tag)]
+        expect(all(torch.equal(g["logits"], got[0]["logits"])
+                   and torch.equal(g["tokens"], got[0]["tokens"])
+                   for g in got), f"18c {tag}: the ranks differ")
+        err = _fro_rel(got[0]["logits"], want["logits"])
+        same = float((got[0]["tokens"] == want["tokens"]).float().mean())
+        floor = {}
+        if tag in P18_F32_FLOOR:
+            f32 = one[("cache f32", tag)]["logits"]
+            floor = {"ranks_vs_f32": _fro_rel(got[0]["logits"], f32),
+                     "one_rank_vs_f32": _fro_rel(want["logits"], f32)}
+        expect(err <= MA_TOL or (floor and floor["ranks_vs_f32"]
+                                 <= P18_FLOOR_RATIO
+                                 * floor["one_rank_vs_f32"]),
+               f"18c {tag}: logits {err} beyond {MA_TOL} of one rank's "
+               f"(f32 floor {floor})")
+        count(tag, got)
+        out[f"18c {tag}"] = {
+            "model": spec[0], "layers": spec[1], "mesh": spec[2],
+            "batch": spec[3], "slots": spec[4], "filled": spec[5],
+            "decode_steps": spec[9],
+            "rank_init_walls_s": [g["init_wall_s"] for g in got],
+            "cache_seq_shard": spec[6], "mla_absorbed": spec[7],
+            "fsdp": spec[8], "key_scale": P18_KEY_SCALE.get(tag, 1.0),
+            "logits_rel_err": err, "limit": MA_TOL,
+            "f32_floor": floor, "item_walls_s": [g["item_wall_s"]
+                                                 for g in got],
+            "tokens_equal_share": same,
+            "head_dim_gather_bytes_a_step": [
+                g["head_dim_gather_bytes_a_step"] for g in got],
+            "rank_decode_ms_per_step": [g["decode_ms_per_step"]
+                                        for g in got],
+            "rank_peaks": [g["max_memory_allocated"] for g in got],
+            "rank_cache_bytes": [g["cache_bytes"] for g in got],
+            "one_rank": {k: want[k] for k in (
+                "decode_ms_per_step", "max_memory_allocated",
+                "cache_bytes")}}
+        print(f"18c {tag} ({card}): logits rel err {err} (f32 floor "
+              f"{floor}), tokens equal {same}, item walls "
+              f"{[g['item_wall_s'] for g in got]} s, head-dim gather "
+              f"{out[f'18c {tag}']['head_dim_gather_bytes_a_step']} B a "
+              f"step, decode ms/step "
+              f"{out[f'18c {tag}']['rank_decode_ms_per_step']} (one rank "
+              f"{want['decode_ms_per_step']}), peaks "
+              f"{out[f'18c {tag}']['rank_peaks']}", flush=True)
+    # every rank's launches, by kernel, summed over the items
+    per_rank = {k: [sum(col) for col in zip(*[
+        p + [0] * (4 - len(p)) for p in v])] for k, v in launches.items()}
+    for k_name in ("flash_attention", "flash_attention_bwd", "flash_decode",
+                   "flash_decode_stats"):
+        check(min(per_rank[k_name][:2]) > 0,
+              f"18: {k_name} launched {per_rank[k_name]} times on the "
+              f"ranks")
+    check(not problems, "; ".join(problems))
+    out["wall_s"] = monotonic() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    return out, per_rank
+
+
+def phase18_alone() -> None:
+    """``python3 chip_smoke.py --phase 18``: build the kernels, then phase
+    18 alone and the kernels line's ``flash_decode_stats`` row; prints
+    their numbers and the card's name and power limit."""
+    import torch
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.obs.timing import monotonic
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    dev = resolve_device("cuda")
+    t0 = monotonic()
+    build.load_all()
+    print(f"build_s: {monotonic() - t0:.3f}")
+    out, launches = run_fsdp_seq_phase(dev)
+    print(json.dumps({"fsdp_seq": out, "launches_18": launches}))
+    print(json.dumps({"kernels": [_p18_stats_row(
+        dev, launches["flash_decode_stats"])]}))
+    print(out["card"])
 
 
 def phase17_alone() -> None:
@@ -5963,10 +6941,12 @@ if __name__ == "__main__":
         phase15_alone()
     elif sys.argv[1:2] == ["--model-axis-child"]:
         model_axis_child(int(sys.argv[2]), int(sys.argv[3]),
-                         *sys.argv[4:7])
+                         *sys.argv[4:8])
     elif sys.argv[1:] == ["--phase", "16"]:
         phase16_alone()
     elif sys.argv[1:] == ["--phase", "17"]:
         phase17_alone()
+    elif sys.argv[1:] == ["--phase", "18"]:
+        phase18_alone()
     else:
         main()

@@ -1,8 +1,10 @@
 """The collectives the port runs over a ``torch.distributed`` group: an
 all-gather and a summing all-reduce of a whole tree, the same two on one
 tensor (``all_gather_cat`` along a dim; ``all_reduce_tensor``, a sum or a
-max, out of place), and ``Ranks``, the group with this process's place
-in it.
+max, out of place), a reduce-scatter (``reduce_scatter_cat``: the sum
+over the group of each rank's tensor, this rank's chunk of it along a
+dim, summed in rank order), and ``Ranks``, the group with this process's
+place in it.
 
 NCCL takes CUDA tensors directly. Under gloo every tensor goes through
 host memory: the choice is made once, from the group's backend
@@ -62,14 +64,29 @@ def stages_on_host(group=None) -> bool:
     return dist.get_backend(group) == "gloo"
 
 
+# the host-staged gather and reduce-scatter move a tensor in pieces of
+# this many bytes, so the host holds a few pieces a rank, not the ranks'
+# whole tensors (a gathered expert leaf is ~10 GB a rank at jamba's width,
+# with four ranks of one card staging at once)
+HOST_PIECE = 1 << 27
+
+
 def _gather_bytes(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
     """(size, *x.shape) of every rank's ``x``, in rank order."""
     wire = x.detach().contiguous().reshape(-1).view(torch.uint8)
     if stages_on_host(ranks.group):
-        wire = wire.cpu()
-        parts = [torch.empty_like(wire) for _ in range(ranks.size)]
-        dist.all_gather(parts, wire, group=ranks.group)
-        out = torch.stack(parts).to(x.device)
+        out = torch.empty((ranks.size, wire.numel()), dtype=torch.uint8,
+                          device=x.device)
+        # host pieces made once a call and written again piece by piece
+        n = min(wire.numel(), HOST_PIECE)
+        send = torch.empty(n, dtype=torch.uint8)
+        recv = torch.empty((ranks.size, n), dtype=torch.uint8)
+        for lo in range(0, wire.numel(), HOST_PIECE):
+            m = min(HOST_PIECE, wire.numel() - lo)
+            send[:m].copy_(wire[lo:lo + m])
+            dist.all_gather(list(recv[:, :m].unbind(0)), send[:m],
+                            group=ranks.group)
+            out[:, lo:lo + m] = recv[:, :m]
     else:
         out = torch.empty((ranks.size, wire.numel()), dtype=torch.uint8,
                           device=x.device)
@@ -100,7 +117,64 @@ def all_gather_cat(x: torch.Tensor, ranks: Ranks, dim: int) -> torch.Tensor:
     """Every rank's ``x`` (each of the same shape), concatenated along
     ``dim`` in rank order, bit for bit."""
     parts = _gather_bytes(x, ranks)
+    if dim % max(x.ndim, 1) == 0:             # the rank order is dim 0's
+        return parts.reshape((-1,) + tuple(x.shape[1:]))
     return torch.cat(parts.unbind(0), dim)
+
+
+def reduce_scatter_cat(x: torch.Tensor, ranks: Ranks,
+                       dim: int) -> torch.Tensor:
+    """The sum over the ranks of each rank's ``x`` (every rank's of the
+    same shape), of which this rank keeps its chunk along ``dim`` (whose
+    size the group must divide), in ``x``'s dtype: the inverse of
+    ``all_gather_cat``'s split. Each chunk goes to its rank alone (one
+    gather a chunk), which adds the ranks' parts in rank order, so the
+    sum is the same bits on every run, whatever the backend. A meta
+    ``x`` is charged as a "reduce-scatter" of its bytes and sends
+    nothing."""
+    dim = dim % x.ndim
+    n = x.shape[dim]
+    if n % ranks.size:
+        raise ValueError(f"a dim of {n} does not split over {ranks.size} "
+                         f"ranks")
+    per = n // ranks.size
+    if x.is_meta:
+        _charge("reduce-scatter", x)
+        return x.narrow(dim, 0, per).clone()
+    # pieces of HOST_PIECE bytes, through buffers made once a call (on the
+    # host under gloo)
+    stage = "cpu" if stages_on_host(ranks.group) else x.device
+    step = HOST_PIECE // x.element_size()
+    n = min(x.numel() // ranks.size, step)
+    send = torch.empty(n, dtype=x.dtype, device=stage)
+    recv = torch.empty((ranks.size, n), dtype=x.dtype, device=stage)
+    mine = None
+    for r in range(ranks.size):
+        flat = x.detach().narrow(dim, r * per, per).contiguous().reshape(-1)
+        if r == ranks.rank:
+            mine = torch.empty_like(flat)
+        for lo in range(0, flat.numel(), step):
+            m = min(step, flat.numel() - lo)
+            send[:m].copy_(flat[lo:lo + m])
+            into = (list(recv[:, :m].unbind(0)) if r == ranks.rank
+                    else None)
+            dist.gather(send[:m], into, dst=_global_rank(ranks, r),
+                        group=ranks.group)
+            if into is not None:
+                acc = into[0].to(x.device, copy=True)
+                for t in into[1:]:
+                    acc += t.to(x.device)
+                mine[lo:lo + m] = acc
+    shape = list(x.shape)
+    shape[dim] = per
+    return mine.view(shape)
+
+
+def _global_rank(ranks: Ranks, r: int) -> int:
+    """The default group's rank of rank ``r`` of ``ranks``' group."""
+    if ranks.group is None:
+        return r
+    return dist.get_global_rank(ranks.group, r)
 
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}

@@ -77,7 +77,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "decode_attention": {
-        "repro_flash_decode": ([_P] * 7 + [_I] * 9 + [_F, _P], _I),
+        "repro_flash_decode": ([_P] * 8 + [_I] * 9 + [_F, _P], _I),
         "repro_flash_decode_tile": ([_I], _I),
         "repro_flash_decode_max_g": ([], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),

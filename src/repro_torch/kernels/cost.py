@@ -123,14 +123,17 @@ def flash_attention_bwd(b: int, s: int, h: int, kv: int, d: int, *,
 
 
 def flash_decode(b: int, s: int, h: int, kv: int, d: int, *,
-                 dtype=torch.bfloat16, cache_dtype=None) -> KernelCost:
+                 dtype=torch.bfloat16, cache_dtype=None,
+                 stats: bool = False) -> KernelCost:
     """One query token q (B, 1, H, D) over (B, S, KV, D) caches and the
-    (B, S) bool mask: q read and out written in ``dtype``, both caches read
-    in ``cache_dtype`` (default ``dtype``), the mask read; both products
-    and one exp over every slot, valid or not (the kernel reads them
-    all)."""
+    (B, S) bool mask: q read and out written in ``dtype`` (with ``stats``
+    out in f32 and the (B, H) f32 log-sum-exp beside it, one log a row),
+    both caches read in ``cache_dtype`` (default ``dtype``), the mask
+    read; both products and one exp over every slot, valid or not (the
+    kernel reads them all)."""
     e = dtype.itemsize
     ec = (cache_dtype or dtype).itemsize
+    out = 4 * b * h * d + 4 * b * h if stats else e * b * h * d
     return KernelCost(4 * b * h * s * d,
-                      e * 2 * b * h * d + ec * 2 * b * s * kv * d + b * s,
-                      b * h * s)
+                      e * b * h * d + out + ec * 2 * b * s * kv * d + b * s,
+                      b * h * s + (b * h if stats else 0))

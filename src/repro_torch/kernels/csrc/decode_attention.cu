@@ -39,6 +39,14 @@
 // bf16 for an f32 cache under bf16 q); scores are f32 dot products times
 // 1/sqrt(D); exp is the accurate expf; p is rounded to q's dtype before
 // P.V; the output is acc / max(l, 1e-30) in q's dtype.
+//
+// With statistics (lse not null) the output is that same quotient in f32,
+// normalised over the S slots given, and lse (B,H) f32 is m + log(l) of
+// each (b, head), so that callers holding other slots of the same ring
+// (a sequence split over ranks) merge their outputs by the log-sum-exp of
+// the lse's. With one split the main kernel writes both, otherwise the
+// combine kernel does; the order of every sum is the one above, so the
+// statistics too are the same bits on every run.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -166,17 +174,34 @@ __device__ __forceinline__ void load_tile(TC* stage, const TC* kbase,
   }
 }
 
+// the output of head row ``row`` (b * H + h), column d, from its merged
+// (m, l, acc): in q's dtype, or in f32 with lse = m + log(l) (column 0
+// writes it) where lse is not null
+template <typename TQ>
+__device__ __forceinline__ void write_out(void* out, float* lse,
+                                          long long row, int D, int d,
+                                          float m, float l, float a) {
+  const float o = a / fmaxf(l, 1e-30f);
+  if (lse == nullptr) {
+    reinterpret_cast<TQ*>(out)[row * D + d] = from_f<TQ>(o);
+    return;
+  }
+  reinterpret_cast<float*>(out)[row * D + d] = o;
+  if (d == 0) lse[row] = m + logf(fmaxf(l, 1e-30f));
+}
+
 // grid (splits, B*KV). Split z covers slots [z*per, min(S, (z+1)*per)).
-// With one split the block writes out; otherwise (m, l) per head to
-// part_ml (B*KV, splits, G, 2) and acc to part_acc (B*KV, splits, G, D).
+// With one split the block writes out (f32, with lse, where lse is not
+// null); otherwise (m, l) per head to part_ml (B*KV, splits, G, 2) and
+// acc to part_acc (B*KV, splits, G, D).
 template <typename TQ, typename TC, int DMAX, int GMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
                     const TC* __restrict__ vc,
-                    const uint8_t* __restrict__ valid, TQ* __restrict__ out,
-                    float* __restrict__ part_ml, float* __restrict__ part_acc,
-                    int S, int H, int KV, int D, int per, float scale,
-                    int vec) {
+                    const uint8_t* __restrict__ valid, void* __restrict__ out,
+                    float* __restrict__ lse, float* __restrict__ part_ml,
+                    float* __restrict__ part_acc, int S, int H, int KV,
+                    int D, int per, float scale, int vec) {
   using Sh = Shape<TC, DMAX>;
   constexpr int LPS = Sh::LPS, SPP = Sh::SPP, WS = Sh::WS, NST = Sh::NST;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -345,8 +370,8 @@ flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
       a += wacc[(w * GMAX + g) * DMAX + d] * c;
     }
     if (splits == 1) {
-      out[((long long)b * H + kvh * G + g) * D + d] =
-          from_f<TQ>(a / fmaxf(ls, 1e-30f));
+      const long long row = (long long)b * H + kvh * G + g;
+      write_out<TQ>(out, lse, row, D, d, mm, ls, a);
     } else {
       const long long slot = (long long)bkv * splits + split;
       part_acc[(slot * G + g) * D + d] = a;
@@ -363,8 +388,8 @@ template <typename TQ>
 __global__ void __launch_bounds__(256)
 flash_decode_combine_kernel(const float* __restrict__ part_ml,
                             const float* __restrict__ part_acc,
-                            TQ* __restrict__ out, int splits, int H, int KV,
-                            int D) {
+                            void* __restrict__ out, float* __restrict__ lse,
+                            int splits, int H, int KV, int D) {
   const int G = H / KV;
   const int bkv = blockIdx.x, b = bkv / KV, kvh = bkv % KV;
   const long long first = (long long)bkv * splits;
@@ -379,14 +404,15 @@ flash_decode_combine_kernel(const float* __restrict__ part_ml,
       ls += part_ml[((first + z) * G + g) * 2 + 1] * c;
       a += part_acc[((first + z) * G + g) * D + d] * c;
     }
-    out[((long long)b * H + kvh * G + g) * D + d] =
-        from_f<TQ>(a / fmaxf(ls, 1e-30f));
+    write_out<TQ>(out, lse, (long long)b * H + kvh * G + g, D, d, mm, ls,
+                  a);
   }
 }
 
 template <typename TQ, typename TC, int DMAX, int GMAX>
 int launch(const void* q, const void* kc, const void* vc,
-           const uint8_t* valid, void* out, float* part_ml, float* part_acc,
+           const uint8_t* valid, void* out, float* lse, float* part_ml,
+           float* part_acc,
            int B, int S, int H, int KV, int D, int splits, int per,
            float scale, cudaStream_t stream) {
   using Sh = Shape<TC, DMAX>;
@@ -402,39 +428,42 @@ int launch(const void* q, const void* kc, const void* vc,
   dim3 grid((unsigned)splits, (unsigned)(B * KV));
   flash_decode_kernel<TQ, TC, DMAX, GMAX><<<grid, THREADS, Sh::SMEM,
                                             stream>>>(
-      (const TQ*)q, (const TC*)kc, (const TC*)vc, valid, (TQ*)out, part_ml,
+      (const TQ*)q, (const TC*)kc, (const TC*)vc, valid, out, lse, part_ml,
       part_acc, S, H, KV, D, per, scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   flash_decode_combine_kernel<TQ><<<B * KV, 256, 0, stream>>>(
-      part_ml, part_acc, (TQ*)out, splits, H, KV, D);
+      part_ml, part_acc, out, lse, splits, H, KV, D);
   return (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TC, int DMAX>
 int by_group(const void* q, const void* kc, const void* vc,
-             const uint8_t* valid, void* out, float* ml, float* acc, int B,
+             const uint8_t* valid, void* out, float* lse, float* ml,
+             float* acc, int B,
              int S, int H, int KV, int D, int splits, int per, float scale,
              cudaStream_t st) {
   const int G = H / KV;
-  if (G <= 2) return launch<TQ, TC, DMAX, 2>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
-  if (G <= 4) return launch<TQ, TC, DMAX, 4>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
-  return launch<TQ, TC, DMAX, 8>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
+  if (G <= 2) return launch<TQ, TC, DMAX, 2>(q, kc, vc, valid, out, lse, ml, acc, B, S, H, KV, D, splits, per, scale, st);
+  if (G <= 4) return launch<TQ, TC, DMAX, 4>(q, kc, vc, valid, out, lse, ml, acc, B, S, H, KV, D, splits, per, scale, st);
+  return launch<TQ, TC, DMAX, 8>(q, kc, vc, valid, out, lse, ml, acc, B, S, H, KV, D, splits, per, scale, st);
 }
 
 template <typename TQ, typename TC>
 int dispatch(const void* q, const void* kc, const void* vc,
-             const uint8_t* valid, void* out, float* ml, float* acc, int B,
+             const uint8_t* valid, void* out, float* lse, float* ml,
+             float* acc, int B,
              int S, int H, int KV, int D, int splits, int per, float scale,
              cudaStream_t st) {
-  if (D <= 64) return by_group<TQ, TC, 64>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
-  if (D <= 128) return by_group<TQ, TC, 128>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
-  return by_group<TQ, TC, 256>(q, kc, vc, valid, out, ml, acc, B, S, H, KV, D, splits, per, scale, st);
+  if (D <= 64) return by_group<TQ, TC, 64>(q, kc, vc, valid, out, lse, ml, acc, B, S, H, KV, D, splits, per, scale, st);
+  if (D <= 128) return by_group<TQ, TC, 128>(q, kc, vc, valid, out, lse, ml, acc, B, S, H, KV, D, splits, per, scale, st);
+  return by_group<TQ, TC, 256>(q, kc, vc, valid, out, lse, ml, acc, B, S, H, KV, D, splits, per, scale, st);
 }
 
 }  // namespace
 
-// q_dtype / cache_dtype: 0 = f32, 1 = bf16 (out has q's). valid is (B,S)
+// q_dtype / cache_dtype: 0 = f32, 1 = bf16 (out has q's dtype, or f32
+// with lse (B,H) f32 where lse is not null). valid is (B,S)
 // bool, one byte a slot. splits and per (slots per split) come from the
 // host plan (decode_attention.py plan_splits): per is a multiple of the
 // block tile and (splits - 1) * per < S. part_ml / part_acc are scratch of
@@ -443,7 +472,8 @@ int dispatch(const void* q, const void* kc, const void* vc,
 // contiguity.
 extern "C" int repro_flash_decode(const void* q, const void* kc,
                                   const void* vc, const void* valid,
-                                  void* out, void* part_ml, void* part_acc,
+                                  void* out, void* lse, void* part_ml,
+                                  void* part_acc,
                                   int q_dtype, int cache_dtype, int B, int S,
                                   int H, int KV, int D, int splits, int per,
                                   float scale, cudaStream_t stream) {
@@ -452,13 +482,14 @@ extern "C" int repro_flash_decode(const void* q, const void* kc,
   const uint8_t* vm = (const uint8_t*)valid;
   float* ml = (float*)part_ml;
   float* acc = (float*)part_acc;
+  float* st = (float*)lse;
   if (q_dtype == 0 && cache_dtype == 0)
-    return dispatch<float, float>(q, kc, vc, vm, out, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
+    return dispatch<float, float>(q, kc, vc, vm, out, st, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
   if (q_dtype == 0)
-    return dispatch<float, __nv_bfloat16>(q, kc, vc, vm, out, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
+    return dispatch<float, __nv_bfloat16>(q, kc, vc, vm, out, st, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
   if (cache_dtype == 0)
-    return dispatch<__nv_bfloat16, float>(q, kc, vc, vm, out, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
-  return dispatch<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, vm, out, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
+    return dispatch<__nv_bfloat16, float>(q, kc, vc, vm, out, st, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
+  return dispatch<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, vm, out, st, ml, acc, B, S, H, KV, D, splits, per, scale, stream);
 }
 
 // the block tile (slots) for head dim D: the split plan's unit

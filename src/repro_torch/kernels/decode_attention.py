@@ -8,7 +8,10 @@ their own dtype (f32 or bf16) and converted to q's in registers.
 S is split across blocks by ``plan_splits``, a pure function of the
 shapes and the card's SM count (so the CPU tests can hold it): each split
 is a contiguous run of whole block tiles, and a second launch merges the
-splits in order (none with one split).
+splits in order (none with one split). With ``lse`` the output is f32 and
+each (b, head)'s log-sum-exp of its scaled scores is written beside it:
+what a caller holding one part of a ring's slots needs to merge its
+output with the other parts' (``models/layers.py`` ``merge_decode``).
 
 Takes CUDA tensors that ``kernels/ops.py`` has already checked and
 allocated; launches on PyTorch's current stream and does not synchronize.
@@ -16,7 +19,7 @@ allocated; launches on PyTorch's current stream and does not synchronize.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,9 +66,11 @@ def plan_for(q: torch.Tensor, k_cache: torch.Tensor) -> Tuple[int, int]:
 
 def launch_flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, valid: torch.Tensor,
-                        out: torch.Tensor) -> int:
-    """out (B,1,H,D) = attention of q over the valid cache slots. Returns
-    the number of splits it ran."""
+                        out: torch.Tensor,
+                        lse: Optional[torch.Tensor] = None) -> int:
+    """out (B,1,H,D) = attention of q over the valid cache slots, in q's
+    dtype; with ``lse`` (B,H) f32, ``out`` f32 and the statistics written
+    to ``lse``. Returns the number of splits it ran."""
     lib = build.library("decode_attention")
     b, _, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
@@ -80,6 +85,7 @@ def launch_flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         err = lib.repro_flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             valid.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             None if ml is None else ml.data_ptr(),
             None if acc is None else acc.data_ptr(), DTYPES[q.dtype],
             DTYPES[k_cache.dtype], b, s, h, kv, d, splits, per,

@@ -102,9 +102,9 @@ def _launch_flash_bwd(q, k, v, out, dout, lse, dd, dq, dk, dv, causal,
                                       dv, causal, window, route)
 
 
-def _launch_decode(q, k_cache, v_cache, valid, out):
+def _launch_decode(q, k_cache, v_cache, valid, out, lse=None):
     from repro_torch.kernels.decode_attention import launch_flash_decode
-    return launch_flash_decode(q, k_cache, v_cache, valid, out)
+    return launch_flash_decode(q, k_cache, v_cache, valid, out, lse)
 
 
 def _attention_cost(q, k, v, out, causal, window, route, lse):
@@ -122,10 +122,11 @@ def _attention_bwd_cost(q, k, v, out, dout, lse, dd, dq, dk, dv, causal,
                                     window=window)
 
 
-def _decode_cost(q, k_cache, v_cache, valid, out):
+def _decode_cost(q, k_cache, v_cache, valid, out, lse=None):
     b, _, h, d = q.shape
     return cost.flash_decode(b, k_cache.shape[1], h, k_cache.shape[2], d,
-                             dtype=q.dtype, cache_dtype=k_cache.dtype)
+                             dtype=q.dtype, cache_dtype=k_cache.dtype,
+                             stats=lse is not None)
 
 
 _pdist = profiled(_launch_pdist, name="kmeans_pairwise_dist_kernel",
@@ -463,10 +464,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+                 v_cache: torch.Tensor, valid: torch.Tensor, *,
+                 stats: bool = False):
     """One query token q (B,1,H,D) against ring-buffer caches (B,S,KV,D)
     under the (B,S) bool ``valid`` mask -> (B,1,H,D) in q's dtype. q and the
-    caches are each f32 or bf16; the caches are read as q's dtype."""
+    caches are each f32 or bf16; the caches are read as q's dtype.
+
+    ``stats``: -> (o (B,1,H,D) f32, normalised over these S slots; lse
+    (B,H) f32, m + log(l) of the scaled scores), what a sequence split
+    over ranks merges (``models/layers.py`` ``merge_decode``). The same
+    kernel, counted apart (``stats_launches``, ``"flash_decode_stats"``
+    in ``launch_counts``); on the CPU ``ref.flash_decode_stats_ref``."""
     _plain("flash_decode", q, k_cache, v_cache, valid)
     _check_attention(q, "q", q.dtype, 4, q.device)
     _check_attention(k_cache, "k_cache", k_cache.dtype, 4, q.device)
@@ -484,20 +492,32 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"valid must be {(b, s)}, got {tuple(valid.shape)}")
     _heads(h, kv, d, "flash_decode")
     if not _on_card(q, "flash_decode"):
-        return ref.flash_decode_ref(q, k_cache, v_cache, valid)
+        return (ref.flash_decode_stats_ref if stats
+                else ref.flash_decode_ref)(q, k_cache, v_cache, valid)
     _no_grad("flash_decode", q, k_cache, v_cache)
     from repro_torch.kernels.decode_attention import MAX_G
     if h // kv > MAX_G:
         raise ValueError(f"flash_decode: {h // kv} query heads per kv head "
                          f"exceed the kernel's {MAX_G}")
-    out = torch.empty_like(q)
+    if stats:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    else:
+        out, lse = torch.empty_like(q), None
     if q.is_meta:
-        _charge("flash_decode", cost.flash_decode(
-            b, s, h, kv, d, dtype=q.dtype, cache_dtype=k_cache.dtype))
-        return out
-    with obs.timed_block("kernel.flash_decode", b=b, s=s, h=h, d=d) as sp:
-        flash_decode.last_splits = _decode(q, k_cache, v_cache, valid, out)
+        _charge("flash_decode_stats" if stats else "flash_decode",
+                cost.flash_decode(b, s, h, kv, d, dtype=q.dtype,
+                                  cache_dtype=k_cache.dtype, stats=stats))
+        return (out, lse) if stats else out
+    with obs.timed_block("kernel.flash_decode_stats" if stats
+                         else "kernel.flash_decode", b=b, s=s, h=h,
+                         d=d) as sp:
+        flash_decode.last_splits = _decode(q, k_cache, v_cache, valid, out,
+                                           lse)
         sp.sync(out)
+    if stats:
+        flash_decode.stats_launches += 1
+        return out, lse
     flash_decode.launches += 1
     _count_lengths(flash_decode, 1, s)
     return out
@@ -527,6 +547,7 @@ def reset_launch_counts() -> None:
     by lengths)."""
     for fn in KERNELS:
         fn.launches = 0
+    flash_decode.stats_launches = 0     # its launches with ``stats``
     # the prefill kernel's and its backward's launches by route;
     # ``launches`` is their total
     flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
@@ -542,4 +563,5 @@ reset_launch_counts()
 
 def launch_counts() -> Dict[str, int]:
     """wrapper name -> kernel launches since the last reset."""
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    return {**{fn.__name__: fn.launches for fn in KERNELS},
+            "flash_decode_stats": flash_decode.stats_launches}

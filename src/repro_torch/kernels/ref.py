@@ -231,3 +231,28 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     s = torch.where(valid[:, None, None, :], s, NEG)
     p = torch.softmax(s, -1)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v_cache)
+
+
+def flash_decode_stats_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, valid: torch.Tensor):
+    """``flash_decode_ref`` with its softmax statistics: (o (B,1,H,D),
+    lse (B,H)), both in f32 (f64 for f64 inputs). o is normalised over
+    the S slots given; lse = m + log(l) of the scaled scores, the invalid
+    slots' at the NEG logit (all invalid: m = NEG, l = S, so o is the
+    mean of v). The caches are read as q's dtype and p is rounded to it
+    before P.V, as the kernel does; the scores and sums are wide."""
+    b, _, h, d = q.shape
+    wide = torch.promote_types(q.dtype, torch.float32)
+    rep = h // k_cache.shape[2]
+    k = k_cache.to(q.dtype).to(wide)
+    v = v_cache.to(q.dtype).to(wide)
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q[:, 0].to(wide), k) / math.sqrt(d)
+    s = torch.where(valid[:, None, :], s, NEG)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bhk,bkhd->bhd", p.to(q.dtype).to(wide), v)
+    return (o / l[..., None])[:, None], m + torch.log(l)

@@ -24,15 +24,16 @@ lower bound on a rank's work with none of its collectives: one rank's
 count of a tensor-parallel step is the rest of ``ROADMAP.md`` item 15b.
 
 Of those even-split pairs the port now executes (``launch/steps.py`` on a
-mesh) every family's on one pod where no FSDP is planned: train_4k and
-prefill_32k, and decode_32k where ``cache_plan`` splits no k/v cache on
-its head dim (the smoke mesh; at 16 x 16 whisper-medium's 16 kv heads,
-and MLA's latent, Mamba's and RWKV's states). The dry run still records
-them ``even_split``: a rank's own count of a tensor-parallel step is the
-rest of item 15b. FSDP (jamba and deepseek with "data" above 1), RWKV or
-MLA heads that do not divide the model axis (rwkv6-3b's 40 over 16), the
-two-pod meshes' inference and long_500k (its sequence over "data") raise
-there.
+mesh) every family's on one pod: train_4k and prefill_32k, with jamba's
+and deepseek's weights over "data" (FSDP), and decode_32k and long_500k
+on every cache ``cache_plan`` makes (the k/v head dim over "model" where
+the kv heads do not divide it, the sequence over "data" at long_500k's
+batch of 1, or over "model" and ("data", "model") with
+``--cache-seq-shard``). The dry run still records them ``even_split``: a
+rank's own count of a tensor-parallel or FSDP step is the rest of item
+15b. RWKV or MLA heads that do not divide the model axis (rwkv6-3b's 40
+over 16), sequence-sharded activations in training and the two-pod
+meshes' inference still raise there.
 
 ``memory``: argument and output bytes a device from the specs (each leaf
 divided over the axes its spec shards it on); there is no compiler, so

@@ -18,12 +18,12 @@ Strategies, as the reference's:
 
 A dim that does not divide its axis stays replicated, and the plan
 records it. The planners take axis sizes (``launch.mesh.mesh_axis_sizes``),
-so a plan needs no devices. ``launch/steps.py`` executes the fed axis, and
+so a plan needs no devices. ``launch/steps.py`` executes the fed axis,
 the model axis for every family (tensor parallel, the experts over
-"model" expert parallel: ``models/model_axis.py``); FSDP and the
-sequence-sharded layouts (activations, and a k/v cache split on the
-sequence or the head dim) are planned here and not run (``ROADMAP.md``
-item 15b).
+"model" expert parallel: ``models/model_axis.py``), FSDP
+(``models/fsdp.py``) and every cache plan (a k/v ring split on its head
+dim or its sequence, a latent ring on its sequence); sequence-sharded
+activations are planned here and not run (``ROADMAP.md`` item 15b).
 
 ``distribute_tree`` puts a tree of full tensors (every rank holding the
 same) on a plan's placements as DTensors, each rank keeping its own part

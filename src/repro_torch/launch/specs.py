@@ -15,9 +15,9 @@ parameters' plan of a step kind (as ``input_specs`` plans it), which
 ``sharding.distribute_tree`` places (``params_on_mesh`` draws it there,
 each rank keeping its shards only); ``cache_on_mesh`` makes a decode
 cache as DTensors on ``cache_plan``'s placements (each rank allocating
-its own shard only: k/v, MLA's latent, Mamba's and RWKV's states), and
-``check_cache_placements`` holds a cache to them and refuses the layouts
-the port does not execute.
+its own shard only: k/v, MLA's latent, Mamba's and RWKV's states; a ring
+split on its kv heads, its head dim or its sequence), and
+``check_cache_placements`` holds a cache to them.
 """
 from __future__ import annotations
 
@@ -209,50 +209,11 @@ def step_plan(cfg: ModelConfig, axes: sh.Axes, kind: str,
                        head_aware=kind == "decode")[1]
 
 
-def _cache_refusal(specs: PyTree, axes: sh.Axes) -> None:
-    """``NotImplementedError`` for a cache plan the port does not execute:
-    k/v with the head dim or the sequence over "model", or the sequence
-    over "data" (long_500k's batch of 1), and MLA's latent ring with its
-    sequence split; an axis of 1 splits nothing. The latent's r, Mamba's
-    channels, RWKV's heads and token shift over "model" are executed."""
-    def names(entry):
-        return () if entry is None else (
-            (entry,) if isinstance(entry, str) else tuple(entry))
-
-    def walk(path, spec):
-        ring = {"k": 4, "v": 4, "c_kv": 3, "k_rope": 3}.get(
-            path[-1] if path else None)
-        if ring and len(spec) >= ring:
-            off = len(spec) - ring
-            for dim, what in ((off + 1, "the sequence"),
-                              (off + 3, "the head dim"))[:ring - 2]:
-                for ax in names(spec[dim]):
-                    if axes.get(ax, 1) == 1:
-                        continue
-                    raise NotImplementedError(
-                        f"a decode cache with {what} over {ax!r} is "
-                        f"planned, not executed (ROADMAP.md item 15b)")
-        return spec
-    _walk_specs(walk, specs, ())
-
-
-def _walk_specs(fn, tree, path):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            _walk_specs(fn, v, path + (k,))
-    elif isinstance(tree, list):
-        for i, v in enumerate(tree):
-            _walk_specs(fn, v, path + (i,))
-    else:
-        fn(path, tree)
-
-
 def _cache_placements(cfg: ModelConfig, mesh, shapes: PyTree,
-                      batch: int) -> PyTree:
+                      batch: int, seq_shard: bool = False) -> PyTree:
     from repro_torch.launch.mesh import mesh_axis_sizes
     axes = mesh_axis_sizes(mesh)
-    specs = sh.cache_plan(cfg, axes, shapes, batch)
-    _cache_refusal(specs, axes)
+    specs = sh.cache_plan(cfg, axes, shapes, batch, seq_shard=seq_shard)
     names = tuple(mesh.mesh_dim_names)
     return sh.tree_map_specs(lambda s: sh.to_placements(s, names), specs)
 
@@ -333,13 +294,15 @@ def params_on_mesh(lm: LM, gen: torch.Generator, placements, mesh,
 
 
 def cache_on_mesh(lm: LM, mesh, batch: int, seq_len: int,
-                  dtype=torch.bfloat16, device=None) -> PyTree:
+                  dtype=torch.bfloat16, device=None,
+                  seq_shard: bool = False) -> PyTree:
     """``lm.init_cache(batch, seq_len)`` as DTensors on ``cache_plan``'s
-    placements over ``mesh``: each rank allocates its own shard (zeros)
-    only."""
+    placements over ``mesh`` (``seq_shard``: the reference's
+    ``cache_seq_shard``, the rings' sequence over "model"): each rank
+    allocates its own shard (zeros) only."""
     from torch.distributed.tensor import DTensor, Shard
     shapes = lm.init_cache(batch, seq_len, dtype=dtype, device="meta")
-    placements = _cache_placements(lm.cfg, mesh, shapes, batch)
+    placements = _cache_placements(lm.cfg, mesh, shapes, batch, seq_shard)
 
     def one(x, pl):
         shape = list(x.shape)
@@ -353,12 +316,12 @@ def cache_on_mesh(lm: LM, mesh, batch: int, seq_len: int,
 
 
 def check_cache_placements(cfg: ModelConfig, mesh, cache: PyTree,
-                           batch: int) -> PyTree:
+                           batch: int, seq_shard: bool = False) -> PyTree:
     """``cache``'s placements, which must be ``cache_plan``'s for its
-    shapes on ``mesh`` (``ValueError`` otherwise; ``NotImplementedError``
-    for a plan the port does not execute)."""
+    shapes on ``mesh`` (with ``seq_shard`` as ``cache_on_mesh``'s;
+    ``ValueError`` otherwise)."""
     shapes = _meta_like(cache)
-    want = _cache_placements(cfg, mesh, shapes, batch)
+    want = _cache_placements(cfg, mesh, shapes, batch, seq_shard)
     got = sh.placements_of(cache)
     if got != want:
         raise ValueError("decode on a mesh takes its cache as DTensors on "

@@ -27,7 +27,14 @@ train_step   — ONE federated round per call (the paper's Algorithm 1 on
                the same replicated activations, the MoE's ``aux`` enters
                the loss as on one rank (every rank computes the whole
                route), and the round returns DTensors on the same
-               placements.
+               placements. An arch above ``FSDP_THRESHOLD`` on one pod
+               runs G = 1 with "data" over its weights' second dim and its
+               cohort's rows (``models/fsdp.py``): each data rank trains
+               its rows, every gradient is the mean over the data ranks
+               (reduce-scattered, or all-reduced for the leaves whole on
+               every data rank), the probe's hidden states are gathered
+               over "data" and every rank runs the same selection and
+               meta steps.
 prefill_step — causal forward over the prompt (after the encoder's pass
                or the vision prefix, where the batch has them),
                last-position logits only; the KV cache is not filled
@@ -37,14 +44,17 @@ decode_step  — one token against the (ring-buffer) cache, greedy argmax;
 
 Given a mesh, prefill and decode take their weights as DTensors on either
 inference plan (``step_plan``) and the cache on ``cache_plan``'s
-placements (``specs.cache_on_mesh``): the kv heads, MLA's latent, Mamba's
-channels and RWKV's heads over "model". Each rank runs its heads' kernels
-(MLA's rebuilt from the gathered latent), its experts, its channels and
-its shard of the FFN and of the vocabulary, the batch's rows over "data"
-where they divide, and every rank returns the same logits or tokens.
-FSDP, sequence-sharded activations, a k/v cache sharded on the head dim
-or the sequence and inference over "pod" raise ``NotImplementedError``
-(``ROADMAP.md`` item 15b).
+placements (``specs.cache_on_mesh``): the kv heads (or their head dim),
+MLA's latent, Mamba's channels and RWKV's heads over "model", a ring's
+sequence over "data" at batch 1 or, with ``cache_seq_shard``, over
+"model". Each rank runs its heads' kernels (MLA's rebuilt from the
+gathered latent), its experts, its channels and its shard of the FFN and
+of the vocabulary, the batch's rows over "data" where they divide, its
+slots of a split ring (the decode kernel's softmax statistics merged over
+the ranks), FSDP's weights gathered a block at a time, and every rank
+returns the same logits or tokens. Sequence-sharded activations, RWKV or
+MLA heads that do not divide the model axis and inference over "pod"
+raise ``NotImplementedError`` (``ROADMAP.md`` item 15b).
 
 Inference computes in ``dtype`` (bf16 by default, as the reference) and
 runs without autograd; training computes in ``TrainConfig.dtype`` on f32
@@ -60,12 +70,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import fedavg as fa
 from repro_torch.core import selection as sel
-from repro_torch.core.collectives import Ranks, all_gather_tree
+from repro_torch.core.collectives import (Ranks, all_gather_cat,
+                                          all_gather_tree,
+                                          all_reduce_tensor)
 from repro_torch.launch import sharding as sh
+from repro_torch.models import fsdp as FS
 from repro_torch.models import layers as L
 from repro_torch.models import model_axis as MA
 from repro_torch.models.transformer import LM, split_stages, unpack_batch
-from repro_torch.optim.optimizers import (sgd, tree_leaves, tree_map,
+from repro_torch.optim.optimizers import (sgd, tree_map,
                                           value_and_grad)
 
 PyTree = Any
@@ -122,26 +135,26 @@ def fed_ranks(cfg: ModelConfig, mesh,
               tcfg: Optional[TrainConfig] = None) -> StepRanks:
     """The ranks of the train step on ``mesh``: its fed axes
     (``specs.fed_layout``) carry the cohorts, its "model" axis runs each
-    cohort tensor parallel. Raises ``NotImplementedError`` (``ROADMAP.md``
-    item 15b) for a "data" axis that ``fed_layout`` leaves to shard the
-    weights (FSDP) and for sequence-sharded activations on a model
+    cohort tensor parallel, and where ``fed_layout`` leaves "data" to
+    shard the weights (FSDP: the archs above ``FSDP_THRESHOLD``) its
+    ranks split each cohort's rows and gather the weights a block at a
+    time (``models/fsdp.py``). Raises ``NotImplementedError``
+    (``ROADMAP.md`` item 15b) for sequence-sharded activations on a model
     axis."""
     from repro_torch.launch.mesh import mesh_axis_sizes
     from repro_torch.launch.specs import fed_layout
     axes = mesh_axis_sizes(mesh)
     _, fed_axes = fed_layout(cfg, axes)
-    if axes.get("data", 1) > 1 and "data" not in fed_axes:
-        raise NotImplementedError(
-            f"{cfg.name} shards its weights over 'data' (FSDP), which is "
-            f"planned, not executed (ROADMAP.md item 15b)")
+    data = (Ranks.of(mesh.get_group("data"))
+            if axes.get("data", 1) > 1 and "data" not in fed_axes else None)
     model = _model_ranks(mesh, axes)
     if model is not None and tcfg is not None and tcfg.seq_shard_activations:
         raise NotImplementedError(
             "sequence-sharded activations on a model axis are planned, not "
             "executed (ROADMAP.md item 15b)")
     if not fed_axes:                       # a huge arch on one pod: G = 1
-        return StepRanks(None, model, None, mesh)
-    if model is None:
+        return StepRanks(None, model, data, mesh)
+    if model is None and data is None:
         # the fed axes span the mesh, which spans the world: one fed axis
         # is its mesh dim's group, two are the world
         group = mesh.get_group(fed_axes[0]) if len(fed_axes) == 1 else None
@@ -150,24 +163,20 @@ def fed_ranks(cfg: ModelConfig, mesh,
         group = mesh.get_group(fed_axes[0])
     else:                                  # ("pod", "data"): one group
         group = mesh[fed_axes]._flatten().get_group()
-    return StepRanks(Ranks.of(group), model, None, mesh)
+    return StepRanks(Ranks.of(group), model, data, mesh)
 
 
 def _serve_ranks(cfg: ModelConfig, mesh) -> StepRanks:
     """The ranks of prefill and decode on ``mesh``: the model axis, and
-    the "data" axis over the batch's rows."""
+    the "data" axis over the batch's rows (and, above
+    ``FSDP_THRESHOLD``, over the weights' second dim: FSDP)."""
     from repro_torch.launch.mesh import mesh_axis_sizes
-    from repro_torch.models.registry import count_params
     axes = mesh_axis_sizes(mesh)
     if axes.get("pod", 1) > 1:
         raise NotImplementedError(
             "inference over 'pod' and 'data' is planned, not executed "
             "(ROADMAP.md item 15b)")
     data = axes.get("data", 1)
-    if data > 1 and count_params(cfg) > sh.FSDP_THRESHOLD:
-        raise NotImplementedError(
-            f"{cfg.name} shards its weights over 'data' (FSDP), which is "
-            f"planned, not executed (ROADMAP.md item 15b)")
     model = _model_ranks(mesh, axes)
     return StepRanks(None, model,
                      Ranks.of(mesh.get_group("data")) if data > 1 else None,
@@ -220,9 +229,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     parallel, and gets DTensors back on the same placements
     (``sharding.gather_tree`` gives the full tree); ``observe`` then sees
     the local shards."""
-    model = None
+    model = data = None
     if mesh is not None:
-        ranks, model, _, _ = fed_ranks(cfg, mesh, tcfg)
+        ranks, model, data, _ = fed_ranks(cfg, mesh, tcfg)
     observe = observe or (lambda event, value: None)
     opt = sgd(tcfg.lr, momentum=tcfg.momentum,
               weight_decay=tcfg.weight_decay)
@@ -235,16 +244,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     def local_loss(p, batch):
         return lm_split.loss(p, batch, dtype=dt)
 
-    def one_cohort(params, opt_state, tokens, extras):
+    def one_cohort(params, opt_state, tokens, extras, rows, dims):
         """L local steps (each over microbatches with f32 gradient
         accumulation; each microbatch with its extras) -> (params,
-        opt_state, mean loss)."""
+        opt_state, mean loss). With FSDP, this data rank's ``rows`` of
+        each microbatch (None: all) and the parameters' data-split
+        ``dims``: every gradient is then the mean over the data ranks
+        (the data-split leaves' through their gather, the others averaged
+        here), and so is the loss."""
         step_losses = []
         for li, tok_mb in enumerate(tokens):   # (n_micro, mb, T) a step
             g_sum, losses = None, []
             for mi, t in enumerate(tok_mb):
                 batch = dict(tokens=t,
                              **{k: v[li, mi] for k, v in extras.items()})
+                if rows is not None:
+                    batch = {k: v[rows] for k, v in batch.items()}
                 loss, g = value_and_grad(local_loss, params, batch)
                 g = tree_map(lambda x: x.to(torch.float32), g)
                 g_sum = g if g_sum is None else tree_map(torch.add, g_sum, g)
@@ -253,19 +268,29 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
             # (g / 1 is g: no copy of the gradients for one microbatch)
             g_mean = (g_sum if n_micro == 1
                       else tree_map(lambda x: x / n_micro, g_sum))
+            if data is not None:
+                g_mean = FS.mean_grads(g_mean, dims, data)
             params, opt_state = opt.apply(g_mean, opt_state, params)
             step_losses.append(torch.stack(losses).mean())
-        return params, opt_state, torch.stack(step_losses).mean()
+        loss = torch.stack(step_losses).mean()
+        if data is not None:
+            loss = all_reduce_tensor(loss.detach(), data) / data.size
+        return params, opt_state, loss
 
-    def select_cohort(params, probe, probe_ex, first_row):
+    def select_cohort(params, probe, probe_ex, first_row, rows):
         """§3.1 on one cohort: the hidden states of its probe batch (with
-        its extras) at the split (computed from the cohort's new weights),
+        its extras) at the split (computed from the cohort's new weights;
+        under FSDP each data rank's ``rows`` of it, gathered over "data"),
         mean-pooled over the T (+ P) positions, PCA + K-means over all rows
         -> the selected (acts, tokens, extras, valid)."""
         with torch.no_grad():
-            acts, _, _ = lm_split.apply(params, probe, mode="full",
-                                        stage_range=(0, boundary_stage),
-                                        dtype=dt, **probe_ex)
+            acts, _, _ = lm_split.apply(
+                params, probe if rows is None else probe[rows],
+                mode="full", stage_range=(0, boundary_stage), dtype=dt,
+                **{k: v if rows is None else v[rows]
+                   for k, v in probe_ex.items()})
+            if rows is not None:
+                acts = all_gather_cat(acts.contiguous(), data, 0)
             s_ = sel.select_metadata(                      # (mb, T(+P), d)
                 acts.mean(1), None, first_row, per_class=False,
                 clusters_per_class=tcfg.meta_clusters,
@@ -280,7 +305,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
 
     def placed_args(client_params, opt_state, g_ax):
         """The round's DTensor arguments checked against the train plan
-        -> (their placements, local params, local opt_state)."""
+        -> (their placements, their data-split dims, local params, local
+        opt_state)."""
         if g_ax not in plans:
             from repro_torch.launch.mesh import mesh_axis_sizes
             from repro_torch.launch.specs import step_plan
@@ -288,11 +314,30 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                                     tcfg, lm_split, g_ax).placements(mesh)
         got = sh.placements_of(client_params)
         if got != plans[g_ax]:
-            raise ValueError("train_step on a model axis takes the cohorts' "
-                             "parameters as DTensors on the train plan "
-                             "(sharding.distribute_tree(tree, "
-                             "specs.step_plan(..., 'train', ...), mesh))")
-        return got, sh.local_tree(client_params), sh.local_tree(opt_state)
+            raise ValueError("train_step on a model or data-sharded axis "
+                             "takes the cohorts' parameters as DTensors on "
+                             "the train plan (sharding.distribute_tree("
+                             "tree, specs.step_plan(..., 'train', ...), "
+                             "mesh))")
+        return (got, FS.data_dims(client_params, mesh),
+                sh.local_tree(client_params), sh.local_tree(opt_state))
+
+    def data_rows(tokens, extras):
+        """This data rank's rows of each microbatch (None: all of them,
+        where the data axis does not divide them, as the plan leaves them
+        replicated); an MoE needs each rank's tokens in whole groups."""
+        mb = tokens.shape[3]
+        if data is None or mb % data.size:
+            return None
+        per = mb // data.size
+        n_tok = per * (tokens.shape[-1] + (
+            cfg.num_prefix_tokens if "prefix_embeds" in extras else 0))
+        if cfg.is_moe and n_tok % 512:
+            raise ValueError(
+                f"{cfg.name}: {n_tok} tokens a data rank a microbatch are "
+                f"no whole groups of 512, so the MoE over rows split over "
+                f"'data' would route another function than one rank's")
+        return slice(data.rank * per, (data.rank + 1) * per)
 
     def train_step(client_params, opt_state, batch, first=None):
         with MA.over(model):
@@ -305,12 +350,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                              "K-means first centre (first=...)")
         g_ax = tokens.shape[0]
         mine = ranks.share(g_ax) if ranks is not None else range(g_ax)
-        placed, at = None, 0
-        if model is not None:
+        placed, at, dims, rows = None, 0, None, None
+        if model is not None or data is not None:
             # this rank's cohorts (from ``at``) and shards, local
-            placed, client_params, opt_state = placed_args(
+            placed, dims, client_params, opt_state = placed_args(
                 client_params, opt_state, g_ax)
             at = mine.start
+            rows = data_rows(tokens, extras)
         # every cohort's first centre, drawn in cohort order on every rank
         firsts = ([_first_centre(first, g, tokens.shape[3])
                    for g in range(g_ax)] if tcfg.split_fl else None)
@@ -323,8 +369,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         for g in mine:
             p = tree_map(lambda x: x[g - at], client_params)
             s = tree_map(lambda x: x[g - at], opt_state) if opt_state else ()
-            p, s, loss = one_cohort(p, s, tokens[g],
-                                    {k: v[g] for k, v in extras.items()})
+            with FS.over(data, dims, rows is not None):
+                p, s, loss = one_cohort(p, s, tokens[g],
+                                        {k: v[g] for k, v in extras.items()},
+                                        rows, dims)
             new_s.append(s)
             losses.append(loss)
             if tcfg.split_fl:
@@ -333,8 +381,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                 # weights
                 probe = tokens[g, 0, 0]                    # (mb, T)
                 probe_ex = {k: v[g, 0, 0] for k, v in extras.items()}
-                selected.append(select_cohort(p, probe, probe_ex,
-                                              firsts[g]))
+                with FS.over(data, dims, rows is not None):
+                    selected.append(select_cohort(p, probe, probe_ex,
+                                                  firsts[g], rows))
             observe("cohort", p)
             total.add(p)
             del p
@@ -403,8 +452,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                 h = h[:, n_prefix:]
                 hn = L.rms_norm(h, up["final_norm"].to(h.dtype),
                                 cfg.norm_eps)
-                w_head = (up["lm_head"] if "lm_head" in up
-                          else avg["embed"].T).to(h.dtype)
+                w_head = (FS.gather_leaf(up["lm_head"], FS.dims("lm_head"))
+                          if "lm_head" in up else FS.gather_leaf(
+                              avg["embed"], FS.dims("embed")).T
+                          ).to(h.dtype)
                 # the head and its f32 log-softmax a chunk of
                 # ``microbatch`` rows at a time, recomputed in the
                 # backward: the step holds one chunk's logits however
@@ -420,8 +471,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
 
             meta_losses = []
             for _ in range(tcfg.meta_steps):
-                loss_m, gm = value_and_grad(upper_loss, upper, meta_acts,
-                                            meta_tok, meta_w, meta_ex)
+                # every data rank the same selected rows: the data-split
+                # leaves' gathers average equal gradients, the others'
+                # are equal already
+                with FS.over(data, dims):
+                    loss_m, gm = value_and_grad(upper_loss, upper,
+                                                meta_acts, meta_tok, meta_w,
+                                                meta_ex)
                 with torch.no_grad():
                     upper = tree_map(lambda p_, g_: p_ - tcfg.lr * g_,
                                      upper, gm)
@@ -471,18 +527,53 @@ def _gather_rows(x: torch.Tensor, data: Optional[Ranks],
 
 
 def _serve_params(params, sr: Optional[StepRanks]):
-    """The weights' local tensors; on a mesh a DTensor leaf may shard over
-    "model" only (another axis would be FSDP)."""
+    """The weights' local tensors and their data-split dims (FSDP,
+    ``fsdp.data_dims``; None off a mesh)."""
     if sr is None:
-        return params
-    names = tuple(sr.mesh.mesh_dim_names)
-    for x in tree_leaves(params):
-        for name, p in zip(names, getattr(x, "placements", ())):
-            if name != "model" and not p.is_replicate():
-                raise NotImplementedError(
-                    f"inference weights sharded over {name!r} (FSDP) are "
-                    f"planned, not executed (ROADMAP.md item 15b)")
-    return sh.local_tree(params)
+        return params, None
+    return sh.local_tree(params), FS.data_dims(params, sr.mesh)
+
+
+def _seq_split(x, pl, dim: int, mesh):
+    """The ``layers.SeqSplit`` of a ring leaf ``x`` whose dim ``dim`` its
+    placements ``pl`` shard over mesh axes above 1 (None: whole)."""
+    names = tuple(mesh.mesh_dim_names)
+    over = [i for i, p in enumerate(pl)
+            if not p.is_replicate() and p.dim == dim % x.ndim
+            and mesh.size(i) > 1]
+    if not over:
+        return None
+    axes = tuple(names[i] for i in over)
+    coord = mesh.get_coordinate()
+    if len(over) == 1:
+        ranks = Ranks.of(mesh.get_group(over[0]))
+    elif len(over) == sum(mesh.size(i) > 1 for i in range(mesh.ndim)):
+        ranks = Ranks.of()                 # every rank of the mesh
+    else:
+        raise NotImplementedError(
+            f"a ring split over {axes} of a mesh of {names} (ROADMAP.md "
+            f"item 15b)")
+    index, n = 0, 1
+    for i in over:                         # major axis first
+        index, n = index * mesh.size(i) + coord[i], n * mesh.size(i)
+    if ranks.rank != index:
+        raise ValueError(f"rank {ranks.rank} of the group holds ring chunk "
+                         f"{index}")
+    return L.SeqSplit(ranks, index, n, axes)
+
+
+def _rings(cache, mesh):
+    """Each block's ring's ``layers.SeqSplit`` (a list a stage of a list a
+    unit position; None where the ring is whole or the block holds a
+    state), from the cache's DTensor placements."""
+    def one(block):
+        mixer = block.get("mixer", {})
+        for name, seq_dim in (("k", -3), ("c_kv", -2)):
+            if name in mixer:
+                x = mixer[name]
+                return _seq_split(x, x.placements, seq_dim, mesh)
+        return None
+    return [[one(b) for b in st] for st in cache["stages"]]
 
 
 def make_prefill_step(cfg: ModelConfig, force_swa: bool = False,
@@ -501,7 +592,7 @@ def make_prefill_step(cfg: ModelConfig, force_swa: bool = False,
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        params = _serve_params(params, sr)
+        params, dims = _serve_params(params, sr)
         extras = {k: batch[k] for k in ("prefix_embeds", "enc_frames")
                   if k in batch}
         tokens = batch["tokens"]
@@ -509,7 +600,8 @@ def make_prefill_step(cfg: ModelConfig, force_swa: bool = False,
         if rows is not None:
             tokens = tokens[rows]
             extras = {k: v[rows] for k, v in extras.items()}
-        with MA.over(model):
+        with MA.over(model), FS.over(sr and sr.data, dims,
+                                     rows is not None):
             h_all, _, _ = lm.apply(params, tokens, mode="full",
                                    return_hidden=True, dtype=dtype, **extras)
             # last-position logits only (vocab projection on one position)
@@ -525,27 +617,35 @@ def make_prefill_step(cfg: ModelConfig, force_swa: bool = False,
 
 
 def make_decode_step(cfg: ModelConfig, force_swa: bool = False,
-                     dtype=torch.bfloat16, mesh=None):
+                     dtype=torch.bfloat16, mesh=None,
+                     cache_seq_shard: bool = False,
+                     return_logits: bool = False):
     """-> (decode_step(params, cache, tokens (B, 1)) -> (next (B, 1) int32,
-    cache), lm).
+    cache), lm); with ``return_logits`` the step also returns the new
+    position's logits (B, padded_vocab), whose argmax ``next`` is.
 
     With a ``mesh``, the weights as ``make_prefill_step``'s and the cache
     a DTensor tree on ``cache_plan``'s placements
-    (``specs.cache_on_mesh``): each rank writes and reads the kv heads of
-    its shard, in place, and every rank returns the whole batch's
-    tokens."""
+    (``specs.cache_on_mesh``, with ``cache_seq_shard`` as the reference's
+    ``input_specs``): each rank writes and reads its shard in place (its
+    kv heads or head-dim columns, its latent chunk, its states, its
+    slots of a ring split on the sequence, whose softmax statistics the
+    ranks merge: ``layers.merge_decode``), and every rank returns the
+    whole batch's tokens."""
     lm = LM(cfg, force_swa=force_swa)
     sr = _serve_ranks(cfg, mesh) if mesh is not None else None
     model = sr.model if sr is not None else None
 
     @torch.no_grad()
     def decode_step(params, cache, tokens):
-        params = _serve_params(params, sr)
-        placed = None
+        params, dims = _serve_params(params, sr)
+        placed = rings = None
         if sr is not None:
             from repro_torch.launch.specs import check_cache_placements
             placed = check_cache_placements(cfg, sr.mesh, cache,
-                                            tokens.shape[0])
+                                            tokens.shape[0],
+                                            seq_shard=cache_seq_shard)
+            rings = _rings(cache, sr.mesh)
             cache = sh.local_tree(cache)
         rows = _rows(sr.data, tokens.shape[0]) if sr is not None else None
         pos = cache["pos"]
@@ -554,15 +654,22 @@ def make_decode_step(cfg: ModelConfig, force_swa: bool = False,
             # this rank's rows
             tokens = tokens[rows]
             cache = dict(cache, pos=pos[rows])
-        with MA.over(model):
+        with MA.over(model), FS.over(sr and sr.data, dims,
+                                     rows is not None):
             logits, new_cache, _ = lm.apply(params, tokens, mode="decode",
-                                            cache=cache, dtype=dtype)
-        next_tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+                                            cache=cache, dtype=dtype,
+                                            rings=rings)
+        logits = logits[:, -1]
+        next_tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         if rows is not None:
             next_tok = _gather_rows(next_tok, sr.data, rows)
+            if return_logits:
+                logits = _gather_rows(logits.contiguous(), sr.data, rows)
             new_cache["pos"] = pos + 1
         if placed is not None:
             new_cache = sh.wrap_tree(new_cache, placed, sr.mesh)
+        if return_logits:
+            return next_tok, new_cache, logits
         return next_tok, new_cache
 
     return decode_step, lm

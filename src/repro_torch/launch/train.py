@@ -12,7 +12,8 @@ N, one cohort a rank). At N = 4 the smoke mesh is the reference's (2, 2):
 two cohorts over "data", each trained tensor parallel over "model", the
 weights DTensors on the train plan (``specs.step_plan``), for every
 arch; an arch above ``FSDP_THRESHOLD`` (jamba, deepseek) shards its
-weights over "data" there (FSDP), which raises, naming ROADMAP item 15b.
+weights over "data" there (FSDP: G = 1, each cohort's rows over "data",
+each block's weights gathered at its entry, ``models/fsdp.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --smoke --steps 4 [--device cpu]
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke --device cpu

@@ -58,6 +58,17 @@ chunk of ``d_inner`` and RWKV its heads; each sums its output over the
 ranks (``model_axis``). A block whose weights are all replicated runs as
 on one rank.
 
+A decode ring split over ranks (``SeqSplit``: its sequence over "data"
+at batch 1, or over "model" with the reference's ``cache_seq_shard``) is
+written by the rank holding the new slot only; each rank attends over its
+slots with the decode kernel's softmax statistics (``sdpa_decode_stats``)
+and the ranks' outputs are merged by their log-sum-exp
+(``merge_decode``). A k/v ring split on its head dim is gathered whole
+for the step (``_decode_kv``). With FSDP (``models/fsdp.py``) a block's
+weights arrive gathered over "data"; the MoE averages its load-balance
+statistics over the data ranks' rows, or gathers rows that form no whole
+group.
+
 Mamba (``mamba_apply``, jamba's SSM mixer) is plain torch on either
 device, as the reference's jnp scans: a causal depthwise convolution and
 the selective scan (``_selective_scan``: chunks in order, a log-depth
@@ -75,7 +86,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import Ranks, all_gather_cat
 from repro_torch.kernels import ops, ref
+from repro_torch.models import fsdp as FS
 from repro_torch.models import model_axis as MA
 
 NEG = -1e30
@@ -343,6 +356,153 @@ def sdpa_decode(q, k_cache, v_cache, valid):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+class SeqSplit(NamedTuple):
+    """A decode ring whose slots are split over ranks: ``ranks`` the group
+    that splits them (its rank order the slots' order), this rank's chunk
+    ``index`` of ``n`` even chunks, and ``axes`` the mesh axes the group
+    spans ("data", "model" or both)."""
+    ranks: Ranks
+    index: int
+    n: int
+    axes: Tuple[str, ...]
+
+
+def ring_slots(local: int, seq: Optional[SeqSplit]) -> Tuple[int, int]:
+    """(the first global slot this rank holds, the ring's full size) of a
+    ring of which this rank holds ``local`` slots."""
+    if seq is None:
+        return 0, local
+    return seq.index * local, local * seq.n
+
+
+def ring_write(ring: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+               seq: Optional[SeqSplit]) -> None:
+    """``new`` (B, ...) into slot ``pos % size`` of each row of ``ring``
+    (B, S_local, ...), IN PLACE; on a split ring only the rank that holds
+    the slot writes it (the others write each row's slot back as it was,
+    so no row count depends on the data)."""
+    b, local = ring.shape[0], ring.shape[1]
+    rows = torch.arange(b, device=ring.device)
+    lo, size = ring_slots(local, seq)
+    slot = (pos % size).long()
+    new = new.to(ring.dtype)
+    if seq is None:
+        ring[rows, slot] = new
+        return
+    mine = (slot >= lo) & (slot < lo + local)
+    at = torch.clamp(slot - lo, 0, local - 1)
+    keep = mine.view((b,) + (1,) * (new.ndim - 1))
+    ring[rows, at] = torch.where(keep, new, ring[rows, at])
+
+
+def ring_valid(local: int, pos: torch.Tensor, seq: Optional[SeqSplit],
+               device) -> torch.Tensor:
+    """(B, S_local) bool: which of this rank's slots are filled, from the
+    global positions (slot j of a ring of ``size`` holds a key once j <=
+    min(pos, size - 1))."""
+    lo, size = ring_slots(local, seq)
+    j = lo + torch.arange(local, device=device)
+    return j[None, :] <= torch.clamp(pos, max=size - 1)[:, None]
+
+
+def sdpa_decode_stats(q, k_cache, v_cache, valid):
+    """``sdpa_decode`` over this rank's slots, with its softmax
+    statistics -> (o (B,1,H,D) f32 normalised over these slots, lse
+    (B,H) f32): the decode kernel with statistics on a CUDA tensor, its
+    plain version (wide: f64 stays f64) on a CPU one."""
+    if _on_kernels(q):
+        return ops.flash_decode(q, k_cache, v_cache, valid, stats=True)
+    return ref.flash_decode_stats_ref(q, k_cache, v_cache, valid)
+
+
+def merge_decode(o: torch.Tensor, lse: torch.Tensor, ranks: Ranks,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The attention of the whole ring from each rank's (o, lse) over its
+    slots (``sdpa_decode_stats``): gathered over ``ranks``, weighted by
+    exp(lse_r - lse) with lse = logsumexp_r(lse_r) and summed in rank
+    order, wide, then rounded once to ``dtype``. The weights are
+    normalised by their sum, which is exp(lse_r - lse) in exact
+    arithmetic and keeps the edge cases: a rank with no valid slot
+    (lse_r at the NEG logit) weighs exactly 0 beside a rank with one; with
+    none anywhere every rank weighs the same, so the even chunks' means
+    make the uniform weights over all S slots, as one rank's decode. B H
+    (D + 1) values a rank: plain torch."""
+    return merge_parts(all_gather_cat(o[None].contiguous(), ranks, 0),
+                       all_gather_cat(lse[None].contiguous(), ranks, 0),
+                       dtype)
+
+
+def merge_parts(os_: torch.Tensor, ls: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``merge_decode``'s sum of the parts (R, B,1,H,D) and their
+    statistics (R, B,H), in rank order."""
+    w = torch.exp(ls - ls.amax(0))
+    w = w / w.sum(0)
+    out = torch.zeros_like(os_[0])
+    for r in range(os_.shape[0]):
+        out = out + w[r][:, None, :, None] * os_[r]
+    return out.to(dtype)
+
+
+def _ring_attend(q, k_cache, v_cache, valid, seq):
+    """Decode attention of q over a ring's local slots: whole (``seq``
+    None), or this rank's part merged with the other ranks' (``seq``)."""
+    if seq is None:
+        return sdpa_decode(q, k_cache, v_cache, valid)
+    o, lse = sdpa_decode_stats(q, k_cache, v_cache, valid)
+    return merge_decode(o, lse, seq.ranks, q.dtype)
+
+
+# the bytes that decode's gathers of a cache split on the head dim moved
+# into this rank (``attn_apply``'s k/v columns), since the last reset
+head_dim_gather = {"bytes": 0}
+
+
+def _whole_kv(t: torch.Tensor, kv: int, hd: int) -> torch.Tensor:
+    """A k or v ring (B, S, KV_local, HD_local) with every kv head and
+    every head-dim column: gathered over the model axis where its plan
+    split the kv heads or the head dim (the price of decoding a cache
+    split on the head dim, which the plan takes when the kv heads do not
+    divide the axis)."""
+    for dim, full in ((3, hd), (2, kv)):
+        if t.shape[dim] != full:
+            MA.chunk_of(full, t.shape[dim])
+            t = all_gather_cat(t.contiguous(), MA.active(), dim)
+            head_dim_gather["bytes"] += t.numel() * t.element_size() * (
+                MA.active().size - 1) // MA.active().size
+    return t
+
+
+def _decode_kv(q, k, v, first, cache, pos, seq, cfg: ModelConfig,
+               kv_range, kv_index=None):
+    """One decode step of a GQA ring on this rank -> (o (B,1,nq,hd) of the
+    query heads ``q``, the cache). ``k``, ``v`` (B,1,n,hd) are the new
+    key and value of the kv heads from ``first`` (at least the cache
+    shard's); the rank writes its kv heads, its head-dim columns and (a
+    split ring) its slots of them. The query heads read kv heads
+    [kv_range) in their order (``kv_index``, each query head's kv head
+    less kv_range[0], where the GQA order would pair them otherwise),
+    gathered over the model axis where the shard lacks them."""
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    k_cache, v_cache = cache["k"], cache["v"]
+    c0, c1 = MA.chunk_of(kv, k_cache.shape[2])
+    d0, d1 = MA.chunk_of(hd, k_cache.shape[3])
+    ring_write(k_cache, k[:, 0, c0 - first:c1 - first, d0:d1], pos, seq)
+    ring_write(v_cache, v[:, 0, c0 - first:c1 - first, d0:d1], pos, seq)
+    valid = ring_valid(k_cache.shape[1], pos, seq, q.device)
+    kc, vc = k_cache, v_cache
+    n0, n1 = kv_range
+    if not (c0 <= n0 and n1 <= c1) or d1 - d0 != hd:
+        kc, vc, c0 = _whole_kv(kc, kv, hd), _whole_kv(vc, kv, hd), 0
+    kc, vc = kc[:, :, n0 - c0:n1 - c0], vc[:, :, n0 - c0:n1 - c0]
+    if kv_index is not None:
+        idx = torch.tensor(kv_index, device=q.device)
+        kc, vc = kc.index_select(2, idx), vc.index_select(2, idx)
+    o = _ring_attend(q.contiguous(), kc.contiguous(), vc.contiguous(),
+                     valid, seq)
+    return o, {"k": k_cache, "v": v_cache}
+
+
 # --------------------------------------------------------------------------
 # GQA attention block
 # --------------------------------------------------------------------------
@@ -383,7 +543,7 @@ def attn_cache_init(cfg: ModelConfig, batch: int, seq_len: int, window: int,
 
 def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
                window: int = 0, causal: bool = True, chunked: bool = True,
-               enc_out=None):
+               enc_out=None, seq: Optional[SeqSplit] = None):
     """GQA attention. In decode mode, (cache, pos) hold/advance the KV ring.
 
     The new key and value are written IN PLACE at slot ``pos % size`` of
@@ -394,12 +554,19 @@ def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
 
     ``enc_out`` (B, Se, d), in either mode: whisper's decoder
     cross-attention after the self-attention (``_cross_core``), its keys
-    and values projected from ``enc_out`` on every call."""
+    and values projected from ``enc_out`` on every call.
+
+    ``seq``: the ring's slots are split over ranks (``SeqSplit``): the
+    rank that holds slot ``pos % size`` writes it, each rank attends over
+    its slots with the decode kernel's softmax statistics and the ranks'
+    outputs are merged (``merge_decode``). A ring split on the head dim
+    (or on kv heads other than the ones the query heads read) over the
+    model axis is gathered whole for the step (``_decode_kv``)."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if MA.active() is not None and p["wq"].shape[-1] != h * hd:
         return _attn_apply_tp(p, x, cfg=cfg, mode=mode, cache=cache, pos=pos,
                               window=window, causal=causal, chunked=chunked,
-                              enc_out=enc_out)
+                              enc_out=enc_out, seq=seq)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     b, s, _ = xn.shape
     q, k, v = xn @ p["wq"], xn @ p["wk"], xn @ p["wv"]
@@ -412,16 +579,7 @@ def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
     if mode == "decode":
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k = apply_rope(k, pos[:, None], cfg.rope_theta)
-        k_cache, v_cache = cache["k"], cache["v"]
-        size = k_cache.shape[1]
-        slot = (pos % size).long()
-        rows = torch.arange(b, device=x.device)
-        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
-        valid = (torch.arange(size, device=x.device)[None, :]
-                 <= torch.clamp(pos, max=size - 1)[:, None])
-        o = sdpa_decode(q, k_cache, v_cache, valid)
-        cache = {"k": k_cache, "v": v_cache}
+        o, cache = _decode_kv(q, k, v, 0, cache, pos, seq, cfg, (0, kv))
     else:
         positions = torch.arange(s, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -487,44 +645,46 @@ def _tp_out(o: torch.Tensor, share, wo: torch.Tensor, hd: int
 
 
 def _attn_apply_tp(p, x, *, cfg: ModelConfig, mode: str, cache, pos,
-                   window: int, causal: bool, chunked: bool, enc_out):
+                   window: int, causal: bool, chunked: bool, enc_out,
+                   seq=None):
     """``attn_apply`` on one rank of a model axis, its weights this rank's
     shards (``model_axis``): the normed input enters by ``copy``, each
     rank computes its query heads (``model_axis.head_share``) against the
     kv heads they read, on the kernels as one rank would, and ``wo``'s
     partial products are summed. In decode the new key and value go to
-    the kv heads this rank's cache holds (the plan shards the cache on
-    whole kv heads, or replicates it)."""
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    the kv heads (and head-dim columns) this rank's cache holds, which
+    are gathered where the query heads read more (``_decode_kv``). Where
+    the ring's slots are split over the model axis too (``seq`` over
+    "model": the reference's ``cache_seq_shard``), every query head
+    attends this rank's slots (q, k and v gathered whole), the ranks'
+    outputs are merged, and each rank keeps its own heads' columns for
+    its rows of ``wo``."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = MA.copy(rms_norm(x, p["norm"], cfg.norm_eps))
     b, s, _ = xn.shape
     names = ("wq", "wk", "wv", "bq", "bk", "bv")
-    if mode == "decode":
-        k_cache, v_cache = cache["k"], cache["v"]
-        if k_cache.shape[-1] != hd:
-            raise NotImplementedError(
-                "a decode cache sharded on the head dim over 'model' is "
-                "planned, not executed (ROADMAP.md item 15b)")
-        c0, c1 = MA.chunk_of(kv, k_cache.shape[2])
-        share, q, k, v, first = _tp_heads(xn, xn, p, names, cfg, (c0, c1))
-        if not (c0 <= share.k0 and share.k1 <= c1):
-            raise NotImplementedError(
-                "this rank's query heads read kv heads its cache shard does "
-                "not hold (ROADMAP.md item 15b)")
+    if mode == "decode" and seq is not None and "model" in seq.axes:
+        q, (lo, hi) = MA.project(xn, p["wq"], p.get("bq"), h * hd)
+        q = MA.whole(q, h * hd).reshape(b, s, h, hd)
+        k = MA.whole(MA.project(xn, p["wk"], p.get("bk"), kv * hd)[0],
+                     kv * hd).reshape(b, s, kv, hd)
+        v = MA.whole(MA.project(xn, p["wv"], p.get("bv"), kv * hd)[0],
+                     kv * hd).reshape(b, s, kv, hd)
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k = apply_rope(k, pos[:, None], cfg.rope_theta)
-        size = k_cache.shape[1]
-        slot = (pos % size).long()
-        rows = torch.arange(b, device=x.device)
-        k_cache[rows, slot] = k[:, 0, c0 - first:c1 - first].to(
-            k_cache.dtype)
-        v_cache[rows, slot] = v[:, 0, c0 - first:c1 - first].to(
-            v_cache.dtype)
-        valid = (torch.arange(size, device=x.device)[None, :]
-                 <= torch.clamp(pos, max=size - 1)[:, None])
-        o = sdpa_decode(q.contiguous(), _tp_kv(k_cache, share, c0),
-                        _tp_kv(v_cache, share, c0), valid)
-        cache = {"k": k_cache, "v": v_cache}
+        o, cache = _decode_kv(q, k, v, 0, cache, pos, seq, cfg, (0, kv))
+        if p["wo"].shape[0] != hi - lo:
+            raise ValueError(f"wo holds {p['wo'].shape[0]} rows where this "
+                             f"rank's query columns are {hi - lo}")
+        y = MA.row_product(o.reshape(b, s, h * hd)[..., lo:hi], p["wo"])
+    elif mode == "decode":
+        c0, c1 = MA.chunk_of(kv, cache["k"].shape[2])
+        share, q, k, v, first = _tp_heads(xn, xn, p, names, cfg, (c0, c1))
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+        o, cache = _decode_kv(q, k, v, first, cache, pos, seq, cfg,
+                              (share.k0, share.k1), share.kv_index)
+        y = _tp_out(o, share, p["wo"], hd)
     else:
         share, q, k, v, first = _tp_heads(xn, xn, p, names, cfg)
         positions = torch.arange(s, device=x.device)
@@ -533,7 +693,7 @@ def _attn_apply_tp(p, x, *, cfg: ModelConfig, mode: str, cache, pos,
         o = _prefill_core(q.contiguous(), _tp_kv(k, share, first),
                           _tp_kv(v, share, first), causal=causal,
                           window=window, chunked=chunked)
-    y = _tp_out(o, share, p["wo"], hd)
+        y = _tp_out(o, share, p["wo"], hd)
 
     if enc_out is not None:                    # whisper decoder cross-attn
         xn2 = MA.copy(rms_norm(x + y, p["cross_norm"], cfg.norm_eps))
@@ -669,7 +829,7 @@ def _mla_heads(c_kv, k_rope, w_uk, w_uv, cfg: ModelConfig):
 
 def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
               window: int = 0, absorbed: bool = False, chunked: bool = True,
-              **_):
+              seq: Optional[SeqSplit] = None, **_):
     """MLA. ``absorbed=False`` is the naive form that rebuilds per-head K/V
     from the latent cache; ``absorbed=True`` attends in the kv_lora latent
     space (decode only, plain torch: no kernel takes its D = r + dr and
@@ -690,7 +850,18 @@ def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
     computed whole on every rank; ``wo``'s partial products are summed.
     A latent cache split on r holds this rank's chunk of every slot: the
     rank writes its chunk and gathers the ring's latent for the rebuild
-    (``k_rope``, replicated, every rank writes whole)."""
+    (``k_rope``, replicated, every rank writes whole).
+
+    ``seq``: the latent ring's slots are split over ranks (``SeqSplit``,
+    deepseek's long_500k over "data", or the reference's
+    ``cache_seq_shard`` over "model"): the rank holding slot ``pos %
+    size`` writes it, each rank rebuilds K and V of its own slots and
+    runs the decode kernel with statistics (the absorbed form: its plain
+    einsums with the same statistics), and the ranks' outputs are merged
+    (``merge_decode``). Where the slots are split over the model axis
+    that also splits the heads, every head attends this rank's slots (q
+    and the up-projections gathered whole) and each rank keeps its own
+    heads after the merge."""
     h = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     heads = _mla_heads_of(p, cfg, cache if mode == "decode" else None)
@@ -701,43 +872,58 @@ def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
     w_uk, w_uv = _mla_up(p, cfg, heads)
 
     if mode == "decode":
+        ckv_c, kr_c = cache["c_kv"], cache["k_rope"]
+        if seq is not None and "model" in seq.axes and heads is not None:
+            # every head attends this rank's slots: q and the up
+            # projections whole, this rank's heads kept after the merge
+            q = all_gather_cat(q.contiguous(), MA.active(), 2)
+            w_uk, w_uv = (MA.whole(p["w_uk"], h * dn),
+                          MA.whole(p["w_uv"], h * dv))
         q_nope, q_rope = q[..., :dn], q[..., dn:]
         q_rope = apply_rope(q_rope, pos[:, None], cfg.rope_theta)
         k_rope = apply_rope(k_rope[:, :, None, :], pos[:, None],
                             cfg.rope_theta)[:, :, 0]
-        ckv_c, kr_c = cache["c_kv"], cache["k_rope"]
-        size = ckv_c.shape[1]
-        slot = (pos % size).long()
-        rows = torch.arange(b, device=x.device)
-        ckv_c[rows, slot] = MA.mine(c_kv[:, 0], ckv_c.shape[-1]).to(
-            ckv_c.dtype)
-        kr_c[rows, slot] = k_rope[:, 0].to(kr_c.dtype)
-        valid = (torch.arange(size, device=x.device)[None, :]
-                 <= torch.clamp(pos, max=size - 1)[:, None])
+        ring_write(ckv_c, MA.mine(c_kv[:, 0], ckv_c.shape[-1]), pos, seq)
+        ring_write(kr_c, k_rope[:, 0], pos, seq)
+        valid = ring_valid(ckv_c.shape[1], pos, seq, x.device)
         # the ring's whole latent (gathered where the cache is split)
         ckv = MA.whole(ckv_c, cfg.kv_lora_rank) if heads else ckv_c
+        na = q.shape[2]                          # the heads attending
         if absorbed:
             scale = 1.0 / math.sqrt(dn + dr)
             ckv = ckv.to(q.dtype)
             # fold W_uk into q: attend directly in the r-dim latent space
-            w_uk = w_uk.reshape(-1, hl, dn)                     # (r,h,dn)
+            w_uk = w_uk.reshape(-1, na, dn)                     # (r,h,dn)
             q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
             s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat, ckv)
             s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope,
                                   kr_c.to(q.dtype))
             att = (s_lat + s_rope).to(torch.float32) * scale
             att = torch.where(valid[:, None, None, :], att, NEG)
-            pr = torch.softmax(att, -1).to(q.dtype)
-            o_lat = torch.einsum("bhqk,bkr->bqhr", pr, ckv)
-            w_uv = w_uv.reshape(-1, hl, dv)                     # (r,h,dv)
+            if seq is None:
+                pr = torch.softmax(att, -1).to(q.dtype)
+                o_lat = torch.einsum("bhqk,bkr->bqhr", pr, ckv)
+            else:
+                # this rank's slots' softmax statistics, then the merge
+                m = att.amax(-1)
+                pr = torch.exp(att - m[..., None])
+                l_ = pr.sum(-1)
+                o_lat = torch.einsum("bhqk,bkr->bqhr", pr.to(q.dtype), ckv)
+                o_lat = o_lat.to(torch.float32) / l_.transpose(1, 2)[
+                    ..., None]
+                o_lat = merge_decode(o_lat, (m + torch.log(l_))[:, :, 0],
+                                     seq.ranks, q.dtype)
+            w_uv = w_uv.reshape(-1, na, dv)                     # (r,h,dv)
             o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
         else:
             k_full, v_pad = _mla_heads(ckv.to(q.dtype), kr_c.to(q.dtype),
                                        w_uk, w_uv, cfg)
             q_full = torch.cat([q_nope, q_rope], -1)
-            o = sdpa_decode(q_full, k_full, v_pad, valid)[..., :dv]
+            o = _ring_attend(q_full, k_full, v_pad, valid, seq)[..., :dv]
             del k_full, v_pad
         del ckv
+        if na != hl:                             # this rank's heads
+            o = o[:, :, heads[0]:heads[1]]
         cache = {"c_kv": ckv_c, "k_rope": kr_c}
     else:
         positions = torch.arange(s, device=x.device)
@@ -876,9 +1062,30 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
     tokens and the weights ``topv`` enter the rank's work through
     ``copy``, so the router's gradient is the whole one, once. Experts
     that do not divide the axis stay replicated and every rank runs them
-    all. The shared experts are column- then row-parallel (``_gated``)."""
+    all. The shared experts are column- then row-parallel (``_gated``).
+
+    With the batch's rows split over "data" (``fsdp``), the route is one
+    rank's only where each rank's tokens form whole groups of
+    ``group_size``: the load-balance term's two means are then averaged
+    over the data ranks (``fsdp.mean``). Where they do not (a decode
+    step's few rows), the rows are gathered over "data", every rank routes
+    them all as one rank would and keeps its own (no gradient: the train
+    step refuses such rows)."""
     b, s, d = x.shape
     e = cfg.num_experts
+    lay = FS.active()
+    if lay is not None and lay.rows and (b * s) % group_size:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise ValueError(
+                f"the MoE's tokens over 'data': {b * s} a rank are no whole "
+                f"groups of {group_size} (the one-rank route needs each "
+                f"rank's tokens to form whole groups)")
+        every = FS.rows_gathered(x)
+        with FS.over(None):
+            y, aux = moe_apply(p, every, cfg=cfg,
+                               capacity_factor=capacity_factor,
+                               group_size=group_size)
+        return FS.my_rows(y, b), aux
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     flat = xn.reshape(-1, d)
     n = flat.shape[0]
@@ -933,9 +1140,9 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
         y = y + _gated(xn, p["ws_gate"], p["ws_up"], p["ws_down"],
                        cfg.d_ff * cfg.num_shared_experts, cfg.act)
     # the load-balance term (over the routed tokens, top-1 choices)
-    me = r.probs.mean(0)
-    ce = (r.topi[:, :1] == torch.arange(e, device=x.device)).to(
-        torch.float32).mean(0)
+    me = FS.mean(r.probs.mean(0))
+    ce = FS.mean((r.topi[:, :1] == torch.arange(e, device=x.device)).to(
+        torch.float32).mean(0))
     aux = cfg.router_aux_loss * e * torch.sum(me * ce)
     return y, aux
 

@@ -47,6 +47,12 @@ vocabulary: the lookup is masked to this rank's rows and summed over the
 ranks, ``apply``'s logits are gathered over them, and ``loss`` takes the
 log-softmax over the split vocabulary (``model_axis.next_token_nll``)
 without gathering the logits.
+
+With FSDP (``models/fsdp.py``) each block's data-split leaves are
+gathered at the block's entry (inside the unit a remat checkpoints), the
+embedding, the head and the projector where they are read. ``apply``'s
+``rings`` give each attention or latent ring's ``layers.SeqSplit`` where
+the decode step splits its slots over ranks.
 """
 from __future__ import annotations
 
@@ -60,6 +66,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import fsdp as FS
 from repro_torch.models import layers as L
 from repro_torch.models import model_axis as MA
 from repro_torch.optim.optimizers import tree_map
@@ -210,20 +217,24 @@ def _block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, seq_len: int,
 
 
 def _block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, mode: str,
-                 cache, pos, enc_out=None):
+                 cache, pos, enc_out=None, dims=None, seq=None):
     """-> (x, cache, aux): aux is the MoE's load-balance term, None for
     another FFN (the reference adds a zero). ``enc_out`` is read by an
     ``attn_cross`` mixer only. On a model axis every rank computes the
-    whole route, so ``aux`` is each rank's whole term, added once."""
+    whole route, so ``aux`` is each rank's whole term, added once.
+    ``dims``: the block's data-split dims (FSDP: its leaves gathered over
+    "data" first, ``fsdp.gather_block``); ``seq``: the ``layers.SeqSplit``
+    of an attention or latent ring whose slots are split over ranks."""
+    params = FS.gather_block(params, dims)
     kw = dict(cfg=cfg, mode=mode, cache=(cache or {}).get("mixer"), pos=pos,
               window=spec.window)
     if spec.mixer in ("attn", "attn_cross"):
         y, mc = L.attn_apply(params["mixer"], x, causal=spec.causal,
                              enc_out=enc_out if spec.mixer == "attn_cross"
-                             else None, **kw)
+                             else None, seq=seq, **kw)
     elif spec.mixer == "mla":
         y, mc = L.mla_apply(params["mixer"], x, absorbed=cfg.mla_absorbed,
-                            **kw)
+                            seq=seq, **kw)
     elif spec.mixer == "mamba":
         y, mc = L.mamba_apply(params["mixer"], x, **kw)
     else:
@@ -367,24 +378,30 @@ class LM:
 
     # ---------------- apply ----------------
     def _run_stages(self, stages, stage_params, x, mode, cache_stages, pos,
-                    enc_out=None):
-        """-> (x, the blocks' aux summed in layer order (f32), caches)."""
+                    enc_out=None, dims=None, rings=None):
+        """-> (x, the blocks' aux summed in layer order (f32), caches).
+        ``dims`` (FSDP) and ``rings`` (a ring split over ranks) are the
+        stages' data-split dims and ``layers.SeqSplit``s, a list a stage of
+        a list a unit position (None: none)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
         for si, (st, sp) in enumerate(zip(stages, stage_params)):
             scache = cache_stages[si] if cache_stages is not None else None
+            sdims, srings = FS.at(dims, si), FS.at(rings, si)
             if st.kind == "unroll":
                 ncs = []
                 for li, spec in enumerate(st.unit):
                     c = scache[li] if scache is not None else None
                     x, nc, a = _block_apply(sp[li], x, spec, self.cfg, mode,
-                                            c, pos, enc_out)
+                                            c, pos, enc_out,
+                                            FS.at(sdims, li),
+                                            FS.at(srings, li))
                     aux = _add(aux, a)
                     ncs.append(nc)
                 new_caches.append(ncs)
             elif scache is None:
                 unit = functools.partial(self._unit_apply, st.unit, mode,
-                                         pos, enc_out)
+                                         pos, enc_out, sdims)
                 remat = (self.remat and mode == "full"
                          and torch.is_grad_enabled())
                 for lp in _layers(sp, st.repeats):
@@ -398,21 +415,23 @@ class LM:
                         x, _, a = _block_apply(_layer(sp[ui], r), x, spec,
                                                self.cfg, mode,
                                                _layer(scache[ui], r), pos,
-                                               enc_out)
+                                               enc_out, FS.at(sdims, ui),
+                                               FS.at(srings, ui))
                         aux = _add(aux, a)
                 # the stacked caches were written in place, layer by
                 # layer, through the views (rings and states alike)
                 new_caches.append(scache)
         return x, aux, new_caches
 
-    def _unit_apply(self, unit, mode, pos, enc_out, x, lp):
+    def _unit_apply(self, unit, mode, pos, enc_out, dims, x, lp):
         """One repeat of a scan stage (its unit's blocks) without a cache:
         the body the reference's scan runs (and ``jax.checkpoint``s) ->
-        (x, the unit's aux summed (f32))."""
+        (x, the unit's aux summed (f32)); each block's data-split leaves
+        gathered at its entry, inside the checkpointed body."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for ui, spec in enumerate(unit):
             x, _, a = _block_apply(lp[ui], x, spec, self.cfg, mode, None,
-                                   pos, enc_out)
+                                   pos, enc_out, FS.at(dims, ui))
             aux = _add(aux, a)
         return x, aux
 
@@ -424,25 +443,30 @@ class LM:
         h = frames + sinusoidal_pos(self.cfg.d_model, pos)[None].to(
             frames.dtype)
         h, _, _ = self._run_stages(self.enc_stages, params["enc_stages"], h,
-                                   "full", None, None)
+                                   "full", None, None,
+                                   dims=FS.dims("enc_stages"))
         return L.rms_norm(h, params["enc_norm"], self.cfg.norm_eps)
 
     def embed_tokens(self, params, tokens):
-        return MA.embed(params["embed"], tokens, self.cfg.padded_vocab) \
+        w = FS.gather_leaf(params["embed"], FS.dims("embed"))
+        return MA.embed(w, tokens, self.cfg.padded_vocab) \
             * math.sqrt(self.cfg.d_model)
 
     def head(self, params, h):
         """The head's weight (d, vocab, or this rank's columns of it) in
-        ``h``'s dtype: the tied embedding's transpose, or ``lm_head``."""
-        w = params["embed"].T if self.cfg.tie_embeddings \
-            else params["lm_head"]
+        ``h``'s dtype: the tied embedding's transpose, or ``lm_head``
+        (gathered over "data" where FSDP splits it)."""
+        if self.cfg.tie_embeddings:
+            w = FS.gather_leaf(params["embed"], FS.dims("embed")).T
+        else:
+            w = FS.gather_leaf(params["lm_head"], FS.dims("lm_head"))
         return w.to(h.dtype)
 
     def apply(self, params, tokens, *, mode: str = "full", cache=None,
               prefix_embeds=None, enc_frames=None,
               return_hidden: bool = False,
               stage_range: Optional[Tuple[int, int]] = None,
-              hidden_in=None, dtype=torch.float32):
+              hidden_in=None, dtype=torch.float32, rings=None):
         """Forward. mode: full (prefill) | decode (1 token + cache).
         stage_range selects a sub-interval of stages; hidden_in feeds
         activations at a stage boundary. Returns (logits or hidden, cache,
@@ -494,13 +518,17 @@ class LM:
                 h = h + sinusoidal_pos(cfg.d_model, torch.arange(
                     tokens.shape[1], device=h.device))[None].to(dtype)
             if prefix_embeds is not None:    # VLM: prepend the patches
-                pe = prefix_embeds.to(dtype) @ params["proj"].to(dtype)
+                proj = FS.gather_leaf(params["proj"], FS.dims("proj"))
+                pe = prefix_embeds.to(dtype) @ proj.to(dtype)
                 h = torch.cat([pe, h], 1)
 
         cache_stages = cache["stages"][lo:hi] if cache is not None else None
+        stage_dims = FS.dims("stages")
         h, aux, new_stage_caches = self._run_stages(
             self.stages[lo:hi], params["stages"][lo:hi], h, mode,
-            cache_stages, pos, enc_out)
+            cache_stages, pos, enc_out,
+            stage_dims[lo:hi] if stage_dims is not None else None,
+            rings[lo:hi] if rings is not None else None)
 
         new_cache = None
         if cache is not None:

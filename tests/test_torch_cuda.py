@@ -464,6 +464,40 @@ def test_flash_decode_split_counts_and_bits_repeat(card, b, s, splits):
     assert torch.equal(got, again)
 
 
+# the statistics: one split, two, many (B=1 over 32,768 slots, and one
+# gemma3-4b rank's long_500k shape cut to 65,536 slots: D 256, G 2); a
+# cache with no valid slot (o the mean of v, lse at the NEG logit)
+@pytest.mark.parametrize("b,s,h,kv,d,fill,dtype", [
+    (32, 64, 32, 8, 64, 47, torch.bfloat16),
+    (4, 128, 32, 8, 64, 100, torch.bfloat16),
+    (1, 32768, 32, 8, 64, 30000, torch.bfloat16),
+    (1, 65536, 8, 4, 256, 40000, torch.bfloat16),
+    (3, 300, 14, 2, 64, None, torch.float32),
+    (2, 1000, 8, 8, 192, 0, torch.bfloat16)])
+def test_flash_decode_stats_kernel(card, b, s, h, kv, d, fill, dtype):
+    q, kc, vc, valid = _decode_inputs(card, b, s, h, kv, d, fill, dtype,
+                                      dtype)
+    before = ops.flash_decode.stats_launches
+    o, lse = ops.flash_decode(q, kc, vc, valid, stats=True)
+    again = ops.flash_decode(q, kc, vc, valid, stats=True)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.stats_launches == before + 2
+    assert o.dtype == lse.dtype == torch.float32 and lse.shape == (b, h)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    want_o, want_lse = ref.flash_decode_stats_ref(q, kc, vc, valid)
+    _att_close(o, want_o, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=2e-3)
+    # the merge of two halves' statistics is the whole ring's decode
+    from repro_torch.models.layers import merge_parts
+    parts = [ops.flash_decode(q, kc[:, sl].contiguous(),
+                              vc[:, sl].contiguous(),
+                              valid[:, sl].contiguous(), stats=True)
+             for sl in (slice(0, s // 2), slice(s // 2, s))]
+    merged = merge_parts(torch.stack([p[0] for p in parts]),
+                         torch.stack([p[1] for p in parts]), dtype)
+    _att_close(merged, ref.flash_decode_ref(q, kc, vc, valid), dtype)
+
+
 def test_attention_kernels_refuse_tensors_that_need_grad(card):
     """Only the decode kernel refuses a tensor that needs a gradient (the
     reference never differentiates decode); the prefill kernel under

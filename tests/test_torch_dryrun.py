@@ -445,3 +445,83 @@ def test_meta_selection_counts_one_lloyd_sweep_and_flags_it():
     assert sc.unknown_trips == 1
     assert sc.kernel_launches["kmeans_lloyd_step"] == 1
     assert sc.kernel_launches["kmeans_pairwise_dist"] == classes * (kk - 1) + 1
+
+
+@pytest.fixture
+def production_mesh():
+    """The 16 x 16 mesh over a fake world of 256 ranks (this process rank
+    0): the step makers' checks and the placements, no collective."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_production_mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=256)
+    yield make_production_mesh(device_type="cpu")
+    dist.destroy_process_group()
+
+
+def _meta_cache(lm, mesh, shape, seq_shard):
+    """``cache_on_mesh``'s DTensor cache at ``shape`` on meta tensors."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.specs import _cache_placements
+    shapes = lm.init_cache(shape.global_batch, shape.seq_len,
+                           device="meta")
+    placements = _cache_placements(lm.cfg, mesh, shapes, shape.global_batch,
+                                   seq_shard)
+
+    def one(x, pl):
+        local = list(x.shape)
+        for i, p in enumerate(pl):
+            if not p.is_replicate():
+                local[p.dim] //= mesh.size(i)
+        return DTensor.from_local(
+            torch.empty(local, dtype=x.dtype, device="meta"), mesh, pl,
+            run_check=False, shape=x.shape, stride=x.stride())
+    return sh.map_with_placements(one, shapes, placements)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_production_decode_and_fsdp_steps_pass_the_step_checks(
+        production_mesh, arch):
+    """At the 16 x 16 axes, meta only: every arch's decode_32k and
+    long_500k (as ``resolve_mode`` runs them), with and without
+    ``cache_seq_shard``, builds its decode step and its cache on
+    ``cache_plan``'s placements (the head dim over "model" where the kv
+    heads do not divide 16, the sequence over "data" at long_500k's
+    batch of 1, over "model" or ("data", "model") with
+    ``cache_seq_shard``), which the step's checks take and whose split
+    rings the step reads (``steps._rings``); jamba's and deepseek's train,
+    prefill and decode steps build with their weights over "data"
+    (FSDP). What still raises does so in the layers (RWKV or MLA heads
+    that do not divide 16: ``model_axis.even_share``)."""
+    from repro_torch.launch.specs import check_cache_placements, step_plan
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    cfg = get_config(arch)
+    axes = mesh_axis_sizes(production_mesh)
+    seen = set()
+    for shape_name in ("decode_32k", "long_500k"):
+        ok, force_swa, _ = dryrun.resolve_mode(cfg, shape_name)
+        if not ok:
+            continue
+        shape = INPUT_SHAPES[shape_name]
+        for seq_shard in (False, True):
+            _, lm = steps.make_decode_step(cfg, force_swa=force_swa,
+                                           mesh=production_mesh,
+                                           cache_seq_shard=seq_shard)
+            cache = _meta_cache(lm, production_mesh, shape, seq_shard)
+            check_cache_placements(cfg, production_mesh, cache,
+                                   shape.global_batch, seq_shard)
+            seen |= {r.axes for st in steps._rings(cache, production_mesh)
+                     for r in st if r is not None}
+    if arch == "rwkv6-3b":                    # no ring, states only
+        assert not seen
+    elif arch == "whisper-medium":            # no long_500k
+        assert seen == {("model",)}
+    elif arch != "jamba-1.5-large-398b" or seen:
+        assert seen == {("model",), ("data",), ("data", "model")}
+    if arch in ("jamba-1.5-large-398b", "deepseek-v2-236b"):
+        steps.make_train_step(cfg, TrainConfig(), mesh=production_mesh)
+        steps.make_prefill_step(cfg, mesh=production_mesh)
+        plan = step_plan(cfg, axes, "decode")
+        assert plan.notes == ["fsdp: second weight dim sharded over 'data'"]

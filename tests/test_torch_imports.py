@@ -35,12 +35,13 @@ print(" ".join(names))
 """
 
 # the modules of the multi-device launch, of the cost model and the dry
-# run, and of the model axis, which must be in the walk
+# run, of the model axis and of the data axis (FSDP), which must be in
+# the walk
 LAUNCH = {"repro_torch.launch.mesh", "repro_torch.launch.sharding",
           "repro_torch.launch.specs", "repro_torch.core.collectives",
           "repro_torch.kernels.cost", "repro_torch.obs.profile",
           "repro_torch.launch.flop_analysis", "repro_torch.launch.dryrun",
-          "repro_torch.models.model_axis"}
+          "repro_torch.models.model_axis", "repro_torch.models.fsdp"}
 
 
 def test_every_module_imports_without_jax_or_repro():
@@ -49,7 +50,7 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad, names = (out.stdout.splitlines() + ["", "", ""])[:3]
-    assert int(count) >= 84, out.stdout
+    assert int(count) >= 85, out.stdout
     assert bad == "", f"repro_torch pulled in: {bad}"
     assert LAUNCH <= set(names.split()), out.stdout
 

@@ -217,13 +217,16 @@ def test_wrappers_check_their_inputs_and_count_only_launches():
     out, lse = ops.flash_attention(q, kv, kv, return_stats=True)
     ops.flash_attention_bwd(q, kv, kv, out, out, lse)
     ops.flash_decode(q[:, :1], kv, kv, torch.ones(1, 5, dtype=torch.bool))
+    ops.flash_decode(q[:, :1], kv, kv, torch.ones(1, 5, dtype=torch.bool),
+                     stats=True)
     assert ops.launch_counts() == {"kmeans_pairwise_dist": 0,
                                    "kmeans_lloyd_step": 0,
                                    "quantize_affine": 0,
                                    "quantize_affine_batched": 0,
                                    "flash_attention": 0,
                                    "flash_attention_bwd": 0,
-                                   "flash_decode": 0}
+                                   "flash_decode": 0,
+                                   "flash_decode_stats": 0}
     with pytest.raises(TypeError):
         ops.kmeans_pairwise_dist(x.double(), c.double())
     with pytest.raises(ValueError):

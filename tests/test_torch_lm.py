@@ -54,6 +54,7 @@ from repro_torch.models.registry import count_params
 from repro_torch.models.transformer import (LM, cast_params, params_from_jax,
                                             params_to_jax)
 from repro_torch.optim import tree_leaves
+from test_torch_round import one_torch_thread  # noqa: F401
 
 ARCHS = ["llama3.2-1b", "qwen2-0.5b", "gemma3-4b", "qwen3-moe-30b-a3b",
          "phi3-medium-14b", "deepseek-v2-236b", "rwkv6-3b"]

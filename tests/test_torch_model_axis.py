@@ -32,15 +32,16 @@ cross-attention; reduced) run prefill, decode and the train step on
 to the reference. Each rank records the query heads of its attention
 calls: h / m of them.
 
-(d) What a model axis still refuses names ROADMAP item 15b: FSDP (also
-    jamba's and deepseek's, in train, prefill and decode),
-    sequence-sharded activations, a k/v cache split on the head dim and
-    inference over "pod" (the fake process group stands in for the
-    ranks); a DTensor reaching a kernel wrapper raises and names the
-    wrapper. The MoE, MLA, Mamba and RWKV families on a model axis are
-    ``tests/test_torch_model_axis_moe_mla.py`` and
-    ``tests/test_torch_model_axis_ssm.py``; ``specs.params_on_mesh`` is
-    held here to the distributed init.
+(d) What a model axis still refuses names ROADMAP item 15b:
+    sequence-sharded activations and inference over "pod" (the fake
+    process group stands in for the ranks); a DTensor reaching a kernel
+    wrapper raises and names the wrapper. The MoE, MLA, Mamba and RWKV
+    families on a model axis are ``tests/test_torch_model_axis_moe_mla.py``
+    and ``tests/test_torch_model_axis_ssm.py``; FSDP (jamba's, deepseek's
+    and a dense arch's past the threshold) is
+    ``tests/test_torch_fsdp.py``, a k/v or latent cache split on the head
+    dim or the sequence ``tests/test_torch_seq_cache.py``;
+    ``specs.params_on_mesh`` is held here to the distributed init.
 """
 import dataclasses
 import os
@@ -139,9 +140,10 @@ def _torch(tree):
 
 class Port:
     """One arch's port weights (from the reference's) and one-rank
-    steps' results."""
+    steps' results; ``train`` False leaves out the train step's weights
+    (a port that only serves)."""
 
-    def __init__(self, arch, seed, gs):
+    def __init__(self, arch, seed, gs, train=True):
         self.jcfg, self.cfg = _cfgs(arch)
         cfg, tcfg = self.cfg, TrainConfig(**TCFG)
         self.train_lm = make_train_step(cfg, tcfg)[1]
@@ -153,6 +155,7 @@ class Port:
             self.jtree = jax.tree.map(np.asarray, JLM(self.jcfg).init(
                 jax.random.PRNGKey(seed)))
             self.params = params_from_jax(self.jtree, cfg)
+        if self.jcfg is not None and train:
             _, jlm_split = jmake_train_step(self.jcfg, JTrainConfig(**TCFG))
             self.jtrain_tree = jax.tree.map(
                 np.asarray, jlm_split.init(jax.random.PRNGKey(seed + 1)))
@@ -456,19 +459,6 @@ def _refused(step, cfg, mesh, tcfg=None):
     return cache_on_mesh(lm, mesh, 2, 8)
 
 
-@pytest.mark.parametrize("step", ["train", "prefill", "decode"])
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "deepseek-v2-236b"])
-def test_the_families_fsdp_on_a_model_axis_raises(fake_world, arch, step):
-    """Every family runs on a model axis now; what still raises is the
-    rest of item 15b. Jamba and deepseek shard their weights over "data"
-    (FSDP) on a 2 x 2 mesh."""
-    mesh = fake_world(4, (2, 2))
-    with pytest.raises(NotImplementedError, match="item 15b") as err:
-        _refused(step, get_config(arch), mesh)
-    assert "FSDP" in str(err.value)
-
-
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-236b",
                                   "jamba-1.5-large-398b", "rwkv6-3b"])
 def test_the_families_sequence_sharded_activations_raise(fake_world,
@@ -478,18 +468,6 @@ def test_the_families_sequence_sharded_activations_raise(fake_world,
         _refused("train", get_config(arch).reduced(), mesh,
                  TrainConfig(seq_shard_activations=True))
     assert "sequence-sharded" in str(err.value)
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
-                                  "jamba-1.5-large-398b"])
-def test_the_families_kv_cache_split_on_the_head_dim_raises(fake_world,
-                                                            arch):
-    """The reduced qwen3-moe's and jamba's 2 kv heads do not divide a
-    model axis of 4, so ``cache_plan`` splits their k/v head dim."""
-    mesh = fake_world(4, (1, 4))
-    with pytest.raises(NotImplementedError, match="item 15b") as err:
-        _refused("decode", get_config(arch).reduced(), mesh)
-    assert "head dim" in str(err.value)
 
 
 @pytest.mark.parametrize("step", ["prefill", "decode"])
@@ -526,33 +504,11 @@ def test_params_on_mesh_is_the_distributed_init(fake_world, arch):
                for p in x.placements)
 
 
-@pytest.mark.parametrize("step", ["train", "prefill"])
-def test_fsdp_raises(fake_world, step):
-    mesh = fake_world(4, (2, 2))
-    cfg = dataclasses.replace(get_config("phi3-medium-14b"),
-                              num_layers=200)      # past FSDP_THRESHOLD
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        if step == "train":
-            make_train_step(cfg, TrainConfig(), mesh=mesh)
-        else:
-            make_prefill_step(cfg, mesh=mesh)
-
-
 def test_sequence_sharded_activations_raise(fake_world):
     mesh = fake_world(2, (1, 2))
     with pytest.raises(NotImplementedError, match="item 15b"):
         make_train_step(get_config("llama3.2-1b"),
                         TrainConfig(seq_shard_activations=True), mesh=mesh)
-
-
-def test_a_cache_split_on_the_head_dim_raises(fake_world):
-    """At a model axis of 4 the reduced llama's 2 kv heads do not divide,
-    so ``cache_plan`` splits the head dim: not executed."""
-    from repro_torch.launch.specs import cache_on_mesh
-    mesh = fake_world(4, (1, 4))
-    cfg = get_config("llama3.2-1b").reduced()
-    with pytest.raises(NotImplementedError, match="head dim"):
-        cache_on_mesh(LM(cfg), mesh, 2, 8)
 
 
 @pytest.mark.parametrize("wrapper,args", [

@@ -27,6 +27,7 @@ from repro_torch.core import selection as sel
 from repro_torch.data.datasets import SyntheticActivationMaps
 from repro_torch.kernels.ref import BIG
 from test_torch_selection import jax_first_centres
+from test_torch_round import one_torch_thread  # noqa: F401
 
 TOL = 1e-3
 

@@ -22,6 +22,7 @@ clients' batches and the server's meta-training order from different
 generators, so the runs agree in level, not in bits).
 """
 from repro_torch.launch import quickstart
+from test_torch_round import one_torch_thread  # noqa: F401
 
 REF_M_COM, REF_FEDAVG = 0.4050, 0.1375
 MIN_GAIN, BAND = 0.15, 0.10

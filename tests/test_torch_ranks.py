@@ -22,10 +22,10 @@ against the port's one-device engines and the reference.
     reference's ``make_train_step`` (G = 2 and 4).
 
 The ranks' processes start first and run while this process computes
-the reference's rounds. A train step on a mesh with a model axis for an
-arch with experts, or FSDP over "data", raises and names ROADMAP item 15b
-(the fake process group stands in for the 4 ranks; the dense families'
-model axis is ``test_torch_model_axis.py``'s).
+the reference's rounds. The archs above ``FSDP_THRESHOLD`` build their
+train step on the smoke mesh with "data" over their rows and weights (the
+fake process group stands in for the ranks; FSDP runs in
+``test_torch_fsdp.py``, the model axis in ``test_torch_model_axis.py``).
 """
 import dataclasses
 import os
@@ -280,16 +280,22 @@ def fake_world():
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("world,arch,what", [
-    (4, "jamba-1.5-large-398b", "FSDP"),
-    (2, "deepseek-v2-236b", "FSDP")])
-def test_the_train_step_runs_the_fed_axis_only(fake_world, world, arch,
-                                               what):
+@pytest.mark.parametrize("world,arch", [
+    (4, "jamba-1.5-large-398b"), (2, "deepseek-v2-236b")])
+def test_the_train_step_shards_the_huge_archs_over_data(fake_world, world,
+                                                        arch):
+    """On the smoke mesh (2 x 2 at 4 ranks, 2 x 1 at 2) the archs above
+    ``FSDP_THRESHOLD`` run G = 1 with no fed axis: "data" splits each
+    cohort's rows and shards the weights (FSDP), "model" runs tensor
+    parallel. The step builds; ``tests/test_torch_fsdp.py`` runs it."""
+    from repro_torch.launch.steps import fed_ranks
     fake_world(world)
-    with pytest.raises(NotImplementedError, match="item 15b") as err:
-        make_train_step(get_config(arch), TrainConfig(),
-                        mesh=make_smoke_mesh(device_type="cpu"))
-    assert what in str(err.value)
+    mesh = make_smoke_mesh(device_type="cpu")
+    cfg = get_config(arch)
+    make_train_step(cfg, TrainConfig(), mesh=mesh)
+    fed, model, data, _ = fed_ranks(cfg, mesh, TrainConfig())
+    assert fed is None and data is not None and data.size == 2
+    assert (model is not None) == (world == 4)
 
 
 def test_a_mesh_needs_the_cohort_engine(fake_world):

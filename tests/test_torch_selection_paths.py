@@ -26,6 +26,7 @@ from repro.core import selection as jsel
 from repro_torch.core import selection as sel
 from repro_torch.data.datasets import SyntheticActivationMaps
 from test_torch_selection import jax_first_centres
+from test_torch_round import one_torch_thread  # noqa: F401
 
 
 def _maps(seed, n=300, classes=10):

@@ -18,6 +18,7 @@ from repro_torch.configs.wrn_cifar import WRNConfig
 from repro_torch.core.split import make_split_wrn
 from repro_torch.models import wrn
 from repro_torch.optim import value_and_grad
+from test_torch_round import one_torch_thread  # noqa: F401
 
 TOL = 2e-3
 

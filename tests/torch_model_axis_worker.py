@@ -2,7 +2,9 @@
 on the CPU. It reads a job (``torch.save``d by the test): a list of cases,
 each a step kind on a mesh shape with its config, full weights and
 inputs (prefill and decode in f32 unless the case names a dtype), or
-one layer with its weights and input, or one row-parallel product. It places the weights
+one layer with its weights and input, or one row-parallel product; a
+case may name an FSDP threshold (the planner's, for that case) and a
+decode case ``seq_shard`` (the rings' sequence over "model"). It places the weights
 on the step's plan (``sharding.distribute_tree``), runs the port's step
 (or the layer) on the mesh, gathers what the step returns
 (``sharding.gather_tree``) and saves it, with the query heads each
@@ -40,11 +42,13 @@ def _decode(case, mesh, axes):
     from repro_torch.launch.steps import make_decode_step
     cfg, tokens = case["cfg"], case["tokens"]
     dtype = case.get("dtype", torch.float32)
-    step, lm = make_decode_step(cfg, dtype=dtype, mesh=mesh)
+    seq_shard = case.get("seq_shard", False)
+    step, lm = make_decode_step(cfg, dtype=dtype, mesh=mesh,
+                                cache_seq_shard=seq_shard)
     params = distribute_tree(case["params"], step_plan(
         cfg, axes, "decode", lm=lm), mesh)
     cache = cache_on_mesh(lm, mesh, tokens.shape[0], case["slots"],
-                          dtype=dtype)
+                          dtype=dtype, seq_shard=seq_shard)
     picked = []
     for i in range(tokens.shape[1]):        # teacher-forced
         nxt, cache = step(params, cache, tokens[:, i:i + 1])
@@ -118,10 +122,11 @@ RUN = {"prefill": _prefill, "decode": _decode, "train": _train,
 
 
 def run(job):
+    from repro_torch.launch import sharding
     from repro_torch.launch.mesh import mesh_axis_sizes
     from repro_torch.models import layers as L
     heads = []
-    for name in ("_prefill_core", "sdpa_decode"):
+    for name in ("_prefill_core", "sdpa_decode", "sdpa_decode_stats"):
         def seen(q, *args, _fn=getattr(L, name), **kwargs):
             heads.append(q.shape[2])
             return _fn(q, *args, **kwargs)
@@ -130,8 +135,17 @@ def run(job):
     for key, case in job.items():
         mesh = _mesh(case["mesh"])
         heads.clear()
-        got = RUN[case["kind"]](case, mesh, mesh_axis_sizes(mesh))
+        # a case's "fsdp_threshold" stands in for the planner's (the
+        # reduced archs lie far below the full ones' FSDP threshold)
+        threshold = sharding.FSDP_THRESHOLD
+        sharding.FSDP_THRESHOLD = case.get("fsdp_threshold", threshold)
+        L.head_dim_gather["bytes"] = 0
+        try:
+            got = RUN[case["kind"]](case, mesh, mesh_axis_sizes(mesh))
+        finally:
+            sharding.FSDP_THRESHOLD = threshold
         out[key] = (got, sorted(set(heads)))
+        out[key + ("gathered",)] = L.head_dim_gather["bytes"]
     return out
 
 

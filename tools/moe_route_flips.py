@@ -73,7 +73,7 @@ def child(argv):
         with forced_routes(job["forced"]):
             return serve(dev, mesh, arch, job)
     C._ma17_serve = serve_forced
-    C.model_axis_child(int(argv[0]), int(argv[1]), *argv[2:5])
+    C.model_axis_child(int(argv[0]), int(argv[1]), *argv[2:6])
 
 
 def main():
