@@ -283,10 +283,16 @@ result line:
      K/V bits, within 2e-2 (relative Frobenius) of one rank's, each rank
      launching one rank's attention kernels on its heads; 16b, phase
      14b's train cut with one cluster a probe row on 1 x 2 (G = 1) and on
-     four processes as 2 x 2 (G = 2), the two worlds running at once:
-     every rank the same W_G bits, the
-     losses and each leaf within 2e-2 of one rank's, the launches per
-     rank (the kernels line's ``launches_16``);
+     four processes as 2 x 2 (G = 2), the two worlds running at once,
+     each also with the hidden states split on the sequence over
+     "model" (``seq_shard_activations``): every rank the same W_G bits,
+     the losses and each leaf within 2e-2 of one rank's, the launches per
+     rank (the kernels line's ``launches_16``); 16c, in both worlds, the
+     ranks' collectives on the same card (device copies between the
+     ranks' mailboxes) against gloo's through host memory, bit for bit:
+     all-gather, reduce-scatter, all-reduce (sum and max; the sums also
+     against a sum in rank order) and all-to-all, of bf16 and f32
+     tensors, one of each past 128 MiB;
  17. the model axis for the other four families (``--phase 17`` runs it
      alone after the build): qwen3-moe-30b-a3b (4 layers, its experts
      over the ranks), deepseek-v2-236b (its first 2 layers: MLA, one
@@ -310,9 +316,12 @@ result line:
      row: every rank the same W_G bits, the losses within 2e-2 of one
      rank's and each leaf's update (W_G - W_0) within 0.5 (qwen3-moe)
      or 0.2 (rwkv6) of one rank's, relative Frobenius, the launches a
-     rank one rank's (``launches_17``);
+     rank one rank's (``launches_17``); and each round again with the
+     sequence split over "model", held the same way, the MoE's dropped
+     share over the ranks' own routes beside one rank's and its
+     all-to-all's bytes a rank;
  18. FSDP and the split decode caches (``--phase 18`` runs it alone
-     after the build): gloo worlds of 4 and then 2 processes on the card
+     after the build): gloo worlds of 4, then 2 and 3 processes on the card
      against the one-rank steps run first on the same seeds, in bf16; the
      cut models' FSDP plans taken at a threshold of 0 (their full depths
      pass the real one): 18a deepseek-v2-236b and jamba-1.5-large-398b cut
@@ -333,7 +342,14 @@ result line:
      decode than 1.25x one rank's own); 18d the kernels line's
      ``flash_decode_stats`` row (``launches_18`` per rank): o and lse
      against the plain version, two halves of a ring merged against the
-     whole decode, which three wrong merges must fail;
+     whole decode, which three wrong merges must fail; 18e
+     deepseek-v2-236b's first layer (MLA, dense FFN) at full width on a
+     world of 3 (1 x 3: 43, 44 and 43 of its 128 heads a rank, the
+     boundary heads on both ranks that share them), started once the
+     world of 4 is done and run beside the world of 2: a 1 x 4,096
+     prefill and 2 decode steps at batch 4 over 4,096 slots, the logits
+     and the cache within 2e-2 of one rank's, the attention launches a
+     rank one rank's;
   5. time each kernel beside its plain version, a library call where one
      computes the same function, and its bound (the attention kernels one
      row a template instance: head dim 64 at phase 6's shapes, 128 at
@@ -5196,12 +5212,16 @@ def run_cost_phase(dev, model, clients, test, smoke=None):
 
 
 # phase 16: the model axis. llama3.2-1b at full width over gloo processes
-# on the one card (NCCL cannot put two ranks on one card), its weights
-# DTensors on the steps' plans; 16a phase 15b's prefill (1 x 32,768) and
-# phase 6's decode shape (batch 32 over 32,768 slots) for
-# MA_DECODE_STEPS teacher-forced steps on a 1 x 2 mesh; 16b phase 14b's
-# train cut (RANKS_LM_*) with one cluster a probe row (no exact ties in
-# the selection) on 1 x 2 (G = 1) and on 4 processes as 2 x 2 (G = 2)
+# on the one card (NCCL cannot put two ranks on one card; their
+# collectives take the same-card route, device copies between the ranks'
+# mailboxes), its weights DTensors on the steps' plans; 16a phase 15b's
+# prefill (1 x 32,768) and phase 6's decode shape (batch 32 over 32,768
+# slots) for MA_DECODE_STEPS teacher-forced steps on a 1 x 2 mesh; 16b
+# phase 14b's train cut (RANKS_LM_*) with one cluster a probe row (no
+# exact ties in the selection) on 1 x 2 (G = 1) and on 4 processes as
+# 2 x 2 (G = 2), each also with the hidden states split on the sequence
+# over "model" (``seq_shard_activations``); 16c the same-card route
+# against the host route (gloo) in both worlds
 MA_DECODE_STEPS = 8
 # 16a's depth, cut 16 -> 8 -> 4 to keep the whole script near its time
 # budget as phases 17 and 18 grew (its row-parallel sums move f32 partials
@@ -5293,11 +5313,13 @@ def _ma_f32_prefill(dev, job):
     return logits
 
 
-def _ma_train(dev, mesh, job, g):
+def _ma_train(dev, mesh, job, g, seq=False):
     """16b on ``mesh`` (None: one rank): one round of the depth-cut train
-    step over ``g`` cohorts, f32 weights from ``job["seed"]`` -> the
-    first cohort's W_G leaves on the host, the metrics, wall, peak and
-    launches."""
+    step over ``g`` cohorts (``seq``: the hidden states split on the
+    sequence over "model", ``seq_shard_activations``), f32 weights from
+    ``job["seed"]`` -> the first cohort's W_G leaves on the host, the
+    metrics, wall, peak, launches and the bytes this rank moved on the
+    same-card route."""
     import dataclasses
     import torch
     from repro_torch.configs import TrainConfig, get_config
@@ -5310,10 +5332,12 @@ def _ma_train(dev, mesh, job, g):
     from repro_torch.obs.timing import monotonic
     from repro_torch.optim.optimizers import tree_leaves
 
+    from repro_torch.core import collectives
     cfg = dataclasses.replace(get_config("llama3.2-1b"),
                               num_layers=RANKS_LM_LAYERS)
     tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
-                       meta_clusters=TRAIN_MB, meta_steps=TRAIN_META_STEPS)
+                       meta_clusters=TRAIN_MB, meta_steps=TRAIN_META_STEPS,
+                       seq_shard_activations=seq)
     step, lm = make_train_step(cfg, tcfg, mesh=mesh)
     state = broadcast_to_clients(lm.init(torch.Generator(
         device=dev).manual_seed(job["seed"])), g)
@@ -5323,18 +5347,83 @@ def _ma_train(dev, mesh, job, g):
     tokens = torch.from_numpy(job["tokens"][:g]).to(dev)
     peak_and_reset()
     ops.reset_launch_counts()
+    collectives.moved.update(pieces=0, bytes=0)
     t0 = monotonic()
     new, _, metrics = step(state, (), {"tokens": tokens}, job["first"][:g])
     metrics = {k: float(v) for k, v in metrics.items()}       # syncs
     wall = monotonic() - t0
     launches = ops.launch_counts()
+    moved = dict(collectives.moved)
     peak = peak_and_reset()
     del state
     leaves = [x[0].cpu() for x in tree_leaves(sh.gather_tree(new))]
     del new
     torch.cuda.empty_cache()
     return {"leaves": leaves, "metrics": metrics, "wall_s": wall,
-            "max_memory_allocated": peak, "launches": launches}
+            "max_memory_allocated": peak, "launches": launches,
+            "same_card_moved": moved}
+
+
+# 16c, the same-card transport: each rank's tensors, a small one split on
+# dim 1 in bf16 and in f32, and one f32 of P16_BIG_BYTES (past HOST_PIECE,
+# the host route's piece, and CARD_PIECE, the mailbox's) split on dim 0
+P16_SMALL, P16_BIG_BYTES = (3, 4000, 7), 144 * 2 ** 20
+
+
+def _transport_item(dev):
+    """16c on this world's group: the same card's all-gather,
+    reduce-scatter, all-reduce (sum and max) and all-to-all of this
+    rank's tensors against the host route's (gloo, the same functions on
+    the tensors' host copies), bit for bit; the sums also against a sum
+    in rank order of the gathered tensors -> {case: {collective: equal}},
+    whether the group took the same-card route, and each route's wall
+    and bytes sent a rank."""
+    import torch
+    from repro_torch.core import collectives as C
+    from repro_torch.obs.timing import monotonic
+    ranks = C.Ranks.of()
+    gen = torch.Generator(device=dev).manual_seed(1600 + ranks.rank)
+    out = {"equal": {}, "walls_s": {"same_card": 0.0, "gloo": 0.0},
+           "bytes_a_rank": 0}
+    for dtype, shape, dim in (
+            (torch.bfloat16, P16_SMALL, 1), (torch.float32, P16_SMALL, 1),
+            (torch.float32, (P16_BIG_BYTES // 4,), 0)):
+        x = (torch.randn(shape, generator=gen, device=dev) * 8).to(dtype)
+        out["route"] = C.same_card(x, ranks) is not None
+        got = {}
+        for route, t in (("same_card", x), ("gloo", x.cpu())):
+            torch.cuda.synchronize()
+            t0 = monotonic()
+            got[route] = {
+                "all_gather": C.all_gather_cat(t, ranks, dim),
+                "reduce_scatter": C.reduce_scatter_cat(t, ranks, dim),
+                "all_reduce_sum": C.all_reduce_tensor(t, ranks),
+                "all_reduce_max": C.all_reduce_tensor(t, ranks, "max"),
+                "all_to_all": C.all_to_all(t, ranks, dim)}
+            torch.cuda.synchronize()
+            out["walls_s"][route] += monotonic() - t0
+        out["bytes_a_rank"] += 5 * x.numel() * x.element_size()
+        card = got["same_card"]
+        host = {k: v.to(dev) for k, v in got["gloo"].items()}
+        every = C.all_gather_tree(x, ranks)
+        total, top = every[0].clone(), every[0].clone()
+        for t in every[1:]:
+            total += t
+            torch.maximum(top, t, out=top)
+        eq = {k: torch.equal(card[k], host[k])
+              for k in ("all_gather", "reduce_scatter", "all_reduce_max",
+                        "all_to_all")}
+        eq["all_reduce_sum_rank_order"] = torch.equal(
+            card["all_reduce_sum"], total)
+        eq["reduce_scatter_rank_order"] = torch.equal(
+            card["reduce_scatter"],
+            total.chunk(ranks.size, dim)[ranks.rank])
+        eq["all_reduce_max_order_free"] = torch.equal(
+            card["all_reduce_max"], top)
+        out["equal"][f"{str(dtype)[6:]} {tuple(shape)}"] = eq
+        del x, got, card, host, every, total, top
+    torch.cuda.empty_cache()
+    return out
 
 
 def model_axis_child(rank, world, init_file, job_path, out_path, go_path):
@@ -5383,20 +5472,26 @@ def model_axis_child(rank, world, init_file, job_path, out_path, go_path):
                 return
             time.sleep(0.05)
         out = {}
+        if "transport" in job:
+            out["transport"] = _transport_item(dev)
         if "serve" in job:
             out["serve"] = _ma_serve(dev, mesh, job["serve"])
-        if "train" in job:
-            got = _ma_train(dev, mesh, job["train"], job["g"])
-            out["train"] = {k: v for k, v in got.items() if k != "leaves"}
-            out["train"]["digest"] = _leaf_digest(got["leaves"])
+        for part, seq in (("train", False), ("train_seq", True)):
+            if part not in job:
+                continue
+            got = _ma_train(dev, mesh, job[part], job["g"], seq=seq)
+            out[part] = {k: v for k, v in got.items() if k != "leaves"}
+            out[part]["digest"] = _leaf_digest(got["leaves"])
             if rank == 0:
-                torch.save(got["leaves"], job["leaves_path"])
+                torch.save(got["leaves"], job["leaves_path"][part])
         if "families" in job:
             out["families"] = _ma17_child(dev, mesh, rank, job["families"],
                                           job["work"])
         if "p18" in job:
             out["p18"] = _p18_child(dev, rank, job["p18"], job["work"])
         torch.save(out, out_path)
+        from repro_torch.core.collectives import close_mailboxes
+        close_mailboxes()
     finally:
         dist.destroy_process_group()
 
@@ -5480,10 +5575,13 @@ def run_model_axis_phase(dev):
     logits, tokens and K/V the same bits; the logits and the written K/V
     slots within ``MA_TOL`` (||got - want||_F / ||want||_F) of one rank's;
     each rank's attention launches those of one rank. 16b: the depth-cut
-    train step on 1 x 2 (G = 1) and 2 x 2 (G = 2): every rank's gathered
-    W_G the same bits; the losses and each leaf within ``MA_TOL`` of one
-    rank's (max |got - want| / (1 + |want|)); the launches per rank.
-    -> (the numbers, launches per rank by kernel and part)."""
+    train step on 1 x 2 (G = 1) and 2 x 2 (G = 2), and again with the
+    sequence split over "model": every rank's gathered W_G the same bits;
+    the losses and each leaf within ``MA_TOL`` of one rank's (max |got -
+    want| / (1 + |want|)); the launches per rank. 16c (both worlds): the
+    same-card route's collectives against the host route's, bit for bit
+    (``_transport_item``). -> (the numbers, launches per rank by kernel
+    and part)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -5507,12 +5605,17 @@ def run_model_axis_phase(dev):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     t0 = monotonic()
+    def paths(tag):
+        return {part: os.path.join(work, f"w_{tag}_{part}.pt")
+                for part in ("train", "train_seq")}
     two = _start_ranks(work, 2, {
-        "mesh": (1, 2), "serve": serve_job, "train": train_job, "g": 1,
-        "leaves_path": os.path.join(work, "w_1x2.pt")}, "1x2")
+        "mesh": (1, 2), "transport": True, "serve": serve_job,
+        "train": train_job, "train_seq": train_job, "g": 1,
+        "leaves_path": paths("1x2")}, "1x2")
     four = _start_ranks(work, 4, {
-        "mesh": (2, 2), "train": train_job, "g": 2,
-        "leaves_path": os.path.join(work, "w_2x2.pt")}, "2x2")
+        "mesh": (2, 2), "transport": True, "train": train_job,
+        "train_seq": train_job, "g": 2, "leaves_path": paths("2x2")},
+        "2x2")
     # the one-rank steps on the same seeds, kept on the host, while the
     # ranks start
     one = {"serve": _ma_serve(dev, None, serve_job),
@@ -5526,6 +5629,29 @@ def run_model_axis_phase(dev):
     wall_two = monotonic() - t0
     four = _join_ranks(four)
     wall_four = monotonic() - t0
+
+    lap("16c")
+    # ---- 16c: the same-card transport against gloo ----
+    out = {"card": card}
+    for tag, ranks in (("1x2", two), ("2x2", four)):
+        items = [o["transport"] for o in ranks]
+        check(all(t["route"] for t in items),
+              f"16c {tag}: the ranks of one card took the host route")
+        bad = [(r, case, k) for r, t in enumerate(items)
+               for case, eq in t["equal"].items() for k, v in eq.items()
+               if not v]
+        walls = {k: max(t["walls_s"][k] for t in items)
+                 for k in ("same_card", "gloo")}
+        sent = items[0]["bytes_a_rank"]
+        out[f"16c_{tag}"] = {
+            "collectives_equal": not bad, "cases": list(items[0]["equal"]),
+            "bytes_a_rank": sent, "walls_s": walls,
+            "GB_per_s_a_rank": {k: sent / w / 1e9 for k, w in walls.items()}}
+        print(f"16c {tag} ({card}): the same card against gloo bit for bit "
+              f"{not bad} over {items[0]['equal']}; {sent} B a rank in "
+              f"{walls['same_card']} s on the card, {walls['gloo']} s "
+              f"through host memory", flush=True)
+        check(not bad, f"16c {tag}: the routes differ at {bad}")
 
     lap("16a")
     # ---- 16a ----
@@ -5556,9 +5682,10 @@ def run_model_axis_phase(dev):
                   f"{want['launches'][part][k_name]} on one")
         check(sum(want["launches"][part].values()) > 0,
               f"16a {part}: no kernel launched")
-    out = {"card": card, "16a": {
+    out["16a"] = {
         "model": "llama3.2-1b", "layers": MA_SERVE_LAYERS,
-        "mesh": "1x2 (data, model), gloo", "prefill_tokens": PREFILL_S, "decode_batch": SERVE_BATCH,
+        "mesh": "1x2 (data, model), gloo, same-card route",
+        "prefill_tokens": PREFILL_S, "decode_batch": SERVE_BATCH,
         "decode_slots": SERVE_CACHE, "decode_steps": MA_DECODE_STEPS,
         "ranks_bit_identical": True, "prefill_logits_rel_err": logits_err,
         "written_kv_rel_err": kv_err, "tokens_equal_share": same_tokens,
@@ -5570,22 +5697,24 @@ def run_model_axis_phase(dev):
                                           "launches")},
         "ranks": [{k: o[k] for k in ("prefill_wall_s", "decode_ms_per_step",
                                      "max_memory_allocated", "launches")}
-                  for o in got]}}
+                  for o in got]}
     print(f"16a ({card}): prefill {[o['prefill_wall_s'] for o in got]} s "
           f"(one rank {want['prefill_wall_s']}), logits rel err "
           f"{logits_err}, K/V rel err {kv_err}, tokens equal "
           f"{same_tokens}; vs the f32 logits {f32_err}")
 
     lap("16b")
-    # ---- 16b ----
-    for tag, ranks, g in (("1x2", two, 1), ("2x2", four, 2)):
-        runs = [o["train"] for o in ranks]
+    # ---- 16b (and with the sequence split over "model") ----
+    for tag, ranks, g, part in (
+            ("1x2", two, 1, "train"), ("2x2", four, 2, "train"),
+            ("1x2_seq", two, 1, "train_seq"),
+            ("2x2_seq", four, 2, "train_seq")):
+        runs = [o[part] for o in ranks]
         check(len({r["digest"] for r in runs}) == 1
               and all(r["metrics"] == runs[0]["metrics"] for r in runs),
               f"16b {tag}: the ranks leave the step with different bits")
         w = one[f"train_G{g}"]
-        leaves = torch.load(os.path.join(work, f"w_{tag}.pt"),
-                            weights_only=False)
+        leaves = torch.load(paths(tag[:3])[part], weights_only=False)
         leaf_err = max(float(((a - b).abs() / (1 + b.abs())).max())
                        for a, b in zip(leaves, w["leaves"]))
         loss_err = max(abs(runs[0]["metrics"][k] - w["metrics"][k])
@@ -5622,15 +5751,19 @@ def run_model_axis_phase(dev):
                                             "launches")},
             "rank_walls_s": [r["wall_s"] for r in runs],
             "rank_peaks": [r["max_memory_allocated"] for r in runs],
+            "same_card_bytes_a_rank": [r["same_card_moved"]["bytes"]
+                                       for r in runs],
             "launches_by_rank": per_rank}
         print(f"16b {tag} ({card}): walls {[r['wall_s'] for r in runs]} s "
               f"(one rank {w['wall_s']}), peaks "
               f"{[r['max_memory_allocated'] for r in runs]}, leaves vs one "
-              f"rank {leaf_err}, launches {per_rank}")
+              f"rank {leaf_err}, same-card bytes a rank "
+              f"{out[f'16b_{tag}']['same_card_bytes_a_rank']}, launches "
+              f"{per_rank}")
     launches16 = {k: {"16a": [o["launches"]["prefill"][k]
                               + o["launches"]["decode"][k] for o in got],
-                      "16b_1x2": out["16b_1x2"]["launches_by_rank"][k],
-                      "16b_2x2": out["16b_2x2"]["launches_by_rank"][k]}
+                      **{f"16b_{t}": out[f"16b_{t}"]["launches_by_rank"][k]
+                         for t in ("1x2", "2x2", "1x2_seq", "2x2_seq")}}
                   for k in MA_KERNELS}
     out["spawn_wall_s"] = {"1x2": wall_two, "2x2": wall_four}
     out["wall_s"] = monotonic() - t_phase
@@ -5660,7 +5793,10 @@ def run_model_axis_phase(dev):
 # steps at 4 layers read at most 0.336 (qwen3-moe, its routes flipping)
 # and 0.074 (rwkv6); a mutated copy whose router gradient was doubled
 # (``copy(copy(topv))``) read 2.546, one whose ranks each kept their own
-# share (``topv`` without ``copy``) 0.783 (and the ranks' bits differed)
+# share (``topv`` without ``copy``) 0.783 (and the ranks' bits differed).
+# 17b's rounds run again with the hidden states split on the sequence over
+# "model" (``seq_shard_activations``: each rank routes its own tokens, its
+# slots sent to their experts' ranks by an all-to-all), held the same way
 MA17_LAYERS = {"qwen3-moe-30b-a3b": 4, "deepseek-v2-236b": 2,
                "jamba-1.5-large-398b": 4, "rwkv6-3b": 4}
 MA17_F32 = {"qwen3-moe-30b-a3b": 4, "deepseek-v2-236b": 2,
@@ -5807,9 +5943,12 @@ def _ma17_serve(dev, mesh, arch, job):
 
 def _ma17_train(dev, mesh, arch, job):
     """17b for ``arch`` on ``mesh`` (None: one rank): one round of the
-    depth-cut train step at G = 1, f32 weights from ``job["seed"]`` ->
+    depth-cut train step at G = 1 (``job["seq"]``: the hidden states split
+    on the sequence over "model"), f32 weights from ``job["seed"]`` ->
     the W_G leaves on the host (gathered whole; one rank: also each leaf's
-    update norm ||W_G - W_0||), the metrics, wall, peak and launches."""
+    update norm ||W_G - W_0||), the metrics, wall, peak and launches, the
+    MoE's routes (kept and routed pairs a call) and the bytes this rank
+    sent through ``model_axis``'s all-to-all."""
     import torch
     from repro_torch.configs import TrainConfig
     from repro_torch.core.fedavg import broadcast_to_clients
@@ -5821,9 +5960,11 @@ def _ma17_train(dev, mesh, arch, job):
     from repro_torch.obs.timing import monotonic
     from repro_torch.optim.optimizers import tree_leaves
 
+    from repro_torch.models import model_axis as MA
     cfg = _ma17_cfg(arch, job.get("layers"))
     tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
-                       meta_clusters=TRAIN_MB, meta_steps=TRAIN_META_STEPS)
+                       meta_clusters=TRAIN_MB, meta_steps=TRAIN_META_STEPS,
+                       seq_shard_activations=job.get("seq", False))
     step, lm = make_train_step(cfg, tcfg, mesh=mesh)
 
     def init():
@@ -5838,12 +5979,26 @@ def _ma17_train(dev, mesh, arch, job):
     start = None if mesh is not None else [x[0].cpu()
                                             for x in tree_leaves(state)]
     tokens = torch.from_numpy(job["tokens"]).to(dev)
+    sent = {"bytes": 0, "calls": 0}
+    all_to_all = MA.all_to_all
+
+    def counted(x, ranks, dim=0):
+        sent["bytes"] += x.numel() * x.element_size()
+        sent["calls"] += 1
+        return all_to_all(x, ranks, dim)
     peak_and_reset()
     ops.reset_launch_counts()
-    t0 = monotonic()
-    new, _, metrics = step(state, (), {"tokens": tokens}, job["first"])
-    metrics = {k: float(v) for k, v in metrics.items()}       # syncs
-    wall = monotonic() - t0
+    MA.all_to_all = counted
+    try:
+        with moe_routes() as routes:
+            t0 = monotonic()
+            new, _, metrics = step(state, (), {"tokens": tokens},
+                                   job["first"])
+            metrics = {k: float(v) for k, v in metrics.items()}  # syncs
+            wall = monotonic() - t0
+    finally:
+        MA.all_to_all = all_to_all
+    routes = [(int(kept), n) for _, kept, n in routes]
     launches = ops.launch_counts()
     peak = peak_and_reset()
     del state
@@ -5856,7 +6011,8 @@ def _ma17_train(dev, mesh, arch, job):
     return {"leaves": leaves, "update_norms": norms, "metrics": metrics,
             "wall_s": wall, "init_wall_s": init_wall,
             "gather_wall_s": monotonic() - t0,
-            "max_memory_allocated": peak, "launches": launches}
+            "max_memory_allocated": peak, "launches": launches,
+            "routes": routes, "all_to_all": sent}
 
 
 def _update_errs(got, want, norms):
@@ -5895,6 +6051,11 @@ def _ma17_jobs(vocabs):
     for arch, layers in MA17_F32.items():
         jobs[f"{arch} f32"] = {"arch": arch, "serve": dict(
             jobs[arch]["serve"], dtype="float32", layers=layers)}
+    # 17b's rounds again with the sequence split over "model" (one rank's
+    # round is the same function: it is run once, as ``arch``'s)
+    for arch in MA17_TRAIN:
+        jobs[f"{arch} seq"] = {"arch": arch, "train": dict(
+            jobs[arch]["train"], seq=True)}
     return jobs
 
 
@@ -5908,7 +6069,9 @@ def _ma17_child(dev, mesh, rank, jobs, work):
     out = {}
     for tag, job in jobs.items():
         arch = job.get("arch", tag)
-        got = {"serve": _ma17_serve(dev, mesh, arch, job["serve"])}
+        got = {}
+        if "serve" in job:
+            got["serve"] = _ma17_serve(dev, mesh, arch, job["serve"])
         if "train" in job:
             got["train"] = _ma17_train(dev, mesh, arch, job["train"])
             t0 = monotonic()
@@ -5916,11 +6079,11 @@ def _ma17_child(dev, mesh, rank, jobs, work):
             got["train"]["digest_wall_s"] = monotonic() - t0
         t0 = monotonic()
         if rank == 0:
-            torch.save({"cache": got["serve"]["cache"],
+            torch.save({"cache": got.get("serve", {}).get("cache"),
                         "leaves": got.get("train", {}).get("leaves")},
                        os.path.join(work, f"w17_{tag}.pt"))
         got["save_wall_s"] = monotonic() - t0
-        got["serve"].pop("cache")
+        got.get("serve", {}).pop("cache", None)
         got.get("train", {}).pop("leaves", None)
         out[tag] = got
     return out
@@ -5938,6 +6101,73 @@ def _flipped(routes, want, lo=0, hi=None):
 def _dropped(routes):
     routed = sum(n for _, _, n in routes)
     return 1.0 - sum(k for _, k, _ in routes) / routed if routed else 0.0
+
+
+def _dropped_pairs(routes):
+    """The dropped share of (token, choice) pairs over every rank's routes
+    ((kept, routed) a call, a list a rank)."""
+    routed = sum(n for r in routes for _, n in r)
+    return 1.0 - sum(k for r in routes for k, _ in r) / routed \
+        if routed else 0.0
+
+
+def _ma17_seq_round(out, card, arch, tag, runs, saved, w, expect, launches):
+    """17b's round of ``arch`` with the sequence split over "model"
+    (``runs``: every rank's, ``saved`` rank 0's W_G leaves) against one
+    rank's round ``w``, as 17b holds it: every rank the same bits, each
+    leaf's update within ``MA17_UPDATE_TOL``, the launches a rank one
+    rank's; the MoE's dropped share over the ranks' own tokens beside one
+    rank's, and the bytes its all-to-all sent a rank."""
+    tr = [r["train"] for r in runs]
+    expect(len({t["digest"] for t in tr}) == 1
+           and all(t["metrics"] == tr[0]["metrics"] for t in tr),
+           f"17b {tag}: the ranks leave the step with different bits")
+    errs = _update_errs(saved["leaves"], w["leaves"], w["update_norms"])
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    loss_err = max(abs(tr[0]["metrics"][k] - w["metrics"][k])
+                   / (1 + abs(w["metrics"][k])) for k in w["metrics"])
+    expect(errs[worst] <= MA17_UPDATE_TOL[arch] and loss_err <= MA_TOL,
+           f"17b {tag}: vs one rank, leaf {worst}'s update {errs[worst]} "
+           f"beyond {MA17_UPDATE_TOL[arch]}, or metrics {loss_err} beyond "
+           f"{MA_TOL}")
+    per_rank = {k: [t["launches"].get(k, 0) for t in tr]
+                for k in MA17_KERNELS}
+    for k_name, n in per_rank.items():
+        expect(n == [w["launches"].get(k_name, 0)] * 2,
+               f"17b {tag}: {k_name} {n} on the ranks, "
+               f"{w['launches'].get(k_name, 0)} on one")
+        for r, c in enumerate(n):
+            launches[k_name][r] += c
+    moe = _ma17_cfg(arch).is_moe
+    expect(all(t["all_to_all"]["calls"] > 0 for t in tr) == moe,
+           f"17b {tag}: all-to-all calls "
+           f"{[t['all_to_all']['calls'] for t in tr]}")
+    dropped = (_dropped_pairs([t["routes"] for t in tr]),
+               _dropped_pairs([w["routes"]]))
+    row = {"layers": MA17_TRAIN_LAYERS, "seq_len": MA17_TRAIN_T,
+           "cohorts": 1, "seq_shard_activations": True,
+           "ranks_bit_identical": True, "max_leaf_update_rel_err":
+               errs[worst], "worst_leaf": worst,
+           "update_rel_err_by_leaf": errs,
+           "max_metric_err_vs_one_rank": loss_err,
+           "limits": {"update": MA17_UPDATE_TOL[arch], "metrics": MA_TOL},
+           "metrics": tr[0]["metrics"], "dropped_share": dropped[0],
+           "dropped_share_one_rank": dropped[1],
+           "all_to_all_bytes_a_rank_a_round": [t["all_to_all"]["bytes"]
+                                               for t in tr],
+           "all_to_all_calls_a_round": tr[0]["all_to_all"]["calls"],
+           "local_steps": TRAIN_LOCAL, "meta_steps": TRAIN_META_STEPS,
+           "rank_walls_s": [t["wall_s"] for t in tr],
+           "rank_peaks": [t["max_memory_allocated"] for t in tr],
+           "one_rank_wall_s": w["wall_s"], "launches_by_rank": per_rank}
+    out[f"17b {tag}"] = row
+    print(f"17b {tag} ({card}): update rel err by leaf {errs}, metrics "
+          f"{loss_err}; dropped share {dropped[0]} (one rank "
+          f"{dropped[1]}); all-to-all {row['all_to_all_bytes_a_rank_a_round']}"
+          f" B a rank in {row['all_to_all_calls_a_round']} calls a round "
+          f"({TRAIN_LOCAL} local steps, {TRAIN_META_STEPS} meta steps); "
+          f"walls {row['rank_walls_s']} s (one rank {w['wall_s']}), peaks "
+          f"{row['rank_peaks']}", flush=True)
 
 
 def run_model_axis_families_phase(dev):
@@ -5979,6 +6209,8 @@ def run_model_axis_families_phase(dev):
     one = {}
     for tag, job in jobs.items():
         arch = job.get("arch", tag)
+        if "serve" not in job:                 # a seq round: ``arch``'s
+            continue
         one[tag] = {"serve": _ma17_serve(dev, None, arch, job["serve"])}
         if "train" in job:
             one[tag]["train"] = _ma17_train(dev, None, arch, job["train"])
@@ -6008,10 +6240,15 @@ def run_model_axis_families_phase(dev):
             problems.append(msg)
     for tag, job in jobs.items():
         arch = job.get("arch", tag)
-        f32 = job["serve"].get("dtype") == "float32"
         runs = [r["families"][tag] for r in ranks]
         saved = torch.load(os.path.join(work, f"w17_{tag}.pt"),
                            weights_only=False)
+        if "serve" not in job:
+            lap("17b")
+            _ma17_seq_round(out, card, arch, tag, runs, saved,
+                            one[arch]["train"], expect, launches)
+            continue
+        f32 = job["serve"].get("dtype") == "float32"
         lap("17a")
         # ---- 17a ----
         got, want = [r["serve"] for r in runs], one[tag]["serve"]
@@ -6121,6 +6358,8 @@ def run_model_axis_families_phase(dev):
             for r, c in enumerate(n):
                 launches[k_name][r] += c
         out[f"17b {arch}"] = {
+            "dropped_share": _dropped_pairs([t["routes"] for t in tr]),
+            "dropped_share_one_rank": _dropped_pairs([w["routes"]]),
             "layers": MA17_TRAIN_LAYERS, "seq_len": MA17_TRAIN_T,
             "cohorts": 1, "ranks_bit_identical": True,
             "max_leaf_update_rel_err": leaf_err, "worst_leaf": worst,
@@ -6182,6 +6421,13 @@ def run_model_axis_families_phase(dev):
 # one rank's.
 P18_SERVE = {"jamba-1.5-large-398b": 2, "deepseek-v2-236b": 2}
 P18_BATCH = 4
+# 18e: deepseek-v2-236b's first layer (MLA, the dense FFN) at full width
+# on 1 x 3, whose 128 heads do not divide the axis (decode's plan splits
+# w_uq's 24,576 columns into 42.67 heads a rank; each rank computes the
+# 43 or 44 heads its columns touch): a 1 x MA17_S prefill, then
+# P18_FRAC_STEPS decode steps at batch MA17_BATCH over MA17_SLOTS slots,
+# its logits within MA_TOL of one rank's
+P18_FRAC, P18_FRAC_LAYERS, P18_FRAC_STEPS = "deepseek-v2-236b", 1, 2
 # 18a's decode steps: every FSDP step gathers each block's weights through
 # host memory (gloo's rate between two ranks of one card:
 # ``tools/gloo_throughput.py``), 4.0-5.7 s a step for deepseek's cut and
@@ -6392,7 +6638,12 @@ def _p18_jobs(vocabs):
         0, vocabs[spec[0]], (spec[3], spec[9]), np.int32),
         "key_scale": P18_KEY_SCALE.get(tag, 1.0)}
         for i, (tag, spec) in enumerate(P18_CACHES.items())}
-    return {"serve": serve, "train": train, "caches": caches}
+    v = vocabs[P18_FRAC]
+    frac = {"seed": 189, "layers": P18_FRAC_LAYERS,
+            "prefill": rng.integers(0, v, (1, MA17_S), np.int32),
+            "decode": rng.integers(0, v, (MA17_BATCH, P18_FRAC_STEPS),
+                                   np.int32)}
+    return {"serve": serve, "train": train, "caches": caches, "frac": frac}
 
 
 def _p18_child(dev, rank, job, work):
@@ -6408,11 +6659,13 @@ def _p18_child(dev, rank, job, work):
     for kind, tag, shape in job["items"]:
         t0 = monotonic()
         mesh = mesh_over_world(tuple(shape), PRODUCTION_AXES, "cuda")
-        if kind == "serve":
-            with _fsdp_planned(True):
-                got = _ma17_serve(dev, mesh, tag, jobs["serve"][tag])
+        if kind in ("serve", "frac"):
+            with _fsdp_planned(kind == "serve"):
+                got = _ma17_serve(dev, mesh, tag, jobs[kind] if kind == "frac"
+                                  else jobs["serve"][tag])
             if rank == 0:
-                torch.save(got["cache"], os.path.join(work, f"w18_{tag}.pt"))
+                torch.save(got["cache"], os.path.join(
+                    work, f"w18_{kind}_{tag}.pt"))
             got.pop("cache")
         elif kind == "train":
             with _fsdp_planned(True):
@@ -6577,11 +6830,14 @@ def _p18_stats_row(dev, launches):
 
 
 def start_phase18():
-    """Phase 18's inputs, and its two gloo worlds started: each rank
+    """Phase 18's inputs, and its worlds of 4 and 2 started: each rank
     reaches the card, joins its group and makes its first placed draw,
     then waits, holding little, for ``run_fsdp_seq_phase`` (the script
-    starts them before phase 17, so that their start-up runs beside it)
-    -> what ``run_fsdp_seq_phase`` takes."""
+    starts them before phase 17, so that their start-up runs beside it);
+    18e's world of 3 is started by ``run_fsdp_seq_phase`` once the world
+    of 4 is done (four 18a ranks peak at 18.9 GB each: three more idle
+    ranks' contexts beside them left the card 3 GB short) -> what
+    ``run_fsdp_seq_phase`` takes."""
     from repro_torch.configs import get_config
     archs = set(P18_SERVE) | {P18_TRAIN_ARCH} | {
         v[0] for v in P18_CACHES.values()}
@@ -6595,14 +6851,16 @@ def start_phase18():
         if spec[2][0] * spec[2][1] == 4]
     two = [("cache", tag, spec[2]) for tag, spec in P18_CACHES.items()
            if spec[2][0] * spec[2][1] == 2]
+    three = [("frac", P18_FRAC, (1, 3))]
     env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
 
     def start(world, items):
         return _start_ranks(work, world, {"mesh": items[0][2], "p18": {
             "jobs": jobs, "items": items}, "work": work}, f"18_{world}",
             env=env)
-    return {"jobs": jobs, "work": work, "started": {4: start(4, four),
-                                                    2: start(2, two)}}
+    return {"jobs": jobs, "work": work, "started": {
+        4: start(4, four), 2: start(2, two)},
+        "start_three": lambda: start(3, three)}
 
 
 def run_fsdp_seq_phase(dev, p18=None):
@@ -6636,6 +6894,7 @@ def run_fsdp_seq_phase(dev, p18=None):
     for tag in P18_F32_FLOOR:
         one[("cache f32", tag)] = _p18_decode(
             dev, None, tag, jobs["caches"][tag], dtype=torch.float32)
+    one[("frac", P18_FRAC)] = _ma17_serve(dev, None, P18_FRAC, jobs["frac"])
     one_wall = monotonic() - t_phase
     peak_and_reset()
     print(f"18: one rank's steps {one_wall} s; the card before the ranks: "
@@ -6644,7 +6903,10 @@ def run_fsdp_seq_phase(dev, p18=None):
     walls = {}
     ranks = {}
     t0 = monotonic()
-    for world in (4, 2):
+    for world in (4, 2, 3):
+        if world == 2:              # the world of 3 beside the world of 2
+            started[3] = p18["start_three"]()
+            open(started[3]["go"], "w").close()
         got = _join_ranks(started[world], phase="18")
         walls[f"world_{world}_s"] = monotonic() - t0
         t0 = monotonic()
@@ -6672,7 +6934,7 @@ def run_fsdp_seq_phase(dev, p18=None):
     # ---- 18a ----
     for arch, layers in P18_SERVE.items():
         got, want = ranks[("serve", arch)], one[("serve", arch)]
-        cache = torch.load(os.path.join(work, f"w18_{arch}.pt"),
+        cache = torch.load(os.path.join(work, f"w18_serve_{arch}.pt"),
                            weights_only=False)
         for what in ("logits", "tokens"):
             expect(all(torch.equal(g[what], got[0][what]) for g in got),
@@ -6804,6 +7066,58 @@ def run_fsdp_seq_phase(dev, p18=None):
               f"{out[f'18c {tag}']['rank_decode_ms_per_step']} (one rank "
               f"{want['decode_ms_per_step']}), peaks "
               f"{out[f'18c {tag}']['rank_peaks']}", flush=True)
+    lap("18e")
+    # ---- 18e: MLA heads that do not divide the model axis ----
+    got, want = ranks[("frac", P18_FRAC)], one[("frac", P18_FRAC)]
+    cache = torch.load(os.path.join(work, f"w18_frac_{P18_FRAC}.pt"),
+                       weights_only=False)
+    for what in ("logits", "tokens"):
+        expect(all(torch.equal(g[what], got[0][what]) for g in got),
+               f"18e: the ranks' {what} differ")
+    expect(len({g["cache_digest"] for g in got}) == 1,
+           "18e: the ranks' gathered caches differ")
+    logits_err = _fro_rel(got[0]["logits"], want["logits"])
+    cache_err = max(_fro_rel(a, b) if a.is_floating_point()
+                    else float(not torch.equal(a, b))
+                    for a, b in zip(cache, want["cache"]))
+    expect(logits_err <= MA_TOL and cache_err <= MA_TOL,
+           f"18e: logits {logits_err} or cache {cache_err} beyond {MA_TOL} "
+           f"of one rank's")
+    for part, k_name in (("prefill", "flash_attention"),
+                         ("decode", "flash_decode")):
+        n = [g["launches"][part].get(k_name, 0) for g in got]
+        expect(n == [want["launches"][part].get(k_name, 0)] * 3 and n[0] > 0,
+               f"18e {part}: {k_name} launched {n} times on the ranks, "
+               f"{want['launches'][part].get(k_name, 0)} on one")
+    count("frac", got)
+    heads = _ma17_cfg(P18_FRAC, P18_FRAC_LAYERS).num_heads
+    shares = [(r * heads // 3, -(-(r + 1) * heads // 3)) for r in range(3)]
+    out["18e"] = {
+        "model": P18_FRAC, "layers": P18_FRAC_LAYERS, "mesh": "1x3",
+        "heads_a_rank": [b - a for a, b in shares], "head_shares": shares,
+        "prefill": [1, MA17_S], "decode_batch": MA17_BATCH,
+        "decode_slots": MA17_SLOTS, "decode_steps": P18_FRAC_STEPS,
+        "prefill_logits_rel_err": logits_err,
+        "max_cache_leaf_rel_err": cache_err, "limit": MA_TOL,
+        "tokens_equal_share": float((got[0]["tokens"] == want["tokens"])
+                                    .float().mean()),
+        "rank_prefill_wall_s": [g["prefill_wall_s"] for g in got],
+        "rank_decode_ms_per_step": [g["decode_ms_per_step"] for g in got],
+        "rank_peaks": [g["max_memory_allocated"] for g in got],
+        "rank_weights_bytes": [g["weights_bytes"] for g in got],
+        "item_walls_s": [g["item_wall_s"] for g in got],
+        "launches_by_rank": [g["launches"] for g in got],
+        "one_rank": {k: want[k] for k in (
+            "prefill_wall_s", "decode_ms_per_step", "max_memory_allocated",
+            "weights_bytes", "launches")}}
+    print(f"18e {P18_FRAC} 1x3 ({card}): heads a rank "
+          f"{out['18e']['heads_a_rank']}, logits rel err {logits_err}, "
+          f"cache rel err {cache_err}; prefill "
+          f"{out['18e']['rank_prefill_wall_s']} s (one rank "
+          f"{want['prefill_wall_s']}), decode ms/step "
+          f"{out['18e']['rank_decode_ms_per_step']} (one rank "
+          f"{want['decode_ms_per_step']}), peaks {out['18e']['rank_peaks']}"
+          f", launches {out['18e']['launches_by_rank']}", flush=True)
     # every rank's launches, by kernel, summed over the items
     per_rank = {k: [sum(col) for col in zip(*[
         p + [0] * (4 - len(p)) for p in v])] for k, v in launches.items()}

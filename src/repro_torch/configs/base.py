@@ -267,9 +267,11 @@ class TrainConfig:
     ``launch/specs.py`` ``fed_layout`` picks ("data", with "pod" before it
     on two pods), as the reference's; ``fed_axis`` is not read there, nor
     in the reference. ``seq_shard_activations`` picks the head-aware
-    plan of the train layout (``launch/specs.py`` ``input_specs``); the
-    sequence-sharded activations themselves are planned and not executed:
-    on a model axis the step raises (``ROADMAP.md`` item 15b)."""
+    plan of the train layout (``launch/specs.py`` ``input_specs``) and,
+    on a model axis, splits the hidden states between blocks on the
+    sequence over "model" (``models/model_axis.py`` ``seq_split``; an
+    MoE then needs each rank's chunk of a row to be whole groups of
+    512)."""
     local_steps: int = 2               # L local SGD steps between FedAvg syncs
     microbatch: int = 8                # tokens rows per grad-accum microstep
     lr: float = 0.1

@@ -21,19 +21,21 @@ batch. A model axis above 1 (the production 16 x 16 and 2 x 16 x 16
 meshes, the 2 x 2 smoke mesh) or FSDP is counted as the whole step's count
 divided evenly over the chips, ``"per_device_rule": "even_split"``, a
 lower bound on a rank's work with none of its collectives: one rank's
-count of a tensor-parallel step is the rest of ``ROADMAP.md`` item 15b.
+count of a tensor-parallel step is the last part of ``ROADMAP.md`` item
+15b.
 
 Of those even-split pairs the port now executes (``launch/steps.py`` on a
-mesh) every family's on one pod: train_4k and prefill_32k, with jamba's
-and deepseek's weights over "data" (FSDP), and decode_32k and long_500k
-on every cache ``cache_plan`` makes (the k/v head dim over "model" where
-the kv heads do not divide it, the sequence over "data" at long_500k's
-batch of 1, or over "model" and ("data", "model") with
-``--cache-seq-shard``). The dry run still records them ``even_split``: a
-rank's own count of a tensor-parallel or FSDP step is the rest of item
-15b. RWKV or MLA heads that do not divide the model axis (rwkv6-3b's 40
-over 16), sequence-sharded activations in training and the two-pod
-meshes' inference still raise there.
+mesh) every family's on one pod: train_4k (``--seq-shard-acts``: the
+hidden states split on the sequence over "model") and prefill_32k, with
+jamba's and deepseek's weights over "data" (FSDP), RWKV or MLA heads
+that do not divide the model axis (rwkv6-3b's 40 over 16) on every head
+a rank's columns touch, and decode_32k and long_500k on every cache
+``cache_plan`` makes (the k/v head dim over "model" where the kv heads
+do not divide it, the sequence over "data" at long_500k's batch of 1, or
+over "model" and ("data", "model") with ``--cache-seq-shard``). The dry
+run still records them ``even_split``: a rank's own count of a
+tensor-parallel or FSDP step is the rest of item 15b. The two-pod
+meshes' inference still raises there.
 
 ``memory``: argument and output bytes a device from the specs (each leaf
 divided over the axes its spec shards it on); there is no compiler, so

@@ -21,15 +21,17 @@ records it. The planners take axis sizes (``launch.mesh.mesh_axis_sizes``),
 so a plan needs no devices. ``launch/steps.py`` executes the fed axis,
 the model axis for every family (tensor parallel, the experts over
 "model" expert parallel: ``models/model_axis.py``), FSDP
-(``models/fsdp.py``) and every cache plan (a k/v ring split on its head
-dim or its sequence, a latent ring on its sequence); sequence-sharded
-activations are planned here and not run (``ROADMAP.md`` item 15b).
+(``models/fsdp.py``), every cache plan (a k/v ring split on its head
+dim or its sequence, a latent ring on its sequence), heads split
+mid-head (a rank computes the heads its columns touch) and the train
+step's sequence-sharded activations.
 
 ``distribute_tree`` puts a tree of full tensors (every rank holding the
 same) on a plan's placements as DTensors, each rank keeping its own part
 with no collective; ``gather_tree`` gathers a DTensor tree back to full
-tensors through ``core/collectives.py`` (host-staged under gloo, which
-gathers no CUDA tensor); ``local_tree`` and ``wrap_tree`` go between a
+tensors through ``core/collectives.py`` (device copies between the
+ranks of one card, host-staged across cards under gloo, which gathers
+no CUDA tensor); ``local_tree`` and ``wrap_tree`` go between a
 DTensor tree and its local tensors.
 
 The parameter trees are the port's (``LM.init``), which carry the

@@ -27,7 +27,16 @@ train_step   — ONE federated round per call (the paper's Algorithm 1 on
                the same replicated activations, the MoE's ``aux`` enters
                the loss as on one rank (every rank computes the whole
                route), and the round returns DTensors on the same
-               placements. An arch above ``FSDP_THRESHOLD`` on one pod
+               placements. With ``seq_shard_activations`` the hidden
+               states between blocks hold each model rank's chunk of the
+               positions (Megatron's sequence parallelism, on the
+               head-aware train plan): norms and residual adds run on
+               the chunk, a block's column-parallel work on the
+               positions gathered, its row-parallel output
+               reduce-scattered on them, the MoE's tokens routed a rank
+               at a time and sent to their experts' ranks by an
+               all-to-all (``models/model_axis.py``, ``layers.py``
+               ``_moe_own_tokens``). An arch above ``FSDP_THRESHOLD`` on one pod
                runs G = 1 with "data" over its weights' second dim and its
                cohort's rows (``models/fsdp.py``): each data rank trains
                its rows, every gradient is the mean over the data ranks
@@ -52,9 +61,10 @@ gathered latent), its experts, its channels and its shard of the FFN and
 of the vocabulary, the batch's rows over "data" where they divide, its
 slots of a split ring (the decode kernel's softmax statistics merged over
 the ranks), FSDP's weights gathered a block at a time, and every rank
-returns the same logits or tokens. Sequence-sharded activations, RWKV or
-MLA heads that do not divide the model axis and inference over "pod"
-raise ``NotImplementedError`` (``ROADMAP.md`` item 15b).
+returns the same logits or tokens. RWKV or MLA heads that do not divide
+the model axis run on every head a rank's columns touch, whole
+(``model_axis.frac_heads``). Inference over "pod" raises
+``NotImplementedError`` (``ROADMAP.md`` item 15b).
 
 Inference computes in ``dtype`` (bf16 by default, as the reference) and
 runs without autograd; training computes in ``TrainConfig.dtype`` on f32
@@ -138,9 +148,9 @@ def fed_ranks(cfg: ModelConfig, mesh,
     cohort tensor parallel, and where ``fed_layout`` leaves "data" to
     shard the weights (FSDP: the archs above ``FSDP_THRESHOLD``) its
     ranks split each cohort's rows and gather the weights a block at a
-    time (``models/fsdp.py``). Raises ``NotImplementedError``
-    (``ROADMAP.md`` item 15b) for sequence-sharded activations on a model
-    axis."""
+    time (``models/fsdp.py``). ``tcfg`` does not change the ranks
+    (``seq_shard_activations`` splits the positions over the same model
+    axis)."""
     from repro_torch.launch.mesh import mesh_axis_sizes
     from repro_torch.launch.specs import fed_layout
     axes = mesh_axis_sizes(mesh)
@@ -148,10 +158,6 @@ def fed_ranks(cfg: ModelConfig, mesh,
     data = (Ranks.of(mesh.get_group("data"))
             if axes.get("data", 1) > 1 and "data" not in fed_axes else None)
     model = _model_ranks(mesh, axes)
-    if model is not None and tcfg is not None and tcfg.seq_shard_activations:
-        raise NotImplementedError(
-            "sequence-sharded activations on a model axis are planned, not "
-            "executed (ROADMAP.md item 15b)")
     if not fed_axes:                       # a huge arch on one pod: G = 1
         return StepRanks(None, model, data, mesh)
     if model is None and data is None:
@@ -340,7 +346,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         return slice(data.rank * per, (data.rank + 1) * per)
 
     def train_step(client_params, opt_state, batch, first=None):
-        with MA.over(model):
+        with MA.over(model, seq=tcfg.seq_shard_activations):
             return one_round(client_params, opt_state, batch, first)
 
     def one_round(client_params, opt_state, batch, first):

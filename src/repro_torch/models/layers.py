@@ -567,7 +567,7 @@ def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
         return _attn_apply_tp(p, x, cfg=cfg, mode=mode, cache=cache, pos=pos,
                               window=window, causal=causal, chunked=chunked,
                               enc_out=enc_out, seq=seq)
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    xn = MA.norm_in(x, p["norm"], cfg.norm_eps)
     b, s, _ = xn.shape
     q, k, v = xn @ p["wq"], xn @ p["wk"], xn @ p["wv"]
     if "bq" in p:
@@ -587,16 +587,16 @@ def attn_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
         o = _prefill_core(q, k, v, causal=causal, window=window,
                           chunked=chunked)
 
-    y = o.reshape(b, s, h * hd) @ p["wo"]
+    y = MA.seq_chunk(o.reshape(b, s, h * hd) @ p["wo"])
 
     if enc_out is not None:                    # whisper decoder cross-attn
-        xn2 = rms_norm(x + y, p["cross_norm"], cfg.norm_eps)
+        xn2 = MA.norm_in(x + y, p["cross_norm"], cfg.norm_eps)
         se = enc_out.shape[1]
         cq = (xn2 @ p["cwq"]).reshape(b, s, h, hd)
         ck = (enc_out @ p["cwk"]).reshape(b, se, kv, hd)
         cv = (enc_out @ p["cwv"]).reshape(b, se, kv, hd)
         co = _cross_core(cq, ck, cv)
-        y = y + co.reshape(b, s, h * hd) @ p["cwo"]
+        y = y + MA.seq_chunk(co.reshape(b, s, h * hd) @ p["cwo"])
     return y, cache
 
 
@@ -660,7 +660,7 @@ def _attn_apply_tp(p, x, *, cfg: ModelConfig, mode: str, cache, pos,
     outputs are merged, and each rank keeps its own heads' columns for
     its rows of ``wo``."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    xn = MA.copy(rms_norm(x, p["norm"], cfg.norm_eps))
+    xn = MA.copy(MA.norm_in(x, p["norm"], cfg.norm_eps))
     b, s, _ = xn.shape
     names = ("wq", "wk", "wv", "bq", "bk", "bv")
     if mode == "decode" and seq is not None and "model" in seq.axes:
@@ -696,7 +696,7 @@ def _attn_apply_tp(p, x, *, cfg: ModelConfig, mode: str, cache, pos,
         y = _tp_out(o, share, p["wo"], hd)
 
     if enc_out is not None:                    # whisper decoder cross-attn
-        xn2 = MA.copy(rms_norm(x + y, p["cross_norm"], cfg.norm_eps))
+        xn2 = MA.copy(MA.norm_in(x + y, p["cross_norm"], cfg.norm_eps))
         share, cq, ck, cv, first = _tp_heads(
             xn2, MA.copy(enc_out), p,
             ("cwq", "cwk", "cwv", "cbq", "cbk", "cbv"), cfg)
@@ -761,8 +761,10 @@ def mla_cache_init(cfg: ModelConfig, batch: int, seq_len: int,
 
 def _mla_heads_of(p, cfg: ModelConfig, cache) -> Optional[Tuple[int, int]]:
     """The query heads [h0, h1) this rank computes on a model axis where
-    any of MLA's leaves (or its latent cache) is split; None on one rank
-    or where every leaf is whole."""
+    any of MLA's leaves (or its latent cache) is split
+    (``model_axis.frac_heads``: whole heads, a boundary head on both ranks
+    that share it where the heads do not divide the axis); None on one
+    rank or where every leaf is whole."""
     if MA.active() is None:
         return None
     h = cfg.num_heads
@@ -772,14 +774,15 @@ def _mla_heads_of(p, cfg: ModelConfig, cache) -> Optional[Tuple[int, int]]:
              or p["w_uv"].shape[-1] != h * dv or p["wo"].shape[0] != h * dv
              or (cache is not None
                  and cache["c_kv"].shape[-1] != cfg.kv_lora_rank))
-    return MA.even_share(h, "MLA heads") if split else None
+    return MA.frac_heads(h) if split else None
 
 
 def _mla_qkv(p, xn, cfg: ModelConfig, heads=None):
     """q (B,S,H,dn+dr), the latent ``c_kv`` (B,S,r) and the shared rotary
-    key (B,S,dr); on a model axis (``heads`` [h0, h1)) q of those heads,
-    the replicated down-projections computed whole on every rank and
-    entering the rank's heads through ``copy``."""
+    key (B,S,dr); on a model axis (``heads`` [h0, h1)) q of those heads
+    (``model_axis.head_cols``), the replicated down-projections computed
+    whole on every rank and entering the rank's heads through
+    ``copy``."""
     b, s, _ = xn.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     if "w_dq" in p:
@@ -791,8 +794,8 @@ def _mla_qkv(p, xn, cfg: ModelConfig, heads=None):
     k_rope = xn @ p["w_kr"]                                        # (b,s,dr)
     if heads is not None:
         cq, c_kv, k_rope = MA.copy(cq), MA.copy(c_kv), MA.copy(k_rope)
-        wq = MA.part(wq, cfg.num_heads * (dn + dr), heads[0] * (dn + dr),
-                     heads[1] * (dn + dr))
+        wq = MA.head_cols(wq, cfg.num_heads * (dn + dr), heads[0],
+                          heads[1], dn + dr)
     q = (cq @ wq).reshape(b, s, -1, dn + dr)
     return q, c_kv, k_rope
 
@@ -804,8 +807,8 @@ def _mla_up(p, cfg: ModelConfig, heads=None):
         return p["w_uk"], p["w_uv"]
     h, (h0, h1) = cfg.num_heads, heads
     dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
-    return (MA.part(p["w_uk"], h * dn, h0 * dn, h1 * dn),
-            MA.part(p["w_uv"], h * dv, h0 * dv, h1 * dv))
+    return (MA.head_cols(p["w_uk"], h * dn, h0, h1, dn),
+            MA.head_cols(p["w_uv"], h * dv, h0, h1, dv))
 
 
 def _mla_heads(c_kv, k_rope, w_uk, w_uv, cfg: ModelConfig):
@@ -848,6 +851,9 @@ def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
     its columns of ``w_uq`` (``w_q``), ``w_uk`` and ``w_uv`` and rows of
     ``wo`` (a replicated one sliced), from ``c_kv`` and ``k_rope``
     computed whole on every rank; ``wo``'s partial products are summed.
+    Where the heads do not divide the axis, a rank computes every head its
+    columns touch, whole (``model_axis.frac_heads``, ``head_cols``), and
+    passes only its own columns into ``wo`` (``frac_cols``).
     A latent cache split on r holds this rank's chunk of every slot: the
     rank writes its chunk and gathers the ring's latent for the rebuild
     (``k_rope``, replicated, every rank writes whole).
@@ -865,7 +871,7 @@ def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
     h = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     heads = _mla_heads_of(p, cfg, cache if mode == "decode" else None)
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    xn = MA.norm_in(x, p["norm"], cfg.norm_eps)
     b, s, _ = xn.shape
     q, c_kv, k_rope = _mla_qkv(p, xn, cfg, heads)
     hl = q.shape[2]
@@ -876,7 +882,7 @@ def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
         if seq is not None and "model" in seq.axes and heads is not None:
             # every head attends this rank's slots: q and the up
             # projections whole, this rank's heads kept after the merge
-            q = all_gather_cat(q.contiguous(), MA.active(), 2)
+            q = _mla_qkv(p, xn, cfg, (0, h))[0]
             w_uk, w_uv = (MA.whole(p["w_uk"], h * dn),
                           MA.whole(p["w_uv"], h * dv))
         q_nope, q_rope = q[..., :dn], q[..., dn:]
@@ -939,9 +945,12 @@ def mla_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
         o = o[..., :dv]
     o = o.reshape(b, s, hl * dv)
     if heads is None:
-        return o @ p["wo"], cache
-    wo = MA.part(p["wo"], h * dv, heads[0] * dv, heads[1] * dv, dim=0)
-    return MA.row_product(o, wo), cache
+        return MA.seq_chunk(o @ p["wo"]), cache
+    # this rank's columns of its heads' output, into its rows of wo
+    c0, c1 = MA.frac_cols(h * dv, p["wo"].shape[0])
+    wo = MA.part(p["wo"], h * dv, c0, c1, dim=0)
+    return MA.row_product(o[..., c0 - heads[0] * dv:c1 - heads[0] * dv],
+                          wo), cache
 
 
 # --------------------------------------------------------------------------
@@ -965,12 +974,12 @@ def _gated(xn, w_gate, w_up, w_down, f: int, act: str):
         xn = MA.copy(xn)
         return MA.row_product(act_fn(act)(xn @ w_gate) * (xn @ w_up),
                               w_down)
-    return (act_fn(act)(xn @ w_gate) * (xn @ w_up)) @ w_down
+    return MA.seq_chunk((act_fn(act)(xn @ w_gate) * (xn @ w_up)) @ w_down)
 
 
 def ffn_apply(p, x, *, cfg: ModelConfig):
     """The gated FFN (tensor parallel on a model axis: ``_gated``)."""
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    xn = MA.norm_in(x, p["norm"], cfg.norm_eps)
     return _gated(xn, p["w_gate"], p["w_up"], p["w_down"], cfg.d_ff,
                   cfg.act)
 
@@ -1043,6 +1052,49 @@ def moe_route(p, xn: torch.Tensor, *, cfg: ModelConfig,
     return MoERoute(probs, topi, topv, pos, pos < cap, cap, g, gs)
 
 
+def _slot_table(r: MoERoute, e: int, device):
+    """-> (dest (m, k): each (token, choice)'s slot, by expert, then group,
+    then place; src (e * groups * cap,): the token in each slot, m where
+    none is). Dropped pairs all write a spare last entry, cut off."""
+    m, k = r.topi.shape
+    slots = e * r.groups * r.cap
+    group = torch.arange(m, device=device)[:, None] // r.group_len
+    dest = (r.topi * r.groups + group) * r.cap + r.pos
+    token = torch.arange(m, device=device)[:, None].expand(m, k)
+    src = torch.full((slots + 1,), m, dtype=torch.long,
+                     device=device).scatter_(
+        0, torch.where(r.keep, dest, slots).reshape(-1),
+        token.reshape(-1))[:slots]
+    return dest, src
+
+
+def _combine(ye, at, keep, topv):
+    """Each token's kept pairs' expert outputs (rows ``at`` of ``ye``),
+    weighted by ``topv``, summed in choice order in f32 -> (m, d) f32; a
+    pair not kept reads row 0 with weight 0 (every row is finite: an
+    empty slot's is 0); choice-major, so that each choice's rows and
+    weights are contiguous."""
+    at = torch.where(keep, at, 0).t().contiguous()
+    w = torch.where(keep, topv.to(torch.float32), 0.0).t()
+    acc = torch.zeros((at.shape[1], ye.shape[-1]), dtype=torch.float32,
+                      device=ye.device)
+    for j in range(at.shape[0]):
+        acc.addcmul_(w[j, :, None], ye.index_select(0, at[j]))
+    return acc
+
+
+def _load_balance(r: MoERoute, cfg: ModelConfig):
+    """The load-balance term over the routed tokens' top-1 choices, its
+    two means averaged over the model ranks where each routes its own
+    tokens (``model_axis.mean_over``) and over the data ranks where each
+    holds its own rows (``fsdp.mean``)."""
+    e = cfg.num_experts
+    me = FS.mean(MA.mean_over(r.probs.mean(0)))
+    ce = FS.mean(MA.mean_over((r.topi[:, :1] == torch.arange(
+        e, device=r.topi.device)).to(torch.float32).mean(0)))
+    return cfg.router_aux_loss * e * torch.sum(me * ce)
+
+
 def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
               group_size: int = 512):
     """The reference's capacity-dropped top-k MoE (``repro.models.layers.
@@ -1070,7 +1122,14 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
     over the data ranks (``fsdp.mean``). Where they do not (a decode
     step's few rows), the rows are gathered over "data", every rank routes
     them all as one rank would and keeps its own (no gradient: the train
-    step refuses such rows)."""
+    step refuses such rows).
+
+    With the sequence split over the model axis (``model_axis.seq_split``)
+    each rank routes its own positions (``_moe_own_tokens``)."""
+    if MA.seq_split():
+        return _moe_own_tokens(p, x, cfg=cfg,
+                               capacity_factor=capacity_factor,
+                               group_size=group_size)
     b, s, d = x.shape
     e = cfg.num_experts
     lay = FS.active()
@@ -1092,23 +1151,15 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
     with torch.profiler.record_function("moe.route"):
         r = moe_route(p, flat, cfg=cfg, capacity_factor=capacity_factor,
                       group_size=group_size)
-    m, k, cap = r.groups * r.group_len, r.topi.shape[1], r.cap
-    slots = e * r.groups * cap
+    m = r.groups * r.group_len
     # this rank's experts [e0, e1) (all of them on one rank)
     e0, e1 = (MA.chunk_of(e, p["we_gate"].shape[0])
               if MA.active() is not None else (0, e))
     spread = e1 - e0 != e
-    per = r.groups * cap                               # slots an expert
+    per = r.groups * r.cap                             # slots an expert
     with torch.profiler.record_function("moe.dispatch"):
-        group = torch.arange(m, device=x.device)[:, None] // r.group_len
-        dest = (r.topi * r.groups + group) * cap + r.pos      # (m, k)
-        # the token in each slot (m: none, a zero row); dropped pairs all
-        # write the spare last entry, which is cut off
-        token = torch.arange(m, device=x.device)[:, None].expand(m, k)
-        src = torch.full((slots + 1,), m, dtype=torch.long,
-                         device=x.device).scatter_(
-            0, torch.where(r.keep, dest, slots).reshape(-1),
-            token.reshape(-1))[:slots]
+        dest, src = _slot_table(r, e, x.device)
+        # the token in each slot (m: none, a zero row)
         tokens = MA.copy(flat[:m]) if spread else flat[:m]
         rows = torch.cat([tokens, flat.new_zeros(1, d)])
         xe = rows[src[e0 * per:e1 * per]].view(e1 - e0, per, d)
@@ -1117,19 +1168,12 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
             * torch.bmm(xe, p["we_up"])
         ye = torch.bmm(he, p["we_down"]).view((e1 - e0) * per, d)
     with torch.profiler.record_function("moe.combine"):
-        # a dropped pair (or another rank's) reads slot 0 with weight 0
-        # (every slot's row is finite: an empty slot's is 0);
-        # choice-major, so that each choice's slots and weights are
-        # contiguous
+        # another rank's pair reads as a dropped one
         keep, topv = r.keep, r.topv
         if spread:
             keep = keep & (r.topi >= e0) & (r.topi < e1)
             topv = MA.copy(topv)
-        at = torch.where(keep, dest - e0 * per, 0).t().contiguous()
-        w = torch.where(keep, topv.to(torch.float32), 0.0).t()
-        acc = torch.zeros((m, d), dtype=torch.float32, device=x.device)
-        for j in range(k):
-            acc.addcmul_(w[j, :, None], ye.index_select(0, at[j]))
+        acc = _combine(ye, dest - e0 * per, keep, topv)
         if spread:
             acc = MA.reduce(acc)
         y = acc.to(x.dtype)
@@ -1139,12 +1183,69 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
     if cfg.num_shared_experts:
         y = y + _gated(xn, p["ws_gate"], p["ws_up"], p["ws_down"],
                        cfg.d_ff * cfg.num_shared_experts, cfg.act)
-    # the load-balance term (over the routed tokens, top-1 choices)
-    me = FS.mean(r.probs.mean(0))
-    ce = FS.mean((r.topi[:, :1] == torch.arange(e, device=x.device)).to(
-        torch.float32).mean(0))
-    aux = cfg.router_aux_loss * e * torch.sum(me * ce)
-    return y, aux
+    return y, _load_balance(r, cfg)
+
+
+def _moe_own_tokens(p, x, *, cfg: ModelConfig, capacity_factor: float,
+                    group_size: int):
+    """``moe_apply`` where ``x`` (B, S/m, d) holds this model rank's chunk
+    of every row's positions (sequence parallelism): the rank normalizes
+    and routes its own tokens (``moe_route``: the one-rank route only
+    where a row's chunk is whole groups of ``group_size``, else
+    ``ValueError``), and the slots go to the ranks that hold their
+    experts by ``model_axis.exchange`` (an all-to-all): each rank runs its
+    experts over every rank's slots for them, the outputs come back the
+    same way, and each rank combines its own tokens' kept terms in choice
+    order in f32, rounded once, as one rank does (no sum over the ranks).
+    Experts that do not divide the axis stay replicated: every rank runs
+    them all on its own slots. The norm, the router and replicated
+    experts enter through ``copy`` (each rank's gradient is its tokens');
+    the shared experts run on the positions gathered (``norm_in``'s way,
+    their output reduce-scattered); the load-balance term's two means are
+    averaged over the model ranks (``model_axis.mean_over``) and then, as
+    on one pod, over "data"."""
+    b, s, d = x.shape
+    e = cfg.num_experts
+    if s % group_size:
+        raise ValueError(
+            f"the MoE over a sequence split over 'model': {s} positions a "
+            f"row a rank are no whole groups of {group_size} (the one-rank "
+            f"route needs each rank's chunk of a row to form whole groups)")
+    xn = rms_norm(x, MA.copy(p["norm"]), cfg.norm_eps)
+    flat = xn.reshape(-1, d)
+    with torch.profiler.record_function("moe.route"):
+        r = moe_route({"router": MA.copy(p["router"])}, flat, cfg=cfg,
+                      capacity_factor=capacity_factor, group_size=group_size)
+    per = r.groups * r.cap                    # this rank's slots an expert
+    e0, e1 = MA.chunk_of(e, p["we_gate"].shape[0])
+    spread = e1 - e0 != e
+    w_gate, w_up, w_down = ((p["we_gate"], p["we_up"], p["we_down"])
+                            if spread else
+                            tuple(MA.copy(p[n]) for n in
+                                  ("we_gate", "we_up", "we_down")))
+    with torch.profiler.record_function("moe.dispatch"):
+        dest, src = _slot_table(r, e, x.device)
+        xe = torch.cat([flat, flat.new_zeros(1, d)])[src].view(e, per, d)
+        if spread:
+            # every rank's slots of this rank's experts: (n_ranks, e/m,
+            # per, d) -> expert-major
+            ranks = MA.active().size
+            xe = MA.exchange(xe).view(ranks, e1 - e0, per, d).transpose(
+                0, 1).reshape(e1 - e0, ranks * per, d)
+    with torch.profiler.record_function("moe.experts"):
+        he = act_fn(cfg.act)(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+        ye = torch.bmm(he, w_down)
+        if spread:
+            ye = MA.exchange(ye.view(e1 - e0, ranks, per, d).transpose(
+                0, 1).reshape(e, per, d))
+        ye = ye.reshape(e * per, d)
+    with torch.profiler.record_function("moe.combine"):
+        y = _combine(ye, dest, r.keep, r.topv).to(x.dtype).view(b, s, d)
+    if cfg.num_shared_experts:
+        y = y + _gated(MA.seq_whole(xn), p["ws_gate"], p["ws_up"],
+                       p["ws_down"], cfg.d_ff * cfg.num_shared_experts,
+                       cfg.act)
+    return y, _load_balance(r, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -1284,7 +1385,7 @@ def mamba_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, **_):
     and ``w_out``'s partial products are summed."""
     st, cw = cfg.ssm_state_dim, cfg.ssm_conv_width
     dt_rank = max(cfg.d_model // 16, 1)
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    xn = MA.norm_in(x, p["norm"], cfg.norm_eps)
     b, s, _ = xn.shape
     u, z, conv_w, conv_b, w_x, w_dt, dt_bias, a_log, d_skip, w_out = \
         _mamba_inner(p, xn, cfg)
@@ -1321,7 +1422,8 @@ def mamba_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, **_):
         A = -torch.exp(a_log)
         y = _selective_scan(uc, dt, A, B, C, d_skip)
     y = y * F.silu(z)
-    return (MA.row_product(y, w_out) if split else y @ w_out), cache
+    return (MA.row_product(y, w_out) if split
+            else MA.seq_chunk(y @ w_out)), cache
 
 
 # --------------------------------------------------------------------------
@@ -1413,21 +1515,32 @@ def _wkv_chunked(r, k, v, w, u, chunk: int = 64):
 _RWKV_COLS = ("wr", "wk", "wv", "wg", "w_decay2")
 
 
-def _rwkv_heads_of(p, cfg: ModelConfig) -> Optional[Tuple[int, int]]:
+def _rwkv_heads_of(p, cfg: ModelConfig, cache) -> Optional[Tuple[int, int]]:
     """The heads [h0, h1) this rank runs on a model axis where any of the
     time mix's head-wide leaves is split; None on one rank or where every
-    leaf is whole."""
+    leaf is whole. Prefill and training: ``model_axis.frac_heads`` (a
+    boundary head on both ranks that share it where the heads do not
+    divide the axis). Decode: the heads of the cache's state, which the
+    plan splits over the axis where the heads divide it and keeps whole
+    (every rank runs every head, so the state has the same bits on every
+    rank) where they do not."""
     if MA.active() is None:
         return None
-    full = cfg.num_heads * cfg.head_dim
+    h = cfg.num_heads
+    full = h * cfg.head_dim
     split = (any(p[k].shape[-1] != full for k in _RWKV_COLS)
              or p["wo"].shape[0] != full)
-    return MA.even_share(cfg.num_heads, "RWKV heads") if split else None
+    if not split:
+        return None
+    if cache is None:
+        return MA.frac_heads(h)
+    return MA.chunk_of(h, cache["state"].shape[-3])
 
 
 def _ln_x(o, w, eps: float, full: int):
     """``rms_norm(o, w)`` over ``full`` channels of which ``o`` holds this
-    rank's (the mean square summed over the ranks, its gradient too)."""
+    rank's columns (the mean square summed over the ranks, its gradient
+    too)."""
     if o.shape[-1] == full:
         return rms_norm(o, w, eps)
     ss = torch.sum(torch.square(o.to(torch.float32)), -1, keepdim=True)
@@ -1441,19 +1554,22 @@ def rwkv_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, **_):
     ``x_prev``), whose tensors get the new state IN PLACE (``copy_``: the
     reference returns new ones); the caller's cache is returned.
 
-    On a model axis (``model_axis``) each rank runs its heads: its
-    columns of ``wr``, ``wk``, ``wv``, ``wg`` and ``w_decay2`` and rows of
-    ``wo`` (a replicated leaf sliced, as are ``decay_bias``, ``bonus`` and
-    ``ln_x``), the mixes of the whole normed input (which enters through
-    ``copy``, the mixing coefficients and ``w_decay1`` too). ``ln_x``'s
-    mean square runs over every head (``_ln_x``), ``wo``'s partial
-    products are summed; the cache's state holds the rank's heads and its
-    token shift ``x_prev``, split on d_model, is gathered to be read and
-    written back a chunk a rank."""
+    On a model axis (``model_axis``) each rank runs its heads
+    (``_rwkv_heads_of``): its columns of ``wr``, ``wk``, ``wv``, ``wg``
+    and ``w_decay2`` (``model_axis.head_cols``: gathered where a shard
+    splits a head) and of ``decay_bias`` and ``bonus`` (replicated,
+    sliced), the mixes of the whole normed input (which enters through
+    ``copy``, the mixing coefficients and ``w_decay1`` too). Each rank
+    then keeps its own columns (``frac_cols``: its rows of ``wo``):
+    ``ln_x``'s mean square runs over every column of every rank
+    (``_ln_x``), ``wo``'s partial products are summed; the cache's state
+    holds the rank's heads (all of them where the heads do not divide the
+    axis) and its token shift ``x_prev``, split on d_model, is gathered
+    to be read and written back a chunk a rank."""
     h, hd = cfg.num_heads, cfg.head_dim
     full = h * hd
-    heads = _rwkv_heads_of(p, cfg)
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    heads = _rwkv_heads_of(p, cfg, cache if mode == "decode" else None)
+    xn = MA.norm_in(x, p["norm"], cfg.norm_eps)
     b, s, d = xn.shape
     lo, hi = (heads[0] * hd, heads[1] * hd) if heads else (0, full)
     hl = (hi - lo) // hd
@@ -1461,8 +1577,8 @@ def rwkv_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, **_):
     def rep(w):                       # a replicated leaf the rank reads
         return MA.copy(w) if heads else w
 
-    def cols(w, dim=-1):              # the rank's columns of a leaf
-        return MA.part(w, full, lo, hi, dim) if heads else w
+    def cols(w):                      # the rank's heads' columns of a leaf
+        return MA.head_cols(w, full, lo // hd, hi // hd, hd) if heads else w
 
     xc = rep(xn)
     if mode == "decode":
@@ -1503,10 +1619,15 @@ def rwkv_apply(p, x, *, cfg: ModelConfig, mode: str, cache=None, **_):
         o = _wkv_chunked(r, k, v, w, bonus)
 
     o = o.reshape(b, s, hl * hd)
-    o = _ln_x(o, cols(p["ln_x"]), cfg.norm_eps, full) * g
     if heads is None:
-        return o @ p["wo"], cache
-    return MA.row_product(o, cols(p["wo"], 0)), cache
+        o = _ln_x(o, p["ln_x"], cfg.norm_eps, full) * g
+        return MA.seq_chunk(o @ p["wo"]), cache
+    # this rank's own columns of its heads, into its rows of wo
+    c0, c1 = MA.frac_cols(full, p["wo"].shape[0])
+    own = slice(c0 - lo, c1 - lo)
+    o = _ln_x(o[..., own], MA.part(p["ln_x"], full, c0, c1), cfg.norm_eps,
+              full) * g[..., own]
+    return MA.row_product(o, MA.part(p["wo"], full, c0, c1, 0)), cache
 
 
 # --------------------------------------------------------------------------
@@ -1531,7 +1652,7 @@ def rwkv_ffn_apply(p, x, *, cfg: ModelConfig, x_prev=None):
     partial product is summed; ``wr`` is replicated, so the receptance is
     computed whole on every rank and multiplies after the sum."""
     f = cfg.d_ff
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    xn = MA.norm_in(x, p["norm"], cfg.norm_eps)
     if x_prev is None:
         xp = F.pad(xn, (0, 0, 1, 0))[:, :-1]
     else:
@@ -1539,7 +1660,9 @@ def rwkv_ffn_apply(p, x, *, cfg: ModelConfig, x_prev=None):
     xk = xn + (xp - xn) * p["mu_k"]
     r = torch.sigmoid((xn + (xp - xn) * p["mu_r"]) @ p["wr"])
     if MA.active() is None or p["wv"].shape[0] == f:
-        return r * (torch.square(F.relu(xk @ p["wk"])) @ p["wv"]), xn[:, -1]
+        return MA.seq_chunk(r * (torch.square(F.relu(xk @ p["wk"]))
+                                 @ p["wv"])), xn[:, -1]
     lo, hi = MA.chunk_of(f, p["wv"].shape[0])
     k = MA.copy(xk) @ MA.part(p["wk"], f, lo, hi)
-    return r * MA.row_product(torch.square(F.relu(k)), p["wv"]), xn[:, -1]
+    return (MA.seq_chunk(r) * MA.row_product(torch.square(F.relu(k)),
+                                             p["wv"]), xn[:, -1])

@@ -45,10 +45,30 @@ RWKV's ``bonus`` and a head-aware plan's replicated ``wk`` are read.
 ``whole`` and ``mine`` go between a state split on its last dim (RWKV's
 token shift in the cache) and the whole vector a rank reads.
 
+Heads that do not divide the axis (rwkv6-3b's 40 over 16, deepseek's 128
+MLA heads over 3): the plan splits a flat (heads x width) dim mid-head,
+so a rank computes every head its columns touch, whole (``frac_heads``;
+a boundary head on both ranks that share it), takes those heads'
+columns of each leaf (``head_cols``: a shard that splits a head is
+gathered) and passes on only its own columns (``frac_cols``), into
+``wo``'s rows or a norm over every column.
+
+With the sequence split (``over(ranks, seq=True)``: training's
+``seq_shard_activations``, Megatron's sequence parallelism, Korthikanti
+et al., 2022) the hidden states between blocks hold this rank's chunk of
+the positions: ``seq_chunk`` takes it (at a run of stages' entry, and of
+a block output computed whole), ``seq_whole`` gathers the positions (at
+the exit), ``norm_in`` normalizes a block's input on the chunk and
+gathers it for the block's work, ``row_product`` reduce-scatters a
+block's output on the positions, ``exchange`` is the MoE's all-to-all
+of slots to their experts' ranks and ``mean_over`` averages its
+load-balance means over the ranks.
+
 They go through ``core/collectives.py`` rather than DTensor's own
 redistributions: on one card the ranks are gloo processes, and there
 DTensor's gathers of CUDA tensors killed both ranks with torch 2.11
-(``tools/gloo_cuda_probe.py``), where the host-staged collectives run.
+(``tools/gloo_cuda_probe.py``), where the collectives move the bytes by
+device copies between the ranks' mailboxes (the same-card route).
 
 Outside ``over`` (or with no leaf sharded) every function here is the
 plain one-rank op, so the one-rank path is unchanged. The vocabulary is
@@ -63,25 +83,36 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.collectives import (Ranks, all_gather_cat,
-                                          all_reduce_tensor)
+                                          all_reduce_tensor, all_to_all,
+                                          reduce_scatter_cat)
 
 _RANKS: Optional[Ranks] = None
+_SEQ = False
 
 
 @contextmanager
-def over(ranks: Optional[Ranks]):
-    """Run the layers on the model axis ``ranks`` (None: one rank)."""
-    global _RANKS
-    prev, _RANKS = _RANKS, ranks
+def over(ranks: Optional[Ranks], seq: bool = False):
+    """Run the layers on the model axis ``ranks`` (None: one rank);
+    ``seq``: with the hidden states between blocks split on the sequence
+    over the ranks (``seq_split``)."""
+    global _RANKS, _SEQ
+    prev = _RANKS, _SEQ
+    _RANKS, _SEQ = ranks, seq and ranks is not None
     try:
         yield
     finally:
-        _RANKS = prev
+        _RANKS, _SEQ = prev
 
 
 def active() -> Optional[Ranks]:
     """The model axis the layers run on (None outside ``over``)."""
     return _RANKS
+
+
+def seq_split() -> bool:
+    """Whether the hidden states between blocks hold this rank's chunk of
+    the sequence (training's ``seq_shard_activations``)."""
+    return _SEQ
 
 
 def chunk_of(full: int, local: int) -> Tuple[int, int]:
@@ -158,32 +189,41 @@ def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class _RowProduct(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, w, ranks, shared):
-        ctx.ranks, ctx.shared = ranks, shared
+    def forward(ctx, a, w, ranks, shared, scatter):
+        ctx.ranks, ctx.shared, ctx.scatter = ranks, shared, scatter
         ctx.save_for_backward(a, w)
-        y = all_reduce_tensor(_mm_f32(a.reshape(-1, a.shape[-1]), w), ranks)
-        return y.to(a.dtype).view(tuple(a.shape[:-1]) + (w.shape[-1],))
+        shape = tuple(a.shape[:-1]) + (w.shape[-1],)
+        y = _mm_f32(a.reshape(-1, a.shape[-1]), w)
+        if scatter:                       # this rank's positions of the sum
+            return reduce_scatter_cat(y.view(shape), ranks, 1).to(a.dtype)
+        return all_reduce_tensor(y, ranks).to(a.dtype).view(shape)
 
     @staticmethod
     def backward(ctx, g):
         a, w = ctx.saved_tensors
+        if ctx.scatter:
+            g = all_gather_cat(g.contiguous(), ctx.ranks, 1)
         if ctx.shared:
             g = all_reduce_tensor(g, ctx.ranks)
         g2 = g.reshape(-1, g.shape[-1])
         ga = (g2 @ w.t()).view(a.shape) if ctx.needs_input_grad[0] else None
         gw = (a.reshape(-1, a.shape[-1]).t() @ g2
               if ctx.needs_input_grad[1] else None)
-        return ga, gw, None, None
+        return ga, gw, None, None, None
 
 
 def row_product(a: torch.Tensor, w: torch.Tensor,
                 shared: bool = False) -> torch.Tensor:
     """``reduce(a @ w)`` (``shared``: ``sum_over(a @ w)``) of this rank's
     columns of ``a`` and rows of ``w``, summed before its one rounding;
-    ``a @ w`` outside a model axis."""
+    ``a @ w`` outside a model axis. With the sequence split
+    (``seq_split``) a block's output (not ``shared``: ``a`` (B, S, k),
+    every position) is reduce-scattered on the sequence instead: this
+    rank's positions of the sum (B, S/m, n), the gradient all-gathered
+    back."""
     if _RANKS is None:
         return a @ w
-    return _RowProduct.apply(a, w, _RANKS, shared)
+    return _RowProduct.apply(a, w, _RANKS, shared, _SEQ and not shared)
 
 
 def copy(x: torch.Tensor) -> torch.Tensor:
@@ -202,16 +242,130 @@ def gather(x: torch.Tensor, dim: int, summed: bool) -> torch.Tensor:
     return _Gather.apply(x, _RANKS, dim % x.ndim, summed)
 
 
-def even_share(n: int, what: str) -> Tuple[int, int]:
-    """This rank's even chunk [lo, hi) of ``n`` whole items (heads,
-    experts, channels); ``NotImplementedError`` where they do not divide
-    the axis (a fractional head a rank)."""
-    if n % _RANKS.size:
-        raise NotImplementedError(
-            f"{n} {what} over a model axis of {_RANKS.size}: fractional "
-            f"{what} a rank are planned, not executed (ROADMAP.md item 15b)")
-    per = n // _RANKS.size
-    return _RANKS.rank * per, (_RANKS.rank + 1) * per
+# --------------------------------------------------------------------------
+# the sequence over the ranks (Megatron's sequence parallelism, Korthikanti
+# et al., 2022): training's ``seq_shard_activations``
+# --------------------------------------------------------------------------
+class _SeqChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks):
+        ctx.ranks = ranks
+        per = x.shape[1] // ranks.size
+        return x.narrow(1, ranks.rank * per, per).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g.contiguous(), ctx.ranks, 1), None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks):
+        ctx.n = ranks.size
+        return all_reduce_tensor(x, ranks) / ranks.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def seq_chunk(x: torch.Tensor) -> torch.Tensor:
+    """This rank's chunk of the positions (dim 1) of ``x``, which every
+    rank holds whole and the same (its gradient the ranks' chunks'
+    gathered); ``x`` itself unless the sequence is split."""
+    if not _SEQ:
+        return x
+    if x.shape[1] % _RANKS.size:
+        raise ValueError(f"{x.shape[1]} positions do not split over a "
+                         f"model axis of {_RANKS.size}")
+    return _SeqChunk.apply(x, _RANKS)
+
+
+def seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's chunk of the positions gathered (what follows runs the
+    same on every rank: the gradient is this rank's chunk); ``x`` itself
+    unless the sequence is split."""
+    if not _SEQ:
+        return x
+    return gather(x, 1, summed=False)
+
+
+def norm_in(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """A block's ``rms_norm(x, w)`` at its entry. With the sequence split
+    the norm runs on this rank's positions (``w`` through ``copy``: each
+    rank's gradient is its positions') and the result is gathered whole
+    for the block's work, which then runs as it does on a model axis
+    without the split, up to its row-parallel output (``row_product``
+    reduce-scatters it) or ``seq_chunk``."""
+    from repro_torch.models.layers import rms_norm
+    if not _SEQ:
+        return rms_norm(x, w, eps)
+    return seq_whole(rms_norm(x, copy(w), eps))
+
+
+def mean_over(x: torch.Tensor) -> torch.Tensor:
+    """``x`` averaged over the ranks (each rank's gradient is its share
+    of the mean's); ``x`` unless the sequence is split (every rank then
+    computes it whole)."""
+    if not _SEQ:
+        return x
+    return _MeanOver.apply(x, _RANKS)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks):
+        ctx.ranks = ranks
+        return all_to_all(x, ranks, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g.contiguous(), ctx.ranks, 0), None
+
+
+def exchange(x: torch.Tensor) -> torch.Tensor:
+    """``collectives.all_to_all`` on dim 0 over the model axis: rank r's
+    i-th chunk to rank i, the gradient sent back the same way."""
+    return _AllToAll.apply(x, _RANKS)
+
+
+def frac_heads(n: int) -> Tuple[int, int]:
+    """The heads [h0, h1) of ``n`` this rank computes whole: its even
+    share where the axis divides them, else every head its fraction
+    [r n / m, (r + 1) n / m) of them overlaps (a boundary head on both
+    ranks that share it)."""
+    m, r = _RANKS.size, _RANKS.rank
+    return r * n // m, -(-(r + 1) * n // m)
+
+
+def frac_cols(full: int, local: int) -> Tuple[int, int]:
+    """The columns [lo, hi) of a flat (heads x width) dim of ``full``
+    entries that this rank passes on from its ``frac_heads`` (into a
+    row-parallel product, a norm over every column): its shard's where a
+    leaf of ``local`` entries splits the dim, else its fraction
+    [r full / m, (r + 1) full / m) rounded down; the ranks' columns
+    partition the dim, and each lies in the rank's heads."""
+    if local != full:
+        return chunk_of(full, local)
+    m, r = _RANKS.size, _RANKS.rank
+    return r * full // m, (r + 1) * full // m
+
+
+def head_cols(w: torch.Tensor, full: int, h0: int, h1: int, width: int,
+              dim: int = -1) -> torch.Tensor:
+    """Whole heads [h0, h1) of a leaf whose dim ``dim`` is a flat (heads x
+    ``width``) dim of ``full`` entries: the slice of a replicated leaf
+    (``part``), this rank's shard where it holds exactly those heads, else
+    the shard gathered over the ranks (each boundary head's missing
+    columns from the neighbour; the gradient summed over the ranks, then
+    this rank's columns kept). Every rank takes the same branch: a shard
+    holds whole heads on every rank or, where the heads do not divide
+    the axis, on none."""
+    lo, hi = h0 * width, h1 * width
+    n = w.shape[dim]
+    if n == full or chunk_of(full, n) == (lo, hi):
+        return part(w, full, lo, hi, dim)
+    return gather(w, dim, summed=True).narrow(dim, lo, hi - lo)
 
 
 def part(w: torch.Tensor, full: int, lo: int, hi: int,

@@ -46,7 +46,11 @@ leaves) the embedding's rows and the head's columns split the
 vocabulary: the lookup is masked to this rank's rows and summed over the
 ranks, ``apply``'s logits are gathered over them, and ``loss`` takes the
 log-softmax over the split vocabulary (``model_axis.next_token_nll``)
-without gathering the logits.
+without gathering the logits. With the sequence split as well
+(training's ``seq_shard_activations``) the hidden states hold a rank's
+chunk of the positions from a run of stages' entry to its exit, where
+they are gathered, so the embedding, the head and a stage range's
+hidden states are what they are without the split.
 
 With FSDP (``models/fsdp.py``) each block's data-split leaves are
 gathered at the block's entry (inside the unit a remat checkpoints), the
@@ -382,9 +386,13 @@ class LM:
         """-> (x, the blocks' aux summed in layer order (f32), caches).
         ``dims`` (FSDP) and ``rings`` (a ring split over ranks) are the
         stages' data-split dims and ``layers.SeqSplit``s, a list a stage of
-        a list a unit position (None: none)."""
+        a list a unit position (None: none). With the sequence split over
+        the model axis (``model_axis.seq_split``, training) the hidden
+        states between blocks hold this rank's chunk of the positions:
+        ``x`` is split at the entry and gathered whole at the exit."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
+        x = MA.seq_chunk(x)
         for si, (st, sp) in enumerate(zip(stages, stage_params)):
             scache = cache_stages[si] if cache_stages is not None else None
             sdims, srings = FS.at(dims, si), FS.at(rings, si)
@@ -421,7 +429,7 @@ class LM:
                 # the stacked caches were written in place, layer by
                 # layer, through the views (rings and states alike)
                 new_caches.append(scache)
-        return x, aux, new_caches
+        return MA.seq_whole(x), aux, new_caches
 
     def _unit_apply(self, unit, mode, pos, enc_out, dims, x, lp):
         """One repeat of a scan stage (its unit's blocks) without a cache:

@@ -32,13 +32,20 @@ cross-attention; reduced) run prefill, decode and the train step on
 to the reference. Each rank records the query heads of its attention
 calls: h / m of them.
 
-(d) What a model axis still refuses names ROADMAP item 15b:
-    sequence-sharded activations and inference over "pod" (the fake
-    process group stands in for the ranks); a DTensor reaching a kernel
-    wrapper raises and names the wrapper. The MoE, MLA, Mamba and RWKV
-    families on a model axis are ``tests/test_torch_model_axis_moe_mla.py``
-    and ``tests/test_torch_model_axis_ssm.py``; FSDP (jamba's, deepseek's
-    and a dense arch's past the threshold) is
+(d) The train step with ``seq_shard_activations`` (the hidden states
+    between blocks split on the sequence over "model") on 1 x 2 (G = 1)
+    and 2 x 2 (G = 2), at (b)'s levels; its blocks' row-parallel outputs
+    reduce-scattered. The other families' are
+    ``tests/test_torch_seq_shard.py`` and
+    ``tests/test_torch_seq_shard_ssm.py``.
+(e) What a model axis still refuses names ROADMAP item 15b: inference
+    over "pod" (the fake process group stands in for the ranks); a
+    DTensor reaching a kernel wrapper raises and names the wrapper. The
+    MoE, MLA, Mamba and RWKV families on a model axis are
+    ``tests/test_torch_model_axis_moe_mla.py`` and
+    ``tests/test_torch_model_axis_ssm.py``, their heads that do not divide
+    the axis ``tests/test_torch_frac_heads.py``; FSDP (jamba's,
+    deepseek's and a dense arch's past the threshold) is
     ``tests/test_torch_fsdp.py``, a k/v or latent cache split on the head
     dim or the sequence ``tests/test_torch_seq_cache.py``;
     ``specs.params_on_mesh`` is held here to the distributed init.
@@ -269,13 +276,17 @@ def worlds(tmp_path_factory):
                                          "decode": 1, "train": 1})
     two.update(llama.cases("1x2 momentum", (1, 2), 1, {"train": 1},
                            TrainConfig(**TCFG, momentum=0.9)))
+    seq = TrainConfig(**TCFG, seq_shard_activations=True)
+    two.update(llama.cases("1x2 seq", (1, 2), 1, {"train": 1}, seq))
     for arch, port in others.items():
         two.update(port.cases(arch, (1, 2), 1, {"prefill": ("decode",),
                                                 "decode": 1, "train": 1}))
+        two.update(port.cases(arch + " seq", (1, 2), 1, {"train": 1}, seq))
     four = llama.cases("2x2", (2, 2), 2, {"prefill": ("decode",),
                                           "decode": 1, "train": 1})
     four.update(llama.cases("1x4", (1, 4), 1, {"prefill": ("decode",),
                                                "train": 1}))
+    four.update(llama.cases("2x2 seq", (2, 2), 2, {"train": 1}, seq))
     odd = Port(ODD, 9, (1,))
     four.update(odd.cases(ODD, (1, 4), 1, {"prefill": ("prefill",),
                                            "train": 1}))
@@ -386,8 +397,14 @@ def test_decode_on_the_model_axis(worlds, mesh):
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x2", "1x4"])
 def test_train_step_on_the_model_axis(worlds, mesh):
+    _check_train(worlds, mesh, mesh)
+
+
+def _check_train(worlds, mesh, tag):
+    """The train step of case ``tag`` on ``mesh`` against one rank's and
+    the reference's; each rank ran its query heads."""
     world, g = LLAMA[mesh]
-    runs = _ranks(worlds, world, (mesh, "train"))
+    runs = _ranks(worlds, world, (tag, "train"))
     (leaves, metrics), heads = runs[0]
     assert all(m == metrics for (_, m), _ in runs)
     one_leaves, one_metrics = worlds["one"][("llama", g)]["train"]
@@ -408,13 +425,22 @@ def test_train_step_on_the_model_axis(worlds, mesh):
     assert heads == [4 // m]
 
 
-@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train",
+                                  "train seq"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_dense_families_on_the_model_axis(worlds, arch, kind):
-    key = (arch, "prefill", "decode") if kind == "prefill" else (arch, kind)
+    """Each dense family's steps on 1 x 2 against one rank's; "train
+    seq": the train step with the hidden states split on the sequence
+    (whisper's encoder's too, internvl2's prefix among the positions)."""
+    if kind == "prefill":
+        key = (arch, "prefill", "decode")
+    elif kind == "train seq":
+        key = (arch + " seq", "train")
+    else:
+        key = (arch, kind)
     runs = _ranks(worlds, 2, key)
     got, heads = runs[0]
-    want = worlds["one"][(arch, 1)][kind]
+    want = worlds["one"][(arch, 1)][kind.split()[0]]
     if kind == "prefill":
         _one_rank_close(got, want)
     elif kind == "decode":
@@ -447,27 +473,14 @@ def fake_world():
     dist.destroy_process_group()
 
 
-def _refused(step, cfg, mesh, tcfg=None):
-    """Build ``step`` ("train", "prefill" or "decode") of ``cfg`` on
-    ``mesh``, and for decode its cache there too."""
-    if step == "train":
-        return make_train_step(cfg, tcfg or TrainConfig(), mesh=mesh)
+def _refused(step, cfg, mesh):
+    """Build ``step`` ("prefill" or "decode") of ``cfg`` on ``mesh``, and
+    for decode its cache there too."""
     if step == "prefill":
         return make_prefill_step(cfg, mesh=mesh)
     from repro_torch.launch.specs import cache_on_mesh
     _, lm = make_decode_step(cfg, mesh=mesh)
     return cache_on_mesh(lm, mesh, 2, 8)
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-236b",
-                                  "jamba-1.5-large-398b", "rwkv6-3b"])
-def test_the_families_sequence_sharded_activations_raise(fake_world,
-                                                          arch):
-    mesh = fake_world(2, (1, 2))
-    with pytest.raises(NotImplementedError, match="item 15b") as err:
-        _refused("train", get_config(arch).reduced(), mesh,
-                 TrainConfig(seq_shard_activations=True))
-    assert "sequence-sharded" in str(err.value)
 
 
 @pytest.mark.parametrize("step", ["prefill", "decode"])
@@ -504,11 +517,19 @@ def test_params_on_mesh_is_the_distributed_init(fake_world, arch):
                for p in x.placements)
 
 
-def test_sequence_sharded_activations_raise(fake_world):
-    mesh = fake_world(2, (1, 2))
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        make_train_step(get_config("llama3.2-1b"),
-                        TrainConfig(seq_shard_activations=True), mesh=mesh)
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_sequence_sharded_activations_match(worlds, mesh):
+    """The positions over "model" between blocks: the train step within
+    f32 rounding of one rank's and 2e-3 of the reference's, on the
+    head-aware train plan; its blocks reduce-scatter their outputs, where
+    the step without the option all-reduces them."""
+    _check_train(worlds, mesh, f"{mesh} seq")
+    world = LLAMA[mesh][0]
+    for r in range(world):
+        outs = worlds["outs"][(world, r)]
+        assert outs[(f"{mesh} seq", "train", "calls")].get(
+            "reduce_scatter_cat", 0) > 0
+        assert "reduce_scatter_cat" not in outs[(mesh, "train", "calls")]
 
 
 @pytest.mark.parametrize("wrapper,args", [
