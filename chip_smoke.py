@@ -349,7 +349,18 @@ result line:
      world of 4 is done and run beside the world of 2: a 1 x 4,096
      prefill and 2 decode steps at batch 4 over 4,096 slots, the logits
      and the cache within 2e-2 of one rank's, the attention launches a
-     rank one rank's;
+     rank one rank's; 18f two pods, last in the world of 4, each mesh
+     ("pod", "data", "model"): llama3.2-1b's 4-layer cut serving on
+     (2, 2, 1) (a 4 x 4,096 prefill and 4 decode steps at batch 4, a row
+     a rank over ("pod", "data"); 2 steps at batch 2, the rows over "data"
+     and each pod a replica of the other) and on (2, 1, 2) (batch 2 over
+     "pod", the heads over "model"), then at batch 1 over 32,768 filled
+     slots split over "data" in each pod; a round of 14b's cut at G = 4
+     (a cohort a rank, rows of 1,024 tokens) and deepseek's first layer
+     with FSDP at G = 2 over "pod" (rows of 512 tokens; four ranks share
+     the card): every rank the same bits, a replica pod its twin's cache
+     shards, the logits within 2e-2 of one rank's (the tokens one rank's
+     but at near ties), the rounds at 16b's and 18b's levels;
   5. time each kernel beside its plain version, a library call where one
      computes the same function, and its bound (the attention kernels one
      row a template instance: head dim 64 at phase 6's shapes, 128 at
@@ -5205,8 +5216,20 @@ def run_cost_phase(dev, model, clients, test, smoke=None):
     tail = stdout.strip().splitlines()[-1:] or [""]
     check(code == 0, f"15b: the smoke dry run exited {code}: {tail[0]} "
                      f"{stderr[-2000:]}")
+    # every record one rank's exact count
+    root = os.path.join(ROOT, "build", "dryrun_smoke")
+    recs = []
+    for name in sorted(os.listdir(root)):
+        if name.endswith(".json"):
+            with open(os.path.join(root, name)) as f:
+                recs.append(json.load(f))
+    ok = [r for r in recs if r["status"] == "ok"]
+    check(ok and all(r["per_device_rule"] == "exact" for r in ok),
+          f"15b: {len(ok)} smoke records ok, not all exact")
+    print(f"15b: the smoke dry run's records: {len(ok)} ok, every one "
+          f"exact, of {len(recs)}", flush=True)
     out["15b_dryrun_smoke"] = {"exit": code, "summary": tail[0],
-                               "wall_s": smoke_s}
+                               "ok_records": len(ok), "wall_s": smoke_s}
     out["wall_s"] = monotonic() - t_phase
     return out
 
@@ -5531,6 +5554,9 @@ def _stop_started():
             proc.kill()
 
 
+_PEER_GONE = "Connection closed by peer"
+
+
 def _join_ranks(ranks, phase="16"):
     """Let the ranks of ``_start_ranks`` run their job and wait for them
     -> their outputs (a rank's failure fails the run)."""
@@ -5543,9 +5569,16 @@ def _join_ranks(ranks, phase="16"):
     finally:
         for proc in procs:
             proc.kill()
-    bad = [f"rank {r} exited {proc.returncode}:\n{log[-3000:]}"
-           for r, (proc, log) in enumerate(zip(procs, logs))
-           if proc.returncode != 0]
+    for r, log in enumerate(logs):
+        with open(os.path.join(ranks["work"], f"log_{ranks['tag']}_{r}.txt"),
+                  "w") as f:
+            f.write(log)
+    # a rank whose peer went down fails in its next collective: the ranks
+    # that failed on their own come last, where a log's tail shows them
+    bad = sorted([(_PEER_GONE in log, r, proc.returncode, log)
+                  for r, (proc, log) in enumerate(zip(procs, logs))
+                  if proc.returncode != 0], reverse=True)
+    bad = [f"rank {r} exited {rc}:\n{log[-3000:]}" for _, r, rc, log in bad]
     check(not bad, f"{phase} {ranks['tag']}: " + "\n".join(bad))
     return [torch.load(os.path.join(ranks["work"],
                                     f"out_{ranks['tag']}_{r}.pt"),
@@ -5943,8 +5976,10 @@ def _ma17_serve(dev, mesh, arch, job):
 
 def _ma17_train(dev, mesh, arch, job):
     """17b for ``arch`` on ``mesh`` (None: one rank): one round of the
-    depth-cut train step at G = 1 (``job["seq"]``: the hidden states split
-    on the sequence over "model"), f32 weights from ``job["seed"]`` ->
+    depth-cut train step at G = the job's cohorts (``job["tokens"]``' first
+    dim; ``job["seq"]``: the hidden states split on the sequence over
+    "model"; ``job["local_steps"]``, default TRAIN_LOCAL), f32 weights
+    from ``job["seed"]`` ->
     the W_G leaves on the host (gathered whole; one rank: also each leaf's
     update norm ||W_G - W_0||), the metrics, wall, peak and launches, the
     MoE's routes (kept and routed pairs a call) and the bytes this rank
@@ -5962,17 +5997,19 @@ def _ma17_train(dev, mesh, arch, job):
 
     from repro_torch.models import model_axis as MA
     cfg = _ma17_cfg(arch, job.get("layers"))
-    tcfg = TrainConfig(local_steps=TRAIN_LOCAL, microbatch=TRAIN_MB,
-                       meta_clusters=TRAIN_MB, meta_steps=TRAIN_META_STEPS,
+    tcfg = TrainConfig(local_steps=job.get("local_steps", TRAIN_LOCAL),
+                       microbatch=TRAIN_MB, meta_clusters=TRAIN_MB,
+                       meta_steps=TRAIN_META_STEPS,
                        seq_shard_activations=job.get("seq", False))
     step, lm = make_train_step(cfg, tcfg, mesh=mesh)
+    g = job["tokens"].shape[0]
 
     def init():
         state = broadcast_to_clients(lm.init(torch.Generator(
-            device=dev).manual_seed(job["seed"])), 1)
+            device=dev).manual_seed(job["seed"])), g)
         return state if mesh is None else sh.distribute_tree(
             state, step_plan(cfg, mesh_axis_sizes(mesh), "train", tcfg,
-                             lm, 1), mesh)
+                             lm, g), mesh)
     t0 = monotonic()
     state = init() if mesh is None else _in_turns(mesh, init)
     init_wall = monotonic() - t0
@@ -6478,6 +6515,31 @@ P18_KERNELS = MA_KERNELS + ("flash_decode_stats",)
 P18_F32_FLOOR = ("gemma3-4b long_500k",)
 P18_FLOOR_RATIO = 1.25
 P18_KEY_SCALE = {"gemma3-4b long_500k": 4.0}
+# 18f: two pods on ranks, in the world of 4 after its other items, each
+# mesh ("pod", "data", "model"). 18f-1 and 18f-2 serve 16a's llama3.2-1b
+# cut (MA_SERVE_LAYERS of 16 layers, bf16): tag -> (mesh, the prefill's
+# rows, each decode's (batch, steps)), every decode over MA17_SLOTS slots
+# from an empty cache. 18f-1 on (2, 2, 1): a 4 x MA17_S prefill and 4
+# steps at batch 4 (the rows over ("pod", "data"), a row a rank), then 2
+# steps at batch 2 (the rows over "data", each pod a replica of the
+# other); 18f-2 on (2, 1, 2): the rows over "pod", the heads over "model"
+P18F_SERVE = {"18f-1": ((2, 2, 1), 4, ((4, MA17_STEPS), (2, 2))),
+              "18f-2": ((2, 1, 2), 2, ((2, MA17_STEPS),))}
+# 18f-3: the same cut at batch 1, its rings' 32,768 slots over "data" in
+# each pod (the decode kernel's statistics merged), filled to 24,576 so
+# that both chunks hold keys (as 18c's, ``P18_CACHES``' fields)
+P18F_CACHES = {"18f-3": ("llama3.2-1b", MA_SERVE_LAYERS, (2, 2, 1), 1,
+                         32768, 24576, False, False, False, MA17_STEPS)}
+# 18f-4: a round of 14b's cut (RANKS_LM_LAYERS, rows of P18F_TRAIN_T
+# tokens) on (2, 2, 1) at G = P18F_TRAIN_G, a cohort a rank; 18f-5: 18b's
+# cut (deepseek's first layer, the FSDP plan) at G = P18F_FSDP_G over
+# "pod", the weights over "data" in each pod, 1 local step of TRAIN_MB
+# rows of P18F_FSDP_T tokens. Four ranks share the card: at 14b's and
+# 18b's 2,048 tokens a rank peaks at ~20 GB (14b's rank: 20.19 GB) and
+# ~27 GB, more than a quarter of the card each; at these rows 13.5 and
+# 14.4 GB (tools/rank_peak.py)
+P18F_TRAIN_G, P18F_FSDP_G = 4, 2
+P18F_TRAIN_T, P18F_FSDP_T = 1024, 512
 
 
 @contextlib.contextmanager
@@ -6567,7 +6629,7 @@ def _p18_decode(dev, mesh, tag, job, dtype=None):
     from repro_torch.optim.optimizers import tree_map
 
     arch, layers, _, batch, slots, fill, seq_shard, absorbed, fsdp, \
-        steps = P18_CACHES[tag]
+        steps = {**P18_CACHES, **P18F_CACHES}[tag]
     cfg = _p18_cfg(arch, layers, absorbed)
     with _fsdp_planned(fsdp):
         step, lm = make_decode_step(cfg, mesh=mesh,
@@ -6608,9 +6670,14 @@ def _p18_decode(dev, mesh, tag, job, dtype=None):
         launches = ops.launch_counts()
         gathered = L.head_dim_gather["bytes"]
     peak = peak_and_reset()
+    # this rank's own ring shards (18f: a pod's twin holds the same)
+    digest = job.get("digest") and _leaf_digest([
+        x.to_local() if mesh is not None else x
+        for _, x in _ring_leaves(cache["stages"])])
     del params, cache
     torch.cuda.empty_cache()
     return {"logits": torch.stack(logits), "tokens": torch.cat(picked, 1),
+            "local_cache_digest": digest,
             "decode_ms_per_step": [w * 1e3 for w in walls],
             "max_memory_allocated": peak, "weights_bytes": weights_bytes,
             "cache_bytes": cache_bytes, "launches": launches,
@@ -6643,7 +6710,276 @@ def _p18_jobs(vocabs):
             "prefill": rng.integers(0, v, (1, MA17_S), np.int32),
             "decode": rng.integers(0, v, (MA17_BATCH, P18_FRAC_STEPS),
                                    np.int32)}
-    return {"serve": serve, "train": train, "caches": caches, "frac": frac}
+    v = vocabs["llama3.2-1b"]
+    pods = {tag: {"seed": 190 + i,
+                  "prefill": rng.integers(0, v, (rows, MA17_S), np.int32),
+                  "decodes": [rng.integers(0, v, shape, np.int32)
+                              for shape in decodes]}
+            for i, (tag, (_, rows, decodes)) in enumerate(P18F_SERVE.items())}
+    spec = P18F_CACHES["18f-3"]
+    pods["18f-3"] = {"seed": 192, "digest": True, "decode": rng.integers(
+        0, v, (spec[3], spec[9]), np.int32)}
+    pods["18f-4"] = {"seed": 193, "first": [1, 2, 3, 0], "tokens":
+                     rng.integers(0, v, (P18F_TRAIN_G, TRAIN_LOCAL, 1,
+                                         TRAIN_MB, P18F_TRAIN_T), np.int32)}
+    pods["18f-5"] = {"seed": 194, "first": [1, 2], "local_steps": 1,
+                     "layers": P18_TRAIN_LAYERS, "tokens": rng.integers(
+                         0, vocabs[P18_TRAIN_ARCH],
+                         (P18F_FSDP_G, 1, 1, TRAIN_MB, P18F_FSDP_T),
+                         np.int32)}
+    return {"serve": serve, "train": train, "caches": caches, "frac": frac,
+            "pods": pods}
+
+
+def _p18f_serve(dev, mesh, job):
+    """18f-1 or 18f-2 on ``mesh`` (None: one rank): 16a's llama cut, bf16
+    weights from ``job["seed"]`` (on a mesh drawn shard by shard on
+    decode's plan); the prefill of ``job["prefill"]``, then each of
+    ``job["decodes"]`` (teacher-forced tokens, a batch each) over a fresh
+    cache of MA17_SLOTS slots -> the prefill logits, each decode's logits,
+    tokens, ms a step and digest of this rank's own cache shards, the
+    walls, peak and launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.launch.specs import (cache_on_mesh, params_on_mesh,
+                                          step_plan)
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.obs.timing import monotonic
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = _ma_serve_cfg()
+    prefill, lm = make_prefill_step(cfg, mesh=mesh)
+    decode, _ = make_decode_step(cfg, mesh=mesh, return_logits=True)
+    gen = torch.Generator(device=dev).manual_seed(job["seed"])
+    t0 = monotonic()
+    params = (lm.init(gen, dtype=torch.bfloat16) if mesh is None else
+              params_on_mesh(lm, gen, step_plan(cfg, mesh_axis_sizes(mesh),
+                                                "decode", lm=lm),
+                             mesh, dtype=torch.bfloat16, device=dev))
+    init_wall = monotonic() - t0
+    peak_and_reset()
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    logits = prefill(params, {"tokens": torch.from_numpy(
+        job["prefill"]).to(dev)})
+    torch.cuda.synchronize()
+    prefill_wall = monotonic() - t0
+    launches = {"prefill": ops.launch_counts()}
+    ops.reset_launch_counts()
+    decodes = []
+    for toks in job["decodes"]:
+        toks = torch.from_numpy(toks).to(dev)
+        batch = toks.shape[0]
+        cache = (lm.init_cache(batch, MA17_SLOTS, device=dev) if mesh is None
+                 else cache_on_mesh(lm, mesh, batch, MA17_SLOTS, device=dev))
+        step_logits, picked, walls = [], [], []
+        for i in range(toks.shape[1]):
+            t0 = monotonic()
+            nxt, cache, lg = decode(params, cache, toks[:, i:i + 1])
+            picked.append(nxt.cpu())                       # syncs
+            walls.append(monotonic() - t0)
+            step_logits.append(lg.float().cpu())
+        decodes.append({
+            "batch": batch, "logits": torch.stack(step_logits),
+            "tokens": torch.cat(picked, 1),
+            "decode_ms_per_step": [w * 1e3 for w in walls],
+            "local_cache_digest": _leaf_digest(
+                tree_leaves(sh.local_tree(cache)))})
+        del cache
+    launches["decode"] = ops.launch_counts()
+    peak = peak_and_reset()
+    del params
+    torch.cuda.empty_cache()
+    return {"logits": logits.cpu(), "decodes": decodes,
+            "init_wall_s": init_wall, "prefill_wall_s": prefill_wall,
+            "max_memory_allocated": peak, "launches": launches}
+
+
+def _p18f_one_rank(dev, pods):
+    """18f's one-rank steps on its inputs, keyed as the ranks' items."""
+    one = {("18f_serve", tag): _p18f_serve(dev, None, pods[tag])
+           for tag in P18F_SERVE}
+    one[("cache", "18f-3")] = _p18_decode(dev, None, "18f-3", pods["18f-3"])
+    one[("18f_train", "18f-4")] = _ma_train(dev, None, pods["18f-4"],
+                                            P18F_TRAIN_G)
+    one[("18f_fsdp", "18f-5")] = _ma17_train(dev, None, P18_TRAIN_ARCH,
+                                             pods["18f-5"])
+    return one
+
+
+def _flip_free(got, want):
+    """Whether the ranks' tokens (argmax of ``got`` logits, (..., V)) are
+    one rank's wherever one rank's top two logits lie farther apart than
+    the two runs' logits at that row: a token may differ only at a near
+    tie."""
+    import torch
+    g, w = got.float(), want.float()
+    top = w.topk(2, -1).values
+    gap = top[..., 0] - top[..., 1]
+    diff = (g - w).abs().amax(-1)
+    differ = g.argmax(-1) != w.argmax(-1)
+    return bool((~differ | (gap <= 2 * diff)).all()), int(differ.sum())
+
+
+def _p18f_checks(ranks, one, work, card, expect, count):
+    """18f's checks and numbers: every rank the same bits, a pod that
+    replicates the other its twin's cache shard, the logits within MA_TOL
+    of one rank's (the tokens one rank's but at near ties), the train
+    rounds' leaves within 16b's level (18f-4) and each leaf's update
+    within 18b's (18f-5) -> {item: numbers}."""
+    import torch
+    out = {}
+
+    def twins(digests, mesh):
+        # rank r and r + d (the same data coordinate in the other pod)
+        d = mesh[1] * mesh[2]
+        return all(digests[r] == digests[r + d] for r in range(d))
+
+    for tag, (mesh, rows, decodes) in P18F_SERVE.items():
+        got, want = ranks[("18f_serve", tag)], one[("18f_serve", tag)]
+        expect(all(torch.equal(g["logits"], got[0]["logits"]) and all(
+            torch.equal(a["logits"], b["logits"])
+            and torch.equal(a["tokens"], b["tokens"])
+            for a, b in zip(g["decodes"], got[0]["decodes"])) for g in got),
+            f"18f {tag}: the ranks' logits or tokens differ")
+        errs = [_fro_rel(got[0]["logits"], want["logits"])] + [
+            _fro_rel(a["logits"], b["logits"])
+            for a, b in zip(got[0]["decodes"], want["decodes"])]
+        flips = [_flip_free(a["logits"], b["logits"])
+                 for a, b in zip(got[0]["decodes"], want["decodes"])]
+        expect(max(errs) <= MA_TOL, f"18f {tag}: logits {errs} beyond "
+                                    f"{MA_TOL} of one rank's")
+        expect(all(ok for ok, _ in flips),
+               f"18f {tag}: tokens differ from one rank's off a near tie "
+               f"({flips})")
+        replicas = []
+        for i, (batch, _) in enumerate(decodes):
+            p, d = mesh[0], mesh[1]
+            if batch % (p * d) and d > 1 and batch % d == 0:
+                digests = [g["decodes"][i]["local_cache_digest"]
+                           for g in got]
+                replicas.append(batch)
+                expect(twins(digests, mesh) and digests[0] != digests[1],
+                       f"18f {tag}: at batch {batch} the pods' cache "
+                       f"shards are not each other's")
+        count(tag, got)
+        row = {"model": "llama3.2-1b", "layers": MA_SERVE_LAYERS,
+               "mesh": f"{mesh} (pod, data, model)",
+               "prefill": [rows, MA17_S], "decodes": [list(x)
+                                                     for x in decodes],
+               "slots": MA17_SLOTS, "logits_rel_err": errs,
+               "limit": MA_TOL,
+               "tokens_differing": [n for _, n in flips],
+               "pod_replicas_at_batch": replicas,
+               "item_walls_s": [g["item_wall_s"] for g in got],
+               "rank_init_walls_s": [g["init_wall_s"] for g in got],
+               "rank_prefill_wall_s": [g["prefill_wall_s"] for g in got],
+               "rank_decode_ms_per_step": [[x["decode_ms_per_step"]
+                                            for x in g["decodes"]]
+                                           for g in got],
+               "rank_peaks": [g["max_memory_allocated"] for g in got],
+               "one_rank": {"prefill_wall_s": want["prefill_wall_s"],
+                            "decode_ms_per_step": [
+                                x["decode_ms_per_step"]
+                                for x in want["decodes"]],
+                            "max_memory_allocated":
+                                want["max_memory_allocated"]}}
+        out[tag] = row
+        print(f"18f {tag} {mesh} ({card}): logits rel err {errs}, tokens "
+              f"differing {row['tokens_differing']}, pod replicas at batch "
+              f"{replicas}; prefill {row['rank_prefill_wall_s']} s (one "
+              f"rank {want['prefill_wall_s']}), decode ms/step "
+              f"{row['rank_decode_ms_per_step']} (one rank "
+              f"{row['one_rank']['decode_ms_per_step']}), peaks "
+              f"{row['rank_peaks']} (one rank "
+              f"{want['max_memory_allocated']}), item walls "
+              f"{row['item_walls_s']} s", flush=True)
+
+    spec = P18F_CACHES["18f-3"]
+    got, want = ranks[("cache", "18f-3")], one[("cache", "18f-3")]
+    expect(all(torch.equal(g["logits"], got[0]["logits"])
+               and torch.equal(g["tokens"], got[0]["tokens"]) for g in got),
+           "18f-3: the ranks differ")
+    err = _fro_rel(got[0]["logits"], want["logits"])
+    ok, differing = _flip_free(got[0]["logits"], want["logits"])
+    digests = [g["local_cache_digest"] for g in got]
+    expect(err <= MA_TOL and ok, f"18f-3: logits {err} beyond {MA_TOL} of "
+                                 f"one rank's, or tokens off a near tie")
+    expect(twins(digests, spec[2]) and digests[0] != digests[1],
+           "18f-3: the pods' ring chunks are not each other's")
+    count("18f-3", got)
+    out["18f-3"] = {
+        "model": spec[0], "layers": spec[1], "mesh": f"{spec[2]}",
+        "batch": spec[3], "slots": spec[4], "filled": spec[5],
+        "decode_steps": spec[9], "logits_rel_err": err, "limit": MA_TOL,
+        "tokens_differing": differing,
+        "item_walls_s": [g["item_wall_s"] for g in got],
+        "rank_decode_ms_per_step": [g["decode_ms_per_step"] for g in got],
+        "rank_peaks": [g["max_memory_allocated"] for g in got],
+        "rank_cache_bytes": [g["cache_bytes"] for g in got],
+        "one_rank": {k: want[k] for k in (
+            "decode_ms_per_step", "max_memory_allocated", "cache_bytes")}}
+    print(f"18f-3 {spec[2]} ({card}): logits rel err {err}, tokens "
+          f"differing {differing}, decode ms/step "
+          f"{out['18f-3']['rank_decode_ms_per_step']} (one rank "
+          f"{want['decode_ms_per_step']}), peaks "
+          f"{out['18f-3']['rank_peaks']} (one rank "
+          f"{want['max_memory_allocated']}), item walls "
+          f"{out['18f-3']['item_walls_s']} s", flush=True)
+
+    for kind, tag, g_ax in (("18f_train", "18f-4", P18F_TRAIN_G),
+                            ("18f_fsdp", "18f-5", P18F_FSDP_G)):
+        tr, w = ranks[(kind, tag)], one[(kind, tag)]
+        expect(len({t["digest"] for t in tr}) == 1
+               and all(t["metrics"] == tr[0]["metrics"] for t in tr),
+               f"18f {tag}: the ranks leave the round with different bits")
+        leaves = torch.load(os.path.join(work, f"w18_{tag}.pt"),
+                            weights_only=False)
+        metric_err = max(abs(tr[0]["metrics"][k] - w["metrics"][k])
+                         / (1 + abs(w["metrics"][k])) for k in w["metrics"])
+        expect(tr[0]["metrics"]["selected"] == w["metrics"]["selected"]
+               == g_ax * TRAIN_MB, f"18f {tag}: selected "
+                                   f"{tr[0]['metrics']['selected']}")
+        row = {"mesh": "(2, 2, 1) (pod, data, model)", "cohorts": g_ax,
+               "metrics": tr[0]["metrics"],
+               "max_metric_err_vs_one_rank": metric_err,
+               "rank_walls_s": [t["wall_s"] for t in tr],
+               "item_walls_s": [t["item_wall_s"] for t in tr],
+               "rank_peaks": [t["max_memory_allocated"] for t in tr],
+               "one_rank": {k: w[k] for k in ("metrics", "wall_s",
+                                               "max_memory_allocated")}}
+        if kind == "18f_train":          # 16b's measure and level
+            err = max(float(((a - b).abs() / (1 + b.abs())).max())
+                      for a, b in zip(leaves, w["leaves"]))
+            row.update(model="llama3.2-1b", layers=RANKS_LM_LAYERS,
+                       seq_len=P18F_TRAIN_T, max_leaf_err_vs_one_rank=err,
+                       limit=MA_TOL)
+            per = [t["launches"].get("kmeans_lloyd_step", 0) for t in tr]
+            expect(sum(per) == w["launches"]["kmeans_lloyd_step"],
+                   f"18f {tag}: K-means sweeps {per} on the ranks, "
+                   f"{w['launches']['kmeans_lloyd_step']} on one")
+            expect(err <= MA_TOL and metric_err <= MA_TOL,
+                   f"18f {tag}: leaves {err} or metrics {metric_err} "
+                   f"beyond {MA_TOL} of one rank's")
+        else:                            # 18b's measure and level
+            errs = _update_errs(leaves, w["leaves"], w["update_norms"])
+            err = max(errs)
+            row.update(model=P18_TRAIN_ARCH, layers=P18_TRAIN_LAYERS,
+                       seq_len=P18F_FSDP_T, max_leaf_update_rel_err=err,
+                       update_rel_err_by_leaf=errs, limit=P18_UPDATE_TOL)
+            expect(err <= P18_UPDATE_TOL and metric_err <= MA_TOL,
+                   f"18f {tag}: an update {err} beyond {P18_UPDATE_TOL} "
+                   f"or metrics {metric_err} beyond {MA_TOL}")
+        count(tag, tr)
+        out[tag] = row
+        print(f"18f {tag} {row['model']} ({card}): vs one rank {err}, "
+              f"metrics {metric_err}, walls {row['rank_walls_s']} s (one "
+              f"rank {w['wall_s']}), peaks {row['rank_peaks']} (one rank "
+              f"{w['max_memory_allocated']}), item walls "
+              f"{row['item_walls_s']} s", flush=True)
+    return out
 
 
 def _p18_child(dev, rank, job, work):
@@ -6653,13 +6989,33 @@ def _p18_child(dev, rank, job, work):
     ``work``, every rank their digests."""
     import torch
     import torch.distributed as dist
-    from repro_torch.launch.mesh import PRODUCTION_AXES, mesh_over_world
+    from repro_torch.launch.mesh import (MULTI_POD_AXES, PRODUCTION_AXES,
+                                         mesh_over_world)
     from repro_torch.obs.timing import monotonic
     jobs, out = job["jobs"], {}
     for kind, tag, shape in job["items"]:
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        print(f"18 rank {rank} {kind} {tag}: the card {free} B free of "
+              f"{total}, this rank {torch.cuda.memory_reserved(dev)} B "
+              f"reserved", flush=True)
         t0 = monotonic()
-        mesh = mesh_over_world(tuple(shape), PRODUCTION_AXES, "cuda")
-        if kind in ("serve", "frac"):
+        mesh = mesh_over_world(tuple(shape), MULTI_POD_AXES if len(shape) == 3
+                               else PRODUCTION_AXES, "cuda")
+        if kind == "18f_serve":
+            got = _p18f_serve(dev, mesh, jobs["pods"][tag])
+        elif kind in ("18f_train", "18f_fsdp"):
+            with _fsdp_planned(kind == "18f_fsdp"):
+                got = (_ma_train(dev, mesh, jobs["pods"][tag], P18F_TRAIN_G)
+                       if kind == "18f_train" else
+                       _ma17_train(dev, mesh, P18_TRAIN_ARCH,
+                                   jobs["pods"][tag]))
+            got["digest"] = _leaf_digest(got["leaves"])
+            if rank == 0:
+                torch.save(got["leaves"], os.path.join(
+                    work, f"w18_{tag}.pt"))
+            got.pop("leaves")
+        elif kind in ("serve", "frac"):
             with _fsdp_planned(kind == "serve"):
                 got = _ma17_serve(dev, mesh, tag, jobs[kind] if kind == "frac"
                                   else jobs["serve"][tag])
@@ -6675,7 +7031,8 @@ def _p18_child(dev, rank, job, work):
                 torch.save(got["leaves"], os.path.join(work, "w18_train.pt"))
             got.pop("leaves")
         else:
-            got = _p18_decode(dev, mesh, tag, jobs["caches"][tag])
+            got = _p18_decode(dev, mesh, tag, jobs["pods"][tag]
+                              if tag in P18F_CACHES else jobs["caches"][tag])
         dist.barrier()
         got["item_wall_s"] = monotonic() - t0
         out[(kind, tag)] = got
@@ -6839,7 +7196,7 @@ def start_phase18():
     ranks' contexts beside them left the card 3 GB short) -> what
     ``run_fsdp_seq_phase`` takes."""
     from repro_torch.configs import get_config
-    archs = set(P18_SERVE) | {P18_TRAIN_ARCH} | {
+    archs = set(P18_SERVE) | {P18_TRAIN_ARCH, "llama3.2-1b"} | {
         v[0] for v in P18_CACHES.values()}
     jobs = _p18_jobs({a: get_config(a).vocab_size for a in archs})
     work = os.path.join(ROOT, "build", "phase18")
@@ -6849,6 +7206,11 @@ def start_phase18():
         ("train", P18_TRAIN_ARCH, (2, 2))] + [
         ("cache", tag, spec[2]) for tag, spec in P18_CACHES.items()
         if spec[2][0] * spec[2][1] == 4]
+    # 18f, two pods: after the world's other items
+    four += [("18f_serve", tag, spec[0]) for tag, spec in P18F_SERVE.items()]
+    four += [("cache", "18f-3", P18F_CACHES["18f-3"][2]),
+             ("18f_train", "18f-4", (2, 2, 1)),
+             ("18f_fsdp", "18f-5", (2, 2, 1))]
     two = [("cache", tag, spec[2]) for tag, spec in P18_CACHES.items()
            if spec[2][0] * spec[2][1] == 2]
     three = [("frac", P18_FRAC, (1, 3))]
@@ -6869,7 +7231,8 @@ def run_fsdp_seq_phase(dev, p18=None):
     gemma3's and llama's 18c; ``p18`` from ``start_phase18``, started
     here if None), against the one-rank steps run first on the same seeds
     (their outputs kept on the host, the card freed); the world of 4 is
-    let go first, then the world of 2. Every item's numbers are printed
+    let go first (18f's two-pod meshes last in it), then the world of
+    2. Every item's numbers are printed
     before a failure fails the phase. -> (the numbers, flash_decode_stats'
     launches per rank of the world of 4 and of 2, launches per rank by
     kernel)."""
@@ -6895,6 +7258,7 @@ def run_fsdp_seq_phase(dev, p18=None):
         one[("cache f32", tag)] = _p18_decode(
             dev, None, tag, jobs["caches"][tag], dtype=torch.float32)
     one[("frac", P18_FRAC)] = _ma17_serve(dev, None, P18_FRAC, jobs["frac"])
+    one.update(_p18f_one_rank(dev, jobs["pods"]))
     one_wall = monotonic() - t_phase
     peak_and_reset()
     print(f"18: one rank's steps {one_wall} s; the card before the ranks: "
@@ -7118,6 +7482,9 @@ def run_fsdp_seq_phase(dev, p18=None):
           f"{out['18e']['rank_decode_ms_per_step']} (one rank "
           f"{want['decode_ms_per_step']}), peaks {out['18e']['rank_peaks']}"
           f", launches {out['18e']['launches_by_rank']}", flush=True)
+    lap("18f")
+    # ---- 18f: two pods ----
+    out["18f"] = _p18f_checks(ranks, one, work, card, expect, count)
     # every rank's launches, by kernel, summed over the items
     per_rank = {k: [sum(col) for col in zip(*[
         p + [0] * (4 - len(p)) for p in v])] for k, v in launches.items()}

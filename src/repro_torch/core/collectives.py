@@ -37,10 +37,15 @@ reduce-scatter adds the ranks' parts in rank order on every route; the
 same card's all-reduce too (gloo's and NCCL's sum in their own order);
 every rank gets the same bits.
 
-While a count is open (the dry run's, ``launch/flop_analysis.py``) each
-meta leaf's collective is charged to it by kind and output bytes and
-nothing is sent (the gather returns empty meta tensors of its output's
-shape), so a step's collectives are counted without a process group.
+Every call is tallied by kind ("all-gather", "all-reduce",
+"reduce-scatter", "all-to-all") on every route, a leaf of a tree a call
+(``calls``: the count and the bytes: the gathers' output, the
+all-reduce's and the all-to-all's tensor, the reduce-scatter's input),
+and charged to an open count (the dry run's, ``launch/flop_analysis.py``)
+at the same bytes. A meta tensor sends nothing: its collective returns
+an empty meta tensor of its output's shape, so a step's collectives are
+counted without a process group, by a ``Ranks`` with no group that only
+names this rank's place.
 """
 from __future__ import annotations
 
@@ -221,6 +226,9 @@ def _pieces_on_card(box: Mailbox, ranks: Ranks, wire: torch.Tensor,
 # --------------------------------------------------------------------------
 def _gather_bytes(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
     """(size, *x.shape) of every rank's ``x``, in rank order."""
+    if x.is_meta:
+        return torch.empty((ranks.size,) + tuple(x.shape), dtype=x.dtype,
+                           device="meta")
     wire = x.detach().contiguous().reshape(-1).view(torch.uint8)
     out = torch.empty((ranks.size, wire.numel()), dtype=torch.uint8,
                       device=x.device)
@@ -246,9 +254,20 @@ def _gather_bytes(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
     return out.view(x.dtype).reshape((ranks.size,) + tuple(x.shape))
 
 
+# collectives called since the last ``calls.clear()``: kind -> [calls,
+# bytes]
+calls: Dict[str, List[int]] = {}
+
+
 def _charge(kind: str, x: torch.Tensor) -> None:
+    """Tally one collective of ``kind`` by the bytes of ``x`` (see the
+    module's docstring), and charge it to an open count."""
     from repro_torch.launch import flop_analysis
-    flop_analysis.charge_collective(kind, x.numel() * x.element_size())
+    nbytes = x.numel() * x.element_size()
+    tally = calls.setdefault(kind, [0, 0])
+    tally[0] += 1
+    tally[1] += nbytes
+    flop_analysis.charge_collective(kind, nbytes)
 
 
 def all_gather_tree(tree: PyTree, ranks: Ranks) -> PyTree:
@@ -256,12 +275,9 @@ def all_gather_tree(tree: PyTree, ranks: Ranks) -> PyTree:
     ``ranks.size``, in rank order (every rank's leaf of the same shape and
     dtype), bit for bit."""
     def one(x: torch.Tensor) -> torch.Tensor:
-        if x.is_meta:
-            out = torch.empty((ranks.size,) + tuple(x.shape), dtype=x.dtype,
-                              device="meta")
-            _charge("all-gather", out)
-            return out
-        return _gather_bytes(x, ranks)
+        out = _gather_bytes(x, ranks)
+        _charge("all-gather", out)
+        return out
     return tree_map(one, tree)
 
 
@@ -269,6 +285,7 @@ def all_gather_cat(x: torch.Tensor, ranks: Ranks, dim: int) -> torch.Tensor:
     """Every rank's ``x`` (each of the same shape), concatenated along
     ``dim`` in rank order, bit for bit."""
     parts = _gather_bytes(x, ranks)
+    _charge("all-gather", parts)
     if dim % max(x.ndim, 1) == 0:             # the rank order is dim 0's
         return parts.reshape((-1,) + tuple(x.shape[1:]))
     return torch.cat(parts.unbind(0), dim)
@@ -327,8 +344,8 @@ def reduce_scatter_cat(x: torch.Tensor, ranks: Ranks,
         raise ValueError(f"a dim of {n} does not split over {ranks.size} "
                          f"ranks")
     per = n // ranks.size
+    _charge("reduce-scatter", x)
     if x.is_meta:
-        _charge("reduce-scatter", x)
         return x.narrow(dim, 0, per).clone()
     shape = list(x.shape)
     shape[dim] = per
@@ -379,8 +396,8 @@ def all_to_all(x: torch.Tensor, ranks: Ranks, dim: int = 0) -> torch.Tensor:
     host memory under gloo). Its own inverse. A meta ``x`` is charged as
     an "all-to-all" of its bytes and sends nothing."""
     dim = dim % x.ndim
+    _charge("all-to-all", x)
     if x.is_meta:
-        _charge("all-to-all", x)
         return torch.empty_like(x)
     wire = _chunks(x, ranks, dim).view(torch.uint8)
     size, c = wire.shape
@@ -445,6 +462,13 @@ def all_reduce_tensor(x: torch.Tensor, ranks: Ranks,
                       op: str = "sum") -> torch.Tensor:
     """``x`` reduced over ``ranks`` ("sum" or "max") into a new tensor
     (``x`` is not written), the same bits on every rank."""
+    _charge("all-reduce", x)
+    return _all_reduce(x, ranks, op)
+
+
+def _all_reduce(x: torch.Tensor, ranks: Ranks, op: str) -> torch.Tensor:
+    if x.is_meta:
+        return torch.empty_like(x)
     box = same_card(x, ranks)
     if box is not None:
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -462,15 +486,15 @@ def all_reduce_tensor(x: torch.Tensor, ranks: Ranks,
 def all_reduce_sum_tree(tree: PyTree, ranks: Ranks) -> PyTree:
     """Every leaf summed over the ranks, in place; returns ``tree``."""
     def one(x: torch.Tensor):
+        _charge("all-reduce", x)
         if x.is_meta:
-            _charge("all-reduce", x)
             return x
         box = same_card(x, ranks)
         if box is not None:
             if x.is_contiguous():
                 _reduce_on_card(box, x, x, ranks, "sum")
             else:
-                x.copy_(all_reduce_tensor(x, ranks))
+                x.copy_(_all_reduce(x, ranks, "sum"))
         elif stages_on_host(ranks.group) and x.device.type != "cpu":
             host = x.detach().cpu()
             dist.all_reduce(host, group=ranks.group)

@@ -13,29 +13,21 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multipod] [--out build/dryrun]
   ... --smoke   (the small mesh and the reduced configs: the CI path)
 
-Per device. On a mesh whose model axis is 1 (the fed axis over ranks,
-``launch/steps.py`` ``fed_ranks``) the count is one rank's, exactly — its
-share of the cohorts with the collectives it joins (charged, not sent)
-and the replicated meta steps; inference on each rank's shard of the
-batch. A model axis above 1 (the production 16 x 16 and 2 x 16 x 16
-meshes, the 2 x 2 smoke mesh) or FSDP is counted as the whole step's count
-divided evenly over the chips, ``"per_device_rule": "even_split"``, a
-lower bound on a rank's work with none of its collectives: one rank's
-count of a tensor-parallel step is the last part of ``ROADMAP.md`` item
-15b.
-
-Of those even-split pairs the port now executes (``launch/steps.py`` on a
-mesh) every family's on one pod: train_4k (``--seq-shard-acts``: the
-hidden states split on the sequence over "model") and prefill_32k, with
-jamba's and deepseek's weights over "data" (FSDP), RWKV or MLA heads
-that do not divide the model axis (rwkv6-3b's 40 over 16) on every head
-a rank's columns touch, and decode_32k and long_500k on every cache
-``cache_plan`` makes (the k/v head dim over "model" where the kv heads
-do not divide it, the sequence over "data" at long_500k's batch of 1, or
-over "model" and ("data", "model") with ``--cache-seq-shard``). The dry
-run still records them ``even_split``: a rank's own count of a
-tensor-parallel or FSDP step is the rest of item 15b. The two-pod
-meshes' inference still raises there.
+Per device, exactly (``"per_device_rule": "exact"`` on every record):
+the count is what one rank runs, the rank at mesh coordinate 0 unless
+``coord`` (``--coord``) names another, recorded as ``rank_coord``. The
+step is made as on a mesh, over ``steps.rank_grid``'s groups, which only
+name the rank's place (``Ranks(None, index, size)``), and called with
+that rank's shards of the weights, the optimizer's state and the cache
+as ``sharding.Placed`` meta tensors (the batch whole, as every rank takes
+it): its share of the cohorts, the rows, the heads (every head its
+columns touch, where the heads do not divide the model axis), the
+experts, the vocabulary and a split ring's slots, FSDP's gathers, and
+every collective it joins, charged by kind and bytes and not sent
+(``core/collectives.py``). That holds on every mesh, the two-pod ones
+and the ``--seq-shard-acts`` and ``--cache-seq-shard`` pairs included,
+so the roofline's collective term is the rank's and ``hlo_flops_total``
+(the rank's FLOPs times the chips) counts the replicated work.
 
 ``memory``: argument and output bytes a device from the specs (each leaf
 divided over the axes its spec shards it on); there is no compiler, so
@@ -56,11 +48,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs import ARCHS, INPUT_SHAPES, TrainConfig, get_config
-from repro_torch.core.collectives import Ranks
 from repro_torch.launch import flop_analysis
-from repro_torch.launch.specs import Placed, fed_layout, input_specs
-from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
-                                      make_train_step)
+from repro_torch.launch.specs import Placed, input_specs
+from repro_torch.launch.steps import (fed_ranks, make_decode_step,
+                                      make_prefill_step, make_train_step,
+                                      rank_grid, serve_ranks)
 from repro_torch.models.registry import count_params
 from repro_torch.obs import profile
 from repro_torch.obs.timing import monotonic
@@ -85,16 +77,17 @@ def resolve_mode(cfg, shape_name: str):
     return True, True, "swa-variant"   # dense archs: sliding-window variant
 
 
-# a step's arguments by mode, and the argument its output mirrors (the
-# train step's next params, the decode step's cache)
-_ARGS = {"train": ("params", "batch", "first"), "prefill": ("params", "batch"),
+# a step's arguments by mode, and those a rank takes as its shards (the
+# rest whole)
+_ARGS = {"train": ("params", "opt_state", "batch", "first"),
+         "prefill": ("params", "batch"),
          "decode": ("params", "cache", "tokens")}
-_MIRRORED = {"train": ("params", 0), "decode": ("cache", 1)}
+_SHARDED = ("params", "opt_state", "cache")
 
 
 def _tensors(tree: Any) -> Any:
-    """The specs' tree with every ``Placed`` leaf replaced by its meta
-    tensor."""
+    """The specs' tree with every ``Placed`` leaf replaced by its whole
+    meta tensor."""
     if isinstance(tree, Placed):
         return tree.tensor
     if isinstance(tree, dict):
@@ -105,13 +98,15 @@ def _tensors(tree: Any) -> Any:
 
 
 def _local(tree: Any, axes: Dict[str, int]) -> Any:
-    """The specs' tree as one device's shards: each dim of each meta
-    tensor divided by the sizes of the axes its spec puts it on."""
+    """The specs' tree as one device's shards, each a ``Placed`` of its
+    spec: each dim of each meta tensor divided by the sizes of the axes
+    its spec puts it on."""
     if isinstance(tree, Placed):
         shape = [n // _split(e, axes) for n, e in zip(tree.tensor.shape,
                                                       tree.spec)]
         shape += list(tree.tensor.shape[len(shape):])
-        return torch.empty(shape, dtype=tree.tensor.dtype, device="meta")
+        return Placed(torch.empty(shape, dtype=tree.tensor.dtype,
+                                  device="meta"), tree.spec)
     if isinstance(tree, dict):
         return {k: _local(v, axes) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -139,67 +134,40 @@ def _device_bytes(tree: Any, axes: Dict[str, int]) -> int:
     return 0
 
 
-def per_device_rule(cfg, shape, axes: Dict[str, int]) -> str:
-    """"exact" where the port executes this mesh (model axis 1, and the
-    train step's "data" axis carrying cohorts, not FSDP), else
-    "even_split"."""
-    if axes.get("model", 1) > 1:
-        return "even_split"
-    if shape.kind == "train":
-        _, fed_axes = fed_layout(cfg, axes)
-        if axes.get("data", 1) > 1 and "data" not in fed_axes:
-            return "even_split"
-    return "exact"
-
-
 def build(cfg, shape, axes: Dict[str, int], tcfg: TrainConfig,
-          cache_seq_shard: bool = False):
-    """-> (step, args, specs, rule): the step, its meta arguments as one
-    device runs them under ``rule`` (``per_device_rule``), and the
-    specs."""
+          cache_seq_shard: bool = False,
+          coord: Optional[Dict[str, int]] = None):
+    """-> (step, args, specs): the step as the rank at ``coord`` (0 on
+    every axis by default) of a mesh of ``axes`` runs it
+    (``steps.rank_grid``), its meta arguments that rank's (``_SHARDED``
+    as its shards, the rest whole), and the specs."""
     _, force_swa, _ = resolve_mode(cfg, shape.name)
-    rule = per_device_rule(cfg, shape, axes)
+    grid = rank_grid(axes, coord)
     if shape.kind == "train":
-        ranks = None
-        if rule == "exact":
-            _, fed_axes = fed_layout(cfg, axes)
-            w = math.prod(axes.get(a, 1) for a in fed_axes)
-            ranks = Ranks(None, 0, w) if w > 1 else None
-        step, lm = make_train_step(cfg, tcfg, ranks=ranks)
+        step, lm = make_train_step(cfg, tcfg,
+                                   ranks=fed_ranks(cfg, grid, tcfg))
     elif shape.kind == "prefill":
-        step, lm = make_prefill_step(cfg, force_swa=force_swa)
+        step, lm = make_prefill_step(cfg, force_swa=force_swa,
+                                     ranks=serve_ranks(cfg, grid))
     else:
-        step, lm = make_decode_step(cfg, force_swa=force_swa)
+        step, lm = make_decode_step(cfg, force_swa=force_swa,
+                                    cache_seq_shard=cache_seq_shard,
+                                    ranks=serve_ranks(cfg, grid))
     specs = input_specs(cfg, shape, axes, tcfg, force_swa=force_swa, lm=lm,
                         cache_seq_shard=cache_seq_shard)
-    if specs["mode"] == "train":
-        # every rank takes the whole round's arguments and runs its share
-        args = (_tensors(specs["params"]), specs["opt_state"],
-                _tensors(specs["batch"]), specs["first"].tensor)
-    else:
-        # inference: each device its shard of the batch (or, split evenly,
-        # the whole step)
-        shard = ((lambda t: _local(t, axes)) if rule == "exact"
-                 else _tensors)
-        args = tuple(shard(specs[k]) for k in _ARGS[specs["mode"]])
-    return step, args, specs, rule
+    args = tuple(_local(specs[k], axes) if k in _SHARDED
+                 else _tensors(specs[k]) for k in _ARGS[specs["mode"]])
+    return step, args, specs
 
 
-def _memory(specs: Dict[str, Any], out: Any, axes: Dict[str, int],
-            rule: str, chips: int) -> Dict[str, Any]:
-    """Argument and output bytes a device: the arguments by their specs;
-    an output that mirrors an argument by that argument's spec, the rest
-    as one device's whole (split evenly under "even_split")."""
-    mode = specs["mode"]
-    arg = _device_bytes([specs[k] for k in _ARGS[mode]], axes)
-    rest, outb = out, 0
-    if mode in _MIRRORED:
-        key, i = _MIRRORED[mode]
-        outb = _device_bytes(specs[key], axes)
-        rest = [o for j, o in enumerate(out) if j != i]
-    outb += flop_analysis.nbytes(rest) // (chips if rule == "even_split"
-                                           else 1)
-    return {"argument_size_in_bytes": arg, "output_size_in_bytes": outb,
+def _memory(specs: Dict[str, Any], out: Any,
+            axes: Dict[str, int]) -> Dict[str, Any]:
+    """Argument and output bytes a device: the arguments by their specs,
+    the outputs the rank's own (its shards of the weights or the cache,
+    the whole logits or tokens every rank returns)."""
+    arg = _device_bytes([specs[k] for k in _ARGS[specs["mode"]]], axes)
+    return {"argument_size_in_bytes": arg,
+            "output_size_in_bytes": flop_analysis.nbytes(out),
             "temp_size_in_bytes": None,
             "generated_code_size_in_bytes": None, "null_reason": NO_TEMP}
 
@@ -208,17 +176,23 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, smoke=False,
             tcfg: Optional[TrainConfig] = None, save_dir=None, tag="",
             mla_absorbed=False, cache_seq_shard=False, verbose=True,
             axes: Optional[Dict[str, int]] = None,
-            shape_override: Optional[Dict[str, int]] = None):
+            shape_override: Optional[Dict[str, int]] = None,
+            coord: Optional[Dict[str, int]] = None,
+            cfg_override: Optional[Dict[str, Any]] = None):
     """Count one (arch, shape) pair -> its record (the reference's keys).
     ``axes`` replaces the mesh (default: the smoke or production mesh's
     axis sizes); ``shape_override`` replaces fields of the input shape
-    (``seq_len``, ``global_batch``), after the smoke cut."""
+    (``seq_len``, ``global_batch``), after the smoke cut, and
+    ``cfg_override`` fields of the config; ``coord`` names the rank
+    counted (``build``)."""
     tcfg = tcfg or TrainConfig()
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.reduced()
     if mla_absorbed:
         cfg = dataclasses.replace(cfg, mla_absorbed=True)
+    if cfg_override:
+        cfg = dataclasses.replace(cfg, **cfg_override)
     shape = INPUT_SHAPES[shape_name]
     if smoke:
         shape = dataclasses.replace(
@@ -238,16 +212,17 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, smoke=False,
         axes = ((SMOKE_MULTIPOD_AXES if multi_pod else SMOKE_AXES) if smoke
                 else (MULTIPOD_AXES if multi_pod else PRODUCTION_AXES))
     axes = dict(axes)
+    coord = {a: (coord or {}).get(a, 0) for a in axes}
     nchips = math.prod(axes.values())
     t0 = monotonic()
     try:
-        step, args, specs, rule = build(cfg, shape, axes, tcfg,
-                                        cache_seq_shard=cache_seq_shard)
+        step, args, specs = build(cfg, shape, axes, tcfg,
+                                  cache_seq_shard=cache_seq_shard,
+                                  coord=coord)
         t_lower = monotonic() - t0
         with flop_analysis.counting() as sc:
             out = step(*args)
         t_compile = monotonic() - t0 - t_lower
-        split = nchips if rule == "even_split" else 1
         crec = profile.record_from_step(sc)
         coll = {"total_bytes": crec.collective_bytes,
                 "bytes_by_kind": dict(sc.coll_bytes),
@@ -255,14 +230,12 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, smoke=False,
                 "unknown_trip_counts": crec.unknown_trip_loops}
         # the count is of every op the step runs, loops unrolled by their
         # Python trip counts: "expanded" as the reference's
-        flops, nbytes = crec.flops / split, crec.hbm_bytes / split
+        flops, nbytes = crec.flops, crec.hbm_bytes
         cost = {"flops": flops, "bytes accessed": nbytes,
-                "transcendentals": crec.transcendentals / split,
+                "transcendentals": crec.transcendentals,
                 "flops_expanded": flops, "bytes_expanded": nbytes,
-                "kernel_flops": {k: v / split
-                                 for k, v in sc.kernel_flops.items()},
-                "kernel_bytes": {k: v / split
-                                 for k, v in sc.kernel_bytes.items()},
+                "kernel_flops": dict(sc.kernel_flops),
+                "kernel_bytes": dict(sc.kernel_bytes),
                 "kernel_launches": dict(sc.kernel_launches)}
         rec.update(
             status="ok", chips=nchips, force_swa=force_swa,
@@ -273,9 +246,9 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, smoke=False,
             active_params=count_params(cfg, active_only=True),
             nonembed_active_params=count_params(cfg, active_only=True,
                                                 include_embed=False),
-            memory=_memory(specs, out, axes, rule, nchips), cost=cost,
+            memory=_memory(specs, out, axes), cost=cost,
             collectives=coll, hlo_bytes=None, mesh_axes=axes,
-            per_device_rule=rule)
+            rank_coord=coord, per_device_rule="exact")
         rec["roofline"] = roofline_terms(rec, tcfg)
         if verbose:
             r = rec["roofline"]
@@ -283,7 +256,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, smoke=False,
                   f"{(' ' + tag) if tag else ''}: "
                   f"compute {r['compute_s']:.2e}s  memory {r['memory_s']:.2e}s"
                   f"  collective {r['collective_s']:.2e}s  -> {r['bound']}"
-                  f"  ({rule}; count {t_compile:.1f}s)")
+                  f"  (rank {tuple(coord.values())}; count "
+                  f"{t_compile:.1f}s)")
     except Exception as e:
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-2000:])
@@ -347,6 +321,10 @@ def main(argv=None):
                     help="H2: shard decode KV cache on seq over 'model'")
     ap.add_argument("--fedavg-bf16", action="store_true",
                     help="H3: bf16 delta all-reduce for FedAvg")
+    ap.add_argument("--coord", default=None,
+                    help="the rank counted: its mesh coordinate, one index "
+                         "an axis in the mesh's order (e.g. 1,0,3); "
+                         "default 0 on every axis")
     args = ap.parse_args(argv)
 
     tkw = {}
@@ -360,6 +338,12 @@ def main(argv=None):
         tkw["fedavg_compress"] = "bf16"
     tcfg = TrainConfig(**tkw)
 
+    coord = None
+    if args.coord:
+        names = ((SMOKE_MULTIPOD_AXES if args.multipod else SMOKE_AXES)
+                 if args.smoke else
+                 (MULTIPOD_AXES if args.multipod else PRODUCTION_AXES))
+        coord = dict(zip(names, (int(c) for c in args.coord.split(","))))
     pairs = PAIRS if args.all else [(args.arch or "llama3.2-1b",
                                      args.shape or "train_4k")]
     results = []
@@ -368,7 +352,8 @@ def main(argv=None):
                                smoke=args.smoke, tcfg=tcfg,
                                save_dir=args.out, tag=args.tag,
                                mla_absorbed=args.mla_absorbed,
-                               cache_seq_shard=args.cache_seq_shard))
+                               cache_seq_shard=args.cache_seq_shard,
+                               coord=coord))
     n_ok = sum(r["status"] == "ok" for r in results)
     n_skip = sum(r["status"] == "skip" for r in results)
     n_err = len(results) - n_ok - n_skip

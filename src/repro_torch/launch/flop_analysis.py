@@ -22,9 +22,9 @@ backward and a checkpointed layer's recompute included) and adds up:
     counterpart: every op here reads its inputs and writes its output;
   * transcendentals — the elements through exp, log, tanh, rsqrt, sqrt,
     pow, sigmoid, silu, gelu, sin, cos, erf and softmax;
-  * collectives — bytes (the output's, as the reference counts them) and
-    counts by kind, charged by ``core/collectives.py``'s
-    ``all_gather_tree`` and ``all_reduce_sum_tree`` while a count is open.
+  * collectives — bytes (the output's, as the reference counts them; a
+    reduce-scatter's input) and counts by kind, charged by every
+    collective of ``core/collectives.py`` while a count is open.
 
 The hand-written kernels run no aten op the mode could see, and cannot
 run on the meta device: where a wrapper of ``kernels/ops.py`` meets a
@@ -203,8 +203,9 @@ def charge_kernel(name: str, kc) -> None:
 
 
 def charge_collective(kind: str, nbytes: float) -> None:
-    """Charge one collective of ``kind`` ("all-gather", "all-reduce")
-    moving ``nbytes`` (its output's bytes) to the open count, if any."""
+    """Charge one collective of ``kind`` ("all-gather", "all-reduce",
+    "reduce-scatter", "all-to-all") of ``nbytes`` to the open count, if
+    any."""
     if _OPEN:
         _OPEN[-1].coll_bytes[kind] += nbytes
         _OPEN[-1].coll_count[kind] += 1

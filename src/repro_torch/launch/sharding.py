@@ -42,7 +42,8 @@ lists them in its order.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 
@@ -51,6 +52,15 @@ from repro_torch.configs.base import ModelConfig
 PyTree = Any
 Spec = Tuple[Any, ...]
 Axes = Mapping[str, int]
+
+
+class Placed(NamedTuple):
+    """A meta tensor (its shape and dtype) beside its spec (one entry a
+    dim: None, an axis name or a tuple of axis names). ``launch/specs.py``
+    gives whole tensors; the dry run gives one rank's shards, so that a
+    step reads the spec as it reads a DTensor's placements."""
+    tensor: torch.Tensor
+    spec: Spec
 
 FSDP_THRESHOLD = 40e9   # params; above this weights also shard over "data"
 
@@ -160,10 +170,51 @@ def gather_tree(tree: PyTree) -> PyTree:
     return tree_map(one, tree)
 
 
+def holds_dtensors(tree: PyTree) -> bool:
+    """Whether any leaf of ``tree`` is a DTensor."""
+    from repro_torch.optim.optimizers import tree_leaves
+    return any(_is_dtensor(x) for x in tree_leaves(tree))
+
+
 def local_tree(tree: PyTree) -> PyTree:
-    """Each DTensor leaf's local tensor (a plain leaf as it is)."""
-    from repro_torch.optim.optimizers import tree_map
-    return tree_map(lambda x: x.to_local() if _is_dtensor(x) else x, tree)
+    """Each DTensor leaf's local tensor, each ``Placed`` leaf's tensor (a
+    plain leaf as it is)."""
+    def one(x):
+        if isinstance(x, Placed):
+            return x.tensor
+        return x.to_local() if _is_dtensor(x) else x
+    return map_leaves(one, tree)
+
+
+def map_leaves(fn: Callable, tree: PyTree) -> PyTree:
+    """``fn`` on every leaf of nested dicts, lists and tuples, a
+    ``Placed`` a leaf; None stays None."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, Placed):
+        return type(tree)(map_leaves(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def split_axes(x) -> Dict[int, Tuple[str, ...]]:
+    """{tensor dim: the mesh axes that split it, in the mesh's order} of a
+    leaf: from a DTensor's placements or a ``Placed``'s spec; {} for a
+    plain tensor. Axes of size 1 are named too."""
+    out: Dict[int, Tuple[str, ...]] = {}
+    if isinstance(x, Placed):
+        for dim, entry in enumerate(x.spec):
+            if entry is not None:
+                out[dim] = (entry,) if isinstance(entry, str) else tuple(entry)
+    elif _is_dtensor(x):
+        names = x.device_mesh.mesh_dim_names
+        for mdim, p in enumerate(x.placements):
+            if p.is_shard():
+                out[p.dim] = out.get(p.dim, ()) + (names[mdim],)
+    return out
+
+
+def leaf_ndim(x) -> int:
+    return x.tensor.ndim if isinstance(x, Placed) else x.ndim
 
 
 def placements_of(tree: PyTree) -> PyTree:

@@ -21,22 +21,16 @@ split on its kv heads, its head dim or its sequence), and
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.launch import sharding as sh
+from repro_torch.launch.sharding import Placed
 from repro_torch.models.transformer import LM
 
 PyTree = Any
-
-
-class Placed(NamedTuple):
-    """A meta tensor (its shape and dtype) beside its spec (one entry a
-    dim: None, an axis name or a tuple of axis names)."""
-    tensor: torch.Tensor
-    spec: sh.Spec
 
 
 def _meta(shape, dtype, spec) -> Placed:

@@ -58,13 +58,24 @@ MLA's latent, Mamba's channels and RWKV's heads over "model", a ring's
 sequence over "data" at batch 1 or, with ``cache_seq_shard``, over
 "model". Each rank runs its heads' kernels (MLA's rebuilt from the
 gathered latent), its experts, its channels and its shard of the FFN and
-of the vocabulary, the batch's rows over "data" where they divide, its
-slots of a split ring (the decode kernel's softmax statistics merged over
-the ranks), FSDP's weights gathered a block at a time, and every rank
-returns the same logits or tokens. RWKV or MLA heads that do not divide
-the model axis run on every head a rank's columns touch, whole
-(``model_axis.frac_heads``). Inference over "pod" raises
-``NotImplementedError`` (``ROADMAP.md`` item 15b).
+of the vocabulary, its share of the batch's rows, its slots of a split
+ring (the decode kernel's softmax statistics merged over the ranks),
+FSDP's weights gathered over "data" a block at a time, and every rank
+returns the same logits or tokens. The rows split as the plans split
+them: over ("pod", "data") where the batch divides both, else over
+"data" (each pod then a replica of the other), else not at all. RWKV or
+MLA heads that do not divide the model axis run on every head a rank's
+columns touch, whole (``model_axis.frac_heads``).
+
+The groups a step can use are made when the step is made, on every rank
+(``Grid``: one a set of the mesh's axes above 1; making a group is a
+collective, so none is made inside a call). The dry run
+(``launch/dryrun.py``) makes a step with ``ranks=`` instead of a mesh: a
+``StepRanks`` over ``rank_grid``, whose groups only name one rank's
+place, and calls it with that rank's shards as ``sharding.Placed``
+leaves, whose specs the step reads where it reads a DTensor's placements
+(FSDP's dims, the rings' split); every collective is then charged, not
+sent.
 
 Inference computes in ``dtype`` (bf16 by default, as the reference) and
 runs without autograd; training computes in ``TrainConfig.dtype`` on f32
@@ -72,7 +83,8 @@ master weights, whose gradients come back f32 through the casts.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Sequence, Union
+import itertools
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -125,72 +137,115 @@ def tree_stack(trees: Sequence[PyTree]) -> PyTree:
 # --------------------------------------------------------------------------
 # train: one federated round per call
 # --------------------------------------------------------------------------
-class StepRanks(NamedTuple):
-    """The groups a step runs over on a mesh: ``fed`` the ranks that split
-    the cohorts (the train step; None: one), ``model`` the model axis
-    (None at 1), ``data`` the ranks that split an inference batch (None
-    at 1), and the mesh."""
-    fed: Optional[Ranks]
-    model: Optional[Ranks]
-    data: Optional[Ranks]
+class Grid(NamedTuple):
+    """Where a step's rank sits: the mesh's axis sizes (in the mesh's
+    order), this rank's coordinate on each, the group of every set of
+    the axes above 1 (keyed by their names in the mesh's order; a group's
+    rank order is the mesh's, its major axis first), and the
+    ``DeviceMesh`` (None: a rank the dry run counts, ``rank_grid``)."""
+    axes: Dict[str, int]
+    coord: Dict[str, int]
+    groups: Dict[Tuple[str, ...], Ranks]
     mesh: Any
 
 
-def _model_ranks(mesh, axes) -> Optional[Ranks]:
-    return (Ranks.of(mesh.get_group("model")) if axes.get("model", 1) > 1
-            else None)
+def _subsets(axes: Dict[str, int]):
+    above = [a for a, n in axes.items() if n > 1]
+    return [sub for k in range(1, len(above) + 1)
+            for sub in itertools.combinations(above, k)], len(above)
+
+
+def mesh_grid(mesh) -> Grid:
+    """``mesh``'s ``Grid``: an axis's group is its mesh dim's, all of the
+    axes above 1 the world's (the mesh spans it in rank order), another
+    set the flattened submesh's; every rank makes them in one order."""
+    names = tuple(mesh.mesh_dim_names)
+    axes = dict(zip(names, mesh.shape))
+    groups = {}
+    subsets, n_above = _subsets(axes)
+    for sub in subsets:
+        if len(sub) == 1:
+            group = mesh.get_group(sub[0])
+        elif len(sub) == n_above:
+            group = None
+        else:
+            group = mesh[sub]._flatten().get_group()
+        groups[sub] = Ranks.of(group)
+    return Grid(axes, dict(zip(names, mesh.get_coordinate())), groups, mesh)
+
+
+def rank_grid(axes: Dict[str, int],
+              coord: Optional[Dict[str, int]] = None) -> Grid:
+    """The ``Grid`` of the rank at ``coord`` (0 on every axis by default)
+    on a mesh of ``axes`` sizes, with no process group: each group a
+    ``Ranks(None, index, size)`` that names the rank's place in it, so
+    its collectives are charged, not sent (the dry run)."""
+    coord = {a: (coord or {}).get(a, 0) for a in axes}
+    groups = {}
+    for sub in _subsets(axes)[0]:
+        index, n = 0, 1
+        for a in sub:                       # major axis first
+            index, n = index * axes[a] + coord[a], n * axes[a]
+        groups[sub] = Ranks(None, index, n)
+    return Grid(dict(axes), coord, groups, None)
+
+
+def _grid(where) -> Grid:
+    return where if isinstance(where, Grid) else mesh_grid(where)
+
+
+def _axes_group(grid: Grid, names: Sequence[str]) -> Optional[Ranks]:
+    """The group of the mesh axes ``names`` above 1 (None where none
+    is)."""
+    key = tuple(a for a, n in grid.axes.items() if a in names and n > 1)
+    return grid.groups[key] if key else None
+
+
+class StepRanks(NamedTuple):
+    """The groups a step runs over: ``fed`` the ranks that split the
+    cohorts (the train step; None: one), ``model`` the model axis (None at
+    1), ``data`` the "data" axis that FSDP gathers the weights over (and,
+    in training, splits a cohort's rows over; None at 1 or where it
+    carries cohorts), and the ``Grid`` with the other groups (an
+    inference batch's rows: ``_row_ranks``; a split ring's)."""
+    fed: Optional[Ranks]
+    model: Optional[Ranks]
+    data: Optional[Ranks]
+    grid: Grid
 
 
 def fed_ranks(cfg: ModelConfig, mesh,
               tcfg: Optional[TrainConfig] = None) -> StepRanks:
-    """The ranks of the train step on ``mesh``: its fed axes
-    (``specs.fed_layout``) carry the cohorts, its "model" axis runs each
-    cohort tensor parallel, and where ``fed_layout`` leaves "data" to
-    shard the weights (FSDP: the archs above ``FSDP_THRESHOLD``) its
-    ranks split each cohort's rows and gather the weights a block at a
-    time (``models/fsdp.py``). ``tcfg`` does not change the ranks
+    """The ranks of the train step on ``mesh`` (a ``DeviceMesh`` or a
+    ``Grid``): its fed axes (``specs.fed_layout``) carry the cohorts, one
+    group over all of them (the flattened ("pod", "data") on two pods),
+    its "model" axis runs each cohort tensor parallel, and where
+    ``fed_layout`` leaves "data" to shard the weights (FSDP: the archs
+    above ``FSDP_THRESHOLD``, whose cohorts go over "pod") its ranks
+    split each cohort's rows and gather the weights a block at a time
+    (``models/fsdp.py``). ``tcfg`` does not change the ranks
     (``seq_shard_activations`` splits the positions over the same model
     axis)."""
-    from repro_torch.launch.mesh import mesh_axis_sizes
     from repro_torch.launch.specs import fed_layout
-    axes = mesh_axis_sizes(mesh)
-    _, fed_axes = fed_layout(cfg, axes)
-    data = (Ranks.of(mesh.get_group("data"))
-            if axes.get("data", 1) > 1 and "data" not in fed_axes else None)
-    model = _model_ranks(mesh, axes)
-    if not fed_axes:                       # a huge arch on one pod: G = 1
-        return StepRanks(None, model, data, mesh)
-    if model is None and data is None:
-        # the fed axes span the mesh, which spans the world: one fed axis
-        # is its mesh dim's group, two are the world
-        group = mesh.get_group(fed_axes[0]) if len(fed_axes) == 1 else None
-        return StepRanks(Ranks.of(group), None, None, mesh)
-    if len(fed_axes) == 1:
-        group = mesh.get_group(fed_axes[0])
-    else:                                  # ("pod", "data"): one group
-        group = mesh[fed_axes]._flatten().get_group()
-    return StepRanks(Ranks.of(group), model, data, mesh)
+    grid = _grid(mesh)
+    _, fed_axes = fed_layout(cfg, grid.axes)
+    data = _axes_group(grid, ("data",)) if "data" not in fed_axes else None
+    return StepRanks(_axes_group(grid, fed_axes),
+                     _axes_group(grid, ("model",)), data, grid)
 
 
-def _serve_ranks(cfg: ModelConfig, mesh) -> StepRanks:
-    """The ranks of prefill and decode on ``mesh``: the model axis, and
-    the "data" axis over the batch's rows (and, above
-    ``FSDP_THRESHOLD``, over the weights' second dim: FSDP)."""
-    from repro_torch.launch.mesh import mesh_axis_sizes
-    axes = mesh_axis_sizes(mesh)
-    if axes.get("pod", 1) > 1:
-        raise NotImplementedError(
-            "inference over 'pod' and 'data' is planned, not executed "
-            "(ROADMAP.md item 15b)")
-    data = axes.get("data", 1)
-    model = _model_ranks(mesh, axes)
-    return StepRanks(None, model,
-                     Ranks.of(mesh.get_group("data")) if data > 1 else None,
-                     mesh)
+def serve_ranks(cfg: ModelConfig, mesh) -> StepRanks:
+    """The ranks of prefill and decode on ``mesh`` (a ``DeviceMesh`` or a
+    ``Grid``): the model axis, and "data" (above ``FSDP_THRESHOLD`` the
+    weights' second dim: FSDP); the batch's rows take their group at call
+    time (``_row_ranks``)."""
+    grid = _grid(mesh)
+    return StepRanks(None, _axes_group(grid, ("model",)),
+                     _axes_group(grid, ("data",)), grid)
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
-                    observe=None, ranks: Optional[Ranks] = None):
+                    observe=None, ranks: Optional[StepRanks] = None):
     """-> (train_step, lm). ``train_step(client_params, opt_state, batch,
     first) -> (new_client_params, opt_state, metrics)``:
 
@@ -222,22 +277,25 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     once every cohort is in the sum (the sums all-reduced), before the
     mean; ("average", the FedAvg mean W_G) before the meta steps.
 
-    ``ranks``, where no ``mesh`` is given, are the fed ranks themselves:
-    the dry run (``launch/dryrun.py``) counts one rank's share of the step
-    on meta tensors through a ``Ranks`` with no process group, whose
-    collectives are charged, not sent.
+    ``ranks``, where no ``mesh`` is given, are the step's groups: the dry
+    run (``launch/dryrun.py``) counts one rank's share of the step on
+    meta tensors through ``fed_ranks(cfg, rank_grid(axes, coord))``,
+    whose collectives are charged, not sent; its ``client_params`` (and
+    ``opt_state``) are then that rank's shards as ``sharding.Placed``
+    leaves, and it gets that rank's local tensors back.
 
-    On a mesh whose "model" axis is above 1 ``client_params`` (and a
-    momentum ``opt_state``) are DTensors on the train plan's placements
-    (``specs.step_plan(cfg, axes, "train", tcfg, lm, g)``, placed by
-    ``sharding.distribute_tree``): each rank holds its fed share of the
-    cohorts and its model shard of every leaf, trains them tensor
-    parallel, and gets DTensors back on the same placements
-    (``sharding.gather_tree`` gives the full tree); ``observe`` then sees
-    the local shards."""
-    model = data = None
-    if mesh is not None:
-        ranks, model, data, _ = fed_ranks(cfg, mesh, tcfg)
+    On a mesh whose "model" axis is above 1, or whose "data" axis shards
+    the weights (FSDP), ``client_params`` (and a momentum ``opt_state``)
+    are DTensors on the train plan's placements (``specs.step_plan(cfg,
+    axes, "train", tcfg, lm, g)``, placed by ``sharding.distribute_tree``;
+    on a mesh of fed axes only they may be, or every rank may take the
+    whole tree): each rank holds its fed share of the cohorts and its
+    shard of every leaf, trains them, and gets DTensors back on the same
+    placements (``sharding.gather_tree`` gives the full tree); ``observe``
+    then sees the local shards."""
+    sr = fed_ranks(cfg, mesh, tcfg) if mesh is not None else ranks
+    ranks, model, data, grid = sr if sr is not None else (None,) * 4
+    mesh = grid.mesh if grid is not None else None
     observe = observe or (lambda event, value: None)
     opt = sgd(tcfg.lr, momentum=tcfg.momentum,
               weight_decay=tcfg.weight_decay)
@@ -312,7 +370,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     def placed_args(client_params, opt_state, g_ax):
         """The round's DTensor arguments checked against the train plan
         -> (their placements, their data-split dims, local params, local
-        opt_state)."""
+        opt_state); the dry run's ``Placed`` shards unchecked (no
+        placements)."""
+        if mesh is None:
+            return (None, FS.data_dims(client_params, grid.axes),
+                    sh.local_tree(client_params), sh.local_tree(opt_state))
         if g_ax not in plans:
             from repro_torch.launch.mesh import mesh_axis_sizes
             from repro_torch.launch.specs import step_plan
@@ -325,7 +387,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                              "the train plan (sharding.distribute_tree("
                              "tree, specs.step_plan(..., 'train', ...), "
                              "mesh))")
-        return (got, FS.data_dims(client_params, mesh),
+        return (got, FS.data_dims(client_params, grid.axes),
                 sh.local_tree(client_params), sh.local_tree(opt_state))
 
     def data_rows(tokens, extras):
@@ -356,8 +418,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                              "K-means first centre (first=...)")
         g_ax = tokens.shape[0]
         mine = ranks.share(g_ax) if ranks is not None else range(g_ax)
+        # this rank's shards of the weights, not the whole tree: DTensors
+        # (always, on a model or data-sharded axis), or the dry run's rank
+        local = sr is not None and (mesh is None or model is not None
+                                    or data is not None
+                                    or sh.holds_dtensors(client_params))
         placed, at, dims, rows = None, 0, None, None
-        if model is not None or data is not None:
+        if local:
             # this rank's cohorts (from ``at``) and shards, local
             placed, dims, client_params, opt_state = placed_args(
                 client_params, opt_state, g_ax)
@@ -375,7 +442,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         for g in mine:
             p = tree_map(lambda x: x[g - at], client_params)
             s = tree_map(lambda x: x[g - at], opt_state) if opt_state else ()
-            with FS.over(data, dims, rows is not None):
+            with FS.over(data, dims, data if rows is not None else None):
                 p, s, loss = one_cohort(p, s, tokens[g],
                                         {k: v[g] for k, v in extras.items()},
                                         rows, dims)
@@ -387,7 +454,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                 # weights
                 probe = tokens[g, 0, 0]                    # (mb, T)
                 probe_ex = {k: v[g, 0, 0] for k, v in extras.items()}
-                with FS.over(data, dims, rows is not None):
+                with FS.over(data, dims,
+                             data if rows is not None else None):
                     selected.append(select_cohort(p, probe, probe_ex,
                                                   firsts[g], rows))
             observe("cohort", p)
@@ -409,9 +477,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
             total.all_reduce(ranks)
             losses, gathered_s, selected = tree_map(
                 lambda x: x.reshape((g_ax,) + tuple(x.shape[2:])),
-                all_gather_tree((losses, new_s if placed is None else (),
+                all_gather_tree((losses, () if local else new_s,
                                  selected), ranks))
-            if placed is None:
+            if not local:
                 new_s = gathered_s
 
         observe("cohorts_done", None)
@@ -498,7 +566,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                 avg["lm_head"] = upper["lm_head"]
 
         # redistribute: next round every cohort starts from W_G(t)
-        n = g_ax if placed is None else len(mine)
+        n = len(mine) if local else g_ax
         new_client_params = tree_map(
             lambda x: x[None].expand((n,) + tuple(x.shape)), avg)
         if placed is not None:
@@ -515,21 +583,35 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
 # --------------------------------------------------------------------------
 
 
-def _rows(data: Optional[Ranks], batch: int) -> Optional[slice]:
-    """This rank's rows of an inference batch over "data" (None: all of
-    them, where there is no data axis or the rows do not divide, as the
-    plan then leaves the batch replicated)."""
-    if data is None or batch % data.size:
+def _row_ranks(sr: Optional[StepRanks], batch: int) -> Optional[Ranks]:
+    """The group an inference batch of ``batch`` rows splits over, as the
+    plans split it (``specs.input_specs``, ``sharding.cache_plan``):
+    ("pod", "data") where the rows divide over both, else "data" where
+    they divide over it (the pods then replicas), else none (None: every
+    rank takes every row)."""
+    if sr is None:
         return None
-    per = batch // data.size
-    return slice(data.rank * per, (data.rank + 1) * per)
+    axes = sr.grid.axes
+    p, d = axes.get("pod", 1), axes.get("data", 1)
+    if p > 1 and batch % (p * d) == 0:
+        return _axes_group(sr.grid, ("pod", "data"))
+    if d > 1 and batch % d == 0:
+        return _axes_group(sr.grid, ("data",))
+    return None
 
 
-def _gather_rows(x: torch.Tensor, data: Optional[Ranks],
-                 rows: Optional[slice]) -> torch.Tensor:
-    if rows is None:
+def _rows(ranks: Optional[Ranks], batch: int) -> Optional[slice]:
+    """This rank's rows of a batch split over ``ranks`` (None: all)."""
+    if ranks is None:
+        return None
+    per = batch // ranks.size
+    return slice(ranks.rank * per, (ranks.rank + 1) * per)
+
+
+def _gather_rows(x: torch.Tensor, ranks: Optional[Ranks]) -> torch.Tensor:
+    if ranks is None:
         return x
-    return all_gather_tree(x, data).reshape((-1,) + tuple(x.shape[1:]))
+    return all_gather_tree(x, ranks).reshape((-1,) + tuple(x.shape[1:]))
 
 
 def _serve_params(params, sr: Optional[StepRanks]):
@@ -537,53 +619,47 @@ def _serve_params(params, sr: Optional[StepRanks]):
     ``fsdp.data_dims``; None off a mesh)."""
     if sr is None:
         return params, None
-    return sh.local_tree(params), FS.data_dims(params, sr.mesh)
+    return sh.local_tree(params), FS.data_dims(params, sr.grid.axes)
 
 
-def _seq_split(x, pl, dim: int, mesh):
-    """The ``layers.SeqSplit`` of a ring leaf ``x`` whose dim ``dim`` its
-    placements ``pl`` shard over mesh axes above 1 (None: whole)."""
-    names = tuple(mesh.mesh_dim_names)
-    over = [i for i, p in enumerate(pl)
-            if not p.is_replicate() and p.dim == dim % x.ndim
-            and mesh.size(i) > 1]
-    if not over:
+def _seq_split(x, dim: int, grid: Grid):
+    """The ``layers.SeqSplit`` of a ring leaf ``x`` (a DTensor, or a
+    ``Placed`` shard) whose dim ``dim`` its placements or spec split over
+    mesh axes above 1 (None: whole): the group of those axes, whichever
+    they are."""
+    names = tuple(a for a in sh.split_axes(x).get(dim % sh.leaf_ndim(x), ())
+                  if grid.axes[a] > 1)
+    if not names:
         return None
-    axes = tuple(names[i] for i in over)
-    coord = mesh.get_coordinate()
-    if len(over) == 1:
-        ranks = Ranks.of(mesh.get_group(over[0]))
-    elif len(over) == sum(mesh.size(i) > 1 for i in range(mesh.ndim)):
-        ranks = Ranks.of()                 # every rank of the mesh
-    else:
-        raise NotImplementedError(
-            f"a ring split over {axes} of a mesh of {names} (ROADMAP.md "
-            f"item 15b)")
-    index, n = 0, 1
-    for i in over:                         # major axis first
-        index, n = index * mesh.size(i) + coord[i], n * mesh.size(i)
+    ranks = grid.groups[names]
+    index = 0
+    for a in names:                        # major axis first
+        index = index * grid.axes[a] + grid.coord[a]
     if ranks.rank != index:
         raise ValueError(f"rank {ranks.rank} of the group holds ring chunk "
                          f"{index}")
-    return L.SeqSplit(ranks, index, n, axes)
+    return L.SeqSplit(ranks, index, ranks.size, names)
 
 
-def _rings(cache, mesh):
+def _rings(cache, where):
     """Each block's ring's ``layers.SeqSplit`` (a list a stage of a list a
     unit position; None where the ring is whole or the block holds a
-    state), from the cache's DTensor placements."""
+    state), from the cache's DTensor placements or ``Placed`` specs, on
+    ``where`` (a ``Grid`` or a ``DeviceMesh``)."""
+    grid = _grid(where)
+
     def one(block):
         mixer = block.get("mixer", {})
         for name, seq_dim in (("k", -3), ("c_kv", -2)):
             if name in mixer:
-                x = mixer[name]
-                return _seq_split(x, x.placements, seq_dim, mesh)
+                return _seq_split(mixer[name], seq_dim, grid)
         return None
     return [[one(b) for b in st] for st in cache["stages"]]
 
 
 def make_prefill_step(cfg: ModelConfig, force_swa: bool = False,
-                      dtype=torch.bfloat16, mesh=None):
+                      dtype=torch.bfloat16, mesh=None,
+                      ranks: Optional[StepRanks] = None):
     """-> (prefill_step(params, batch) -> (B, 1, padded_vocab) logits, lm);
     ``batch`` is a dict with "tokens" (B, S) and, as the model needs them,
     "prefix_embeds" (B, P, d) or "enc_frames" (B, Se, d).
@@ -591,9 +667,11 @@ def make_prefill_step(cfg: ModelConfig, force_swa: bool = False,
     With a ``mesh`` the weights are DTensors on an inference plan
     (``specs.step_plan(..., "prefill")`` or ``"decode"``), or plain
     replicated tensors; every rank takes the whole batch and returns the
-    whole logits, the same bits on every rank."""
+    whole logits, the same bits on every rank. ``ranks`` in place of a
+    mesh: the dry run's rank (``serve_ranks(cfg, rank_grid(...))``), its
+    weights ``Placed`` shards."""
     lm = LM(cfg, force_swa=force_swa)
-    sr = _serve_ranks(cfg, mesh) if mesh is not None else None
+    sr = serve_ranks(cfg, mesh) if mesh is not None else ranks
     model = sr.model if sr is not None else None
 
     @torch.no_grad()
@@ -602,12 +680,12 @@ def make_prefill_step(cfg: ModelConfig, force_swa: bool = False,
         extras = {k: batch[k] for k in ("prefix_embeds", "enc_frames")
                   if k in batch}
         tokens = batch["tokens"]
-        rows = _rows(sr.data, tokens.shape[0]) if sr is not None else None
+        over = _row_ranks(sr, tokens.shape[0])
+        rows = _rows(over, tokens.shape[0])
         if rows is not None:
             tokens = tokens[rows]
             extras = {k: v[rows] for k, v in extras.items()}
-        with MA.over(model), FS.over(sr and sr.data, dims,
-                                     rows is not None):
+        with MA.over(model), FS.over(sr and sr.data, dims, over):
             h_all, _, _ = lm.apply(params, tokens, mode="full",
                                    return_hidden=True, dtype=dtype, **extras)
             # last-position logits only (vocab projection on one position)
@@ -617,7 +695,7 @@ def make_prefill_step(cfg: ModelConfig, force_swa: bool = False,
             h = L.rms_norm(h_all[:, -1:], params["final_norm"],
                            cfg.norm_eps)
             out = MA.head_logits(h, lm.head(params, h), cfg.padded_vocab)
-        return _gather_rows(out, sr.data if sr else None, rows)
+        return _gather_rows(out, over)
 
     return prefill_step, lm
 
@@ -625,7 +703,8 @@ def make_prefill_step(cfg: ModelConfig, force_swa: bool = False,
 def make_decode_step(cfg: ModelConfig, force_swa: bool = False,
                      dtype=torch.bfloat16, mesh=None,
                      cache_seq_shard: bool = False,
-                     return_logits: bool = False):
+                     return_logits: bool = False,
+                     ranks: Optional[StepRanks] = None):
     """-> (decode_step(params, cache, tokens (B, 1)) -> (next (B, 1) int32,
     cache), lm); with ``return_logits`` the step also returns the new
     position's logits (B, padded_vocab), whose argmax ``next`` is.
@@ -637,9 +716,11 @@ def make_decode_step(cfg: ModelConfig, force_swa: bool = False,
     kv heads or head-dim columns, its latent chunk, its states, its
     slots of a ring split on the sequence, whose softmax statistics the
     ranks merge: ``layers.merge_decode``), and every rank returns the
-    whole batch's tokens."""
+    whole batch's tokens. ``ranks`` in place of a mesh: as
+    ``make_prefill_step``'s, the cache ``Placed`` shards too (its local
+    shards come back)."""
     lm = LM(cfg, force_swa=force_swa)
-    sr = _serve_ranks(cfg, mesh) if mesh is not None else None
+    sr = serve_ranks(cfg, mesh) if mesh is not None else ranks
     model = sr.model if sr is not None else None
 
     @torch.no_grad()
@@ -647,33 +728,34 @@ def make_decode_step(cfg: ModelConfig, force_swa: bool = False,
         params, dims = _serve_params(params, sr)
         placed = rings = None
         if sr is not None:
-            from repro_torch.launch.specs import check_cache_placements
-            placed = check_cache_placements(cfg, sr.mesh, cache,
-                                            tokens.shape[0],
-                                            seq_shard=cache_seq_shard)
-            rings = _rings(cache, sr.mesh)
+            if sr.grid.mesh is not None:
+                from repro_torch.launch.specs import check_cache_placements
+                placed = check_cache_placements(
+                    cfg, sr.grid.mesh, cache, tokens.shape[0],
+                    seq_shard=cache_seq_shard)
+            rings = _rings(cache, sr.grid)
             cache = sh.local_tree(cache)
-        rows = _rows(sr.data, tokens.shape[0]) if sr is not None else None
+        over = _row_ranks(sr, tokens.shape[0])
+        rows = _rows(over, tokens.shape[0])
         pos = cache["pos"]
         if rows is not None:
             # the positions are replicated, the rest of the cache holds
             # this rank's rows
             tokens = tokens[rows]
             cache = dict(cache, pos=pos[rows])
-        with MA.over(model), FS.over(sr and sr.data, dims,
-                                     rows is not None):
+        with MA.over(model), FS.over(sr and sr.data, dims, over):
             logits, new_cache, _ = lm.apply(params, tokens, mode="decode",
                                             cache=cache, dtype=dtype,
                                             rings=rings)
         logits = logits[:, -1]
         next_tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         if rows is not None:
-            next_tok = _gather_rows(next_tok, sr.data, rows)
+            next_tok = _gather_rows(next_tok, over)
             if return_logits:
-                logits = _gather_rows(logits.contiguous(), sr.data, rows)
+                logits = _gather_rows(logits.contiguous(), over)
             new_cache["pos"] = pos + 1
         if placed is not None:
-            new_cache = sh.wrap_tree(new_cache, placed, sr.mesh)
+            new_cache = sh.wrap_tree(new_cache, placed, sr.grid.mesh)
         if return_logits:
             return next_tok, new_cache, logits
         return next_tok, new_cache

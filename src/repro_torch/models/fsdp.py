@@ -2,24 +2,29 @@
 batch split over it. ``models/model_axis.py`` is the model axis; this is
 its counterpart for "data".
 
-A step that runs on a mesh whose "data" axis is above 1 enters
-``over(ranks, dims, rows)``, ``ranks`` the data axis's group:
+A step that runs on a mesh whose "data" axis is above 1, or whose batch
+rows split over ranks, enters ``over(ranks, dims, rows)``, ``ranks`` the
+data axis's group:
 
 * ``dims``: where the plan shards a second weight dim over "data" (FSDP,
   ``launch/sharding.py``: the archs above ``FSDP_THRESHOLD``), a tree
   shaped like the parameters that gives each leaf's data-split dim,
   counted from its end (so a leaf's scan-stacked or cohort-stacked views
   read the same entry), or None where the leaf is whole on every data
-  rank. It is read from the leaves' DTensor placements (``data_dims``),
-  not guessed from shapes. The LM gathers each block's data-split leaves
+  rank. It is read from the leaves' DTensor placements, or from the
+  specs the dry run gives with its local shards (``data_dims``), not
+  guessed from shapes. The LM gathers each block's data-split leaves
   at the block's entry (``gather_block``, inside the unit that
   ``LM._run_stages`` checkpoints, so remat gathers them again in the
   backward and one block's gathered weights are alive at a time), and
   the embedding and the head where they are read (``gather_leaf``). The
   layers then see exactly the model-axis shards they see without FSDP.
-* ``rows``: this rank holds its own share of the batch's rows (every
-  data rank its own), so statistics over the batch's tokens (the MoE's
-  load-balance term) are means over the data ranks (``mean``).
+* ``rows``: the group over which the batch's rows split, each rank
+  holding its own share (None: every rank all of them), so statistics
+  over the batch's tokens (the MoE's load-balance term) are means over
+  that group (``mean``). It is the data axis's group in training; on two
+  pods an inference batch splits over ("pod", "data") where it divides,
+  while the weights gather over "data" alone, inside each pod.
 
 The gradient. A data rank's loss is the mean over its rows, and the
 one-rank step's is the mean over all of them: 1/d of the sum of the d
@@ -53,24 +58,27 @@ PyTree = Any
 
 
 class Layout(NamedTuple):
-    """The data axis a step runs on: its ranks, the parameters' data-split
-    dims (None: no FSDP) and whether the batch's rows are split."""
-    ranks: Ranks
+    """The data axis a step runs on: its ranks (None at 1), the
+    parameters' data-split dims (None: no FSDP) and the group the
+    batch's rows split over (None: not split)."""
+    ranks: Optional[Ranks]
     dims: PyTree
-    rows: bool
+    rows: Optional[Ranks]
 
 
 _LAYOUT: Optional[Layout] = None
 
 
 @contextmanager
-def over(ranks: Optional[Ranks], dims: PyTree = None, rows: bool = False):
+def over(ranks: Optional[Ranks], dims: PyTree = None,
+         rows: Optional[Ranks] = None):
     """Run the LM on the data axis ``ranks`` (None: one rank), the
-    parameters' data-split ``dims`` (``data_dims``) and the rows split
-    (``rows``)."""
+    parameters' data-split ``dims`` (``data_dims``) and the batch's rows
+    split over ``rows`` (None: whole on every rank)."""
     global _LAYOUT
     prev = _LAYOUT
-    _LAYOUT = None if ranks is None else Layout(ranks, dims, rows)
+    _LAYOUT = (None if ranks is None and rows is None
+               else Layout(ranks, dims, rows))
     try:
         yield
     finally:
@@ -82,25 +90,24 @@ def active() -> Optional[Layout]:
     return _LAYOUT
 
 
-def data_dims(tree: PyTree, mesh) -> PyTree:
-    """Each DTensor leaf's dim that its placements shard over "data" (a
-    mesh dim above 1), counted from the leaf's end; None for a leaf whole
-    on every data rank and for a plain tensor."""
-    names = tuple(mesh.mesh_dim_names)
-    at = names.index("data") if "data" in names else None
+def data_dims(tree: PyTree, axes) -> PyTree:
+    """Each leaf's dim that "data" splits, counted from the leaf's end,
+    where "data" is above 1 in ``axes`` (a ``DeviceMesh`` or its axis
+    sizes): read from a DTensor's placements or a ``sharding.Placed``'s
+    spec (``sharding.split_axes``); None for a leaf whole on every data
+    rank and for a plain tensor."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    if not isinstance(axes, dict):
+        axes = mesh_axis_sizes(axes)
+    on = axes.get("data", 1) > 1
 
     def one(x):
-        if at is None or mesh.size(at) == 1:
-            return None
-        p = getattr(x, "placements", None)
-        if p is None or p[at].is_replicate():
-            return None
-        return p[at].dim - x.ndim
-    if isinstance(tree, dict):
-        return {k: data_dims(v, mesh) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [data_dims(v, mesh) for v in tree]
-    return None if tree is None else one(tree)
+        for dim, names in sh.split_axes(x).items():
+            if on and "data" in names:
+                return dim - sh.leaf_ndim(x)
+        return None
+    return sh.map_leaves(one, tree)
 
 
 def dims(key: str) -> PyTree:
@@ -172,28 +179,28 @@ class _Mean(torch.autograd.Function):
 
 
 def mean(x: torch.Tensor) -> torch.Tensor:
-    """``x`` averaged over the data ranks where they hold their own rows
-    (``x`` itself otherwise); the gradient passes through unchanged (each
-    rank's gradient is averaged over the ranks after)."""
-    if _LAYOUT is None or not _LAYOUT.rows:
+    """``x`` averaged over the rows group where each rank holds its own
+    rows (``x`` itself otherwise); the gradient passes through unchanged
+    (each rank's gradient is averaged over the ranks after)."""
+    if _LAYOUT is None or _LAYOUT.rows is None:
         return x
-    return _Mean.apply(x, _LAYOUT.ranks)
+    return _Mean.apply(x, _LAYOUT.rows)
 
 
 def rows_gathered(x: torch.Tensor) -> torch.Tensor:
-    """Every data rank's rows of ``x`` along dim 0, in rank order (``x``
-    where the rows are not split); no gradient."""
-    if _LAYOUT is None or not _LAYOUT.rows:
+    """Every rank's rows of ``x`` along dim 0, in the rows group's rank
+    order (``x`` where the rows are not split); no gradient."""
+    if _LAYOUT is None or _LAYOUT.rows is None:
         return x
-    return all_gather_cat(x, _LAYOUT.ranks, 0)
+    return all_gather_cat(x, _LAYOUT.rows, 0)
 
 
 def my_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     """This rank's ``n`` rows of ``x`` (every rank's rows in rank
     order)."""
-    if _LAYOUT is None or not _LAYOUT.rows:
+    if _LAYOUT is None or _LAYOUT.rows is None:
         return x
-    return x[_LAYOUT.ranks.rank * n:(_LAYOUT.ranks.rank + 1) * n]
+    return x[_LAYOUT.rows.rank * n:(_LAYOUT.rows.rank + 1) * n]
 
 
 def mean_grads(grads: PyTree, dims: PyTree, ranks: Ranks) -> PyTree:

@@ -1116,11 +1116,12 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
     that do not divide the axis stay replicated and every rank runs them
     all. The shared experts are column- then row-parallel (``_gated``).
 
-    With the batch's rows split over "data" (``fsdp``), the route is one
-    rank's only where each rank's tokens form whole groups of
-    ``group_size``: the load-balance term's two means are then averaged
-    over the data ranks (``fsdp.mean``). Where they do not (a decode
-    step's few rows), the rows are gathered over "data", every rank routes
+    With the batch's rows split over ranks (``fsdp``: "data", or ("pod",
+    "data") on two pods), the route is one rank's only where each rank's
+    tokens form whole groups of ``group_size``: the load-balance term's
+    two means are then averaged over those ranks (``fsdp.mean``). Where
+    they do not (a decode step's few rows), the rows are gathered over
+    them, every rank routes
     them all as one rank would and keeps its own (no gradient: the train
     step refuses such rows).
 
@@ -1133,7 +1134,7 @@ def moe_apply(p, x, *, cfg: ModelConfig, capacity_factor: float = 1.25,
     b, s, d = x.shape
     e = cfg.num_experts
     lay = FS.active()
-    if lay is not None and lay.rows and (b * s) % group_size:
+    if lay is not None and lay.rows is not None and (b * s) % group_size:
         if torch.is_grad_enabled() and x.requires_grad:
             raise ValueError(
                 f"the MoE's tokens over 'data': {b * s} a rank are no whole "

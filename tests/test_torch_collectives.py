@@ -21,6 +21,7 @@ import torch_model_axis_families as F
 from repro_torch.core import collectives as C
 from repro_torch.launch import flop_analysis
 from test_torch_round import one_torch_thread  # noqa: F401
+from torch_once import once
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int32": torch.int32}
 SHAPE = (6, 12, 18)                 # every dim splits over 2 and 3 ranks
@@ -34,6 +35,11 @@ def _inputs(world, dtype, seed):
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
+    return once(tmp_path_factory, "collectives_worlds",
+                lambda: _worlds(tmp_path_factory))
+
+
+def _worlds(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("collectives")
     jobs = {w: {("collectives", d): dict(kind="collectives", mesh=(1, w),
                                          x=_inputs(w, d, w))

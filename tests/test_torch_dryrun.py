@@ -312,8 +312,9 @@ def test_smoke_all_exits_0_with_every_pair_ok_or_skipped(smoke_all,
                                                          jdryrun):
     """``--smoke --all`` in process: exit 0, every pair ``ok`` or ``skip``
     with ``repro``'s reasons; an ``ok`` pair writes a JSON with
-    ``repro``'s keys and a skipped one writes none, as ``repro``'s; the
-    smoke mesh's model axis of 2 makes every record an even split."""
+    ``repro``'s keys and a skipped one writes none, as ``repro``'s; every
+    record is one rank's exact count, the smoke mesh's model axis of 2
+    included."""
     import json
     rc, out = smoke_all
     assert rc == 0
@@ -334,7 +335,7 @@ def test_smoke_all_exits_0_with_every_pair_ok_or_skipped(smoke_all,
         assert REPRO_KEYS <= set(rec)
         assert rec["reason"] == jdryrun.resolve_mode(
             jget_config(arch).reduced(), shape)[2]
-        assert rec["per_device_rule"] == "even_split"
+        assert rec["per_device_rule"] == "exact"
         assert rec["cost"]["flops_expanded"] > 0
         assert rec["memory"]["temp_size_in_bytes"] is None
 
@@ -360,6 +361,63 @@ def test_a_mesh_the_port_runs_counts_one_ranks_share():
     whole = dryrun.run_one("llama3.2-1b", "train_4k", smoke=True,
                            axes={"data": 2, "model": 2}, verbose=False)
     assert two["cost"]["flops"] < whole["cost"]["flops"] * whole["chips"]
+
+
+# one arch of each family
+FAMILIES = ("llama3.2-1b", "qwen3-moe-30b-a3b", "deepseek-v2-236b",
+            "jamba-1.5-large-398b", "rwkv6-3b", "whisper-medium",
+            "internvl2-26b")
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k",
+                                   "train_4k"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_every_family_counts_one_rank_on_two_pods(arch, shape):
+    """At ``SMOKE_MULTIPOD_AXES`` (2 x 2 x 2) each family's pairs count
+    one rank exactly, ``ok`` (whisper's long_500k skipped, as the
+    reference's): the batch's rows over ("pod", "data") or "data", at
+    long_500k's batch of 1 the rings over "data" in each pod, the
+    weights' heads over "model"; the rank joins collectives on every
+    pair."""
+    rec = dryrun.run_one(arch, shape, smoke=True, multi_pod=True,
+                         verbose=False)
+    if not dryrun.resolve_mode(get_config(arch).reduced(), shape)[0]:
+        assert rec["status"] == "skip"
+        return
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["per_device_rule"] == "exact"
+    assert rec["mesh_axes"] == dryrun.SMOKE_MULTIPOD_AXES
+    assert rec["rank_coord"] == {"pod": 0, "data": 0, "model": 0}
+    assert rec["collectives"]["total_bytes"] > 0
+    assert rec["roofline"]["collective_s"] > 0
+
+
+@pytest.mark.parametrize("heads,m", [(3, 2), (7, 4)])
+def test_a_ranks_count_follows_its_head_share(heads, m):
+    """MLA heads that do not divide the model axis (deepseek's, reduced,
+    with ``heads`` heads over ``m`` ranks): each coordinate counts the
+    attention of the heads its columns touch (``model_axis.frac_heads``),
+    3 over 2 two heads on each rank, 7 over 4 two, three, three and two:
+    the prefill kernel's FLOPs a head are the same on every rank, and a
+    rank with more heads counts more FLOPs in all."""
+    recs = [dryrun.run_one("deepseek-v2-236b", "prefill_32k", smoke=True,
+                           verbose=False, axes={"data": 1, "model": m},
+                           coord={"model": r},
+                           cfg_override={"num_heads": heads})
+            for r in range(m)]
+    assert all(r["status"] == "ok" for r in recs), recs[0].get("error")
+    share = [-(-(r + 1) * heads // m) - r * heads // m for r in range(m)]
+    assert share == ([2, 2] if m == 2 else [2, 3, 3, 2])
+    per_head = {r["cost"]["kernel_flops"]["flash_attention"] / n
+                for r, n in zip(recs, share)}
+    assert len(per_head) == 1
+    flops = [r["cost"]["flops"] for r in recs]
+    for a in range(m):
+        for b in range(m):
+            if share[a] > share[b]:
+                assert flops[a] > flops[b]
+            elif share[a] == share[b]:
+                assert flops[a] == flops[b]
 
 
 # ---------------------------------------------------------------- meta route

@@ -30,6 +30,7 @@ from repro_torch.configs import TrainConfig, get_config
 from repro_torch.launch.specs import step_plan
 from repro_torch.models.transformer import LM
 from test_torch_round import one_torch_thread  # noqa: F401
+from torch_once import once
 
 MLA, RWKV = "deepseek-v2-236b", "rwkv6-3b"
 ARCHS = (MLA, RWKV)
@@ -55,6 +56,11 @@ class ThreeHeads(M.Port):
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
+    return once(tmp_path_factory, "frac_heads_worlds",
+                lambda: _worlds(tmp_path_factory))
+
+
+def _worlds(tmp_path_factory):
     ports = {a: ThreeHeads(a, 101 + i) for i, a in enumerate(ARCHS)}
     job = {}
     for arch, port in ports.items():

@@ -38,8 +38,9 @@ import test_torch_model_axis as M
 import torch_model_axis_families as F
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.launch.serve import cut_depth
-from repro_torch.optim.optimizers import tree_leaves
+from repro_torch.optim.optimizers import tree_leaves, tree_map
 from test_torch_round import one_torch_thread  # noqa: F401
+from torch_once import once
 
 JAMBA, DEEPSEEK, PHI3 = ("jamba-1.5-large-398b", "deepseek-v2-236b",
                          "phi3-medium-14b")
@@ -75,7 +76,11 @@ def _fsdp(cases):
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("fsdp")
+    return once(tmp_path_factory, "fsdp_worlds",
+                lambda: _worlds(tmp_path_factory.mktemp("fsdp")))
+
+
+def _worlds(tmp):
     ports = {JAMBA: CutPort(JAMBA, 61), DEEPSEEK: CutPort(DEEPSEEK, 63)}
     phi3 = CutPort(PHI3, 65)
     jobs = {2: {}, 4: {}}
@@ -86,6 +91,14 @@ def worlds(tmp_path_factory):
                 {"prefill": ("decode",), "decode": 1})))
             jobs[world].update(_fsdp(port.cases(f"{arch} {tag}", mesh, 1,
                                                 {"train": 1})))
+    # deepseek's prefill in the dry run's dtypes, for its count
+    prefill = ports[DEEPSEEK].inputs[1][0]
+    jobs[2][(f"{DEEPSEEK} 2x1 count", "prefill", "prefill")] = dict(
+        kind="prefill", mesh=(2, 1), cfg=ports[DEEPSEEK].cfg,
+        params=tree_map(lambda x: x.to(torch.bfloat16),
+                        ports[DEEPSEEK].params),
+        plan="prefill", batch=M._torch(prefill), dtype=torch.bfloat16,
+        fsdp_threshold=0)
     jobs[4].update(_fsdp(phi3.cases(PHI3, (2, 2), 1, {
         "prefill": ("prefill",), "train": 1})))
     jobs[4].update(_fsdp(F.serve_cases(phi3, PHI3, (2, 2), {"decode": 1})))
@@ -262,3 +275,27 @@ def test_data_dims_read_the_placements(fake_world):
     assert got == {"a": -2, "b": [None, None]}
     x = torch.arange(12.0).reshape(3, 4)
     assert fsdp.gather_leaf(x, -1) is x          # outside ``over``
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_the_dry_run_counts_the_ranks_fsdp_collectives(worlds, kind,
+                                                       monkeypatch):
+    """With FSDP (the planner's threshold at 0, as the worker's cases
+    put it) the dry run's count of each rank of deepseek's 2 x 1 (its
+    bf16 prefill on prefill's plan, its f32 train round) equals, by
+    kind, in count and bytes, the collectives that rank called: each
+    block's gathers over "data", the gradients' reduce-scatters and the
+    rows' gathers."""
+    from repro_torch.launch import sharding
+    monkeypatch.setattr(sharding, "FSDP_THRESHOLD", 0)
+    key, shape, override = {
+        "prefill": ((f"{DEEPSEEK} 2x1 count", "prefill", "prefill"),
+                    "prefill_32k", {"seq_len": M.S, "global_batch": M.B}),
+        "train": ((f"{DEEPSEEK} 2x1", "train"), "train_4k",
+                  {"seq_len": TRAIN_T, "global_batch": M.MB})}[kind]
+    for rank in range(2):
+        F.check_collectives(worlds["outs"], 2, rank, key, DEEPSEEK, shape,
+                            {"data": 2, "model": 1},
+                            shape_override=override,
+                            cfg_override={"num_layers": LAYERS[DEEPSEEK]},
+                            tcfg=TrainConfig(**F.TCFG))

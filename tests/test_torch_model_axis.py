@@ -38,9 +38,10 @@ calls: h / m of them.
     reduce-scattered. The other families' are
     ``tests/test_torch_seq_shard.py`` and
     ``tests/test_torch_seq_shard_ssm.py``.
-(e) What a model axis still refuses names ROADMAP item 15b: inference
-    over "pod" (the fake process group stands in for the ranks); a
-    DTensor reaching a kernel wrapper raises and names the wrapper. The
+(e) Inference over "pod" builds its steps and a cache on the mesh (the
+    fake process group stands in for the ranks; gloo worlds run it in
+    ``tests/test_torch_pods.py``); a DTensor reaching a kernel wrapper
+    raises and names the wrapper. The
     MoE, MLA, Mamba and RWKV families on a model axis are
     ``tests/test_torch_model_axis_moe_mla.py`` and
     ``tests/test_torch_model_axis_ssm.py``, their heads that do not divide
@@ -78,6 +79,7 @@ from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
 from repro_torch.models.transformer import LM, params_from_jax
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 from test_torch_round import one_torch_thread  # noqa: F401
+from torch_once import once
 
 TOL = 2e-3
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -269,7 +271,11 @@ def _spawn(tmp, world, job):
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("model_axis")
+    return once(tmp_path_factory, "model_axis_worlds",
+                lambda: _worlds(tmp_path_factory.mktemp("model_axis")))
+
+
+def _worlds(tmp):
     llama = Port("llama3.2-1b", 1, (1, 2))
     others = {a: Port(a, 3 + i, (1,)) for i, a in enumerate(ARCHS)}
     two = llama.cases("1x2", (1, 2), 1, {"prefill": ("decode", "prefill"),
@@ -291,6 +297,7 @@ def worlds(tmp_path_factory):
     four.update(odd.cases(ODD, (1, 4), 1, {"prefill": ("prefill",),
                                            "train": 1}))
     two.update(_row_cases())
+    two.update(_count_cases(llama))
     procs = {2: _spawn(tmp, 2, two), 4: _spawn(tmp, 4, four)}
 
     # meanwhile: the one-rank steps and the reference's
@@ -311,6 +318,21 @@ def worlds(tmp_path_factory):
             assert proc.returncode == 0, f"rank {r} of {world}:\n{log[-3000:]}"
             outs[(world, r)] = torch.load(out, weights_only=False)
     return dict(outs=outs, one=one, ref=ref, llama=llama)
+
+
+def _count_cases(port):
+    """llama's prefill (on prefill's plan) and a decode step over SLOTS
+    slots on 1 x 2 in the dry run's dtypes (bf16 weights, cache and
+    compute): the collectives its ranks call, for its count."""
+    prefill, decode, _, _, _ = port.inputs[1]
+    bf16 = tree_map(lambda x: x.to(torch.bfloat16), port.params)
+    return {("1x2 count", "prefill", "prefill"): dict(
+        kind="prefill", mesh=(1, 2), cfg=port.cfg, params=bf16,
+        plan="prefill", batch=_torch(prefill), dtype=torch.bfloat16),
+        ("1x2 count", "decode"): dict(
+            kind="decode", mesh=(1, 2), cfg=port.cfg, params=bf16,
+            tokens=torch.from_numpy(decode[:, :1]), slots=SLOTS,
+            dtype=torch.bfloat16)}
 
 
 def _row_cases():
@@ -458,7 +480,7 @@ def test_dense_families_on_the_model_axis(worlds, arch, kind):
 
 
 # --------------------------------------------------------------------------
-# (d) what the model axis still refuses
+# (e) the builds on a fake world, and what a kernel wrapper refuses
 # --------------------------------------------------------------------------
 @pytest.fixture
 def fake_world():
@@ -473,23 +495,35 @@ def fake_world():
     dist.destroy_process_group()
 
 
-def _refused(step, cfg, mesh):
-    """Build ``step`` ("prefill" or "decode") of ``cfg`` on ``mesh``, and
-    for decode its cache there too."""
+def _built(step, cfg, mesh):
+    """Build ``step`` ("prefill" or "decode") of ``cfg`` on ``mesh`` ->
+    the step's ranks, and for decode its cache there too."""
+    from repro_torch.launch.steps import serve_ranks
     if step == "prefill":
-        return make_prefill_step(cfg, mesh=mesh)
+        make_prefill_step(cfg, mesh=mesh)
+        return serve_ranks(cfg, mesh), None
     from repro_torch.launch.specs import cache_on_mesh
     _, lm = make_decode_step(cfg, mesh=mesh)
-    return cache_on_mesh(lm, mesh, 2, 8)
+    return serve_ranks(cfg, mesh), cache_on_mesh(lm, mesh, 2, 8)
 
 
 @pytest.mark.parametrize("step", ["prefill", "decode"])
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "rwkv6-3b"])
 def test_the_families_inference_over_pod_raises(fake_world, arch, step):
+    """Inference over "pod" no longer raises: on (2, 1, 2) the steps
+    build, with the model axis and every group of the axes above 1 made
+    at once (none inside a call), and decode's cache at batch 2 lies on
+    ``cache_plan``'s placements, its batch over "pod"."""
+    from repro_torch.optim.optimizers import tree_leaves
     mesh = fake_world(4, (2, 1, 2))
-    with pytest.raises(NotImplementedError, match="item 15b") as err:
-        _refused(step, get_config(arch).reduced(), mesh)
-    assert "'pod'" in str(err.value)
+    sr, cache = _built(step, get_config(arch).reduced(), mesh)
+    assert sr.fed is None and sr.data is None and sr.model.size == 2
+    assert set(sr.grid.groups) == {("pod",), ("model",), ("pod", "model")}
+    if cache is not None:                 # each pod its row of the batch
+        pod = [x for x in tree_leaves(cache) if x.placements[0].is_shard()]
+        assert pod and all(
+            2 * x.to_local().shape[x.placements[0].dim]
+            == x.shape[x.placements[0].dim] for x in pod)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-236b",
@@ -618,3 +652,25 @@ def test_row_product_rounds_once(worlds, shared):
         assert got.dtype == torch.bfloat16
         assert (torch.linalg.norm(got.double() - want)
                 / torch.linalg.norm(want)) < 1e-2
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_the_dry_run_counts_the_ranks_collectives(worlds, kind):
+    """The dry run's count of each rank of 1 x 2 (llama, 4 layers:
+    prefill of B x S on prefill's plan and a decode step over SLOTS
+    slots in bf16, the train round of (b)) equals, by kind, in count and
+    bytes, the collectives that rank of the world called in the step."""
+    import torch_model_axis_families as F
+    key, shape, override = {
+        "prefill": (("1x2 count", "prefill", "prefill"), "prefill_32k",
+                    {"seq_len": S, "global_batch": B}),
+        "decode": (("1x2 count", "decode"), "decode_32k",
+                   {"seq_len": SLOTS, "global_batch": B}),
+        "train": (("1x2", "train"), "train_4k",
+                  {"seq_len": T, "global_batch": MB})}[kind]
+    for rank in range(2):
+        F.check_collectives(worlds["outs"], 2, rank, key, "llama3.2-1b",
+                            shape, {"data": 1, "model": 2},
+                            shape_override=override,
+                            cfg_override={"num_layers": 4},
+                            tcfg=TrainConfig(**TCFG))

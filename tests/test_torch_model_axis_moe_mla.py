@@ -31,6 +31,7 @@ import torch
 import torch_model_axis_families as F
 from repro_torch.configs import TrainConfig
 from test_torch_round import one_torch_thread  # noqa: F401
+from torch_once import once
 
 MOE, MLA = "qwen3-moe-30b-a3b", "deepseek-v2-236b"
 LAYERS = ("moe", "mla", "mla_q_lora")
@@ -41,6 +42,11 @@ SERVE = (MOE, MLA, "absorbed")
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
+    return once(tmp_path_factory, "model_axis_moe_mla_worlds",
+                lambda: _worlds(tmp_path_factory))
+
+
+def _worlds(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("model_axis_moe_mla")
     layers = {name: F.layer_inputs(name, 20 + i)
               for i, name in enumerate(LAYERS)}

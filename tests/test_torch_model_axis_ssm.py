@@ -33,6 +33,7 @@ import torch
 import torch_model_axis_families as F
 from repro_torch.configs import TrainConfig, get_config
 from test_torch_round import one_torch_thread  # noqa: F401
+from torch_once import once
 
 JAMBA, RWKV = "jamba-1.5-large-398b", "rwkv6-3b"
 LAYERS = ("mamba", "rwkv", "rwkv_ffn")
@@ -42,6 +43,11 @@ MESHES = {"1x2": ((1, 2), 2, 1), "2x2": ((2, 2), 4, 2),
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
+    return once(tmp_path_factory, "model_axis_ssm_worlds",
+                lambda: _worlds(tmp_path_factory))
+
+
+def _worlds(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("model_axis_ssm")
     layers = {name: F.layer_inputs(name, 40 + i)
               for i, name in enumerate(LAYERS)}

@@ -46,6 +46,7 @@ from repro_torch.launch.steps import make_decode_step
 from repro_torch.models import layers as L
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 from test_torch_round import one_torch_thread  # noqa: F401
+from torch_once import once
 
 SLOTS, STEPS = 8, 10
 LLAMA, GEMMA, DEEPSEEK = "llama3.2-1b", "gemma3-4b", "deepseek-v2-236b"
@@ -208,6 +209,11 @@ def reference_decode(port, rows):
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
+    return once(tmp_path_factory, "seq_cache_worlds",
+                lambda: _worlds(tmp_path_factory))
+
+
+def _worlds(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("seq_cache")
     ports = {arch: M.Port(arch, seed, (1,), train=False)
              for arch, seed in ((LLAMA, 71), (GEMMA, 73), (DEEPSEEK, 75),

@@ -45,6 +45,7 @@ from repro_torch.launch.serve import cut_depth
 from repro_torch.models import layers as L
 from repro_torch.models import model_axis as MA
 from test_torch_round import one_torch_thread  # noqa: F401
+from torch_once import once
 
 MOE, MLA, JAMBA = ("qwen3-moe-30b-a3b", "deepseek-v2-236b",
                    "jamba-1.5-large-398b")
@@ -143,6 +144,11 @@ def _moe_layer():
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
+    return once(tmp_path_factory, "seq_shard_worlds",
+                lambda: _worlds(tmp_path_factory))
+
+
+def _worlds(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("seq_shard")
     params, xs = _moe_layer()
     procs, ports = spawn_train(tmp, ARCHS, 81, {m: {("moe seq", m): dict(
@@ -218,14 +224,23 @@ def test_positions_that_do_not_split_raise():
 
 def test_the_dry_run_counts_a_sequence_sharded_pair():
     """``--seq-shard-acts``: the pair builds on the head-aware train plan
-    and is counted, split evenly over the chips until a rank's own count
-    of a tensor-parallel step lands (``ROADMAP.md`` item 15b)."""
+    and is counted as one rank runs it, its positions split over "model":
+    at rows of 1,024 tokens a rank's 512 are a whole MoE group (at the
+    smoke's 128 the rank's 64 are not, and the step refuses the pair, as
+    ``test_a_chunk_of_no_whole_groups_raises``); the rank reduce-scatters
+    its blocks' outputs and sends its slots by an all-to-all."""
     from repro_torch.launch import dryrun
+    tcfg = TrainConfig(seq_shard_activations=True)
     rec = dryrun.run_one(MOE, "train_4k", smoke=True, verbose=False,
-                         tcfg=TrainConfig(seq_shard_activations=True))
+                         tcfg=tcfg, shape_override={"seq_len": 1024})
     assert rec["status"] == "ok", rec.get("error")
-    assert rec["per_device_rule"] == "even_split"
+    assert rec["per_device_rule"] == "exact"
     assert rec["cost"]["flops"] > 0
+    kinds = rec["collectives"]["count_by_kind"]
+    assert kinds["reduce-scatter"] > 0 and kinds["all-to-all"] > 0
+    short = dryrun.run_one(MOE, "train_4k", smoke=True, verbose=False,
+                           tcfg=tcfg)
+    assert short["status"] == "error" and "whole groups" in short["error"]
 
 
 def test_the_split_is_off_outside_training():

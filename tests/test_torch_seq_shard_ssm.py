@@ -13,6 +13,7 @@ import pytest
 import test_torch_seq_shard as S
 import torch_model_axis_families as F
 from test_torch_round import one_torch_thread  # noqa: F401
+from torch_once import once
 
 JAMBA, RWKV = S.JAMBA, "rwkv6-3b"
 ARCHS = (JAMBA, RWKV)
@@ -20,6 +21,11 @@ ARCHS = (JAMBA, RWKV)
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
+    return once(tmp_path_factory, "seq_shard_ssm_worlds",
+                lambda: _worlds(tmp_path_factory))
+
+
+def _worlds(tmp_path_factory):
     procs, ports = S.spawn_train(tmp_path_factory.mktemp("seq_shard_ssm"),
                                  ARCHS, 91)
     one, ref = S.train_runs(ports)

@@ -245,3 +245,22 @@ def check_train(got, one, ref=None):
             np.testing.assert_allclose(metrics[k], ref_metrics[k],
                                        rtol=2e-3, atol=2e-3)
 
+
+def check_collectives(outs, world, rank, key, arch, shape, axes, **run_kw):
+    """The dry run's count of the rank at ``rank``'s coordinate on a mesh
+    of ``axes`` (``dryrun.run_one(..., smoke=True, **run_kw)``) against
+    the collectives that rank called in case ``key``'s first step call:
+    by kind, in count and bytes."""
+    from repro_torch.launch import dryrun
+    coord = dict(zip(axes, (int(i) for i in np.unravel_index(
+        rank, tuple(axes.values())))))
+    rec = dryrun.run_one(arch, shape, smoke=True, verbose=False, axes=axes,
+                         coord=coord, **run_kw)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["rank_coord"] == coord
+    got = outs[(world, rank)][key + ("collectives",)]
+    assert got, "the rank called no collective"
+    assert rec["collectives"]["count_by_kind"] == {
+        k: n for k, (n, _) in got.items()}
+    assert rec["collectives"]["bytes_by_kind"] == {
+        k: b for k, (_, b) in got.items()}

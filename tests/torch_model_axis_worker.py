@@ -15,7 +15,11 @@ on the step's plan (``sharding.distribute_tree``), runs the port's step
 attention call of this rank ran on and how many times the case called
 each of the collectives that sequence parallelism adds or removes
 (``reduce_scatter_cat``, ``all_to_all``, ``model_axis.reduce``) and the
-MoE's pairs kept of those routed a route, for the test to compare. It imports torch and ``repro_torch`` only.
+MoE's pairs kept of those routed a route, for the test to compare, and
+the collectives (``core/collectives.py`` ``calls``: count and bytes by
+kind) that the step's first call made on this rank, which the tests hold
+to the dry run's count. A 3-d mesh shape is ("pod", "data", "model").
+It imports torch and ``repro_torch`` only.
 
     python tests/torch_model_axis_worker.py RANK WORLD INIT_FILE JOB OUT
 """
@@ -27,8 +31,25 @@ import torch.distributed as dist
 
 
 def _mesh(shape):
-    from repro_torch.launch.mesh import PRODUCTION_AXES, mesh_over_world
-    return mesh_over_world(tuple(shape), PRODUCTION_AXES, "cpu")
+    from repro_torch.launch.mesh import (MULTI_POD_AXES, PRODUCTION_AXES,
+                                         mesh_over_world)
+    return mesh_over_world(tuple(shape), MULTI_POD_AXES if len(shape) == 3
+                           else PRODUCTION_AXES, "cpu")
+
+
+# the collectives of the case's first step call: kind -> (count, bytes)
+TALLY = {}
+
+
+def _tallied(step, *args):
+    """``step(*args)``, with the collectives it calls kept in ``TALLY``
+    if it is the case's first call."""
+    from repro_torch.core import collectives as C
+    C.calls.clear()
+    out = step(*args)
+    if not TALLY:
+        TALLY.update({k: tuple(v) for k, v in C.calls.items()})
+    return out
 
 
 def _prefill(case, mesh, axes):
@@ -39,7 +60,7 @@ def _prefill(case, mesh, axes):
                                  dtype=case.get("dtype", torch.float32))
     params = distribute_tree(case["params"], step_plan(
         case["cfg"], axes, case["plan"], lm=lm), mesh)
-    return step(params, case["batch"])
+    return _tallied(step, params, case["batch"])
 
 
 def _decode(case, mesh, axes):
@@ -57,7 +78,7 @@ def _decode(case, mesh, axes):
                           dtype=dtype, seq_shard=seq_shard)
     picked = []
     for i in range(tokens.shape[1]):        # teacher-forced
-        nxt, cache = step(params, cache, tokens[:, i:i + 1])
+        nxt, cache = _tallied(step, params, cache, tokens[:, i:i + 1])
         picked.append(nxt)
     return torch.cat(picked, 1), gather_tree(cache)
 
@@ -77,7 +98,8 @@ def _train(case, mesh, axes):
     # a momentum's state on the params' placements
     state = (distribute_tree(tree_map(torch.zeros_like, stacked), plan,
                              mesh) if tcfg.momentum else ())
-    new, new_s, metrics = step(params, state, case["batch"], case["first"])
+    new, new_s, metrics = _tallied(step, params, state, case["batch"],
+                                   case["first"])
     return ([x[0] for x in tree_leaves(gather_tree((new, new_s)))],
             {k: float(v) for k, v in metrics.items()})
 
@@ -242,6 +264,7 @@ def run(job):
         threshold = sharding.FSDP_THRESHOLD
         sharding.FSDP_THRESHOLD = case.get("fsdp_threshold", threshold)
         L.head_dim_gather["bytes"] = 0
+        TALLY.clear()
         try:
             got = RUN[case["kind"]](case, mesh, mesh_axis_sizes(mesh))
         finally:
@@ -251,6 +274,7 @@ def run(job):
         out[key + ("calls",)] = dict(calls)
         # the MoE's (token, choice) pairs kept and routed, a route a call
         out[key + ("kept",)] = list(kept)
+        out[key + ("collectives",)] = dict(TALLY)
     return out
 
 
